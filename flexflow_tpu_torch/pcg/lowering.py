@@ -1,0 +1,74 @@
+"""Layer graph -> PCG lowering.
+
+The PyTorch counterpart of flexflow_tpu/pcg/lowering.py (reference:
+FFModel::create_operators_from_layers, model.cc:2785): each deferred
+Layer becomes a PCGOp with ParallelTensor inputs/outputs/weights, all of
+degree 1. Op names are the layers' names, so weights match the JAX
+package's by (op name, weight name).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+from ..core.tensor import Layer, Tensor
+from ..ops.registry import get_op_def
+from .graph import Graph
+from .op import PCGOp
+from .parallel_tensor import ParallelDim, ParallelTensor
+
+
+def tensor_to_parallel(t: Tensor) -> ParallelTensor:
+    dims = [ParallelDim(size=s, degree=1) for s in t.dims]
+    return ParallelTensor(dims=dims, data_type=t.data_type)
+
+
+def layers_to_pcg(layers: List[Layer]) -> Tuple[Graph, Dict[int, int]]:
+    """Lower layers to a Graph. Returns (graph, tensor_map) where
+    tensor_map maps Layer-IR tensor guid -> ParallelTensor guid."""
+    graph = Graph()
+    pt_by_guid: Dict[int, ParallelTensor] = {}
+    tensor_map: Dict[int, int] = {}
+
+    def get_pt(t: Tensor) -> ParallelTensor:
+        if t.guid not in tensor_map:
+            pt = tensor_to_parallel(t)
+            tensor_map[t.guid] = pt.guid
+            pt_by_guid[pt.guid] = pt
+        return pt_by_guid[tensor_map[t.guid]]
+
+    for layer in layers:
+        in_pts = [get_pt(t) for t in layer.inputs]
+        op = PCGOp(layer.op_type, layer.params, in_pts, name=layer.name,
+                   layer_guid=layer.guid)
+        opdef = get_op_def(layer.op_type)
+        in_shapes = [pt.material_shape() for pt in in_pts]
+        in_dtypes = [pt.data_type for pt in in_pts]
+        out_shapes, out_dtypes = opdef.infer(layer.params, in_shapes, in_dtypes)
+        if len(out_shapes) != len(layer.outputs):
+            raise ValueError(
+                f"{layer.name}: infer produced {len(out_shapes)} outputs, "
+                f"layer has {len(layer.outputs)}"
+            )
+        for t, shape, dt in zip(layer.outputs, out_shapes, out_dtypes):
+            pt = ParallelTensor(
+                dims=[ParallelDim(size=s, degree=1) for s in shape],
+                data_type=dt,
+                owner_op=op,
+            )
+            op.outputs.append(pt)
+            tensor_map[t.guid] = pt.guid
+            pt_by_guid[pt.guid] = pt
+        for spec in opdef.weights(layer.params, in_shapes, in_dtypes):
+            wpt = ParallelTensor(
+                dims=[ParallelDim(size=s, degree=1) for s in spec.shape],
+                data_type=spec.dtype,
+                owner_op=op,
+            )
+            op.weights.append(wpt)
+            op.weight_names.append(spec.name)
+            op.initializers[spec.name] = layer.initializers.get(
+                spec.name, spec.initializer)
+        for wt, wpt in zip(layer.weights, op.weights):
+            tensor_map[wt.guid] = wpt.guid
+        graph.add_op(op)
+    return graph, tensor_map

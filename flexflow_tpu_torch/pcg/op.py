@@ -1,0 +1,37 @@
+"""PCG operator node.
+
+The PyTorch counterpart of flexflow_tpu/pcg/op.py (reference:
+operator.h:51-277): a pure IR node -- params + ParallelTensor
+inputs/outputs/weights -- whose execution is the registered forward.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Dict, List
+
+from ..ff_types import OperatorType
+from .parallel_tensor import ParallelTensor
+
+_op_guid = itertools.count(2000000)
+
+
+class PCGOp:
+    """A node in the parallel computation graph."""
+
+    def __init__(self, op_type: OperatorType, params,
+                 inputs: List[ParallelTensor], name: str = "",
+                 layer_guid: int = -1):
+        self.guid: int = next(_op_guid)
+        self.op_type = op_type
+        self.params = params
+        self.name = name or f"{op_type.name.lower()}_{self.guid}"
+        self.inputs: List[ParallelTensor] = list(inputs)
+        self.outputs: List[ParallelTensor] = []
+        self.weights: List[ParallelTensor] = []
+        self.weight_names: List[str] = []
+        self.layer_guid = layer_guid
+        # initializer per weight name (resolved at executor init)
+        self.initializers: Dict[str, object] = {}
+
+    def __repr__(self):
+        return f"PCGOp({self.name})"

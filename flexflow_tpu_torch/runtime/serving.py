@@ -1,0 +1,505 @@
+"""Generation APIs and continuous batching over compiled models.
+
+The PyTorch counterpart of flexflow_tpu/runtime/serving.py, serving slice:
+
+  * `incremental_generate` -- KV-cache greedy decoding of a causal
+    decoder-only model: one-shot prefill, then one position per step
+    (executor.build_decode);
+  * `greedy_generate` -- greedy seq2seq decoding of an encoder-decoder
+    model by re-running the full forward per token (no cache);
+  * `ContinuousBatcher` -- an iteration-level scheduler (Orca-style) over a
+    running batch of `slots` sequences, each at its own position. Every
+    iteration it retires finished slots and releases their KV pages,
+    admits queued requests (batch-1 prefill padded to a power-of-two
+    bucket, the prefilled cache strip spliced into the running batch) and
+    runs ONE batched decode step with a per-slot position vector.
+
+Not ported yet: fault injection, the health monitor, SLO tracking, decode
+re-search, the prefill-skip memo, `compile_decode`, fleet spools,
+ReplicaSet and BatchScheduler.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+import uuid
+from collections import deque
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .kvcache import KVCacheConfig, KVCacheExhaustedError, PagePool
+
+_IDLE_WAIT_S = 0.005  # serving-loop poll interval with no active slot
+
+
+class NotCompiledError(RuntimeError):
+    """A serving API was called on a model that was never compiled."""
+
+
+class ServingConfigError(ValueError):
+    """A serving request or configuration the runtime cannot honour."""
+
+
+class RequestShedError(RuntimeError):
+    """A request the runtime refused or abandoned; `reason` says why."""
+
+    def __init__(self, msg: str, *, reason: Optional[str] = None):
+        super().__init__(msg)
+        self.reason = reason
+
+
+class DeadlineExceededError(RequestShedError):
+    def __init__(self, msg: str, *, stage: str = "queue"):
+        super().__init__(msg, reason="deadline")
+        self.stage = stage
+
+
+class QueueFullError(RequestShedError):
+    def __init__(self, msg: str):
+        super().__init__(msg, reason="queue_full")
+
+
+def _argmax_last(logits: torch.Tensor) -> np.ndarray:
+    """Greedy choice over the vocab axis, on the device; ties go to the
+    first index, as numpy's argmax does."""
+    return logits.argmax(dim=-1).cpu().numpy()
+
+
+def greedy_generate(model, encoder_ids: np.ndarray, *,
+                    max_new_tokens: Optional[int] = None,
+                    start_token_id: int = 0,
+                    eos_token_id: Optional[int] = None,
+                    pad_token_id: int = 0) -> np.ndarray:
+    """Greedy autoregressive decode over a compiled encoder-decoder model
+    whose two graph inputs are (encoder_ids, decoder_ids) and whose output
+    is per-position vocab logits. Re-runs the full forward with the decoder
+    prefix grown by one token per step; the causal mask keeps the padded
+    tail out of position t's view."""
+    if model.executor is None:
+        raise NotCompiledError("compile() the model first")
+    fwd = model.executor.build_forward()
+    enc_t, dec_t = model._fit_input_tensors[:2]
+    bs, dec_len = dec_t.dims[0], dec_t.dims[1]
+    if tuple(encoder_ids.shape) != tuple(enc_t.dims):
+        raise ServingConfigError(
+            f"encoder_ids shape {tuple(encoder_ids.shape)} != compiled input "
+            f"shape {tuple(enc_t.dims)}")
+    want = dec_len - 1 if max_new_tokens is None else max_new_tokens
+    steps = min(want, dec_len - 1)
+    enc = np.asarray(encoder_ids, enc_t.data_type.np_dtype)
+    dec = np.full((bs, dec_len), pad_token_id, dec_t.data_type.np_dtype)
+    dec[:, 0] = start_token_id
+    if steps <= 0:
+        return dec[:, :1]
+    finished = np.zeros(bs, bool)
+    for t in range(steps):
+        nxt = _argmax_last(fwd(model.params, [enc, dec])[:, t])
+        if eos_token_id is not None:
+            nxt = np.where(finished, pad_token_id, nxt)
+            finished |= nxt == eos_token_id
+        dec[:, t + 1] = nxt
+        if eos_token_id is not None and finished.all():
+            break
+    return dec[:, :t + 2]
+
+
+def incremental_generate(model, prompt_ids: np.ndarray, *,
+                         max_new_tokens: int, max_len: Optional[int] = None,
+                         eos_token_id: Optional[int] = None,
+                         pad_token_id: int = 0) -> np.ndarray:
+    """KV-cache greedy decoding for a causal decoder-only model (token ids
+    in, per-position vocab logits out). prompt_ids: (batch, prompt_len)
+    ints. Returns (batch, prompt_len + max_new_tokens) including the
+    prompt, pad-filled after an EOS."""
+    if model.executor is None:
+        raise NotCompiledError("compile() the model first")
+    prompt_ids = np.asarray(prompt_ids)
+    bs, plen = prompt_ids.shape
+    if max_new_tokens <= 0:
+        return prompt_ids.copy()
+    total = plen + max_new_tokens
+    cap = max_len or total
+    if cap < total:
+        raise ServingConfigError(f"max_len {cap} < prompt+new {total}")
+    init_caches, step = model.executor.build_decode(bs, cap)
+    caches = init_caches(model.params)
+    id_dt = model._fit_input_tensors[-1].data_type.np_dtype
+    out = np.full((bs, total), pad_token_id, id_dt)
+    out[:, :plen] = prompt_ids
+    finished = np.zeros(bs, bool)
+    # one-shot prefill: the whole prompt in one step, every prompt
+    # position's K/V written at once
+    logits, caches = step(model.params, caches, 0,
+                          [prompt_ids.astype(id_dt)])
+    nxt = _argmax_last(logits[:, -1])
+    if eos_token_id is not None:
+        finished |= nxt == eos_token_id
+    out[:, plen] = nxt
+    for t in range(plen, total - 1):
+        if eos_token_id is not None and finished.all():
+            break
+        logits, caches = step(model.params, caches, t, [out[:, t:t + 1]])
+        nxt = _argmax_last(logits[:, 0])
+        if eos_token_id is not None:
+            nxt = np.where(finished, pad_token_id, nxt)
+            finished |= nxt == eos_token_id
+        out[:, t + 1] = nxt
+    return out
+
+
+# ----------------------------------------------------------------------
+# serving configuration, requests, admission
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class ServingConfig:
+    """Knobs of the continuous-batching runtime. `max_len` caps
+    prompt+generated tokens per sequence (the decode cache width); `slots`
+    is the decode batch. The KV page pool exactly covers `slots`
+    full-length sequences."""
+
+    max_len: int
+    slots: int = 4
+    page_size: int = 16
+    eos_token_id: Optional[int] = None
+
+    def __post_init__(self):
+        if self.max_len <= 1:
+            raise ServingConfigError(f"max_len must be > 1: {self.max_len}")
+        if self.slots <= 0:
+            raise ServingConfigError(f"slots must be positive: {self.slots}")
+
+    def kv_config(self) -> KVCacheConfig:
+        per_slot = -(-self.max_len // self.page_size)
+        return KVCacheConfig(num_pages=self.slots * per_slot,
+                             page_size=self.page_size)
+
+
+class GenerationRequest:
+    """One decode request: prompt ids in, prompt+generated ids out.
+    Completion is exactly once; `result()` raises the request's typed
+    error instead of returning garbage or hanging."""
+
+    def __init__(self, prompt: np.ndarray, max_new_tokens: int, *,
+                 deadline_s: float = 30.0):
+        self.id = uuid.uuid4().hex[:12]
+        self.prompt = np.asarray(prompt)
+        if self.prompt.ndim != 1:
+            raise ServingConfigError(
+                f"prompt must be a 1-D token array, got shape "
+                f"{self.prompt.shape}")
+        self.max_new_tokens = int(max_new_tokens)
+        self.deadline = time.monotonic() + float(deadline_s)
+        self._event = threading.Event()
+        self._lock = threading.Lock()
+        self.tokens: Optional[np.ndarray] = None
+        self.error: Optional[BaseException] = None
+
+    def _finish(self, *, tokens: Optional[np.ndarray] = None,
+                error: Optional[BaseException] = None) -> bool:
+        with self._lock:
+            if self._event.is_set():
+                return False
+            self.tokens = tokens
+            self.error = error
+            self._event.set()
+            return True
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> np.ndarray:
+        if not self._event.wait(timeout):
+            raise TimeoutError(f"request {self.id} unanswered after "
+                               f"{timeout}s")
+        if self.error is not None:
+            raise self.error
+        return self.tokens
+
+
+class AdmissionQueue:
+    """Bounded FIFO. `offer` sheds at enqueue (queue full, dead on
+    arrival); `poll` sheds requests whose deadline passed while queued;
+    `requeue` (backpressure) pushes to the front, exempt from the bound."""
+
+    def __init__(self, max_depth: int):
+        self.max_depth = max_depth
+        self._q: deque = deque()
+        self._lock = threading.Lock()
+        self._nonempty = threading.Condition(self._lock)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._q)
+
+    def offer(self, req: GenerationRequest) -> None:
+        now = time.monotonic()
+        if now >= req.deadline:
+            err = DeadlineExceededError(
+                f"request {req.id} dead on arrival "
+                f"({now - req.deadline:.3f}s past deadline)", stage="enqueue")
+            req._finish(error=err)
+            raise err
+        with self._lock:
+            if len(self._q) >= self.max_depth:
+                full = QueueFullError(
+                    f"admission queue at capacity ({self.max_depth})")
+                req._finish(error=full)
+                raise full
+            self._q.append(req)
+            self._nonempty.notify()
+
+    def requeue(self, req: GenerationRequest) -> None:
+        with self._lock:
+            self._q.appendleft(req)
+            self._nonempty.notify()
+
+    def poll(self, timeout: float = 0.0) -> Optional[GenerationRequest]:
+        """Next live request, shedding expired ones at dequeue."""
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            while True:
+                while self._q:
+                    req = self._q.popleft()
+                    if req.done():
+                        continue
+                    now = time.monotonic()
+                    if now >= req.deadline:
+                        req._finish(error=DeadlineExceededError(
+                            f"request {req.id} expired in queue "
+                            f"({now - req.deadline:.3f}s past deadline)",
+                            stage="dequeue"))
+                        continue
+                    return req
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return None
+                self._nonempty.wait(remaining)
+
+
+# ----------------------------------------------------------------------
+# continuous (in-flight) batching
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class _Slot:
+    req: GenerationRequest
+    seq_key: str
+    tokens: List[int]
+    prompt_len: int
+    pos: int  # cache positions written == len(tokens) - 1
+
+
+class ContinuousBatcher:
+    """Iteration-level decode scheduler for one replica: a running batch of
+    `config.slots` sequences, each at its own position. Every iteration:
+
+      1. admit queued requests into free slots -- KV pages reserved
+         worst-case (backpressure when the pool cannot cover it, a typed
+         shed when it never could), the prompt prefilled through a batch-1
+         decode step, the prefilled cache strip spliced into the batch;
+      2. run ONE batched decode step for every active slot;
+      3. retire finished slots (EOS, max_new_tokens, blown deadline) and
+         release their KV pages.
+
+    Decoder-only models only (one graph input)."""
+
+    def __init__(self, model, config: ServingConfig,
+                 queue_: AdmissionQueue):
+        if model.executor is None:
+            raise NotCompiledError("compile() the model first")
+        if len(model._fit_input_tensors) != 1:
+            raise ServingConfigError(
+                "continuous batching serves decoder-only models (one graph "
+                "input)")
+        self.model = model
+        self.config = config
+        self.queue = queue_
+        self.pool = PagePool(config.kv_config())
+        self._device_lock = threading.RLock()
+        ex = model.executor
+        self._init1, self._step1 = ex.build_decode(1, config.max_len)
+        self._initB, self._stepB = ex.build_decode(config.slots,
+                                                   config.max_len)
+        self._id_dt = model._fit_input_tensors[-1].data_type.np_dtype
+        self._caches = None
+        self.slots: List[Optional[_Slot]] = [None] * config.slots
+        self._stop = threading.Event()
+        self.dead = False
+        self.death_cause: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+        self._admit_seq = 0  # per-admission nonce: pool keys stay unique
+        self.stats = {"admitted": 0, "finished": 0, "iterations": 0,
+                      "prefills": 0, "retired_eos": 0, "shed_decode": 0,
+                      "tokens": 0}
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> "ContinuousBatcher":
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._serve_loop,
+                                            daemon=True,
+                                            name="ff-serve")
+            self._thread.start()
+        return self
+
+    def stop(self, timeout: float = 10.0) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+
+    @property
+    def active_slots(self) -> int:
+        return sum(1 for s in self.slots if s is not None)
+
+    # -- admission ---------------------------------------------------------
+    def _bucket(self, plen: int) -> int:
+        b = 1
+        while b < plen:
+            b *= 2
+        return min(b, self.config.max_len)
+
+    def _reserve_tokens(self, plen: int, max_new: int) -> int:
+        # prefill touches the padded bucket; decode grows to plen +
+        # max_new - 1 written positions
+        return min(self.config.max_len,
+                   max(self._bucket(plen), plen + max_new))
+
+    def _try_admit_one(self) -> bool:
+        req = self.queue.poll(timeout=0.0)
+        if req is None:
+            return False
+        plen = len(req.prompt)
+        if plen < 1 or plen + req.max_new_tokens > self.config.max_len:
+            req._finish(error=RequestShedError(
+                f"request {req.id}: prompt {plen} + max_new "
+                f"{req.max_new_tokens} exceeds max_len {self.config.max_len}",
+                reason="too_long"))
+            return True
+        self._admit_seq += 1
+        seq_key = f"{req.id}:{self._admit_seq}"
+        try:
+            self.pool.reserve(
+                seq_key, self._reserve_tokens(plen, req.max_new_tokens))
+        except KVCacheExhaustedError as e:
+            if e.never_fits:
+                req._finish(error=RequestShedError(
+                    f"request {req.id} can never fit the KV page pool: {e}",
+                    reason="kv_exhausted"))
+                return True
+            self.queue.requeue(req)  # backpressure: wait for retirements
+            return False
+        slot_idx = self.slots.index(None)
+        try:
+            first, caches1 = self._prefill(req, plen)
+            self._insert_slot(slot_idx, caches1)
+        except BaseException:
+            self.pool.release(seq_key)
+            raise
+        self.pool.touch(seq_key, self._bucket(plen))
+        self.slots[slot_idx] = _Slot(
+            req=req, seq_key=seq_key,
+            tokens=list(req.prompt.tolist()) + [first],
+            prompt_len=plen, pos=plen)
+        self.stats["admitted"] += 1
+        self.stats["prefills"] += 1
+        self._maybe_retire(slot_idx)
+        return True
+
+    def _prefill(self, req: GenerationRequest, plen: int):
+        """The prompt through the batch-1 decode step, padded to a
+        power-of-two bucket. The padded tail's K/V sits at positions >=
+        plen, which decode overwrites before the causal mask exposes
+        them."""
+        padded = np.zeros((1, self._bucket(plen)), self._id_dt)
+        padded[0, :plen] = req.prompt.astype(self._id_dt)
+        with self._device_lock:
+            caches1 = self._init1(self.model.params)
+            logits, caches1 = self._step1(self.model.params, caches1, 0,
+                                          [padded])
+            first = int(_argmax_last(logits[0, plen - 1]))
+        return first, caches1
+
+    def _insert_slot(self, slot_idx: int, caches1) -> None:
+        """Write a prefilled batch-1 cache strip wholesale into the running
+        batch at `slot_idx`, replacing whatever a previous occupant left."""
+        with self._device_lock:
+            if self._caches is None:
+                self._caches = self._initB(self.model.params)
+            for opname, (kB, vB) in self._caches["mha"].items():
+                k1, v1 = caches1["mha"][opname]
+                kB[slot_idx].copy_(k1[0])
+                vB[slot_idx].copy_(v1[0])
+
+    # -- retirement --------------------------------------------------------
+    def _release(self, slot_idx: int) -> None:
+        slot = self.slots[slot_idx]
+        self.slots[slot_idx] = None
+        if slot is not None:
+            self.pool.release(slot.seq_key)
+
+    def _maybe_retire(self, slot_idx: int) -> None:
+        slot = self.slots[slot_idx]
+        if slot is None:
+            return
+        if slot.req.done():  # aborted elsewhere
+            self._release(slot_idx)
+            return
+        generated = len(slot.tokens) - slot.prompt_len
+        if time.monotonic() > slot.req.deadline:
+            self.stats["shed_decode"] += 1
+            slot.req._finish(error=DeadlineExceededError(
+                f"request {slot.req.id} blew its deadline mid-decode after "
+                f"{generated} token(s)", stage="decode"))
+            self._release(slot_idx)
+            return
+        eos = self.config.eos_token_id
+        hit_eos = eos is not None and slot.tokens[-1] == eos
+        if generated >= slot.req.max_new_tokens or hit_eos:
+            self.stats["retired_eos"] += int(hit_eos)
+            if slot.req._finish(tokens=np.asarray(slot.tokens, self._id_dt)):
+                self.stats["finished"] += 1
+                self.stats["tokens"] += generated
+            self._release(slot_idx)
+
+    # -- the iteration loop ------------------------------------------------
+    def _decode_iteration(self) -> None:
+        t_vec = np.zeros(self.config.slots, np.int32)
+        toks = np.zeros((self.config.slots, 1), self._id_dt)
+        active = []
+        for i, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            active.append(i)
+            t_vec[i] = slot.pos
+            toks[i, 0] = slot.tokens[slot.pos]
+        with self._device_lock:
+            logits, self._caches = self._stepB(self.model.params,
+                                               self._caches, t_vec, [toks])
+            nxt = _argmax_last(logits[:, 0])
+        for i in active:
+            slot = self.slots[i]
+            slot.tokens.append(int(nxt[i]))
+            slot.pos += 1
+            self.pool.touch(slot.seq_key,
+                            max(self._bucket(slot.prompt_len), slot.pos))
+            self._maybe_retire(i)
+
+    def _serve_loop(self) -> None:
+        try:
+            while not self._stop.is_set():
+                while None in self.slots and self._try_admit_one():
+                    pass
+                if self.active_slots == 0:
+                    time.sleep(_IDLE_WAIT_S)
+                    continue
+                self._decode_iteration()
+                self.stats["iterations"] += 1
+        except Exception as e:  # the replica died: fail its requests
+            self.dead = True
+            self.death_cause = e
+            for i, slot in enumerate(self.slots):
+                if slot is not None:
+                    slot.req._finish(error=RequestShedError(
+                        f"serving loop died: {e!r}", reason="died"))
+                    self._release(i)
