@@ -3,13 +3,16 @@
 The same public surface and module layout as the JAX package, running on
 an NVIDIA GPU (Hopper, sm_90a) through hand-written CUDA kernels:
 
-    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.models import build_transformer
     from flexflow_tpu_torch.runtime.serving import incremental_generate
 
 Entry points run on the first CUDA device unless the config names
 ``device="cpu"``; with no CUDA device and no explicit CPU request they
-raise. This slice serves causal decoder LMs (embedding, causal
-multi-head attention, dense, softmax); training comes next.
+raise. Ported so far: serving causal decoder LMs (embedding, causal
+multi-head attention, dense, softmax) and training through `FFModel.fit`
+(the flagship Transformer: multi-head attention and dense, the five
+losses, SGD and Adam, bf16 compute and gradients over f32 weights).
 """
 from .config import FFConfig  # noqa: F401
 from .core.initializers import (  # noqa: F401
@@ -18,6 +21,7 @@ from .core.initializers import (  # noqa: F401
     ZeroInitializer,
 )
 from .core.model import FFModel  # noqa: F401
+from .core.optimizers import AdamOptimizer, Optimizer, SGDOptimizer  # noqa: F401
 from .ff_types import (  # noqa: F401
     ActiMode,
     AggrMode,

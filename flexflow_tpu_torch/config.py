@@ -38,6 +38,8 @@ def resolve_device(name: str) -> torch.device:
 class FFConfig:
     """Global run configuration (reference: config.h:92-160)."""
 
+    # fit()'s default number of passes over the data
+    epochs: int = 1
     batch_size: int = 64
     # devices; 0 = all visible cards. One by default: compile() runs on
     # one device and refuses more until multi-device execution is ported

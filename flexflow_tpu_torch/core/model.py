@@ -1,17 +1,23 @@
 """FFModel: the user-facing model container.
 
-The PyTorch counterpart of flexflow_tpu/core/model.py for the serving
-slice: the builder methods the served decoder LM uses, `compile` on the
-manual single-device branch, and `forward`/`predict`. Op names follow the
-JAX package (`f"{op_type.name.lower()}_{len(self.layers)}"`), so weights
-carry across by (op name, weight name) (runtime/weights.py).
+The PyTorch counterpart of flexflow_tpu/core/model.py: the builder methods
+the served LM and the flagship Transformer use, `compile` on the manual
+single-device branch, `fit` and `eval` (training), and `forward`/`predict`
+(serving). Op names follow the JAX package
+(`f"{op_type.name.lower()}_{len(self.layers)}"`), so weights carry across
+by (op name, weight name) (runtime/weights.py).
 
-`compile` stores the optimizer and loss for the training slice, which
-will use them; it refuses a strategy search (search_budget >= 0) and more
-than one device, neither of which is ported yet.
+`compile` builds the loss, the metrics and the optimizer state into
+`self.state` (a TrainState); `self.params` is `self.state.params`, the one
+dict that training updates and serving reads. It refuses a strategy search
+(search_budget >= 0) and more than one device, neither of which is ported
+yet. `fit` is the JAX package's stepwise loop (one train step per batch,
+per-epoch metrics, the reference's throughput line); the multi-step scan,
+the step guard, checkpointing and telemetry are not ported.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -24,8 +30,11 @@ from ..ops.embedding import EmbeddingParams
 from ..ops.linear import LinearParams
 from ..ops.registry import get_op_def
 from ..ops.softmax import SoftmaxParams
-from ..parallel.executor import PCGExecutor
+from ..parallel.executor import PCGExecutor, TrainState
 from ..pcg.lowering import layers_to_pcg
+from .losses import to_loss_type
+from .metrics import Metrics, PerfMetrics
+from .optimizers import SGDOptimizer
 from .tensor import Layer, Tensor
 
 
@@ -42,8 +51,22 @@ class FFModel:
         self.metrics: Sequence = ()
         self.graph = None
         self.executor: Optional[PCGExecutor] = None
-        self.params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self.state: Optional[TrainState] = None
+        self.perf_metrics: Optional[PerfMetrics] = None
         self._fit_input_tensors: List[Tensor] = []
+        self._rng: Optional[torch.Generator] = None
+
+    @property
+    def params(self) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
+        """The weights, `self.state.params`: what training updates is what
+        serving reads."""
+        return None if self.state is None else self.state.params
+
+    @params.setter
+    def params(self, value) -> None:
+        if self.state is None:
+            raise RuntimeError("compile() the model first")
+        self.state.params = value
 
     # -- graph building -----------------------------------------------------
     def create_tensor(self, dims: Sequence[int],
@@ -124,9 +147,11 @@ class FFModel:
 
     # -- compile ------------------------------------------------------------
     def compile(self, optimizer=None, loss_type=None, metrics: Sequence = ()):
-        """Lower the layers to a PCG and initialize the weights on
-        `config.device`. Only the manual single-device branch is ported:
-        a strategy search or more than one device raises."""
+        """Lower the layers to a PCG and initialize the weights and the
+        optimizer state on `config.device`. A model compiled without a
+        loss_type serves but cannot train. Only the manual single-device
+        branch is ported: a strategy search or more than one device
+        raises."""
         if self.config.search_budget >= 0:
             raise NotImplementedError(
                 "strategy search (search_budget >= 0) is not ported to "
@@ -136,23 +161,104 @@ class FFModel:
             raise NotImplementedError(
                 f"{n_dev} devices requested: only single-device execution "
                 "is ported to flexflow_tpu_torch (set workersPerNode=1)")
-        # kept for the training slice, which runs them
-        self.optimizer = optimizer
-        self.loss_type = loss_type
+        if optimizer is not None:
+            self.optimizer = optimizer
+        if self.optimizer is None:
+            # the JAX package's default, SGD at its config's default lr
+            self.optimizer = SGDOptimizer()
+        self.loss_type = (to_loss_type(loss_type) if loss_type is not None
+                          else None)
         self.metrics = tuple(metrics)
         self.graph, tensor_map = layers_to_pcg(self.layers)
         graph_inputs = {pt.guid: pt for pt in self.graph.input_tensors()}
         self._fit_input_tensors = [
             t for t in self.input_tensors
             if tensor_map.get(t.guid) in graph_inputs]
+        mixed = self.config.allow_mixed_precision
         self.executor = PCGExecutor(
-            self.graph, self.device,
-            compute_dtype=(torch.bfloat16
-                           if self.config.allow_mixed_precision else None),
+            self.graph, self.device, optimizer=self.optimizer,
+            loss_type=self.loss_type,
+            metrics=Metrics(self.loss_type, self.metrics),
+            compute_dtype=torch.bfloat16 if mixed else None,
+            # bf16 gradient storage rides mixed precision, as in JAX
+            grad_dtype=torch.bfloat16 if mixed else None,
             seed=self.config.seed,
             input_order=[graph_inputs[tensor_map[t.guid]]
                          for t in self._fit_input_tensors])
-        self.params = self.executor.init_params()
+        self.state = self.executor.init_state()
+        self.perf_metrics = PerfMetrics()
+        self._rng = torch.Generator().manual_seed(self.config.seed)
+
+    # -- training -----------------------------------------------------------
+    @staticmethod
+    def _batches(arrays: List[np.ndarray], batch_size: int):
+        for i in range(arrays[0].shape[0] // batch_size):
+            yield [a[i * batch_size:(i + 1) * batch_size] for a in arrays]
+
+    def fit(self, x=None, y=None, batch_size: Optional[int] = None,
+            epochs: Optional[int] = None, verbose: bool = True):
+        """Train on (x, y): one train step per full batch, `epochs` passes
+        (config.epochs by default). The tail that does not fill a batch is
+        dropped, with a warning. Prints each epoch's loss and metrics when
+        `verbose`, and the reference's ELAPSED TIME / THROUGHPUT line at the
+        end. Returns the last epoch's PerfMetrics."""
+        if self.executor is None:
+            raise RuntimeError("fit: call compile() first")
+        step_fn = self.executor.build_train_step()
+        xs = list(x) if isinstance(x, (list, tuple)) else [x]
+        bs = batch_size or self.config.batch_size
+        ep = epochs or self.config.epochs
+        n = xs[0].shape[0]
+        if n < bs:
+            raise ValueError(
+                f"dataset has {n} samples < batch_size {bs}; nothing to train on")
+        if n % bs != 0:
+            print(f"[flexflow_tpu_torch] warning: dropping {n % bs} tail "
+                  f"samples (dataset {n} % batch {bs})")
+        start = time.time()
+        num_samples = 0
+        for epoch in range(ep):
+            # per-epoch accumulator like the reference (model.cc
+            # reset_metrics); partials stay on the device until the
+            # epoch's end, so the host does not wait on every step
+            self.perf_metrics = PerfMetrics()
+            device_partials = []
+            for batch in self._batches(xs + [y], bs):
+                self.state, partials = step_fn(self.state, batch[:-1],
+                                               batch[-1], self._rng)
+                device_partials.append(partials)
+                num_samples += bs
+            folded = {k: float(torch.stack([p[k] for p in device_partials])
+                               .double().sum())
+                      for k in device_partials[0]}
+            last_loss = float(device_partials[-1]["loss"])
+            folded.pop("loss")
+            self.perf_metrics.update(folded)
+            if verbose:
+                print(f"epoch {epoch}: loss={last_loss:.4f} "
+                      + self.perf_metrics.report())
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        elapsed = time.time() - start
+        # reference: transformer.cc:208-211 throughput print
+        print(f"ELAPSED TIME = {elapsed:.4f}s, "
+              f"THROUGHPUT = {num_samples / elapsed:.2f} samples/s")
+        return self.perf_metrics
+
+    def eval(self, x=None, y=None, batch_size: Optional[int] = None):
+        """Metrics and loss of the inference forward over full batches of
+        (x, y); prints the metrics line and returns the PerfMetrics."""
+        if self.executor is None:
+            raise RuntimeError("eval: call compile() first")
+        step_fn = self.executor.build_eval_step()
+        xs = list(x) if isinstance(x, (list, tuple)) else [x]
+        pm = PerfMetrics()
+        for batch in self._batches(xs + [y],
+                                   batch_size or self.config.batch_size):
+            _, partials = step_fn(self.params, batch[:-1], batch[-1])
+            pm.update({k: float(v) for k, v in partials.items()})
+        print(pm.report())
+        return pm
 
     # -- inference ----------------------------------------------------------
     def forward(self, inputs: Sequence[np.ndarray]) -> torch.Tensor:

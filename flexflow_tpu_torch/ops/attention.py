@@ -5,11 +5,18 @@ src/ops/attention.cc). Inputs are (batch, seq, embed); the weights keep the
 JAX package's names and layouts: wq/wk/wv (embed, heads, head_dim), wo
 (heads, v_head_dim, embed), bias_o (embed,).
 
-`_forward` takes the folded fast path into the flash kernel
-(kernels/attention.py) whenever the tensors are on CUDA, in any compute
-dtype; the kernel raises on a shape it does not take. On the CPU it takes
-the dense masked path. Dropout is not ported yet: a MHA with dropout > 0
-runs as in inference.
+`_forward` takes the folded fast path into the flash kernels
+(kernels/attention.py: the forward kernel, and in training the backward
+kernel through its autograd Function) whenever the tensors are on CUDA,
+in any compute dtype; the kernels raise on a shape they do not take. On
+the CPU it takes the dense masked path. FF_ATTENTION_IMPL picks the path
+as in the JAX package: "auto" (unset: flash on CUDA, dense on the CPU),
+"flash" (the folded path on any device; on the CPU its wrappers run the
+kernels' plain versions) or "dense" (the masked reference path, on any
+device); "chunked", "ring" and "ulysses" are not ported and raise.
+Dropout is not ported yet: where the JAX package would apply it
+(dropout > 0, training, an rng given) `_forward` raises; serving with
+dropout > 0 runs as in inference, as in JAX.
 
 `_forward_decode` is the serving step (executor.build_decode): it appends
 this block's K/V to the op's cache IN PLACE (the cache is the op's own
@@ -112,18 +119,37 @@ def _dense_attention(q, k, v, keep):
                         v.float()).to(q.dtype)
 
 
+def _attention_impl() -> str:
+    impl = os.environ.get("FF_ATTENTION_IMPL", "auto")
+    if impl not in ("auto", "dense", "flash", "chunked", "ring", "ulysses"):
+        raise ValueError(
+            f"FF_ATTENTION_IMPL={impl!r}: "
+            "expected auto|dense|flash|chunked|ring|ulysses")
+    if impl in ("chunked", "ring", "ulysses"):
+        raise NotImplementedError(
+            f"FF_ATTENTION_IMPL={impl}: not ported to flexflow_tpu_torch "
+            "yet (auto, flash and dense are)")
+    return impl
+
+
 def _forward(params: MultiHeadAttentionParams, weights, inputs, ctx):
     from ..kernels.attention import flash_attention_folded
 
+    if params.dropout > 0.0 and ctx.training and ctx.rng is not None:
+        raise NotImplementedError(
+            f"MHA dropout {params.dropout} in training: the dropout hash "
+            "(_mix32/_keep_bits/_keep_tile) is not ported to "
+            "flexflow_tpu_torch yet; set dropout=0")
+    impl = _attention_impl()
     (q_in, k_in, v_in), (wq, wk, wv, wo) = _cast_inputs(
         inputs, weights, ctx.compute_dtype)
     b, seq_len, _ = q_in.shape
     kv_len = k_in.shape[1]
     h = params.num_heads
     dqk, dv = params.qk_head_dim, params.v_head_dim
-    if q_in.device.type == "cuda":
-        # folded fast path: project straight into (b*h, s, d); the kernel
-        # raises on a dtype or shape it does not take
+    if impl == "flash" or (impl == "auto" and q_in.device.type == "cuda"):
+        # folded fast path: project straight into (b*h, s, d); the kernels
+        # raise on a dtype or shape they do not take
         qf = torch.einsum("bse,ehd->bhsd", q_in, wq).reshape(b * h, seq_len, dqk)
         kf = torch.einsum("bse,ehd->bhsd", k_in, wk).reshape(b * h, kv_len, dqk)
         vf = torch.einsum("bse,ehd->bhsd", v_in, wv).reshape(b * h, kv_len, dv)

@@ -3,12 +3,15 @@
 The PyTorch counterpart of flexflow_tpu/ops/registry.py. An operator
 definition is a hashable Params dataclass, shape inference, weight specs
 and a forward function over torch tensors; incremental decoding adds
-`forward_decode`. Backward will come from autograd.
+`forward_decode`. Backward comes from autograd (through the flash
+kernels' autograd Function for attention on the card).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
+
+import torch
 
 from ..ff_types import DataType, OperatorType
 
@@ -83,6 +86,8 @@ class FwdCtx:
     compute_dtype: Optional[object] = None  # torch dtype autocast target
     # the PCG op's name, for per-layer diagnostics ("" for raw calls)
     op_name: str = ""
+    # the step's random stream in training (the JAX context's rng key)
+    rng: Optional[torch.Generator] = None
 
 
 def ensure_ops_loaded():

@@ -1,11 +1,12 @@
 """flexflow_tpu_torch kernels against the JAX package's Pallas kernels.
 
-The port's two kernels run on the card only; on the CPU their wrappers take
+The port's kernels run on the card only; on the CPU their wrappers take
 the plain PyTorch versions, which are what these tests hold against the
 JAX kernels run in Pallas interpret mode (and the JAX dense references).
 Inputs are made with numpy from a seed and handed to both. Everything is
 f32, so the two differ only in summation order: atol 1e-5.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -160,9 +161,11 @@ def test_flash_supported_shapes():
 def test_cpu_tensors_never_launch_a_kernel():
     build.reset_launch_counts()
     q, k, v = _flash_inputs(6)
-    tattn.flash_attention_folded(*map(torch.from_numpy, (q, k, v)), True)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    tattn.flash_attention_folded(*leaves, True).sum().backward()
     tdec.paged_flash_decode(*map(torch.from_numpy, _paged_inputs()))
-    assert build.launch_counts == {"flash_fwd": 0, "paged_decode": 0}
+    assert build.launch_counts == {"flash_fwd": 0, "flash_bwd": 0,
+                                   "paged_decode": 0}
 
 
 def test_kernel_build_is_keyed_by_source_and_flags():
@@ -172,5 +175,114 @@ def test_kernel_build_is_keyed_by_source_and_flags():
     assert a.name.startswith("libflash_fwd-") and a.suffix == ".so"
     assert a.parent == build.BUILD_DIR
     assert a != build._target("paged_decode")
-    assert (build.CSRC_DIR / "flash_fwd.cu").exists()
-    assert (build.CSRC_DIR / "paged_decode.cu").exists()
+    assert a != build._target("flash_bwd")
+    for name in build.KERNEL_SOURCES:
+        assert (build.CSRC_DIR / f"{name}.cu").exists()
+    assert set(build.KERNEL_SOURCES) == {"flash_fwd", "flash_bwd",
+                                         "paged_decode"}
+
+
+_BWD_CASES = [
+    (False, 16, 16, 8),
+    (True, 16, 16, 8),
+    (True, 16, 16, 12),   # v head dim differs from the qk one
+    (False, 8, 24, 12),
+    (True, 24, 8, 8),     # more queries than keys: top-left causal
+    (True, 8, 24, 8),     # keys no query sees: dk = dv = 0
+]
+
+
+@pytest.mark.parametrize("causal,sq,sk,dv", _BWD_CASES)
+def test_flash_bwd_plain_matches_jax_kernel(causal, sq, sk, dv):
+    """flash_bwd_plain against the JAX backward kernel in interpret mode,
+    fed the JAX forward's O and lse and one cotangent."""
+    q, k, v = _flash_inputs(7, sq=sq, sk=sk, dv=dv)
+    do = np.random.RandomState(8).randn(4, sq, dv).astype(np.float32)
+    jo, jlse = jattn._flash_fwd_folded(q, k, v, causal=causal, interpret=True)
+    jg = jattn._flash_bwd_folded(q, k, v, jo, jlse, do, causal=causal,
+                                 interpret=True)
+    tg = tattn._flash_bwd_folded(
+        *(torch.from_numpy(np.array(x)) for x in (q, k, v, jo, jlse, do)),
+        causal=causal)
+    for name, t, j in zip(("dq", "dk", "dv"), tg, jg):
+        assert t.shape == j.shape and t.dtype == torch.float32
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL,
+                                   err_msg=name)
+    if sk > sq and causal:  # keys past the last query get nothing
+        assert not tg[1][:, sq:].any() and not tg[2][:, sq:].any()
+
+
+def _flash_grads_torch(q, k, v, w, causal, fn):
+    """Gradients of sum(fn(q, k, v) * w) by torch autograd."""
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    (fn(*leaves, causal) * torch.from_numpy(w)).sum().backward()
+    return [x.grad.numpy() for x in leaves]
+
+
+@pytest.mark.parametrize("causal,sq,sk,dv", _BWD_CASES)
+def test_flash_function_matches_jax_grad(causal, sq, sk, dv):
+    """The autograd Function (forward and backward plain versions on the
+    CPU) against jax.grad through the JAX package's custom VJP, both
+    Pallas kernels in interpret mode."""
+    q, k, v = _flash_inputs(9, sq=sq, sk=sk, dv=dv)
+    w = np.random.RandomState(10).randn(4, sq, dv).astype(np.float32)
+    ours = _flash_grads_torch(q, k, v, w, causal, tattn.flash_attention_folded)
+    jg = jax.grad(
+        lambda a, b, c: jnp.sum(jattn.flash_attention_folded(
+            a, b, c, causal, interpret=True) * w), argnums=(0, 1, 2))(q, k, v)
+    for name, t, j in zip(("dq", "dk", "dv"), ours, jg):
+        np.testing.assert_allclose(t, np.asarray(j), atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal,sq,sk,dv", _BWD_CASES)
+def test_flash_function_matches_dense_autograd(causal, sq, sk, dv):
+    """The Function's gradients against torch autograd through the port's
+    dense masked path (the MHA op's CPU path), on the same operands."""
+    from flexflow_tpu_torch.ops.attention import _dense_attention
+
+    def dense(a, b, c, causal):
+        keep = (torch.ones(sq, sk, dtype=torch.bool).tril() if causal
+                else None)
+        unfold = [tattn._fold_to_bhsd(x, 2, 2) for x in (a, b, c)]
+        return tattn._bhsd_to_fold(_dense_attention(*unfold, keep))
+
+    q, k, v = _flash_inputs(11, sq=sq, sk=sk, dv=dv)
+    w = np.random.RandomState(12).randn(4, sq, dv).astype(np.float32)
+    ours = _flash_grads_torch(q, k, v, w, causal, tattn.flash_attention_folded)
+    ref = _flash_grads_torch(q, k, v, w, causal, dense)
+    for name, t, r in zip(("dq", "dk", "dv"), ours, ref):
+        np.testing.assert_allclose(t, r, atol=ATOL, err_msg=name)
+
+
+def test_flash_function_hands_the_forward_lse_to_the_backward(monkeypatch):
+    """The forward's lse (not a recomputation) reaches the backward, with
+    q, k, v and O; dO arrives contiguous even from a transposed graph."""
+    seen = {}
+    real = tattn._flash_bwd_folded
+
+    def spy(qf, kf, vf, of, lse, dof, *, causal):
+        seen.update(lse=lse, o=of, dof=dof, causal=causal)
+        return real(qf, kf, vf, of, lse, dof, causal=causal)
+
+    monkeypatch.setattr(tattn, "_flash_bwd_folded", spy)
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _flash_inputs(13))
+    o = tattn.flash_attention_folded(q, k, v, True)
+    o.transpose(1, 2).sum(1).pow(2).sum().backward()
+    ref_o, ref_lse = tattn._flash_fwd_folded(q.detach(), k.detach(),
+                                             v.detach(), causal=True)
+    assert seen["causal"] is True and seen["dof"].is_contiguous()
+    assert torch.equal(seen["lse"], ref_lse) and seen["lse"].shape == (4, 1, 16)
+    assert torch.equal(seen["o"], ref_o)
+
+
+def test_flash_attention_folded_saves_nothing_without_grad():
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _flash_inputs(14))
+    with torch.no_grad():
+        o = tattn.flash_attention_folded(q, k, v, False)
+    assert o.grad_fn is None
+    plain = tattn.flash_attention_folded(*(x.detach() for x in (q, k, v)))
+    assert plain.grad_fn is None
+    assert isinstance(tattn.flash_attention_folded(q, k, v).grad_fn,
+                      tattn.FlashAttentionFolded._backward_cls)
