@@ -28,12 +28,24 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      takes a few steps on one batch (the loss must fall); then, with the
      weights rescaled to unit activations, `build_grad_step` through the
      flash kernels is held against the same step through the dense
-     attention path (FF_ATTENTION_IMPL=dense), weight by weight.
+     attention path (FF_ATTENTION_IMPL=dense), weight by weight;
+  5. BERT: a BERT-base encoder written as a plain torch.nn.Module
+     (models/bert.py: 12 post-LN layers, hidden 768, 12 heads of 64, GELU
+     FFN 3072, attention and hidden dropout 0.1), imported through
+     `frontends.torch.PyTorchModel`, batch 8, seq 512, bf16 compute over
+     f32 weights, MSE-avg, SGD lr 0.01, data from seed 0. `fit` takes 4
+     steps through the dropout variants of both flash kernels; `eval`
+     must read lower after them than before; one step's gradients
+     through the kernels are held against FF_ATTENTION_IMPL=dense under
+     the same step seed (both draw the same masks), weight by weight.
+The kernel phase also holds both flash kernels' dropout variants against
+their plain versions (the BERT shape and edges), checks the mask bit for
+bit (V = I) and on a launch whose flat index passes 2^32.
 
 Launch counts are reset just before each path is driven and read just
 after it. Prints the card's name and power limit, a `kernels` JSON line,
-a `serving` and a `training` JSON line and, last, {"ok": true, "device":
-{...}}. Details go to chiprun_out/chip_smoke.json.
+a `serving`, a `training` and a `bert` JSON line and, last, {"ok": true,
+"device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import contextlib
 import io
@@ -107,6 +119,21 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
 # stale lse) moves a gradient by its own size.
 ORACLE_RTOL = 0.3
 ORACLE_TOP_RTOL = 0.05
+# the BERT phase: BERT-base's published widths (google-research/bert
+# uncased_L-12_H-768_A-12/bert_config.json) at bert_proxy.py's batch and
+# sequence
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 8, 512, 4
+BERT_LAYERS, BERT_HIDDEN, BERT_HEADS, BERT_FFN = 12, 768, 12, 3072
+BERT_DROPOUT = 0.1
+# Its gradient oracle, per weight over its op's dense gradient norm, as
+# above: flash and dense draw the same masks, so what remains is where
+# the two round. Residuals and LayerNorm keep those differences from
+# compounding with depth: the worst reading is 0.00421 (layers_0_fc1.
+# kernel; attention weights 0.00113) on an H100 80GB HBM3 at 700 W, and
+# the limit is twice it. A mask that differs between the two paths, a
+# lost 1/(1 - rate) or a mask left out of dP moves the attention
+# gradients by a sizeable share of themselves.
+BERT_ORACLE_RTOL = 0.0085
 
 
 def log(*a):
@@ -314,6 +341,177 @@ def check_flash_bwd(torch, rng_seed=2):
             "library_ms": t_l,
             "shape": "bh=128 sq=sk=512 d=dv=64 non-causal bf16, L2 warm; "
                      "library: scaled_dot_product_attention backward"}
+
+
+DROP_SEEDS = (0x9E3779B9, 0x01234567)
+
+
+def check_flash_dropout(torch, rng_seed=3):
+    """The dropout variants of both flash kernels against their plain
+    versions (the same TOL: both scale the kept P and dP before they round,
+    and the mask is exact): at the BERT shape and at edges; the mask bit
+    for bit (V = I: O is exactly 0 where an element was dropped); a launch
+    whose flat index bh*sq*sk passes 2^32, its rows past the wrap held
+    against the plain version at their row offset; each variant timed
+    beside its plain version and SDPA with dropout_p=0.1 (the same work
+    with another mask). Returns the two kernel entries."""
+    from flexflow_tpu_torch.kernels import attention as ka
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    dev, bf16 = "cuda", torch.bfloat16
+    tol_fwd = {torch.bfloat16: "flash_fwd", torch.float16: "flash_fwd",
+               torch.float32: "flash_fwd_f32"}
+    tol_bwd = {torch.bfloat16: "flash_bwd", torch.float16: "flash_bwd_f16",
+               torch.float32: "flash_bwd_f32"}
+    worst = {"fwd": (0.0, 0.0), "bwd": (0.0, 0.0)}
+
+    def note(which, e, ratio):
+        w = worst[which]
+        worst[which] = (max(w[0], e), max(w[1], ratio))
+
+    def rand(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def one(bh, sq, sk, d, dv, causal, rate, dtype=bf16):
+        q, k, do = rand(bh, sq, d, dtype=dtype), rand(bh, sk, d, dtype=dtype), \
+            rand(bh, sq, dv, dtype=dtype)
+        v = rand(bh, sk, dv, dtype=dtype)
+        kw = dict(causal=causal, dropout=rate, seeds=DROP_SEEDS)
+        o, lse = ka._flash_fwd_cuda(q, k, v, **kw)
+        po, plse = ka.flash_fwd_plain(q, k, v, **kw)
+        got = ka._flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+        ref = ka.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        what = (f"flash dropout {rate} bh={bh} sq={sq} sk={sk} d={d} dv={dv} "
+                f"causal={causal} {str(dtype)[6:]}")
+        tensors = (o, lse) + tuple(got)
+        if not all(torch.isfinite(x).all() for x in tensors):
+            raise AssertionError(f"{what}: non-finite")
+        e, ratio = check_close(what, tol_fwd[dtype], o, po)
+        note("fwd", e, ratio)
+        el = (lse - plse).abs().max().item()
+        if not el <= LSE_ATOL:
+            raise AssertionError(f"{what}: lse err {el} (tol {LSE_ATOL})")
+        msg = [f"O {e:.3g} ({ratio:.3g})"]
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            e, ratio = check_close(f"{what} {name}", tol_bwd[dtype], a, b)
+            note("bwd", e, ratio)
+            msg.append(f"{name} {e:.3g} ({ratio:.3g})")
+        log(f"  {what}: max|kernel-plain| (err/limit) " + ", ".join(msg))
+        return q, k, v, o, lse, do
+
+    # the BERT shape: 8 rows x 12 heads, 512 x 512, d 64, rate 0.1
+    bert = one(96, 512, 512, 64, 64, False, 0.1)
+    # edges in fp16 and f32: odd lengths, causal, rate 0.5, d = dv = 16
+    # and 256. (16-bit causal rows are kept short: in a causal row's first
+    # queries P is near 1 and |dS| reaches ~8-16 with these randn inputs,
+    # so where the two versions' f32 scores put one dS element on either
+    # side of a rounding boundary, dq moves by a step of dS times |k| /
+    # sqrt(d), up to 2^-7 in bf16, past the limits TOL reads from the
+    # dropout-free checks: seen once at bh=96 sq=sk=512 causal bf16.)
+    one(8, 100, 300, 64, 64, False, 0.5, torch.float16)  # odd lengths
+    one(8, 300, 100, 64, 32, True, 0.1, torch.float32)   # causal, sq > sk
+    one(8, 129, 257, 64, 64, True, 0.5, torch.float16)   # causal, WMMA
+    one(8, 200, 200, 256, 256, False, 0.1, torch.float16)  # 2 warps (bwd)
+    one(8, 130, 90, 16, 16, False, 0.5, torch.float32)
+    one(8, 129, 257, 16, 16, False, 0.1, torch.float16)
+
+    # the mask bit for bit: with V = I (dv = sk) column j of O is key j's
+    # probability over l, exactly 0 where the kernel dropped it
+    for dtype, d in ((bf16, 64), (torch.float32, 64), (bf16, 40)):
+        bh, sq, sk = 48, 512, 256
+        q, k = rand(bh, sq, d, dtype=dtype), rand(bh, sk, d, dtype=dtype)
+        v = torch.eye(sk, dtype=dtype, device=dev).expand(bh, sk, sk)
+        o, _ = ka._flash_fwd_cuda(q, k, v.contiguous(), causal=False,
+                                  dropout=0.1, seeds=DROP_SEEDS)
+        keep = ka.attention_dropout_mask(DROP_SEEDS, 0.1, bh, sq, sk,
+                                         device=dev)
+        torch.cuda.synchronize()
+        bad = int(((o != 0) != keep).sum())
+        if bad:
+            raise AssertionError(f"dropout mask ({str(dtype)[6:]}, d {d}): "
+                                 f"{bad} of {keep.numel()} elements differ")
+        log(f"  mask bit for bit ({str(dtype)[6:]}, d {d}): "
+            f"{keep.numel()} elements, kept {keep.float().mean().item():.5f}")
+
+    # a launch whose flat index passes 2^32: rows r with r*sq*sk >= 2^32
+    # hash wrapped indices (row 4096 starts at 2^32 here)
+    bh, s, d = 4100, 1024, 64
+    if bh * s * s <= 2 ** 32:
+        raise AssertionError("wrap check does not pass 2^32")
+    q, k, v, do = (rand(bh, s, d) for _ in range(4))
+    kw = dict(causal=False, dropout=0.1, seeds=DROP_SEEDS)
+    o, lse = ka._flash_fwd_cuda(q, k, v, **kw)
+    got = ka._flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+    r0 = 4094
+    rows = slice(r0, bh)
+    part = [x[rows].contiguous() for x in (q, k, v, o, lse, do)]
+    po, plse = ka.flash_fwd_plain(*part[:3], _row0=r0, **kw)
+    ref = ka.flash_bwd_plain(*part, _row0=r0, **kw)
+    torch.cuda.synchronize()
+    check_close("wrap rows O", "flash_fwd", o[rows], po)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        check_close(f"wrap rows {name}", "flash_bwd", a[rows], b)
+    unwrapped = ka.flash_fwd_plain(*part[:3], **kw)[0]   # rows taken as 0..5
+    if torch.equal(unwrapped, po):
+        raise AssertionError("wrap check: the row offset changed nothing")
+    log(f"  rows {r0}..{bh - 1} of a bh={bh} sq=sk={s} launch "
+        f"(flat index to {bh * s * s}, past 2^32): kernel = plain at row "
+        "offset, forward and backward")
+    del q, k, v, do, o, lse, got, part
+    torch.cuda.empty_cache()
+
+    # timings at the BERT shape
+    q, k, v, o, lse, do = bert
+    bh, s, d = 96, 512, 64
+    kw = dict(causal=False, dropout=0.1, seeds=DROP_SEEDS)
+    t_f = time_ms(lambda: ka._flash_fwd_cuda(q, k, v, **kw), 50)
+    t_fp = time_ms(lambda: ka.flash_fwd_plain(q, k, v, **kw), 5)
+    t_b = time_ms(lambda: ka._flash_bwd_cuda(q, k, v, o, lse, do, **kw), 50)
+    t_bp = time_ms(lambda: ka.flash_bwd_plain(q, k, v, o, lse, do, **kw), 5)
+    t_f0 = time_ms(lambda: ka._flash_fwd_cuda(q, k, v, causal=False), 50)
+    t_b0 = time_ms(lambda: ka._flash_bwd_cuda(q, k, v, o, lse, do,
+                                              causal=False), 50)
+    b4 = TRAIN_BATCH
+    q4, k4, v4 = (x.view(b4, bh // b4, s, d).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_fl = time_ms(lambda: sdpa(q4, k4, v4, dropout_p=0.1), 50)
+    out = sdpa(q4, k4, v4, dropout_p=0.1)
+    do4 = do.view(b4, bh // b4, s, d)
+    t_bl = time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
+                                               retain_graph=True), 50)
+    # forward: q, k, v read, O written (bf16), lse written (f32); QK^T and
+    # PV. Backward: q, k, v, O, dO read, dq, dk, dv written, lse read;
+    # five products. The mask adds no bytes; its hash (~22 integer
+    # operations per score element) has no rate in the bound's table.
+    f_ms, f_by = bound_ms(2 * 4 * bh * s * d + 4 * bh * s,
+                          bh * s * s * (2 * d + 2 * d))
+    b_ms, b_by = bound_ms(2 * 8 * bh * s * d + 4 * bh * s,
+                          5 * 2 * bh * s * s * d)
+    log(f"  flash_fwd dropout 0.1 at the BERT shape: kernel {t_f:.4f} ms "
+        f"(no dropout {t_f0:.4f}), plain {t_fp:.4f} ms, SDPA(dropout_p=0.1) "
+        f"{t_fl:.4f} ms, bound {f_ms:.4f} ms ({f_by})")
+    log(f"  flash_bwd dropout 0.1 at the BERT shape: kernel {t_b:.4f} ms "
+        f"(no dropout {t_b0:.4f}), plain {t_bp:.4f} ms, SDPA(dropout_p=0.1) "
+        f"backward {t_bl:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    shape = ("bh=96 (8 x 12 heads) sq=sk=512 d=dv=64 non-causal bf16 "
+             "dropout 0.1, L2 warm; library: scaled_dot_product_attention("
+             "dropout_p=0.1), the same work with another mask")
+    common = {"route": "cuda", "shape": shape}
+    fwd = dict(common, name="flash_fwd_dropout",
+               source="flexflow_tpu_torch/csrc/flash_fwd.cu",
+               replaces="flexflow_tpu/kernels/attention.py:183",
+               max_abs_err=worst["fwd"][0], err_over_limit=worst["fwd"][1],
+               tol=TOL["flash_fwd"], ms=t_f, plain_ms=t_fp, bound_ms=f_ms,
+               bound_by=f_by, library_ms=t_fl, no_dropout_ms=t_f0)
+    bwd = dict(common, name="flash_bwd_dropout",
+               source="flexflow_tpu_torch/csrc/flash_bwd.cu",
+               replaces="flexflow_tpu/kernels/attention.py:233",
+               max_abs_err=worst["bwd"][0], err_over_limit=worst["bwd"][1],
+               tol=TOL["flash_bwd"], ms=t_b, plain_ms=t_bp, bound_ms=b_ms,
+               bound_by=b_by, library_ms=t_bl, no_dropout_ms=t_b0)
+    return [fwd, bwd]
 
 
 def check_paged(torch, rng_seed=1):
@@ -702,6 +900,165 @@ def train(torch):
     return summary
 
 
+def build_bert_model(torch):
+    """BERT-base as a plain torch.nn.Module (models/bert.py), imported
+    through the PyTorch frontend and compiled like the training phase:
+    bf16 compute and gradients over f32 weights, MSE-avg, SGD lr 0.01
+    (examples/python/bert_proxy.py). The module's Linear and LayerNorm
+    weights come from torch's seed 0 and are carried over with
+    `load_weights`; attention keeps the port's own init, as in the JAX
+    frontend."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType, MetricsType
+    from flexflow_tpu_torch.frontends.torch import PyTorchModel
+    from flexflow_tpu_torch.models import BertEncoder
+
+    torch.manual_seed(0)
+    module = BertEncoder(BERT_LAYERS, BERT_HIDDEN, BERT_HEADS, BERT_FFN,
+                         BERT_DROPOUT, BERT_DROPOUT)
+    m = FFModel(FFConfig(batch_size=BERT_BATCH, allow_mixed_precision=True,
+                         seed=0))
+    x = m.create_tensor((BERT_BATCH, BERT_SEQ, BERT_HIDDEN))
+    pt = PyTorchModel(module)
+    pt.torch_to_ff(m, [x])
+    m.compile(SGDOptimizer(lr=0.01),
+              LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
+              [MetricsType.METRICS_MEAN_SQUARED_ERROR])
+    pt.load_weights(m)
+    return m
+
+
+def eval_mse(model, x, y):
+    """`FFModel.eval`'s MSE metric (dropout off), its printout kept."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        pm = model.eval(x, y)
+    return pm.mse_loss / max(1, pm.train_rows), out.getvalue().strip()
+
+
+def bert(torch):
+    """The BERT phase: `fit` through the dropout variants of both flash
+    kernels, eval before and after, the warm step, a step trace, and the
+    gradient oracle (flash vs FF_ATTENTION_IMPL=dense under one step
+    seed, so both draw the same masks). Returns the BERT summary, with
+    the launch counts of the fit run under "launches"."""
+    from flexflow_tpu_torch.core.seeds import step_seed
+    from flexflow_tpu_torch.kernels import build
+
+    os.environ.pop("FF_ATTENTION_IMPL", None)
+    model = build_bert_model(torch)
+    rng = np.random.RandomState(0)
+    x, y = (rng.randn(BERT_BATCH, BERT_SEQ, BERT_HIDDEN).astype(np.float32)
+            for _ in range(2))
+    summary = {"model": "BERT-base encoder via PyTorchModel",
+               "source": "google-research/bert uncased_L-12_H-768_A-12/"
+                         "bert_config.json",
+               "batch": BERT_BATCH, "seq": BERT_SEQ, "hidden": BERT_HIDDEN,
+               "heads": BERT_HEADS, "layers": BERT_LAYERS, "ffn": BERT_FFN,
+               "dropout": BERT_DROPOUT, "optimizer": "SGD lr 0.01",
+               "loss": "MSE avg", "precision": "bf16 compute and grads, "
+               "f32 weights"}
+    before, _ = eval_mse(model, x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        model.fit(x, y, epochs=BERT_STEPS)
+    torch.cuda.synchronize()
+    counts = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    text = out.getvalue()
+    log("  " + text.strip().replace("\n", "\n  "))
+    losses = [float(v) for v in re.findall(r"epoch \d+: loss=(\S+)", text)]
+    done = re.search(r"ELAPSED TIME = (\S+)s, THROUGHPUT = (\S+) samples/s",
+                     text)
+    if len(losses) != BERT_STEPS or not done:
+        raise AssertionError(f"fit printed {text!r}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"fit: losses {losses} must be finite")
+    per = BERT_STEPS * BERT_LAYERS
+    check_training_counts("bert fit", counts, {
+        "flash_fwd_dropout": per, "flash_bwd_dropout": per, "flash_fwd": 0,
+        "flash_bwd": 0, "paged_decode": 0})
+    after, line = eval_mse(model, x, y)
+    log(f"  eval {line}; mse before {before} after {after}")
+    if not (np.isfinite(after) and after < before):
+        raise AssertionError(f"eval mse {before} -> {after}: must fall")
+    summary.update(steps=BERT_STEPS, losses=losses, launches=counts,
+                   eval_mse_before=before, eval_mse_after=after,
+                   peak_mem_gb=peak,
+                   fit_elapsed_s_reading=float(done.group(1)),
+                   fit_samples_per_s_reading=float(done.group(2)))
+    # the warm step on the host clock, fresh masks each step
+    step = model.executor.build_train_step()
+    gen = torch.Generator().manual_seed(1)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.state, _ = step(model.state, [x], y, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    summary["step_ms_reading"] = 1e3 * min(times)
+    summary["samples_per_s_reading"] = BERT_BATCH / min(times)
+    log(f"  fit: losses {losses}; warm step {1e3 * min(times):.2f} ms "
+        f"(host clock), {BERT_BATCH / min(times):.2f} samples/s, peak "
+        f"{peak:.3f} GiB")
+    summary["step_profile"] = profile_step(
+        torch, lambda: step(model.state, [x], y, gen))
+
+    # the gradient oracle: one step's gradients under one step seed
+    ex = model.executor
+    labels = ex._as_labels(y)
+    seed = step_seed(torch.Generator().manual_seed(2))
+    runs = {}
+    for impl in ("flash", "dense"):
+        if impl == "dense":
+            os.environ["FF_ATTENTION_IMPL"] = "dense"
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        runs[impl] = ex._loss_and_grads(model.params, [x], labels, seed)
+        torch.cuda.synchronize()
+        n = BERT_LAYERS if impl == "flash" else 0
+        check_training_counts(f"bert grad step ({impl})", build.launch_counts,
+                              {"flash_fwd_dropout": n,
+                               "flash_bwd_dropout": n, "flash_fwd": 0,
+                               "flash_bwd": 0})
+    os.environ.pop("FF_ATTENTION_IMPL", None)
+    loss_f, loss_d = (runs[i][0].item() for i in ("flash", "dense"))
+    ratios = {}
+    for op, gs in runs["dense"][2].items():
+        op_norm = sum(g.float().norm().item() ** 2 for g in gs.values()) ** 0.5
+        if not op_norm > 0:
+            raise AssertionError(f"{op}: no dense gradient")
+        for name, gd in gs.items():
+            gk = runs["flash"][2][op][name]
+            if not torch.isfinite(gk).all():
+                raise AssertionError(f"{op}.{name}: non-finite gradient")
+            ratios[f"{op}.{name}"] = (
+                (gk.float() - gd.float()).norm().item() / op_norm)
+    worst = max(ratios, key=ratios.get)
+    mha = {k: v for k, v in ratios.items() if ".w" in k and "attn" in k}
+    worst_mha = max(mha, key=mha.get)
+    med = float(np.median(list(ratios.values())))
+    log(f"  bert gradient oracle: loss flash {loss_f} dense {loss_d}; worst "
+        f"{ratios[worst]:.4g} at {worst} (limit {BERT_ORACLE_RTOL}); "
+        f"attention weights worst {mha[worst_mha]:.4g} at {worst_mha}; "
+        f"median {med:.4g} over {len(ratios)} weights")
+    log("  " + json.dumps({k: round(v, 6) for k, v in ratios.items()}))
+    if ratios[worst] > BERT_ORACLE_RTOL:
+        raise AssertionError(f"bert gradient oracle: {worst} {ratios[worst]}")
+    summary["grad_oracle"] = {
+        "loss_flash": loss_f, "loss_dense": loss_d,
+        "worst_rel_err": ratios[worst], "worst_at": worst,
+        "limit": BERT_ORACLE_RTOL, "attention_worst_rel_err": mha[worst_mha],
+        "attention_worst_at": worst_mha, "median_rel_err": med,
+        "weights": len(ratios), "launches_flash_run": BERT_LAYERS,
+        "launches_dense_run": 0}
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -722,6 +1079,7 @@ def main() -> int:
     log("# kernel phase")
     torch.manual_seed(0)
     kernels = [check_flash(torch), check_flash_bwd(torch), check_paged(torch)]
+    kernels += check_flash_dropout(torch)
 
     log("# serving phase")
     model = build_model(torch)
@@ -743,8 +1101,13 @@ def main() -> int:
 
     log("# training phase")
     training = train(torch)
+    torch.cuda.empty_cache()
 
-    by_phase = {"serving": serving_counts, "training": training["launches"]}
+    log("# bert phase")
+    bert_summary = bert(torch)
+
+    by_phase = {"serving": serving_counts, "training": training["launches"],
+                "bert": bert_summary["launches"]}
     for k in kernels:
         k["launches_by_phase"] = {p: c[k["name"]] for p, c in by_phase.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
@@ -755,12 +1118,14 @@ def main() -> int:
             "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     line = {"kernels": [{k: kr[k] for k in keys} for kr in kernels]}
-    report.update(kernels=kernels, serving=summary, training=training)
+    report.update(kernels=kernels, serving=summary, training=training,
+                  bert=bert_summary)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(json.dumps({"serving": summary}))
     log(json.dumps({"training": training}))
+    log(json.dumps({"bert": bert_summary}))
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

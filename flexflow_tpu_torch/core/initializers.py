@@ -2,7 +2,7 @@
 
 The PyTorch counterpart of flexflow_tpu/core/initializers.py (reference:
 src/runtime/initializer.cc), with the initializers the ported ops name:
-glorot_uniform and zero. Each draws from an explicit `torch.Generator`;
+glorot_uniform, zero and one. Each draws from an explicit `torch.Generator`;
 the executor seeds one from FFConfig.seed and draws on the CPU, so a seed
 gives the same weights on every device. JAX's PRNG and torch's give
 different numbers from one seed: to compare the two packages, carry
@@ -44,8 +44,14 @@ class ZeroInitializer(Initializer):
         return torch.zeros(tuple(shape), dtype=dtype)
 
 
+@dataclasses.dataclass
+class OneInitializer(Initializer):
+    def __call__(self, gen, shape, dtype):
+        return torch.ones(tuple(shape), dtype=dtype)
+
+
 _BY_NAME = {"glorot_uniform": GlorotUniformInitializer(),
-            "zero": ZeroInitializer()}
+            "zero": ZeroInitializer(), "one": OneInitializer()}
 
 
 def get_initializer(spec) -> Initializer:

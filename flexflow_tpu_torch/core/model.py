@@ -1,7 +1,8 @@
 """FFModel: the user-facing model container.
 
 The PyTorch counterpart of flexflow_tpu/core/model.py: the builder methods
-the served LM and the flagship Transformer use, `compile` on the manual
+of the ported ops (the ones the served LM, the flagship Transformer and
+the PyTorch frontend's BERT encoder call), `compile` on the manual
 single-device branch, `fit` and `eval` (training), and `forward`/`predict`
 (serving). Op names follow the JAX package
 (`f"{op_type.name.lower()}_{len(self.layers)}"`), so weights carry across
@@ -12,8 +13,10 @@ by (op name, weight name) (runtime/weights.py).
 dict that training updates and serving reads. It refuses a strategy search
 (search_budget >= 0) and more than one device, neither of which is ported
 yet. `fit` is the JAX package's stepwise loop (one train step per batch,
-per-epoch metrics, the reference's throughput line); the multi-step scan,
-the step guard, checkpointing and telemetry are not ported.
+per-epoch metrics, the reference's throughput line; each step draws its
+seed from the model's CPU generator, as the JAX loop splits its key); the
+multi-step scan, the step guard, checkpointing and telemetry are not
+ported.
 """
 from __future__ import annotations
 
@@ -26,8 +29,11 @@ import torch
 from ..config import FFConfig
 from ..ff_types import ActiMode, AggrMode, DataType, OperatorType, to_data_type
 from ..ops.attention import MultiHeadAttentionParams
+from ..ops.dropout import DropoutParams
+from ..ops.elementwise import ElementBinaryParams, ElementUnaryParams
 from ..ops.embedding import EmbeddingParams
 from ..ops.linear import LinearParams
+from ..ops.normalization import LayerNormParams
 from ..ops.registry import get_op_def
 from ..ops.softmax import SoftmaxParams
 from ..parallel.executor import PCGExecutor, TrainState
@@ -144,6 +150,101 @@ class FFModel:
     def softmax(self, input: Tensor, axis: int = -1, name="") -> Tensor:
         return self._add_layer(OperatorType.OP_SOFTMAX,
                                SoftmaxParams(dim=axis), [input], name)
+
+    def layer_norm(self, input: Tensor, axes: Sequence[int] = (-1,),
+                   elementwise_affine: bool = True, eps: float = 1e-5,
+                   name: str = "") -> Tensor:
+        p = LayerNormParams(axes=tuple(axes),
+                            elementwise_affine=elementwise_affine, eps=eps)
+        return self._add_layer(OperatorType.OP_LAYERNORM, p, [input], name)
+
+    def dropout(self, input: Tensor, rate: float = 0.5, seed: int = 0,
+                name="") -> Tensor:
+        return self._add_layer(OperatorType.OP_DROPOUT,
+                               DropoutParams(rate=rate, seed=seed), [input],
+                               name)
+
+    # elementwise binary (numpy broadcasting)
+    def _binary(self, t: OperatorType, x: Tensor, y: Tensor,
+                name: str) -> Tensor:
+        return self._add_layer(t, ElementBinaryParams(op_type=t), [x, y], name)
+
+    def add(self, x, y, inplace_a=False, name=""):
+        return self._binary(OperatorType.OP_EW_ADD, x, y, name)
+
+    def subtract(self, x, y, inplace_a=False, name=""):
+        return self._binary(OperatorType.OP_EW_SUB, x, y, name)
+
+    def multiply(self, x, y, inplace_a=False, name=""):
+        return self._binary(OperatorType.OP_EW_MUL, x, y, name)
+
+    def divide(self, x, y, inplace_a=False, name=""):
+        return self._binary(OperatorType.OP_EW_DIV, x, y, name)
+
+    def max(self, x, y, inplace_a=False, name=""):
+        return self._binary(OperatorType.OP_EW_MAX, x, y, name)
+
+    def min(self, x, y, inplace_a=False, name=""):
+        return self._binary(OperatorType.OP_EW_MIN, x, y, name)
+
+    # elementwise unary and scalar
+    def _unary(self, t: OperatorType, x: Tensor, name: str, scalar=0.0,
+               inplace=False) -> Tensor:
+        p = ElementUnaryParams(op_type=t, inplace=inplace, scalar=scalar)
+        return self._add_layer(t, p, [x], name)
+
+    def exp(self, x, name=""):
+        return self._unary(OperatorType.OP_EXP, x, name)
+
+    def log(self, x, name=""):
+        return self._unary(OperatorType.OP_LOG, x, name)
+
+    def relu(self, x, inplace=True, name=""):
+        return self._unary(OperatorType.OP_RELU, x, name, inplace=inplace)
+
+    def sigmoid(self, x, name=""):
+        return self._unary(OperatorType.OP_SIGMOID, x, name)
+
+    def tanh(self, x, name=""):
+        return self._unary(OperatorType.OP_TANH, x, name)
+
+    def elu(self, x, inplace=True, name=""):
+        return self._unary(OperatorType.OP_ELU, x, name, inplace=inplace)
+
+    def gelu(self, x, name=""):
+        return self._unary(OperatorType.OP_GELU, x, name)
+
+    def identity(self, x, name=""):
+        return self._unary(OperatorType.OP_IDENTITY, x, name)
+
+    def rsqrt(self, x, name=""):
+        return self._unary(OperatorType.OP_RSQRT, x, name)
+
+    def sqrt(self, x, name=""):
+        return self._unary(OperatorType.OP_SQRT, x, name)
+
+    def sin(self, x, name=""):
+        return self._unary(OperatorType.OP_SIN, x, name)
+
+    def cos(self, x, name=""):
+        return self._unary(OperatorType.OP_COS, x, name)
+
+    def pow(self, x, exponent: float, name=""):
+        return self._unary(OperatorType.OP_POW, x, name, scalar=exponent)
+
+    def scalar_multiply(self, x, scalar: float, inplace=True, name=""):
+        return self._unary(OperatorType.OP_SCALAR_MULTIPLY, x, name,
+                           scalar=scalar)
+
+    def scalar_add(self, x, scalar: float, inplace=True, name=""):
+        return self._unary(OperatorType.OP_SCALAR_ADD, x, name, scalar=scalar)
+
+    def scalar_sub(self, x, scalar: float, inplace=True, name=""):
+        return self._unary(OperatorType.OP_SCALAR_SUB, x, name, scalar=scalar)
+
+    def scalar_true_divide(self, x, scalar: float, inplace=True, name=""):
+        return self._unary(OperatorType.OP_SCALAR_TRUE_DIV, x, name,
+                           scalar=scalar)
 
     # -- compile ------------------------------------------------------------
     def compile(self, optimizer=None, loss_type=None, metrics: Sequence = ()):

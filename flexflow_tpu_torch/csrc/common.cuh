@@ -12,6 +12,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace ff {
 
@@ -54,6 +55,51 @@ __device__ __forceinline__ float warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
+}
+
+// Attention dropout: the counter-based keep-mask of the JAX package
+// (kernels/attention.py `_mix32`, `_keep_bits`, `_keep_tile`). Score
+// element (row, q, k) of a folded (bh, sq, sk) launch hashes its flat
+// index (row*sq + q)*sk + k under two seeds and is kept iff the hash is
+// >= threshold (round(rate * 2^32), capped at 2^32 - 1). uint32_t wraps
+// mod 2^32 exactly as jnp.uint32 does, so the forward, the backward and
+// the plain versions all rebuild the same mask from the indices alone.
+// threshold 0 means no dropout: the launchers then take the kernels'
+// dropout-free variant.
+struct Dropout {
+  uint32_t s0, s1, threshold;
+  float inv_keep;  // 1 / (1 - rate)
+};
+
+__device__ __forceinline__ uint32_t mix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t keep_bits(uint32_t idx, uint32_t s0,
+                                              uint32_t s1) {
+  return mix32(mix32((idx * 0x9E3779B1u) ^ s0) ^ s1);
+}
+
+__device__ __forceinline__ bool keep(const Dropout& dp, long long row, int sq,
+                                     int sk, int q, int k) {
+  const uint32_t idx =
+      (static_cast<uint32_t>(row) * static_cast<uint32_t>(sq) +
+       static_cast<uint32_t>(q)) *
+          static_cast<uint32_t>(sk) +
+      static_cast<uint32_t>(k);
+  return keep_bits(idx, dp.s0, dp.s1) >= dp.threshold;
+}
+
+// x scaled by 1 / (1 - rate) where (row, q, k) is kept, else 0
+__device__ __forceinline__ float dropped(const Dropout& dp, long long row,
+                                         int sq, int sk, int q, int k,
+                                         float x) {
+  return keep(dp, row, sq, sk, q, k) ? x * dp.inv_keep : 0.f;
 }
 
 }  // namespace ff

@@ -1,8 +1,8 @@
-// Flash-attention backward for Hopper (sm_90a), no dropout.
+// Flash-attention backward for Hopper (sm_90a), with attention dropout.
 //
 // Replaces the TPU kernel flexflow_tpu/kernels/attention.py
 // `_flash_bwd_kernel` (driven by `_flash_bwd_folded` from the custom VJP
-// `_flash_folded_vjp_bwd`) on the dropout-free path. Same contract: folded
+// `_flash_folded_vjp_bwd`). Same contract: folded
 // operands q (bh, sq, d), k (bh, sk, d), v (bh, sk, dv), o and dO
 // (bh, sq, dv) in f32, bf16 or fp16, all contiguous, d and dv <= 256, and
 // the forward's lse (bh, 1, sq) in f32. With scale = 1/sqrt(d):
@@ -16,7 +16,14 @@
 // where round() is the rounding to the input dtype that the JAX kernel
 // applies before each of those three products; dq, dk and dv are
 // accumulated in f32 and written in the input dtype. Keys that no query
-// sees (above the diagonal) get dk = dv = 0.
+// sees (above the diagonal) get dk = dv = 0. Dropout (threshold != 0)
+// rebuilds the forward's keep-mask (common.cuh) from (row, q, k) alone in
+// both passes and applies it where the chain rule puts it: dP is zeroed
+// where the mask dropped and scaled by 1 / (1 - rate) where it kept, and
+// so is the P that feeds dV; dS = P * (dP - delta) takes the undropped P.
+// The delta pre-pass does not change: rowsum(dO * O) already equals
+// rowsum(P_dropped * dP) under dropout. A template flag, so the
+// dropout-free launch does the same work as without it.
 //
 // Bound on the H100 at the training shape (bh = 128, sq = sk = 512,
 // d = dv = 64, non-causal, bf16): the useful work is five products of
@@ -202,14 +209,14 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 
 // Pass 1 on the tensor cores: dK and dV for 16 * warps keys of one row.
 // gk/gv are the gradients dk/dv.
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ gk,
                       T* __restrict__ gv, int sq, int sk, int d, int dv,
-                      int causal, float scale) {
+                      int causal, float scale, ff::Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const Layout L(warps, d, dv, true);
@@ -264,9 +271,17 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qi = n * 16 + c;
         float p = 0.f;
         float ds = 0.f;
-        if (q0 + qi < sq && !(causal && kpos > q0 + qi)) {
+        if (q0 + qi < sq && kpos < sk && !(causal && kpos > q0 + qi)) {
           p = expf(scrS[r * kScr + c] * scale - lse_s[qi]);
-          ds = p * (scrP[r * kScr + c] - delta_s[qi]);
+          float dp = scrP[r * kScr + c];
+          if (kDrop) {
+            const bool kept = ff::keep(drop, row, sq, sk, q0 + qi, kpos);
+            dp = kept ? dp * drop.inv_keep : 0.f;
+            ds = p * (dp - delta_s[qi]);
+            p = kept ? p * drop.inv_keep : 0.f;  // the P of dV
+          } else {
+            ds = p * (dp - delta_s[qi]);
+          }
         }
         Ps[(r0 + r) * kLdp + qi] = ff::from_f32<T>(p);
         dSs[(r0 + r) * kLdp + qi] = ff::from_f32<T>(ds);
@@ -297,13 +312,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // Pass 2 on the tensor cores: dQ for 16 * warps queries of one row.
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ gq,
-                    int sq, int sk, int d, int dv, int causal, float scale) {
+                    int sq, int sk, int d, int dv, int causal, float scale,
+                    ff::Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const Layout L(warps, d, dv, false);
@@ -353,9 +369,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qpos = q0 + r0 + r;
         const int kpos = k0 + n * 16 + c;
         float ds = 0.f;
-        if (kpos < sk && !(causal && kpos > qpos)) {
+        if (kpos < sk && qpos < sq && !(causal && kpos > qpos)) {
           const float p = expf(scrS[r * kScr + c] * scale - lse_s[r0 + r]);
-          ds = p * (scrP[r * kScr + c] - delta_s[r0 + r]);
+          float dp = scrP[r * kScr + c];
+          if (kDrop) dp = ff::dropped(drop, row, sq, sk, qpos, kpos, dp);
+          ds = p * (dp - delta_s[r0 + r]);
         }
         dSs[(r0 + r) * kLdp + n * 16 + c] = ff::from_f32<T>(ds);
       }
@@ -385,7 +403,7 @@ __device__ __forceinline__ float round_to(float x) {
 }
 
 // Pass 1 on the CUDA cores: one warp per key row.
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kRowWarps * 32)
 flash_bwd_dkdv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
@@ -393,7 +411,8 @@ flash_bwd_dkdv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            T* __restrict__ gk, T* __restrict__ gv, int sq,
-                           int sk, int d, int dv, int causal, float scale) {
+                           int sk, int d, int dv, int causal, float scale,
+                           ff::Dropout drop) {
   const long long row = blockIdx.y;
   const int kpos = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -438,8 +457,16 @@ flash_bwd_dkdv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < kRowTok; ++u) {
       if (base + u < sq) {
         const float p = expf(s[u] - lr[base + u]);
-        const float pr = round_to<T>(p);
-        const float dsr = round_to<T>(p * (dp[u] - dr[base + u]));
+        float pv = p;
+        float dpv = dp[u];
+        if (kDrop && !ff::keep(drop, row, sq, sk, base + u, kpos)) {
+          pv = dpv = 0.f;
+        } else if (kDrop) {
+          pv *= drop.inv_keep;
+          dpv *= drop.inv_keep;
+        }
+        const float pr = round_to<T>(pv);
+        const float dsr = round_to<T>(p * (dpv - dr[base + u]));
 #pragma unroll
         for (int i = 0; i < kLaneVals; ++i) {
           av[i] += pr * dov[u][i];
@@ -459,14 +486,14 @@ flash_bwd_dkdv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // Pass 2 on the CUDA cores: one warp per query row.
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kRowWarps * 32)
 flash_bwd_dq_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ gq,
                          int sq, int sk, int d, int dv, int causal,
-                         float scale) {
+                         float scale, ff::Dropout drop) {
   const long long row = blockIdx.y;
   const int qpos = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -510,7 +537,10 @@ flash_bwd_dq_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < kRowTok; ++u) {
       if (base + u < kv_end) {
         const float p = expf(s[u] - l);
-        const float dsr = round_to<T>(p * (dp[u] - dl));
+        const float dpv =
+            kDrop ? ff::dropped(drop, row, sq, sk, qpos, base + u, dp[u])
+                  : dp[u];
+        const float dsr = round_to<T>(p * (dpv - dl));
 #pragma unroll
         for (int i = 0; i < kLaneVals; ++i) acc[i] += dsr * kv[u][i];
       }
@@ -531,6 +561,7 @@ struct Args {
   void *gq, *gk, *gv;
   int bh, sq, sk, d, dv, causal;
   float scale;
+  ff::Dropout drop;
   cudaStream_t stream;
 };
 
@@ -543,7 +574,7 @@ cudaError_t launch_delta(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 cudaError_t launch_rows(const Args& a) {
   cudaError_t err = launch_delta<T>(a);
   if (err != cudaSuccess) return err;
@@ -551,17 +582,17 @@ cudaError_t launch_rows(const Args& a) {
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
-  flash_bwd_dkdv_rows_kernel<T>
+  flash_bwd_dkdv_rows_kernel<T, kDrop>
       <<<dim3((a.sk + kRowWarps - 1) / kRowWarps, a.bh), kRowWarps * 32, 0,
          a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.gk),
                      static_cast<T*>(a.gv), a.sq, a.sk, a.d, a.dv, a.causal,
-                     a.scale);
+                     a.scale, a.drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_rows_kernel<T>
+  flash_bwd_dq_rows_kernel<T, kDrop>
       <<<dim3((a.sq + kRowWarps - 1) / kRowWarps, a.bh), kRowWarps * 32, 0,
          a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.gq),
-                     a.sq, a.sk, a.d, a.dv, a.causal, a.scale);
+                     a.sq, a.sk, a.d, a.dv, a.causal, a.scale, a.drop);
   return cudaGetLastError();
 }
 
@@ -573,9 +604,9 @@ int pick_warps(int max_smem, int d, int dv, bool dkdv) {
   return 0;
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 cudaError_t launch(const Args& a, int device) {
-  if (a.d % 16 || a.dv % 16) return launch_rows<T>(a);
+  if (a.d % 16 || a.dv % 16) return launch_rows<T, kDrop>(a);
   int max_smem = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -585,11 +616,11 @@ cudaError_t launch(const Args& a, int device) {
   if (!w1 || !w2) return cudaErrorInvalidValue;
   const size_t s1 = Layout(w1, a.d, a.dv, true).total;
   const size_t s2 = Layout(w2, a.d, a.dv, false).total;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, kDrop>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(s1));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, kDrop>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(s2));
   if (err != cudaSuccess) return err;
@@ -599,28 +630,45 @@ cudaError_t launch(const Args& a, int device) {
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
-  flash_bwd_dkdv_kernel<T>
+  flash_bwd_dkdv_kernel<T, kDrop>
       <<<dim3((a.sk + 16 * w1 - 1) / (16 * w1), a.bh), 32 * w1, s1,
          a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.gk),
                      static_cast<T*>(a.gv), a.sq, a.sk, a.d, a.dv, a.causal,
-                     a.scale);
+                     a.scale, a.drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T>
+  flash_bwd_dq_kernel<T, kDrop>
       <<<dim3((a.sq + 16 * w2 - 1) / (16 * w2), a.bh), 32 * w2, s2,
          a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.gq),
-                     a.sq, a.sk, a.d, a.dv, a.causal, a.scale);
+                     a.sq, a.sk, a.d, a.dv, a.causal, a.scale, a.drop);
   return cudaGetLastError();
+}
+
+template <bool kDrop>
+cudaError_t dispatch(int dtype, const Args& a, int device) {
+  switch (dtype) {
+    case ff::kF32:
+      return launch_rows<float, kDrop>(a);
+    case ff::kF16:
+      return launch<__half, kDrop>(a, device);
+    case ff::kBF16:
+      return launch<__nv_bfloat16, kDrop>(a, device);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // delta is scratch of bh * sq floats; gq, gk, gv receive dq, dk, dv.
+// s0, s1, threshold, inv_keep: the forward's dropout (flash_fwd.cu).
 extern "C" int ff_flash_bwd(int device, int dtype, const void* q,
                             const void* k, const void* v, const void* o,
                             const void* dout, const void* lse, void* delta,
                             void* gq, void* gk, void* gv, int bh, int sq,
                             int sk, int d, int dv, int causal, float scale,
+                            unsigned int s0, unsigned int s1,
+                            unsigned int threshold, float inv_keep,
                             void* stream) {
   if (bh < 1 || bh > 65535 || sq < 1 || sk < 1 || d < 1 || dv < 1 ||
       d > kMaxDim || dv > kMaxDim)
@@ -629,19 +677,9 @@ extern "C" int ff_flash_bwd(int device, int dtype, const void* q,
   if (err != cudaSuccess) return static_cast<int>(err);
   const Args a{q,  k,  v,  o,  dout, static_cast<const float*>(lse),
                static_cast<float*>(delta), gq, gk, gv, bh, sq, sk, d, dv,
-               causal, scale, static_cast<cudaStream_t>(stream)};
-  switch (dtype) {
-    case ff::kF32:
-      err = launch_rows<float>(a);
-      break;
-    case ff::kF16:
-      err = launch<__half>(a, device);
-      break;
-    case ff::kBF16:
-      err = launch<__nv_bfloat16>(a, device);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
+               causal, scale, ff::Dropout{s0, s1, threshold, inv_keep},
+               static_cast<cudaStream_t>(stream)};
+  err = threshold ? dispatch<true>(dtype, a, device)
+                  : dispatch<false>(dtype, a, device);
   return static_cast<int>(err);
 }

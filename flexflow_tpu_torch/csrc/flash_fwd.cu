@@ -1,14 +1,20 @@
-// Flash-attention forward for Hopper (sm_90a), no dropout.
+// Flash-attention forward for Hopper (sm_90a), with attention dropout.
 //
 // Replaces the TPU kernel flexflow_tpu/kernels/attention.py
-// `_flash_fwd_kernel` (driven by `_flash_fwd_folded`) on the dropout-free
-// path. Same contract: folded operands q (bh, sq, d), k (bh, sk, d),
+// `_flash_fwd_kernel` (driven by `_flash_fwd_folded`). Same contract: folded operands q (bh, sq, d), k (bh, sk, d),
 // v (bh, sk, dv) in f32, bf16 or fp16, all contiguous, d and dv <= 256; S = Q K^T / sqrt(d) with
 // f32 accumulation; causal masking keeps key <= query (top-left aligned)
 // and masks with -1e30, never -inf; P is rounded to the input dtype
 // before P V while the row sum l is taken over the f32 probabilities;
 // O = P V / max(l, 1e-30) in the input dtype and lse = m + log(max(l,
 // 1e-30)) in f32, laid out (bh, 1, sq) so a backward can consume it.
+// Dropout (threshold != 0): the keep-mask of common.cuh is applied to P
+// after P has gone into the row sum l and before it is rounded for P V,
+// kept entries scaled by 1 / (1 - rate). With the online softmax, l and
+// the rescale factor alpha stay undropped, so O equals the JAX kernel's
+// whole-row result; the mask adds no bytes, ~14 integer operations per
+// score. It is a template flag, so the dropout-free launch does the same
+// work as without it.
 //
 // Bound on the H100: bytes, narrowly. At the serving shape (bh = 128,
 // sq = sk = 512, d = dv = 64, causal) the useful work is ~4.3 GFLOP
@@ -95,12 +101,12 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
   }
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int sq, int sk, int d, int dv,
-                 int causal, float scale) {
+                 int causal, float scale, ff::Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(d, dv);
   T* Qs = reinterpret_cast<T*>(smem + L.q);
@@ -185,7 +191,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = lane + 32 * c2;
         const float p = expf(sv[c2] - m_new);
         rsum += p;
-        Ps[r * L.ldp + c] = ff::from_f32<T>(p);
+        float pv = p;  // keys past sk have p = 0 and are never dropped
+        if (kDrop && k0 + c < sk)
+          pv = ff::dropped(drop, row, sq, sk, qpos, k0 + c, p);
+        Ps[r * L.ldp + c] = ff::from_f32<T>(pv);
       }
       rsum = ff::warp_sum(rsum);
       const float alpha = expf(m_old - m_new);
@@ -238,12 +247,12 @@ constexpr int kLaneVals = kMaxDim / 32;   // head dims per lane
 // probabilities. A key past the causal diagonal would get -1e30 and
 // contribute exp(-1e30 - m) = 0 next to key 0, which every row sees, so
 // skipping it changes nothing.
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kRowWarps * 32)
 flash_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       float* __restrict__ lse, int sq, int sk, int d, int dv,
-                      int causal, float scale) {
+                      int causal, float scale, ff::Dropout drop) {
   const long long row = blockIdx.y;
   const int qpos = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -292,7 +301,9 @@ flash_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (base + u < kv_end) {
         const float p = expf(s[u] - m_new);
         l += p;
-        const float pr = ff::to_f32(ff::from_f32<T>(p));
+        const float pd =
+            kDrop ? ff::dropped(drop, row, sq, sk, qpos, base + u, p) : p;
+        const float pr = ff::to_f32(ff::from_f32<T>(pd));
         const T* vr = vg + static_cast<long long>(base + u) * dv;
 #pragma unroll
         for (int i = 0; i < kLaneVals; ++i) {
@@ -313,66 +324,75 @@ flash_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (lane == 0) lse[row * sq + qpos] = m + logf(lc);
 }
 
-template <typename T>
-cudaError_t launch_rows(const void* q, const void* k, const void* v, void* o,
-                        float* lse, int bh, int sq, int sk, int d, int dv,
-                        int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((sq + kRowWarps - 1) / kRowWarps, bh);
-  flash_fwd_rows_kernel<T><<<grid, kRowWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, d, dv, causal,
-      scale);
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int bh, sq, sk, d, dv, causal;
+  float scale;
+  ff::Dropout drop;
+  cudaStream_t stream;
+};
+
+template <typename T, bool kDrop>
+cudaError_t launch_rows(const Args& a) {
+  const dim3 grid((a.sq + kRowWarps - 1) / kRowWarps, a.bh);
+  flash_fwd_rows_kernel<T, kDrop><<<grid, kRowWarps * 32, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.sq, a.sk,
+      a.d, a.dv, a.causal, a.scale, a.drop);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int bh, int sq, int sk, int d, int dv,
-                   int causal, float scale, cudaStream_t stream) {
-  if (d % 16 || dv % 16)
-    return launch_rows<T>(q, k, v, o, lse, bh, sq, sk, d, dv, causal, scale,
-                          stream);
-  const Layout L(d, dv);
+template <typename T, bool kDrop>
+cudaError_t launch(const Args& a) {
+  if (a.d % 16 || a.dv % 16) return launch_rows<T, kDrop>(a);
+  const Layout L(a.d, a.dv);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L.total));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kBr - 1) / kBr, bh);
-  flash_fwd_kernel<T><<<grid, kThreads, L.total, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, d, dv, causal,
-      scale);
+  const dim3 grid((a.sq + kBr - 1) / kBr, a.bh);
+  flash_fwd_kernel<T, kDrop><<<grid, kThreads, L.total, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.sq, a.sk,
+      a.d, a.dv, a.causal, a.scale, a.drop);
   return cudaGetLastError();
+}
+
+template <bool kDrop>
+cudaError_t dispatch(int dtype, const Args& a) {
+  switch (dtype) {
+    case ff::kF32:
+      return launch_rows<float, kDrop>(a);
+    case ff::kF16:
+      return launch<__half, kDrop>(a);
+    case ff::kBF16:
+      return launch<__nv_bfloat16, kDrop>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// s0, s1: the dropout seeds; threshold: round(rate * 2^32) capped at
+// 2^32 - 1, 0 for no dropout; inv_keep: 1 / (1 - rate).
 extern "C" int ff_flash_fwd(int device, int dtype, const void* q,
                             const void* k, const void* v, void* o, void* lse,
                             int bh, int sq, int sk, int d, int dv, int causal,
-                            float scale, void* stream) {
+                            float scale, unsigned int s0, unsigned int s1,
+                            unsigned int threshold, float inv_keep,
+                            void* stream) {
   if (bh < 1 || bh > 65535 || sq < 1 || sk < 1 || d < 1 || dv < 1 ||
       d > kMaxDim || dv > kMaxDim)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  float* lse_f = static_cast<float*>(lse);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case ff::kF32:
-      err = launch_rows<float>(q, k, v, o, lse_f, bh, sq, sk, d, dv, causal,
-                               scale, st);
-      break;
-    case ff::kF16:
-      err = launch<__half>(q, k, v, o, lse_f, bh, sq, sk, d, dv, causal, scale,
-                           st);
-      break;
-    case ff::kBF16:
-      err = launch<__nv_bfloat16>(q, k, v, o, lse_f, bh, sq, sk, d, dv, causal,
-                                  scale, st);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
+  const Args a{q,  k,  v,      o,     static_cast<float*>(lse),
+               bh, sq, sk,     d,     dv,
+               causal, scale, ff::Dropout{s0, s1, threshold, inv_keep},
+               static_cast<cudaStream_t>(stream)};
+  err = threshold ? dispatch<true>(dtype, a) : dispatch<false>(dtype, a);
   return static_cast<int>(err);
 }

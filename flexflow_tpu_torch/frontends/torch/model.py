@@ -1,0 +1,364 @@
+"""PyTorch-FX frontend: import a torch.nn.Module into FFModel.
+
+The PyTorch counterpart of flexflow_tpu/frontends/torch/model.py
+(reference: python/flexflow/torch/model.py):
+`PyTorchModel(module).torch_to_ff(ffmodel, input_tensors)` traces the
+module with torch.fx.symbolic_trace and maps each fx node onto the port's
+FFModel ops; `load_weights` then copies the module's parameters into the
+compiled model's params.
+
+Only the rows whose ops the port has are here: `_MODULE_BUILDERS` holds
+Linear, LayerNorm, Embedding, the activations, Softmax, Dropout,
+MultiheadAttention and Identity, and `_replay_fn` the arithmetic, the
+activations, softmax, dropout, `getitem` on MultiheadAttention's tuple
+and the no-ops. Every other module or target raises NotImplementedError
+with its name, as the JAX package does for what it lacks. Not ported
+yet: concrete tensors meeting the graph (they need
+`create_constant_tensor`), Hugging Face tracing, and the file format
+(`torch_to_flexflow` / `file_to_ff`). As in the JAX package,
+MultiheadAttention's weights are not carried over from torch.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+import torch.fx
+
+from ...ff_types import AggrMode, OperatorType
+
+
+def _linear_export(mod):
+    return {"out_features": mod.out_features, "bias": mod.bias is not None}
+
+
+def _linear_build(ff, cfg, args, name):
+    return ff.dense(args[0], cfg["out_features"], use_bias=cfg["bias"],
+                    name=name)
+
+
+def _linear_weights(mod):
+    w = [mod.weight.detach().cpu().numpy().T]  # torch (out,in) -> (in,out)
+    if mod.bias is not None:
+        w.append(mod.bias.detach().cpu().numpy())
+    return w
+
+
+def _ln_export(mod):
+    return {"normalized_shape": list(mod.normalized_shape), "eps": mod.eps,
+            "affine": mod.elementwise_affine}
+
+
+def _ln_build(ff, cfg, args, name):
+    return ff.layer_norm(
+        args[0], axes=tuple(range(-len(cfg["normalized_shape"]), 0)),
+        eps=cfg["eps"], name=name)
+
+
+def _ln_weights(mod):
+    if not mod.elementwise_affine:
+        return None
+    return [mod.weight.detach().cpu().numpy(),
+            mod.bias.detach().cpu().numpy()]
+
+
+def _emb_export(mod):
+    return {"num": mod.num_embeddings, "dim": mod.embedding_dim}
+
+
+def _emb_build(ff, cfg, args, name):
+    return ff.embedding(args[0], cfg["num"], cfg["dim"],
+                        AggrMode.AGGR_MODE_NONE, name=name)
+
+
+def _emb_weights(mod):
+    return [mod.weight.detach().cpu().numpy()]
+
+
+def _act_build(method):
+    def build(ff, cfg, args, name):
+        return getattr(ff, method)(args[0], name=name)
+
+    return build
+
+
+def _softmax_export(mod):
+    return {"dim": mod.dim if mod.dim is not None else -1}
+
+
+def _softmax_build(ff, cfg, args, name):
+    return ff.softmax(args[0], axis=cfg["dim"], name=name)
+
+
+def _dropout_export(mod):
+    return {"p": mod.p}
+
+
+def _dropout_build(ff, cfg, args, name):
+    return ff.dropout(args[0], cfg["p"], name=name)
+
+
+def _mha_export(mod):
+    return {"embed_dim": mod.embed_dim, "num_heads": mod.num_heads,
+            "dropout": mod.dropout, "bias": mod.in_proj_bias is not None}
+
+
+def _mha_build(ff, cfg, args, name):
+    return ff.multihead_attention(
+        args[0], args[1], args[2], cfg["embed_dim"], cfg["num_heads"],
+        dropout=cfg["dropout"], bias=cfg["bias"], name=name)
+
+
+def _none_export(mod):
+    return {}
+
+
+# type name -> (export, build, weights|None)
+_MODULE_BUILDERS = {
+    "Linear": (_linear_export, _linear_build, _linear_weights),
+    "LayerNorm": (_ln_export, _ln_build, _ln_weights),
+    "Embedding": (_emb_export, _emb_build, _emb_weights),
+    "ReLU": (_none_export, _act_build("relu"), None),
+    "GELU": (_none_export, _act_build("gelu"), None),
+    "Sigmoid": (_none_export, _act_build("sigmoid"), None),
+    "Tanh": (_none_export, _act_build("tanh"), None),
+    "ELU": (_none_export, _act_build("elu"), None),
+    "Identity": (_none_export, _act_build("identity"), None),
+    "Softmax": (_softmax_export, _softmax_build, None),
+    "Dropout": (_dropout_export, _dropout_build, None),
+    "MultiheadAttention": (_mha_export, _mha_build, None),
+}
+
+
+class PyTorchModel:
+    """reference: torch/model.py:2408 PyTorchModel"""
+
+    def __init__(self, module, is_hf_model: bool = False, input_names=None,
+                 batch_size: int = 1, seq_length=None):
+        if isinstance(module, str):
+            raise NotImplementedError(
+                f"PyTorchModel({module!r}): the file format (file_to_ff) is "
+                "not ported to flexflow_tpu_torch yet")
+        if is_hf_model:
+            raise NotImplementedError(
+                "Hugging Face tracing (is_hf_model) is not ported to "
+                "flexflow_tpu_torch yet")
+        self.module = module
+        self.batch_size = batch_size
+        self._weight_loads = []  # (ff layer, [np arrays]) applied post-compile
+        self._ffmodel = None
+
+    def apply(self, ffmodel, input_tensors: List) -> List:
+        """The uniform entry point of the frontends (ONNXModel.apply):
+        traces the module live."""
+        return self.torch_to_ff(ffmodel, input_tensors)
+
+    def torch_to_ff(self, ffmodel, input_tensors: List) -> List:
+        """Map the traced graph onto ffmodel; returns output tensors."""
+        traced = torch.fx.symbolic_trace(self.module)
+        modules = dict(traced.named_modules())
+        env: Dict[str, object] = {}
+        inputs = list(input_tensors)
+        outputs: List = []
+
+        for node in traced.graph.nodes:
+            if node.op not in ("placeholder", "output") and not node.users:
+                # dead value (e.g. the discarded attention-weights half of
+                # `out, _ = mha(...)`): nothing consumes it, skip
+                continue
+            if node.op == "placeholder":
+                env[node.name] = inputs.pop(0)
+            elif node.op == "call_module":
+                mod = modules[node.target]
+                args = [env[a.name] if isinstance(a, torch.fx.Node) else a
+                        for a in node.args]
+                env[node.name] = self._module_to_ff(ffmodel, mod, args, node)
+            elif node.op == "call_function":
+                env[node.name] = self._function_to_ff(ffmodel, node, env)
+            elif node.op == "call_method":
+                env[node.name] = self._method_to_ff(ffmodel, node, env)
+            elif node.op == "get_attr":
+                env[node.name] = self._fetch_attr(node.target)
+            elif node.op == "output":
+                def collect(a):
+                    if isinstance(a, torch.fx.Node):
+                        outputs.append(_lift(ffmodel, env[a.name]))
+                    elif isinstance(a, (tuple, list)):
+                        for x in a:
+                            collect(x)
+                    elif isinstance(a, dict):
+                        for x in a.values():
+                            collect(x)
+                collect(node.args[0])
+        self._ffmodel = ffmodel
+        return outputs
+
+    def _fetch_attr(self, target: str):
+        obj = self.module
+        for part in target.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    def _module_to_ff(self, ff, mod, args, node):
+        tname = type(mod).__name__
+        spec = _MODULE_BUILDERS.get(tname)
+        if spec is None:
+            raise NotImplementedError(f"torch module {tname}")
+        if node.kwargs:
+            # builders bind positionally; dropping kwargs (e.g.
+            # MultiheadAttention's key_padding_mask) would lose semantics
+            raise NotImplementedError(
+                f"module {tname} called with kwargs {sorted(node.kwargs)}")
+        args = [_lift(ff, a) if _concrete_np(a) is not None else a
+                for a in args]
+        export, build, weights = spec
+        out = build(ff, export(mod), args, node.name)
+        if weights is not None:
+            w = weights(mod)
+            if w is not None:
+                self._weight_loads.append((ff.layers[-1], w))
+        return out
+
+    @staticmethod
+    def _resolve(node, env):
+        """Map fx Nodes to runtime values through nested args."""
+        args = torch.fx.node.map_arg(node.args, lambda n: env[n.name])
+        kwargs = torch.fx.node.map_arg(node.kwargs, lambda n: env[n.name])
+        return list(args), dict(kwargs)
+
+    def _function_to_ff(self, ff, node, env):
+        args, kwargs = self._resolve(node, env)
+        if not _any_ff(args) and not _any_ff(kwargs):
+            # fully concrete: evaluate eagerly with the real torch function
+            return node.target(*args, **kwargs)
+        t = node.target
+        return _replay_fn(ff, t if isinstance(t, str) else t.__name__, args,
+                          kwargs)
+
+    def _method_to_ff(self, ff, node, env):
+        args, kwargs = self._resolve(node, env)
+        if not _any_ff(args) and not _any_ff(kwargs):
+            return getattr(args[0], node.target)(*args[1:], **kwargs)
+        return _replay_fn(ff, node.target, args, kwargs)
+
+    def load_weights(self, ffmodel=None):
+        """Copy the torch module's parameters (Linear, LayerNorm,
+        Embedding) into the compiled model's params, in place, so the
+        optimizer state stays the model's own."""
+        model = ffmodel or self._ffmodel
+        if model is None or model.params is None:
+            raise RuntimeError("load_weights: torch_to_ff and compile() the "
+                               "model first")
+        with torch.no_grad():
+            for layer, arrays in self._weight_loads:
+                for wt, arr in zip(layer.weights, arrays):
+                    dst = model.params[layer.name][wt.name]
+                    if tuple(arr.shape) != tuple(dst.shape):
+                        raise ValueError(
+                            f"{layer.name}.{wt.name}: torch shape "
+                            f"{tuple(arr.shape)} != {tuple(dst.shape)}")
+                    dst.copy_(torch.as_tensor(arr))
+
+
+def _is_ff_tensor(v) -> bool:
+    return hasattr(v, "guid") and hasattr(v, "dims") and hasattr(v, "data_type")
+
+
+def _any_ff(v) -> bool:
+    if _is_ff_tensor(v):
+        return True
+    if isinstance(v, (list, tuple)):
+        return any(_any_ff(x) for x in v)
+    if isinstance(v, dict):
+        return any(_any_ff(x) for x in v.values())
+    return False
+
+
+def _concrete_np(v):
+    """numpy view of a concrete (non-FF) tensor-like value, else None."""
+    if isinstance(v, np.ndarray):
+        return v
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return None
+
+
+def _lift(ff, v):
+    """A graph tensor as it is; a concrete value would become a baked
+    constant tensor, which is not ported yet."""
+    if _is_ff_tensor(v):
+        return v
+    raise NotImplementedError(
+        f"a concrete {type(v).__name__} meets the graph: constant tensors "
+        "(create_constant_tensor) are not ported to flexflow_tpu_torch yet")
+
+
+def _is_scalar(v) -> bool:
+    return isinstance(v, (int, float))
+
+
+_UNARY_TARGETS = ("relu", "gelu", "sigmoid", "tanh", "elu", "exp", "sin",
+                  "cos", "rsqrt", "sqrt", "log")
+
+
+def _replay_fn(ff, target: str, args, kwargs):
+    """The call_function/call_method dispatch. Targets are normalized
+    names (`operator.add`/`torch.add` -> "add", methods keep their
+    string)."""
+    x = args[0] if args else None
+    if target in ("add", "sub", "subtract", "mul", "multiply", "truediv",
+                  "div", "divide"):
+        key = {"subtract": "sub", "multiply": "mul", "divide": "div"}.get(
+            target, target)
+        scalar_ops = {"add": ff.scalar_add, "sub": ff.scalar_sub,
+                      "mul": ff.scalar_multiply,
+                      "truediv": ff.scalar_true_divide,
+                      "div": ff.scalar_true_divide}
+        pair_ops = {"add": ff.add, "sub": ff.subtract, "mul": ff.multiply,
+                    "truediv": ff.divide, "div": ff.divide}
+        a, b = args[0], args[1]
+        if _is_scalar(b) and _is_ff_tensor(a):
+            return scalar_ops[key](a, float(b))
+        if _is_scalar(a) and _is_ff_tensor(b):
+            # reversed scalar op: c - t = -t + c; c / t via pow(-1)
+            if key == "add":
+                return ff.scalar_add(b, float(a))
+            if key == "mul":
+                return ff.scalar_multiply(b, float(a))
+            if key == "sub":
+                return ff.scalar_add(ff.scalar_multiply(b, -1.0), float(a))
+            return ff.scalar_multiply(ff.pow(b, -1.0), float(a))
+        return pair_ops[key](_lift(ff, a), _lift(ff, b))
+    if target in _UNARY_TARGETS:
+        return getattr(ff, target)(x)
+    if target == "softmax":
+        dim = kwargs.get("dim", args[1] if len(args) > 1 else -1)
+        return ff.softmax(x, axis=dim if dim is not None else -1)
+    if target in ("min", "max") and len(args) > 1:
+        op = ff.min if target == "min" else ff.max
+        return op(_lift(ff, x), _lift(ff, args[1]))
+    if target == "neg":
+        return ff.scalar_multiply(x, -1.0)
+    if target == "abs":
+        return ff.max(x, ff.scalar_multiply(x, -1.0, inplace=False))
+    if target == "pow":
+        return ff.pow(x, float(args[1]))
+    if target == "dropout":
+        p = kwargs.get("p", args[1] if len(args) > 1 else 0.5)
+        training = kwargs.get("training", args[2] if len(args) > 2 else True)
+        if not training:  # F.dropout(..., training=False) is a no-op
+            return x
+        return ff.dropout(x, rate=float(p))
+    if target in ("contiguous", "detach", "clone", "identity"):
+        return x
+    if target == "getitem":
+        if isinstance(x, (list, tuple)):
+            return x[args[1]]
+        owner_op = getattr(getattr(x, "owner_layer", None), "op_type", None)
+        if args[1] == 0 and owner_op == OperatorType.OP_MULTIHEAD_ATTENTION:
+            # MultiheadAttention's (output, weights) maps to its single
+            # output tensor; true tensor indexing stays a loud error
+            return x
+        raise NotImplementedError(f"getitem[{args[1]}] on single-output op")
+    raise NotImplementedError(f"torch call {target}")

@@ -1,9 +1,11 @@
 """Flash attention: the CUDA kernels, their plain versions and the
 autograd join.
 
-The PyTorch counterpart of flexflow_tpu/kernels/attention.py without
-dropout (the dropout hash `_mix32`/`_keep_bits`/`_keep_tile` is not
-ported yet).
+The PyTorch counterpart of flexflow_tpu/kernels/attention.py, with its
+attention dropout: the counter-based keep-mask (`_mix32`, `_keep_bits`,
+`_drop_threshold`, `dropout_seeds`, `attention_dropout_mask`), rebuilt
+per tile inside both CUDA kernels (csrc/common.cuh) and whole in the
+plain versions.
 
 Operands are folded (batch*heads, seq, head_dim), as the MHA op's fast
 path projects them. `_flash_fwd_folded` returns O and the per-row
@@ -24,6 +26,7 @@ import math
 
 import torch
 
+from ..core.seeds import mix64
 from . import build
 
 NEG_INF = -1e30
@@ -34,11 +37,13 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 _FWD_SIGNATURE = {
     "ff_flash_fwd": [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
-    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+    + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_uint32] * 3
+    + [ctypes.c_float, ctypes.c_void_p],
 }
 _BWD_SIGNATURE = {
     "ff_flash_bwd": [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
-    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+    + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_uint32] * 3
+    + [ctypes.c_float, ctypes.c_void_p],
 }
 
 
@@ -52,6 +57,81 @@ def _fold_to_bhsd(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
     return x.reshape(b, h, s, d).permute(0, 2, 1, 3)
 
 
+# ---------------------------------------------------------------------------
+# Counter-based dropout bits
+# ---------------------------------------------------------------------------
+# The mask is a pure function of (seeds, element index): score element
+# (row, q, k) hashes its flat index (row*sq + q)*sk + k, taken mod 2^32,
+# under two uint32 seeds, and is kept iff the hash clears the drop
+# threshold. The kernels rebuild it per tile from the tile's offsets
+# (csrc/common.cuh, native uint32); the plain versions and the dense path
+# build it whole here. torch has no uint32 arithmetic, so the hash runs in
+# int64 with every value kept in [0, 2^32): products go through `_mul32`,
+# and a masked value is non-negative, so `>>` is the logical shift.
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a, c: int):
+    """a * c mod 2^32 for int64 `a` in [0, 2^32) and a constant c < 2^32,
+    in two 16-bit halves of c so that no product leaves int64."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(h):
+    """murmur3-style 32-bit finalizer (the JAX package's `_mix32`)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    return h ^ (h >> 16)
+
+
+def _keep_bits(idx, s0: int, s1: int):
+    """uint32 hash of flat element indices (int64, in [0, 2^32)) under two
+    uint32 seeds."""
+    h = _mix32(_mul32(idx, 0x9E3779B1) ^ s0)
+    return _mix32(h ^ s1)
+
+
+def _drop_threshold(rate: float) -> int:
+    """Keep an element iff hash >= threshold: P(drop) == rate."""
+    return min(0xFFFFFFFF, int(round(float(rate) * 4294967296.0)))
+
+
+def dropout_seeds(rng: int):
+    """Two uint32 seeds for the counter-based mask from an op's seed
+    material (an int, core/seeds.py): deterministic per seed."""
+    h = mix64(int(rng))
+    return h & _M32, h >> 32
+
+
+def attention_dropout_mask(seeds, rate: float, bh: int, sq: int, sk: int, *,
+                           device=None, _row0: int = 0):
+    """The FULL (bh, sq, sk) bool keep-mask the flash kernels apply
+    blockwise, on `device` (the CPU by default). Rows follow the folded
+    (batch*heads, b-major) layout; `_row0` offsets them, so rows
+    [r0, r0 + bh) of a larger launch can be rebuilt alone."""
+    if rate <= 0.0:
+        return torch.ones((bh, sq, sk), dtype=torch.bool, device=device)
+    s0, s1 = int(seeds[0]) & _M32, int(seeds[1]) & _M32
+    row = torch.arange(_row0, _row0 + bh, device=device)
+    qp = torch.arange(sq, device=device)
+    kp = torch.arange(sk, device=device)
+    base = (_mul32(row, sq)[:, None] + qp[None, :]) & _M32     # (bh, sq)
+    idx = (_mul32(base, sk)[:, :, None] + kp) & _M32           # (bh, sq, sk)
+    return _keep_bits(idx, s0, s1) >= _drop_threshold(rate)
+
+
+def _dropout_args(dropout: float, seeds):
+    """(s0, s1, threshold, inv_keep) as the kernels take them; threshold 0
+    launches the dropout-free variant."""
+    if dropout <= 0.0:
+        return 0, 0, 0, 1.0
+    return (int(seeds[0]) & _M32, int(seeds[1]) & _M32,
+            _drop_threshold(dropout), 1.0 / (1.0 - dropout))
+
+
 def flash_supported(seq_q: int, seq_k: int, head_dim: int = 64,
                     v_head_dim: int = 64) -> bool:
     """Whether the flash kernel takes these shapes. It streams K/V through
@@ -62,27 +142,41 @@ def flash_supported(seq_q: int, seq_k: int, head_dim: int = 64,
             and all(1 <= d <= _MAX_HEAD_DIM for d in (head_dim, v_head_dim)))
 
 
-def flash_fwd_plain(qf, kf, vf, *, causal: bool):
-    """The JAX kernel's arithmetic, whole rows at once: S = Q K^T / sqrt(d)
-    in f32, causal mask with NEG_INF (key <= query, top-left aligned), row
-    softmax with l clamped at 1e-30, P rounded to the input dtype before
-    P V. Returns (O in the input dtype, lse (bh, 1, sq) f32)."""
-    d = qf.shape[-1]
+def _scores(qf, kf, causal: bool):
+    """S = Q K^T / sqrt(d) in f32, causal mask with NEG_INF (key <= query,
+    top-left aligned)."""
     s = torch.matmul(qf.float(), kf.float().transpose(1, 2)) \
-        * (1.0 / math.sqrt(d))
+        * (1.0 / math.sqrt(qf.shape[-1]))
     if causal:
         sq, sk = s.shape[-2:]
         keep = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril()
         s = s.masked_fill(~keep, NEG_INF)
+    return s
+
+
+def flash_fwd_plain(qf, kf, vf, *, causal: bool, dropout: float = 0.0,
+                    seeds=None, _row0: int = 0):
+    """The JAX kernel's arithmetic, whole rows at once: S, row softmax with
+    l clamped at 1e-30, P rounded to the input dtype before P V. Dropout
+    (rate `dropout` > 0, mask `attention_dropout_mask(seeds, ...)` from row
+    `_row0` on) scales the kept P by 1/(1 - rate) and zeroes the rest
+    after l is taken and before P is rounded; l and lse stay undropped.
+    Returns (O in the input dtype, lse (bh, 1, sq) f32)."""
+    s = _scores(qf, kf, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if dropout > 0.0:
+        keep = attention_dropout_mask(seeds, dropout, *s.shape,
+                                      device=s.device, _row0=_row0)
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout)), 0.0)
     o = torch.matmul(p.to(qf.dtype).float(), vf.float()) / l
     lse = (m + torch.log(l)).transpose(1, 2)
     return o.to(qf.dtype), lse.contiguous()
 
 
-def _flash_fwd_cuda(qf, kf, vf, *, causal: bool):
+def _flash_fwd_cuda(qf, kf, vf, *, causal: bool, dropout: float = 0.0,
+                    seeds=None):
     what = "flash_fwd"
     build.require_cuda_operands(what, (qf, kf, vf), _KERNEL_DTYPES)
     if not (qf.dtype == kf.dtype == vf.dtype):
@@ -103,49 +197,59 @@ def _flash_fwd_cuda(qf, kf, vf, *, causal: bool):
                          f"bh <= 65535)")
     o = torch.empty((bh, sq, dv), dtype=qf.dtype, device=qf.device)
     lse = torch.empty((bh, 1, sq), dtype=torch.float32, device=qf.device)
+    s0, s1, threshold, inv_keep = _dropout_args(dropout, seeds)
     lib = build.load(what, _FWD_SIGNATURE)
     rc = lib.ff_flash_fwd(
         qf.device.index or 0, build.DTYPE_CODES[str(qf.dtype)[6:]],
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bh, sq, sk, d, dv, int(causal),
-        1.0 / math.sqrt(d), build.stream_ptr(qf))
-    build.check_launch(rc, what)
+        1.0 / math.sqrt(d), s0, s1, threshold, inv_keep,
+        build.stream_ptr(qf))
+    build.check_launch(rc, f"{what}_dropout" if threshold else what)
     return o, lse
 
 
-def _flash_fwd_folded(qf, kf, vf, *, causal: bool):
+def _flash_fwd_folded(qf, kf, vf, *, causal: bool, dropout: float = 0.0,
+                      seeds=None):
     """Core forward on (b*h, s, d) folded operands -> (O, lse)."""
     if qf.device.type == "cpu":
-        return flash_fwd_plain(qf, kf, vf, causal=causal)
-    return _flash_fwd_cuda(qf, kf, vf, causal=causal)
+        return flash_fwd_plain(qf, kf, vf, causal=causal, dropout=dropout,
+                               seeds=seeds)
+    return _flash_fwd_cuda(qf, kf, vf, causal=causal, dropout=dropout,
+                           seeds=seeds)
 
 
-def flash_bwd_plain(qf, kf, vf, of, lse, dof, *, causal: bool):
+def flash_bwd_plain(qf, kf, vf, of, lse, dof, *, causal: bool,
+                    dropout: float = 0.0, seeds=None, _row0: int = 0):
     """The JAX backward kernel's arithmetic, whole rows at once: delta =
-    rowsum(dO * O), S = Q K^T / sqrt(d) and dP = dO V^T in f32 (causal mask
-    with NEG_INF, so a masked P is exactly 0), P = exp(S - lse), dS = P *
-    (dP - delta); dS and P are rounded to the input dtype before dq = dS K
-    * scale, dk = dS^T Q * scale and dv = P^T dO, which accumulate in f32
-    and are returned in the input dtype."""
+    rowsum(dO * O), S and dP = dO V^T in f32 (a masked P is exactly 0),
+    P = exp(S - lse). Dropout zeroes dP and P where the forward's mask
+    dropped and scales the rest by 1/(1 - rate); dS = P * (dP - delta)
+    takes the undropped P. dS and the (dropped) P are rounded to the input
+    dtype before dq = dS K * scale, dk = dS^T Q * scale and dv = P^T dO,
+    which accumulate in f32 and are returned in the input dtype."""
     dt = qf.dtype
     scale = 1.0 / math.sqrt(qf.shape[-1])
-    q32, k32, v32, do32 = (x.float() for x in (qf, kf, vf, dof))
+    k32, v32, do32 = (x.float() for x in (kf, vf, dof))
     delta = (do32 * of.float()).sum(-1, keepdim=True)
-    s = torch.matmul(q32, k32.transpose(1, 2)) * scale
-    if causal:
-        sq, sk = s.shape[-2:]
-        keep = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril()
-        s = s.masked_fill(~keep, NEG_INF)
-    p = torch.exp(s - lse.transpose(1, 2))
+    p = torch.exp(_scores(qf, kf, causal) - lse.transpose(1, 2))
     dp = torch.matmul(do32, v32.transpose(1, 2))
+    pb = p
+    if dropout > 0.0:
+        keep = attention_dropout_mask(seeds, dropout, *p.shape,
+                                      device=p.device, _row0=_row0)
+        inv_keep = 1.0 / (1.0 - dropout)
+        dp = torch.where(keep, dp * inv_keep, 0.0)
+        pb = torch.where(keep, p * inv_keep, 0.0)
     ds = (p * (dp - delta)).to(dt).float()
     dq = torch.matmul(ds, k32) * scale
-    dk = torch.matmul(ds.transpose(1, 2), q32) * scale
-    dv = torch.matmul(p.to(dt).float().transpose(1, 2), do32)
+    dk = torch.matmul(ds.transpose(1, 2), qf.float()) * scale
+    dv = torch.matmul(pb.to(dt).float().transpose(1, 2), do32)
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
-def _flash_bwd_cuda(qf, kf, vf, of, lse, dof, *, causal: bool):
+def _flash_bwd_cuda(qf, kf, vf, of, lse, dof, *, causal: bool,
+                    dropout: float = 0.0, seeds=None):
     what = "flash_bwd"
     ops = (qf, kf, vf, of, dof)
     build.require_cuda_operands(what, ops + (lse,), _KERNEL_DTYPES)
@@ -172,33 +276,40 @@ def _flash_bwd_cuda(qf, kf, vf, of, lse, dof, *, causal: bool):
                          f"bh <= 65535)")
     dq, dk, dvo = (torch.empty_like(x) for x in (qf, kf, vf))
     delta = torch.empty((bh, sq), dtype=torch.float32, device=qf.device)
+    s0, s1, threshold, inv_keep = _dropout_args(dropout, seeds)
     lib = build.load(what, _BWD_SIGNATURE)
     rc = lib.ff_flash_bwd(
         qf.device.index or 0, build.DTYPE_CODES[str(qf.dtype)[6:]],
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), of.data_ptr(),
         dof.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dvo.data_ptr(), bh, sq, sk, d, dv, int(causal),
-        1.0 / math.sqrt(d), build.stream_ptr(qf))
-    build.check_launch(rc, what)
+        1.0 / math.sqrt(d), s0, s1, threshold, inv_keep,
+        build.stream_ptr(qf))
+    build.check_launch(rc, f"{what}_dropout" if threshold else what)
     return dq, dk, dvo
 
 
-def _flash_bwd_folded(qf, kf, vf, of, lse, dof, *, causal: bool):
+def _flash_bwd_folded(qf, kf, vf, of, lse, dof, *, causal: bool,
+                      dropout: float = 0.0, seeds=None):
     """Core backward on (b*h, s, d) folded operands -> (dq, dk, dv)."""
     if qf.device.type == "cpu":
-        return flash_bwd_plain(qf, kf, vf, of, lse, dof, causal=causal)
-    return _flash_bwd_cuda(qf, kf, vf, of, lse, dof, causal=causal)
+        return flash_bwd_plain(qf, kf, vf, of, lse, dof, causal=causal,
+                               dropout=dropout, seeds=seeds)
+    return _flash_bwd_cuda(qf, kf, vf, of, lse, dof, causal=causal,
+                           dropout=dropout, seeds=seeds)
 
 
 class FlashAttentionFolded(torch.autograd.Function):
     """The counterpart of the JAX package's `_flash_folded_core` custom
-    VJP: the forward kernel saves q, k, v, O and lse; the backward kernel
-    consumes them with dO."""
+    VJP: the forward kernel saves q, k, v, O and lse, and keeps the
+    dropout rate and seeds, so the backward kernel rebuilds the same mask
+    as it consumes them with dO."""
 
     @staticmethod
-    def forward(ctx, qf, kf, vf, causal):
-        o, lse = _flash_fwd_folded(qf, kf, vf, causal=causal)
-        ctx.causal = causal
+    def forward(ctx, qf, kf, vf, causal, dropout, seeds):
+        o, lse = _flash_fwd_folded(qf, kf, vf, causal=causal,
+                                   dropout=dropout, seeds=seeds)
+        ctx.causal, ctx.dropout, ctx.seeds = causal, dropout, seeds
         ctx.save_for_backward(qf, kf, vf, o, lse)
         return o
 
@@ -207,16 +318,23 @@ class FlashAttentionFolded(torch.autograd.Function):
         qf, kf, vf, o, lse = ctx.saved_tensors
         # the output projection's backward need not hand dO over contiguous
         dq, dk, dv = _flash_bwd_folded(qf, kf, vf, o, lse, dof.contiguous(),
-                                       causal=ctx.causal)
-        return dq, dk, dv, None
+                                       causal=ctx.causal, dropout=ctx.dropout,
+                                       seeds=ctx.seeds)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention_folded(qf, kf, vf, causal: bool = False):
+def flash_attention_folded(qf, kf, vf, causal: bool = False, *,
+                           dropout: float = 0.0, seeds=None):
     """Exact attention on PRE-FOLDED (batch*heads, seq, head_dim) operands;
-    returns O. Where a gradient is wanted it goes through
-    `FlashAttentionFolded`; under no_grad (serving) the forward runs alone
-    and nothing is saved."""
+    returns O. `dropout` > 0 applies the counter-based keep-mask of
+    `seeds` (two uint32s, `dropout_seeds(rng)`) inside the kernels. Where a
+    gradient is wanted it goes through `FlashAttentionFolded`; under
+    no_grad (serving) the forward runs alone and nothing is saved."""
+    dropout = float(dropout)
+    if dropout > 0.0 and seeds is None:
+        raise ValueError("flash dropout needs seeds (dropout_seeds(rng))")
     if torch.is_grad_enabled() and any(x.requires_grad
                                        for x in (qf, kf, vf)):
-        return FlashAttentionFolded.apply(qf, kf, vf, causal)
-    return _flash_fwd_folded(qf, kf, vf, causal=causal)[0]
+        return FlashAttentionFolded.apply(qf, kf, vf, causal, dropout, seeds)
+    return _flash_fwd_folded(qf, kf, vf, causal=causal, dropout=dropout,
+                             seeds=seeds)[0]

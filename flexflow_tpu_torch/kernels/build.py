@@ -115,8 +115,10 @@ DTYPE_CODES = {"float32": 0, "float16": 1, "bfloat16": 2}
 
 # Launches per kernel. A wrapper adds one where it launches its kernel and
 # nowhere else (never for the plain version), so a run can prove which
-# kernels its path went through.
-launch_counts: Dict[str, int] = {n: 0 for n in KERNEL_SOURCES}
+# kernels its path went through. The flash kernels' dropout variants (a
+# template flag of the same sources) count apart.
+KERNELS = KERNEL_SOURCES + ("flash_fwd_dropout", "flash_bwd_dropout")
+launch_counts: Dict[str, int] = {n: 0 for n in KERNELS}
 
 
 def reset_launch_counts() -> None:

@@ -14,9 +14,12 @@ as in the JAX package: "auto" (unset: flash on CUDA, dense on the CPU),
 "flash" (the folded path on any device; on the CPU its wrappers run the
 kernels' plain versions) or "dense" (the masked reference path, on any
 device); "chunked", "ring" and "ulysses" are not ported and raise.
-Dropout is not ported yet: where the JAX package would apply it
-(dropout > 0, training, an rng given) `_forward` raises; serving with
-dropout > 0 runs as in inference, as in JAX.
+Attention dropout applies where the JAX package applies it (dropout > 0,
+training, an rng given): the folded path hands the rate and
+`dropout_seeds(rng)` to the flash kernels, which rebuild the
+counter-based keep-mask per tile; the dense path multiplies its
+probabilities by the same mask built whole (`attention_dropout_mask`),
+so both paths drop the same elements. Serving never drops.
 
 `_forward_decode` is the serving step (executor.build_decode): it appends
 this block's K/V to the op's cache IN PLACE (the cache is the op's own
@@ -106,15 +109,26 @@ def _project_out(params, weights, spec, attn, wo, dtype):
     return out
 
 
-def _dense_attention(q, k, v, keep):
+def _dense_attention(q, k, v, keep, dropout: float = 0.0, seeds=None):
     """Masked softmax attention on (b, s, h, d) operands: scores in f32,
     masked with the f32 minimum where `keep` is False, probs in q's dtype
-    (the JAX package's dense path). `keep` broadcasts to (b, h, s, t)."""
+    (the JAX package's dense path). `keep` broadcasts to (b, h, s, t).
+    `dropout` > 0 zeroes the probs that `attention_dropout_mask(seeds)`
+    drops and scales the rest by 1/(1 - dropout)."""
+    from ..kernels.attention import attention_dropout_mask
+
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     if keep is not None:
         scores = scores.masked_fill(~keep, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if dropout > 0.0:
+        b, h, s, t = probs.shape
+        drop_keep = attention_dropout_mask(seeds, dropout, b * h, s, t,
+                                           device=probs.device)
+        probs = torch.where(drop_keep.view(b, h, s, t),
+                            probs * (1.0 / (1.0 - dropout)), 0.0
+                            ).to(probs.dtype)
     return torch.einsum("bhst,bthd->bshd", probs.float(),
                         v.float()).to(q.dtype)
 
@@ -133,14 +147,14 @@ def _attention_impl() -> str:
 
 
 def _forward(params: MultiHeadAttentionParams, weights, inputs, ctx):
-    from ..kernels.attention import flash_attention_folded
+    from ..kernels import attention as katt
 
-    if params.dropout > 0.0 and ctx.training and ctx.rng is not None:
-        raise NotImplementedError(
-            f"MHA dropout {params.dropout} in training: the dropout hash "
-            "(_mix32/_keep_bits/_keep_tile) is not ported to "
-            "flexflow_tpu_torch yet; set dropout=0")
     impl = _attention_impl()
+    use_dropout = params.dropout > 0.0 and ctx.training and ctx.rng is not None
+    # looked up at call time, as the JAX package does, so a test can
+    # inject the same seeds into both packages
+    seeds = katt.dropout_seeds(ctx.rng) if use_dropout else None
+    rate = params.dropout if use_dropout else 0.0
     (q_in, k_in, v_in), (wq, wk, wv, wo) = _cast_inputs(
         inputs, weights, ctx.compute_dtype)
     b, seq_len, _ = q_in.shape
@@ -153,8 +167,9 @@ def _forward(params: MultiHeadAttentionParams, weights, inputs, ctx):
         qf = torch.einsum("bse,ehd->bhsd", q_in, wq).reshape(b * h, seq_len, dqk)
         kf = torch.einsum("bse,ehd->bhsd", k_in, wk).reshape(b * h, kv_len, dqk)
         vf = torch.einsum("bse,ehd->bhsd", v_in, wv).reshape(b * h, kv_len, dv)
-        attn = flash_attention_folded(qf.contiguous(), kf.contiguous(),
-                                      vf.contiguous(), params.causal)
+        attn = katt.flash_attention_folded(
+            qf.contiguous(), kf.contiguous(), vf.contiguous(), params.causal,
+            dropout=rate, seeds=seeds)
         return [_project_out(params, weights, "bhsd,hde->bse",
                              attn.view(b, h, seq_len, dv), wo, q_in.dtype)]
     q = torch.einsum("bse,ehd->bshd", q_in, wq)
@@ -164,7 +179,7 @@ def _forward(params: MultiHeadAttentionParams, weights, inputs, ctx):
     if params.causal:
         keep = torch.ones(seq_len, kv_len, dtype=torch.bool,
                           device=q.device).tril()
-    attn = _dense_attention(q, k, v, keep)
+    attn = _dense_attention(q, k, v, keep, rate, seeds)
     return [_project_out(params, weights, "bshd,hde->bse", attn, wo,
                          q_in.dtype)]
 

@@ -11,8 +11,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
-import torch
-
 from ..ff_types import DataType, OperatorType
 
 
@@ -86,10 +84,12 @@ class FwdCtx:
     compute_dtype: Optional[object] = None  # torch dtype autocast target
     # the PCG op's name, for per-layer diagnostics ("" for raw calls)
     op_name: str = ""
-    # the step's random stream in training (the JAX context's rng key)
-    rng: Optional[torch.Generator] = None
+    # this op's seed material in training (the JAX context's folded rng
+    # key): a host int, fold_in(step seed, compute index) (core/seeds.py)
+    rng: Optional[int] = None
 
 
 def ensure_ops_loaded():
     """Import all op modules so their register_op calls run."""
-    from . import attention, embedding, linear, softmax  # noqa: F401
+    from . import (attention, dropout, elementwise, embedding,  # noqa: F401
+                   linear, normalization, softmax)

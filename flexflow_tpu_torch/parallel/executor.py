@@ -17,6 +17,12 @@ The train step differentiates through detached copies of the weights
 (`detach().requires_grad_()` leaves, `torch.autograd.grad`) and then
 updates the weight tensors themselves in place under no_grad, so the
 params dict a model serves from is the one training updates.
+
+Randomness (dropout) follows the JAX package's key structure on host
+integers (core/seeds.py): a training step draws one seed from the
+caller's CPU generator, and `apply` hands each compute op
+`fold_in(step seed, compute index)`, so an op's draws do not depend on
+the order in which other ops draw.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 
 from ..core.initializers import get_initializer
 from ..core.losses import get_loss_fn
+from ..core.seeds import fold_in, step_seed
 from ..ff_types import LossType, OperatorType
 from ..ops.attention import init_decode_cache
 from ..ops.registry import FwdCtx, get_op_def
@@ -101,7 +108,7 @@ class PCGExecutor:
         return TrainState(params=params, opt_state=opt_state)
 
     def _ctx(self, op_name: str = "", training: bool = False,
-             rng: Optional[torch.Generator] = None) -> FwdCtx:
+             rng: Optional[int] = None) -> FwdCtx:
         return FwdCtx(training=training, compute_dtype=self.compute_dtype,
                       op_name=op_name, rng=rng)
 
@@ -122,16 +129,17 @@ class PCGExecutor:
 
     # -- forward -----------------------------------------------------------
     def apply(self, params: Params, inputs: Dict[int, torch.Tensor], *,
-              training: bool = False,
-              rng: Optional[torch.Generator] = None
+              training: bool = False, rng: Optional[int] = None
               ) -> Dict[int, torch.Tensor]:
-        """Walk the PCG and compute every tensor. Returns guid -> value."""
+        """Walk the PCG and compute every tensor. Returns guid -> value.
+        `rng` is the step's seed: op i of the walk gets fold_in(rng, i)."""
         vals = dict(inputs)
-        for op in self.topo:
+        for compute_idx, op in enumerate(self.topo):
             opdef = get_op_def(op.op_type)
+            op_rng = fold_in(rng, compute_idx) if rng is not None else None
             outs = opdef.forward(op.params, params.get(op.name, {}),
                                  [vals[t.guid] for t in op.inputs],
-                                 self._ctx(op.name, training, rng))
+                                 self._ctx(op.name, training, op_rng))
             for t, o in zip(op.outputs, outs):
                 vals[t.guid] = o
         return vals
@@ -161,9 +169,10 @@ class PCGExecutor:
                 for op, gs in grads.items()}
 
     def _loss_and_grads(self, params: Params, batch_inputs, labels,
-                        rng: Optional[torch.Generator]):
-        """(loss, logits, grads) of the training forward; grads are cast
-        by `_cast_grads`. The weights themselves are not touched."""
+                        rng: Optional[int]):
+        """(loss, logits, grads) of the training forward under the step
+        seed `rng` (None: no op draws); grads are cast by `_cast_grads`.
+        The weights themselves are not touched."""
         names = [(op, n) for op, ws in params.items() for n in ws]
         leaves = {op: {n: w.detach().requires_grad_() for n, w in ws.items()}
                   for op, ws in params.items()}
@@ -181,7 +190,9 @@ class PCGExecutor:
 
     def build_train_step(self) -> Callable:
         """step(state, batch_inputs, labels, rng=None) -> (state,
-        partials): one forward, backward and optimizer update. The weights
+        partials): one forward, backward and optimizer update. `rng` is a
+        CPU torch.Generator the step draws its seed from (the JAX step's
+        key), or that seed as an int; None draws nothing. The weights
         and optimizer buffers are updated in place, so the returned state
         holds the same params dict; partials are the metrics' summed
         partials plus "loss", 0-d tensors left on the device."""
@@ -190,7 +201,7 @@ class PCGExecutor:
         def step(state: TrainState, batch_inputs, labels, rng=None):
             labels = self._as_labels(labels)
             loss, logits, grads = self._loss_and_grads(
-                state.params, batch_inputs, labels, rng)
+                state.params, batch_inputs, labels, step_seed(rng))
             params, opt_state = self.optimizer.update(state.params, grads,
                                                       state.opt_state)
             with torch.no_grad():

@@ -25,6 +25,10 @@ Tolerances, |kernel - plain| <= atol + rtol * |plain|:
     (atol 3e-3 in bf16, 5e-4 in fp16), and the output may round one step
     apart (rtol 2^-7 in bf16, 2^-10 in fp16);
   * flash backward, f32: summation order only (atol 2e-6, rtol 1e-5).
+The dropout variants keep those limits: kernel and plain version scale
+the kept P (and dP) by 1/(1 - rate) before they round, and the mask is
+exact (with V = I the forward's O is exactly 0 where an element was
+dropped, which checks it bit for bit).
 """
 import numpy as np
 import pytest
@@ -245,3 +249,73 @@ def test_bogus_attention_impl_raises_on_the_card(gen, monkeypatch):
     monkeypatch.setenv("FF_ATTENTION_IMPL", "ring")
     with pytest.raises(NotImplementedError):
         gm.executor.build_grad_step()(gm.params, [x], x)
+
+
+SEEDS = (0x9E3779B9, 0x01234567)
+
+
+@pytest.mark.parametrize("sq,sk,d,dv,causal,rate,dtype", [
+    (128, 128, 64, 64, False, 0.1, torch.bfloat16),
+    (100, 300, 64, 32, True, 0.5, torch.bfloat16),
+    (96, 96, 256, 256, True, 0.1, torch.bfloat16),  # 2 warps a block (bwd)
+    (128, 128, 64, 64, True, 0.1, torch.float16),
+    (200, 200, 40, 24, True, 0.3, torch.bfloat16),  # head dims not 16k
+    (90, 130, 16, 16, False, 0.5, torch.float32)])
+def test_flash_dropout_kernels_match_plain(gen, sq, sk, d, dv, causal, rate,
+                                           dtype):
+    q, k, v = _randn(gen, 4, sq, d, dtype=dtype), \
+        _randn(gen, 4, sk, d, dtype=dtype), _randn(gen, 4, sk, dv, dtype=dtype)
+    do = _randn(gen, 4, sq, dv, dtype=dtype)
+    kw = dict(causal=causal, dropout=rate, seeds=SEEDS)
+    before = dict(build.launch_counts)
+    o, lse = ka._flash_fwd_folded(q, k, v, **kw)
+    po, plse = ka.flash_fwd_plain(q, k, v, **kw)
+    got = ka._flash_bwd_folded(q, k, v, o, lse, do, **kw)
+    ref = ka.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts["flash_fwd_dropout"] == \
+        before["flash_fwd_dropout"] + 1
+    assert build.launch_counts["flash_bwd_dropout"] == \
+        before["flash_bwd_dropout"] + 1
+    assert build.launch_counts["flash_fwd"] == before["flash_fwd"]
+    f32 = dtype == torch.float32
+    _assert_close(o, po, "flash_f32" if f32 else "flash")
+    assert (lse - plse).abs().max().item() <= LSE_ATOL
+    which = {torch.float32: "flash_bwd_f32", torch.float16: "flash_bwd_f16",
+             torch.bfloat16: "flash_bwd"}[dtype]
+    for g, r in zip(got, ref):
+        _assert_close(g, r, which)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 40)])
+def test_flash_forward_mask_is_the_hash_bit_for_bit(gen, dtype, d):
+    """With V = I (dv = sk) each output column is one key's probability:
+    exactly 0 where the kernel dropped it. The zeros must be the plain
+    mask's drops, in the WMMA kernel and the CUDA-core one."""
+    bh, sq, sk = 6, 96, 128
+    q, k = _randn(gen, bh, sq, d, dtype=dtype), _randn(gen, bh, sk, d,
+                                                        dtype=dtype)
+    v = torch.eye(sk, dtype=dtype, device="cuda").expand(bh, sk, sk)
+    o, _ = ka._flash_fwd_folded(q, k, v.contiguous(), causal=False,
+                                dropout=0.3, seeds=SEEDS)
+    keep = ka.attention_dropout_mask(SEEDS, 0.3, bh, sq, sk, device="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(o != 0, keep)
+
+
+def test_equal_seeds_give_equal_bits_and_other_seeds_other_bits(gen):
+    q, k, v, do = (_randn(gen, 8, 128, 64) for _ in range(4))
+    kw = dict(causal=False, dropout=0.1, seeds=SEEDS)
+    o1, lse1 = ka._flash_fwd_folded(q, k, v, **kw)
+    o2, _ = ka._flash_fwd_folded(q, k, v, **kw)
+    g1 = ka._flash_bwd_folded(q, k, v, o1, lse1, do, **kw)
+    g2 = ka._flash_bwd_folded(q, k, v, o1, lse1, do, **kw)
+    assert torch.equal(o1, o2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    kw["seeds"] = (SEEDS[0], SEEDS[1] + 1)
+    o3, _ = ka._flash_fwd_folded(q, k, v, **kw)
+    g3 = ka._flash_bwd_folded(q, k, v, o1, lse1, do, **kw)
+    assert not torch.equal(o1, o3)
+    assert not any(torch.equal(a, b) for a, b in zip(g1, g3))

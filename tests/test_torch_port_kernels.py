@@ -164,8 +164,11 @@ def test_cpu_tensors_never_launch_a_kernel():
     leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
     tattn.flash_attention_folded(*leaves, True).sum().backward()
     tdec.paged_flash_decode(*map(torch.from_numpy, _paged_inputs()))
+    tattn.flash_attention_folded(*leaves, True, dropout=0.5,
+                                 seeds=(1, 2)).sum().backward()
     assert build.launch_counts == {"flash_fwd": 0, "flash_bwd": 0,
-                                   "paged_decode": 0}
+                                   "paged_decode": 0, "flash_fwd_dropout": 0,
+                                   "flash_bwd_dropout": 0}
 
 
 def test_kernel_build_is_keyed_by_source_and_flags():
@@ -260,9 +263,9 @@ def test_flash_function_hands_the_forward_lse_to_the_backward(monkeypatch):
     seen = {}
     real = tattn._flash_bwd_folded
 
-    def spy(qf, kf, vf, of, lse, dof, *, causal):
-        seen.update(lse=lse, o=of, dof=dof, causal=causal)
-        return real(qf, kf, vf, of, lse, dof, causal=causal)
+    def spy(qf, kf, vf, of, lse, dof, *, causal, **dropout):
+        seen.update(lse=lse, o=of, dof=dof, causal=causal, **dropout)
+        return real(qf, kf, vf, of, lse, dof, causal=causal, **dropout)
 
     monkeypatch.setattr(tattn, "_flash_bwd_folded", spy)
     q, k, v = (torch.from_numpy(x).requires_grad_()
@@ -272,6 +275,7 @@ def test_flash_function_hands_the_forward_lse_to_the_backward(monkeypatch):
     ref_o, ref_lse = tattn._flash_fwd_folded(q.detach(), k.detach(),
                                              v.detach(), causal=True)
     assert seen["causal"] is True and seen["dof"].is_contiguous()
+    assert seen["dropout"] == 0.0 and seen["seeds"] is None
     assert torch.equal(seen["lse"], ref_lse) and seen["lse"].shape == (4, 1, 16)
     assert torch.equal(seen["o"], ref_o)
 

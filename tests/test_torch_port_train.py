@@ -31,6 +31,7 @@ from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel,
                                 SGDOptimizer)
 from flexflow_tpu_torch.core import losses as tlosses
 from flexflow_tpu_torch.core import metrics as tmetrics
+from flexflow_tpu_torch.core.seeds import step_seed
 from flexflow_tpu_torch.ff_types import LossType, MetricsType
 from flexflow_tpu_torch.models import build_transformer
 from flexflow_tpu_torch.runtime.weights import params_from_numpy
@@ -235,15 +236,29 @@ def _mha_model(dropout):
 
 
 def test_training_with_dropout_raises_where_jax_would_apply_it():
+    """Training with MHA dropout, which raised until the dropout hash was
+    ported, now drops where JAX would apply it (training with an rng):
+    each step draws its seed from the generator it is handed, so the same
+    generator state gives the same step and the next draw another mask.
+    Without an rng (the gradient step) or outside training nothing is
+    dropped."""
     m = _mha_model(0.1)
     (x, y), = _batches(6, 1)
-    with pytest.raises(NotImplementedError, match="dropout hash"):
-        m.fit(x, y, verbose=False)
-    with pytest.raises(NotImplementedError, match="dropout hash"):
-        m.executor.build_train_step()(m.state, [x], y, torch.Generator())
-    # JAX applies no dropout without an rng (its gradient step passes
-    # none) or outside training: both run
-    m.executor.build_grad_step()(m.params, [x], y)
+    m.fit(x, y, verbose=False)
+    assert m.state.step == 1
+    ex = m.executor
+    labels = ex._as_labels(y)
+    seed = step_seed(torch.Generator().manual_seed(0))
+    g1 = ex._loss_and_grads(m.params, [x], labels, seed)[2]
+    g1b = ex._loss_and_grads(m.params, [x], labels, seed)[2]
+    g2 = ex._loss_and_grads(m.params, [x], labels, seed + 1)[2]
+    g0 = m.executor.build_grad_step()(m.params, [x], y)
+    op = next(iter(g1))
+    assert torch.equal(g1[op]["wq"], g1b[op]["wq"])
+    assert not torch.allclose(g1[op]["wq"], g2[op]["wq"])
+    assert not torch.allclose(g1[op]["wq"], g0[op]["wq"])
+    state, parts = ex.build_train_step()(m.state, [x], y, torch.Generator())
+    assert torch.isfinite(parts["loss"]) and state.step == 2
     assert torch.isfinite(m.forward([x])).all()
     m.eval(x, y)
 
