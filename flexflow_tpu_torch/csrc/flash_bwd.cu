@@ -33,39 +33,56 @@
 // halves the FLOPs and leaves it bytes-bound at ~20.1 us. chip_smoke.py
 // computes the bound per run.
 //
-// Design (bf16/fp16, head dims multiples of 16). The TPU kernel holds a
-// whole (sq, bk) score slab per row in VMEM and accumulates dq across key
-// blocks in one program; Hopper's blocks run in parallel and cannot carry
-// a sum between them. So this is the FlashAttention-2 split, in its
-// deterministic two-pass form:
+// Design. The TPU kernel holds a whole (sq, bk) score slab per row in
+// VMEM and accumulates dq across key blocks in one program; Hopper's
+// blocks run in parallel and cannot carry a sum between them. So every
+// path here is the FlashAttention-2 split, in its deterministic two-pass
+// form (no atomics: the same inputs give the same bits):
 //   0. a small pre-pass writes delta (bh, sq) in f32 (one warp per row);
-//   1. dK/dV: one block per (row, tile of 16*warps keys) walks the query
-//      tiles (64 queries each; under causal masking only those at or
-//      below its keys), recomputes S^T = K Q^T and dP^T = V dO^T per
-//      16x16 sub-tile on the tensor cores, forms P and dS in f32, rounds
-//      them into shared memory and accumulates dV += P^T dO and
-//      dK += dS^T Q in f32;
-//   2. dQ: one block per (row, tile of 16*warps queries) walks the key
-//      tiles (64 keys each; under causal masking those up to its last
-//      query), recomputes S and dP, forms dS, accumulates dQ += dS K.
+//   1. dK/dV: one block per (row, tile of keys) walks the query tiles
+//      (under causal masking only those at or below its keys),
+//      recomputes S^T = K Q^T and dP^T = V dO^T, forms P and dS in f32,
+//      rounds them and accumulates dV += P^T dO and dK += dS^T Q in f32;
+//   2. dQ: one block per (row, tile of queries) walks the key tiles
+//      (under causal masking those up to its last query), recomputes S
+//      and dP, forms dS, accumulates dQ += dS K.
 // Pass 2 recomputes S and dP, two of the five products: 7 products in all
-// where 5 are useful, 40% more FLOPs than the bound counts. f32 atomics
-// on dQ would save them but make the summation order, and so the result,
-// change from run to run; the tests and chip_smoke.py's gradient oracle
-// compare runs, so the deterministic form comes first. Every product is
-// WMMA 16x16x16 with f32 accumulation; the accumulators live in shared
-// memory in f32 (simple first: no wgmma, TMA or warp specialisation, no
-// register-resident accumulators). A block has 4 warps when its tiles fit
-// the 227 KB of shared memory, else 2 or 1 (large head dims).
+// where 5 are useful, 40% more FLOPs than the bound counts.
 //
-// f32 operands, and head dims that are not multiples of 16 (1..256), take
-// the same three passes on the CUDA cores: one warp per key row (dK/dV)
-// or query row (dQ), lanes split the head dims, 4 rows of the other side
-// in flight. The forward kernel takes these too (flash_fwd.cu), so a
-// model that runs the forward kernel also runs its backward.
+// The caller picks the path by shape (kernels/attention.py `flash_path`)
+// and passes it in:
+//
+// "wgmma" (bf16/fp16, d == dv in {64, 128}; both training paths): each
+// pass runs one block per (row, 64 own rows): one consumer warpgroup and
+// one producer warpgroup, two blocks an SM. The producer loads the own
+// tiles (K, V or Q, dO) once and streams the other side by TMA into a
+// 2-stage ring of 128-byte-swizzled tiles (sm90.cuh); in pass 1 its
+// lanes also copy the tile's lse (in log2 units) and delta beside it. The
+// four products of pass 1 and three of pass 2 are wgmma with f32
+// accumulators in registers: S^T and dP^T (pass 1), S and dP (pass 2)
+// from shared memory; P^T, dS^T and dS, formed in registers from those
+// accumulators, feed dV, dK and dQ as the register A operand, with dO, Q
+// and K MN-major through the transpose bit. dK and dV (pass 1) and dQ
+// (pass 2) stay in registers across the whole walk. Each product is its
+// own group, so P is formed while dP's product runs and dS while dV's
+// runs. Streamed tiles: 64 queries at d = 64 and 32 at d = 128 in pass 1
+// (so dK and dV fit in registers), 64 keys in pass 2.
+//
+// "wmma" (bf16/fp16, other head dims multiples of 16): every product is
+// WMMA 16x16x16 with f32 accumulation; the accumulators live in shared
+// memory in f32. A block has 4 warps when its tiles fit the 227 KB of
+// shared memory, else 2 or 1 (large head dims).
+//
+// "rows" (f32 operands, and head dims that are not multiples of 16,
+// 1..256): the same three passes on the CUDA cores: one warp per key row
+// (dK/dV) or query row (dQ), lanes split the head dims, 4 rows of the
+// other side in flight. The forward kernel takes these too
+// (flash_fwd.cu), so a model that runs the forward kernel also runs its
+// backward.
 #include <mma.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -554,6 +571,430 @@ flash_bwd_dq_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+namespace wg {
+
+using namespace ff::sm90;
+
+// One consumer warpgroup of 64 own rows (keys or queries) and one
+// producer warpgroup a block, two blocks an SM: one block's loads and
+// epilogue overlap the other's products. Registers: each block starts at
+// 128 a thread; the producer gives back to 40 and the consumers take 216
+// (128 * 40 + 128 * 216 = 32768, half the SM's file).
+constexpr int kBlock = 64;         // own rows per block
+constexpr int kConsumerWarps = 4;  // one warpgroup
+constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer warpgroup
+constexpr int kProducer = 32 * kConsumerWarps;       // its first thread
+constexpr int kBlocksPerSM = 2;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 216;
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory carve-up from the 1024-byte aligned base, both passes:
+// the block's own two tiles (X: K or Q, Y: V or dO; kBlock rows each),
+// then per stage the two streamed tiles (U: Q or K, W: dO or V; kRows
+// rows each), then (dK/dV pass) per stage the streamed queries' lse (in
+// log2 units) and delta, then the barriers (own, full[], empty[]).
+template <int D, int kRows>
+struct Tiles {
+  static constexpr int kHalves = D / 64;  // 64-column swizzle atoms
+  static constexpr int kOwnBytes = kBlock * D * 2;
+  static constexpr int kTileBytes = kRows * D * 2;
+  static constexpr int kStage = 2 * kTileBytes;
+  static constexpr int kX = 0;
+  static constexpr int kY = kOwnBytes;
+  static constexpr int kU = 2 * kOwnBytes;  // stage s at kU + s kStage
+  static constexpr int kStats = kU + kStages * kStage;  // lse[s][], delta[s][]
+  static constexpr int kBar = kStats + kStages * 2 * kRows * 4;
+  static constexpr int kSmem = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// the streamed tile: 64 queries at d = 64, 32 at d = 128 (dK/dV pass,
+// where dK and dV both stay in registers); 64 keys (dQ pass)
+template <int D>
+constexpr int kQRows = D == 64 ? 64 : 32;
+template <int D>
+constexpr int kKRows = 64;
+
+// Pass 1, consumers: dK and dV for keys k0 + 64 g .. + 63 of warpgroup g,
+// over the streamed query tiles j_begin .. n_q - 1.
+template <typename T, int D, bool kDrop>
+__device__ __forceinline__ void dkdv_consume(
+    uint32_t base, T* __restrict__ gk, T* __restrict__ gv, int sq, int sk,
+    int causal, float scale, float scale_log2, const ff::Dropout& drop,
+    int j_begin, int n_q) {
+  constexpr int kBq = kQRows<D>;
+  using C = Tiles<D, kBq>;
+  const uint32_t bar_own = base + C::kBar;
+  const uint32_t bar_full = bar_own + 8;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.x * kBlock;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = warp >> 2;
+  // accumulator value i: key row kbase + 8 ((i >> 1) & 1), column (query
+  // of the tile, or head dim) 8 (i >> 2) + cbase + (i & 1)
+  const int kbase = k0 + 64 * g + 16 * (warp & 3) + (lane >> 2);
+  const int cbase = 2 * (lane & 3);
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(bar_own, 0);
+  for (int j = j_begin; j < n_q; ++j) {
+    const int it = j - j_begin;
+    const int s = it % kStages;
+    const int qt0 = j * kBq;
+    const uint32_t qs = base + C::kU + s * C::kStage;  // Q tile
+    const uint32_t dos = qs + C::kTileBytes;            // dO tile
+    mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, from shared memory into registers,
+    // two groups: P^T is formed while dP^T still runs
+    float st[kBq / 2], dpt[kBq / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<kBq, T>::ss(st, desc_kmajor(base + C::kX, kBlock, 64 * g, kk),
+                        desc_kmajor(qs, kBq, 0, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<kBq, T>::ss(dpt, desc_kmajor(base + C::kY, kBlock, 64 * g, kk),
+                        desc_kmajor(dos, kBq, 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    // P^T in place at each value's (k, q) (0 where masked), from the
+    // tile's lse (log2 units) in the stage; the P of dV (dropped, scaled)
+    // straight into its A fragments, the keep bits kept for dS
+    const float* smem_stats = reinterpret_cast<const float*>(
+        __cvta_shared_to_generic(base + C::kStats)) + s * 2 * kBq;
+    uint32_t pa[kBq / 16][4], da[kBq / 16][4];
+    uint32_t kept_bits = 0;
+#pragma unroll
+    for (int i = 0; i < kBq / 2; i += 2) {
+      float pd[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * ((i + e) >> 2) + cbase + ((i + e) & 1);
+        const int qpos = qt0 + c;
+        const int kpos = kbase + 8 * (((i + e) >> 1) & 1);
+        float p = 0.f;
+        if (qpos < sq && kpos < sk && !(causal && kpos > qpos))
+          p = exp2_approx(fmaf(st[i + e], scale_log2, -smem_stats[c]));
+        st[i + e] = p;
+        pd[e] = p;
+        if (kDrop) {
+          const bool kept = ff::keep(drop, b, sq, sk, qpos, kpos);
+          kept_bits |= static_cast<uint32_t>(kept) << (i + e);
+          pd[e] = kept ? p * drop.inv_keep : 0.f;
+        }
+      }
+      pa[i >> 3][(i >> 1) & 3] = pack2<T>(pd[0], pd[1]);
+    }
+
+    // dV += round(P)^T dO (A from registers, dO MN-major), running while
+    // dS^T is formed
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBq / 16; ++kk)
+      Wgmma<D, T>::rs(dv, pa[kk], desc_mnmajor(dos, kBq, kk), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T has landed
+    fence_regs(dpt);
+#pragma unroll
+    for (int i = 0; i < kBq / 2; ++i) {
+      const int c = 8 * (i >> 2) + cbase + (i & 1);
+      float dp = dpt[i];
+      if (kDrop) dp = (kept_bits >> i) & 1u ? dp * drop.inv_keep : 0.f;
+      dpt[i] = st[i] * (dp - smem_stats[kBq + c]);  // 0 where P is masked
+    }
+
+    // dK += round(dS)^T Q: A from registers, Q MN-major
+    acc_to_frags<T>(dpt, da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBq / 16; ++kk)
+      Wgmma<D, T>::rs(dk, da[kk], desc_mnmajor(qs, kBq, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+  // keys no query sees leave the loop empty: dk = dv = 0
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kpos = kbase + 8 * h;
+    if (kpos >= sk) continue;
+    const long long off = (static_cast<long long>(b) * sk + kpos) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int i = 4 * n + 2 * h;
+      *reinterpret_cast<uint32_t*>(gk + off + 8 * n + cbase) =
+          pack2<T>(dk[i] * scale, dk[i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(gv + off + 8 * n + cbase) =
+          pack2<T>(dv[i], dv[i + 1]);
+    }
+  }
+}
+
+// Pass 1: one block per (row, 128 keys). The producer loads K and V once
+// and streams Q and dO tiles by TMA, with the tile's lse (log2 units) and
+// delta, into the ring; under the causal mask it starts at the query tile
+// that holds the block's first key.
+template <typename T, int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ gk, T* __restrict__ gv, int sq,
+                            int sk, int causal, float scale, float scale_log2,
+                            ff::Dropout drop) {
+  constexpr int kBq = kQRows<D>;
+  using C = Tiles<D, kBq>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_own = base + C::kBar;
+  const uint32_t bar_full = bar_own + 8;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.x * kBlock;
+  const int j_begin = causal ? k0 / kBq : 0;
+  const int n_q = (sq + kBq - 1) / kBq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(bar_empty + 8 * s, kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kProducer) {
+    producer_regs<kProducerRegs>();
+    if (threadIdx.x < kProducer + 32) {
+      const int lane = threadIdx.x - kProducer;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(bar_own, 2 * C::kOwnBytes);
+        tma_load_tile(base + C::kX, &tk, bar_own, kBlock, C::kHalves, k0, b);
+        tma_load_tile(base + C::kY, &tv, bar_own, kBlock, C::kHalves, k0, b);
+      }
+      float* stats = reinterpret_cast<float*>(
+          __cvta_shared_to_generic(base + C::kStats));
+      for (int j = j_begin; j < n_q; ++j) {
+        const int it = j - j_begin;
+        const int s = it % kStages;
+        if (it >= kStages)
+          mbar_wait(bar_empty + 8 * s, (it / kStages - 1) & 1);
+        for (int i = lane; i < kBq; i += 32) {
+          const int qpos = j * kBq + i;
+          const bool in = qpos < sq;
+          const long long at = static_cast<long long>(b) * sq + qpos;
+          stats[s * 2 * kBq + i] = in ? lse[at] * kLog2e : 0.f;
+          stats[s * 2 * kBq + kBq + i] = in ? delta[at] : 0.f;
+        }
+        if (lane == 0) {
+          const uint32_t qs = base + C::kU + s * C::kStage;
+          mbar_arrive_expect_tx(bar_full + 8 * s, C::kStage);
+          tma_load_tile(qs, &tq, bar_full + 8 * s, kBq, C::kHalves, j * kBq, b);
+          tma_load_tile(qs + C::kTileBytes, &tdo, bar_full + 8 * s, kBq,
+                        C::kHalves, j * kBq, b);
+        } else {
+          mbar_arrive(bar_full + 8 * s);  // after this lane's lse/delta
+        }
+      }
+    }
+  } else {
+    consumer_regs<kConsumerRegs>();
+    dkdv_consume<T, D, kDrop>(base, gk, gv, sq, sk, causal, scale, scale_log2,
+                              drop, j_begin, n_q);
+  }
+}
+
+// Pass 2, consumers: dQ for queries q0 + 64 g .. + 63 of warpgroup g over
+// the streamed key tiles.
+template <typename T, int D, bool kDrop>
+__device__ __forceinline__ void dq_consume(
+    uint32_t base, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ gq, int sq, int sk,
+    int causal, float scale, float scale_log2, const ff::Dropout& drop,
+    int n_k) {
+  constexpr int kBk = kKRows<D>;
+  using C = Tiles<D, kBk>;
+  const uint32_t bar_own = base + C::kBar;
+  const uint32_t bar_full = bar_own + 8;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kBlock;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = warp >> 2;
+  // accumulator value i: query row qbase + 8 ((i >> 1) & 1), column (key
+  // of the tile, or head dim) 8 (i >> 2) + cbase + (i & 1)
+  const int qbase = q0 + 64 * g + 16 * (warp & 3) + (lane >> 2);
+  const int cbase = 2 * (lane & 3);
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = qbase + 8 * h;
+    const long long at = static_cast<long long>(b) * sq + qpos;
+    lse2[h] = qpos < sq ? lse[at] * kLog2e : 0.f;
+    dl[h] = qpos < sq ? delta[at] : 0.f;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(bar_own, 0);
+  for (int j = 0; j < n_k; ++j) {
+    const int s = j % kStages;
+    const int kt0 = j * kBk;
+    const uint32_t ks = base + C::kU + s * C::kStage;  // K tile
+    const uint32_t vs = ks + C::kTileBytes;             // V tile
+    mbar_wait(bar_full + 8 * s, (j / kStages) & 1);
+
+    // S = Q K^T and dP = dO V^T, from shared memory into registers, two
+    // groups: P is formed while dP still runs
+    float sc[kBk / 2], dp[kBk / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<kBk, T>::ss(sc, desc_kmajor(base + C::kX, kBlock, 64 * g, kk),
+                        desc_kmajor(ks, kBk, 0, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<kBk, T>::ss(dp, desc_kmajor(base + C::kY, kBlock, 64 * g, kk),
+                        desc_kmajor(vs, kBk, 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // P in place at each value's (q, k), 0 where masked
+#pragma unroll
+    for (int i = 0; i < kBk / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      const int kpos = kt0 + 8 * (i >> 2) + cbase + (i & 1);
+      const int qpos = qbase + 8 * h;
+      sc[i] = kpos < sk && qpos < sq && !(causal && kpos > qpos)
+                  ? exp2_approx(fmaf(sc[i], scale_log2, -lse2[h]))
+                  : 0.f;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // dS in place
+#pragma unroll
+    for (int i = 0; i < kBk / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      float dpv = dp[i];
+      if (kDrop)
+        dpv = ff::dropped(drop, b, sq, sk, qbase + 8 * h,
+                          kt0 + 8 * (i >> 2) + cbase + (i & 1), dpv);
+      sc[i] *= dpv - dl[h];
+    }
+
+    // dQ += round(dS) K: A from registers, K MN-major
+    uint32_t da[kBk / 16][4];
+    acc_to_frags<T>(sc, da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk)
+      Wgmma<D, T>::rs(dq, da[kk], desc_mnmajor(ks, kBk, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = qbase + 8 * h;
+    if (qpos >= sq) continue;
+    const long long off = (static_cast<long long>(b) * sq + qpos) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int i = 4 * n + 2 * h;
+      *reinterpret_cast<uint32_t*>(gq + off + 8 * n + cbase) =
+          pack2<T>(dq[i] * scale, dq[i + 1] * scale);
+    }
+  }
+}
+
+// Pass 2: one block per (row, 128 queries). The producer loads Q and dO
+// once and streams K and V tiles by TMA; under the causal mask it stops
+// at the block's last query.
+template <typename T, int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, T* __restrict__ gq,
+                          int sq, int sk, int causal, float scale,
+                          float scale_log2, ff::Dropout drop) {
+  constexpr int kBk = kKRows<D>;
+  using C = Tiles<D, kBk>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_own = base + C::kBar;
+  const uint32_t bar_full = bar_own + 8;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kBlock;
+  const int kv_end = causal ? min(sk, q0 + kBlock) : sk;
+  const int n_k = (kv_end + kBk - 1) / kBk;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kProducer) {
+    producer_regs<kProducerRegs>();
+    if (threadIdx.x == kProducer) {
+      mbar_arrive_expect_tx(bar_own, 2 * C::kOwnBytes);
+      tma_load_tile(base + C::kX, &tq, bar_own, kBlock, C::kHalves, q0, b);
+      tma_load_tile(base + C::kY, &tdo, bar_own, kBlock, C::kHalves, q0, b);
+      for (int j = 0; j < n_k; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(bar_empty + 8 * s, (j / kStages - 1) & 1);
+        const uint32_t ks = base + C::kU + s * C::kStage;
+        mbar_arrive_expect_tx(bar_full + 8 * s, C::kStage);
+        tma_load_tile(ks, &tk, bar_full + 8 * s, kBk, C::kHalves, j * kBk, b);
+        tma_load_tile(ks + C::kTileBytes, &tv, bar_full + 8 * s, kBk,
+                      C::kHalves, j * kBk, b);
+      }
+    }
+  } else {
+    consumer_regs<kConsumerRegs>();
+    dq_consume<T, D, kDrop>(base, lse, delta, gq, sq, sk, causal, scale,
+                            scale_log2, drop, n_k);
+  }
+}
+
+}  // namespace wg
+
+// path codes shared with kernels/attention.py `flash_path`
+enum Path : int { kRows = 0, kWmma = 1, kWgmma = 2 };
+
 struct Args {
   const void *q, *k, *v, *o, *dout;
   const float* lse;
@@ -605,8 +1046,8 @@ int pick_warps(int max_smem, int d, int dv, bool dkdv) {
 }
 
 template <typename T, bool kDrop>
-cudaError_t launch(const Args& a, int device) {
-  if (a.d % 16 || a.dv % 16) return launch_rows<T, kDrop>(a);
+cudaError_t launch_wmma(const Args& a, int device) {
+  if (a.d % 16 || a.dv % 16) return cudaErrorInvalidValue;
   int max_smem = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -644,15 +1085,84 @@ cudaError_t launch(const Args& a, int device) {
   return cudaGetLastError();
 }
 
+// The delta pre-pass, then both passes on the wgmma path. Eight tensor
+// maps: each operand as the block's own tile (128 rows) and as the
+// streamed tile of the pass that walks it.
+template <typename T, int D, bool kDrop>
+cudaError_t launch_wgmma(const Args& a, int dtype) {
+  constexpr int kBq = wg::kQRows<D>;
+  constexpr int kBk = wg::kKRows<D>;
+  using C1 = wg::Tiles<D, kBq>;
+  using C2 = wg::Tiles<D, kBk>;
+  const struct {
+    const void* p;
+    int s, rows;
+  } spec[8] = {{a.q, a.sq, kBq},         {a.k, a.sk, wg::kBlock},
+               {a.v, a.sk, wg::kBlock},  {a.dout, a.sq, kBq},
+               {a.q, a.sq, wg::kBlock},  {a.k, a.sk, kBk},
+               {a.v, a.sk, kBk},         {a.dout, a.sq, wg::kBlock}};
+  CUtensorMap m[8];
+  for (int i = 0; i < 8; ++i) {
+    const cudaError_t e = ff::sm90::tma_map_3d(&m[i], spec[i].p, dtype, D,
+                                               spec[i].s, a.bh, spec[i].rows);
+    if (e != cudaSuccess) return e;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      wg::flash_bwd_dkdv_wgmma_kernel<T, D, kDrop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C1::kSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(wg::flash_bwd_dq_wgmma_kernel<T, D, kDrop>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C2::kSmem);
+  if (err != cudaSuccess) return err;
+  err = launch_delta<T>(a);
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = a.scale * wg::kLog2e;
+  wg::flash_bwd_dkdv_wgmma_kernel<T, D, kDrop>
+      <<<dim3((a.sk + wg::kBlock - 1) / wg::kBlock, a.bh), wg::kThreads,
+         C1::kSmem, a.stream>>>(m[0], m[1], m[2], m[3], a.lse, a.delta,
+                                static_cast<T*>(a.gk), static_cast<T*>(a.gv),
+                                a.sq, a.sk, a.causal, a.scale, scale_log2,
+                                a.drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wg::flash_bwd_dq_wgmma_kernel<T, D, kDrop>
+      <<<dim3((a.sq + wg::kBlock - 1) / wg::kBlock, a.bh), wg::kThreads,
+         C2::kSmem, a.stream>>>(m[4], m[5], m[6], m[7], a.lse, a.delta,
+                                static_cast<T*>(a.gq), a.sq, a.sk, a.causal,
+                                a.scale, scale_log2, a.drop);
+  return cudaGetLastError();
+}
+
+// a 16-bit launch on the path asked for; a shape the path does not take
+// is refused, never sent elsewhere
+template <typename T, bool kDrop>
+cudaError_t launch(const Args& a, int device, int dtype, int path) {
+  switch (path) {
+    case kRows:
+      return launch_rows<T, kDrop>(a);
+    case kWmma:
+      return launch_wmma<T, kDrop>(a, device);
+    case kWgmma:
+      if (a.d != a.dv) return cudaErrorInvalidValue;
+      if (a.d == 64) return launch_wgmma<T, 64, kDrop>(a, dtype);
+      if (a.d == 128) return launch_wgmma<T, 128, kDrop>(a, dtype);
+      return cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <bool kDrop>
-cudaError_t dispatch(int dtype, const Args& a, int device) {
+cudaError_t dispatch(int dtype, int path, const Args& a, int device) {
   switch (dtype) {
     case ff::kF32:
-      return launch_rows<float, kDrop>(a);
+      return path == kRows ? launch_rows<float, kDrop>(a)
+                           : cudaErrorInvalidValue;
     case ff::kF16:
-      return launch<__half, kDrop>(a, device);
+      return launch<__half, kDrop>(a, device, dtype, path);
     case ff::kBF16:
-      return launch<__nv_bfloat16, kDrop>(a, device);
+      return launch<__nv_bfloat16, kDrop>(a, device, dtype, path);
     default:
       return cudaErrorInvalidValue;
   }
@@ -661,7 +1171,8 @@ cudaError_t dispatch(int dtype, const Args& a, int device) {
 }  // namespace
 
 // delta is scratch of bh * sq floats; gq, gk, gv receive dq, dk, dv.
-// s0, s1, threshold, inv_keep: the forward's dropout (flash_fwd.cu).
+// s0, s1, threshold, inv_keep: the forward's dropout (flash_fwd.cu);
+// path: kRows, kWmma or kWgmma.
 extern "C" int ff_flash_bwd(int device, int dtype, const void* q,
                             const void* k, const void* v, const void* o,
                             const void* dout, const void* lse, void* delta,
@@ -669,7 +1180,7 @@ extern "C" int ff_flash_bwd(int device, int dtype, const void* q,
                             int sk, int d, int dv, int causal, float scale,
                             unsigned int s0, unsigned int s1,
                             unsigned int threshold, float inv_keep,
-                            void* stream) {
+                            int path, void* stream) {
   if (bh < 1 || bh > 65535 || sq < 1 || sk < 1 || d < 1 || dv < 1 ||
       d > kMaxDim || dv > kMaxDim)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -679,7 +1190,20 @@ extern "C" int ff_flash_bwd(int device, int dtype, const void* q,
                static_cast<float*>(delta), gq, gk, gv, bh, sq, sk, d, dv,
                causal, scale, ff::Dropout{s0, s1, threshold, inv_keep},
                static_cast<cudaStream_t>(stream)};
-  err = threshold ? dispatch<true>(dtype, a, device)
-                  : dispatch<false>(dtype, a, device);
+  err = threshold ? dispatch<true>(dtype, path, a, device)
+                  : dispatch<false>(dtype, path, a, device);
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory of a wgmma launch of pass 1 (dK/dV) or 2 (dQ) at
+// head dim d (64 or 128), for the build report; 0 otherwise.
+extern "C" int ff_flash_bwd_wgmma_smem(int pass, int d) {
+  if (d != 64 && d != 128) return 0;
+  if (pass == 1)
+    return d == 64 ? wg::Tiles<64, wg::kQRows<64>>::kSmem
+                   : wg::Tiles<128, wg::kQRows<128>>::kSmem;
+  if (pass == 2)
+    return d == 64 ? wg::Tiles<64, wg::kKRows<64>>::kSmem
+                   : wg::Tiles<128, wg::kKRows<128>>::kSmem;
+  return 0;
 }

@@ -20,27 +20,51 @@
 // sq = sk = 512, d = dv = 64, causal) the useful work is ~4.3 GFLOP
 // (~4.35 us at the 989 TFLOP/s bf16 dense peak) while q, k, v and O move
 // ~33.8 MB (~10.1 us at 3.35 TB/s); at longer sequences the FLOPs grow
-// quadratically and take over. chip_smoke.py computes the bound per run.
+// quadratically and take over. The exp2 of every score also has a rate:
+// the SFU's 16 a clock per SM is 1/256 of the bf16 tensor rate, so at
+// d = 64 the softmax's exponentials take as long as the two products,
+// which is why the wgmma path overlaps them. chip_smoke.py computes the
+// bound per run.
 //
-// Design (bf16/fp16, head dims multiples of 16): the TPU kernel holds a whole (sq, sk) score row in VMEM
-// (FLASH_FUSED_MAX_TILE); a Hopper SM has 227 KB of shared memory, so this
-// kernel streams K/V in 64-key tiles with an online softmax instead, and
-// sequence length does not bind it. One block of 4 warps owns one
-// (row, 64-query tile); each warp owns 16 query rows. The two products
-// run on the tensor cores through the WMMA API (16x16x16, f32
-// accumulators); the softmax runs on the f32 score tile in shared memory,
-// and the running O accumulator lives in shared memory in f32. Key tiles
-// wholly above the diagonal are never loaded. Simple first: no wgmma, TMA
-// or warp specialisation yet.
+// Three kernels, one per path; the caller picks the path by shape
+// (kernels/attention.py `flash_path`) and passes it in. The TPU kernel
+// holds a whole (sq, sk) score row in VMEM (FLASH_FUSED_MAX_TILE); a
+// Hopper SM has 227 KB of shared memory, so every path here streams K/V in
+// key tiles with an online softmax instead, and sequence length does not
+// bind it. Key tiles wholly above the diagonal are never loaded.
 //
-// f32 operands, and head dims that are not multiples of 16 (1..256), take
-// a second kernel on the CUDA cores: one warp per query row, lanes split
+// "wgmma" (bf16/fp16, d == dv in {64, 128}; all three main paths): one
+// block per (row, 64-query tile): one consumer warpgroup and one producer
+// warpgroup, two blocks an SM, so that one block's loads and epilogue
+// overlap the other's products. The producer loads Q once and streams
+// K/V tiles (128 keys at d = 64, 64 at d = 128) by TMA into a ring of
+// 128-byte-swizzled tiles guarded by mbarriers (sm90.cuh; 3 stages at
+// d = 64, 2 at d = 128). The consumers compute S = Q K^T by wgmma from
+// shared memory into registers, run the online softmax on the accumulator
+// fragment (a row over 4 threads: two quad shuffles; the max on the raw
+// scores, each p one FMA and one exp2 with log2(e) folded into the
+// scale), convert P to the input dtype in registers and feed it as the
+// register A operand of O += P V (V MN-major through the transpose bit).
+// O stays in registers for the whole key loop. Within the warpgroup the
+// loop is software-pipelined: S of tile j + 1 is issued before P V of
+// tile j, and the softmax of tile j + 1 runs while P V of tile j is on
+// the tensor cores. Only the epilogue touches device memory.
+//
+// "wmma" (bf16/fp16, other head dims multiples of 16): one block of 4
+// warps owns one (row, 64-query tile); each warp owns 16 query rows. The
+// two products run through the WMMA API (16x16x16, f32 accumulators); the
+// softmax runs on the f32 score tile in shared memory, and the running O
+// accumulator lives in shared memory in f32.
+//
+// "rows" (f32 operands, and head dims that are not multiples of 16,
+// 1..256): a kernel on the CUDA cores: one warp per query row, lanes split
 // the head dim, an online softmax in registers over the row's live keys
 // (those past the causal diagonal are never read). The JAX kernel takes
 // f32 too, so an f32 model on the card runs a hand-written kernel as well.
 #include <mma.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -324,6 +348,278 @@ flash_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (lane == 0) lse[row * sq + qpos] = m + logf(lc);
 }
 
+namespace wg {
+
+using namespace ff::sm90;
+
+// One consumer warpgroup of 64 queries and one producer warpgroup a
+// block, two blocks an SM: one block's loads and epilogue overlap the
+// other's products. Registers: each block starts at 128 a thread; the
+// producer gives back to 40 and the consumers take 216 (128 * 40 + 128 *
+// 216 = 32768, half the SM's file).
+constexpr int kBr = 64;            // queries per block
+constexpr int kConsumerWarps = 4;  // one warpgroup
+constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer warpgroup
+constexpr int kBlocksPerSM = 2;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 216;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared-memory carve-up from the 1024-byte aligned base: Q, then per
+// stage a K tile and a V tile, then the barriers (Q, full[], empty[]).
+// Three stages at d = 64 (S of tile j + 1 runs beside P V of tile j while
+// tile j + 2 loads), two at d = 128, where two blocks an SM leave no room
+// for a third.
+template <int D>
+struct Tiles {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kBc = D == 64 ? 128 : 64;  // keys per tile
+  static constexpr int kHalves = D / 64;          // 64-column swizzle atoms
+  static constexpr int kQBytes = kBr * D * 2;
+  static constexpr int kKVBytes = kBc * D * 2;    // one K (or V) tile
+  static constexpr int kStage = 2 * kKVBytes;
+  static constexpr int kK = kQBytes;  // stage s at kK + s kStage
+  static constexpr int kBar = kK + kStages * kStage;
+  static constexpr int kSmem = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// The online softmax of one tile of raw scores Q K^T, in place: the mask
+// at each value's (q, k) where the tile reaches past sk (TMA's zero rows:
+// -inf, so p = 0) or past the causal diagonal (a raw score that scales to
+// -1e30), the running max m (log2 units of the scaled score: the max is
+// taken on the raw scores, and scale > 0) and this thread's share of the
+// running sum l (the undropped f32 probabilities), then P (dropped and
+// scaled) for P V. Each p is one FMA and one exp2. alpha: the factor by
+// which the rows' O and l fall.
+template <int R, bool kDrop, bool kMask>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[R], int k0, int rbase, int cbase, int sq, int sk, int causal,
+    int b, float scale_log2, const ff::Dropout& drop, float (&m_run)[2],
+    float (&l_run)[2], float (&alpha)[2]) {
+  const float neg_inf = -__int_as_float(0x7f800000);
+  float mx[2] = {neg_inf, neg_inf};
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int h = (i >> 1) & 1;
+    if (kMask) {
+      const int kpos = k0 + 8 * (i >> 2) + cbase + (i & 1);
+      if (kpos >= sk)
+        sc[i] = neg_inf;
+      else if (causal && kpos > rbase + 8 * h)
+        sc[i] = ff::kNegInf / scale_log2;
+    }
+    mx[h] = fmaxf(mx[h], sc[i]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m_run[h], mx[h] * scale_log2);
+    alpha[h] = exp2_approx(m_run[h] - m_new);
+    m_run[h] = m_new;
+    l_run[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int h = (i >> 1) & 1;
+    const float p = exp2_approx(fmaf(sc[i], scale_log2, -m_run[h]));
+    l_run[h] += p;
+    float pv = p;
+    if (kDrop)
+      pv = ff::dropped(drop, b, sq, sk, rbase + 8 * h,
+                       k0 + 8 * (i >> 2) + cbase + (i & 1), p);
+    sc[i] = pv;
+  }
+}
+
+// The consumer warpgroups' part of flash_fwd_wgmma_kernel. Software
+// pipelined within the warpgroup: S of tile j + 1 is issued before P V of
+// tile j, so the softmax of tile j + 1 runs on the CUDA cores while P V
+// of tile j runs on the tensor cores.
+template <typename T, int D, bool kDrop>
+__device__ __forceinline__ void consume(uint32_t base, T* __restrict__ o,
+                                        float* __restrict__ lse, int sq,
+                                        int sk, int causal, float scale_log2,
+                                        const ff::Dropout& drop) {
+  using C = Tiles<D>;
+  constexpr int kBc = C::kBc;
+  constexpr int kStages = C::kStages;
+  const uint32_t bar_q = base + C::kBar;
+  const uint32_t bar_full = bar_q + 8;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kBr;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int kv_end = causal ? min(sk, q0 + kBr) : sk;
+  const int n_tiles = (kv_end + kBc - 1) / kBc;
+  // warpgroup g owns queries q0 + 64 g .. + 63; accumulator value i of
+  // this thread lies in query row rbase + 8 ((i >> 1) & 1) and tile column
+  // 8 (i >> 2) + cbase + (i & 1). This warp's rows start at row0.
+  const int g = warp >> 2;
+  const int row0 = q0 + 64 * g + 16 * (warp & 3);
+  const int rbase = row0 + (lane >> 2);
+  const int cbase = 2 * (lane & 3);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // running max (log2 units of the scaled score) and this thread's share
+  // of the running sum, for rows rbase and rbase + 8
+  float m_run[2] = {ff::kNegInf, ff::kNegInf};
+  float l_run[2] = {0.f, 0.f};
+  float alpha[2];
+  float sc[kBc / 2];
+  uint32_t pa[kBc / 16][4];
+
+  // S = Q K^T of tile j (stage j % kStages), issued and committed
+  auto issue_s = [&](int j) {
+    const uint32_t kt = base + C::kK + (j % kStages) * C::kStage;
+    mbar_wait(bar_full + 8 * (j % kStages), (j / kStages) & 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<kBc, T>::ss(sc, desc_kmajor(base, kBr, 64 * g, kk),
+                        desc_kmajor(kt, kBc, 0, kk), kk);
+    wgmma_commit();
+  };
+  // the softmax of tile j; only tiles that reach past sk or, for some row
+  // of this warp, past the diagonal pay for the mask
+  auto softmax = [&](int j) {
+    const int k0 = j * kBc;
+    if (k0 + kBc > sk || (causal && k0 + kBc - 1 > row0))
+      softmax_tile<kBc / 2, kDrop, true>(sc, k0, rbase, cbase, sq, sk, causal,
+                                         b, scale_log2, drop, m_run, l_run,
+                                         alpha);
+    else
+      softmax_tile<kBc / 2, kDrop, false>(sc, k0, rbase, cbase, sq, sk,
+                                          causal, b, scale_log2, drop, m_run,
+                                          l_run, alpha);
+  };
+
+  // O += round(P) V of tile j: P from registers, V MN-major
+  auto issue_pv = [&](int j) {
+    const uint32_t vt = base + C::kK + (j % kStages) * C::kStage + C::kKVBytes;
+#pragma unroll
+    for (int kk = 0; kk < kBc / 16; ++kk)
+      Wgmma<D, T>::rs(acc, pa[kk], desc_mnmajor(vt, kBc, kk), 1);
+    wgmma_commit();
+  };
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * (j % kStages));
+  };
+
+  mbar_wait(bar_q, 0);
+  wgmma_fence();
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax(0);  // O is still 0: no rescale
+  acc_to_frags<T>(sc, pa);
+  // every iteration commits the same two groups, S of the next tile and
+  // P V of this one (the last tile is peeled off), so that the wait for
+  // the first leaves the second running
+  for (int j = 0; j + 1 < n_tiles; ++j) {
+    wgmma_fence();
+    issue_s(j + 1);
+    issue_pv(j);
+    wgmma_wait<1>();  // S of tile j + 1 has landed; P V may still run
+    fence_regs(sc);
+    softmax(j + 1);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(j);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    acc_to_frags<T>(sc, pa);
+  }
+  wgmma_fence();
+  issue_pv(n_tiles - 1);
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release(n_tiles - 1);
+
+  // O / max(l, 1e-30) in the input dtype, lse = m + log(max(l, 1e-30))
+  const long long orow0 = static_cast<long long>(b) * sq;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+    const int qpos = rbase + 8 * h;
+    if (qpos >= sq) continue;
+    const float lc = fmaxf(l_run[h], 1e-30f);
+    T* orow = o + (orow0 + qpos) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int i = 4 * n + 2 * h;
+      *reinterpret_cast<uint32_t*>(orow + 8 * n + cbase) =
+          pack2<T>(acc[i] / lc, acc[i + 1] / lc);
+    }
+    if ((lane & 3) == 0) lse[orow0 + qpos] = m_run[h] * kLn2 + logf(lc);
+  }
+}
+
+template <typename T, int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       T* __restrict__ o, float* __restrict__ lse, int sq,
+                       int sk, int causal, float scale_log2,
+                       ff::Dropout drop) {
+  using C = Tiles<D>;
+  constexpr int kBc = C::kBc;
+  constexpr int kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + C::kBar;
+  const uint32_t bar_full = bar_q + 8;                // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 s
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kBr;
+  const int warp = threadIdx.x >> 5;
+  // under the causal mask every key past this block's last query is
+  // masked for all of its rows: those tiles are skipped
+  const int kv_end = causal ? min(sk, q0 + kBr) : sk;
+  const int n_tiles = (kv_end + kBc - 1) / kBc;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {  // the producer: one thread issues TMA
+    producer_regs<kProducerRegs>();
+    if (threadIdx.x == 32 * kConsumerWarps) {
+      mbar_arrive_expect_tx(bar_q, C::kQBytes);
+      tma_load_tile(base, &tq, bar_q, kBr, C::kHalves, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        // use j / kStages of this stage waits for the release of the last
+        if (j >= kStages) mbar_wait(bar_empty + 8 * s, (j / kStages - 1) & 1);
+        const uint32_t kt = base + C::kK + s * C::kStage;
+        mbar_arrive_expect_tx(bar_full + 8 * s, C::kStage);
+        tma_load_tile(kt, &tk, bar_full + 8 * s, kBc, C::kHalves, j * kBc, b);
+        tma_load_tile(kt + C::kKVBytes, &tv, bar_full + 8 * s, kBc,
+                      C::kHalves, j * kBc, b);
+      }
+    }
+  } else {
+    consumer_regs<kConsumerRegs>();
+    consume<T, D, kDrop>(base, o, lse, sq, sk, causal, scale_log2, drop);
+  }
+}
+
+}  // namespace wg
+
+// path codes shared with kernels/attention.py `flash_path`
+enum Path : int { kRows = 0, kWmma = 1, kWgmma = 2 };
+
 struct Args {
   const void *q, *k, *v;
   void* o;
@@ -333,6 +629,28 @@ struct Args {
   ff::Dropout drop;
   cudaStream_t stream;
 };
+
+template <typename T, int D, bool kDrop>
+cudaError_t launch_wgmma(const Args& a, int dtype) {
+  using C = wg::Tiles<D>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = ff::sm90::tma_map_3d(&tq, a.q, dtype, D, a.sq, a.bh, wg::kBr);
+  if (err == cudaSuccess)
+    err = ff::sm90::tma_map_3d(&tk, a.k, dtype, D, a.sk, a.bh, C::kBc);
+  if (err == cudaSuccess)
+    err = ff::sm90::tma_map_3d(&tv, a.v, dtype, D, a.sk, a.bh, C::kBc);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(wg::flash_fwd_wgmma_kernel<T, D, kDrop>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sq + wg::kBr - 1) / wg::kBr, a.bh);
+  wg::flash_fwd_wgmma_kernel<T, D, kDrop>
+      <<<grid, wg::kThreads, C::kSmem, a.stream>>>(
+          tq, tk, tv, static_cast<T*>(a.o), a.lse, a.sq, a.sk, a.causal,
+          a.scale * wg::kLog2e, a.drop);
+  return cudaGetLastError();
+}
 
 template <typename T, bool kDrop>
 cudaError_t launch_rows(const Args& a) {
@@ -345,8 +663,8 @@ cudaError_t launch_rows(const Args& a) {
 }
 
 template <typename T, bool kDrop>
-cudaError_t launch(const Args& a) {
-  if (a.d % 16 || a.dv % 16) return launch_rows<T, kDrop>(a);
+cudaError_t launch_wmma(const Args& a) {
+  if (a.d % 16 || a.dv % 16) return cudaErrorInvalidValue;
   const Layout L(a.d, a.dv);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -360,15 +678,35 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+// a 16-bit launch on the path asked for; a shape the path does not take
+// is refused, never sent elsewhere
+template <typename T, bool kDrop>
+cudaError_t launch(const Args& a, int dtype, int path) {
+  switch (path) {
+    case kRows:
+      return launch_rows<T, kDrop>(a);
+    case kWmma:
+      return launch_wmma<T, kDrop>(a);
+    case kWgmma:
+      if (a.d != a.dv) return cudaErrorInvalidValue;
+      if (a.d == 64) return launch_wgmma<T, 64, kDrop>(a, dtype);
+      if (a.d == 128) return launch_wgmma<T, 128, kDrop>(a, dtype);
+      return cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <bool kDrop>
-cudaError_t dispatch(int dtype, const Args& a) {
+cudaError_t dispatch(int dtype, int path, const Args& a) {
   switch (dtype) {
     case ff::kF32:
-      return launch_rows<float, kDrop>(a);
+      return path == kRows ? launch_rows<float, kDrop>(a)
+                           : cudaErrorInvalidValue;
     case ff::kF16:
-      return launch<__half, kDrop>(a);
+      return launch<__half, kDrop>(a, dtype, path);
     case ff::kBF16:
-      return launch<__nv_bfloat16, kDrop>(a);
+      return launch<__nv_bfloat16, kDrop>(a, dtype, path);
     default:
       return cudaErrorInvalidValue;
   }
@@ -377,13 +715,14 @@ cudaError_t dispatch(int dtype, const Args& a) {
 }  // namespace
 
 // s0, s1: the dropout seeds; threshold: round(rate * 2^32) capped at
-// 2^32 - 1, 0 for no dropout; inv_keep: 1 / (1 - rate).
+// 2^32 - 1, 0 for no dropout; inv_keep: 1 / (1 - rate); path: kRows,
+// kWmma or kWgmma.
 extern "C" int ff_flash_fwd(int device, int dtype, const void* q,
                             const void* k, const void* v, void* o, void* lse,
                             int bh, int sq, int sk, int d, int dv, int causal,
                             float scale, unsigned int s0, unsigned int s1,
                             unsigned int threshold, float inv_keep,
-                            void* stream) {
+                            int path, void* stream) {
   if (bh < 1 || bh > 65535 || sq < 1 || sk < 1 || d < 1 || dv < 1 ||
       d > kMaxDim || dv > kMaxDim)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -393,6 +732,13 @@ extern "C" int ff_flash_fwd(int device, int dtype, const void* q,
                bh, sq, sk,     d,     dv,
                causal, scale, ff::Dropout{s0, s1, threshold, inv_keep},
                static_cast<cudaStream_t>(stream)};
-  err = threshold ? dispatch<true>(dtype, a) : dispatch<false>(dtype, a);
+  err = threshold ? dispatch<true>(dtype, path, a)
+                  : dispatch<false>(dtype, path, a);
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory of a wgmma launch at head dim d (64 or 128), for
+// the build report; 0 for another d.
+extern "C" int ff_flash_fwd_wgmma_smem(int d) {
+  return d == 64 ? wg::Tiles<64>::kSmem : d == 128 ? wg::Tiles<128>::kSmem : 0;
 }

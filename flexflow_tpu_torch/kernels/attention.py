@@ -12,8 +12,9 @@ path projects them. `_flash_fwd_folded` returns O and the per-row
 log-sum-exp `lse` laid out (bh, 1, sq) in f32, the residual the backward
 consumes; `_flash_bwd_folded` returns dq, dk, dv from q, k, v, O, lse and
 dO. On CUDA tensors each launches its kernel (csrc/flash_fwd.cu,
-csrc/flash_bwd.cu: f32, bf16 or fp16; head dims up to 256) and raises on
-anything that kernel does not take; on CPU tensors it runs
+csrc/flash_bwd.cu: f32, bf16 or fp16; head dims up to 256; the path
+`flash_path` picks by shape) and raises on anything that kernel does not
+take; on CPU tensors it runs
 `flash_fwd_plain` / `flash_bwd_plain`, the same arithmetic in plain
 PyTorch. There is no fallback between the two.
 `flash_attention_folded` joins them through `FlashAttentionFolded`, the
@@ -38,13 +39,18 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _FWD_SIGNATURE = {
     "ff_flash_fwd": [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_uint32] * 3
-    + [ctypes.c_float, ctypes.c_void_p],
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "ff_flash_fwd_wgmma_smem": [ctypes.c_int],
 }
 _BWD_SIGNATURE = {
     "ff_flash_bwd": [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
     + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_uint32] * 3
-    + [ctypes.c_float, ctypes.c_void_p],
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "ff_flash_bwd_wgmma_smem": [ctypes.c_int, ctypes.c_int],
 }
+# the kernels' path codes (csrc/flash_fwd.cu, csrc/flash_bwd.cu `Path`)
+FLASH_PATHS = ("rows", "wmma", "wgmma")
+_WGMMA_HEAD_DIMS = (64, 128)
 
 
 def _bhsd_to_fold(x: torch.Tensor) -> torch.Tensor:
@@ -142,6 +148,30 @@ def flash_supported(seq_q: int, seq_k: int, head_dim: int = 64,
             and all(1 <= d <= _MAX_HEAD_DIM for d in (head_dim, v_head_dim)))
 
 
+def flash_path(dtype, d: int, dv: int) -> str:
+    """Which kernel of csrc/flash_{fwd,bwd}.cu takes this shape: "wgmma"
+    (Hopper's warpgroup products and TMA) for bf16/fp16 with d == dv in
+    (64, 128), "wmma" for other 16-bit head dims that are multiples of 16,
+    "rows" (the CUDA cores) for f32 and any other head dim. The forward and
+    the backward take the same path for the same operands."""
+    if dtype in (torch.bfloat16, torch.float16):
+        if d == dv and d in _WGMMA_HEAD_DIMS:
+            return "wgmma"
+        if d % 16 == 0 and dv % 16 == 0:
+            return "wmma"
+    return "rows"
+
+
+def _path_code(what: str, dtype, d: int, dv: int, path) -> int:
+    """The path code for a launch: `flash_path`'s choice, or the one asked
+    for (chip_smoke.py times the earlier kernels at the main shapes), which
+    must take this shape: the kernel refuses what it does not take."""
+    path = flash_path(dtype, d, dv) if path is None else path
+    if path not in FLASH_PATHS:
+        raise ValueError(f"{what}: unknown path {path!r}")
+    return FLASH_PATHS.index(path)
+
+
 def _scores(qf, kf, causal: bool):
     """S = Q K^T / sqrt(d) in f32, causal mask with NEG_INF (key <= query,
     top-left aligned)."""
@@ -176,7 +206,7 @@ def flash_fwd_plain(qf, kf, vf, *, causal: bool, dropout: float = 0.0,
 
 
 def _flash_fwd_cuda(qf, kf, vf, *, causal: bool, dropout: float = 0.0,
-                    seeds=None):
+                    seeds=None, _path=None):
     what = "flash_fwd"
     build.require_cuda_operands(what, (qf, kf, vf), _KERNEL_DTYPES)
     if not (qf.dtype == kf.dtype == vf.dtype):
@@ -195,6 +225,7 @@ def _flash_fwd_cuda(qf, kf, vf, *, causal: bool, dropout: float = 0.0,
         raise ValueError(f"{what}: unsupported shape bh={bh} sq={sq} sk={sk} "
                          f"d={d} dv={dv} (head dims <= {_MAX_HEAD_DIM}; "
                          f"bh <= 65535)")
+    code = _path_code(what, qf.dtype, d, dv, _path)
     o = torch.empty((bh, sq, dv), dtype=qf.dtype, device=qf.device)
     lse = torch.empty((bh, 1, sq), dtype=torch.float32, device=qf.device)
     s0, s1, threshold, inv_keep = _dropout_args(dropout, seeds)
@@ -203,10 +234,26 @@ def _flash_fwd_cuda(qf, kf, vf, *, causal: bool, dropout: float = 0.0,
         qf.device.index or 0, build.DTYPE_CODES[str(qf.dtype)[6:]],
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bh, sq, sk, d, dv, int(causal),
-        1.0 / math.sqrt(d), s0, s1, threshold, inv_keep,
+        1.0 / math.sqrt(d), s0, s1, threshold, inv_keep, code,
         build.stream_ptr(qf))
-    build.check_launch(rc, f"{what}_dropout" if threshold else what)
+    build.check_launch(rc, f"{what}_dropout" if threshold else what,
+                       f"{what}_{FLASH_PATHS[code]}")
     return o, lse
+
+
+def wgmma_smem_bytes() -> dict:
+    """The dynamic shared memory of each wgmma kernel launch (bytes), by
+    kernel and head dim, as the C sources lay it out (for the build
+    report; builds the libraries if needed)."""
+    fwd = build.load("flash_fwd", _FWD_SIGNATURE)
+    bwd = build.load("flash_bwd", _BWD_SIGNATURE)
+    return {f"{name}_d{d}": fn(d) for d in _WGMMA_HEAD_DIMS
+            for name, fn in (
+                ("flash_fwd_wgmma_kernel", fwd.ff_flash_fwd_wgmma_smem),
+                ("flash_bwd_dkdv_wgmma_kernel",
+                 lambda d: bwd.ff_flash_bwd_wgmma_smem(1, d)),
+                ("flash_bwd_dq_wgmma_kernel",
+                 lambda d: bwd.ff_flash_bwd_wgmma_smem(2, d)))}
 
 
 def _flash_fwd_folded(qf, kf, vf, *, causal: bool, dropout: float = 0.0,
@@ -248,8 +295,67 @@ def flash_bwd_plain(qf, kf, vf, of, lse, dof, *, causal: bool,
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+_MANTISSA_BITS = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}
+# The (atol, rtol) of a 16-bit backward kernel against `flash_bwd_plain`,
+# to which a check adds `flash_bwd_slack`: the output may round one step
+# of its dtype apart (rtol), and atol covers one step at the bf16 / fp16
+# gradients of order 1 these checks see. The slack carries what depends
+# on the data: where the kernel's f32 S and dP (summed in another order)
+# round dS or P to the other side of a boundary.
+FLASH_BWD_TOL = {torch.bfloat16: (3e-3, 2.0 ** -7),
+                 torch.float16: (5e-4, 2.0 ** -10)}
+
+
+def _ulp(x, dtype):
+    """The step of `dtype` at |x| (f32 tensor), 0 where x is 0; fp16's
+    steps stop shrinking at its smallest subnormal."""
+    _, e = torch.frexp(x.abs())
+    step = torch.ldexp(torch.ones_like(x), e - 1 - _MANTISSA_BITS[dtype])
+    if dtype == torch.float16:
+        step = step.clamp_min(2.0 ** -24)
+    return torch.where(x != 0, step, torch.zeros_like(x))
+
+
+def flash_bwd_slack(qf, kf, vf, of, lse, dof, *, causal: bool,
+                    dropout: float = 0.0, seeds=None, _row0: int = 0):
+    """Per-element slack (dq, dk, dv) of a 16-bit backward kernel against
+    `flash_bwd_plain`, from the plain version's own intermediates.
+
+    Both round dS and the P of dV to the input dtype before their
+    products. A kernel sums S and dP in another order, so its f32 values
+    differ in the last bits, and where one lies at a rounding boundary it
+    rounds one step the other way. Two such flips per row of the product
+    are allowed, each at the largest step in that row: dq[i, c] may move
+    by 2 ulp(max_j |dS_ij|) max_j |k_jc| / sqrt(d), dk[j, c] by
+    2 ulp(max_i |dS_ij|) max_i |q_ic| / sqrt(d), dv[j, c] by
+    2 ulp(max_i |P_ij|) max_i |dO_ic| (P dropped and scaled, as dV takes
+    it). A check adds this to its (atol, rtol) limit."""
+    dt = qf.dtype
+    scale = 1.0 / math.sqrt(qf.shape[-1])
+    k32, v32, do32 = (x.float() for x in (kf, vf, dof))
+    delta = (do32 * of.float()).sum(-1, keepdim=True)
+    p = torch.exp(_scores(qf, kf, causal) - lse.transpose(1, 2))
+    dp = torch.matmul(do32, v32.transpose(1, 2))
+    pb = p
+    if dropout > 0.0:
+        keep = attention_dropout_mask(seeds, dropout, *p.shape,
+                                      device=p.device, _row0=_row0)
+        inv_keep = 1.0 / (1.0 - dropout)
+        dp = torch.where(keep, dp * inv_keep, 0.0)
+        pb = torch.where(keep, p * inv_keep, 0.0)
+    ds = (p * (dp - delta)).abs()
+    del p, dp
+    step_row = _ulp(ds.amax(-1, keepdim=True), dt)        # (bh, sq, 1)
+    step_col = _ulp(ds.amax(-2), dt).unsqueeze(-1)        # (bh, sk, 1)
+    step_pv = _ulp(pb.abs().amax(-2), dt).unsqueeze(-1)   # (bh, sk, 1)
+    k_max, q_max, do_max = (x.float().abs().amax(1, keepdim=True)
+                            for x in (kf, qf, dof))       # (bh, 1, c)
+    return (2.0 * step_row * k_max * scale, 2.0 * step_col * q_max * scale,
+            2.0 * step_pv * do_max)
+
+
 def _flash_bwd_cuda(qf, kf, vf, of, lse, dof, *, causal: bool,
-                    dropout: float = 0.0, seeds=None):
+                    dropout: float = 0.0, seeds=None, _path=None):
     what = "flash_bwd"
     ops = (qf, kf, vf, of, dof)
     build.require_cuda_operands(what, ops + (lse,), _KERNEL_DTYPES)
@@ -274,6 +380,7 @@ def _flash_bwd_cuda(qf, kf, vf, of, lse, dof, *, causal: bool,
         raise ValueError(f"{what}: unsupported shape bh={bh} sq={sq} sk={sk} "
                          f"d={d} dv={dv} (head dims <= {_MAX_HEAD_DIM}; "
                          f"bh <= 65535)")
+    code = _path_code(what, qf.dtype, d, dv, _path)
     dq, dk, dvo = (torch.empty_like(x) for x in (qf, kf, vf))
     delta = torch.empty((bh, sq), dtype=torch.float32, device=qf.device)
     s0, s1, threshold, inv_keep = _dropout_args(dropout, seeds)
@@ -283,9 +390,10 @@ def _flash_bwd_cuda(qf, kf, vf, of, lse, dof, *, causal: bool,
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), of.data_ptr(),
         dof.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dvo.data_ptr(), bh, sq, sk, d, dv, int(causal),
-        1.0 / math.sqrt(d), s0, s1, threshold, inv_keep,
+        1.0 / math.sqrt(d), s0, s1, threshold, inv_keep, code,
         build.stream_ptr(qf))
-    build.check_launch(rc, f"{what}_dropout" if threshold else what)
+    build.check_launch(rc, f"{what}_dropout" if threshold else what,
+                       f"{what}_{FLASH_PATHS[code]}")
     return dq, dk, dvo
 
 

@@ -119,20 +119,29 @@ DTYPE_CODES = {"float32": 0, "float16": 1, "bfloat16": 2}
 # template flag of the same sources) count apart.
 KERNELS = KERNEL_SOURCES + ("flash_fwd_dropout", "flash_bwd_dropout")
 launch_counts: Dict[str, int] = {n: 0 for n in KERNELS}
+# Beside them, the flash launches by the kernel path that ran them
+# (kernels/attention.py `flash_path`), dropout or not: "flash_fwd_wgmma",
+# "flash_bwd_rows", ...
+PATH_KERNELS = tuple(f"{k}_{p}" for k in ("flash_fwd", "flash_bwd")
+                     for p in ("wgmma", "wmma", "rows"))
+path_counts: Dict[str, int] = {n: 0 for n in PATH_KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for n in launch_counts:
-        launch_counts[n] = 0
+    for counts in (launch_counts, path_counts):
+        for n in counts:
+            counts[n] = 0
 
 
-def check_launch(rc: int, what: str) -> None:
+def check_launch(rc: int, what: str, path: str = None) -> None:
     """Raise if a kernel entry point reported a CUDA error (a refused
     launch never runs, and a later synchronize would not report it);
-    count the launch otherwise."""
+    count the launch otherwise, under `what` and under `path` if given."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
     launch_counts[what] += 1
+    if path is not None:
+        path_counts[path] += 1
 
 
 def stream_ptr(t) -> int:

@@ -158,6 +158,25 @@ def test_flash_supported_shapes():
     assert tattn.NEG_INF == jattn.NEG_INF
 
 
+@pytest.mark.parametrize("dtype,d,dv,path", [
+    (torch.bfloat16, 64, 64, "wgmma"), (torch.float16, 64, 64, "wgmma"),
+    (torch.bfloat16, 128, 128, "wgmma"), (torch.float16, 128, 128, "wgmma"),
+    (torch.bfloat16, 64, 128, "wmma"), (torch.bfloat16, 64, 32, "wmma"),
+    (torch.float16, 256, 256, "wmma"), (torch.bfloat16, 32, 32, "wmma"),
+    (torch.bfloat16, 40, 40, "rows"), (torch.float16, 64, 24, "rows"),
+    (torch.float32, 64, 64, "rows"), (torch.float32, 128, 128, "rows")])
+def test_flash_path_table(dtype, d, dv, path):
+    """The kernel path by shape: wgmma for 16-bit d == dv in (64, 128),
+    WMMA for other 16-bit head dims that are multiples of 16, the CUDA
+    cores for f32 and the rest; its code is the kernels' `Path`."""
+    assert tattn.flash_path(dtype, d, dv) == path
+    assert tattn._path_code("flash_fwd", dtype, d, dv, None) == \
+        tattn.FLASH_PATHS.index(path)
+    assert tattn.FLASH_PATHS == ("rows", "wmma", "wgmma")
+    with pytest.raises(ValueError, match="unknown path"):
+        tattn._path_code("flash_fwd", dtype, d, dv, "tiles")
+
+
 def test_cpu_tensors_never_launch_a_kernel():
     build.reset_launch_counts()
     q, k, v = _flash_inputs(6)
@@ -169,6 +188,7 @@ def test_cpu_tensors_never_launch_a_kernel():
     assert build.launch_counts == {"flash_fwd": 0, "flash_bwd": 0,
                                    "paged_decode": 0, "flash_fwd_dropout": 0,
                                    "flash_bwd_dropout": 0}
+    assert build.path_counts == {k: 0 for k in build.PATH_KERNELS}
 
 
 def test_kernel_build_is_keyed_by_source_and_flags():
