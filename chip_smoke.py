@@ -51,11 +51,24 @@ derived limit (FLASH_BWD_TOL plus `flash_bwd_slack`), and report the
 worst err/limit under the old limit beside it. The build report (ptxas
 registers, spills, shared memory of every wgmma kernel) lands in
 chiprun_out/chip_smoke.json; a wgmma kernel that spills fails the run.
+Paged decode has two kernels (kernels/decode.py `paged_path`): the
+cluster kernel (a (head, slot) row's live pages split over the 8 blocks
+of a thread block cluster, partials merged in rank 0's shared memory)
+takes every 16-bit launch with head dims multiples of 8, and every paged
+launch of the serving run must have taken it; the earlier block kernel
+takes the rest and is checked and timed at the main shapes too
+(`block_ms`). Both are held against the plain version at the serving
+shape and at a long one (4096 positions a slot), on the strided cache
+view and on a scattered table with dead entries 2^30, and at edges;
+their ptxas report lands in chip_smoke.json (a cluster instance that
+spills fails the run). The serving phase also traces one warm decode
+step (device busy, idle share, paged share, events a step).
 
 Kernel times are the device time of each call, from a torch.profiler
-trace (`time_ms`); the flash rows also carry the earlier CUDA-event
-reading around each synchronised launch, which holds the call's host
-time too. Launch counts are reset
+trace (`time_ms`; the paged rows with the L2 flushed before each call,
+the flush's own kernels left out); the flash and paged rows also carry
+the earlier CUDA-event reading around each synchronised launch, which
+holds the call's host time too. Launch counts are reset
 just before each path is driven and read just after it. Prints the card's name and power limit, a `kernels` JSON line,
 a `serving`, a `training` and a `bert` JSON line and, last, {"ok": true,
 "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -154,31 +167,45 @@ def gpu_name_and_power():
     return out.stdout.strip().splitlines()[0]
 
 
+def _device_events(torch, prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def time_ms(fn, iters, flush=None, per_launch=False):
     """Mean device time of fn() in ms over `iters` calls after a warm-up.
     By default, the summed durations of the kernels the calls launch, from
-    a torch.profiler (CUPTI) trace: a flash call's Python wrapper can
-    take longer than its kernel (~0.06 ms a call on the H100 host of
-    PERF.md), and CUDA events, even around back-to-back launches, would
-    then read the host. With
-    `per_launch`, CUDA events around each launch and a synchronize between
-    launches (the earlier method): each reading then also holds the host time
-    of the call. `flush` (run between launches, outside the timed span)
-    evicts the L2 so each launch finds its operands cold, as the serving
-    path does (each layer reads its own cache); it implies `per_launch`."""
+    a torch.profiler (CUPTI) trace: a kernel's Python wrapper can take
+    longer than its kernel (~0.05 ms a call on the H100 host of PERF.md),
+    and CUDA events, even around back-to-back launches, would then read the
+    host. `flush` (run before each call) evicts the L2 so each call finds
+    its operands cold, as the serving path does (each layer reads its own
+    cache); the flush's own kernels (the names a trace of one flush shows)
+    are left out of the sum. With `per_launch`, CUDA events around each
+    call and a synchronize between calls (the earlier method): each
+    reading then also holds the host time of the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
-    if flush is None and not per_launch:
+    if not per_launch:
+        skip = set()
+        if flush is not None:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                flush()
+                torch.cuda.synchronize()
+            skip = {e.name for e in _device_events(torch, prof)}
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                if flush is not None:
+                    flush()
                 fn()
             torch.cuda.synchronize()
-        device = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        device = [e for e in _device_events(torch, prof)
+                  if e.name not in skip]
         if not device:
             raise AssertionError("the profiler saw no device time")
         return sum(e.time_range.elapsed_us() for e in device) / iters / 1e3
@@ -194,6 +221,20 @@ def time_ms(fn, iters, flush=None, per_launch=False):
         e1.synchronize()
         total += e0.elapsed_time(e1)
     return total / iters
+
+
+def host_ms(torch, fn, calls=100):
+    """Host time of one call of `fn`: `calls` calls enqueued without a
+    synchronize (the launch queue holds them), over the wall clock."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / calls
 
 
 def check_close(what, which, out, ref):
@@ -691,67 +732,218 @@ def check_flash_dropout(torch, rng_seed=3):
     return [fwd, bwd]
 
 
+# Paged decode: the serving shape (the serving LM's 8 slots x 16 heads of
+# 64, 16-token pages, ragged lengths) and a long shape of the same widths
+# whose dense strips (2 x 67 MB) are larger than the 50 MB L2
+SERVING_LENGTHS = (1, 17, 100, 256, 300, 511, 512, 512)
+LONG_MAX_LEN = 4096
+LONG_LENGTHS = (1, 300, 1000, 2048, 2500, 4000, 4096, 4096)
+DEAD_PAGE = 2 ** 30   # a table entry past a slot's live pages: never read
+
+
+def paged_bound(lengths, heads, d, dv, page):
+    """bound_ms of one paged-decode call: the live K and V rows (16-bit),
+    q read and the output written once, the live table entries and the
+    lengths (int32); 4 flops per (live position, head dim)."""
+    live = sum(lengths)
+    pages = sum(-(-n // page) for n in lengths)
+    nbytes = (2 * live * heads * (d + dv) + 2 * len(lengths) * heads * (d + dv)
+              + 4 * (pages + len(lengths)))
+    return bound_ms(nbytes, live * heads * (2 * d + 2 * dv))
+
+
 def check_paged(torch, rng_seed=1):
+    """Both paged-decode kernels against the plain version (and the dense
+    reference, on slots with live positions) at the serving and the long
+    shape, on the strided cache view and on a scattered table whose dead
+    entries are 2^30, and at the edges (fp16, f32, head dims 8-256, dv !=
+    d, pages of 1-16 positions, lengths 0 and past the table); repeats
+    bit-equal; both kernels, the plain version and SDPA over the dense
+    strips timed with the L2 flushed between calls."""
+    from flexflow_tpu_torch.kernels import build
     from flexflow_tpu_torch.kernels import decode as kd
 
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
-    dev, bf16 = "cuda", torch.bfloat16
-    slots, h, d, page = SLOTS, HEADS, HIDDEN // HEADS, 16
-    pp = MAX_LEN // page
+    dev, bf16, f16 = "cuda", torch.bfloat16, torch.float16
+    h, d, page = HEADS, HIDDEN // HEADS, 16
     worst = {"e": 0.0, "ratio": 0.0}
-    # ragged: a freshly admitted 1-token slot, mid lengths, full slots
-    lengths = torch.tensor([1, 17, 100, 256, 300, 511, 512, 512],
-                           dtype=torch.int32, device=dev)
 
-    def compare(what, q, kp, vp, table):
-        out = kd._paged_decode_cuda(q, kp, vp, table, lengths)
+    def rand(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def lengths_of(lens):
+        return torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def compare(what, q, kp, vp, table, lengths, path=None, ref_table=None,
+                ranks=None):
+        path = path or kd.paged_path(q.dtype, q.shape[-1], vp.shape[-1],
+                                     kp.stride()[:3] + vp.stride()[:3],
+                                     table.shape[1], kp.shape[2])
+        before = dict(build.path_counts)
+        out = kd._paged_decode_cuda(q, kp, vp, table, lengths, _path=path,
+                                    _ranks=ranks)
         plain = kd.paged_decode_plain(q, kp, vp, table, lengths)
-        ref = kd.paged_decode_reference(q, kp, vp, table, lengths)
+        ref = kd.paged_decode_reference(
+            q, kp, vp, table if ref_table is None else ref_table, lengths)
         torch.cuda.synchronize()
-        e, ratio = check_close(f"paged decode ({what}) vs plain",
-                               "paged_decode", out, plain)
-        er, ratio_r = check_close(f"paged decode ({what}) vs reference",
-                                  "paged_decode", out, ref)
+        what = f"paged {what} {str(q.dtype)[6:]} d={q.shape[-1]} " \
+               f"dv={vp.shape[-1]} page={kp.shape[2]} {path}" + (
+                   "" if path == "block" else " x" + str(
+                       ranks or kd.paged_ranks(table.shape[1], kp.shape[2])))
+        expect_path(what, before, "paged_decode", path)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{what}: non-finite")
+        e, ratio = check_close(f"{what} vs plain", "paged_decode", out, plain)
+        # the dense reference averages V where no position is live; the
+        # kernels, the plain version and the TPU kernel give 0 there
+        live = lengths > 0
+        er, ratio_r = check_close(f"{what} vs reference", "paged_decode",
+                                  out[live], ref[live])
+        if out[~live].any():
+            raise AssertionError(f"{what}: a length-0 slot is not 0")
         worst["e"] = max(worst["e"], e)
         worst["ratio"] = max(worst["ratio"], ratio)
-        log(f"  paged {what}: max|out-plain|={e:.3g} (err/limit "
-            f"{ratio:.3g}) max|out-ref|={er:.3g} (err/limit {ratio_r:.3g})")
+        log(f"  {what}: max|out-plain|={e:.3g} (err/limit {ratio:.3g}) "
+            f"max|out-ref|={er:.3g} (err/limit {ratio_r:.3g})")
+        return out
 
-    # 1. a contiguous pool with a scattered page table
-    q = torch.randn(slots, h, d, generator=g, device=dev).to(bf16)
-    kp = torch.randn(h, slots * pp, page, d, generator=g, device=dev).to(bf16)
-    vp = torch.randn(h, slots * pp, page, d, generator=g, device=dev).to(bf16)
-    perm = torch.randperm(slots * pp, generator=g, device=dev)
-    compare("scattered table", q, kp, vp,
-            perm.view(slots, pp).to(torch.int32).contiguous())
+    def scattered(d_, dv_, pg, pp, lens, dtype, slots=SLOTS):
+        """A contiguous pool behind a scattered table; entries past each
+        slot's live pages are DEAD_PAGE in the first table returned, in
+        range in the second (for the dense reference)."""
+        q = rand(slots, h, d_, dtype=dtype)
+        kp = rand(h, slots * pp, pg, d_, dtype=dtype)
+        vp = rand(h, slots * pp, pg, dv_, dtype=dtype)
+        in_range = torch.randperm(slots * pp, generator=g, device=dev) \
+            .view(slots, pp).to(torch.int32)
+        table = in_range.clone()
+        for b, n in enumerate(lens):
+            table[b, -(-min(n, pp * pg) // pg):] = DEAD_PAGE
+        return q, kp, vp, table, in_range
+
+    def bit_equal(what, out, args):
+        for _ in range(3):
+            if not torch.equal(out, kd._paged_decode_cuda(*args)):
+                raise AssertionError(f"paged {what}: two runs on the same "
+                                     "inputs differ")
+        log(f"  paged {what}: 4 runs bit-equal")
+
+    # 1. the serving shape, scattered table with dead entries
+    serving = lengths_of(SERVING_LENGTHS)
+    pp = MAX_LEN // page
+    q, kp, vp, table, in_range = scattered(d, d, page, pp, SERVING_LENGTHS,
+                                           bf16)
+    compare("serving shape, scattered table", q, kp, vp, table, serving,
+            ref_table=in_range)
     # 2. the serving path's pool: a strided view of dense per-slot caches
-    kc = torch.randn(slots, MAX_LEN, h, d, generator=g, device=dev).to(bf16)
-    vc = torch.randn(slots, MAX_LEN, h, d, generator=g, device=dev).to(bf16)
+    kc, vc = rand(SLOTS, MAX_LEN, h, d), rand(SLOTS, MAX_LEN, h, d)
     kv, vv, table = kd.paged_view_of_cache(kc, vc, page)
-    compare("strided cache view", q, kv, vv, table)
+    sv = (q, kv, vv, table, serving)
+    out = compare("serving shape, strided cache view", *sv)
+    compare("serving shape, strided cache view", *sv, path="block")
+    for ranks in (1, 3, 5):      # other cluster sizes than paged_ranks' 8
+        compare("serving shape, strided cache view", *sv, ranks=ranks)
+    bit_equal("serving shape", out, sv)
+    # 3. the long shape: the same widths, 4096 positions a slot
+    long_l = lengths_of(LONG_LENGTHS)
+    kcl, vcl = rand(SLOTS, LONG_MAX_LEN, h, d), rand(SLOTS, LONG_MAX_LEN, h, d)
+    kvl, vvl, tablel = kd.paged_view_of_cache(kcl, vcl, page)
+    lv = (q, kvl, vvl, tablel, long_l)
+    out = compare("long shape, strided cache view", *lv)
+    compare("long shape, strided cache view", *lv, path="block")
+    bit_equal("long shape", out, lv)
+    # 4. edges: every dtype and head dim, dv != d, pages of 1 to 16
+    # positions; lengths 0, 1, past the table, not a multiple of the page,
+    # the whole table, two pages. The cluster kernel's shapes run on both
+    # kernels; f32 and head dims not multiples of 8 on the block kernel
+    for d_, dv_, pg, dtype in ((64, 64, 16, f16), (128, 128, 16, bf16),
+                               (128, 128, 8, f16), (64, 128, 4, bf16),
+                               (128, 64, 1, bf16), (256, 256, 16, bf16),
+                               (8, 24, 4, f16), (40, 40, 16, bf16),
+                               (64, 64, 16, torch.float32),
+                               (20, 36, 4, bf16)):
+        pp_ = 12
+        lens = (0, 1, pp_ * pg + 5, 3 * pg + 1, pp_ * pg, 2 * pg)
+        args = scattered(d_, dv_, pg, pp_, lens, dtype, slots=len(lens))
+        ln = lengths_of(lens)
+        path = kd.paged_path(dtype, d_, dv_,
+                             args[1].stride()[:3] + args[2].stride()[:3], pp_,
+                             pg)
+        for p in sorted({path, "block"}):
+            compare("edge", *args[:4], ln, path=p, ref_table=args[4])
+
+    # timings, the L2 flushed before every call
     flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_
-    t_k = time_ms(lambda: kd._paged_decode_cuda(q, kv, vv, table, lengths),
-                  50, flush)
-    t_p = time_ms(lambda: kd.paged_decode_plain(q, kv, vv, table, lengths),
-                  3, flush)
-    live = int(lengths.sum())
-    nbytes = (2 * live * h * 2 * d          # live K and V
-              + 2 * 2 * slots * h * d       # q in, out
-              + 4 * (slots * pp + slots))   # table, lengths
-    flops = live * h * (2 * d + 2 * d)
-    b_ms, b_by = bound_ms(nbytes, flops)
-    log(f"  paged serving shape: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
-    return {"name": "paged_decode", "route": "cuda",
-            "source": "flexflow_tpu_torch/csrc/paged_decode.cu",
-            "replaces": "flexflow_tpu/kernels/decode.py:50",
-            "max_abs_err": worst["e"], "err_over_limit": worst["ratio"],
-            "tol": TOL["paged_decode"], "ms": t_k, "plain_ms": t_p,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": ("8 slots x 16 heads, d 64, page 16, lengths "
-                      "1/17/100/256/300/511/512/512, strided cache view, "
-                      "bf16, L2 cold")}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def timings(args, kc_, vc_, lens, max_len, plain_iters):
+        """Device ms of both kernels, the plain version (CUDA events around
+        each synchronised call: it is host-bound) and SDPA over the dense
+        strips (mask built outside the timed span); the cluster and block
+        kernels' synced readings; the wrapper's host time a call."""
+        def kern(path):
+            return lambda: kd._paged_decode_cuda(*args, _path=path)
+        q_ = args[0]
+        mask = (torch.arange(max_len, device=dev)[None, :]
+                < args[4][:, None])[:, None, None, :]
+        def lib():
+            return sdpa(q_[:, :, None], kc_.transpose(1, 2),
+                        vc_.transpose(1, 2), attn_mask=mask)
+        ours = kd._paged_decode_cuda(*args)
+        lib_err = (lib()[:, :, 0].float() - ours.float()).abs().max().item()
+        t = {"ms": time_ms(kern("cluster"), 50, flush),
+             "block_ms": time_ms(kern("block"), 50, flush),
+             "library_ms": time_ms(lib, 50, flush),
+             "plain_ms": time_ms(lambda: kd.paged_decode_plain(*args),
+                                 plain_iters, flush, per_launch=True),
+             "ms_per_launch_synced": time_ms(kern("cluster"), 50, flush,
+                                             per_launch=True),
+             "block_ms_per_launch_synced": time_ms(kern("block"), 50, flush,
+                                                   per_launch=True),
+             "wrapper_host_ms": host_ms(torch, kern("cluster")),
+             "library_max_abs_diff": lib_err}
+        b_ms, b_by = paged_bound(lens, h, d, d, page)
+        t.update(bound_ms=b_ms, bound_by=b_by,
+                 ranks=kd.paged_ranks(args[3].shape[1], page),
+                 over_bound=t["ms"] / b_ms, block_over_cluster=t["block_ms"]
+                 / t["ms"], peak_bandwidth_share=b_ms / t["ms"])
+        return t
+
+    ts = timings(sv, kc, vc, SERVING_LENGTHS, MAX_LEN, 3)
+    tl = timings(lv, kcl, vcl, LONG_LENGTHS, LONG_MAX_LEN, 2)
+    for name, t in (("serving", ts), ("long", tl)):
+        log(f"  paged {name} shape (L2 cold): cluster (x{t['ranks']}) "
+            f"{t['ms']:.5f} ms, "
+            f"block {t['block_ms']:.5f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"SDPA {t['library_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}): {t['over_bound']:.2f}x bound, "
+            f"{t['peak_bandwidth_share']:.3f} of 3.35 TB/s, block/cluster "
+            f"{t['block_over_cluster']:.2f}; synced per launch: cluster "
+            f"{t['ms_per_launch_synced']:.4f}, block "
+            f"{t['block_ms_per_launch_synced']:.4f}; wrapper host "
+            f"{t['wrapper_host_ms']:.4f} ms a call; |SDPA - ours| "
+            f"{t['library_max_abs_diff']:.3g}")
+    if not (ts["ms"] < ts["block_ms"] and tl["ms"] < tl["block_ms"]):
+        log("  paged: the cluster kernel is NOT faster than the block kernel "
+            "on both shapes")
+    row = {"name": "paged_decode", "route": "cuda",
+           "source": "flexflow_tpu_torch/csrc/paged_decode.cu",
+           "replaces": "flexflow_tpu/kernels/decode.py:50",
+           "max_abs_err": worst["e"], "err_over_limit": worst["ratio"],
+           "tol": TOL["paged_decode"], "path": "cluster",
+           "bit_equal_runs": 4,
+           "shape": ("8 slots x 16 heads, d 64, page 16, lengths "
+                     + "/".join(map(str, SERVING_LENGTHS)) + ", strided "
+                     "cache view, bf16, L2 cold; library: "
+                     "scaled_dot_product_attention over the dense strips "
+                     "(all 512 positions, masked)"),
+           "long_shape": dict(tl, shape=(
+               "8 slots x 16 heads, d 64, page 16, max_len 4096, lengths "
+               + "/".join(map(str, LONG_LENGTHS)) + ", strided cache view, "
+               "bf16, L2 cold"))}
+    row.update(ts)
+    return row
 
 
 def build_model(torch):
@@ -923,16 +1115,17 @@ def profile_step(torch, run):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = {}
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = _device_events(torch, prof)
     for e in events:
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / 1e3)
-    family = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0, "other": 0.0}
+    family = {"flash_fwd": 0.0, "flash_bwd": 0.0, "paged_decode": 0.0,
+              "gemm": 0.0, "other": 0.0}
     for name, ms in by_name.items():
         key = ("flash_fwd" if "flash_fwd" in name else
                "flash_bwd" if "flash_bwd" in name else
-               "gemm" if re.search(r"gemm|nvjet|xmma|cutlass", name) else
+               "paged_decode" if "paged_decode" in name else
+               "gemm" if re.search(r"gemm|gemv|nvjet|xmma|cutlass", name) else
                "other")
         family[key] += ms
     busy = sum(family.values())
@@ -1307,6 +1500,81 @@ def wgmma_build_report(build):
     return out
 
 
+def paged_build_report(build):
+    """Registers, spill bytes and static shared memory of each paged-decode
+    kernel instance, from ptxas's report in the build log (-Xptxas -v).
+    Raises if a cluster instance spills or one is missing (bf16/fp16 x 4,
+    8, 16, 32 lanes a row)."""
+    dtypes = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    out, cur = {}, None
+    for line in build.build_log("paged_decode").splitlines():
+        m = re.search(r"Compiling entry function '\w*?paged_decode_(cluster|"
+                      r"block)_kernelI(13__nv_bfloat16|6__half|f)(?:Li(\d+)E)?",
+                      line)
+        if m:
+            kind, dt, lanes = m.groups()
+            cur = f"{kind}<{dtypes[dt]}" + (f", lanes={lanes}>" if lanes
+                                            else ">")
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack_bytes=int(m.group(1)),
+                            spill_store_bytes=int(m.group(2)),
+                            spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[cur].update(registers=int(m.group(1)),
+                            static_smem_bytes=int(sm.group(1)) if sm else 0)
+            cur = None
+    cluster = {k: v for k, v in out.items() if k.startswith("cluster")}
+    if len(cluster) != 8:
+        raise AssertionError(f"ptxas report names {sorted(cluster)}, "
+                             "expected 8 cluster instances")
+    spills = {k: v for k, v in cluster.items()
+              if v.get("spill_store_bytes") or v.get("spill_load_bytes")}
+    if spills:
+        raise AssertionError(f"paged cluster kernels spill: {spills}")
+    log("# paged decode kernels: " + "; ".join(
+        f"{k} {v.get('registers')} regs, {v.get('static_smem_bytes')} B smem"
+        f", spills {v.get('spill_store_bytes')}" for k, v in out.items()))
+    return out
+
+
+def decode_step_profile(torch, model):
+    """One warm decode step of the serving LM with every slot at
+    mid-length (positions 0..MAX_LEN/2 - 1 held, each row's position
+    passed per row as the batcher does; caches zero-filled, which moves
+    the same bytes as any other contents), traced, beside the host-clock
+    time of such a step (best of 5)."""
+    init, step = model.executor.build_decode(SLOTS, MAX_LEN)
+    caches = init(model.params)
+    t = np.full(SLOTS, MAX_LEN // 2, np.int32)
+    tok = np.random.RandomState(2).randint(0, VOCAB, (SLOTS, 1)) \
+        .astype(np.int32)
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model.params, caches, t, [tok])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    prof = profile_step(torch, lambda: step(model.params, caches, t, [tok]))
+    fam = prof["by_family_ms"]
+    prof.update(step_ms_reading=min(times[2:]), position=MAX_LEN // 2,
+                paged_share=fam["paged_decode"] / prof["device_busy_ms"],
+                gemm_share=fam["gemm"] / prof["device_busy_ms"])
+    log(f"  decode step ({SLOTS} slots at position {MAX_LEN // 2}): warm "
+        f"{prof['step_ms_reading']:.3f} ms on the host clock; paged share "
+        f"of device busy {prof['paged_share']:.4f}, GEMMs "
+        f"{prof['gemm_share']:.4f}, idle share {prof['idle_share']:.4f}")
+    return prof
+
+
 def main() -> int:
     import torch
 
@@ -1324,6 +1592,7 @@ def main() -> int:
     report = {"build_s": t_build, "nvidia_smi": smi,
               "ptxas": {n: build.build_log(n) for n in build.KERNEL_SOURCES}}
     report["wgmma_kernels"] = wgmma_build_report(build)
+    report["paged_kernels"] = paged_build_report(build)
 
     log("# kernel phase")
     torch.manual_seed(0)
@@ -1347,6 +1616,13 @@ def main() -> int:
     if not (serving_counts["flash_fwd"] and serving_counts["paged_decode"]):
         raise AssertionError(f"a kernel of the serving path never launched: "
                              f"{serving_counts}")
+    paged = {k: summary["launches_by_path"][k] for k in (
+        "paged_decode_cluster", "paged_decode_block")}
+    if paged != {"paged_decode_cluster": serving_counts["paged_decode"],
+                 "paged_decode_block": 0}:
+        raise AssertionError(f"serving: paged launches by path {paged}, "
+                             "expected all on cluster")
+    summary["decode_step_profile"] = decode_step_profile(torch, model)
     del model
     torch.cuda.empty_cache()
 
@@ -1367,7 +1643,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "wmma_ms")
+            "bound_by", "library_ms", "wmma_ms", "block_ms", "path")
     line = {"kernels": [{k: kr[k] for k in keys if k in kr}
                         for kr in kernels]}
     for row in line["kernels"]:

@@ -119,11 +119,13 @@ DTYPE_CODES = {"float32": 0, "float16": 1, "bfloat16": 2}
 # template flag of the same sources) count apart.
 KERNELS = KERNEL_SOURCES + ("flash_fwd_dropout", "flash_bwd_dropout")
 launch_counts: Dict[str, int] = {n: 0 for n in KERNELS}
-# Beside them, the flash launches by the kernel path that ran them
-# (kernels/attention.py `flash_path`), dropout or not: "flash_fwd_wgmma",
-# "flash_bwd_rows", ...
+# Beside them, the launches by the kernel path that ran them: flash
+# (kernels/attention.py `flash_path`), dropout or not, "flash_fwd_wgmma",
+# "flash_bwd_rows", ...; paged decode (kernels/decode.py `paged_path`)
+# "paged_decode_cluster", "paged_decode_block".
 PATH_KERNELS = tuple(f"{k}_{p}" for k in ("flash_fwd", "flash_bwd")
-                     for p in ("wgmma", "wmma", "rows"))
+                     for p in ("wgmma", "wmma", "rows")) + (
+    "paged_decode_block", "paged_decode_cluster")
 path_counts: Dict[str, int] = {n: 0 for n in PATH_KERNELS}
 
 

@@ -19,7 +19,13 @@ pool's strides, so the permuted view is passed as it is.
 
 On CUDA tensors `paged_flash_decode` launches csrc/paged_decode.cu and
 raises on anything that kernel does not take; on CPU tensors it runs
-`paged_decode_plain`. There is no fallback between the two.
+`paged_decode_plain`. There is no fallback between the two. The source
+has two kernels, picked by shape (`paged_path`): "cluster" splits each
+(head, slot) row's live pages over the blocks of a thread block cluster
+(`paged_ranks` of them) and merges their partial softmax states in rank
+0's shared memory (16-bit operands, head dims multiples of 8, 16-byte
+aligned rows); "block" is one block per (head, slot) and takes every
+other shape, f32 included.
 """
 from __future__ import annotations
 
@@ -33,12 +39,40 @@ from .attention import NEG_INF
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _MAX_HEAD_DIM = 256  # csrc/paged_decode.cu: 8 values per lane
+PAGED_PATHS = ("block", "cluster")   # the C entry point's path codes
+_CLUSTER_MAX_RANKS = 8               # csrc/paged_decode.cu kMaxRanks
+_CLUSTER_MAX_RUN_PAGES = 4096        # csrc/paged_decode.cu kMaxRunPages
+_CLUSTER_TILE = 64                   # positions a block reads in one round
 
 _SIGNATURE = {
     "ff_paged_decode": [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
-    + [ctypes.c_float, ctypes.c_void_p],
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
+
+
+def paged_ranks(pages_per_slot: int, page_size: int) -> int:
+    """Blocks a cluster of the cluster kernel: one per 64 positions of the
+    table (a block's one round of loads at d = 64), 1 to 8 (the portable
+    cluster size): 8 from 449 positions on, the serving shape's 512
+    included."""
+    positions = pages_per_slot * page_size
+    return max(1, min(_CLUSTER_MAX_RANKS, -(-positions // _CLUSTER_TILE)))
+
+
+def paged_path(dtype, d: int, dv: int, strides, pages_per_slot: int,
+               page_size: int) -> str:
+    """Which kernel of csrc/paged_decode.cu takes this shape: "cluster" for
+    bf16/fp16 with d and dv multiples of 8 whose pool strides (the six
+    element strides of k and v over heads, pages, positions) keep every
+    row 16-byte aligned and whose table splits into runs of at most
+    4096 pages a block; "block" for every other shape (f32 included)."""
+    ranks = paged_ranks(pages_per_slot, page_size)
+    if (dtype in (torch.bfloat16, torch.float16) and d % 8 == 0
+            and dv % 8 == 0 and all(s % 8 == 0 for s in strides)
+            and -(-pages_per_slot // ranks) <= _CLUSTER_MAX_RUN_PAGES):
+        return "cluster"
+    return "block"
 
 
 def paged_decode_plain(q, k_pages, v_pages, page_table, lengths):
@@ -77,7 +111,13 @@ def paged_decode_plain(q, k_pages, v_pages, page_table, lengths):
     return out.to(q.dtype)
 
 
-def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths):
+def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths, *,
+                       _path=None, _ranks=None):
+    """Launch csrc/paged_decode.cu on `paged_path`'s kernel, or on `_path`
+    (chip_smoke.py times the "block" kernel at the serving shape), which
+    must take the shape: the kernel refuses what it does not take. The
+    cluster kernel runs `paged_ranks` blocks a cluster, or `_ranks` (the
+    card tests split rows over 1 to 8)."""
     what = "paged_decode"
     build.require_cuda_operands(what, (q, k_pages, v_pages), _KERNEL_DTYPES)
     if not (q.dtype == k_pages.dtype == v_pages.dtype):
@@ -109,17 +149,23 @@ def _paged_decode_cuda(q, k_pages, v_pages, page_table, lengths):
     if d > _MAX_HEAD_DIM or dv > _MAX_HEAD_DIM or slots > 65535:
         raise ValueError(f"{what}: head dims <= {_MAX_HEAD_DIM}, slots <= "
                          f"65535 (got d={d} dv={dv} slots={slots})")
+    strides = k_pages.stride()[:3] + v_pages.stride()[:3]
+    path = (paged_path(q.dtype, d, dv, strides, page_table.shape[1],
+                       page_size) if _path is None else _path)
+    ranks = paged_ranks(page_table.shape[1], page_size) if _ranks is None \
+        else _ranks
+    if path not in PAGED_PATHS:
+        raise ValueError(f"{what}: unknown path {path!r}")
     out = torch.empty((slots, heads, dv), dtype=q.dtype, device=q.device)
     lib = build.load(what, _SIGNATURE)
     rc = lib.ff_paged_decode(
         q.device.index or 0, build.DTYPE_CODES[str(q.dtype)[6:]],
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        slots, heads, d, dv, page_size, page_table.shape[1],
-        k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
-        v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
-        1.0 / math.sqrt(d), build.stream_ptr(q))
-    build.check_launch(rc, what)
+        slots, heads, d, dv, page_size, page_table.shape[1], *strides,
+        1.0 / math.sqrt(d), PAGED_PATHS.index(path), ranks,
+        build.stream_ptr(q))
+    build.check_launch(rc, what, f"{what}_{path}")
     return out
 
 

@@ -128,17 +128,166 @@ def test_flash_bwd_kernel_matches_plain(gen, sq, sk, d, dv, causal, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_paged_kernel_matches_plain_on_a_strided_cache_view(gen, dtype):
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "cluster"),
+                                        (torch.float16, "cluster"),
+                                        (torch.float32, "block")])
+def test_paged_kernel_matches_plain_on_a_strided_cache_view(gen, dtype, path):
     kc = _randn(gen, 3, 64, 4, 64, dtype=dtype)
     vc = _randn(gen, 3, 64, 4, 64, dtype=dtype)
     kp, vp, table = kd.paged_view_of_cache(kc, vc, 16)
     q = _randn(gen, 3, 4, 64, dtype=dtype)
     lengths = torch.tensor([1, 30, 64], dtype=torch.int32, device="cuda")
+    before = build.path_counts[f"paged_decode_{path}"]
     out = kd.paged_flash_decode(q, kp, vp, table, lengths)
     ref = kd.paged_decode_plain(q, kp, vp, table, lengths)
     torch.cuda.synchronize()
+    assert build.path_counts[f"paged_decode_{path}"] == before + 1
     _assert_close(out, ref, "paged")
+
+
+DEAD = 2 ** 30   # a table entry past a slot's live pages: never read
+
+
+def _paged_case(gen, d, dv, page, dtype, slots=6, heads=4, pp=12):
+    """A scattered table over a contiguous pool. Lengths: 0, 1, past the
+    table, a non-multiple of the page, the whole table, two pages. Entries
+    past each slot's live pages are DEAD in `table`, in range in
+    `in_range` (for the dense reference, which reads every entry)."""
+    q = _randn(gen, slots, heads, d, dtype=dtype)
+    kp = _randn(gen, heads, slots * pp, page, d, dtype=dtype)
+    vp = _randn(gen, heads, slots * pp, page, dv, dtype=dtype)
+    in_range = torch.randperm(slots * pp, generator=gen, device="cuda") \
+        .view(slots, pp).to(torch.int32)
+    lens = [0, 1, pp * page + 5, 3 * page + 1, pp * page, 2 * page][:slots]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    table = in_range.clone()
+    for b, n in enumerate(lens):
+        table[b, -(-min(n, pp * page) // page):] = DEAD
+    return q, kp, vp, table, in_range, lengths
+
+
+# (d, dv, page, dtype): the cluster kernel at each lane count (4, 8, 16,
+# 32 lanes a row), dv != d both ways, pages of 1, 4, 8 and 16 positions,
+# fp16; then shapes only the block kernel takes
+_PAGED_CASES = [
+    (64, 64, 16, torch.bfloat16, "cluster"),
+    (128, 128, 16, torch.bfloat16, "cluster"),
+    (64, 128, 4, torch.bfloat16, "cluster"),
+    (128, 64, 1, torch.float16, "cluster"),
+    (64, 64, 16, torch.float16, "cluster"),
+    (256, 256, 8, torch.bfloat16, "cluster"),
+    (8, 24, 4, torch.bfloat16, "cluster"),
+    (40, 40, 16, torch.bfloat16, "cluster"),
+    (64, 64, 16, torch.float32, "block"),
+    (20, 36, 4, torch.bfloat16, "block"),
+]
+
+
+@pytest.mark.parametrize("d,dv,page,dtype,path", _PAGED_CASES)
+def test_paged_kernels_match_plain_on_a_scattered_table(gen, d, dv, page,
+                                                        dtype, path):
+    """Each path `paged_path` names, and the block kernel at every shape
+    too: against the plain version (given the DEAD entries) and the dense
+    reference (given entries in range, on the live slots); a length-0
+    slot gives 0; each
+    launch counts once under its path; repeats are bit-equal."""
+    q, kp, vp, table, in_range, lengths = _paged_case(gen, d, dv, page, dtype)
+    assert kd.paged_path(dtype, d, dv, kp.stride()[:3] + vp.stride()[:3],
+                         table.shape[1], page) == path
+    plain = kd.paged_decode_plain(q, kp, vp, table, lengths)
+    ref = kd.paged_decode_reference(q, kp, vp, in_range, lengths)
+    for p in sorted({path, "block"}):
+        before = dict(build.path_counts)
+        out = kd._paged_decode_cuda(q, kp, vp, table, lengths, _path=p)
+        again = kd._paged_decode_cuda(q, kp, vp, table, lengths, _path=p)
+        torch.cuda.synchronize()
+        assert {k_: build.path_counts[k_] - before[k_]
+                for k_ in build.path_counts} == {
+            k_: 2 * int(k_ == f"paged_decode_{p}") for k_ in build.path_counts}
+        assert out.dtype == dtype and out.shape == (6, 4, dv)
+        _assert_close(out, plain, "paged")
+        # the dense reference averages V where no position is live (slot
+        # 0); the kernels give 0 there, as the TPU kernel does
+        _assert_close(out[1:], ref[1:], "paged")
+        assert not out[0].any()
+        assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("ranks", [1, 3, 5, 8])
+def test_the_cluster_kernel_at_every_cluster_size(gen, ranks):
+    """Rows split over 1 to 8 blocks a cluster agree with the plain
+    version, bit-equal run to run."""
+    q, kp, vp, table, in_range, lengths = _paged_case(gen, 64, 64, 4,
+                                                      torch.bfloat16)
+    plain = kd.paged_decode_plain(q, kp, vp, table, lengths)
+    out = kd._paged_decode_cuda(q, kp, vp, table, lengths, _ranks=ranks)
+    again = kd._paged_decode_cuda(q, kp, vp, table, lengths, _ranks=ranks)
+    torch.cuda.synchronize()
+    _assert_close(out, plain, "paged")
+    assert torch.equal(out, again)
+
+
+def test_paged_launches_count_by_path(gen):
+    q, kp, vp, table, _, lengths = _paged_case(gen, 64, 64, 16,
+                                               torch.bfloat16)
+    before, paths = build.launch_counts["paged_decode"], dict(build.path_counts)
+    kd.paged_flash_decode(q, kp, vp, table, lengths)
+    kd._paged_decode_cuda(q, kp, vp, table, lengths, _path="block")
+    torch.cuda.synchronize()
+    assert build.launch_counts["paged_decode"] == before + 2
+    assert build.path_counts["paged_decode_cluster"] == \
+        paths["paged_decode_cluster"] + 1
+    assert build.path_counts["paged_decode_block"] == \
+        paths["paged_decode_block"] + 1
+
+
+def test_the_cluster_kernel_refuses_what_it_does_not_take(gen):
+    """f32, head dims not multiples of 8, and rows that are not 16-byte
+    aligned: the cluster kernel refuses, the wrapper raises and counts
+    nothing; an unknown path is a ValueError."""
+    before = dict(build.path_counts)
+    for d, dtype in ((64, torch.float32), (20, torch.bfloat16)):
+        q, kp, vp, table, _, lengths = _paged_case(gen, d, d, 4, dtype)
+        with pytest.raises(RuntimeError):
+            kd._paged_decode_cuda(q, kp, vp, table, lengths, _path="cluster")
+    q, kp, vp, table, _, lengths = _paged_case(gen, 64, 64, 4, torch.bfloat16)
+    odd = _randn(gen, 4, 72 * 5, 68)[:, :, :64].reshape(4, 72, 5, 64)[:, :, :4]
+    assert odd.stride()[:3] == (72 * 5 * 68, 5 * 68, 68)
+    assert kd.paged_path(torch.bfloat16, 64, 64, odd.stride()[:3] * 2,
+                         12, 4) == "block"
+    with pytest.raises(RuntimeError):
+        kd._paged_decode_cuda(q, odd, odd, table, lengths, _path="cluster")
+    with pytest.raises(ValueError, match="unknown path"):
+        kd._paged_decode_cuda(q, kp, vp, table, lengths, _path="tiles")
+    for ranks in (0, 9):     # 1 to 8 blocks a cluster
+        with pytest.raises(RuntimeError):
+            kd._paged_decode_cuda(q, kp, vp, table, lengths, _ranks=ranks)
+    torch.cuda.synchronize()
+    assert build.path_counts == before
+
+
+def test_a_bf16_decode_step_takes_the_cluster_kernel(gen):
+    """The serving decode step of a bf16 LM sends every paged launch to
+    the cluster kernel."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.ff_types import DataType
+
+    m = FFModel(FFConfig(batch_size=2, allow_mixed_precision=True))
+    x = m.create_tensor((2, 32), DataType.DT_INT32)
+    t = m.embedding(x, 50, 64)
+    t = m.multihead_attention(t, t, t, 64, 4, causal=True)
+    m.dense(m.multihead_attention(t, t, t, 64, 4, causal=True), 50)
+    m.compile()
+    init, step = m.executor.build_decode(2, 32)
+    caches = init(m.params)
+    before = dict(build.path_counts)
+    step(m.params, caches, np.array([3, 17], np.int32),
+         [np.array([[1], [2]], np.int32)])
+    torch.cuda.synchronize()
+    assert build.path_counts["paged_decode_cluster"] == \
+        before["paged_decode_cluster"] + 2
+    assert build.path_counts["paged_decode_block"] == \
+        before["paged_decode_block"]
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
