@@ -19,7 +19,11 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      random weights from a seed, through incremental_generate, the full
      forward (the flash kernel) as the oracle of the KV-cached logits, and
      a ContinuousBatcher answering ragged requests, each held against
-     incremental_generate on its prompt;
+     incremental_generate on its prompt. Their one-token steps replay the
+     captured decode step (a CUDA graph over the cached bf16 weights);
+     incremental_generate's eager steps must give the same tokens, and a
+     warm step is traced both ways (wall, device busy, idle share, the
+     bf16-cast family);
   4. training: the flagship Transformer (models/transformer.py: batch 8,
      seq 512, hidden 1024, 12 blocks of non-causal MHA with 16 heads of 64
      + dense RELU + dense, bias-free dense) with bf16 compute and bf16
@@ -37,7 +41,19 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      steps through the dropout variants of both flash kernels; `eval`
      must read lower after them than before; one step's gradients
      through the kernels are held against FF_ATTENTION_IMPL=dense under
-     the same step seed (both draw the same masks), weight by weight.
+     the same step seed (both draw the same masks), weight by weight;
+  6. scans: `fit` with iterations_per_dispatch 4 (N train steps captured
+     in one CUDA graph and replayed) over 9 Transformer batches, and over
+     4 BERT batches with dropout, each against stepwise `fit` from the
+     same weights and step seeds (equal epoch lines, bit-equal weights),
+     samples/s of both over 5 ABBA rounds with their spread, and one
+     traced scan dispatch (idle share). Every timed epoch and dispatch
+     starts from the weights the equality check left and must leave
+     finite weights. The BERT phase also times the standalone Dropout's
+     keep-mask (int32 hash) against the int64 form of the same hash,
+     bit-equal;
+  7. remat: one BERT step's gradients with attention recomputed in the
+     backward must equal the stored-residual gradients bit for bit.
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -69,8 +85,11 @@ trace (`time_ms`; the paged rows with the L2 flushed before each call,
 the flush's own kernels left out); the flash and paged rows also carry
 the earlier CUDA-event reading around each synchronised launch, which
 holds the call's host time too. Launch counts are reset
-just before each path is driven and read just after it. Prints the card's name and power limit, a `kernels` JSON line,
-a `serving`, a `training` and a `bert` JSON line and, last, {"ok": true,
+just before each path is driven and read just after it; a replayed graph
+adds the launches its capture recorded (kernels/build.py). Prints the
+card's name and power limit, a `kernels` JSON line, a `serving`, a
+`training`, a `training_scan`, a `bert` and a `bert_scan` JSON line and,
+last, {"ok": true,
 "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import contextlib
@@ -153,6 +172,14 @@ BERT_DROPOUT = 0.1
 # lost 1/(1 - rate) or a mask left out of dP moves the attention
 # gradients by a sizeable share of themselves.
 BERT_ORACLE_RTOL = 0.0085
+# The scans: fit with iterations_per_dispatch SCAN_SPD over SCAN_BATCHES
+# Transformer batches (two captured chunks and a tail graph of one), and
+# BERT_SCAN_SPD BERT steps with dropout (one chunk), each against
+# stepwise fit from the same weights; samples/s of both over SCAN_ROUNDS
+# ABBA rounds. The scan replays the stepwise step's kernels on the same
+# data and seeds (cuBLAS picks the same kernels under capture on this
+# card), so its weights must equal the stepwise ones bit for bit.
+SCAN_SPD, SCAN_BATCHES, BERT_SCAN_SPD, SCAN_ROUNDS = 4, 9, 4, 5
 
 
 def log(*a):
@@ -197,18 +224,24 @@ def time_ms(fn, iters, flush=None, per_launch=False):
                 flush()
                 torch.cuda.synchronize()
             skip = {e.name for e in _device_events(torch, prof)}
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                if flush is not None:
-                    flush()
-                fn()
+        # a trace now and then comes back without device events (CUPTI on
+        # the H100 host of PERF.md, once in a run of hundreds): trace again
+        for attempt in range(3):
             torch.cuda.synchronize()
-        device = [e for e in _device_events(torch, prof)
-                  if e.name not in skip]
-        if not device:
-            raise AssertionError("the profiler saw no device time")
-        return sum(e.time_range.elapsed_us() for e in device) / iters / 1e3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    if flush is not None:
+                        flush()
+                    fn()
+                torch.cuda.synchronize()
+            device = [e for e in _device_events(torch, prof)
+                      if e.name not in skip]
+            if device:
+                return (sum(e.time_range.elapsed_us() for e in device)
+                        / iters / 1e3)
+            log(f"  time_ms: the profiler saw no device time (trace "
+                f"{attempt + 1} of 3)")
+        raise AssertionError("the profiler saw no device time")
     total = 0.0
     for _ in range(iters):
         if flush is not None:
@@ -1000,7 +1033,8 @@ def check_cached_vs_forward(torch, model, seqs, plen):
     cached = torch.stack(cached, 1).float()           # positions plen-1..n-2
     padded = np.zeros((SLOTS, MAX_LEN), np.int32)
     padded[:, :n] = seqs
-    full = model.forward([padded])[:, plen - 1:n - 1].float()
+    full = model.executor.build_forward()(model.params, [padded])[
+        :, plen - 1:n - 1].float()
     rel = (cached - full).abs().amax(-1) / full.amax(-1)
     err, mean_err = rel.max().item(), rel.mean().item()
     agree = (cached.argmax(-1) == full.argmax(-1)).float().mean().item()
@@ -1034,6 +1068,23 @@ def serve(torch, model):
         "batch": SLOTS, "prompt_len": plen, "new_tokens": new,
         "s": dt, "tokens_per_s": SLOTS * new / dt}
     log(f"  incremental_generate: {SLOTS}x{new} tokens in {dt:.3f}s")
+    # the one-token steps above replayed the captured decode step; the
+    # eager steps must give the same tokens
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = incremental_generate(model, prompts, max_new_tokens=new,
+                                 max_len=MAX_LEN, _eager=True)
+    torch.cuda.synchronize()
+    dt_eager = time.perf_counter() - t0
+    if not np.array_equal(eager, toks):
+        at = int(np.argmax((eager != toks).any(0)))
+        raise AssertionError("captured and eager decode steps disagree "
+                             f"from position {at}")
+    summary["incremental_generate"].update(
+        eager_s=dt_eager, eager_tokens_per_s=SLOTS * new / dt_eager,
+        exact_vs_eager=True)
+    log(f"  incremental_generate, eager steps: {dt_eager:.3f}s; tokens "
+        "equal to the captured steps'")
     # 2. cached logits against the full forward (the flash kernel)
     err, mean_err, agree = check_cached_vs_forward(torch, model, toks, plen)
     summary["cached_vs_forward"] = {"max_rel_err": err,
@@ -1085,15 +1136,16 @@ def serve(torch, model):
     return summary
 
 
-def build_transformer_model(torch):
+def build_transformer_model(torch, spd=1):
     """bench.py's default workload through the port's builder: the
-    reference's headline Transformer, bf16 compute over f32 weights."""
+    reference's headline Transformer, bf16 compute over f32 weights;
+    `spd` steps a dispatch in fit."""
     from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
     from flexflow_tpu_torch.ff_types import LossType, MetricsType
     from flexflow_tpu_torch.models import build_transformer
 
     m = FFModel(FFConfig(batch_size=TRAIN_BATCH, allow_mixed_precision=True,
-                         seed=0))
+                         seed=0, iterations_per_dispatch=spd))
     build_transformer(m, TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS, LAYERS)
     m.compile(SGDOptimizer(lr=0.01),
               LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
@@ -1119,15 +1171,21 @@ def profile_step(torch, run):
     for e in events:
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / 1e3)
+    # "cast": dtype conversions (the per-call bf16 copies of f32 weights
+    # among them); "memcpy": host-device copies (the batches)
     family = {"flash_fwd": 0.0, "flash_bwd": 0.0, "paged_decode": 0.0,
-              "gemm": 0.0, "other": 0.0}
+              "gemm": 0.0, "cast": 0.0, "memcpy": 0.0, "other": 0.0}
+    count = dict.fromkeys(family, 0)
     for name, ms in by_name.items():
         key = ("flash_fwd" if "flash_fwd" in name else
                "flash_bwd" if "flash_bwd" in name else
                "paged_decode" if "paged_decode" in name else
                "gemm" if re.search(r"gemm|gemv|nvjet|xmma|cutlass", name) else
+               "cast" if "direct_copy" in name else
+               "memcpy" if name.startswith("Memcpy") else
                "other")
         family[key] += ms
+        count[key] += sum(1 for e in events if e.name == name)
     busy = sum(family.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f"  step profile: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
@@ -1138,7 +1196,9 @@ def profile_step(torch, run):
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_events": len(events),
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
-            "by_family_ms": family,
+            "by_family_ms": family, "events_by_family": count,
+            "memcpy_ms_by_name": {n: ms for n, ms in by_name.items()
+                                  if n.startswith("Memcpy")},
             "top_kernels_ms": {n[:80]: ms for n, ms in top}}
 
 
@@ -1287,7 +1347,7 @@ def train(torch):
     return summary
 
 
-def build_bert_model(torch):
+def build_bert_model(torch, spd=1):
     """BERT-base as a plain torch.nn.Module (models/bert.py), imported
     through the PyTorch frontend and compiled like the training phase:
     bf16 compute and gradients over f32 weights, MSE-avg, SGD lr 0.01
@@ -1304,7 +1364,7 @@ def build_bert_model(torch):
     module = BertEncoder(BERT_LAYERS, BERT_HIDDEN, BERT_HEADS, BERT_FFN,
                          BERT_DROPOUT, BERT_DROPOUT)
     m = FFModel(FFConfig(batch_size=BERT_BATCH, allow_mixed_precision=True,
-                         seed=0))
+                         seed=0, iterations_per_dispatch=spd))
     x = m.create_tensor((BERT_BATCH, BERT_SEQ, BERT_HIDDEN))
     pt = PyTorchModel(module)
     pt.torch_to_ff(m, [x])
@@ -1451,6 +1511,351 @@ def bert(torch):
     return summary
 
 
+def fit_timed(torch, model, x, y):
+    """One quiet `fit` epoch over (x, y) on the host clock (synchronised
+    before and after); returns (seconds, its epoch lines without the
+    throughput reading, which is a clock)."""
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        model.fit(x, y)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lines = [ln.split("throughput")[0] + ln.split("samples/s")[1]
+             for ln in out.getvalue().splitlines() if ln.startswith("epoch")]
+    return dt, lines
+
+
+def weight_gap(torch, a, b):
+    """How far two models' weights are apart: the weights that differ in
+    any bit, and the largest |a - b| over max |a| of a weight."""
+    differ, worst, at = 0, 0.0, None
+    for op, ws in a.params.items():
+        for n, w in ws.items():
+            v = b.params[op][n]
+            if not torch.equal(w, v):
+                differ += 1
+                rel = ((w - v).abs().max() / w.abs().max()).item()
+                if rel > worst:
+                    worst, at = rel, f"{op}.{n}"
+    total = sum(len(ws) for ws in a.params.values())
+    return {"weights": total, "weights_not_bit_equal": differ,
+            "worst_rel_diff": worst, "worst_at": at}
+
+
+def abba(torch, runs, rounds, samples):
+    """Samples/s of the two `runs` (name -> fn returning seconds), taken
+    in turns A B B A for `rounds` rounds; per run the median and the
+    spread (max - min over the median) of its readings."""
+    (na, fa), (nb, fb) = runs.items()
+    got = {na: [], nb: []}
+    for _ in range(rounds):
+        for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+            got[name].append(samples / fn())
+    out = {}
+    for name, v in got.items():
+        med = float(np.median(v))
+        out[name] = {"samples_per_s_median": med, "readings": v,
+                     "spread": (max(v) - min(v)) / med}
+    out["speedup_median"] = (out[nb]["samples_per_s_median"]
+                             / out[na]["samples_per_s_median"])
+    return out
+
+
+def weights_finite(torch, model):
+    return all(torch.isfinite(w).all().item()
+               for ws in model.params.values() for w in ws.values())
+
+
+def restorer(torch, model):
+    """Snapshot the model's training state; returns a function that puts
+    it back into the same tensors (the captured graphs keep their
+    addresses). The timed turns each start from the snapshot, so each
+    trains a finite model: BERT-base diverges under SGD lr 0.01 within
+    tens of steps."""
+    from flexflow_tpu_torch.parallel.executor import _tensors
+
+    live = _tensors((model.state.params, model.state.opt_state))
+    saved = [t.clone() for t in live]
+
+    def restore():
+        with torch.no_grad():
+            for t, v in zip(live, saved):
+                t.copy_(v)
+
+    return restore
+
+
+def timed_turn(torch, model, restore, x, y):
+    """One epoch of `fit` from the snapshot, in seconds; raises if the
+    weights it leaves are not finite."""
+    restore()
+    dt = fit_timed(torch, model, x, y)[0]
+    if not weights_finite(torch, model):
+        raise AssertionError("a timed epoch left non-finite weights")
+    return dt
+
+
+def scan_profile(torch, model, x, y, spd, batch, restore):
+    """One dispatch of the train scan (spd steps: staging, copies and the
+    replay), traced; per-step readings beside it. Every dispatch starts
+    from the snapshot `restore` puts back."""
+    from flexflow_tpu_torch.core.seeds import step_seed
+
+    scan = model.executor.build_train_scan()
+    xs = x[:spd * batch].reshape((spd, batch) + x.shape[1:])
+    ys = y[:spd * batch].reshape((spd, batch) + y.shape[1:])
+    table = model.executor.seed_table(
+        [step_seed(model._rng) for _ in range(spd)])
+
+    def run():
+        model.state, _ = scan(model.state, [xs], ys, table)
+
+    times = []
+    for _ in range(4):
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    restore()
+    prof = profile_step(torch, run)
+    if not weights_finite(torch, model):
+        raise AssertionError("a traced scan dispatch left non-finite weights")
+    # the profiler slows the host side (staging, the Python around the
+    # replay), so the idle share is also taken against the best
+    # unprofiled dispatch
+    wall = min(times[1:])
+    # what the staged batches cost the card: one dispatch's inputs and
+    # labels copied from pinned memory, timed with CUDA events (best of 3)
+    src = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+           for a in (xs, ys)]
+    dst = [torch.empty_like(a, device="cuda") for a in src]
+    copy_ms = []
+    for _ in range(3):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for d, h in zip(dst, src):
+            d.copy_(h, non_blocking=True)
+        e1.record()
+        e1.synchronize()
+        copy_ms.append(e0.elapsed_time(e1))
+    nbytes = sum(a.numel() * a.element_size() for a in src)
+    del src, dst
+    prof.update(steps=spd, dispatch_ms_reading=wall,
+                step_ms_reading=wall / spd,
+                step_device_busy_ms=prof["device_busy_ms"] / spd,
+                idle_share_host_clock=max(
+                    0.0, 1.0 - prof["device_busy_ms"] / wall),
+                pinned_copy_ms_per_step=min(copy_ms) / spd,
+                pinned_copy_gb_per_s=nbytes / min(copy_ms) / 1e6)
+    log(f"  scan dispatch of {spd} steps: {prof['step_ms_reading']:.2f} ms "
+        f"a step on the host clock, {prof['step_device_busy_ms']:.2f} ms "
+        f"device busy, idle share {prof['idle_share_host_clock']:.4f} "
+        f"(under the profiler {prof['idle_share']:.4f}); batches from "
+        f"pinned memory {prof['pinned_copy_ms_per_step']:.3f} ms a step "
+        f"({prof['pinned_copy_gb_per_s']:.1f} GB/s); copies in the trace "
+        f"{prof['memcpy_ms_by_name']}")
+    return prof
+
+
+def train_scan(torch):
+    """The Transformer scan: fit with iterations_per_dispatch SCAN_SPD
+    over SCAN_BATCHES batches (two captured chunks and a tail graph of
+    one) against stepwise fit from the same weights and data; samples/s
+    of both in ABBA turns; one traced scan dispatch."""
+    from flexflow_tpu_torch.kernels import build
+
+    rng = np.random.RandomState(5)
+    n = SCAN_BATCHES * TRAIN_BATCH
+    x, y = (rng.randn(n, TRAIN_SEQ, HIDDEN).astype(np.float32)
+            for _ in range(2))
+    a = build_transformer_model(torch)
+    b = build_transformer_model(torch, spd=SCAN_SPD)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    _, lines_b = fit_timed(torch, b, x, y)
+    counts, paths = dict(build.launch_counts), dict(build.path_counts)
+    _, lines_a = fit_timed(torch, a, x, y)
+    graphs = 1 + int(SCAN_BATCHES % SCAN_SPD != 0)
+    want = (SCAN_BATCHES + graphs) * LAYERS
+    check_training_counts("transformer scan", counts, {
+        "flash_fwd": want, "flash_bwd": want, "paged_decode": 0})
+    check_wgmma_paths("transformer scan", counts, paths)
+    gap = weight_gap(torch, a, b)
+    log(f"  scan vs stepwise fit ({SCAN_BATCHES} batches, "
+        f"{SCAN_SPD} a dispatch): epoch lines {lines_b} vs {lines_a}; "
+        f"weights {gap}")
+    if lines_a != lines_b or gap["weights_not_bit_equal"]:
+        raise AssertionError(f"transformer scan vs stepwise: {lines_b} vs "
+                             f"{lines_a}, {gap}")
+    ra, rb = restorer(torch, a), restorer(torch, b)
+    timing = abba(torch, {
+        "stepwise": lambda: timed_turn(torch, a, ra, x, y),
+        "scan": lambda: timed_turn(torch, b, rb, x, y)}, SCAN_ROUNDS, n)
+    log(f"  ABBA x{SCAN_ROUNDS}: stepwise "
+        f"{timing['stepwise']['samples_per_s_median']:.2f} samples/s "
+        f"(spread {timing['stepwise']['spread']:.3f}), scan "
+        f"{timing['scan']['samples_per_s_median']:.2f} "
+        f"(spread {timing['scan']['spread']:.3f}), "
+        f"x{timing['speedup_median']:.3f}")
+    prof = scan_profile(torch, b, x, y, SCAN_SPD, TRAIN_BATCH, rb)
+    return {"model": "transformer", "batches": SCAN_BATCHES,
+            "iterations_per_dispatch": SCAN_SPD, "graphs": graphs,
+            "epoch_lines_equal": True, "weights_vs_stepwise": gap,
+            "abba": timing,
+            "scan_profile": prof, "launches": counts,
+            "launches_by_path": paths}
+
+
+def remat_check(torch, model, x, y):
+    """One step's gradients under one step seed with attention stored
+    and recomputed in the backward (remat): equal bit for bit, the same
+    dropout masks drawn in both."""
+    from flexflow_tpu_torch.core.seeds import step_seed
+    from flexflow_tpu_torch.kernels import build
+
+    ex = model.executor
+    labels = ex._as_labels(y)
+    seed = step_seed(torch.Generator().manual_seed(3))
+    runs, peaks, remat_counts = {}, {}, None
+    for remat in (False, True):
+        ex.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        runs[remat] = ex._loss_and_grads(model.params, [x], labels, seed)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if remat:
+            remat_counts = dict(build.launch_counts)
+    ex.remat = False
+    check_training_counts("remat step", remat_counts, {
+        "flash_fwd_dropout": 2 * BERT_LAYERS,
+        "flash_bwd_dropout": BERT_LAYERS})
+    finite = all(torch.isfinite(g).all().item() for r in runs.values()
+                 for gs in r[2].values() for g in gs.values())
+    differ, worst = 0, 0.0
+    for op, gs in runs[False][2].items():
+        for name, g in gs.items():
+            r = runs[True][2][op][name]
+            if not torch.equal(g, r):
+                differ += 1
+                worst = max(worst, ((g.float() - r.float()).abs().max()
+                                    / g.float().abs().max()).item())
+    remat = {"gradients": sum(len(g) for g in runs[False][2].values()),
+             "not_bit_equal": differ, "worst_rel_diff": worst,
+             "finite": finite, "loss_stored": runs[False][0].item(),
+             "loss_remat": runs[True][0].item(),
+             "peak_gb_stored": peaks[False], "peak_gb_remat": peaks[True],
+             "launches": remat_counts}
+    log(f"  remat: {remat}")
+    if differ or not finite or remat["loss_stored"] != remat["loss_remat"]:
+        raise AssertionError(f"remat gradients differ: {remat}")
+    return remat
+
+
+def bert_scan(torch):
+    """The BERT scan with dropout: fit with iterations_per_dispatch
+    BERT_SCAN_SPD over as many batches (one captured chunk) against
+    stepwise fit from the same weights and step seeds; ABBA samples/s; a
+    traced dispatch. First, on the fresh weights, the remat check."""
+    from flexflow_tpu_torch.kernels import build
+
+    rng = np.random.RandomState(6)
+    n = BERT_SCAN_SPD * BERT_BATCH
+    x, y = (rng.randn(n, BERT_SEQ, BERT_HIDDEN).astype(np.float32)
+            for _ in range(2))
+    a = build_bert_model(torch)
+    remat = remat_check(torch, a, x[:BERT_BATCH], y[:BERT_BATCH])
+    b = build_bert_model(torch, spd=BERT_SCAN_SPD)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    _, lines_b = fit_timed(torch, b, x, y)
+    counts, paths = dict(build.launch_counts), dict(build.path_counts)
+    _, lines_a = fit_timed(torch, a, x, y)
+    want = (BERT_SCAN_SPD + 1) * BERT_LAYERS
+    check_training_counts("bert scan", counts, {
+        "flash_fwd_dropout": want, "flash_bwd_dropout": want,
+        "flash_fwd": 0, "flash_bwd": 0, "paged_decode": 0})
+    check_wgmma_paths("bert scan", counts, paths)
+    gap = weight_gap(torch, a, b)
+    log(f"  bert scan vs stepwise fit ({BERT_SCAN_SPD} steps, dropout "
+        f"{BERT_DROPOUT}): epoch lines {lines_b} vs {lines_a}; weights "
+        f"{gap}")
+    if lines_a != lines_b or gap["weights_not_bit_equal"]:
+        raise AssertionError(f"bert scan vs stepwise: {lines_b} vs "
+                             f"{lines_a}, {gap}")
+    # every timed turn and traced dispatch starts from the weights the
+    # equality check left (BERT_SCAN_SPD steps in), and each must leave
+    # finite weights
+    ra, rb = restorer(torch, a), restorer(torch, b)
+    timing = abba(torch, {
+        "stepwise": lambda: timed_turn(torch, a, ra, x, y),
+        "scan": lambda: timed_turn(torch, b, rb, x, y)}, SCAN_ROUNDS, n)
+    log(f"  ABBA x{SCAN_ROUNDS}: stepwise "
+        f"{timing['stepwise']['samples_per_s_median']:.2f} samples/s "
+        f"(spread {timing['stepwise']['spread']:.3f}), scan "
+        f"{timing['scan']['samples_per_s_median']:.2f} "
+        f"(spread {timing['scan']['spread']:.3f}), "
+        f"x{timing['speedup_median']:.3f}; every turn from the snapshot, "
+        f"weights finite after each")
+    prof = scan_profile(torch, b, x, y, BERT_SCAN_SPD, BERT_BATCH, rb)
+    mask = dropout_mask_timing(torch)
+    return {"model": "BERT-base encoder via PyTorchModel",
+            "steps": BERT_SCAN_SPD, "iterations_per_dispatch": BERT_SCAN_SPD,
+            "dropout": BERT_DROPOUT, "epoch_lines_equal": True,
+            "weights_vs_stepwise": gap,
+            "abba": timing, "timed_from_snapshot": True,
+            "weights_finite_after_every_timed_run": True,
+            "scan_profile": prof, "remat": remat, "dropout_mask": mask,
+            "launches": counts, "launches_by_path": paths}
+
+
+def dropout_mask_timing(torch):
+    """The standalone Dropout's keep-mask over one BERT activation (batch
+    x seq x hidden) under a seed-table entry: the op's int32 form
+    (`keep_mask`) against the int64 form of the same hash, which the op
+    used before. Bit-equal; each one's device time (profiler) and device
+    kernels a call. The least it could take: writing the n-byte mask."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.kernels import attention as ka
+    from flexflow_tpu_torch.ops.dropout import keep_mask
+
+    shape = (BERT_BATCH, BERT_SEQ, BERT_HIDDEN)
+    n = int(np.prod(shape))
+    entry = torch.tensor([ka._i32(v) for v in DROP_SEEDS],
+                         dtype=torch.int32, device="cuda")
+    thr = ka._drop_threshold(BERT_DROPOUT)
+
+    def int32():
+        return keep_mask(entry, BERT_DROPOUT, shape, "cuda")
+
+    def int64():
+        s0, s1 = ka._mask_seeds(entry, "cuda")
+        idx = torch.arange(n, dtype=torch.int64, device="cuda") & ka._M32
+        return (ka._keep_bits(idx, s0, s1) >= thr).view(shape)
+
+    new, old = int32(), int64()
+    out = {"shape": list(shape), "bit_equal": bool(torch.equal(new, old)),
+           "kept_share": new.float().mean().item(),
+           "bound_ms": n / PEAK_BYTES_PER_S * 1e3}
+    for name, fn in (("int32", int32), ("int64", int64)):
+        out[f"{name}_ms"] = time_ms(fn, 20)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out[f"{name}_kernels"] = len(_device_events(torch, prof))
+    log(f"  dropout mask {shape}: {out}")
+    if not out["bit_equal"]:
+        raise AssertionError(f"dropout mask: int32 and int64 differ: {out}")
+    return out
+
+
 def wgmma_build_report(build):
     """Registers, spill bytes and shared memory of each wgmma kernel
     instance, from ptxas's report in the build log (-Xptxas -v) and the
@@ -1545,12 +1950,14 @@ def paged_build_report(build):
     return out
 
 
-def decode_step_profile(torch, model):
+def decode_step_profile(torch, model, eager=False):
     """One warm decode step of the serving LM with every slot at
     mid-length (positions 0..MAX_LEN/2 - 1 held, each row's position
     passed per row as the batcher does; caches zero-filled, which moves
     the same bytes as any other contents), traced, beside the host-clock
-    time of such a step (best of 5)."""
+    time of such a step (best of 5). By default the step replays its
+    captured graph and reads the cached bf16 weights; `eager` runs the
+    ops one by one, as every step ran before capture (weights cached)."""
     init, step = model.executor.build_decode(SLOTS, MAX_LEN)
     caches = init(model.params)
     t = np.full(SLOTS, MAX_LEN // 2, np.int32)
@@ -1560,18 +1967,26 @@ def decode_step_profile(torch, model):
     for _ in range(7):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(model.params, caches, t, [tok])
+        step(model.params, caches, t, [tok], _eager=eager)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    prof = profile_step(torch, lambda: step(model.params, caches, t, [tok]))
+    prof = profile_step(torch, lambda: step(model.params, caches, t, [tok],
+                                            _eager=eager))
     fam = prof["by_family_ms"]
     prof.update(step_ms_reading=min(times[2:]), position=MAX_LEN // 2,
+                captured=not eager,
+                idle_share_host_clock=max(
+                    0.0, 1.0 - prof["device_busy_ms"] / min(times[2:])),
                 paged_share=fam["paged_decode"] / prof["device_busy_ms"],
                 gemm_share=fam["gemm"] / prof["device_busy_ms"])
-    log(f"  decode step ({SLOTS} slots at position {MAX_LEN // 2}): warm "
+    log(f"  decode step ({SLOTS} slots at position {MAX_LEN // 2}, "
+        f"{'eager' if eager else 'captured'}): warm "
         f"{prof['step_ms_reading']:.3f} ms on the host clock; paged share "
         f"of device busy {prof['paged_share']:.4f}, GEMMs "
-        f"{prof['gemm_share']:.4f}, idle share {prof['idle_share']:.4f}")
+        f"{prof['gemm_share']:.4f}, casts {fam['cast']:.4f} ms in "
+        f"{prof['events_by_family']['cast']} events, idle share "
+        f"{prof['idle_share_host_clock']:.4f} (under the profiler "
+        f"{prof['idle_share']:.4f})")
     return prof
 
 
@@ -1623,6 +2038,8 @@ def main() -> int:
         raise AssertionError(f"serving: paged launches by path {paged}, "
                              "expected all on cluster")
     summary["decode_step_profile"] = decode_step_profile(torch, model)
+    summary["decode_step_profile_eager"] = decode_step_profile(
+        torch, model, eager=True)
     del model
     torch.cuda.empty_cache()
 
@@ -1630,11 +2047,21 @@ def main() -> int:
     training = train(torch)
     torch.cuda.empty_cache()
 
+    log("# training scan phase")
+    scan = train_scan(torch)
+    torch.cuda.empty_cache()
+
     log("# bert phase")
     bert_summary = bert(torch)
+    torch.cuda.empty_cache()
+
+    log("# bert scan and remat phase")
+    bscan = bert_scan(torch)
 
     by_phase = {"serving": serving_counts, "training": training["launches"],
-                "bert": bert_summary["launches"]}
+                "training_scan": scan["launches"],
+                "bert": bert_summary["launches"],
+                "bert_scan": bscan["launches"]}
     for k in kernels:
         k["launches_by_phase"] = {p: c[k["name"]] for p, c in by_phase.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
@@ -1650,13 +2077,15 @@ def main() -> int:
         if "wmma_ms" in row:   # every main-path launch took the wgmma path
             row["path"] = "wgmma"
     report.update(kernels=kernels, serving=summary, training=training,
-                  bert=bert_summary)
+                  training_scan=scan, bert=bert_summary, bert_scan=bscan)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(json.dumps({"serving": summary}))
     log(json.dumps({"training": training}))
+    log(json.dumps({"training_scan": scan}))
     log(json.dumps({"bert": bert_summary}))
+    log(json.dumps({"bert_scan": bscan}))
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -4,6 +4,10 @@ The PyTorch counterpart of flexflow_tpu/config.py, with the fields this
 package reads, under the JAX package's names. Device counts come from
 `torch.cuda`.
 
+The dataclass has slots, so a field the port does not read (a JAX
+field not ported yet) cannot be set: `cfg.unported = 1` raises
+AttributeError instead of being ignored.
+
 `device` names where a compiled model lives: "cuda" (the default, the
 first card) or "cuda:N", and "cpu" only when the caller asks for it. A
 config that asks for a card on a machine without one raises at
@@ -34,7 +38,7 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(slots=True)
 class FFConfig:
     """Global run configuration (reference: config.h:92-160)."""
 
@@ -51,6 +55,13 @@ class FFConfig:
     allow_mixed_precision: bool = False
     seed: int = 0
     device: str = "cuda"
+    # recompute each attention op's internals in the backward instead of
+    # saving them (torch.utils.checkpoint; JAX: jax.checkpoint)
+    remat: bool = False
+    # train steps fit() runs as one dispatch: on a card, N steps captured
+    # in one CUDA graph and replayed (JAX: one lax.scan program). 1 = one
+    # eager step per batch
+    iterations_per_dispatch: int = 1
 
     def __post_init__(self):
         dev = resolve_device(self.device)

@@ -45,13 +45,15 @@ class Metrics:
         denominators count prediction rows: a per-position output (b, s,
         vocab) scores b*s classifications, as the reference's metrics
         kernels iterate every row; throughput stays per sample."""
+        # filled on the device (no host-to-device copy), so a captured
+        # train step can compute them
         f32 = dict(dtype=torch.float32, device=preds.device)
         out: Dict[str, torch.Tensor] = {}
-        out["num_samples"] = torch.tensor(preds.shape[0], **f32)
+        out["num_samples"] = torch.full((), preds.shape[0], **f32)
         rows = 1
         for d in preds.shape[:-1]:
             rows *= d
-        out["num_rows"] = torch.tensor(rows, **f32)
+        out["num_rows"] = torch.full((), rows, **f32)
         pf = preds.float()
         lf = labels if labels.dtype == torch.int32 else labels.float()
         for m in self.measures:

@@ -3,8 +3,9 @@
 The PyTorch counterpart of flexflow_tpu/core/model.py: the builder methods
 of the ported ops (the ones the served LM, the flagship Transformer and
 the PyTorch frontend's BERT encoder call), `compile` on the manual
-single-device branch, `fit` and `eval` (training), and `forward`/`predict`
-(serving). Op names follow the JAX package
+single-device branch, `fit` and `eval` (training), `predict` (serving)
+and the stepwise API (`set_iteration_batch`, `forward`, `zero_gradients`,
+`backward`, `update`). Op names follow the JAX package
 (`f"{op_type.name.lower()}_{len(self.layers)}"`), so weights carry across
 by (op name, weight name) (runtime/weights.py).
 
@@ -12,16 +13,18 @@ by (op name, weight name) (runtime/weights.py).
 `self.state` (a TrainState); `self.params` is `self.state.params`, the one
 dict that training updates and serving reads. It refuses a strategy search
 (search_budget >= 0) and more than one device, neither of which is ported
-yet. `fit` is the JAX package's stepwise loop (one train step per batch,
-per-epoch metrics, the reference's throughput line; each step draws its
-seed from the model's CPU generator, as the JAX loop splits its key); the
-multi-step scan, the step guard, checkpointing and telemetry are not
-ported.
+yet. `fit` is the JAX package's loop: per-epoch metrics, the reference's
+throughput line, each step's seed drawn from the model's CPU generator
+(as the JAX loop splits its key), and one eager train step per batch or,
+with `config.iterations_per_dispatch` N > 1, chunks of N batches through
+the executor's train scan (one CUDA graph replay per chunk on a card),
+the shorter tail chunk through its own. The step guard, checkpointing
+and telemetry are not ported.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +44,7 @@ from ..pcg.lowering import layers_to_pcg
 from .losses import to_loss_type
 from .metrics import Metrics, PerfMetrics
 from .optimizers import SGDOptimizer
+from .seeds import step_seed
 from .tensor import Layer, Tensor
 
 
@@ -61,6 +65,10 @@ class FFModel:
         self.perf_metrics: Optional[PerfMetrics] = None
         self._fit_input_tensors: List[Tensor] = []
         self._rng: Optional[torch.Generator] = None
+        # the stepwise API's bound batch and pending gradients
+        self._current_batch: Optional[Tuple] = None
+        self._last_logits: Optional[torch.Tensor] = None
+        self._pending_grads = None
 
     @property
     def params(self) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
@@ -285,7 +293,8 @@ class FFModel:
             grad_dtype=torch.bfloat16 if mixed else None,
             seed=self.config.seed,
             input_order=[graph_inputs[tensor_map[t.guid]]
-                         for t in self._fit_input_tensors])
+                         for t in self._fit_input_tensors],
+            remat=self.config.remat)
         self.state = self.executor.init_state()
         self.perf_metrics = PerfMetrics()
         self._rng = torch.Generator().manual_seed(self.config.seed)
@@ -300,12 +309,17 @@ class FFModel:
             epochs: Optional[int] = None, verbose: bool = True):
         """Train on (x, y): one train step per full batch, `epochs` passes
         (config.epochs by default). The tail that does not fill a batch is
-        dropped, with a warning. Prints each epoch's loss and metrics when
-        `verbose`, and the reference's ELAPSED TIME / THROUGHPUT line at the
-        end. Returns the last epoch's PerfMetrics."""
+        dropped, with a warning. With config.iterations_per_dispatch N > 1
+        the batches go N at a time through the train scan, the last
+        shorter chunk through its own, with the same step seeds as one
+        step per batch. Prints each epoch's loss and metrics when
+        `verbose`, and the reference's ELAPSED TIME / THROUGHPUT line at
+        the end. Returns the last epoch's PerfMetrics."""
         if self.executor is None:
             raise RuntimeError("fit: call compile() first")
         step_fn = self.executor.build_train_step()
+        spd = max(1, self.config.iterations_per_dispatch)
+        scan_fn = self.executor.build_train_scan() if spd > 1 else None
         xs = list(x) if isinstance(x, (list, tuple)) else [x]
         bs = batch_size or self.config.batch_size
         ep = epochs or self.config.epochs
@@ -324,15 +338,37 @@ class FFModel:
             # epoch's end, so the host does not wait on every step
             self.perf_metrics = PerfMetrics()
             device_partials = []
-            for batch in self._batches(xs + [y], bs):
-                self.state, partials = step_fn(self.state, batch[:-1],
-                                               batch[-1], self._rng)
+            chunk: List[list] = []
+
+            def flush(chunk):
+                # one dispatch for the chunk's steps; one seed per step,
+                # drawn exactly as the stepwise path draws them
+                seeds = self.executor.seed_table(
+                    [step_seed(self._rng) for _ in chunk])
+                self.state, partials = scan_fn(
+                    self.state, [[b[i] for b in chunk]
+                                 for i in range(len(xs))],
+                    [b[-1] for b in chunk], seeds)
                 device_partials.append(partials)
+
+            for batch in self._batches(xs + [y], bs):
+                if scan_fn is not None:
+                    chunk.append(batch)
+                    if len(chunk) == spd:
+                        flush(chunk)
+                        chunk = []
+                else:
+                    self.state, partials = step_fn(self.state, batch[:-1],
+                                                   batch[-1], self._rng)
+                    device_partials.append(partials)
                 num_samples += bs
-            folded = {k: float(torch.stack([p[k] for p in device_partials])
+            if chunk:  # tail chunk shorter than spd (its own graph)
+                flush(chunk)
+            folded = {k: float(torch.cat([p[k].reshape(-1)
+                                          for p in device_partials])
                                .double().sum())
                       for k in device_partials[0]}
-            last_loss = float(device_partials[-1]["loss"])
+            last_loss = float(device_partials[-1]["loss"].reshape(-1)[-1])
             folded.pop("loss")
             self.perf_metrics.update(folded)
             if verbose:
@@ -362,16 +398,12 @@ class FFModel:
         return pm
 
     # -- inference ----------------------------------------------------------
-    def forward(self, inputs: Sequence[np.ndarray]) -> torch.Tensor:
-        """The full forward of one compiled batch: inputs in creation order,
-        returns the graph output on the model's device."""
-        if self.executor is None:
-            raise RuntimeError("compile() the model first")
-        return self.executor.build_forward()(self.params, list(inputs))
-
     def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
         """Forward over a dataset in compiled-batch chunks -> numpy. The
         tail that does not fill a batch is padded and its rows dropped."""
+        if self.executor is None:
+            raise RuntimeError("compile() the model first")
+        fwd = self.executor.build_forward()
         xs = list(x) if isinstance(x, (list, tuple)) else [x]
         bs = batch_size or self._fit_input_tensors[0].dims[0]
         n = len(xs[0])
@@ -382,6 +414,56 @@ class FFModel:
             if short:
                 chunk = [np.concatenate([c, np.repeat(c[-1:], short, 0)])
                          for c in chunk]
-            y = self.forward(chunk).float().cpu().numpy()
+            y = fwd(self.params, chunk).float().cpu().numpy()
             outs.append(y[:bs - short])
         return np.concatenate(outs)
+
+    # -- stepwise API for cffi parity (reference: model.cc forward/backward/
+    #    update/zero_gradients driven from flexflow_cffi.fit) -------------
+    def set_iteration_batch(self, inputs: List[np.ndarray], label: np.ndarray):
+        """Bind the batch the next forward/backward run on: inputs in
+        creation order, and the labels."""
+        self._current_batch = (inputs, label)
+
+    def _bound_inputs(self) -> List:
+        if self.executor is None or self._current_batch is None:
+            raise RuntimeError("compile() the model and set_iteration_batch "
+                               "first")
+        inputs, _ = self._current_batch
+        for i, a in enumerate(inputs):
+            if a is None:
+                raise ValueError(
+                    f"input tensor '{self._fit_input_tensors[i].name or i}' "
+                    "was never attached")
+        return inputs
+
+    def forward(self, seq_length: int = -1):
+        """The inference forward of the bound batch (the JAX package's
+        stepwise `forward`): returns the graph output on the device."""
+        inputs = self._bound_inputs()
+        fwd = self.executor.build_forward(seq_length)
+        self._last_logits = fwd(self.params, inputs)
+        return self._last_logits
+
+    def zero_gradients(self):
+        self._pending_grads = None
+
+    def backward(self, seq_length: int = -1):
+        """Gradients of the loss on the bound batch, kept for `update`. As
+        in the JAX package no op draws random numbers (no rng)."""
+        inputs = self._bound_inputs()
+        _, label = self._current_batch
+        if label is None:
+            raise ValueError("the label tensor was never attached")
+        grad_fn = self.executor.build_grad_step(seq_length)
+        self._pending_grads = grad_fn(self.params, inputs, label)
+
+    def update(self):
+        """Apply the pending gradients with the optimizer (in place) and
+        advance the step."""
+        if self._pending_grads is None:
+            raise RuntimeError("call backward() first")
+        self.optimizer.update(self.state.params, self._pending_grads,
+                              self.state.opt_state)
+        self.state.step += 1
+        self._pending_grads = None

@@ -71,6 +71,24 @@ struct Dropout {
   float inv_keep;  // 1 / (1 - rate)
 };
 
+// What a kernel is launched with: the two seeds stay in device memory
+// (a row of the executor's per-step seed table), so a launch captured in
+// a CUDA graph reads the seeds of the step being replayed. The rate is
+// static: threshold and inv_keep go by value.
+struct DropoutArgs {
+  const uint32_t* seeds;
+  uint32_t threshold;
+  float inv_keep;
+};
+
+// the seeds read once at the top of a kernel; the dropout-free variant
+// never dereferences the pointer
+template <bool kDrop>
+__device__ __forceinline__ Dropout load_dropout(const DropoutArgs& a) {
+  if (!kDrop) return Dropout{0u, 0u, 0u, 1.f};
+  return Dropout{__ldg(a.seeds), __ldg(a.seeds + 1), a.threshold, a.inv_keep};
+}
+
 __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   h ^= h >> 16;
   h *= 0x7FEB352Du;

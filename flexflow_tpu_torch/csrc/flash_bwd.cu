@@ -233,7 +233,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ gk,
                       T* __restrict__ gv, int sq, int sk, int d, int dv,
-                      int causal, float scale, ff::Dropout drop) {
+                      int causal, float scale, ff::DropoutArgs drop_args) {
+  const ff::Dropout drop = ff::load_dropout<kDrop>(drop_args);
   extern __shared__ __align__(128) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const Layout L(warps, d, dv, true);
@@ -336,7 +337,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ gq,
                     int sq, int sk, int d, int dv, int causal, float scale,
-                    ff::Dropout drop) {
+                    ff::DropoutArgs drop_args) {
+  const ff::Dropout drop = ff::load_dropout<kDrop>(drop_args);
   extern __shared__ __align__(128) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const Layout L(warps, d, dv, false);
@@ -429,7 +431,8 @@ flash_bwd_dkdv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const float* __restrict__ delta,
                            T* __restrict__ gk, T* __restrict__ gv, int sq,
                            int sk, int d, int dv, int causal, float scale,
-                           ff::Dropout drop) {
+                           ff::DropoutArgs drop_args) {
+  const ff::Dropout drop = ff::load_dropout<kDrop>(drop_args);
   const long long row = blockIdx.y;
   const int kpos = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -510,7 +513,8 @@ flash_bwd_dq_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ gq,
                          int sq, int sk, int d, int dv, int causal,
-                         float scale, ff::Dropout drop) {
+                         float scale, ff::DropoutArgs drop_args) {
+  const ff::Dropout drop = ff::load_dropout<kDrop>(drop_args);
   const long long row = blockIdx.y;
   const int qpos = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -758,7 +762,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const float* __restrict__ delta,
                             T* __restrict__ gk, T* __restrict__ gv, int sq,
                             int sk, int causal, float scale, float scale_log2,
-                            ff::Dropout drop) {
+                            ff::DropoutArgs drop_args) {
+  const ff::Dropout drop = ff::load_dropout<kDrop>(drop_args);
   constexpr int kBq = kQRows<D>;
   using C = Tiles<D, kBq>;
   extern __shared__ unsigned char smem_raw[];
@@ -944,7 +949,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta, T* __restrict__ gq,
                           int sq, int sk, int causal, float scale,
-                          float scale_log2, ff::Dropout drop) {
+                          float scale_log2, ff::DropoutArgs drop_args) {
+  const ff::Dropout drop = ff::load_dropout<kDrop>(drop_args);
   constexpr int kBk = kKRows<D>;
   using C = Tiles<D, kBk>;
   extern __shared__ unsigned char smem_raw[];
@@ -1002,7 +1008,7 @@ struct Args {
   void *gq, *gk, *gv;
   int bh, sq, sk, d, dv, causal;
   float scale;
-  ff::Dropout drop;
+  ff::DropoutArgs drop;
   cudaStream_t stream;
 };
 
@@ -1171,14 +1177,14 @@ cudaError_t dispatch(int dtype, int path, const Args& a, int device) {
 }  // namespace
 
 // delta is scratch of bh * sq floats; gq, gk, gv receive dq, dk, dv.
-// s0, s1, threshold, inv_keep: the forward's dropout (flash_fwd.cu);
+// seeds, threshold, inv_keep: the forward's dropout (flash_fwd.cu);
 // path: kRows, kWmma or kWgmma.
 extern "C" int ff_flash_bwd(int device, int dtype, const void* q,
                             const void* k, const void* v, const void* o,
                             const void* dout, const void* lse, void* delta,
                             void* gq, void* gk, void* gv, int bh, int sq,
                             int sk, int d, int dv, int causal, float scale,
-                            unsigned int s0, unsigned int s1,
+                            const unsigned int* seeds,
                             unsigned int threshold, float inv_keep,
                             int path, void* stream) {
   if (bh < 1 || bh > 65535 || sq < 1 || sk < 1 || d < 1 || dv < 1 ||
@@ -1188,7 +1194,7 @@ extern "C" int ff_flash_bwd(int device, int dtype, const void* q,
   if (err != cudaSuccess) return static_cast<int>(err);
   const Args a{q,  k,  v,  o,  dout, static_cast<const float*>(lse),
                static_cast<float*>(delta), gq, gk, gv, bh, sq, sk, d, dv,
-               causal, scale, ff::Dropout{s0, s1, threshold, inv_keep},
+               causal, scale, ff::DropoutArgs{seeds, threshold, inv_keep},
                static_cast<cudaStream_t>(stream)};
   err = threshold ? dispatch<true>(dtype, path, a, device)
                   : dispatch<false>(dtype, path, a, device);

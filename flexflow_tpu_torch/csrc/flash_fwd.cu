@@ -130,7 +130,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int sq, int sk, int d, int dv,
-                 int causal, float scale, ff::Dropout drop) {
+                 int causal, float scale, ff::DropoutArgs drop_args) {
+  const ff::Dropout drop = ff::load_dropout<kDrop>(drop_args);
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(d, dv);
   T* Qs = reinterpret_cast<T*>(smem + L.q);
@@ -276,7 +277,8 @@ __global__ void __launch_bounds__(kRowWarps * 32)
 flash_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       float* __restrict__ lse, int sq, int sk, int d, int dv,
-                      int causal, float scale, ff::Dropout drop) {
+                      int causal, float scale, ff::DropoutArgs drop_args) {
+  const ff::Dropout drop = ff::load_dropout<kDrop>(drop_args);
   const long long row = blockIdx.y;
   const int qpos = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -566,7 +568,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tv,
                        T* __restrict__ o, float* __restrict__ lse, int sq,
                        int sk, int causal, float scale_log2,
-                       ff::Dropout drop) {
+                       ff::DropoutArgs drop_args) {
+  const ff::Dropout drop = ff::load_dropout<kDrop>(drop_args);
   using C = Tiles<D>;
   constexpr int kBc = C::kBc;
   constexpr int kStages = C::kStages;
@@ -626,7 +629,7 @@ struct Args {
   float* lse;
   int bh, sq, sk, d, dv, causal;
   float scale;
-  ff::Dropout drop;
+  ff::DropoutArgs drop;
   cudaStream_t stream;
 };
 
@@ -714,13 +717,16 @@ cudaError_t dispatch(int dtype, int path, const Args& a) {
 
 }  // namespace
 
-// s0, s1: the dropout seeds; threshold: round(rate * 2^32) capped at
-// 2^32 - 1, 0 for no dropout; inv_keep: 1 / (1 - rate); path: kRows,
-// kWmma or kWgmma.
+// seeds: the dropout's two uint32 seeds in device memory, read by each
+// block as it starts (a captured graph replays the launch with the
+// pointer, so each replay sees the seeds the buffer then holds);
+// threshold: round(rate * 2^32) capped at 2^32 - 1, 0 for no dropout
+// (seeds may then be null); inv_keep: 1 / (1 - rate); path: kRows, kWmma
+// or kWgmma.
 extern "C" int ff_flash_fwd(int device, int dtype, const void* q,
                             const void* k, const void* v, void* o, void* lse,
                             int bh, int sq, int sk, int d, int dv, int causal,
-                            float scale, unsigned int s0, unsigned int s1,
+                            float scale, const unsigned int* seeds,
                             unsigned int threshold, float inv_keep,
                             int path, void* stream) {
   if (bh < 1 || bh > 65535 || sq < 1 || sk < 1 || d < 1 || dv < 1 ||
@@ -730,7 +736,7 @@ extern "C" int ff_flash_fwd(int device, int dtype, const void* q,
   if (err != cudaSuccess) return static_cast<int>(err);
   const Args a{q,  k,  v,      o,     static_cast<float*>(lse),
                bh, sq, sk,     d,     dv,
-               causal, scale, ff::Dropout{s0, s1, threshold, inv_keep},
+               causal, scale, ff::DropoutArgs{seeds, threshold, inv_keep},
                static_cast<cudaStream_t>(stream)};
   err = threshold ? dispatch<true>(dtype, path, a)
                   : dispatch<false>(dtype, path, a);

@@ -38,13 +38,13 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 _FWD_SIGNATURE = {
     "ff_flash_fwd": [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
-    + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_uint32] * 3
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_uint32]
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     "ff_flash_fwd_wgmma_smem": [ctypes.c_int],
 }
 _BWD_SIGNATURE = {
     "ff_flash_bwd": [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
-    + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_uint32] * 3
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_uint32]
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     "ff_flash_bwd_wgmma_smem": [ctypes.c_int, ctypes.c_int],
 }
@@ -71,7 +71,10 @@ def _fold_to_bhsd(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
 # under two uint32 seeds, and is kept iff the hash clears the drop
 # threshold. The kernels rebuild it per tile from the tile's offsets
 # (csrc/common.cuh, native uint32); the plain versions and the dense path
-# build it whole here. torch has no uint32 arithmetic, so the hash runs in
+# build it whole here. The seeds are a pair of host ints or a (2,) int32
+# tensor holding their bits (an entry of the executor's seed table,
+# core/seeds.py): the kernels read the tensor by pointer, and the plain
+# versions build the mask from it on its device without a host sync. torch has no uint32 arithmetic, so the hash runs in
 # int64 with every value kept in [0, 2^32): products go through `_mul32`,
 # and a masked value is non-negative, so `>>` is the logical shift.
 
@@ -79,25 +82,74 @@ _M32 = 0xFFFFFFFF
 
 
 def _mul32(a, c: int):
-    """a * c mod 2^32 for int64 `a` in [0, 2^32) and a constant c < 2^32,
-    in two 16-bit halves of c so that no product leaves int64."""
-    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
+    """a * c mod 2^32 for int64 `a` in [0, 2^32) and a constant c < 2^32.
+    A c of 2^31 or more is taken as c - 2^32, which is the same mod 2^32:
+    either way |c| < 2^31, so the product stays inside int64, and its low
+    32 bits (two's complement for a negative product) are the answer."""
+    return (a * (c - (1 << 32) if c >= 1 << 31 else c)) & _M32
+
+
+_MIX_MULS = (0x7FEB352D, 0x846CA68B)   # _mix32's two multipliers
+_IDX_MUL = 0x9E3779B1                  # _keep_bits' index multiplier
 
 
 def _mix32(h):
     """murmur3-style 32-bit finalizer (the JAX package's `_mix32`)."""
     h = h ^ (h >> 16)
-    h = _mul32(h, 0x7FEB352D)
+    h = _mul32(h, _MIX_MULS[0])
     h = h ^ (h >> 15)
-    h = _mul32(h, 0x846CA68B)
+    h = _mul32(h, _MIX_MULS[1])
     return h ^ (h >> 16)
 
 
 def _keep_bits(idx, s0: int, s1: int):
     """uint32 hash of flat element indices (int64, in [0, 2^32)) under two
     uint32 seeds."""
-    h = _mix32(_mul32(idx, 0x9E3779B1) ^ s0)
+    h = _mix32(_mul32(idx, _IDX_MUL) ^ s0)
     return _mix32(h ^ s1)
+
+
+# The same hash on int32 bit patterns, for the standalone Dropout, which
+# hashes every element of an activation (ops/dropout.py): int32 products
+# wrap mod 2^32, so no masking passes are needed, and every pass moves
+# half the bytes of int64. torch's `>>` on int32 is arithmetic, so the
+# logical shift masks off the copies of the sign bit.
+
+def _i32(c: int) -> int:
+    """The int32 whose bits are those of the uint32 `c`."""
+    c &= _M32
+    return c - (1 << 32) if c >= 1 << 31 else c
+
+
+def _lsr32(h, k: int):
+    return (h >> k) & ((1 << (32 - k)) - 1)
+
+
+def _mix32_i32(h):
+    """`_mix32` of an int32 tensor, computed in its storage."""
+    h ^= _lsr32(h, 16)
+    h *= _i32(_MIX_MULS[0])
+    h ^= _lsr32(h, 15)
+    h *= _i32(_MIX_MULS[1])
+    h ^= _lsr32(h, 16)
+    return h
+
+
+def _keep_bits_i32(idx, s0, s1):
+    """`_keep_bits` on int32 bit patterns, computed in the storage of the
+    int32 `idx` (consumed). The seeds are int32 host ints or 0-d int32
+    tensors on idx's device."""
+    idx *= _i32(_IDX_MUL)
+    idx ^= s0
+    _mix32_i32(idx)
+    idx ^= s1
+    return _mix32_i32(idx)
+
+
+def _at_least_u32(h, threshold: int):
+    """`h >= threshold` with both read as uint32: flipping the sign bit of
+    each puts unsigned order onto signed order."""
+    return (h ^ _i32(1 << 31)) >= _i32(threshold ^ (1 << 31))
 
 
 def _drop_threshold(rate: float) -> int:
@@ -107,7 +159,8 @@ def _drop_threshold(rate: float) -> int:
 
 def dropout_seeds(rng: int):
     """Two uint32 seeds for the counter-based mask from an op's seed
-    material (an int, core/seeds.py): deterministic per seed."""
+    material (an int, core/seeds.py): deterministic per seed. The
+    executor's seed table holds these (core/seeds.py `seed_table`)."""
     h = mix64(int(rng))
     return h & _M32, h >> 32
 
@@ -120,7 +173,7 @@ def attention_dropout_mask(seeds, rate: float, bh: int, sq: int, sk: int, *,
     [r0, r0 + bh) of a larger launch can be rebuilt alone."""
     if rate <= 0.0:
         return torch.ones((bh, sq, sk), dtype=torch.bool, device=device)
-    s0, s1 = int(seeds[0]) & _M32, int(seeds[1]) & _M32
+    s0, s1 = _mask_seeds(seeds, device)
     row = torch.arange(_row0, _row0 + bh, device=device)
     qp = torch.arange(sq, device=device)
     kp = torch.arange(sk, device=device)
@@ -129,13 +182,40 @@ def attention_dropout_mask(seeds, rate: float, bh: int, sq: int, sk: int, *,
     return _keep_bits(idx, s0, s1) >= _drop_threshold(rate)
 
 
-def _dropout_args(dropout: float, seeds):
-    """(s0, s1, threshold, inv_keep) as the kernels take them; threshold 0
-    launches the dropout-free variant."""
+def _mask_seeds(seeds, device):
+    """(s0, s1) for the int64 hash: host ints from a pair, 0-d int64
+    tensors on `device` from a table entry (no host sync)."""
+    if isinstance(seeds, torch.Tensor):
+        s = seeds.to(device=device, dtype=torch.int64) & _M32
+        return s[0], s[1]
+    return int(seeds[0]) & _M32, int(seeds[1]) & _M32
+
+
+def seed_buffer(seeds, device) -> torch.Tensor:
+    """The two seeds as the contiguous (2,) int32 tensor on `device` that
+    the kernels read: a table entry as it is, a pair of host ints copied
+    over (outside a captured graph only: the copy cannot be captured)."""
+    if isinstance(seeds, torch.Tensor):
+        if (seeds.dtype != torch.int32 or seeds.shape != (2,)
+                or seeds.device != device or not seeds.is_contiguous()):
+            raise ValueError(f"dropout seeds must be a contiguous (2,) int32 "
+                             f"tensor on {device} (got {seeds.dtype} "
+                             f"{tuple(seeds.shape)} on {seeds.device})")
+        return seeds
+    from ..core.seeds import as_int32
+
+    return torch.tensor([as_int32(int(x)) for x in seeds[:2]],
+                        dtype=torch.int32, device=device)
+
+
+def _dropout_args(dropout: float, seeds, device):
+    """(seed buffer, threshold, inv_keep) as the kernels take them, the
+    buffer None and threshold 0 (the dropout-free variant) without
+    dropout. The caller keeps the buffer alive until the launch."""
     if dropout <= 0.0:
-        return 0, 0, 0, 1.0
-    return (int(seeds[0]) & _M32, int(seeds[1]) & _M32,
-            _drop_threshold(dropout), 1.0 / (1.0 - dropout))
+        return None, 0, 1.0
+    return (seed_buffer(seeds, device), _drop_threshold(dropout),
+            1.0 / (1.0 - dropout))
 
 
 def flash_supported(seq_q: int, seq_k: int, head_dim: int = 64,
@@ -228,14 +308,14 @@ def _flash_fwd_cuda(qf, kf, vf, *, causal: bool, dropout: float = 0.0,
     code = _path_code(what, qf.dtype, d, dv, _path)
     o = torch.empty((bh, sq, dv), dtype=qf.dtype, device=qf.device)
     lse = torch.empty((bh, 1, sq), dtype=torch.float32, device=qf.device)
-    s0, s1, threshold, inv_keep = _dropout_args(dropout, seeds)
+    sbuf, threshold, inv_keep = _dropout_args(dropout, seeds, qf.device)
     lib = build.load(what, _FWD_SIGNATURE)
     rc = lib.ff_flash_fwd(
         qf.device.index or 0, build.DTYPE_CODES[str(qf.dtype)[6:]],
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bh, sq, sk, d, dv, int(causal),
-        1.0 / math.sqrt(d), s0, s1, threshold, inv_keep, code,
-        build.stream_ptr(qf))
+        1.0 / math.sqrt(d), None if sbuf is None else sbuf.data_ptr(),
+        threshold, inv_keep, code, build.stream_ptr(qf))
     build.check_launch(rc, f"{what}_dropout" if threshold else what,
                        f"{what}_{FLASH_PATHS[code]}")
     return o, lse
@@ -383,15 +463,15 @@ def _flash_bwd_cuda(qf, kf, vf, of, lse, dof, *, causal: bool,
     code = _path_code(what, qf.dtype, d, dv, _path)
     dq, dk, dvo = (torch.empty_like(x) for x in (qf, kf, vf))
     delta = torch.empty((bh, sq), dtype=torch.float32, device=qf.device)
-    s0, s1, threshold, inv_keep = _dropout_args(dropout, seeds)
+    sbuf, threshold, inv_keep = _dropout_args(dropout, seeds, qf.device)
     lib = build.load(what, _BWD_SIGNATURE)
     rc = lib.ff_flash_bwd(
         qf.device.index or 0, build.DTYPE_CODES[str(qf.dtype)[6:]],
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), of.data_ptr(),
         dof.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dvo.data_ptr(), bh, sq, sk, d, dv, int(causal),
-        1.0 / math.sqrt(d), s0, s1, threshold, inv_keep, code,
-        build.stream_ptr(qf))
+        1.0 / math.sqrt(d), None if sbuf is None else sbuf.data_ptr(),
+        threshold, inv_keep, code, build.stream_ptr(qf))
     build.check_launch(rc, f"{what}_dropout" if threshold else what,
                        f"{what}_{FLASH_PATHS[code]}")
     return dq, dk, dvo
@@ -435,7 +515,8 @@ def flash_attention_folded(qf, kf, vf, causal: bool = False, *,
                            dropout: float = 0.0, seeds=None):
     """Exact attention on PRE-FOLDED (batch*heads, seq, head_dim) operands;
     returns O. `dropout` > 0 applies the counter-based keep-mask of
-    `seeds` (two uint32s, `dropout_seeds(rng)`) inside the kernels. Where a
+    `seeds` (two uint32s, `dropout_seeds(rng)`, or a seed-table entry
+    holding them on the operands' device) inside the kernels. Where a
     gradient is wanted it goes through `FlashAttentionFolded`; under
     no_grad (serving) the forward runs alone and nothing is saved."""
     dropout = float(dropout)

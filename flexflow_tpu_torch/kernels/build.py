@@ -10,6 +10,7 @@ front; `load()` builds a single missing library on demand.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -133,6 +134,35 @@ def reset_launch_counts() -> None:
     for counts in (launch_counts, path_counts):
         for n in counts:
             counts[n] = 0
+
+
+# A launch made while a CUDA graph is being captured is recorded, not run,
+# and a replay runs every recorded launch again without passing through
+# the wrappers. So a capture takes its launches back out of the counts and
+# keeps them (`captured_launches`), and every replay adds them
+# (`add_launches`): the counts stay the launches the card ran.
+@contextlib.contextmanager
+def captured_launches(record: dict):
+    """Around a capture: on exit the counts are what they were on entry,
+    and `record` holds what the capture added ({"launches": {...},
+    "paths": {...}}). Counts are process-wide: no other thread should
+    launch kernels while one captures."""
+    before = dict(launch_counts), dict(path_counts)
+    try:
+        yield record
+    finally:
+        for key, counts, base in (("launches", launch_counts, before[0]),
+                                  ("paths", path_counts, before[1])):
+            record[key] = {n: counts[n] - base[n] for n in counts
+                           if counts[n] != base[n]}
+            counts.update(base)
+
+
+def add_launches(record: dict) -> None:
+    """Count one replay of a graph whose capture recorded `record`."""
+    for key, counts in (("launches", launch_counts), ("paths", path_counts)):
+        for n, c in record.get(key, {}).items():
+            counts[n] += c
 
 
 def check_launch(rc: int, what: str, path: str = None) -> None:

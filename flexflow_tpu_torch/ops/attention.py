@@ -19,7 +19,11 @@ training, an rng given): the folded path hands the rate and
 `dropout_seeds(rng)` to the flash kernels, which rebuild the
 counter-based keep-mask per tile; the dense path multiplies its
 probabilities by the same mask built whole (`attention_dropout_mask`),
-so both paths drop the same elements. Serving never drops.
+so both paths drop the same elements. Serving never drops. The seeds
+are the op's seed-table entry on the device (what a captured train step
+reads at replay) or, called with a host int, `dropout_seeds` of it.
+Serving reads its compute-dtype weights from the executor's cache
+(ops/common.py `WeightCache`) instead of casting them per call.
 
 `_forward_decode` is the serving step (executor.build_decode): it appends
 this block's K/V to the op's cache IN PLACE (the cache is the op's own
@@ -39,6 +43,7 @@ import warnings
 import torch
 
 from ..ff_types import OperatorType
+from .common import cast_weight
 from .registry import WeightSpec, register_op
 
 
@@ -91,21 +96,23 @@ def _weights(params: MultiHeadAttentionParams, in_shapes, in_dtypes):
     return ws
 
 
-def _cast_inputs(inputs, weights, cdt):
+def _cast_inputs(inputs, weights, ctx):
+    """Inputs and projection weights in the compute dtype; the weights
+    from serving's cache where the context carries one."""
+    cdt = ctx.compute_dtype
     xs = list(inputs)
-    ws = [weights[n] for n in ("wq", "wk", "wv", "wo")]
     if cdt is not None:
         xs = [x.to(cdt) for x in xs]
-        ws = [w.to(cdt) for w in ws]
-    return xs, ws
+    return xs, [cast_weight(ctx, weights[n], cdt)
+                for n in ("wq", "wk", "wv", "wo")]
 
 
-def _project_out(params, weights, spec, attn, wo, dtype):
+def _project_out(params, weights, spec, attn, wo, dtype, ctx):
     """Attention rows -> (b, s, embed) by einsum `spec`, plus the output
     bias."""
     out = torch.einsum(spec, attn, wo).to(dtype)
     if params.bias:
-        out = out + weights["bias_o"].to(out.dtype)
+        out = out + cast_weight(ctx, weights["bias_o"], out.dtype)
     return out
 
 
@@ -151,12 +158,16 @@ def _forward(params: MultiHeadAttentionParams, weights, inputs, ctx):
 
     impl = _attention_impl()
     use_dropout = params.dropout > 0.0 and ctx.training and ctx.rng is not None
-    # looked up at call time, as the JAX package does, so a test can
-    # inject the same seeds into both packages
-    seeds = katt.dropout_seeds(ctx.rng) if use_dropout else None
+    # a seed-table entry on the device as it is; from a host int, looked
+    # up at call time, as the JAX package does, so a test can inject the
+    # same seeds into both packages
+    seeds = None
+    if use_dropout:
+        seeds = (ctx.rng if isinstance(ctx.rng, torch.Tensor)
+                 else katt.dropout_seeds(ctx.rng))
     rate = params.dropout if use_dropout else 0.0
     (q_in, k_in, v_in), (wq, wk, wv, wo) = _cast_inputs(
-        inputs, weights, ctx.compute_dtype)
+        inputs, weights, ctx)
     b, seq_len, _ = q_in.shape
     kv_len = k_in.shape[1]
     h = params.num_heads
@@ -171,7 +182,7 @@ def _forward(params: MultiHeadAttentionParams, weights, inputs, ctx):
             qf.contiguous(), kf.contiguous(), vf.contiguous(), params.causal,
             dropout=rate, seeds=seeds)
         return [_project_out(params, weights, "bhsd,hde->bse",
-                             attn.view(b, h, seq_len, dv), wo, q_in.dtype)]
+                             attn.view(b, h, seq_len, dv), wo, q_in.dtype, ctx)]
     q = torch.einsum("bse,ehd->bshd", q_in, wq)
     k = torch.einsum("bse,ehd->bshd", k_in, wk)
     v = torch.einsum("bse,ehd->bshd", v_in, wv)
@@ -181,7 +192,7 @@ def _forward(params: MultiHeadAttentionParams, weights, inputs, ctx):
                           device=q.device).tril()
     attn = _dense_attention(q, k, v, keep, rate, seeds)
     return [_project_out(params, weights, "bshd,hde->bse", attn, wo,
-                         q_in.dtype)]
+                         q_in.dtype, ctx)]
 
 
 _PAGED_BLOCK_WARNED: set = set()
@@ -206,7 +217,7 @@ def _forward_decode(params, weights, inputs, ctx, cache, t):
                                   paged_view_of_cache)
 
     (q_in, k_in, v_in), (wq, wk, wv, wo) = _cast_inputs(
-        inputs, weights, ctx.compute_dtype)
+        inputs, weights, ctx)
     q = torch.einsum("bse,ehd->bshd", q_in, wq)
     k_new = torch.einsum("bse,ehd->bshd", k_in, wk)
     v_new = torch.einsum("bse,ehd->bshd", v_in, wv)
@@ -256,7 +267,7 @@ def _forward_decode(params, weights, inputs, ctx, cache, t):
         attn = _dense_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
                                 keep)
     return [_project_out(params, weights, "bshd,hde->bse", attn, wo,
-                         q_in.dtype)], \
+                         q_in.dtype, ctx)], \
         (k_cache, v_cache)
 
 
@@ -278,4 +289,5 @@ register_op(
     forward=_forward,
     num_inputs=3,
     forward_decode=_forward_decode,
+    draws=lambda p: p.dropout > 0.0,
 )

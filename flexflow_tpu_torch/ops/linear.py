@@ -4,7 +4,8 @@ The PyTorch counterpart of flexflow_tpu/ops/linear.py (reference:
 src/ops/linear.cc): one matrix product against the (in, out) kernel in the
 compute dtype (f32 accumulation inside the product), then the bias and
 the fused activation. The product is torch.matmul, as the JAX package
-leaves it to XLA.
+leaves it to XLA. Serving reads the compute-dtype kernel from its
+weight cache (ops/common.py `WeightCache`) instead of casting per call.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import dataclasses
 import torch
 
 from ..ff_types import ActiMode, DataType, OperatorType
-from .common import apply_activation
+from .common import apply_activation, cast_weight
 from .registry import WeightSpec, register_op
 
 
@@ -46,14 +47,12 @@ def _weights(params: LinearParams, in_shapes, in_dtypes):
 
 def _forward(params: LinearParams, weights, inputs, ctx):
     (x,) = inputs
-    kernel = weights["kernel"]
     cdt = ctx.compute_dtype
     if cdt is not None:
         x = x.to(cdt)
-        kernel = kernel.to(cdt)
-    y = torch.matmul(x, kernel)
+    y = torch.matmul(x, cast_weight(ctx, weights["kernel"], cdt))
     if params.use_bias:
-        y = y + weights["bias"].to(y.dtype)
+        y = y + cast_weight(ctx, weights["bias"], y.dtype)
     return [apply_activation(params.activation, y)]
 
 

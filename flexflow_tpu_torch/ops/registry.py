@@ -9,7 +9,9 @@ kernels' autograd Function for attention on the card).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
+
+import torch
 
 from ..ff_types import DataType, OperatorType
 
@@ -39,6 +41,9 @@ class OpDef:
     # ops that mix sequence positions provide
     # forward_decode(params, weights, inputs, ctx, cache, t) -> (outs, cache)
     forward_decode: Optional[Callable] = None
+    # ops that draw random numbers in training provide draws(params) ->
+    # bool; the executor's seed table holds seeds for those that do
+    draws: Optional[Callable] = None
 
 
 _REGISTRY: Dict[OperatorType, OpDef] = {}
@@ -53,6 +58,7 @@ def register_op(
     weights: Optional[Callable] = None,
     num_inputs: int = 1,
     forward_decode: Optional[Callable] = None,
+    draws: Optional[Callable] = None,
 ) -> OpDef:
     d = OpDef(
         op_type=op_type,
@@ -62,6 +68,7 @@ def register_op(
         forward=forward,
         num_inputs=num_inputs,
         forward_decode=forward_decode,
+        draws=draws,
     )
     _REGISTRY[op_type] = d
     return d
@@ -85,8 +92,16 @@ class FwdCtx:
     # the PCG op's name, for per-layer diagnostics ("" for raw calls)
     op_name: str = ""
     # this op's seed material in training (the JAX context's folded rng
-    # key): a host int, fold_in(step seed, compute index) (core/seeds.py)
-    rng: Optional[int] = None
+    # key): a host int, fold_in(step seed, compute index), or the op's
+    # entry of the executor's seed table: a (2,) int32 tensor on the
+    # op's device holding dropout_seeds(that int) (core/seeds.py). The
+    # tensor form is what a captured CUDA graph reads at replay.
+    rng: Optional[Union[int, torch.Tensor]] = None
+    # FFIterationConfig.seq_length (reference: config.h:162); -1 = whole
+    seq_length: int = -1
+    # serving's cache of compute-dtype weight copies (ops/common.py
+    # WeightCache); None on the training path
+    weight_cache: Optional[object] = None
 
 
 def ensure_ops_loaded():

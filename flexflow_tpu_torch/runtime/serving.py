@@ -109,11 +109,14 @@ def greedy_generate(model, encoder_ids: np.ndarray, *,
 def incremental_generate(model, prompt_ids: np.ndarray, *,
                          max_new_tokens: int, max_len: Optional[int] = None,
                          eos_token_id: Optional[int] = None,
-                         pad_token_id: int = 0) -> np.ndarray:
+                         pad_token_id: int = 0,
+                         _eager: bool = False) -> np.ndarray:
     """KV-cache greedy decoding for a causal decoder-only model (token ids
     in, per-position vocab logits out). prompt_ids: (batch, prompt_len)
     ints. Returns (batch, prompt_len + max_new_tokens) including the
-    prompt, pad-filled after an EOS."""
+    prompt, pad-filled after an EOS. The one-token steps pass their
+    position as a per-row vector, so on a card they replay the decode
+    step's captured graph (`_eager=True` runs them eagerly instead)."""
     if model.executor is None:
         raise NotCompiledError("compile() the model first")
     prompt_ids = np.asarray(prompt_ids)
@@ -141,7 +144,9 @@ def incremental_generate(model, prompt_ids: np.ndarray, *,
     for t in range(plen, total - 1):
         if eos_token_id is not None and finished.all():
             break
-        logits, caches = step(model.params, caches, t, [out[:, t:t + 1]])
+        logits, caches = step(model.params, caches,
+                              np.full(bs, t, np.int32), [out[:, t:t + 1]],
+                              _eager=_eager)
         nxt = _argmax_last(logits[:, 0])
         if eos_token_id is not None:
             nxt = np.where(finished, pad_token_id, nxt)
@@ -299,7 +304,9 @@ class ContinuousBatcher:
          worst-case (backpressure when the pool cannot cover it, a typed
          shed when it never could), the prompt prefilled through a batch-1
          decode step, the prefilled cache strip spliced into the batch;
-      2. run ONE batched decode step for every active slot;
+      2. run ONE batched decode step for every active slot (on a card,
+         a replay of the step's CUDA graph, captured in the serving
+         thread at the first step);
       3. retire finished slots (EOS, max_new_tokens, blown deadline) and
          release their KV pages.
 

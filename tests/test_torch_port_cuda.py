@@ -29,6 +29,10 @@ The dropout variants keep those limits: kernel and plain version scale
 the kept P (and dP) by 1/(1 - rate) before they round, and the mask is
 exact (with V = I the forward's O is exactly 0 where an element was
 dropped, which checks it bit for bit).
+
+The CUDA graphs (the train scan, the captured decode step) replay the
+eager steps' kernels on the same data and seeds, so they are held to the
+eager steps bit for bit (weights) and token for token (decode).
 """
 import numpy as np
 import pytest
@@ -268,7 +272,9 @@ def test_the_cluster_kernel_refuses_what_it_does_not_take(gen):
 
 def test_a_bf16_decode_step_takes_the_cluster_kernel(gen):
     """The serving decode step of a bf16 LM sends every paged launch to
-    the cluster kernel."""
+    the cluster kernel. The step replays its captured graph: the first
+    step warms up (one launch a layer) and replays (one more), a later
+    step only replays."""
     from flexflow_tpu_torch import FFConfig, FFModel
     from flexflow_tpu_torch.ff_types import DataType
 
@@ -285,7 +291,12 @@ def test_a_bf16_decode_step_takes_the_cluster_kernel(gen):
          [np.array([[1], [2]], np.int32)])
     torch.cuda.synchronize()
     assert build.path_counts["paged_decode_cluster"] == \
-        before["paged_decode_cluster"] + 2
+        before["paged_decode_cluster"] + 2 * 2
+    step(m.params, caches, np.array([4, 18], np.int32),
+         [np.array([[3], [4]], np.int32)])
+    torch.cuda.synchronize()
+    assert build.path_counts["paged_decode_cluster"] == \
+        before["paged_decode_cluster"] + 2 * 3
     assert build.path_counts["paged_decode_block"] == \
         before["paged_decode_block"]
 
@@ -339,11 +350,13 @@ def test_f32_mha_on_the_card_runs_the_flash_kernel(gen):
             cm.params[op][n].copy_(w.cpu())
     ids = np.random.RandomState(0).randint(0, 50, (2, 24)).astype(np.int32)
     before = build.launch_counts["flash_fwd"]
-    out = gm.forward([ids])
+    out = gm.executor.build_forward()(gm.params, [ids])
     torch.cuda.synchronize()
     assert build.launch_counts["flash_fwd"] == before + 1
     assert out.dtype == torch.float32
-    np.testing.assert_allclose(out.cpu().numpy(), cm.forward([ids]).numpy(),
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               cm.executor.build_forward()(cm.params,
+                                                           [ids]).numpy(),
                                atol=1e-5)
 
 
@@ -403,7 +416,7 @@ def test_bogus_attention_impl_raises_on_the_card(gen, monkeypatch):
     x = np.zeros((2, 24, 40), np.float32)
     monkeypatch.setenv("FF_ATTENTION_IMPL", "bogus")
     with pytest.raises(ValueError, match="FF_ATTENTION_IMPL"):
-        gm.forward([x])
+        gm.executor.build_forward()(gm.params, [x])
     monkeypatch.setenv("FF_ATTENTION_IMPL", "ring")
     with pytest.raises(NotImplementedError):
         gm.executor.build_grad_step()(gm.params, [x], x)
@@ -589,3 +602,267 @@ def test_a_path_that_does_not_take_the_shape_raises(gen):
     torch.cuda.synchronize()
     assert build.path_counts["flash_fwd_rows"] == before["flash_fwd_rows"] + 1
     assert sum(build.path_counts.values()) == sum(before.values()) + 1
+
+
+# -- CUDA graphs: the train scan and the captured decode step -------------
+def _drop_model(device="cuda", spd=1, mixed=True, seed=0):
+    """A small MHA model with attention dropout (the flash kernels' dropout
+    variants on the card, head dim 16: the WMMA path) and a standalone
+    Dropout op, bf16 over f32 weights."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType, MetricsType
+
+    m = FFModel(FFConfig(batch_size=2, device=device, seed=seed,
+                         allow_mixed_precision=mixed,
+                         iterations_per_dispatch=spd))
+    x = m.create_tensor((2, 32, 64))
+    t = m.multihead_attention(x, x, x, 64, 4, dropout=0.2)
+    t = m.dropout(t, 0.3)
+    m.dense(t, 64)
+    m.compile(SGDOptimizer(lr=0.05),
+              LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
+              [MetricsType.METRICS_MEAN_SQUARED_ERROR])
+    return m
+
+
+def _drop_data(n=14):
+    rng = np.random.RandomState(3)
+    return (rng.randn(n, 32, 64).astype(np.float32),
+            rng.randn(n, 32, 64).astype(np.float32))
+
+
+def test_scan_equals_stepwise_fit_on_the_card(gen, capsys):
+    """fit with iterations_per_dispatch 3 over 7 batches (two captured
+    chunks of 3 and a tail graph of 1) leaves the weights and the printed
+    per-epoch metrics of stepwise fit, bit for bit: the same kernels run
+    on the same data with the same seed-table rows."""
+    x, y = _drop_data()
+    a, b = _drop_model(spd=1), _drop_model(spd=3)
+    a.fit(x, y, epochs=2)
+    la = [ln for ln in capsys.readouterr().out.splitlines()
+          if ln.startswith("epoch")]
+    b.fit(x, y, epochs=2)
+    lb = [ln for ln in capsys.readouterr().out.splitlines()
+          if ln.startswith("epoch")]
+    strip = lambda ls: [ln.split("throughput")[0] + ln.split("samples/s")[1]  # noqa: E731
+                        for ln in ls]
+    assert strip(la) == strip(lb) and len(la) == 2
+    assert a.state.step == b.state.step == 14
+    for op, ws in a.params.items():
+        for n, w in ws.items():
+            assert torch.equal(w, b.params[op][n]), f"{op}.{n}"
+
+
+def test_launch_counts_include_replays(gen):
+    """A replayed graph runs its kernels without passing through the
+    wrappers: the counts add the capture's launches on every replay and
+    leave out the capture itself. Chunks of 2 over 4 batches: the first
+    fit warms up one step and replays twice, the second only replays."""
+    x, y = _drop_data(8)
+    m = _drop_model(spd=2)
+    build.reset_launch_counts()
+    m.fit(x, y, verbose=False)
+    torch.cuda.synchronize()
+    assert build.launch_counts["flash_fwd_dropout"] == 4 + 1
+    assert build.launch_counts["flash_bwd_dropout"] == 4 + 1
+    build.reset_launch_counts()
+    m.fit(x, y, verbose=False)
+    torch.cuda.synchronize()
+    assert build.launch_counts["flash_fwd_dropout"] == 4
+    assert build.launch_counts["flash_bwd_dropout"] == 4
+    assert build.path_counts["flash_fwd_wmma"] == 4
+
+
+def test_a_failed_capture_raises(gen, monkeypatch):
+    """An op that syncs with the host cannot be captured: the scan raises
+    and runs no eager step in its place (the weights do not move)."""
+    from flexflow_tpu_torch.ops import linear
+
+    x, y = _drop_data(4)
+    m = _drop_model(spd=2)
+    before = {op: {n: w.clone() for n, w in ws.items()}
+              for op, ws in m.params.items()}
+    fwd = linear._forward
+
+    def syncing(params, weights, inputs, ctx):
+        inputs[0].sum().item()
+        return fwd(params, weights, inputs, ctx)
+
+    from flexflow_tpu_torch.ops.registry import get_op_def
+    from flexflow_tpu_torch.ff_types import OperatorType
+
+    monkeypatch.setattr(get_op_def(OperatorType.OP_LINEAR), "forward",
+                        syncing)
+    with pytest.raises(RuntimeError):
+        m.fit(x, y, verbose=False)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    for op, ws in m.params.items():
+        for n, w in ws.items():
+            assert torch.equal(w, before[op][n]), f"{op}.{n}"
+
+
+def _lm(device="cuda", seed=0, spd=0):
+    """A small causal LM, bf16 over f32. With `spd` it is compiled to
+    train (sparse CE, SGD) with that many iterations a dispatch."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import (ActiMode, DataType, LossType,
+                                             MetricsType)
+
+    m = FFModel(FFConfig(batch_size=4, device=device, seed=seed,
+                         allow_mixed_precision=True,
+                         iterations_per_dispatch=max(spd, 1)))
+    ids = m.create_tensor((4, 64), DataType.DT_INT32)
+    t = m.embedding(ids, 97, 64)
+    for _ in range(2):
+        t = m.multihead_attention(t, t, t, 64, 4, causal=True)
+        t = m.dense(t, 64, ActiMode.AC_MODE_RELU)
+    m.softmax(m.dense(t, 97))
+    if spd:
+        # left at its init: unit-scale logits saturate the softmax, and
+        # sparse CE would then have no gradient to train on
+        m.compile(SGDOptimizer(lr=0.5),
+                  LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                  [MetricsType.METRICS_ACCURACY])
+        return m
+    m.compile()
+    # unit-scale activations, so greedy tokens depend on the weights
+    with torch.no_grad():
+        for op, ws in m.params.items():
+            for n, w in ws.items():
+                w.mul_(4.0)
+    return m
+
+
+def test_captured_decode_matches_the_eager_step_token_for_token(gen):
+    """incremental_generate's one-token steps replay the captured decode
+    step: the tokens equal the eager steps', and the paged kernel's
+    launches count the replays (2 layers a step). Then the weights move
+    in place (as training moves them): the cached bf16 copies follow, and
+    the replays still equal the eager steps. Last, new weight tensors
+    replace them (params_from_numpy): a new graph is captured for them,
+    and it too equals the eager steps."""
+    from flexflow_tpu_torch.runtime.serving import incremental_generate
+    from flexflow_tpu_torch.runtime.weights import params_from_numpy
+
+    m = _lm()
+    prompts = np.random.RandomState(4).randint(0, 97, (4, 9)) \
+        .astype(np.int32)
+    build.reset_launch_counts()
+    got = incremental_generate(m, prompts, max_new_tokens=12, max_len=64)
+    torch.cuda.synchronize()
+    # 11 one-token steps, the first warmed up and replayed
+    assert build.launch_counts["paged_decode"] == 2 * (11 + 1)
+    want = incremental_generate(m, prompts, max_new_tokens=12, max_len=64,
+                                _eager=True)
+    np.testing.assert_array_equal(got, want)
+    with torch.no_grad():
+        for ws in m.params.values():
+            for w in ws.values():
+                w.mul_(-1.0)
+    got = incremental_generate(m, prompts, max_new_tokens=12, max_len=64)
+    want = incremental_generate(m, prompts, max_new_tokens=12, max_len=64,
+                                _eager=True)
+    np.testing.assert_array_equal(got, want)
+    params_from_numpy(m, {op: {n: (0.5 * w).cpu().numpy()
+                               for n, w in ws.items()}
+                          for op, ws in m.params.items()})
+    got = incremental_generate(m, prompts, max_new_tokens=12, max_len=64)
+    want = incremental_generate(m, prompts, max_new_tokens=12, max_len=64,
+                                _eager=True)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_the_batcher_replays_the_captured_step(gen):
+    """The continuous batcher's batched step replays the graph it captured
+    in its serving thread, and every answer equals incremental_generate's
+    on its prompt."""
+    from flexflow_tpu_torch.runtime.serving import (AdmissionQueue,
+                                                    ContinuousBatcher,
+                                                    GenerationRequest,
+                                                    ServingConfig,
+                                                    incremental_generate)
+
+    m = _lm()
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, 97, n).astype(np.int32) for n in (3, 9, 17, 30,
+                                                                5, 12)]
+    q = AdmissionQueue(max_depth=len(prompts))
+    b = ContinuousBatcher(m, ServingConfig(max_len=64, slots=4, page_size=8),
+                          q)
+    reqs = [GenerationRequest(p, 10, deadline_s=300.0) for p in prompts]
+    b.start()
+    try:
+        for r in reqs:
+            q.offer(r)
+        outs = [r.result(timeout=300) for r in reqs]
+    finally:
+        b.stop()
+    assert not b.dead, b.death_cause
+    for p, o in zip(prompts, outs):
+        np.testing.assert_array_equal(
+            o, incremental_generate(m, p[None], max_new_tokens=10,
+                                    max_len=64)[0])
+
+
+def test_served_paths_read_the_weights_the_scan_trained(gen):
+    """A scan replay moves the weights without ATen dispatch. Serving
+    between two fits still reads the trained weights: fit (2 steps a
+    dispatch), predict and a captured decode run (they fill the bf16
+    cache and capture the decode graph), fit again (replays only); then
+    predict equals the uncached forward, and the captured decode steps
+    give the tokens of the eager steps of a fresh model loaded with the
+    trained weights."""
+    from flexflow_tpu_torch.runtime.serving import incremental_generate
+    from flexflow_tpu_torch.runtime.weights import params_from_numpy
+
+    m = _lm(spd=2)
+    ex = m.executor
+    rng = np.random.RandomState(6)
+    x = rng.randint(0, 97, (8, 64)).astype(np.int32)
+    y = rng.randint(0, 97, (8, 64, 1)).astype(np.int32)
+    prompts = rng.randint(0, 97, (4, 9)).astype(np.int32)
+    m.fit(x, y, verbose=False)
+    before = m.predict(x[:4])
+    incremental_generate(m, prompts, max_new_tokens=12, max_len=64)
+    m.fit(x, y, verbose=False)
+    after = m.predict(x[:4])
+    with torch.no_grad():
+        want = ex.apply(m.params, ex._input_vals([x[:4]]))[
+            ex.logits_pt.guid].float().cpu().numpy()
+    assert not np.array_equal(after, before)
+    np.testing.assert_array_equal(after, want)
+    got = incremental_generate(m, prompts, max_new_tokens=12, max_len=64)
+    fresh = _lm()
+    params_from_numpy(fresh, {op: {n: w.cpu().numpy() for n, w in ws.items()}
+                              for op, ws in m.params.items()})
+    np.testing.assert_array_equal(
+        got, incremental_generate(fresh, prompts, max_new_tokens=12,
+                                  max_len=64, _eager=True))
+
+
+def test_new_weights_release_the_retired_ones(gen):
+    """A decode graph holds the weights it was captured on. Once new
+    weight tensors replace them (params_from_numpy) and a step captures a
+    graph for those, the old graph goes, and with it the retired weights
+    and their cached bf16 copies."""
+    import gc
+    import weakref
+
+    from flexflow_tpu_torch.runtime.serving import incremental_generate
+    from flexflow_tpu_torch.runtime.weights import params_from_numpy
+
+    m = _lm()
+    prompts = np.random.RandomState(7).randint(0, 97, (4, 9)) \
+        .astype(np.int32)
+    incremental_generate(m, prompts, max_new_tokens=4, max_len=64)
+    retired = [weakref.ref(w) for ws in m.params.values()
+               for w in ws.values()]
+    n_cached = len(m.executor.weight_cache._entries)
+    params_from_numpy(m, {op: {n: (0.5 * w).cpu().numpy()
+                               for n, w in ws.items()}
+                          for op, ws in m.params.items()})
+    incremental_generate(m, prompts, max_new_tokens=4, max_len=64)
+    gc.collect()
+    assert all(r() is None for r in retired)
+    assert len(m.executor.weight_cache._entries) == n_cached

@@ -11,8 +11,10 @@ bf16 to one bf16 step of the output (rtol 2^-7; atol 2^-7 for outputs
 near 0, where a step is absolute), since both round P and dS at the same
 places. The MHA op's dense and flash paths are held against the JAX MHA's
 dense dropout path with `dropout_seeds` monkeypatched to one pair in both
-packages. The standalone Dropout draws from torch's generator, which no
-jax.random stream reproduces, so its parity is statistical.
+packages. The standalone Dropout hashes its flat element index with the
+same hash, in int32 (held here to the int64 form and to JAX's bits);
+JAX's Dropout draws `jax.random.bernoulli`, so that parity is
+statistical.
 """
 import jax
 import jax.numpy as jnp
@@ -68,6 +70,43 @@ def test_keep_bits_matches_jax_bit_for_bit(seeds):
         np.testing.assert_array_equal(
             tka._mix32(torch.from_numpy(m.astype(np.int64))).numpy(),
             np.asarray(jka._mix32(jnp.asarray(m.astype(np.uint32)))))
+
+
+@pytest.mark.parametrize("seeds", [(0, 0), SEEDS, (0xFFFFFFFF, 1)])
+def test_int32_keep_bits_match_jax_bit_for_bit(seeds):
+    """The int32 form of the hash (wrapping products, masked shifts) gives
+    JAX's bits read as int32, with the seeds as host ints or as 0-d int32
+    tensors, and its unsigned comparison keeps what JAX's keeps."""
+    idx = _wrapped_indices()
+    j = np.asarray(jka._keep_bits(jnp.asarray(idx.astype(np.uint32)),
+                                  jnp.uint32(seeds[0]), jnp.uint32(seeds[1])))
+    i32 = idx.astype(np.uint32).view(np.int32)
+    t = tka._keep_bits_i32(torch.from_numpy(i32.copy()),
+                           tka._i32(seeds[0]), tka._i32(seeds[1]))
+    assert t.dtype == torch.int32
+    np.testing.assert_array_equal(t.numpy().view(np.uint32), j)
+    entry = torch.tensor([tka._i32(s) for s in seeds], dtype=torch.int32)
+    t2 = tka._keep_bits_i32(torch.from_numpy(i32.copy()), *entry)
+    assert torch.equal(t2, t)
+    for rate in (0.1, 0.5, 1.0 - 2.0 ** -33):
+        thr = tka._drop_threshold(rate)
+        np.testing.assert_array_equal(tka._at_least_u32(t, thr).numpy(),
+                                      j >= np.uint32(thr))
+
+
+@pytest.mark.parametrize("salt", [0, 7, 2 ** 31 + 5])
+def test_dropout_keep_mask_is_the_hash_of_the_flat_index(salt):
+    """The standalone Dropout's mask is the int64 hash of each element's
+    flat index under the op's seeds, the salt folded into the second seed,
+    from host seeds and from a seed-table entry alike."""
+    shape, rate = (3, 5, 77), 0.3
+    s1 = SEEDS[1] ^ tka._mix32(salt & tka._M32)
+    want = (tka._keep_bits(torch.arange(3 * 5 * 77, dtype=torch.int64),
+                           SEEDS[0], s1)
+            >= tka._drop_threshold(rate)).view(shape)
+    assert torch.equal(tdrop.keep_mask(SEEDS, rate, shape, "cpu", salt), want)
+    entry = torch.tensor([tka._i32(s) for s in SEEDS], dtype=torch.int32)
+    assert torch.equal(tdrop.keep_mask(entry, rate, shape, "cpu", salt), want)
 
 
 @pytest.mark.parametrize("bh,sq,sk,rate,seeds", [

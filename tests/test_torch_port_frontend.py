@@ -105,7 +105,7 @@ def test_bert_forward_in_eval_matches_jax(bert_pair):
     (jm, _), (tm, _) = bert_pair
     x, _ = _batch(1)
     jo = np.asarray(jm.executor.build_forward()(jm.state.params, [x]))
-    to = tm.forward([x])
+    to = tm.executor.build_forward()(tm.params, [x])
     assert to.shape == (BATCH, SEQ, HIDDEN) and torch.isfinite(to).all()
     np.testing.assert_allclose(to.numpy(), jo, atol=ATOL)
 
@@ -188,7 +188,7 @@ def test_load_weights_carries_torch_linear_and_layernorm_like_jax():
                                           err_msg=f"{op}.{n}")
     x, _ = _batch(4)
     np.testing.assert_allclose(
-        tm.forward([x]).numpy(),
+        tm.executor.build_forward()(tm.params, [x]).numpy(),
         np.asarray(jm.executor.build_forward()(jm.state.params, [x])),
         atol=ATOL)
 
@@ -261,9 +261,10 @@ def test_functional_arithmetic_matches_jax_import():
     tpt.load_weights()
     x = np.random.RandomState(5).randn(4, 8).astype(np.float32)
     want = module(torch.from_numpy(x)).detach().numpy()
-    np.testing.assert_allclose(tm.forward([x]).numpy(), want, atol=ATOL)
     np.testing.assert_allclose(
-        tm.forward([x]).numpy(),
+        tm.executor.build_forward()(tm.params, [x]).numpy(), want, atol=ATOL)
+    np.testing.assert_allclose(
+        tm.executor.build_forward()(tm.params, [x]).numpy(),
         np.asarray(jm.executor.build_forward()(jm.state.params, [x])),
         atol=ATOL)
 

@@ -69,7 +69,7 @@ def test_full_forward_matches_jax(models):
     x = _ids(0, (BATCH, SEQ))
     jl = jm.executor.build_forward()(jm.state.params, [x],
                                      jm.state.net_state)
-    tl = tm.forward([x])
+    tl = tm.executor.build_forward()(tm.params, [x])
     assert tl.shape == (BATCH, SEQ, VOCAB)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
     np.testing.assert_allclose(tm.predict(np.concatenate([x, x[:1]])),
@@ -88,7 +88,7 @@ def test_cached_decode_logits_match_jax_and_the_full_forward(models):
     jinit, jstep = jm.executor.build_decode(BATCH, SEQ)
     tinit, tstep = tm.executor.build_decode(BATCH, SEQ)
     jc, tc = jinit(jm.state.params, ()), tinit(tm.params)
-    full = tm.forward([x]).numpy()
+    full = tm.executor.build_forward()(tm.params, [x]).numpy()
     spans = [(0, 5)] + [(t, t + 1) for t in range(5, 9)]
     for a, b in spans:
         jl, jc = jstep(jm.state.params, jc, jnp.int32(a),

@@ -259,7 +259,7 @@ def test_training_with_dropout_raises_where_jax_would_apply_it():
     assert not torch.allclose(g1[op]["wq"], g0[op]["wq"])
     state, parts = ex.build_train_step()(m.state, [x], y, torch.Generator())
     assert torch.isfinite(parts["loss"]) and state.step == 2
-    assert torch.isfinite(m.forward([x])).all()
+    assert torch.isfinite(m.executor.build_forward()(m.params, [x])).all()
     m.eval(x, y)
 
 
@@ -273,7 +273,7 @@ def test_attention_impl_env(monkeypatch):
     grad = m.executor.build_grad_step()
     monkeypatch.setenv("FF_ATTENTION_IMPL", "bogus")
     with pytest.raises(ValueError, match="FF_ATTENTION_IMPL"):
-        m.forward([x])
+        m.executor.build_forward()(m.params, [x])
     for impl in ("chunked", "ring", "ulysses"):
         monkeypatch.setenv("FF_ATTENTION_IMPL", impl)
         with pytest.raises(NotImplementedError):
@@ -294,7 +294,7 @@ def test_apply_is_differentiable_and_serving_records_no_graph():
     out = ex.apply(leaves, ex._input_vals([x]), training=True)[
         ex.logits_pt.guid]
     assert out.grad_fn is not None
-    served = m.forward([x])
+    served = m.executor.build_forward()(m.params, [x])
     assert served.grad_fn is None and served.is_inference()
     assert not any(w.requires_grad for ws in m.params.values()
                    for w in ws.values())
@@ -307,17 +307,18 @@ def test_model_served_after_fit_serves_the_trained_weights():
     assert m.state.params is m.params
     before = {op: {n: w.clone() for n, w in ws.items()}
               for op, ws in m.params.items()}
-    out0 = m.forward([x])
+    out0 = m.executor.build_forward()(m.params, [x])
     m.fit(x, y, epochs=2, verbose=False)
     assert m.state.params is m.params and m.state.step == 2
-    out1 = m.forward([x])
+    out1 = m.executor.build_forward()(m.params, [x])
     assert not torch.equal(out0, out1)
     # the served output is the forward of the trained weights, and of no
     # stale copy: restoring the old weights restores the old output
     torch.testing.assert_close(
         m.executor.build_forward()(m.state.params, [x]), out1, rtol=0, atol=0)
     params_from_numpy(m, _np_params(before))
-    torch.testing.assert_close(m.forward([x]), out0, rtol=0, atol=0)
+    torch.testing.assert_close(m.executor.build_forward()(m.params, [x]),
+                               out0, rtol=0, atol=0)
 
 
 def test_fit_needs_a_loss():
