@@ -53,7 +53,24 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      keep-mask (int32 hash) against the int64 form of the same hash,
      bit-equal;
   7. remat: one BERT step's gradients with attention recomputed in the
-     backward must equal the stored-residual gradients bit for bit.
+     backward must equal the stored-residual gradients bit for bit;
+  8. the CNN path. The bootcamp's AlexNet (BASELINE.md's AlexNet/CIFAR-10:
+     batch 64, 3x229x229, 10 classes, f32, SGD lr 0.01, sparse CE with
+     accuracy): the port's AlexNet nn.Module exported with
+     `torch_to_flexflow` and replayed with `PyTorchModel(path).apply`,
+     fed by `create_data_loader` over synthetic CIFAR-10 (32x32 images
+     from a seed resized nearest to 229, labels by a fixed random
+     projection), `init_layers`, `fit` stepwise and with
+     iterations_per_dispatch 4 (bit-equal), the epoch CE falling, ABBA
+     samples/s, a traced step and scan dispatch by kernel family (conv
+     forward and backward, GEMM, pool, BN/elementwise, the optimizer's
+     update alone), peak memory, and one step held against the same step
+     in float64 on the card. ResNeXt-50 (build_resnext50, batch 16,
+     224x224, groups 32): stepwise `fit` against the scan from the same
+     weights and BatchNorm running statistics (both bit-equal), `eval` on
+     the running statistics against a float64 recomputation from them,
+     and the same readings. No hand-written kernel runs there: the
+     convolutions are cuDNN's, as the JAX package's are XLA's.
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -88,8 +105,9 @@ holds the call's host time too. Launch counts are reset
 just before each path is driven and read just after it; a replayed graph
 adds the launches its capture recorded (kernels/build.py). Prints the
 card's name and power limit, a `kernels` JSON line, a `serving`, a
-`training`, a `training_scan`, a `bert` and a `bert_scan` JSON line and,
-last, {"ok": true,
+`training`, a `training_scan`, a `bert`, a `bert_scan`, a `cnn` (after
+the card's name and power limit), an `alexnet` and a `resnext` JSON line
+and, last, {"ok": true,
 "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import contextlib
@@ -180,6 +198,39 @@ BERT_ORACLE_RTOL = 0.0085
 # data and seeds (cuBLAS picks the same kernels under capture on this
 # card), so its weights must equal the stepwise ones bit for bit.
 SCAN_SPD, SCAN_BATCHES, BERT_SCAN_SPD, SCAN_ROUNDS = 4, 9, 4, 5
+# The CNN path. AlexNet: BASELINE.md's AlexNet/CIFAR-10 configuration,
+# bootcamp_demo/ff_alexnet_cifar10.py -b 64 (3x229x229, 10 classes, f32,
+# SGD lr 0.01, sparse CE with accuracy) over ALEX_BATCHES batches of
+# synthetic CIFAR-10 for ALEX_EPOCHS epochs. ResNeXt-50:
+# scripts/osdi22ae/resnext-50.sh (batch 16, 224x224, groups 32) over
+# RESNEXT_BATCHES batches. Both stepwise and with iterations_per_dispatch
+# CNN_SPD, compared bit for bit (the convolutions run cuDNN's
+# deterministic algorithms, ops/conv2d.py), then CNN_ROUNDS ABBA rounds.
+ALEX_BATCH, ALEX_HW, ALEX_CLASSES, ALEX_BATCHES, ALEX_EPOCHS = 64, 229, 10, 4, 3
+RESNEXT_BATCH, RESNEXT_HW, RESNEXT_BATCHES = 16, 224, 8
+CNN_SPD, CNN_ROUNDS = 4, 3
+# AlexNet's oracle: one f32 train step against the same step in f64 on
+# the card, per weight ||dW_f32 - dW_f64|| / ||dW_f64|| of its update.
+# f32 convolutions run without TF32 (ops/conv2d.py), but cuDNN's
+# heuristics pick FFT-based algorithms for some of them (the complex
+# cf32 GEMMs in the trace): deterministic, and f32, but an FFT rounds
+# relative to the norm of its whole transform, and a weight gradient
+# sums 64 x 56 x 56 ~ 2e5 terms with heavy cancellation. The first
+# reading on an H100 80GB HBM3 at 700 W was 2.05e-3 at conv1's kernel
+# (each layer's error passes on to the ones below; 3e-4 in the dense
+# layers); the limit is five times it. A wiring fault (a layout, a lost
+# RELU, a pool's window) moves an update by its own size. The loss sums
+# 64 terms: 1e-5 (read 1.1e-7). That the op's convolutions are full
+# f32 (and not TF32) is held separately, per convolution against f64
+# within 5e-5 (tests/test_torch_port_cuda.py).
+ALEX_ORACLE_RTOL, ALEX_ORACLE_LOSS_RTOL = 1e-2, 1e-5
+# ResNeXt-50's eval on the running statistics against the same forward
+# recomputed in f64 from the model's weights and running statistics
+# (F.batch_norm in eval mode): 53 normalised layers in f32, each adding
+# a few 2^-24 of its activations; the CE's logs keep that relative to
+# the logits. Limit 1e-3 on the mean CE; the same forward on batch
+# statistics must read further off than that.
+RESNEXT_EVAL_RTOL = 1e-3
 
 
 def log(*a):
@@ -1153,10 +1204,29 @@ def build_transformer_model(torch, spd=1):
     return m
 
 
-def profile_step(torch, run):
-    """Device time of one warm call of `run` by kernel family, from a
-    torch.profiler trace: the kernels' summed durations (one stream, so
-    they do not overlap) against the wall time of the call."""
+def kernel_family(name):
+    """The family of a device kernel on the serving and Transformer and
+    BERT paths. "cast": dtype conversions (the per-call bf16 copies of f32
+    weights among them); "memcpy": host-device copies (the batches)."""
+    return ("flash_fwd" if "flash_fwd" in name else
+            "flash_bwd" if "flash_bwd" in name else
+            "paged_decode" if "paged_decode" in name else
+            "gemm" if re.search(r"gemm|gemv|nvjet|xmma|cutlass", name) else
+            "cast" if "direct_copy" in name else
+            "memcpy" if name.startswith("Memcpy") else
+            "other")
+
+
+KERNEL_FAMILIES = ("flash_fwd", "flash_bwd", "paged_decode", "gemm", "cast",
+                   "memcpy", "other")
+
+
+def profile_step(torch, run, family_of=kernel_family,
+                 families=KERNEL_FAMILIES):
+    """Device time of one warm call of `run` by kernel family
+    (`family_of(kernel name)`), from a torch.profiler trace: the kernels'
+    summed durations (one stream, so they do not overlap) against the
+    wall time of the call."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1171,34 +1241,32 @@ def profile_step(torch, run):
     for e in events:
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / 1e3)
-    # "cast": dtype conversions (the per-call bf16 copies of f32 weights
-    # among them); "memcpy": host-device copies (the batches)
-    family = {"flash_fwd": 0.0, "flash_bwd": 0.0, "paged_decode": 0.0,
-              "gemm": 0.0, "cast": 0.0, "memcpy": 0.0, "other": 0.0}
+    family = dict.fromkeys(families, 0.0)
     count = dict.fromkeys(family, 0)
     for name, ms in by_name.items():
-        key = ("flash_fwd" if "flash_fwd" in name else
-               "flash_bwd" if "flash_bwd" in name else
-               "paged_decode" if "paged_decode" in name else
-               "gemm" if re.search(r"gemm|gemv|nvjet|xmma|cutlass", name) else
-               "cast" if "direct_copy" in name else
-               "memcpy" if name.startswith("Memcpy") else
-               "other")
+        key = family_of(name)
         family[key] += ms
         count[key] += sum(1 for e in events if e.name == name)
     busy = sum(family.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # where the host's time goes: the CPU ops' own time (the profiler
+    # slows each op's host side, so read these as shares, not times)
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3)
+                   for e in prof.key_averages()), key=lambda kv: -kv[1])[:6]
     log(f"  step profile: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
         f"in {len(events)} device events; "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in family.items()))
     log("  top kernels: " + "; ".join(f"{n[:60]} {ms:.2f} ms"
                                       for n, ms in top[:5]))
+    log("  top host ops (self): " + "; ".join(f"{n[:40]} {ms:.2f} ms"
+                                              for n, ms in host))
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_events": len(events),
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "by_family_ms": family, "events_by_family": count,
             "memcpy_ms_by_name": {n: ms for n, ms in by_name.items()
                                   if n.startswith("Memcpy")},
+            "host_self_ms_top": dict(host),
             "top_kernels_ms": {n[:80]: ms for n, ms in top}}
 
 
@@ -1576,7 +1644,8 @@ def restorer(torch, model):
     tens of steps."""
     from flexflow_tpu_torch.parallel.executor import _tensors
 
-    live = _tensors((model.state.params, model.state.opt_state))
+    live = _tensors((model.state.params, model.state.opt_state,
+                     model.state.net_state))
     saved = [t.clone() for t in live]
 
     def restore():
@@ -1597,7 +1666,8 @@ def timed_turn(torch, model, restore, x, y):
     return dt
 
 
-def scan_profile(torch, model, x, y, spd, batch, restore):
+def scan_profile(torch, model, x, y, spd, batch, restore,
+                 family_of=kernel_family, families=KERNEL_FAMILIES):
     """One dispatch of the train scan (spd steps: staging, copies and the
     replay), traced; per-step readings beside it. Every dispatch starts
     from the snapshot `restore` puts back."""
@@ -1621,9 +1691,23 @@ def scan_profile(torch, model, x, y, spd, batch, restore):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     restore()
-    prof = profile_step(torch, run)
+    prof = profile_step(torch, run, family_of, families)
     if not weights_finite(torch, model):
         raise AssertionError("a traced scan dispatch left non-finite weights")
+    # the replay alone between CUDA events: one launch of the whole graph,
+    # so its device time (the profiler's per-kernel tracing slows graphs
+    # of many small kernels, and its busy time reads high there)
+    graph = next(reversed(model.executor._scan_graphs.values())).graph
+    replay_ms = []
+    for _ in range(3):
+        restore()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        graph.graph.replay()
+        e1.record()
+        e1.synchronize()
+        replay_ms.append(e0.elapsed_time(e1))
+    restore()
     # the profiler slows the host side (staging, the Python around the
     # replay), so the idle share is also taken against the best
     # unprofiled dispatch
@@ -1646,6 +1730,8 @@ def scan_profile(torch, model, x, y, spd, batch, restore):
     del src, dst
     prof.update(steps=spd, dispatch_ms_reading=wall,
                 step_ms_reading=wall / spd,
+                replay_device_ms_per_step=min(replay_ms) / spd,
+                idle_share_replay=max(0.0, 1.0 - min(replay_ms) / wall),
                 step_device_busy_ms=prof["device_busy_ms"] / spd,
                 idle_share_host_clock=max(
                     0.0, 1.0 - prof["device_busy_ms"] / wall),
@@ -1653,7 +1739,9 @@ def scan_profile(torch, model, x, y, spd, batch, restore):
                 pinned_copy_gb_per_s=nbytes / min(copy_ms) / 1e6)
     log(f"  scan dispatch of {spd} steps: {prof['step_ms_reading']:.2f} ms "
         f"a step on the host clock, {prof['step_device_busy_ms']:.2f} ms "
-        f"device busy, idle share {prof['idle_share_host_clock']:.4f} "
+        f"device busy, idle share {prof['idle_share_host_clock']:.4f}; the "
+        f"replay alone {prof['replay_device_ms_per_step']:.2f} ms a step "
+        f"(CUDA events), idle share {prof['idle_share_replay']:.4f} "
         f"(under the profiler {prof['idle_share']:.4f}); batches from "
         f"pinned memory {prof['pinned_copy_ms_per_step']:.3f} ms a step "
         f"({prof['pinned_copy_gb_per_s']:.1f} GB/s); copies in the trace "
@@ -1854,6 +1942,424 @@ def dropout_mask_timing(torch):
     if not out["bit_equal"]:
         raise AssertionError(f"dropout mask: int32 and int64 differ: {out}")
     return out
+
+
+# -- the CNN path -----------------------------------------------------------
+def cnn_family(name):
+    """The family of a device kernel on the CNN path: cuDNN's convolution
+    kernels by pass (fprop / dgrad and wgrad), its FFT-based ones (the
+    transforms and complex GEMMs, whose name does not tell the pass),
+    cuBLAS's GEMMs (the dense layers), pooling, host-device copies, and
+    the rest: BatchNorm's and the activations' elementwise and reduction
+    kernels, the loss and the optimizer's update (measured on its own,
+    `optimizer_profile`)."""
+    if re.search(r"dgrad|wgrad|bprop|backward_data|backward_filter|col2im",
+                 name, re.I):
+        return "conv_bwd"
+    if re.search(r"fft|cf32|r2c|c2r", name, re.I):
+        return "conv_fft"
+    if re.search(r"fprop|convolve|conv2d|winograd|im2col|nchwToNhwc|"
+                 r"nhwcToNchw|cudnn", name, re.I):
+        return "conv_fwd"
+    if re.search(r"gemm|gemv|nvjet|xmma|cutlass", name):
+        return "gemm"
+    if re.search(r"pool", name, re.I):
+        return "pool"
+    if name.startswith("Memcpy"):
+        return "memcpy"
+    return "bn_elementwise"
+
+
+CNN_FAMILIES = ("conv_fwd", "conv_bwd", "conv_fft", "gemm", "pool",
+                "memcpy", "bn_elementwise")
+
+
+def optimizer_profile(torch, model):
+    """Device time of one SGD update of every weight, alone: the same
+    kernels on the same shapes as a train step's update, with zero
+    gradients (so the weights do not move)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    zeros = {op: {n: torch.zeros_like(w) for n, w in ws.items()}
+             for op, ws in model.params.items()}
+    model.optimizer.update(model.params, zeros, model.state.opt_state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.optimizer.update(model.params, zeros, model.state.opt_state)
+        torch.cuda.synchronize()
+    events = _device_events(torch, prof)
+    return {"ms": sum(e.time_range.elapsed_us() for e in events) / 1e3,
+            "events": len(events)}
+
+
+def cifar_like(seed, n, classes, hw):
+    """Synthetic CIFAR-10 as the bootcamp feeds it: n 32x32x3 uint8
+    images from `seed`, resized nearest to hw x hw, NCHW, /255; each
+    label is the argmax of a fixed random projection of its 32x32 image,
+    so the labels are a function of the pixels and the loss can fall."""
+    rng = np.random.RandomState(seed)
+    img = rng.randint(0, 256, (n, 3, 32, 32)).astype(np.uint8)
+    proj = rng.randn(3 * 32 * 32, classes)
+    y = np.argmax((img.reshape(n, -1) / 255.0 - 0.5) @ proj, axis=1)
+    # PIL's NEAREST: source pixel floor((i + 0.5) * 32 / hw)
+    idx = np.floor((np.arange(hw) + 0.5) * 32 / hw).astype(np.int64)
+    # C order, as the bootcamp's array filled image by image: the fancy
+    # indexing leaves other strides, and a strided batch costs the host a
+    # slow gather on every copy
+    x = np.ascontiguousarray(img[:, :, idx][:, :, :, idx], np.float32) / 255
+    return x, y.astype(np.int32).reshape(n, 1)
+
+
+def build_alexnet_from_file(torch, path, spd=1):
+    """The bootcamp flow (bootcamp_demo/ff_alexnet_cifar10.py) on the
+    port: replay the `.ff` export into an FFModel, SGD lr 0.01, sparse
+    categorical CE with accuracy, f32. Returns (model, input tensor)."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType, MetricsType
+    from flexflow_tpu_torch.frontends.torch import PyTorchModel
+
+    m = FFModel(FFConfig(batch_size=ALEX_BATCH, seed=0,
+                         iterations_per_dispatch=spd))
+    x = m.create_tensor((ALEX_BATCH, 3, ALEX_HW, ALEX_HW))
+    PyTorchModel(path).apply(m, [x])
+    m.set_sgd_optimizer(SGDOptimizer(lr=0.01))
+    m.compile(loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+              metrics=[MetricsType.METRICS_ACCURACY,
+                       MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY])
+    return m, x
+
+
+def fit_lines(torch, model, x, y, epochs):
+    """`fit` for `epochs` epochs; returns (its output, the epoch lines
+    without their throughput readings, each epoch's mean CE)."""
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    with contextlib.redirect_stdout(out):
+        model.fit(x=x, y=y, epochs=epochs)
+    torch.cuda.synchronize()
+    text = out.getvalue()
+    lines = [ln.split("throughput")[0] + ln.split("samples/s")[1]
+             for ln in text.splitlines() if ln.startswith("epoch")]
+    ce = [float(v) for v in re.findall(r"sparse_cce: (\S+)", text)]
+    if len(lines) != epochs or len(ce) != epochs:
+        raise AssertionError(f"fit printed {text!r}")
+    return text, lines, ce
+
+
+def state_gap(torch, a, b):
+    """weight_gap over the weights, and the stateful ops' buffers that
+    differ in any bit."""
+    gap = weight_gap(torch, a, b)
+    bufs = [(v, b.state.net_state[op][n])
+            for op, vs in a.state.net_state.items() for n, v in vs.items()]
+    gap.update(buffers=len(bufs), buffers_not_bit_equal=sum(
+        not torch.equal(u, v) for u, v in bufs))
+    return gap
+
+
+def scan_vs_stepwise(torch, what, a, b, xa, ya, xb, yb, epochs):
+    """`fit` of the stepwise model `a` and the scan model `b` from the
+    same weights and data: equal epoch lines, weights and running
+    statistics bit for bit. Returns (a's fit output, a's epoch CEs, the
+    gap, peak memory of a's fit in GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    text, lines_a, ce = fit_lines(torch, a, xa, ya, epochs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, lines_b, _ = fit_lines(torch, b, xb, yb, epochs)
+    gap = state_gap(torch, a, b)
+    log(f"  {what}: stepwise fit {lines_a}; scan fit {lines_b}; {gap}")
+    if (lines_a != lines_b or gap["weights_not_bit_equal"]
+            or gap["buffers_not_bit_equal"]):
+        raise AssertionError(f"{what}: scan vs stepwise {lines_b} vs "
+                             f"{lines_a}, {gap}")
+    return text, ce, gap, peak
+
+
+def cnn_timing(torch, what, a, b, x, y, n, batch):
+    """ABBA samples/s of one epoch of stepwise and scan `fit` from a
+    snapshot (x, y: arrays or loaders); a stepwise step and a scan
+    dispatch traced by CNN kernel family; the optimizer's update alone."""
+    ra, rb = restorer(torch, a), restorer(torch, b)
+    timing = abba(torch, {
+        "stepwise": lambda: timed_turn(torch, a, ra, x, y),
+        "scan": lambda: timed_turn(torch, b, rb, x, y)}, CNN_ROUNDS, n)
+    log(f"  {what} ABBA x{CNN_ROUNDS}: stepwise "
+        f"{timing['stepwise']['samples_per_s_median']:.2f} samples/s "
+        f"(spread {timing['stepwise']['spread']:.3f}), scan "
+        f"{timing['scan']['samples_per_s_median']:.2f} "
+        f"(spread {timing['scan']['spread']:.3f}), "
+        f"x{timing['speedup_median']:.3f}")
+    xs, ys = (getattr(v, "full_array", v) for v in (x, y))
+    step = a.executor.build_train_step()
+    ra()
+    step(a.state, [xs[:batch]], ys[:batch])  # warm
+    ra()
+    prof = profile_step(torch, lambda: step(a.state, [xs[:batch]],
+                                            ys[:batch]),
+                        cnn_family, CNN_FAMILIES)
+    ra()
+    sprof = scan_profile(torch, b, xs, ys, CNN_SPD, batch, rb, cnn_family,
+                         CNN_FAMILIES)
+    opt = optimizer_profile(torch, a)
+    ra()
+    for p, steps in ((prof, 1), (sprof, CNN_SPD)):
+        p["optimizer_ms_alone"] = opt["ms"]
+        p["bn_elementwise_less_optimizer_ms_a_step"] = (
+            p["by_family_ms"]["bn_elementwise"] / steps - opt["ms"])
+    log(f"  {what} optimizer update alone: {opt}")
+    return {"abba": timing, "step_profile": prof, "scan_profile": sprof,
+            "optimizer_profile": opt}
+
+
+def alexnet_oracle(torch, model, x, y):
+    """One train step of the port (f32) from the model's weights against
+    the same step in float64 on the card through the bootcamp's AlexNet
+    module (plain torch: nn.Conv2d and nn.Linear, the same sparse CE on
+    the clamped softmax, w -= lr * g). Compared: the loss, and each
+    weight's update, ||dW_port - dW_f64|| / ||dW_f64||."""
+    from flexflow_tpu_torch.models import AlexNet
+
+    ref = AlexNet(num_classes=ALEX_CLASSES).to("cuda", torch.float64)
+    before = {op: {n: w.detach().clone() for n, w in ws.items()}
+              for op, ws in model.params.items()}
+    mods = {name: mod for name, mod in ref.named_modules()
+            if name.replace(".", "_") in before}
+    with torch.no_grad():
+        for name, mod in mods.items():
+            k = before[name.replace(".", "_")]["kernel"].double()
+            mod.weight.copy_(k.t() if isinstance(mod, torch.nn.Linear)
+                             else k)
+            mod.bias.copy_(before[name.replace(".", "_")]["bias"].double())
+    probs = ref(torch.as_tensor(x, device="cuda", dtype=torch.float64))
+    lab = torch.as_tensor(y, device="cuda", dtype=torch.int64)
+    loss = -torch.log(probs.clamp(1e-12, 1.0)).gather(1, lab).mean()
+    grads = dict(zip([n for n, _ in ref.named_parameters()],
+                     torch.autograd.grad(loss, list(ref.parameters()))))
+    model.state, partials = model.executor.build_train_step()(
+        model.state, [x], y)
+    torch.cuda.synchronize()
+    loss_port = float(partials["loss"])
+    rel = {}
+    for name, mod in mods.items():
+        op = name.replace(".", "_")
+        for n, pname in (("kernel", "weight"), ("bias", "bias")):
+            g = grads[f"{name}.{pname}"]
+            if isinstance(mod, torch.nn.Linear) and n == "kernel":
+                g = g.t()
+            d_ref = -0.01 * g
+            d_port = (model.params[op][n] - before[op][n]).double()
+            rel[f"{op}.{n}"] = ((d_port - d_ref).norm()
+                                / d_ref.norm()).item()
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_port - loss.item()) / loss.item()
+    out = {"loss_f32": loss_port, "loss_f64": loss.item(),
+           "loss_rel_err": loss_rel, "loss_limit": ALEX_ORACLE_LOSS_RTOL,
+           "worst_update_rel_err": rel[worst], "worst_at": worst,
+           "update_limit": ALEX_ORACLE_RTOL, "update_rel_err": rel}
+    log(f"  oracle (one step, f32 vs f64 on the card): loss {loss_port} vs "
+        f"{loss.item()} (rel {loss_rel:.3g}, limit {ALEX_ORACLE_LOSS_RTOL}); "
+        f"worst update rel err {rel[worst]:.3g} at {worst} (limit "
+        f"{ALEX_ORACLE_RTOL}); {json.dumps(rel)}")
+    if loss_rel > ALEX_ORACLE_LOSS_RTOL or rel[worst] > ALEX_ORACLE_RTOL:
+        raise AssertionError(f"alexnet oracle: {out}")
+    return out
+
+
+def alexnet(torch):
+    """The bootcamp's AlexNet: the port's AlexNet module exported to a
+    `.ff` file and replayed, data loaders over synthetic CIFAR-10 at
+    229x229, init_layers, fit stepwise and as scans (equal bit for bit),
+    the loss falling, ABBA samples/s, traces by kernel family, and the
+    float64 oracle. Returns the summary, with the launch counts of the
+    two fits under "launches"."""
+    import tempfile
+
+    from flexflow_tpu_torch.frontends.torch import torch_to_flexflow
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.models import AlexNet
+
+    n = ALEX_BATCHES * ALEX_BATCH
+    x, y = cifar_like(7, n, ALEX_CLASSES, ALEX_HW)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = torch_to_flexflow(AlexNet(num_classes=ALEX_CLASSES),
+                                 os.path.join(tmp, "alexnet.ff"))
+        models = [build_alexnet_from_file(torch, path, spd)
+                  for spd in (1, CNN_SPD)]
+    loaders = []
+    for m, t in models:
+        loaders.append((m.create_data_loader(t, x),
+                        m.create_data_loader(m.get_label_tensor(), y)))
+        m.init_layers()
+    (a, _), (b, _) = models
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    text, ce, gap, peak = scan_vs_stepwise(
+        torch, "alexnet", a, b, *loaders[0], *loaders[1], ALEX_EPOCHS)
+    counts = dict(build.launch_counts)
+    log("  " + text.strip().replace("\n", "\n  "))
+    done = re.search(r"ELAPSED TIME = (\S+)s, THROUGHPUT = (\S+) samples/s",
+                     text)
+    if not all(np.isfinite(ce)) or not ce[-1] < ce[0]:
+        raise AssertionError(f"alexnet: epoch CE {ce} must be finite and "
+                             "fall")
+    summary = {
+        "model": "AlexNet (bootcamp nn.Module, .ff export replayed)",
+        "batch": ALEX_BATCH, "image": [3, ALEX_HW, ALEX_HW],
+        "classes": ALEX_CLASSES, "precision": "f32 (cuDNN without TF32)",
+        "optimizer": "SGD lr 0.01", "loss": "sparse categorical CE",
+        "batches": ALEX_BATCHES, "epochs": ALEX_EPOCHS,
+        "iterations_per_dispatch": CNN_SPD, "epoch_ce": ce,
+        "scan_vs_stepwise": gap, "peak_mem_gb": peak,
+        "fit_elapsed_s_reading": float(done.group(1)),
+        "fit_samples_per_s_reading": float(done.group(2)),
+        "launches": counts}
+    summary.update(cnn_timing(torch, "alexnet", a, b, *loaders[0], n,
+                              ALEX_BATCH))
+    summary["oracle"] = alexnet_oracle(torch, a, x[:ALEX_BATCH],
+                                       y[:ALEX_BATCH])
+    return summary
+
+
+def plain_forward(torch, model, x, dtype):
+    """The model's graph recomputed in plain torch at `dtype` in eval
+    mode: F.conv2d, F.batch_norm on the running statistics, F.max_pool2d
+    and F.avg_pool2d (padding left out of the count), the dense product,
+    softmax; the walk follows model.layers, the weights and buffers are
+    the model's, cast."""
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.ff_types import ActiMode
+    from flexflow_tpu_torch.ff_types import OperatorType as Op
+    from flexflow_tpu_torch.ff_types import PoolType
+
+    env = {model.input_tensors[0].guid: torch.as_tensor(
+        x, device="cuda").to(dtype)}
+    w = {op: {n: v.to(dtype) for n, v in ws.items()}
+         for op, ws in model.params.items()}
+    net = {op: {n: v.to(dtype) for n, v in bs.items()}
+           for op, bs in model.state.net_state.items()}
+    for layer in model.layers:
+        ins = [env[t.guid] for t in layer.inputs]
+        p, t, lw = layer.params, layer.op_type, w.get(layer.name, {})
+        if t == Op.OP_CONV2D:
+            y = F.conv2d(ins[0], lw["kernel"], lw.get("bias"),
+                         (p.stride_h, p.stride_w),
+                         (p.padding_h, p.padding_w), 1, p.groups)
+            if p.activation == ActiMode.AC_MODE_RELU:
+                y = torch.relu(y)
+        elif t == Op.OP_BATCHNORM:
+            y = F.batch_norm(ins[0], net[layer.name]["running_mean"],
+                             net[layer.name]["running_var"], lw["scale"],
+                             lw["bias"], training=False, eps=p.eps)
+            if p.relu:
+                y = torch.relu(y)
+        elif t == Op.OP_POOL2D:
+            args = ((p.kernel_h, p.kernel_w), (p.stride_h, p.stride_w),
+                    (p.padding_h, p.padding_w))
+            y = (F.max_pool2d(ins[0], *args)
+                 if p.pool_type == PoolType.POOL_MAX else
+                 F.avg_pool2d(ins[0], *args, count_include_pad=False))
+        elif t == Op.OP_FLAT:
+            y = ins[0].flatten(1)
+        elif t == Op.OP_LINEAR:
+            y = ins[0] @ lw["kernel"] + lw["bias"]
+        elif t == Op.OP_SOFTMAX:
+            y = torch.softmax(ins[0], -1)
+        elif t == Op.OP_EW_ADD:
+            y = ins[0] + ins[1]
+        elif t == Op.OP_RELU:
+            y = torch.relu(ins[0])
+        else:
+            raise AssertionError(f"plain_forward: no plain {t.name}")
+        env[layer.outputs[0].guid] = y
+    return env[model.layers[-1].outputs[0].guid]
+
+
+def build_resnext_model(torch, spd=1):
+    """ResNeXt-50 (models/resnet.py build_resnext50: groups 32, 224x224)
+    at scripts/osdi22ae/resnext-50.sh's batch 16, 10 classes, f32, SGD lr
+    0.01, sparse categorical CE with accuracy."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType, MetricsType
+    from flexflow_tpu_torch.models import build_resnext50
+
+    m = FFModel(FFConfig(batch_size=RESNEXT_BATCH, seed=0,
+                         iterations_per_dispatch=spd))
+    build_resnext50(m, RESNEXT_BATCH, num_classes=ALEX_CLASSES,
+                    height=RESNEXT_HW, width=RESNEXT_HW)
+    m.compile(SGDOptimizer(lr=0.01),
+              LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+              [MetricsType.METRICS_ACCURACY,
+               MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY])
+    return m
+
+
+def resnext(torch):
+    """ResNeXt-50 with BatchNorm running statistics: stepwise fit against
+    fit with iterations_per_dispatch CNN_SPD from the same weights and
+    running statistics (weights and buffers bit for bit); eval on the
+    running statistics against a float64 recomputation from them; ABBA
+    samples/s and traces."""
+    from flexflow_tpu_torch.kernels import build
+
+    n = RESNEXT_BATCHES * RESNEXT_BATCH
+    x, y = cifar_like(8, n, ALEX_CLASSES, RESNEXT_HW)
+    a, b = build_resnext_model(torch), build_resnext_model(torch, CNN_SPD)
+    start = state_gap(torch, a, b)
+    if start["weights_not_bit_equal"] or start["buffers_not_bit_equal"]:
+        raise AssertionError(f"resnext: the two models start apart {start}")
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    text, ce, gap, peak = scan_vs_stepwise(torch, "resnext-50", a, b, x, y,
+                                           x, y, 1)
+    counts = dict(build.launch_counts)
+    log("  " + text.strip().replace("\n", "\n  "))
+    done = re.search(r"ELAPSED TIME = (\S+)s, THROUGHPUT = (\S+) samples/s",
+                     text)
+    moved = max((bufs["running_var"] - 1).abs().max().item()
+                for bufs in a.state.net_state.values())
+    # eval on the running statistics against the same forward in f64
+    ev_x, ev_y = x[:RESNEXT_BATCH], y[:RESNEXT_BATCH]
+    with contextlib.redirect_stdout(io.StringIO()):
+        pm = a.eval(ev_x, ev_y)
+    loss_eval = pm.sparse_cce_loss / pm.train_rows
+    with torch.no_grad():
+        probs = plain_forward(torch, a, ev_x, torch.float64)
+        lab = torch.as_tensor(ev_y, device="cuda", dtype=torch.int64)
+        loss_ref = (-torch.log(probs.clamp(1e-12, 1.0)).gather(1, lab)
+                    .mean().item())
+    # the same network on batch statistics, which eval must not read
+    _, batch_stats = a.executor.build_eval_step()(a.params, [ev_x], ev_y)
+    loss_batch = float(batch_stats["loss"])
+    eval_rel = abs(loss_eval - loss_ref) / loss_ref
+    log(f"  eval on the running statistics (running_var moved up to "
+        f"{moved:.4g} from 1): CE {loss_eval} vs f64 recomputation "
+        f"{loss_ref} (rel {eval_rel:.3g}, limit {RESNEXT_EVAL_RTOL}); on "
+        f"batch statistics the forward reads {loss_batch}")
+    if (not np.isfinite(loss_eval) or eval_rel > RESNEXT_EVAL_RTOL
+            or not moved > 0
+            or abs(loss_batch - loss_ref) / loss_ref <= RESNEXT_EVAL_RTOL):
+        raise AssertionError(f"resnext eval: {loss_eval} vs {loss_ref}, "
+                             f"batch statistics {loss_batch}, moved {moved}")
+    summary = {
+        "model": "ResNeXt-50 (build_resnext50, groups 32)",
+        "batch": RESNEXT_BATCH, "image": [3, RESNEXT_HW, RESNEXT_HW],
+        "classes": ALEX_CLASSES, "precision": "f32 (cuDNN without TF32)",
+        "optimizer": "SGD lr 0.01", "loss": "sparse categorical CE",
+        "batches": RESNEXT_BATCHES, "iterations_per_dispatch": CNN_SPD,
+        "batchnorms": len(a.state.net_state), "epoch_ce": ce,
+        "scan_vs_stepwise": gap, "peak_mem_gb": peak,
+        "fit_elapsed_s_reading": float(done.group(1)),
+        "fit_samples_per_s_reading": float(done.group(2)),
+        "eval": {"ce_running_stats": loss_eval, "ce_f64_recomputed": loss_ref,
+                 "rel_err": eval_rel, "limit": RESNEXT_EVAL_RTOL,
+                 "ce_batch_stats": loss_batch,
+                 "running_var_moved_max": moved},
+        "launches": counts}
+    summary.update(cnn_timing(torch, "resnext-50", a, b, x, y, n,
+                              RESNEXT_BATCH))
+    return summary
 
 
 def wgmma_build_report(build):
@@ -2057,11 +2563,22 @@ def main() -> int:
 
     log("# bert scan and remat phase")
     bscan = bert_scan(torch)
+    torch.cuda.empty_cache()
 
+    log("# cnn phase: the bootcamp's AlexNet")
+    alex = alexnet(torch)
+    torch.cuda.empty_cache()
+
+    log("# cnn phase: ResNeXt-50")
+    rx = resnext(torch)
+
+    # the CNN path runs none of the three kernels (cuDNN convolutions, as
+    # the JAX package's are XLA's); its counts stand in the table as 0
     by_phase = {"serving": serving_counts, "training": training["launches"],
                 "training_scan": scan["launches"],
                 "bert": bert_summary["launches"],
-                "bert_scan": bscan["launches"]}
+                "bert_scan": bscan["launches"],
+                "alexnet": alex["launches"], "resnext": rx["launches"]}
     for k in kernels:
         k["launches_by_phase"] = {p: c[k["name"]] for p, c in by_phase.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
@@ -2077,7 +2594,8 @@ def main() -> int:
         if "wmma_ms" in row:   # every main-path launch took the wgmma path
             row["path"] = "wgmma"
     report.update(kernels=kernels, serving=summary, training=training,
-                  training_scan=scan, bert=bert_summary, bert_scan=bscan)
+                  training_scan=scan, bert=bert_summary, bert_scan=bscan,
+                  alexnet=alex, resnext=rx)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -2086,6 +2604,20 @@ def main() -> int:
     log(json.dumps({"training_scan": scan}))
     log(json.dumps({"bert": bert_summary}))
     log(json.dumps({"bert_scan": bscan}))
+    log(smi + " " + json.dumps({"cnn": {
+        k: {"samples_per_s_stepwise":
+            v["abba"]["stepwise"]["samples_per_s_median"],
+            "samples_per_s_scan": v["abba"]["scan"]["samples_per_s_median"],
+            "peak_mem_gb": v["peak_mem_gb"],
+            "step_idle_share": v["step_profile"]["idle_share"],
+            "scan_idle_share": v["scan_profile"]["idle_share_host_clock"],
+            "scan_replay_ms_a_step":
+            v["scan_profile"]["replay_device_ms_per_step"],
+            "scan_idle_share_replay": v["scan_profile"]["idle_share_replay"],
+            "step_ms_by_family": v["step_profile"]["by_family_ms"]}
+        for k, v in (("alexnet", alex), ("resnext50", rx))}}))
+    log(json.dumps({"alexnet": alex}))
+    log(json.dumps({"resnext": rx}))
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -10,9 +10,12 @@ an NVIDIA GPU (Hopper, sm_90a) through hand-written CUDA kernels:
 Entry points run on the first CUDA device unless the config names
 ``device="cpu"``; with no CUDA device and no explicit CPU request they
 raise. Ported so far: serving causal decoder LMs (embedding, causal
-multi-head attention, dense, softmax) and training through `FFModel.fit`
+multi-head attention, dense, softmax); training through `FFModel.fit`
 (the flagship Transformer: multi-head attention and dense, the five
-losses, SGD and Adam, bf16 compute and gradients over f32 weights).
+losses, SGD and Adam, bf16 compute and gradients over f32 weights);
+BERT through the PyTorch frontend; and CNNs (conv2d, pool2d, BatchNorm
+with running statistics, flat: AlexNet from its `.ff` export through
+data loaders, ResNet and ResNeXt-50).
 """
 from .config import FFConfig  # noqa: F401
 from .core.initializers import (  # noqa: F401
@@ -20,6 +23,7 @@ from .core.initializers import (  # noqa: F401
     Initializer,
     ZeroInitializer,
 )
+from .core.dataloader import SingleDataLoader  # noqa: F401
 from .core.model import FFModel  # noqa: F401
 from .core.optimizers import AdamOptimizer, Optimizer, SGDOptimizer  # noqa: F401
 from .ff_types import (  # noqa: F401
@@ -30,4 +34,5 @@ from .ff_types import (  # noqa: F401
     LossType,
     MetricsType,
     OperatorType,
+    PoolType,
 )

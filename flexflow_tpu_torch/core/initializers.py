@@ -25,11 +25,16 @@ class Initializer:
 
 @dataclasses.dataclass
 class GlorotUniformInitializer(Initializer):
-    """Keras glorot_uniform with the JAX package's fan convention: fan_in
-    is the product of all but the last axis, fan_out the last."""
+    """Keras glorot_uniform with the JAX package's fan convention: an OIHW
+    conv kernel has fan_in I*kh*kw and fan_out O*kh*kw; any other weight
+    of rank >= 2 has fan_in the product of all but the last axis and
+    fan_out the last."""
 
     def __call__(self, gen, shape, dtype):
-        if len(shape) >= 2:
+        if len(shape) == 4:
+            receptive = shape[2] * shape[3]
+            fan_in, fan_out = shape[1] * receptive, shape[0] * receptive
+        elif len(shape) >= 2:
             fan_in, fan_out = int(np.prod(shape[:-1])), shape[-1]
         else:
             fan_in = fan_out = shape[0] if shape else 1

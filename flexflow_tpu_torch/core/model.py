@@ -1,11 +1,16 @@
 """FFModel: the user-facing model container.
 
 The PyTorch counterpart of flexflow_tpu/core/model.py: the builder methods
-of the ported ops (the ones the served LM, the flagship Transformer and
-the PyTorch frontend's BERT encoder call), `compile` on the manual
-single-device branch, `fit` and `eval` (training), `predict` (serving)
-and the stepwise API (`set_iteration_batch`, `forward`, `zero_gradients`,
-`backward`, `update`). Op names follow the JAX package
+of the ported ops (the ones the served LM, the flagship Transformer, the
+PyTorch frontend's BERT encoder and the CNNs of models/alexnet.py and
+models/resnet.py call), `compile` on the manual single-device branch
+(it creates the label tensor, `get_label_tensor`), `init_layers`,
+`create_data_loader`, `fit` and `eval` (training; both take arrays or
+data loaders), `predict` (serving) and the stepwise API
+(`set_iteration_batch`, `forward`, `zero_gradients`, `backward`,
+`update`). Stateful ops' buffers (BatchNorm's running statistics) live in
+`self.state.net_state`: training updates them, eval, `predict` and the
+stepwise `forward` read them. Op names follow the JAX package
 (`f"{op_type.name.lower()}_{len(self.layers)}"`), so weights carry across
 by (op name, weight name) (runtime/weights.py).
 
@@ -30,17 +35,22 @@ import numpy as np
 import torch
 
 from ..config import FFConfig
-from ..ff_types import ActiMode, AggrMode, DataType, OperatorType, to_data_type
+from ..ff_types import (ActiMode, AggrMode, DataType, LossType, OperatorType,
+                        PoolType, to_data_type)
 from ..ops.attention import MultiHeadAttentionParams
+from ..ops.conv2d import Conv2DParams
 from ..ops.dropout import DropoutParams
 from ..ops.elementwise import ElementBinaryParams, ElementUnaryParams
 from ..ops.embedding import EmbeddingParams
 from ..ops.linear import LinearParams
-from ..ops.normalization import LayerNormParams
+from ..ops.normalization import BatchNormParams, LayerNormParams
+from ..ops.pool2d import Pool2DParams
 from ..ops.registry import get_op_def
 from ..ops.softmax import SoftmaxParams
+from ..ops.tensor_ops import FlatParams
 from ..parallel.executor import PCGExecutor, TrainState
 from ..pcg.lowering import layers_to_pcg
+from .dataloader import SingleDataLoader
 from .losses import to_loss_type
 from .metrics import Metrics, PerfMetrics
 from .optimizers import SGDOptimizer
@@ -63,12 +73,15 @@ class FFModel:
         self.executor: Optional[PCGExecutor] = None
         self.state: Optional[TrainState] = None
         self.perf_metrics: Optional[PerfMetrics] = None
+        self.label_tensor: Optional[Tensor] = None
+        self._dataloaders: List[SingleDataLoader] = []
         self._fit_input_tensors: List[Tensor] = []
         self._rng: Optional[torch.Generator] = None
         # the stepwise API's bound batch and pending gradients
         self._current_batch: Optional[Tuple] = None
         self._last_logits: Optional[torch.Tensor] = None
         self._pending_grads = None
+        self._pending_net_state = None
 
     @property
     def params(self) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
@@ -117,6 +130,43 @@ class FFModel:
             layer.weights.append(wt)
         self.layers.append(layer)
         return layer.outputs[0]
+
+    def conv2d(self, input: Tensor, out_channels: int, kernel_h: int,
+               kernel_w: int, stride_h: int, stride_w: int, padding_h: int,
+               padding_w: int,
+               activation: ActiMode = ActiMode.AC_MODE_NONE,
+               groups: int = 1, use_bias: bool = True, shared_op=None,
+               kernel_initializer=None, bias_initializer=None,
+               name: str = "") -> Tensor:
+        p = Conv2DParams(out_channels=out_channels, kernel_h=kernel_h,
+                         kernel_w=kernel_w, stride_h=stride_h,
+                         stride_w=stride_w, padding_h=padding_h,
+                         padding_w=padding_w, groups=groups,
+                         use_bias=use_bias, activation=ActiMode(activation))
+        return self._add_layer(OperatorType.OP_CONV2D, p, [input], name,
+                               {"kernel": kernel_initializer,
+                                "bias": bias_initializer})
+
+    def pool2d(self, input: Tensor, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int, padding_w: int,
+               pool_type: PoolType = PoolType.POOL_MAX,
+               activation: ActiMode = ActiMode.AC_MODE_NONE,
+               name: str = "") -> Tensor:
+        p = Pool2DParams(kernel_h=kernel_h, kernel_w=kernel_w,
+                         stride_h=stride_h, stride_w=stride_w,
+                         padding_h=padding_h, padding_w=padding_w,
+                         pool_type=PoolType(pool_type),
+                         activation=ActiMode(activation))
+        return self._add_layer(OperatorType.OP_POOL2D, p, [input], name)
+
+    def batch_norm(self, input: Tensor, relu: bool = True,
+                   name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_BATCHNORM,
+                               BatchNormParams(relu=relu), [input], name)
+
+    def flat(self, input: Tensor, name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_FLAT, FlatParams(), [input],
+                               name)
 
     def dense(self, input: Tensor, out_dim: int,
               activation: ActiMode = ActiMode.AC_MODE_NONE,
@@ -255,6 +305,23 @@ class FFModel:
                            scalar=scalar)
 
     # -- compile ------------------------------------------------------------
+    def set_optimizer(self, opt) -> None:
+        self.optimizer = opt
+
+    # the reference's older spellings (flexflow_c.cc
+    # flexflow_model_set_sgd_optimizer / _set_adam_optimizer), which the
+    # bootcamp scripts call
+    set_sgd_optimizer = set_optimizer
+    set_adam_optimizer = set_optimizer
+
+    def get_label_tensor(self) -> Tensor:
+        """The label tensor, which compile() creates (the reference's cffi
+        `label_tensor` property)."""
+        if self.label_tensor is None:
+            raise RuntimeError("the label tensor exists after compile(); "
+                               "call compile() first")
+        return self.label_tensor
+
     def compile(self, optimizer=None, loss_type=None, metrics: Sequence = ()):
         """Lower the layers to a PCG and initialize the weights and the
         optimizer state on `config.device`. A model compiled without a
@@ -279,6 +346,17 @@ class FFModel:
                           else None)
         self.metrics = tuple(metrics)
         self.graph, tensor_map = layers_to_pcg(self.layers)
+        if self.label_tensor is None:
+            # class ids (..., 1) for sparse CE, else the output's shape
+            logits_pt = self.graph.output_tensors()[-1]
+            sparse = (self.loss_type
+                      == LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+            shape = tuple(logits_pt.material_shape())
+            self.label_tensor = Tensor(
+                shape[:-1] + (1,) if sparse else shape,
+                DataType.DT_INT32 if sparse else logits_pt.data_type,
+                name="label")
+            self.label_tensor._model = self
         graph_inputs = {pt.guid: pt for pt in self.graph.input_tensors()}
         self._fit_input_tensors = [
             t for t in self.input_tensors
@@ -299,6 +377,22 @@ class FFModel:
         self.perf_metrics = PerfMetrics()
         self._rng = torch.Generator().manual_seed(self.config.seed)
 
+    def init_layers(self) -> None:
+        """Initialize every weight, the optimizer state and the stateful
+        ops' buffers afresh (reference: flexflow_cffi.py:1975), as
+        compile() did."""
+        if self.executor is None:
+            raise RuntimeError("init_layers: call compile() first")
+        self.state = self.executor.init_state()
+
+    def create_data_loader(self, batch_tensor: Tensor,
+                           full_array: np.ndarray) -> SingleDataLoader:
+        """A loader over `full_array` in batches of `batch_tensor`'s first
+        dim (an input tensor, or `get_label_tensor()` for the labels)."""
+        dl = SingleDataLoader(self, batch_tensor, full_array)
+        self._dataloaders.append(dl)
+        return dl
+
     # -- training -----------------------------------------------------------
     @staticmethod
     def _batches(arrays: List[np.ndarray], batch_size: int):
@@ -307,7 +401,8 @@ class FFModel:
 
     def fit(self, x=None, y=None, batch_size: Optional[int] = None,
             epochs: Optional[int] = None, verbose: bool = True):
-        """Train on (x, y): one train step per full batch, `epochs` passes
+        """Train on (x, y), arrays or data loaders (`create_data_loader`):
+        one train step per full batch, `epochs` passes
         (config.epochs by default). The tail that does not fill a batch is
         dropped, with a warning. With config.iterations_per_dispatch N > 1
         the batches go N at a time through the train scan, the last
@@ -317,6 +412,7 @@ class FFModel:
         the end. Returns the last epoch's PerfMetrics."""
         if self.executor is None:
             raise RuntimeError("fit: call compile() first")
+        x, y = _unwrap_loaders(x, y)
         step_fn = self.executor.build_train_step()
         spd = max(1, self.config.iterations_per_dispatch)
         scan_fn = self.executor.build_train_scan() if spd > 1 else None
@@ -384,15 +480,18 @@ class FFModel:
 
     def eval(self, x=None, y=None, batch_size: Optional[int] = None):
         """Metrics and loss of the inference forward over full batches of
-        (x, y); prints the metrics line and returns the PerfMetrics."""
+        (x, y), arrays or data loaders; stateful ops read the running
+        buffers. Prints the metrics line and returns the PerfMetrics."""
         if self.executor is None:
             raise RuntimeError("eval: call compile() first")
+        x, y = _unwrap_loaders(x, y)
         step_fn = self.executor.build_eval_step()
         xs = list(x) if isinstance(x, (list, tuple)) else [x]
         pm = PerfMetrics()
         for batch in self._batches(xs + [y],
                                    batch_size or self.config.batch_size):
-            _, partials = step_fn(self.params, batch[:-1], batch[-1])
+            _, partials = step_fn(self.params, batch[:-1], batch[-1],
+                                  self.state.net_state)
             pm.update({k: float(v) for k, v in partials.items()})
         print(pm.report())
         return pm
@@ -414,7 +513,8 @@ class FFModel:
             if short:
                 chunk = [np.concatenate([c, np.repeat(c[-1:], short, 0)])
                          for c in chunk]
-            y = fwd(self.params, chunk).float().cpu().numpy()
+            y = fwd(self.params, chunk,
+                    self.state.net_state).float().cpu().numpy()
             outs.append(y[:bs - short])
         return np.concatenate(outs)
 
@@ -442,28 +542,55 @@ class FFModel:
         stepwise `forward`): returns the graph output on the device."""
         inputs = self._bound_inputs()
         fwd = self.executor.build_forward(seq_length)
-        self._last_logits = fwd(self.params, inputs)
+        self._last_logits = fwd(self.params, inputs, self.state.net_state)
         return self._last_logits
 
     def zero_gradients(self):
         self._pending_grads = None
 
     def backward(self, seq_length: int = -1):
-        """Gradients of the loss on the bound batch, kept for `update`. As
-        in the JAX package no op draws random numbers (no rng)."""
+        """Gradients of the loss on the bound batch, and the stateful ops'
+        new buffers, kept for `update`. As in the JAX package no op draws
+        random numbers (no rng)."""
         inputs = self._bound_inputs()
         _, label = self._current_batch
         if label is None:
             raise ValueError("the label tensor was never attached")
         grad_fn = self.executor.build_grad_step(seq_length)
-        self._pending_grads = grad_fn(self.params, inputs, label)
+        self._pending_net_state = {}
+        self._pending_grads = grad_fn(self.params, inputs, label,
+                                      self.state.net_state,
+                                      self._pending_net_state)
 
     def update(self):
-        """Apply the pending gradients with the optimizer (in place) and
-        advance the step."""
+        """Apply the pending gradients with the optimizer and the pending
+        buffers of the stateful ops (both in place), and advance the
+        step."""
         if self._pending_grads is None:
             raise RuntimeError("call backward() first")
         self.optimizer.update(self.state.params, self._pending_grads,
                               self.state.opt_state)
+        with torch.no_grad():
+            for op, bufs in (self._pending_net_state or {}).items():
+                for k, v in bufs.items():
+                    self.state.net_state[op][k].copy_(v)
         self.state.step += 1
         self._pending_grads = None
+        self._pending_net_state = None
+
+
+def _unwrap_loaders(x, y):
+    """fit and eval take SingleDataLoaders for x and y, as the reference
+    does (fit(x=dataloader_input, y=dataloader_label)): each stands for
+    its array's first num_samples rows."""
+
+    def unwrap(v):
+        if isinstance(v, SingleDataLoader):
+            return v.full_array[:v.num_samples]
+        return v
+
+    if isinstance(x, (list, tuple)):
+        x = [unwrap(v) for v in x]
+    else:
+        x = unwrap(x)
+    return x, unwrap(y)

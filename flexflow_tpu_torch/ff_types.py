@@ -95,6 +95,13 @@ class AggrMode(enum.IntEnum):
     AGGR_MODE_AVG = 22
 
 
+class PoolType(enum.IntEnum):
+    """Pooling modes (reference: ffconst.h:37-40)."""
+
+    POOL_MAX = 30
+    POOL_AVG = 31
+
+
 class RegularizerMode(enum.IntEnum):
     REG_MODE_NONE = 25
     REG_MODE_L1 = 26

@@ -7,26 +7,41 @@ module with torch.fx.symbolic_trace and maps each fx node onto the port's
 FFModel ops; `load_weights` then copies the module's parameters into the
 compiled model's params.
 
-Only the rows whose ops the port has are here: `_MODULE_BUILDERS` holds
-Linear, LayerNorm, Embedding, the activations, Softmax, Dropout,
-MultiheadAttention and Identity, and `_replay_fn` the arithmetic, the
-activations, softmax, dropout, `getitem` on MultiheadAttention's tuple
-and the no-ops. Every other module or target raises NotImplementedError
-with its name, as the JAX package does for what it lacks. Not ported
-yet: concrete tensors meeting the graph (they need
-`create_constant_tensor`), Hugging Face tracing, and the file format
-(`torch_to_flexflow` / `file_to_ff`). As in the JAX package,
-MultiheadAttention's weights are not carried over from torch.
+File format (reference: torch_to_flexflow export + PyTorchModel.file_to_ff
+import, model.py:2540): `torch_to_flexflow(module, path)` writes the
+traced graph as JSON lines, one record per fx node with each module's
+config extracted, and `PyTorchModel(path).apply(ffmodel, inputs)` (or
+`file_to_ff`) rebuilds the ops from the file. Live trace and replay share
+one builder table (`_MODULE_BUILDERS`) and one call dispatch
+(`_replay_fn`); the format is the JAX package's, so a file written by
+either package replays in the other.
+
+The rows are those whose ops the port has: `_MODULE_BUILDERS` holds
+Linear, Conv2d, MaxPool2d, AvgPool2d, AdaptiveAvgPool2d (to 1x1 or the
+identity size), BatchNorm2d, LayerNorm, Embedding, the activations,
+Flatten, Softmax, Dropout, MultiheadAttention and Identity, and
+`_replay_fn` the arithmetic, the activations, softmax, flatten, dropout,
+`getitem` on MultiheadAttention's tuple and the no-ops. Every other
+module or target raises NotImplementedError with its name, as the JAX
+package does for what it lacks. Not ported yet: concrete tensors meeting
+the graph (they need `create_constant_tensor`) and Hugging Face tracing.
+As in the JAX package, MultiheadAttention's weights and BatchNorm2d's
+running statistics are not carried over from torch.
 """
 from __future__ import annotations
 
+import json
 from typing import Dict, List
 
 import numpy as np
 import torch
 import torch.fx
 
-from ...ff_types import AggrMode, OperatorType
+from ...ff_types import AggrMode, OperatorType, PoolType
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
 
 def _linear_export(mod):
@@ -43,6 +58,72 @@ def _linear_weights(mod):
     if mod.bias is not None:
         w.append(mod.bias.detach().cpu().numpy())
     return w
+
+
+def _conv2d_export(mod):
+    return {"out_channels": mod.out_channels,
+            "kernel": list(_pair(mod.kernel_size)),
+            "stride": list(_pair(mod.stride)),
+            "padding": list(_pair(mod.padding)),
+            "groups": mod.groups, "bias": mod.bias is not None}
+
+
+def _conv2d_build(ff, cfg, args, name):
+    k, s, p = cfg["kernel"], cfg["stride"], cfg["padding"]
+    return ff.conv2d(args[0], cfg["out_channels"], k[0], k[1], s[0], s[1],
+                     p[0], p[1], groups=cfg["groups"], use_bias=cfg["bias"],
+                     name=name)
+
+
+def _conv2d_weights(mod):
+    w = [mod.weight.detach().cpu().numpy()]  # OIHW in both
+    if mod.bias is not None:
+        w.append(mod.bias.detach().cpu().numpy())
+    return w
+
+
+def _pool_export(mod):
+    k = _pair(mod.kernel_size)
+    s = _pair(mod.stride) if mod.stride is not None else k
+    return {"kernel": list(k), "stride": list(s),
+            "padding": list(_pair(mod.padding))}
+
+
+def _pool_build(pool_type):
+    def build(ff, cfg, args, name):
+        k, s, p = cfg["kernel"], cfg["stride"], cfg["padding"]
+        return ff.pool2d(args[0], k[0], k[1], s[0], s[1], p[0], p[1],
+                         pool_type, name=name)
+
+    return build
+
+
+def _adaptive_export(mod):
+    return {"output_size": list(_pair(mod.output_size))}
+
+
+def _adaptive_build(ff, cfg, args, name):
+    x = args[0]
+    h, w = x.dims[2], x.dims[3]
+    osz = tuple(cfg["output_size"])
+    if osz == (1, 1):
+        return ff.pool2d(x, h, w, 1, 1, 0, 0, PoolType.POOL_AVG, name=name)
+    if (h, w) != osz:
+        raise NotImplementedError(
+            f"AdaptiveAvgPool2d from {(h, w)} to {osz}: only 1x1 and the "
+            "identity size")
+    return x
+
+
+def _bn_build(ff, cfg, args, name):
+    return ff.batch_norm(args[0], relu=False, name=name)
+
+
+def _bn_weights(mod):
+    if mod.weight is None:  # BatchNorm2d(affine=False)
+        return None
+    return [mod.weight.detach().cpu().numpy(),
+            mod.bias.detach().cpu().numpy()]
 
 
 def _ln_export(mod):
@@ -117,6 +198,11 @@ def _none_export(mod):
 # type name -> (export, build, weights|None)
 _MODULE_BUILDERS = {
     "Linear": (_linear_export, _linear_build, _linear_weights),
+    "Conv2d": (_conv2d_export, _conv2d_build, _conv2d_weights),
+    "MaxPool2d": (_pool_export, _pool_build(PoolType.POOL_MAX), None),
+    "AvgPool2d": (_pool_export, _pool_build(PoolType.POOL_AVG), None),
+    "AdaptiveAvgPool2d": (_adaptive_export, _adaptive_build, None),
+    "BatchNorm2d": (_none_export, _bn_build, _bn_weights),
     "LayerNorm": (_ln_export, _ln_build, _ln_weights),
     "Embedding": (_emb_export, _emb_build, _emb_weights),
     "ReLU": (_none_export, _act_build("relu"), None),
@@ -125,6 +211,8 @@ _MODULE_BUILDERS = {
     "Tanh": (_none_export, _act_build("tanh"), None),
     "ELU": (_none_export, _act_build("elu"), None),
     "Identity": (_none_export, _act_build("identity"), None),
+    "Flatten": (_none_export, lambda ff, c, a, n: ff.flat(a[0], name=n),
+                None),
     "Softmax": (_softmax_export, _softmax_build, None),
     "Dropout": (_dropout_export, _dropout_build, None),
     "MultiheadAttention": (_mha_export, _mha_build, None),
@@ -136,10 +224,9 @@ class PyTorchModel:
 
     def __init__(self, module, is_hf_model: bool = False, input_names=None,
                  batch_size: int = 1, seq_length=None):
-        if isinstance(module, str):
-            raise NotImplementedError(
-                f"PyTorchModel({module!r}): the file format (file_to_ff) is "
-                "not ported to flexflow_tpu_torch yet")
+        # a path names a `torch_to_flexflow` export to replay
+        # (bootcamp_demo/ff_alexnet_cifar10.py: PyTorchModel("alexnet.ff"))
+        self._file = module if isinstance(module, str) else None
         if is_hf_model:
             raise NotImplementedError(
                 "Hugging Face tracing (is_hf_model) is not ported to "
@@ -151,11 +238,18 @@ class PyTorchModel:
 
     def apply(self, ffmodel, input_tensors: List) -> List:
         """The uniform entry point of the frontends (ONNXModel.apply):
-        traces the module live."""
+        replays the file when constructed from a path, traces the module
+        live otherwise."""
+        if self._file is not None:
+            return PyTorchModel.file_to_ff(self._file, ffmodel,
+                                           input_tensors)
         return self.torch_to_ff(ffmodel, input_tensors)
 
     def torch_to_ff(self, ffmodel, input_tensors: List) -> List:
         """Map the traced graph onto ffmodel; returns output tensors."""
+        if self._file is not None:
+            raise TypeError("constructed from a file: use apply() or "
+                            "file_to_ff()")
         traced = torch.fx.symbolic_trace(self.module)
         modules = dict(traced.named_modules())
         env: Dict[str, object] = {}
@@ -232,9 +326,7 @@ class PyTorchModel:
         if not _any_ff(args) and not _any_ff(kwargs):
             # fully concrete: evaluate eagerly with the real torch function
             return node.target(*args, **kwargs)
-        t = node.target
-        return _replay_fn(ff, t if isinstance(t, str) else t.__name__, args,
-                          kwargs)
+        return _replay_fn(ff, _fn_name(node.target), args, kwargs)
 
     def _method_to_ff(self, ff, node, env):
         args, kwargs = self._resolve(node, env)
@@ -243,9 +335,10 @@ class PyTorchModel:
         return _replay_fn(ff, node.target, args, kwargs)
 
     def load_weights(self, ffmodel=None):
-        """Copy the torch module's parameters (Linear, LayerNorm,
-        Embedding) into the compiled model's params, in place, so the
-        optimizer state stays the model's own."""
+        """Copy the torch module's parameters (Linear, Conv2d,
+        BatchNorm2d's scale and bias, LayerNorm, Embedding) into the
+        compiled model's params, in place, so the optimizer state stays
+        the model's own."""
         model = ffmodel or self._ffmodel
         if model is None or model.params is None:
             raise RuntimeError("load_weights: torch_to_ff and compile() the "
@@ -259,6 +352,115 @@ class PyTorchModel:
                             f"{layer.name}.{wt.name}: torch shape "
                             f"{tuple(arr.shape)} != {tuple(dst.shape)}")
                     dst.copy_(torch.as_tensor(arr))
+
+    @staticmethod
+    def file_to_ff(filename: str, ffmodel, input_tensors: List) -> List:
+        """Rebuild the FFModel ops of a `torch_to_flexflow` export; returns
+        the output tensors. The file carries each module's config, so
+        nothing of the module is needed."""
+        env: Dict[str, object] = {}
+        inputs = list(input_tensors)
+        outputs: List = []
+
+        def val(a):
+            if isinstance(a, dict) and "ref" in a:
+                return env[a["ref"]]
+            if isinstance(a, list):
+                return [val(x) for x in a]
+            return a
+
+        with open(filename) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                rec = json.loads(line)
+                kind, name = rec["op"], rec["name"]
+                if kind == "placeholder":
+                    env[name] = inputs.pop(0)
+                elif kind == "call_module":
+                    spec = _MODULE_BUILDERS.get(rec["module_type"])
+                    if spec is None:
+                        raise NotImplementedError(
+                            f"module {rec['module_type']} in {filename}")
+                    args = [val(a) for a in rec["args"]]
+                    env[name] = spec[1](ffmodel, rec["config"], args, name)
+                elif kind in ("call_function", "call_method"):
+                    env[name] = _replay_fn(
+                        ffmodel, rec["target"], [val(a) for a in rec["args"]],
+                        {k: val(v) for k, v in rec.get("kwargs", {}).items()})
+                elif kind == "output":
+                    outputs.extend(val(a) for a in rec["args"])
+        return outputs
+
+
+def torch_to_flexflow(module, path: str, batch_size: int = 1) -> str:
+    """Write a torch module's fx graph to the flexflow file format
+    (reference: torch/model.py torch_to_flexflow): JSON lines, one record
+    per live fx node, each module's config extracted by its builder row,
+    so `file_to_ff` replays it without the module. Returns `path`."""
+    traced = torch.fx.symbolic_trace(module)
+    modules = dict(traced.named_modules())
+
+    def ser(a):
+        if isinstance(a, torch.fx.Node):
+            return {"ref": a.name}
+        if isinstance(a, (tuple, list)):
+            return [ser(x) for x in a]
+        if isinstance(a, (int, float, str, bool)) or a is None:
+            return a
+        raise NotImplementedError(f"cannot serialize arg {a!r}")
+
+    with open(path, "w") as f:
+        for node in traced.graph.nodes:
+            if node.op not in ("placeholder", "output") and not node.users:
+                continue  # dead value, the live walk's skip
+            rec = {"op": node.op, "name": node.name}
+            if node.op == "call_module":
+                mod = modules[node.target]
+                tname = type(mod).__name__
+                spec = _MODULE_BUILDERS.get(tname)
+                if spec is None:
+                    raise NotImplementedError(f"torch module {tname}")
+                if node.kwargs:
+                    # a file that silently lost them would replay wrong
+                    raise NotImplementedError(
+                        f"kwargs on module call {tname}: "
+                        f"{sorted(node.kwargs)}")
+                rec["module_type"] = tname
+                rec["config"] = spec[0](mod)
+                rec["args"] = [ser(a) for a in node.args]
+            elif node.op in ("call_function", "call_method"):
+                rec["target"] = _fn_name(node.target)
+                rec["args"] = [ser(a) for a in node.args]
+                rec["kwargs"] = {k: ser(v) for k, v in node.kwargs.items()}
+            elif node.op == "output":
+                flat = []
+
+                def collect(a):
+                    if isinstance(a, torch.fx.Node):
+                        flat.append({"ref": a.name})
+                    elif isinstance(a, (tuple, list)):
+                        for x in a:
+                            collect(x)
+
+                collect(node.args[0])
+                rec["args"] = flat
+            elif node.op == "get_attr":
+                raise NotImplementedError("get_attr is not serializable")
+            f.write(json.dumps(rec) + "\n")
+    return path
+
+
+# reference model.py:2607 exposes file_to_ff at module level
+file_to_ff = PyTorchModel.file_to_ff
+
+
+def _fn_name(fn) -> str:
+    """A call_function target's name as the file writes it
+    (`operator.add`/`torch.add` -> "add"), so live trace and replay go
+    through the one `_replay_fn` dispatch."""
+    return fn if isinstance(fn, str) else fn.__name__
 
 
 def _is_ff_tensor(v) -> bool:
@@ -335,6 +537,8 @@ def _replay_fn(ff, target: str, args, kwargs):
     if target == "softmax":
         dim = kwargs.get("dim", args[1] if len(args) > 1 else -1)
         return ff.softmax(x, axis=dim if dim is not None else -1)
+    if target in ("flatten", "flat"):
+        return ff.flat(x)
     if target in ("min", "max") and len(args) > 1:
         op = ff.min if target == "min" else ff.max
         return op(_lift(ff, x), _lift(ff, args[1]))

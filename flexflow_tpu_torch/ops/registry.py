@@ -3,7 +3,9 @@
 The PyTorch counterpart of flexflow_tpu/ops/registry.py. An operator
 definition is a hashable Params dataclass, shape inference, weight specs
 and a forward function over torch tensors; incremental decoding adds
-`forward_decode`. Backward comes from autograd (through the flash
+`forward_decode`, and ops that carry state across batches (BatchNorm's
+running statistics) add `state_spec` and `forward_stateful`. Backward
+comes from autograd (through the flash
 kernels' autograd Function for attention on the card).
 """
 from __future__ import annotations
@@ -44,6 +46,13 @@ class OpDef:
     # ops that draw random numbers in training provide draws(params) ->
     # bool; the executor's seed table holds seeds for those that do
     draws: Optional[Callable] = None
+    # ops with cross-batch state (BatchNorm's running statistics) declare
+    # it like weights, state_spec(params, in_shapes, in_dtypes) ->
+    # List[WeightSpec], and provide forward_stateful(params, weights,
+    # state, inputs, ctx) -> (outs, new_state); the executor keeps the
+    # state in TrainState.net_state
+    state_spec: Optional[Callable] = None
+    forward_stateful: Optional[Callable] = None
 
 
 _REGISTRY: Dict[OperatorType, OpDef] = {}
@@ -59,6 +68,8 @@ def register_op(
     num_inputs: int = 1,
     forward_decode: Optional[Callable] = None,
     draws: Optional[Callable] = None,
+    state_spec: Optional[Callable] = None,
+    forward_stateful: Optional[Callable] = None,
 ) -> OpDef:
     d = OpDef(
         op_type=op_type,
@@ -69,6 +80,8 @@ def register_op(
         num_inputs=num_inputs,
         forward_decode=forward_decode,
         draws=draws,
+        state_spec=state_spec,
+        forward_stateful=forward_stateful,
     )
     _REGISTRY[op_type] = d
     return d
@@ -106,5 +119,6 @@ class FwdCtx:
 
 def ensure_ops_loaded():
     """Import all op modules so their register_op calls run."""
-    from . import (attention, dropout, elementwise, embedding,  # noqa: F401
-                   linear, normalization, softmax)
+    from . import (attention, conv2d, dropout, elementwise,  # noqa: F401
+                   embedding, linear, normalization, pool2d, softmax,
+                   tensor_ops)

@@ -18,6 +18,13 @@ The train step differentiates through detached copies of the weights
 updates the weight tensors themselves in place under no_grad, so the
 params dict a model serves from is the one training updates.
 
+Stateful ops (BatchNorm's running statistics) keep their state in
+`TrainState.net_state` ({op name: {buffer name: tensor}},
+`init_net_state`). `apply` hands each such op its state and collects
+what it returns in `net_out`; the train step writes that back into the
+same buffers in place (a captured scan updates them at replay), and eval,
+`build_forward` and `predict` read them.
+
 Randomness (dropout) follows the JAX package's key structure on host
 integers (core/seeds.py): a training step draws one seed from the
 caller's CPU generator, and each compute op that draws gets the two
@@ -122,12 +129,13 @@ def _stage_rows(pinned: torch.Tensor, rows) -> None:
 
 @dataclasses.dataclass
 class TrainState:
-    """The training state of a compiled model: weights, optimizer state
-    and the step count."""
+    """The training state of a compiled model: weights, optimizer state,
+    the step count and the stateful ops' buffers (net_state)."""
 
     params: Params
     opt_state: Any
     step: int = 0
+    net_state: Params = dataclasses.field(default_factory=dict)
 
 
 class PCGExecutor:
@@ -188,11 +196,31 @@ class PCGExecutor:
             }
         return params
 
+    def init_net_state(self) -> Params:
+        """Zero- or one-filled buffers of the stateful ops, on the device
+        (reference: cuDNN BN's running statistics at init)."""
+        net: Params = {}
+        for op in self.topo:
+            d = get_op_def(op.op_type)
+            if d.state_spec is None:
+                continue
+            specs = d.state_spec(op.params,
+                                 [t.material_shape() for t in op.inputs],
+                                 [t.data_type for t in op.inputs])
+            net[op.name] = {
+                spec.name: torch.full(
+                    tuple(spec.shape), 1.0 if spec.initializer == "one"
+                    else 0.0, dtype=spec.dtype.torch_dtype,
+                    device=self.device)
+                for spec in specs}
+        return net
+
     def init_state(self) -> TrainState:
         params = self.init_params()
         opt_state = (self.optimizer.init_state(params)
                      if self.optimizer is not None else None)
-        return TrainState(params=params, opt_state=opt_state)
+        return TrainState(params=params, opt_state=opt_state,
+                          net_state=self.init_net_state())
 
     def _ctx(self, op_name: str = "", training: bool = False, rng=None,
              seq_length: int = -1, weight_cache=None) -> FwdCtx:
@@ -238,14 +266,17 @@ class PCGExecutor:
     # -- forward -----------------------------------------------------------
     def apply(self, params: Params, inputs: Dict[int, torch.Tensor], *,
               training: bool = False, rng=None, seq_length: int = -1,
-              weight_cache: Optional[WeightCache] = None
-              ) -> Dict[int, torch.Tensor]:
+              weight_cache: Optional[WeightCache] = None,
+              net_state: Optional[Params] = None,
+              net_out: Optional[Params] = None) -> Dict[int, torch.Tensor]:
         """Walk the PCG and compute every tensor. Returns guid -> value.
         `rng` is the step's seed (an int) or its seed-table row on the
         device: op i of the walk that draws gets row[i], the seeds of
         fold_in(step seed, i). Under `remat` in training each attention op
         is recomputed in the backward; the recompute reads the same row,
-        so it rebuilds the same dropout mask."""
+        so it rebuilds the same dropout mask. Stateful ops read their
+        buffers from `net_state` (none: batch statistics) and, when
+        `net_out` is a dict, put their new buffers there, detached."""
         row = self._seed_row(rng)
         drawing = set(self.drawing_ops) if row is not None else ()
         vals = dict(inputs)
@@ -262,6 +293,14 @@ class PCGExecutor:
                     lambda w_, *ins_, _d=opdef, _p=op.params, _c=ctx:
                     _d.forward(_p, w_, list(ins_), _c),
                     w, *ins, use_reentrant=False, preserve_rng_state=False)
+            elif opdef.forward_stateful is not None:
+                outs, new_st = opdef.forward_stateful(
+                    op.params, w, (net_state or {}).get(op.name, {}), ins,
+                    ctx)
+                if net_out is not None:
+                    # statistics, not a gradient path
+                    net_out[op.name] = {k: v.detach()
+                                        for k, v in new_st.items()}
             else:
                 outs = opdef.forward(op.params, w, ins, ctx)
             for t, o in zip(op.outputs, outs):
@@ -269,16 +308,19 @@ class PCGExecutor:
         return vals
 
     def build_forward(self, seq_length: int = -1) -> Callable:
-        """fwd(params, batch_inputs) -> the graph output. Ops read their
-        compute-dtype weights from the executor's weight cache.
-        `seq_length` >= 0 reaches the ops' context (JAX: the iteration
-        config's seq_length; no ported op truncates yet)."""
+        """fwd(params, batch_inputs, net_state=None) -> the graph output.
+        Ops read their compute-dtype weights from the executor's weight
+        cache, and stateful ops their buffers from `net_state` (none:
+        batch statistics). `seq_length` >= 0 reaches the ops' context
+        (JAX: the iteration config's seq_length; no ported op truncates
+        yet)."""
 
         @torch.inference_mode()
-        def fwd(params, batch_inputs):
+        def fwd(params, batch_inputs, net_state=None):
             vals = self.apply(params, self._input_vals(batch_inputs),
                               seq_length=seq_length,
-                              weight_cache=self.weight_cache)
+                              weight_cache=self.weight_cache,
+                              net_state=net_state)
             return vals[self.logits_pt.guid]
 
         return fwd
@@ -298,18 +340,21 @@ class PCGExecutor:
                 for op, gs in grads.items()}
 
     def _loss_and_grads(self, params: Params, batch_inputs, labels,
-                        rng, seq_length: int = -1):
+                        rng, seq_length: int = -1, net_state=None,
+                        net_out=None):
         """(loss, logits, grads) of the training forward under `rng` (a
         step seed, its seed-table row on the device, or None: no op
-        draws); grads are cast by `_cast_grads`. The weights themselves
-        are not touched."""
+        draws); grads are cast by `_cast_grads`. Stateful ops read
+        `net_state` and put their new buffers in `net_out`. The weights
+        themselves are not touched."""
         names = [(op, n) for op, ws in params.items() for n in ws]
         leaves = {op: {n: w.detach().requires_grad_() for n, w in ws.items()}
                   for op, ws in params.items()}
         flat = [leaves[op][n] for op, n in names]
         with torch.enable_grad():
             vals = self.apply(leaves, self._input_vals(batch_inputs),
-                              training=True, rng=rng, seq_length=seq_length)
+                              training=True, rng=rng, seq_length=seq_length,
+                              net_state=net_state, net_out=net_out)
             logits = vals[self.logits_pt.guid]
             loss = self.loss_fn(logits, truncate_labels(labels, logits))
             gs = torch.autograd.grad(loss, flat, allow_unused=True)
@@ -321,11 +366,18 @@ class PCGExecutor:
     def _train(self, state: TrainState, batch_inputs, labels: torch.Tensor,
                row) -> Dict[str, torch.Tensor]:
         """One train step's device work: forward, backward and the
-        in-place update under seed row `row`; returns the partials. The
+        in-place update under seed row `row`, and the stateful ops' new
+        buffers copied into state.net_state; returns the partials. The
         eager step, the scan and its captured graph all run this."""
+        net_out: Params = {}
         loss, logits, grads = self._loss_and_grads(
-            state.params, batch_inputs, labels, row)
+            state.params, batch_inputs, labels, row,
+            net_state=state.net_state, net_out=net_out)
         self.optimizer.update(state.params, grads, state.opt_state)
+        with torch.no_grad():
+            for op, bufs in net_out.items():
+                for k, v in bufs.items():
+                    state.net_state[op][k].copy_(v)
         with torch.no_grad():
             partials = self.metrics.compute(logits, labels)
         partials["loss"] = loss
@@ -393,7 +445,7 @@ class PCGExecutor:
         n = len(stacked_labels)
         shapes = tuple((n,) + tuple(np.shape(a[0])) for a in stacked_inputs)
         label_shape = (n,) + tuple(np.shape(stacked_labels[0]))
-        tensors = _tensors((state.params, state.opt_state))
+        tensors = _tensors((state.params, state.opt_state, state.net_state))
         key = (tuple(t.data_ptr() for t in tensors), shapes, label_shape,
                table is None)
         g = self._scan_graphs.get(key) or _ScanGraph(
@@ -407,30 +459,35 @@ class PCGExecutor:
         return out
 
     def build_grad_step(self, seq_length: int = -1) -> Callable:
-        """grad_of(params, batch_inputs, labels) -> grads: the train step's
-        gradients (cast as it casts them) without the update. As in the JAX
-        package it passes no rng, so no op draws random numbers.
-        `seq_length` >= 0 reaches the ops' context and truncates the
-        labels to the logits (JAX's seq_length variant)."""
+        """grad_of(params, batch_inputs, labels, net_state=None,
+        net_out=None) -> grads: the train step's gradients (cast as it
+        casts them) without the update. As in the JAX package it passes no
+        rng, so no op draws random numbers. Stateful ops read `net_state`
+        and, when `net_out` is a dict, put their new buffers there (the
+        JAX step returns them beside the gradients). `seq_length` >= 0
+        reaches the ops' context and truncates the labels to the logits
+        (JAX's seq_length variant)."""
         self._require_training("build_grad_step")
 
-        def grad_of(params, batch_inputs, labels):
+        def grad_of(params, batch_inputs, labels, net_state=None,
+                    net_out=None):
             return self._loss_and_grads(params, batch_inputs,
                                         self._as_labels(labels), None,
-                                        seq_length)[2]
+                                        seq_length, net_state, net_out)[2]
 
         return grad_of
 
     def build_eval_step(self) -> Callable:
-        """step(params, batch_inputs, labels) -> (logits, partials), the
-        inference forward (no dropout, no graph) plus metrics and loss."""
+        """step(params, batch_inputs, labels, net_state=None) -> (logits,
+        partials), the inference forward (no dropout, no graph; stateful
+        ops read `net_state`) plus metrics and loss."""
         self._require_training("build_eval_step")
 
         @torch.no_grad()
-        def step(params, batch_inputs, labels):
+        def step(params, batch_inputs, labels, net_state=None):
             labels = self._as_labels(labels)
-            logits = self.apply(params, self._input_vals(batch_inputs))[
-                self.logits_pt.guid]
+            logits = self.apply(params, self._input_vals(batch_inputs),
+                                net_state=net_state)[self.logits_pt.guid]
             partials = self.metrics.compute(logits, labels)
             partials["loss"] = self.loss_fn(logits, labels)
             return logits, partials

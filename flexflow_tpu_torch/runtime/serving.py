@@ -96,7 +96,8 @@ def greedy_generate(model, encoder_ids: np.ndarray, *,
         return dec[:, :1]
     finished = np.zeros(bs, bool)
     for t in range(steps):
-        nxt = _argmax_last(fwd(model.params, [enc, dec])[:, t])
+        nxt = _argmax_last(fwd(model.params, [enc, dec],
+                               model.state.net_state)[:, t])
         if eos_token_id is not None:
             nxt = np.where(finished, pad_token_id, nxt)
             finished |= nxt == eos_token_id

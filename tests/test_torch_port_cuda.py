@@ -866,3 +866,70 @@ def test_new_weights_release_the_retired_ones(gen):
     gc.collect()
     assert all(r() is None for r in retired)
     assert len(m.executor.weight_cache._entries) == n_cached
+
+
+# -- the CNN path: cuDNN convolutions in exact f32, BatchNorm in a scan ----
+def test_f32_conv_on_the_card_is_full_f32_and_leaves_the_flags(gen):
+    """The conv op's forward and both backward convolutions in f32 stay
+    within f32 rounding of the same convolution in f64 (TF32, which cuDNN
+    would use by default, keeps 10 mantissa bits: ~1e-3 off), and the
+    caller's cuDNN flags are as they were."""
+    from flexflow_tpu_torch.ops.conv2d import conv2d
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, cudnn.deterministic)
+    x = torch.randn(8, 64, 28, 28, device="cuda", generator=gen)
+    k = torch.randn(128, 64 // 32, 3, 3, device="cuda", generator=gen)
+    k2 = torch.randn(96, 64, 3, 3, device="cuda", generator=gen)
+    for kernel, groups in ((k, 32), (k2, 1)):
+        xs = [x.clone().requires_grad_(), x.double().requires_grad_()]
+        ks = [kernel.clone().requires_grad_(),
+              kernel.double().requires_grad_()]
+        outs = [conv2d(a, b, (1, 1), (1, 1), groups) for a, b in zip(xs, ks)]
+        cot = torch.randn(outs[0].shape, device="cuda", generator=gen)
+        grads = [torch.autograd.grad(o, [a, b], cot.to(o.dtype))
+                 for o, a, b in zip(outs, xs, ks)]
+        for got, ref in [(outs[0], outs[1])] + list(zip(*grads)):
+            err = ((got.double() - ref).norm() / ref.norm()).item()
+            # f32 sums of up to 8 x 28 x 28 = 6272 products: ~sqrt(n)
+            # roundings of 2^-24, ~5e-6; TF32 would read ~5e-4
+            assert err < 5e-5, (groups, err)
+    assert (cudnn.allow_tf32, cudnn.deterministic) == saved
+
+
+def _bn_model(spd=1):
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType, MetricsType
+    from flexflow_tpu_torch.models import resnext_block
+
+    m = FFModel(FFConfig(batch_size=4, seed=0, iterations_per_dispatch=spd))
+    t = m.create_tensor((4, 64, 8, 8))
+    t = resnext_block(m, t, 2, 64, groups=32, projection=True)
+    t = m.pool2d(t, 4, 4, 1, 1, 0, 0)
+    m.softmax(m.dense(m.flat(t), 4))
+    m.compile(SGDOptimizer(lr=0.05),
+              LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+              [MetricsType.METRICS_ACCURACY])
+    return m
+
+
+def test_scan_with_batchnorm_equals_stepwise_fit_on_the_card(gen):
+    """A ResNeXt block's fit with iterations_per_dispatch 3 over 7
+    batches (two captured chunks and a tail graph) against stepwise fit:
+    the weights and the BatchNorm running statistics the captured graphs
+    update in place are bit-equal, and the statistics moved."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(28, 64, 8, 8).astype(np.float32)
+    y = rng.randint(0, 4, (28, 1)).astype(np.int32)
+    a, b = _bn_model(), _bn_model(spd=3)
+    a.fit(x, y, epochs=2)
+    b.fit(x, y, epochs=2)
+    assert a.state.step == b.state.step == 14
+    for tree in ("params", "net_state"):
+        ta, tb = getattr(a.state, tree), getattr(b.state, tree)
+        assert ta
+        for op in ta:
+            for n in ta[op]:
+                assert torch.equal(ta[op][n], tb[op][n]), f"{tree} {op}.{n}"
+    rv = next(iter(b.state.net_state.values()))["running_var"]
+    assert not torch.equal(rv, torch.ones_like(rv))

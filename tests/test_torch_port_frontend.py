@@ -196,7 +196,7 @@ def test_load_weights_carries_torch_linear_and_layernorm_like_jax():
 class _Conv(nn.Module):
     def __init__(self):
         super().__init__()
-        self.conv = nn.Conv2d(3, 4, 3)
+        self.conv = nn.Conv1d(3, 4, 3)
 
     def forward(self, x):
         return self.conv(x)
@@ -217,7 +217,7 @@ class _Const(nn.Module):
 
 
 @pytest.mark.parametrize("module,shape,name", [
-    (_Conv(), (2, 3, 8, 8), "Conv2d"),
+    (_Conv(), (2, 3, 8), "Conv1d"),
     (nn.Sequential(nn.Linear(4, 4), nn.BatchNorm1d(4)), (2, 4), "BatchNorm1d"),
     (_Matmul(), (2, 4, 4), "matmul"),
     (_Const(), (2, 4), "constant tensors"),
@@ -227,8 +227,8 @@ def test_unsupported_module_raises_with_its_name(module, shape, name):
     x = m.create_tensor(shape)
     with pytest.raises(NotImplementedError, match=name):
         PyTorchModel(module).torch_to_ff(m, [x])
-    with pytest.raises(NotImplementedError, match="file"):
-        PyTorchModel("model.ff")
+    with pytest.raises(NotImplementedError, match="Hugging Face"):
+        PyTorchModel(module, is_hf_model=True)
 
 
 def test_functional_arithmetic_matches_jax_import():
