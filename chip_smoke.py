@@ -70,7 +70,27 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      weights and BatchNorm running statistics (both bit-equal), `eval` on
      the running statistics against a float64 recomputation from them,
      and the same readings. No hand-written kernel runs there: the
-     convolutions are cuDNN's, as the JAX package's are XLA's.
+     convolutions are cuDNN's, as the JAX package's are XLA's;
+  9. the rest of the OSDI'22 artifact's models and the MoE Transformer.
+     The MoE Transformer (models/zoo.py build_moe_transformer: bench.py's
+     moe leg at the flagship's batch 8, seq 512, hidden 1024, 16 heads,
+     12 layers; 4 experts, top-2, capacity factor 1.2, lambda_bal 0.04;
+     bf16 over f32, sparse CE, SGD lr 0.01): stepwise `fit` against the
+     scan (bit-equal), the flash kernels on wgmma, the balance loss
+     reaching every live gate, the share of (token, choice) pairs that
+     capacity drops, and one step's loss and gradients against float64
+     with the routing held to the run's own top-k (on weights rescaled
+     to unit activations); DLRM (dlrm.cc's 4 tables of 1M x 64, batch
+     64, f32): scan against stepwise, accuracy from `fit`, one step's
+     gradients against float64; Inception-v3 (batch 64, 299x299, SGD
+     momentum 0.9): scan against stepwise with momentum and every
+     BatchNorm's running statistics, `eval` against a float64
+     recomputation; CANDLE-Uno, MLP_Unify and XDL at their examples'
+     sizes: scan against stepwise. Each with ABBA samples/s, peak
+     memory, a traced step by family (the MoE dispatch/combine products
+     and the embedding bags as families of their own) and a scan
+     dispatch's idle share. No new kernel: the ops are library calls,
+     as the JAX package's are XLA's.
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -106,8 +126,9 @@ just before each path is driven and read just after it; a replayed graph
 adds the launches its capture recorded (kernels/build.py). Prints the
 card's name and power limit, a `kernels` JSON line, a `serving`, a
 `training`, a `training_scan`, a `bert`, a `bert_scan`, a `cnn` (after
-the card's name and power limit), an `alexnet` and a `resnext` JSON line
-and, last, {"ok": true,
+the card's name and power limit), an `alexnet` and a `resnext` JSON
+line, a `zoo_models` line (after the card's name and power limit), a
+`moe`, a `dlrm`, an `inception` and a `zoo` line and, last, {"ok": true,
 "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import contextlib
@@ -231,6 +252,48 @@ ALEX_ORACLE_RTOL, ALEX_ORACLE_LOSS_RTOL = 1e-2, 1e-5
 # the logits. Limit 1e-3 on the mean CE; the same forward on batch
 # statistics must read further off than that.
 RESNEXT_EVAL_RTOL = 1e-3
+# The rest of the OSDI'22 artifact's models and the MoE Transformer. The
+# MoE Transformer: bench.py's moe leg (FF_BENCH_WORKLOAD=moe) at the
+# flagship's sizes (TRAIN_SEQ, HIDDEN, HEADS) over MOE_BATCHES batches,
+# stepwise and as one scan of MOE_SPD.
+MOE_BATCH, MOE_LAYERS, MOE_CLASSES = 8, 12, 10
+MOE_EXPERTS, MOE_TOPK, MOE_CAPACITY, MOE_LAMBDA = 4, 2, 1.2, 0.04
+MOE_BATCHES, MOE_SPD = 4, 4
+MOE_OPS_A_LAYER = 12   # attention, 2 reshapes, gate, top_k, group_by,
+#                        softmax, 4 experts, aggregate
+# Its oracle: one step's loss and gradients against float64 with the
+# routing fixed, on weights rescaled to unit activations, per weight over
+# its op's f64 gradient norm as the Transformer's oracle reads it. In
+# bf16 the rounding compounds through 12 layers without residuals or
+# norms as in the Transformer, and more: attention averages the tokens
+# until a layer's inputs differ from token to token by about one bf16
+# step, and a kernel's gradient sums those differences. At 2 layers the
+# worst weight reads 0.0568 and the median 0.0013; at 12 the worst 2.895
+# (a layer-3 gate kernel) and the median 0.0164, the top layer (the last
+# MoE layer and the classifier) 0.1654, the loss 8.62e-4. In f32 at 12
+# layers the worst reads 6.43e-4 and the median 5.5e-6 (readings on an
+# H100 80GB HBM3, 700 W). So the bf16 run holds its loss and its top
+# layer, at twice their readings, and an f32 run of the same step holds
+# every weight, at three times its reading; a wiring fault (a lost gate
+# weight or balance term, a routing or slot off by one) moves a gradient
+# by its own size.
+MOE_ORACLE_LOSS_RTOL, MOE_ORACLE_TOP_RTOL = 2e-3, 0.33
+MOE_F32_LOSS_RTOL, MOE_F32_RTOL = 1e-5, 2e-3
+# DLRM (dlrm.cc's defaults, batch 64 as scripts/osdi22ae/dlrm.sh runs
+# it), Inception-v3 (examples/python/inception.py, batch 64) and the
+# others at batch 64, each over a few batches, stepwise and as scans of
+# ZOO_SPD, ZOO_ROUNDS ABBA rounds.
+DLRM_BATCH, DLRM_ROWS, DLRM_BATCHES = 64, 1000000, 8
+INCEPTION_BATCH, INCEPTION_HW, INCEPTION_CLASSES = 64, 299, 1000
+INCEPTION_BATCHES = 4
+ZOO_BATCH, ZOO_BATCHES, XDL_ROWS = 64, 4, 100000
+ZOO_SPD, ZOO_ROUNDS = 4, 3
+# DLRM's oracle: one f32 step's gradients against float64. Its matrix
+# products are full f32 (no TF32) over at most 256 terms, and the bags
+# gather one row each: a few 2^-24 of each value per layer through 6
+# layers, ~1e-6 of a gradient. Limit 1e-4 per weight gradient, 1e-5 on
+# the loss.
+ZOO_ORACLE_RTOL, ZOO_ORACLE_LOSS_RTOL = 1e-4, 1e-5
 
 
 def log(*a):
@@ -1053,7 +1116,9 @@ def unit_scale_weights(torch, model, inputs):
     every check below is vacuous. Rescale, in graph order, each embedding
     table, attention output projection and dense kernel so that its op's
     output has unit standard deviation on `inputs` (data-dependent init in
-    the manner of LSUV). The weights stay random from the seed."""
+    the manner of LSUV); an op whose output is all zeros (an expert that
+    no token reached) keeps its weights. The weights stay random from the
+    seed."""
     from flexflow_tpu_torch.ff_types import OperatorType as T
 
     ex = model.executor
@@ -1064,7 +1129,9 @@ def unit_scale_weights(torch, model, inputs):
         for op in ex.topo:
             if op.op_type in which:
                 out = ex.apply(model.params, inp)[op.outputs[0].guid].float()
-                model.params[op.name][which[op.op_type]] /= out.std().item()
+                if out.std().item() > 0:
+                    model.params[op.name][which[op.op_type]] /= \
+                        out.std().item()
 
 
 def check_cached_vs_forward(torch, model, seqs, plen):
@@ -1221,16 +1288,37 @@ KERNEL_FAMILIES = ("flash_fwd", "flash_bwd", "paged_decode", "gemm", "cast",
                    "memcpy", "other")
 
 
+def _op_kernels(prof, op_family):
+    """(family, kernel name, ms) of every kernel whose launching CPU op
+    `op_family(chain)` names a family (chain: that op and its ancestors,
+    the innermost first, with their recorded input shapes); None leaves
+    the op's kernels to their names' families."""
+    got = []
+    for e in prof.events():
+        if e.device_type.name != "CPU" or not e.kernels:
+            continue
+        chain, p = [], e
+        while p is not None:
+            chain.append(p)
+            p = p.cpu_parent
+        fam = op_family(chain)
+        if fam is not None:
+            got += [(fam, k.name, k.duration / 1e3) for k in e.kernels]
+    return got
+
+
 def profile_step(torch, run, family_of=kernel_family,
-                 families=KERNEL_FAMILIES):
+                 families=KERNEL_FAMILIES, op_family=None):
     """Device time of one warm call of `run` by kernel family
     (`family_of(kernel name)`), from a torch.profiler trace: the kernels'
     summed durations (one stream, so they do not overlap) against the
-    wall time of the call."""
+    wall time of the call. With `op_family` (see _op_families) the
+    kernels of the ops it names form families of their own, taken out of
+    their names' families (the trace records input shapes for it)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=op_family is not None) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
@@ -1247,6 +1335,13 @@ def profile_step(torch, run, family_of=kernel_family,
         key = family_of(name)
         family[key] += ms
         count[key] += sum(1 for e in events if e.name == name)
+    if op_family is not None:
+        for fam, name, ms in _op_kernels(prof, op_family):
+            # out of the family its name put it in
+            family[family_of(name)] -= ms
+            count[family_of(name)] -= 1
+            family[fam] += ms
+            count[fam] += 1
     busy = sum(family.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     # where the host's time goes: the CPU ops' own time (the profiler
@@ -1669,18 +1764,20 @@ def timed_turn(torch, model, restore, x, y):
 def scan_profile(torch, model, x, y, spd, batch, restore,
                  family_of=kernel_family, families=KERNEL_FAMILIES):
     """One dispatch of the train scan (spd steps: staging, copies and the
-    replay), traced; per-step readings beside it. Every dispatch starts
-    from the snapshot `restore` puts back."""
+    replay), traced; per-step readings beside it. `x` is the input array,
+    or the list of a model's input arrays. Every dispatch starts from the
+    snapshot `restore` puts back."""
     from flexflow_tpu_torch.core.seeds import step_seed
 
     scan = model.executor.build_train_scan()
-    xs = x[:spd * batch].reshape((spd, batch) + x.shape[1:])
+    xs = [v[:spd * batch].reshape((spd, batch) + v.shape[1:])
+          for v in (x if isinstance(x, list) else [x])]
     ys = y[:spd * batch].reshape((spd, batch) + y.shape[1:])
     table = model.executor.seed_table(
         [step_seed(model._rng) for _ in range(spd)])
 
     def run():
-        model.state, _ = scan(model.state, [xs], ys, table)
+        model.state, _ = scan(model.state, xs, ys, table)
 
     times = []
     for _ in range(4):
@@ -1715,7 +1812,7 @@ def scan_profile(torch, model, x, y, spd, batch, restore,
     # what the staged batches cost the card: one dispatch's inputs and
     # labels copied from pinned memory, timed with CUDA events (best of 3)
     src = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
-           for a in (xs, ys)]
+           for a in xs + [ys]]
     dst = [torch.empty_like(a, device="cuda") for a in src]
     copy_ms = []
     for _ in range(3):
@@ -2032,7 +2129,8 @@ def build_alexnet_from_file(torch, path, spd=1):
 
 def fit_lines(torch, model, x, y, epochs):
     """`fit` for `epochs` epochs; returns (its output, the epoch lines
-    without their throughput readings, each epoch's mean CE)."""
+    without their throughput readings, each epoch's mean CE where the
+    model reports one)."""
     out = io.StringIO()
     torch.cuda.synchronize()
     with contextlib.redirect_stdout(out):
@@ -2042,7 +2140,7 @@ def fit_lines(torch, model, x, y, epochs):
     lines = [ln.split("throughput")[0] + ln.split("samples/s")[1]
              for ln in text.splitlines() if ln.startswith("epoch")]
     ce = [float(v) for v in re.findall(r"sparse_cce: (\S+)", text)]
-    if len(lines) != epochs or len(ce) != epochs:
+    if len(lines) != epochs or len(ce) not in (0, epochs):
         raise AssertionError(f"fit printed {text!r}")
     return text, lines, ce
 
@@ -2060,56 +2158,51 @@ def state_gap(torch, a, b):
 
 def scan_vs_stepwise(torch, what, a, b, xa, ya, xb, yb, epochs):
     """`fit` of the stepwise model `a` and the scan model `b` from the
-    same weights and data: equal epoch lines, weights and running
-    statistics bit for bit. Returns (a's fit output, a's epoch CEs, the
-    gap, peak memory of a's fit in GiB)."""
+    same weights and data, the launch counts reset before and read after:
+    equal epoch lines, and weights, stateful buffers and optimizer state
+    bit for bit. Returns (a's fit output, a's epoch CEs, the gap, peak
+    memory of a's fit in GiB, the launch counts of both fits)."""
+    from flexflow_tpu_torch.kernels import build
+
+    start = state_gap(torch, a, b)
+    if start["weights_not_bit_equal"] or start["buffers_not_bit_equal"]:
+        raise AssertionError(f"{what}: the two models start apart {start}")
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     text, lines_a, ce = fit_lines(torch, a, xa, ya, epochs)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     _, lines_b, _ = fit_lines(torch, b, xb, yb, epochs)
+    counts = dict(build.launch_counts)
     gap = state_gap(torch, a, b)
+    gap.update(opt_state_gap(torch, a, b))
     log(f"  {what}: stepwise fit {lines_a}; scan fit {lines_b}; {gap}")
     if (lines_a != lines_b or gap["weights_not_bit_equal"]
-            or gap["buffers_not_bit_equal"]):
+            or gap["buffers_not_bit_equal"]
+            or gap["opt_buffers_not_bit_equal"]):
         raise AssertionError(f"{what}: scan vs stepwise {lines_b} vs "
                              f"{lines_a}, {gap}")
-    return text, ce, gap, peak
+    log("  " + text.strip().replace("\n", "\n  "))
+    return text, ce, gap, peak, counts
 
 
 def cnn_timing(torch, what, a, b, x, y, n, batch):
-    """ABBA samples/s of one epoch of stepwise and scan `fit` from a
-    snapshot (x, y: arrays or loaders); a stepwise step and a scan
-    dispatch traced by CNN kernel family; the optimizer's update alone."""
-    ra, rb = restorer(torch, a), restorer(torch, b)
-    timing = abba(torch, {
-        "stepwise": lambda: timed_turn(torch, a, ra, x, y),
-        "scan": lambda: timed_turn(torch, b, rb, x, y)}, CNN_ROUNDS, n)
-    log(f"  {what} ABBA x{CNN_ROUNDS}: stepwise "
-        f"{timing['stepwise']['samples_per_s_median']:.2f} samples/s "
-        f"(spread {timing['stepwise']['spread']:.3f}), scan "
-        f"{timing['scan']['samples_per_s_median']:.2f} "
-        f"(spread {timing['scan']['spread']:.3f}), "
-        f"x{timing['speedup_median']:.3f}")
-    xs, ys = (getattr(v, "full_array", v) for v in (x, y))
-    step = a.executor.build_train_step()
-    ra()
-    step(a.state, [xs[:batch]], ys[:batch])  # warm
-    ra()
-    prof = profile_step(torch, lambda: step(a.state, [xs[:batch]],
-                                            ys[:batch]),
-                        cnn_family, CNN_FAMILIES)
-    ra()
-    sprof = scan_profile(torch, b, xs, ys, CNN_SPD, batch, rb, cnn_family,
-                         CNN_FAMILIES)
+    """zoo_timing by CNN kernel family (x, y: arrays or loaders), and the
+    optimizer's update alone."""
+    out = zoo_timing(torch, what, a, b, [x], y, n, batch, CNN_SPD,
+                     family_of=cnn_family, families=CNN_FAMILIES,
+                     rounds=CNN_ROUNDS)
+    restore = restorer(torch, a)
     opt = optimizer_profile(torch, a)
-    ra()
-    for p, steps in ((prof, 1), (sprof, CNN_SPD)):
+    restore()
+    for p, steps in ((out["step_profile"], 1), (out["scan_profile"],
+                                                CNN_SPD)):
         p["optimizer_ms_alone"] = opt["ms"]
         p["bn_elementwise_less_optimizer_ms_a_step"] = (
             p["by_family_ms"]["bn_elementwise"] / steps - opt["ms"])
     log(f"  {what} optimizer update alone: {opt}")
-    return {"abba": timing, "step_profile": prof, "scan_profile": sprof,
-            "optimizer_profile": opt}
+    out["optimizer_profile"] = opt
+    return out
 
 
 def alexnet_oracle(torch, model, x, y):
@@ -2176,7 +2269,6 @@ def alexnet(torch):
     import tempfile
 
     from flexflow_tpu_torch.frontends.torch import torch_to_flexflow
-    from flexflow_tpu_torch.kernels import build
     from flexflow_tpu_torch.models import AlexNet
 
     n = ALEX_BATCHES * ALEX_BATCH
@@ -2192,12 +2284,8 @@ def alexnet(torch):
                         m.create_data_loader(m.get_label_tensor(), y)))
         m.init_layers()
     (a, _), (b, _) = models
-    torch.cuda.synchronize()
-    build.reset_launch_counts()
-    text, ce, gap, peak = scan_vs_stepwise(
+    text, ce, gap, peak, counts = scan_vs_stepwise(
         torch, "alexnet", a, b, *loaders[0], *loaders[1], ALEX_EPOCHS)
-    counts = dict(build.launch_counts)
-    log("  " + text.strip().replace("\n", "\n  "))
     done = re.search(r"ELAPSED TIME = (\S+)s, THROUGHPUT = (\S+) samples/s",
                      text)
     if not all(np.isfinite(ce)) or not ce[-1] < ce[0]:
@@ -2268,6 +2356,8 @@ def plain_forward(torch, model, x, dtype):
             y = torch.softmax(ins[0], -1)
         elif t == Op.OP_EW_ADD:
             y = ins[0] + ins[1]
+        elif t == Op.OP_CONCAT:
+            y = torch.cat(ins, dim=p.axis)
         elif t == Op.OP_RELU:
             y = torch.relu(ins[0])
         else:
@@ -2301,20 +2391,11 @@ def resnext(torch):
     running statistics (weights and buffers bit for bit); eval on the
     running statistics against a float64 recomputation from them; ABBA
     samples/s and traces."""
-    from flexflow_tpu_torch.kernels import build
-
     n = RESNEXT_BATCHES * RESNEXT_BATCH
     x, y = cifar_like(8, n, ALEX_CLASSES, RESNEXT_HW)
     a, b = build_resnext_model(torch), build_resnext_model(torch, CNN_SPD)
-    start = state_gap(torch, a, b)
-    if start["weights_not_bit_equal"] or start["buffers_not_bit_equal"]:
-        raise AssertionError(f"resnext: the two models start apart {start}")
-    torch.cuda.synchronize()
-    build.reset_launch_counts()
-    text, ce, gap, peak = scan_vs_stepwise(torch, "resnext-50", a, b, x, y,
-                                           x, y, 1)
-    counts = dict(build.launch_counts)
-    log("  " + text.strip().replace("\n", "\n  "))
+    text, ce, gap, peak, counts = scan_vs_stepwise(
+        torch, "resnext-50", a, b, x, y, x, y, 1)
     done = re.search(r"ELAPSED TIME = (\S+)s, THROUGHPUT = (\S+) samples/s",
                      text)
     moved = max((bufs["running_var"] - 1).abs().max().item()
@@ -2360,6 +2441,637 @@ def resnext(torch):
     summary.update(cnn_timing(torch, "resnext-50", a, b, x, y, n,
                               RESNEXT_BATCH))
     return summary
+
+
+# -- the rest of the OSDI'22 artifact's models and the MoE Transformer ------
+def moe_op_family(chain):
+    """The MoE trace's dispatch/combine family, by the op that launched
+    a kernel: group_by's and aggregate's matrix products, forward and
+    backward (a GEMM with an operand of the mask's experts x capacity
+    width). The rest go by kernel name."""
+    width = MOE_EXPERTS * moe_capacity()
+    op = chain[0]
+    if op.name in ("aten::mm", "aten::bmm", "aten::addmm") and any(
+            width in (s or ()) for s in (op.input_shapes or ())):
+        return "dispatch_combine"
+    return None
+
+
+MOE_FAMILIES = KERNEL_FAMILIES + ("dispatch_combine",)
+
+
+def moe_capacity():
+    from flexflow_tpu_torch.ops.moe import _capacity
+
+    return _capacity(MOE_BATCH * TRAIN_SEQ, MOE_TOPK, MOE_EXPERTS,
+                     MOE_CAPACITY)
+
+
+def build_moe_model(torch, spd=1, mixed=True):
+    """The MoE Transformer (models/zoo.py build_moe_transformer) at the
+    flagship's width: bench.py's moe leg at batch 8, seq 512, hidden
+    1024, 16 heads of 64, 12 layers; 4 experts, top-2, capacity factor
+    1.2, lambda_bal 0.04, 10 classes; sparse CE over (8, 512, 1) labels,
+    bf16 compute and gradients over f32 weights (f32 throughout with
+    `mixed` False), SGD lr 0.01."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType, MetricsType
+    from flexflow_tpu_torch.models import build_moe_transformer
+
+    m = FFModel(FFConfig(batch_size=MOE_BATCH, seed=0,
+                         allow_mixed_precision=mixed,
+                         iterations_per_dispatch=spd))
+    build_moe_transformer(m, MOE_BATCH, TRAIN_SEQ, HIDDEN, HEADS, MOE_LAYERS,
+                          MOE_EXPERTS, MOE_TOPK, MOE_CAPACITY, MOE_LAMBDA,
+                          MOE_CLASSES)
+    m.compile(SGDOptimizer(lr=0.01),
+              LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+              [MetricsType.METRICS_ACCURACY,
+               MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY])
+    return m
+
+
+def _act(torch, mode, y):
+    from flexflow_tpu_torch.ff_types import ActiMode
+
+    if mode == ActiMode.AC_MODE_RELU:
+        return torch.relu(y)
+    if mode == ActiMode.AC_MODE_SIGMOID:
+        return torch.sigmoid(y)
+    if mode != ActiMode.AC_MODE_NONE:
+        raise AssertionError(f"plain_graph: no plain {mode}")
+    return y
+
+
+def plain_graph(torch, model, inputs, weights, routing=None):
+    """The model's graph recomputed in plain torch in the dtype of
+    `weights` ({op: {name: tensor}}, e.g. float64 leaves) and of the
+    `inputs` (by the model's input tensors): the dense products and
+    embedding bags, concat, reshape, softmax, attention (scores and
+    probabilities in full, no kernel), and the MoE layer as gathers: each
+    expert takes its first `capacity` (token, choice) pairs in token
+    order, and each token sums its kept choices' outputs weighted by its
+    gate (index_select / index_add, not the port's dispatch mask). top_k
+    takes the assignments of `routing` ({top_k op name: [b, k] ids}) and
+    the gate values at them. Returns (the output, [balance losses])."""
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.ff_types import AggrMode
+    from flexflow_tpu_torch.ff_types import OperatorType as Op
+
+    env = {t.guid: v for t, v in zip(model._fit_input_tensors, inputs)}
+    aux = []
+    for layer in model.layers:
+        ins = [env[t.guid] for t in layer.inputs]
+        p, t, w = layer.params, layer.op_type, weights.get(layer.name, {})
+        if t == Op.OP_LINEAR:
+            y = ins[0] @ w["kernel"]
+            if p.use_bias:
+                y = y + w["bias"]
+            outs = [_act(torch, p.activation, y)]
+        elif t == Op.OP_EMBEDDING:
+            y = F.embedding(ins[0].long(), w["weight"])
+            outs = [y.sum(-2) if p.aggr == AggrMode.AGGR_MODE_SUM else y]
+        elif t == Op.OP_CONCAT:
+            outs = [torch.cat(ins, dim=p.axis)]
+        elif t == Op.OP_RESHAPE:
+            outs = [ins[0].reshape(layer.outputs[0].dims)]
+        elif t == Op.OP_SOFTMAX:
+            outs = [torch.softmax(ins[0], p.dim)]
+        elif t == Op.OP_EW_ADD:
+            outs = [ins[0] + ins[1]]
+        elif t == Op.OP_MULTIHEAD_ATTENTION:
+            q, k, v = (torch.einsum("bse,ehd->bshd", x, w[n])
+                       for x, n in zip(ins, ("wq", "wk", "wv")))
+            s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+            o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+            outs = [torch.einsum("bqhd,hde->bqe", o, w["wo"]) + w["bias_o"]]
+        elif t == Op.OP_TOPK:
+            idx = routing[layer.name].long()
+            outs = [torch.gather(ins[0], -1, idx), idx]
+        elif t == Op.OP_GROUP_BY:
+            x, assign = ins
+            cap = layer.outputs[0].dims[0]
+            outs = []
+            for e in range(p.n):
+                rows = (assign.reshape(-1) == e).nonzero()[:cap, 0]
+                got = x.index_select(0, rows // assign.shape[1])
+                outs.append(torch.cat([got, got.new_zeros(
+                    cap - len(rows), x.shape[1])]))
+        elif t == Op.OP_AGGREGATE:
+            gates, assign, experts = ins[0], ins[1], ins[4:]
+            b, k = gates.shape
+            cap = experts[0].shape[0]
+            out = experts[0].new_zeros(b, experts[0].shape[1])
+            kept = []
+            for e in range(p.n):
+                rows = (assign.reshape(-1) == e).nonzero()[:cap, 0]
+                g = gates.reshape(-1).index_select(0, rows)
+                out = out.index_add(0, rows // k,
+                                    g[:, None] * experts[e][:len(rows)])
+                kept.append(len(rows))
+            if p.lambda_bal > 0:
+                f = torch.tensor(kept, dtype=out.dtype,
+                                 device=out.device) / (b * k)
+                pm = torch.softmax(ins[3], -1).mean(0)
+                aux.append(p.lambda_bal * p.n * (f * pm).sum())
+            outs = [out]
+        else:
+            raise AssertionError(f"plain_graph: no plain {t.name}")
+        for o, v in zip(layer.outputs, outs):
+            env[o.guid] = v
+    return env[model.layers[-1].outputs[0].guid], aux
+
+
+def run_routing(torch, model, xs):
+    """The top_k assignments of the model's training forward on `xs` (the
+    bf16 run's own routing), by op name, and each MoE layer's share of
+    (token, choice) pairs dropped by capacity."""
+    from flexflow_tpu_torch.ff_types import OperatorType as Op
+    from flexflow_tpu_torch.ops.moe import dropped_share
+
+    ex = model.executor
+    with torch.no_grad():
+        vals = ex.apply(model.params, ex._input_vals(xs), training=True)
+    routing, dropped = {}, {}
+    for op in ex.topo:
+        if op.op_type == Op.OP_TOPK:
+            routing[op.name] = vals[op.outputs[1].guid]
+        if op.op_type == Op.OP_GROUP_BY:
+            assign = vals[op.inputs[1].guid]
+            dropped[op.name] = dropped_share(
+                assign, op.params.n, op.outputs[0].material_shape()[0])
+    return routing, dropped
+
+
+def grad_rel_errors(torch, grads, ref):
+    """Per weight ||g - g_ref|| over the norm of its op's whole reference
+    gradient (as the Transformer's oracle reads it); where the op has no
+    reference gradient at all (an expert no kept token reached), ||g||
+    itself."""
+    rel = {}
+    for op, gs in ref.items():
+        op_norm = sum(g.norm().item() ** 2 for g in gs.values()) ** 0.5
+        for n, g in gs.items():
+            got = grads[op][n]
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{op}.{n}: non-finite gradient")
+            rel[f"{op}.{n}"] = ((got.double() - g).norm().item()
+                                / (op_norm if op_norm > 0 else 1.0))
+    return rel
+
+
+def f64_leaves(torch, model):
+    return {op: {n: w.detach().double().requires_grad_()
+                 for n, w in ws.items()} for op, ws in model.params.items()}
+
+
+def moe_oracle(torch, model, x, y, loss_rtol, top_rtol, rtol=None):
+    """One step's loss and gradients (through the flash kernels) against
+    the same step recomputed in float64 on the card (plain_graph), with
+    the routing held to the run's own top-k assignments: a bf16 near-tie
+    may route otherwise in f64, and that is not a fault. Holds the loss
+    to `loss_rtol`, the top layer's weights (the last MoE layer's and the
+    classifier's) to `top_rtol` and, given `rtol`, every weight."""
+    from flexflow_tpu_torch.kernels import build
+
+    routing, dropped = run_routing(torch, model, [x])
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    loss, _, grads = model.executor._loss_and_grads(
+        model.params, [x], model.executor._as_labels(y), None)
+    torch.cuda.synchronize()
+    check_training_counts("moe oracle step", build.launch_counts, {
+        "flash_fwd": MOE_LAYERS, "flash_bwd": MOE_LAYERS})
+    if model.executor.compute_dtype is not None:
+        check_wgmma_paths("moe oracle step", build.launch_counts,
+                          build.path_counts)
+    leaves = f64_leaves(torch, model)
+    xd = torch.as_tensor(x, device="cuda", dtype=torch.float64)
+    probs, aux = plain_graph(torch, model, [xd], leaves, routing)
+    lab = torch.as_tensor(y, device="cuda", dtype=torch.int64)
+    ce = -torch.log(probs.clamp(1e-12, 1.0)).gather(-1, lab).mean()
+    ref_loss = ce + sum(aux)
+    flat = [(op, n, w) for op, ws in leaves.items() for n, w in ws.items()]
+    gs = torch.autograd.grad(ref_loss, [w for _, _, w in flat])
+    ref = {}
+    for (op, n, _), g in zip(flat, gs):
+        ref.setdefault(op, {})[n] = g
+    rel = grad_rel_errors(torch, grads, ref)
+    worst = max(rel, key=rel.get)
+    # ops are numbered in build order, MOE_OPS_A_LAYER to a layer
+    top = {k: v for k, v in rel.items() if int(k.split(".")[0].rsplit(
+        "_", 1)[1]) >= (MOE_LAYERS - 1) * MOE_OPS_A_LAYER}
+    worst_top = max(top, key=top.get)
+    loss_rel = abs(loss.item() - ref_loss.item()) / ref_loss.item()
+    dtype = str(model.executor.compute_dtype or torch.float32)[6:]
+    out = {"compute": dtype, "loss": loss.item(),
+           "loss_f64": ref_loss.item(), "aux_f64": float(sum(aux).detach()),
+           "loss_rel_err": loss_rel, "loss_limit": loss_rtol,
+           "worst_rel_err": rel[worst], "worst_at": worst, "limit": rtol,
+           "top_layer_worst_rel_err": top[worst_top],
+           "top_layer_worst_at": worst_top, "top_layer_limit": top_rtol,
+           "median_rel_err": float(np.median(list(rel.values()))),
+           "weights": len(rel), "dropped_share_by_layer": dropped,
+           "rel_err": rel}
+    log(f"  oracle, {dtype} (routing fixed to the run's top-k): loss "
+        f"{loss.item()} vs f64 {ref_loss.item()} (rel {loss_rel:.3g}, "
+        f"limit {loss_rtol}); worst ||g - g64|| / ||g64(op)|| "
+        f"{rel[worst]:.4g} at {worst} (limit {rtol}), top layer "
+        f"{top[worst_top]:.4g} at {worst_top} (limit {top_rtol}), median "
+        f"{out['median_rel_err']:.4g} over {len(rel)} weights")
+    log("  " + json.dumps({k: round(v, 6) for k, v in rel.items()}))
+    if (loss_rel > loss_rtol or top[worst_top] > top_rtol
+            or (rtol is not None and rel[worst] > rtol)):
+        raise AssertionError(f"moe oracle: {out}")
+    return out
+
+
+def aux_reaches_gate(torch, model, x):
+    """The balance losses of one training forward (nonzero) and the
+    norm of their gradient with respect to each gate's kernel: nonzero
+    (the loss reaches the gate) wherever the gate is live, i.e. some
+    token's RELU gate is positive. A dead gate (every gate value 0: every
+    choice a tie, broken toward experts 0 and 1) passes no gradient, in
+    JAX as here."""
+    from flexflow_tpu_torch.ff_types import OperatorType as Op
+
+    ex = model.executor
+    topk = [op for op in ex.topo if op.op_type == Op.OP_TOPK]
+    gates = [op.inputs[0].owner_op.name for op in topk]
+    leaves = {op: {n: w.detach().requires_grad_() for n, w in ws.items()}
+              for op, ws in model.params.items()}
+    aux = []
+    with torch.enable_grad():
+        vals = ex.apply(leaves, ex._input_vals([x]), training=True,
+                        aux_out=aux)
+        gs = torch.autograd.grad(sum(aux), [leaves[g]["kernel"]
+                                            for g in gates])
+    live = {g: bool((vals[op.inputs[0].guid] > 0).any())
+            for g, op in zip(gates, topk)}
+    out = {"aux_losses": [a.item() for a in aux],
+           "gate_grad_norms": {g: v.float().norm().item()
+                               for g, v in zip(gates, gs)},
+           "live_gates": live}
+    log(f"  balance losses {out['aux_losses']}; their gradients' norms at "
+        f"the gates {out['gate_grad_norms']}; live gates {live}")
+    if len(aux) != MOE_LAYERS or not all(a > 0 for a in out["aux_losses"]) \
+            or not any(live.values()) or not all(
+                v > 0 for g, v in out["gate_grad_norms"].items()
+                if live[g]):
+        raise AssertionError(f"moe: the balance loss does not reach the "
+                             f"gates: {out}")
+    return out
+
+
+def zoo_timing(torch, what, a, b, xs, y, n, batch, spd, op_family=None,
+               family_of=kernel_family, families=KERNEL_FAMILIES,
+               rounds=ZOO_ROUNDS):
+    """ABBA samples/s of one epoch of stepwise and scan `fit` from a
+    snapshot (xs: the input arrays or loaders, y the labels'); a
+    stepwise step traced by family (`op_family`: see profile_step); one
+    scan dispatch traced."""
+    ra, rb = restorer(torch, a), restorer(torch, b)
+    timing = abba(torch, {
+        "stepwise": lambda: timed_turn(torch, a, ra, xs, y),
+        "scan": lambda: timed_turn(torch, b, rb, xs, y)}, rounds, n)
+    log(f"  {what} ABBA x{rounds}: stepwise "
+        f"{timing['stepwise']['samples_per_s_median']:.2f} samples/s "
+        f"(spread {timing['stepwise']['spread']:.3f}), scan "
+        f"{timing['scan']['samples_per_s_median']:.2f} "
+        f"(spread {timing['scan']['spread']:.3f}), "
+        f"x{timing['speedup_median']:.3f}")
+    arrays = [getattr(v, "full_array", v) for v in xs]
+    ys = getattr(y, "full_array", y)
+    step = a.executor.build_train_step()
+    bx = [v[:batch] for v in arrays]
+    ra()
+    step(a.state, bx, ys[:batch])  # warm
+    ra()
+    prof = profile_step(torch, lambda: step(a.state, bx, ys[:batch]),
+                        family_of, families, op_family)
+    ra()
+    sprof = scan_profile(torch, b, arrays, ys, spd, batch, rb, family_of,
+                         families)
+    ra()
+    return {"abba": timing, "step_profile": prof, "scan_profile": sprof}
+
+
+def opt_state_gap(torch, a, b):
+    """The optimizer buffers (momentum) that differ in any bit."""
+    from flexflow_tpu_torch.parallel.executor import _tensors
+
+    ta, tb = _tensors(a.state.opt_state), _tensors(b.state.opt_state)
+    return {"opt_buffers": len(ta), "opt_buffers_not_bit_equal": sum(
+        not torch.equal(u, v) for u, v in zip(ta, tb))}
+
+
+def fit_readings(text):
+    done = re.search(r"ELAPSED TIME = (\S+)s, THROUGHPUT = (\S+) samples/s",
+                     text)
+    losses = [float(v) for v in re.findall(r"epoch \d+: loss=(\S+)", text)]
+    if not done or not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"fit printed {text!r}")
+    return {"losses": losses, "fit_elapsed_s_reading": float(done.group(1)),
+            "fit_samples_per_s_reading": float(done.group(2))}
+
+
+def moe(torch):
+    """The MoE Transformer: stepwise fit against fit with
+    iterations_per_dispatch MOE_SPD from the same weights (bit-equal),
+    the flash kernels on the wgmma path, the balance loss reaching the
+    gates, the capacity's dropped share, the fixed-routing float64
+    oracle, ABBA samples/s and a traced step with the dispatch/combine
+    products as a family."""
+    from flexflow_tpu_torch.kernels import build
+
+    n = MOE_BATCHES * MOE_BATCH
+    rng = np.random.RandomState(11)
+    x = rng.randn(n, TRAIN_SEQ, HIDDEN).astype(np.float32)
+    y = rng.randint(0, MOE_CLASSES, (n, TRAIN_SEQ, 1)).astype(np.int32)
+    a, b = build_moe_model(torch), build_moe_model(torch, MOE_SPD)
+    text, _, gap, peak, counts = scan_vs_stepwise(
+        torch, "moe transformer", a, b, [x], y, [x], y, 1)
+    paths = dict(build.path_counts)
+    want = (MOE_BATCHES + MOE_BATCHES + 1) * MOE_LAYERS
+    check_training_counts("moe fits", counts, {
+        "flash_fwd": want, "flash_bwd": want, "paged_decode": 0})
+    check_wgmma_paths("moe fits", counts, paths)
+    summary = {
+        "model": "MoE Transformer (build_moe_transformer)",
+        "batch": MOE_BATCH, "seq": TRAIN_SEQ, "hidden": HIDDEN,
+        "heads": HEADS, "layers": MOE_LAYERS, "experts": MOE_EXPERTS,
+        "top_k": MOE_TOPK, "capacity_factor": MOE_CAPACITY,
+        "capacity": moe_capacity(), "lambda_bal": MOE_LAMBDA,
+        "classes": MOE_CLASSES, "precision": "bf16 compute and grads, "
+        "f32 weights", "optimizer": "SGD lr 0.01",
+        "loss": "sparse categorical CE + balance losses",
+        "batches": MOE_BATCHES, "iterations_per_dispatch": MOE_SPD,
+        "weights": sum(w.numel() for ws in a.params.values()
+                       for w in ws.values()),
+        "scan_vs_stepwise": gap, "peak_mem_gb": peak, "launches": counts,
+        "launches_by_path": paths}
+    summary.update(fit_readings(text))
+    summary["balance_glorot"] = aux_reaches_gate(torch, a, x[:MOE_BATCH])
+    summary["dropped_share_glorot"] = run_routing(torch, a,
+                                                  [x[:MOE_BATCH]])[1]
+    log(f"  dropped by capacity ({moe_capacity()} slots an expert), the "
+        f"trained glorot weights: {summary['dropped_share_glorot']}")
+    summary.update(zoo_timing(torch, "moe", a, b, [x], y, n, MOE_BATCH,
+                              MOE_SPD, moe_op_family,
+                              families=MOE_FAMILIES))
+    # the checks below on weights rescaled to unit activations (as the
+    # Transformer's oracle): at glorot scale the tokens collapse with
+    # depth and the deep layers' RELU gates die (every gate 0)
+    unit_scale_weights(torch, a, x[:MOE_BATCH])
+    summary["balance"] = aux_reaches_gate(torch, a, x[:MOE_BATCH])
+    if not all(summary["balance"]["live_gates"].values()):
+        raise AssertionError("moe: a gate is dead on the rescaled weights")
+    summary["oracle"] = moe_oracle(
+        torch, a, x[:MOE_BATCH], y[:MOE_BATCH], MOE_ORACLE_LOSS_RTOL,
+        MOE_ORACLE_TOP_RTOL)
+    summary["dropped_share_by_layer"] = summary["oracle"].pop(
+        "dropped_share_by_layer")
+    log(f"  dropped by capacity, rescaled weights: "
+        f"{summary['dropped_share_by_layer']}")
+    del a, b
+    torch.cuda.empty_cache()
+    # the same oracle in f32 (the f32 flash path): rounding no longer
+    # compounds through the 12 layers, so every weight is held
+    m = build_moe_model(torch, mixed=False)
+    unit_scale_weights(torch, m, x[:MOE_BATCH])
+    summary["oracle_f32"] = moe_oracle(
+        torch, m, x[:MOE_BATCH], y[:MOE_BATCH], MOE_F32_LOSS_RTOL,
+        MOE_F32_RTOL, MOE_F32_RTOL)
+    summary["oracle_f32"].pop("dropped_share_by_layer")
+    return summary
+
+
+def dlrm_op_family(chain):
+    """The embedding bags' forward gather and backward (the dense table
+    gradient) as a family of their own."""
+    if any(e.name in ("aten::embedding", "aten::embedding_backward",
+                      "aten::embedding_dense_backward") for e in chain):
+        return "embedding"
+    return None
+
+
+DLRM_FAMILIES = KERNEL_FAMILIES + ("embedding",)
+
+
+def build_zoo_model(torch, builder, batch, spd=1, loss="sparse", lr=0.01,
+                    momentum=0.0, **kw):
+    """A zoo model (models/*.py) at `batch`, f32, SGD, sparse CE with
+    accuracy or MSE."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType, MetricsType
+
+    m = FFModel(FFConfig(batch_size=batch, seed=0,
+                         iterations_per_dispatch=spd))
+    builder(m, batch, **kw)
+    if loss == "sparse":
+        lt = LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY
+        ms = [MetricsType.METRICS_ACCURACY,
+              MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY]
+    else:
+        lt = LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE
+        ms = [MetricsType.METRICS_MEAN_SQUARED_ERROR]
+    m.compile(SGDOptimizer(lr=lr, momentum=momentum), lt, ms)
+    return m
+
+
+def zoo_data(model, n, seed, vocab):
+    """n synthetic samples from `seed`: ids below `vocab` for the int
+    inputs, normal features, labels over the output's classes (or normal
+    targets for a regressor)."""
+    rng = np.random.RandomState(seed)
+    xs = []
+    for t in model._fit_input_tensors:
+        shape = (n,) + t.dims[1:]
+        if t.data_type.name == "DT_INT32":
+            xs.append(rng.randint(0, vocab, shape).astype(np.int32))
+        else:
+            xs.append(rng.randn(*shape).astype(np.float32))
+    lab = model.get_label_tensor()
+    if lab.data_type.name == "DT_INT32":
+        classes = model.executor.logits_pt.material_shape()[-1]
+        y = rng.randint(0, classes, (n,) + lab.dims[1:]).astype(np.int32)
+    else:
+        y = rng.randn(n, *lab.dims[1:]).astype(np.float32)
+    return xs, y
+
+
+def grad_oracle(torch, what, model, xs, y, loss_kind, rtol, loss_rtol):
+    """One f32 train step's loss and gradients (the executor's
+    `_loss_and_grads`, what the step applies) from the model's weights
+    against the same step in float64 on the card (plain_graph): per
+    weight ||g - g64|| / ||g64||. (The update itself, w_after - w_before,
+    cannot be read closer than an f32 step of the weight, which at lr
+    0.01 is ~1e-3 of the update.)"""
+    leaves = f64_leaves(torch, model)
+    ins = [torch.as_tensor(v, device="cuda") for v in xs]
+    ins = [v.double() if v.is_floating_point() else v for v in ins]
+    out, _ = plain_graph(torch, model, ins, leaves)
+    if loss_kind == "sparse":
+        lab = torch.as_tensor(y, device="cuda", dtype=torch.int64)
+        loss = -torch.log(out.clamp(1e-12, 1.0)).gather(-1, lab).mean()
+    else:
+        d = out - torch.as_tensor(y, device="cuda", dtype=torch.float64)
+        loss = (d * d).sum(-1).mean()
+    flat = [(op, n, w) for op, ws in leaves.items() for n, w in ws.items()]
+    gs = torch.autograd.grad(loss, [w for _, _, w in flat])
+    ex = model.executor
+    loss_port, _, grads = ex._loss_and_grads(model.params, xs,
+                                             ex._as_labels(y), None)
+    torch.cuda.synchronize()
+    rel = {}
+    for (op, n, _), g in zip(flat, gs):
+        rel[f"{op}.{n}"] = ((grads[op][n].double() - g).norm().item()
+                            / g.norm().item())
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_port.item() - loss.item()) / abs(loss.item())
+    res = {"loss_f32": loss_port.item(), "loss_f64": loss.item(),
+           "loss_rel_err": loss_rel, "loss_limit": loss_rtol,
+           "worst_grad_rel_err": rel[worst], "worst_at": worst,
+           "grad_limit": rtol, "grad_rel_err": rel}
+    log(f"  {what} oracle (one step, f32 vs f64 on the card): loss "
+        f"{loss_port.item()} vs {loss.item()} (rel {loss_rel:.3g}, limit "
+        f"{loss_rtol}); worst gradient rel err {rel[worst]:.3g} at {worst} "
+        f"(limit {rtol})")
+    if loss_rel > loss_rtol or rel[worst] > rtol:
+        raise AssertionError(f"{what} oracle: {res}")
+    return res
+
+
+def dlrm(torch):
+    """DLRM at dlrm.cc's defaults (4 tables of 1M x 64 summed over bags of
+    one id, bottom MLP 4-64-64, top 64-64-2 with a sigmoid, cat), batch
+    64, sparse CE with accuracy, SGD lr 0.01, f32: stepwise fit against
+    the scan (tables and MLP weights bit-equal), accuracy from fit, one
+    step against float64, ABBA samples/s, a traced step with the
+    embedding bags as a family."""
+    from flexflow_tpu_torch.models import build_dlrm
+
+    n = DLRM_BATCHES * DLRM_BATCH
+    a, b = (build_zoo_model(torch, build_dlrm, DLRM_BATCH, spd)
+            for spd in (1, ZOO_SPD))
+    xs, y = zoo_data(a, n, 12, DLRM_ROWS)
+    text, _, gap, peak, counts = scan_vs_stepwise(torch, "dlrm", a, b, xs, y,
+                                                  xs, y, 1)
+    summary = {"model": "DLRM (build_dlrm defaults)", "batch": DLRM_BATCH,
+               "tables": [DLRM_ROWS] * 4, "precision": "f32",
+               "optimizer": "SGD lr 0.01", "loss": "sparse categorical CE",
+               "batches": DLRM_BATCHES, "iterations_per_dispatch": ZOO_SPD,
+               "weights": sum(w.numel() for ws in a.params.values()
+                              for w in ws.values()),
+               "scan_vs_stepwise": gap, "peak_mem_gb": peak,
+               "launches": counts,
+               "accuracy_partials": {"correct": a.perf_metrics.train_correct,
+                                     "all": a.perf_metrics.train_all}}
+    summary.update(fit_readings(text))
+    log(f"  dlrm accuracy from fit: {summary['accuracy_partials']}")
+    summary.update(zoo_timing(torch, "dlrm", a, b, xs, y, n, DLRM_BATCH,
+                              ZOO_SPD, dlrm_op_family,
+                              families=DLRM_FAMILIES))
+    summary["oracle"] = grad_oracle(
+        torch, "dlrm", a, [v[:DLRM_BATCH] for v in xs], y[:DLRM_BATCH],
+        "sparse", ZOO_ORACLE_RTOL, ZOO_ORACLE_LOSS_RTOL)
+    return summary
+
+
+def inception(torch):
+    """Inception-v3 (build_inception_v3, 3x299x299, 1000 classes) at
+    examples/python/inception.py's batch 64 and SGD lr 0.01 momentum 0.9,
+    sparse CE with accuracy, f32: stepwise fit against the scan (weights,
+    momentum and every BatchNorm's running statistics bit-equal), eval on
+    the running statistics against a float64 recomputation, ABBA
+    samples/s and traces by CNN family."""
+    from flexflow_tpu_torch.models import build_inception_v3
+
+    n = INCEPTION_BATCHES * INCEPTION_BATCH
+    a, b = (build_zoo_model(torch, build_inception_v3, INCEPTION_BATCH, spd,
+                            momentum=0.9, num_classes=INCEPTION_CLASSES,
+                            height=INCEPTION_HW, width=INCEPTION_HW)
+            for spd in (1, CNN_SPD))
+    x, y = cifar_like(13, n, INCEPTION_CLASSES, INCEPTION_HW)
+    text, _, gap, peak, counts = scan_vs_stepwise(
+        torch, "inception-v3", a, b, [x], y, [x], y, 1)
+    ev_x, ev_y = x[:INCEPTION_BATCH], y[:INCEPTION_BATCH]
+    with contextlib.redirect_stdout(io.StringIO()):
+        pm = a.eval(ev_x, ev_y)
+    loss_eval = pm.sparse_cce_loss / pm.train_rows
+    with torch.no_grad():
+        probs = plain_forward(torch, a, ev_x, torch.float64)
+        lab = torch.as_tensor(ev_y, device="cuda", dtype=torch.int64)
+        loss_ref = (-torch.log(probs.clamp(1e-12, 1.0)).gather(1, lab)
+                    .mean().item())
+    eval_rel = abs(loss_eval - loss_ref) / loss_ref
+    log(f"  eval on the running statistics: CE {loss_eval} vs f64 "
+        f"recomputation {loss_ref} (rel {eval_rel:.3g}, limit "
+        f"{RESNEXT_EVAL_RTOL})")
+    if not np.isfinite(loss_eval) or eval_rel > RESNEXT_EVAL_RTOL:
+        raise AssertionError(f"inception eval: {loss_eval} vs {loss_ref}")
+    summary = {"model": "Inception-v3 (build_inception_v3)",
+               "batch": INCEPTION_BATCH,
+               "image": [3, INCEPTION_HW, INCEPTION_HW],
+               "classes": INCEPTION_CLASSES,
+               "precision": "f32 (cuDNN without TF32)",
+               "optimizer": "SGD lr 0.01 momentum 0.9",
+               "loss": "sparse categorical CE",
+               "batches": INCEPTION_BATCHES,
+               "iterations_per_dispatch": CNN_SPD,
+               "batchnorms": len(a.state.net_state),
+               "weights": sum(w.numel() for ws in a.params.values()
+                              for w in ws.values()),
+               "scan_vs_stepwise": gap, "peak_mem_gb": peak,
+               "launches": counts,
+               "eval": {"ce_running_stats": loss_eval,
+                        "ce_f64_recomputed": loss_ref, "rel_err": eval_rel,
+                        "limit": RESNEXT_EVAL_RTOL}}
+    summary.update(fit_readings(text))
+    summary.update(cnn_timing(torch, "inception-v3", a, b, x, y, n,
+                              INCEPTION_BATCH))
+    return summary
+
+
+def zoo(torch):
+    """CANDLE-Uno, MLP_Unify and XDL at their examples' sizes and batch
+    64: stepwise fit against the scan (bit-equal), the loss finite,
+    samples/s and peak memory."""
+    from flexflow_tpu_torch.models import (build_candle_uno,
+                                           build_mlp_unify, build_xdl)
+
+    cases = {
+        # examples/python/candle_uno.py: SGD lr 0.001, MSE
+        "candle_uno": (build_candle_uno, dict(
+            loss="mse", lr=0.001, feature_shapes=(942, 5270, 2048)), 1),
+        # examples/python/mlp_unify.py: the builder's defaults
+        "mlp_unify": (build_mlp_unify, {}, 1),
+        # examples/python/xdl.py: 4 tables of 100000 ids
+        "xdl": (build_xdl, dict(embedding_sizes=(XDL_ROWS,) * 4), XDL_ROWS),
+    }
+    out, counts = {}, {}
+    n = ZOO_BATCHES * ZOO_BATCH
+    for name, (builder, kw, vocab) in cases.items():
+        a, b = (build_zoo_model(torch, builder, ZOO_BATCH, spd, **kw)
+                for spd in (1, ZOO_SPD))
+        xs, y = zoo_data(a, n, 14, vocab)
+        text, _, gap, peak, c = scan_vs_stepwise(torch, name, a, b, xs, y,
+                                                 xs, y, 1)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        s = {"batch": ZOO_BATCH, "scan_vs_stepwise": gap,
+             "peak_mem_gb": peak,
+             "weights": sum(w.numel() for ws in a.params.values()
+                            for w in ws.values())}
+        s.update(fit_readings(text))
+        s.update(zoo_timing(torch, name, a, b, xs, y, n, ZOO_BATCH,
+                            ZOO_SPD))
+        out[name] = s
+        del a, b
+        torch.cuda.empty_cache()
+    out["launches"] = counts
+    return out
 
 
 def wgmma_build_report(build):
@@ -2571,16 +3283,37 @@ def main() -> int:
 
     log("# cnn phase: ResNeXt-50")
     rx = resnext(torch)
+    torch.cuda.empty_cache()
 
-    # the CNN path runs none of the three kernels (cuDNN convolutions, as
-    # the JAX package's are XLA's); its counts stand in the table as 0
+    log("# moe phase: the MoE Transformer")
+    moe_summary = moe(torch)
+    torch.cuda.empty_cache()
+
+    log("# dlrm phase")
+    dl = dlrm(torch)
+    torch.cuda.empty_cache()
+
+    log("# inception phase: Inception-v3")
+    inc = inception(torch)
+    torch.cuda.empty_cache()
+
+    log("# zoo phase: CANDLE-Uno, MLP_Unify, XDL")
+    zo = zoo(torch)
+
+    # the CNN and zoo paths run none of the three kernels (cuDNN
+    # convolutions and cuBLAS products, as the JAX package's are XLA's);
+    # their counts stand in the table as 0. The MoE Transformer's
+    # attention runs both flash kernels.
     by_phase = {"serving": serving_counts, "training": training["launches"],
                 "training_scan": scan["launches"],
                 "bert": bert_summary["launches"],
                 "bert_scan": bscan["launches"],
-                "alexnet": alex["launches"], "resnext": rx["launches"]}
+                "alexnet": alex["launches"], "resnext": rx["launches"],
+                "moe": moe_summary["launches"], "dlrm": dl["launches"],
+                "inception": inc["launches"], "zoo": zo["launches"]}
     for k in kernels:
-        k["launches_by_phase"] = {p: c[k["name"]] for p, c in by_phase.items()}
+        k["launches_by_phase"] = {p: c.get(k["name"], 0)
+                                  for p, c in by_phase.items()}
         k["launches"] = sum(k["launches_by_phase"].values())
         if not k["launches"]:
             raise AssertionError(f"{k['name']} launched on no path: {by_phase}")
@@ -2595,7 +3328,8 @@ def main() -> int:
             row["path"] = "wgmma"
     report.update(kernels=kernels, serving=summary, training=training,
                   training_scan=scan, bert=bert_summary, bert_scan=bscan,
-                  alexnet=alex, resnext=rx)
+                  alexnet=alex, resnext=rx, moe=moe_summary, dlrm=dl,
+                  inception=inc, zoo=zo)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -2618,6 +3352,28 @@ def main() -> int:
         for k, v in (("alexnet", alex), ("resnext50", rx))}}))
     log(json.dumps({"alexnet": alex}))
     log(json.dumps({"resnext": rx}))
+
+    def readings(v):
+        return {"samples_per_s_stepwise":
+                v["abba"]["stepwise"]["samples_per_s_median"],
+                "samples_per_s_scan": v["abba"]["scan"]["samples_per_s_median"],
+                "peak_mem_gb": v["peak_mem_gb"],
+                "step_idle_share": v["step_profile"]["idle_share"],
+                "scan_idle_share_replay":
+                v["scan_profile"]["idle_share_replay"],
+                "scan_replay_ms_a_step":
+                v["scan_profile"]["replay_device_ms_per_step"],
+                "step_ms_by_family": v["step_profile"]["by_family_ms"]}
+
+    log(smi + " " + json.dumps({"zoo_models": {
+        k: readings(v) for k, v in (
+            ("moe_transformer", moe_summary), ("dlrm", dl),
+            ("inception_v3", inc), ("candle_uno", zo["candle_uno"]),
+            ("mlp_unify", zo["mlp_unify"]), ("xdl", zo["xdl"]))}}))
+    log(json.dumps({"moe": moe_summary}))
+    log(json.dumps({"dlrm": dl}))
+    log(json.dumps({"inception": inc}))
+    log(json.dumps({"zoo": zo}))
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -13,12 +13,16 @@ raise. Ported so far: serving causal decoder LMs (embedding, causal
 multi-head attention, dense, softmax); training through `FFModel.fit`
 (the flagship Transformer: multi-head attention and dense, the five
 losses, SGD and Adam, bf16 compute and gradients over f32 weights);
-BERT through the PyTorch frontend; and CNNs (conv2d, pool2d, BatchNorm
+BERT through the PyTorch frontend; CNNs (conv2d, pool2d, BatchNorm
 with running statistics, flat: AlexNet from its `.ff` export through
-data loaders, ResNet and ResNeXt-50).
+data loaders, ResNet and ResNeXt-50); and the rest of the zoo (the shape
+ops, reductions and top_k, batch_matmul, PReLU, the MoE ops with their
+balance loss, Cache: DLRM, Inception-v3, CANDLE-Uno, MLP_Unify, XDL and
+the MoE Transformer).
 """
 from .config import FFConfig  # noqa: F401
 from .core.initializers import (  # noqa: F401
+    ConstantInitializer,
     GlorotUniformInitializer,
     Initializer,
     ZeroInitializer,

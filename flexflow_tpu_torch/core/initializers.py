@@ -2,7 +2,7 @@
 
 The PyTorch counterpart of flexflow_tpu/core/initializers.py (reference:
 src/runtime/initializer.cc), with the initializers the ported ops name:
-glorot_uniform, zero and one. Each draws from an explicit `torch.Generator`;
+glorot_uniform, zero, one and "constant:<value>" (PReLU's slope). Each draws from an explicit `torch.Generator`;
 the executor seeds one from FFConfig.seed and draws on the CPU, so a seed
 gives the same weights on every device. JAX's PRNG and torch's give
 different numbers from one seed: to compare the two packages, carry
@@ -55,6 +55,14 @@ class OneInitializer(Initializer):
         return torch.ones(tuple(shape), dtype=dtype)
 
 
+@dataclasses.dataclass
+class ConstantInitializer(Initializer):
+    value: float = 0.0
+
+    def __call__(self, gen, shape, dtype):
+        return torch.full(tuple(shape), self.value, dtype=dtype)
+
+
 _BY_NAME = {"glorot_uniform": GlorotUniformInitializer(),
             "zero": ZeroInitializer(), "one": OneInitializer()}
 
@@ -64,5 +72,7 @@ def get_initializer(spec) -> Initializer:
         return spec
     if spec in _BY_NAME:
         return _BY_NAME[spec]
+    if isinstance(spec, str) and spec.startswith("constant:"):
+        return ConstantInitializer(float(spec.split(":", 1)[1]))
     raise ValueError(f"initializer {spec!r} is not ported yet "
                      f"(have {sorted(_BY_NAME)})")

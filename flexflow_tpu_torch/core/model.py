@@ -2,15 +2,17 @@
 
 The PyTorch counterpart of flexflow_tpu/core/model.py: the builder methods
 of the ported ops (the ones the served LM, the flagship Transformer, the
-PyTorch frontend's BERT encoder and the CNNs of models/alexnet.py and
-models/resnet.py call), `compile` on the manual single-device branch
+PyTorch frontend, the CNNs and the rest of the zoo call: the shape ops,
+the reductions and top_k, batch_matmul, PReLU and the MoE family with
+its `moe` composite; an op with several outputs returns their list),
+`compile` on the manual single-device branch
 (it creates the label tensor, `get_label_tensor`), `init_layers`,
 `create_data_loader`, `fit` and `eval` (training; both take arrays or
 data loaders), `predict` (serving) and the stepwise API
 (`set_iteration_batch`, `forward`, `zero_gradients`, `backward`,
-`update`). Stateful ops' buffers (BatchNorm's running statistics) live in
-`self.state.net_state`: training updates them, eval, `predict` and the
-stepwise `forward` read them. Op names follow the JAX package
+`update`). Stateful ops' buffers (BatchNorm's running statistics,
+Cache's cached value) live in `self.state.net_state`: training updates
+them, eval, `predict` and the stepwise `forward` read them. Op names follow the JAX package
 (`f"{op_type.name.lower()}_{len(self.layers)}"`), so weights carry across
 by (op name, weight name) (runtime/weights.py).
 
@@ -29,7 +31,7 @@ and telemetry are not ported.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,16 +40,24 @@ from ..config import FFConfig
 from ..ff_types import (ActiMode, AggrMode, DataType, LossType, OperatorType,
                         PoolType, to_data_type)
 from ..ops.attention import MultiHeadAttentionParams
+from ..ops.batch_matmul import BatchMatmulParams
 from ..ops.conv2d import Conv2DParams
 from ..ops.dropout import DropoutParams
-from ..ops.elementwise import ElementBinaryParams, ElementUnaryParams
+from ..ops.elementwise import (ElementBinaryParams, ElementUnaryParams,
+                               PReluParams)
 from ..ops.embedding import EmbeddingParams
 from ..ops.linear import LinearParams
+from ..ops.moe import (AggregateParams, AggregateSpecParams, CacheParams,
+                       GroupByParams)
 from ..ops.normalization import BatchNormParams, LayerNormParams
 from ..ops.pool2d import Pool2DParams
+from ..ops.reduce import ReduceParams, TopKParams
 from ..ops.registry import get_op_def
 from ..ops.softmax import SoftmaxParams
-from ..ops.tensor_ops import FlatParams
+from ..ops.tensor_ops import (CastParams, ConcatParams, FlatParams,
+                              GatherParams, ReshapeParams, ResizeParams,
+                              ReverseParams, SplitParams, SqueezeParams,
+                              TransposeParams, UnsqueezeParams, WhereParams)
 from ..parallel.executor import PCGExecutor, TrainState
 from ..pcg.lowering import layers_to_pcg
 from .dataloader import SingleDataLoader
@@ -107,7 +117,11 @@ class FFModel:
 
     def _add_layer(self, op_type: OperatorType, params, inputs: List[Tensor],
                    name: str = "",
-                   initializers: Optional[Dict[str, object]] = None) -> Tensor:
+                   initializers: Optional[Dict[str, object]] = None
+                   ) -> Union[Tensor, List[Tensor]]:
+        """Add a layer; returns its output, or the list of its outputs
+        when it has more than one (split, top_k, group_by), as the JAX
+        package does."""
         # deterministic per-model names, as the JAX package gives them
         if not name:
             name = f"{op_type.name.lower()}_{len(self.layers)}"
@@ -129,7 +143,9 @@ class FFModel:
             wt._model = self
             layer.weights.append(wt)
         self.layers.append(layer)
-        return layer.outputs[0]
+        if len(layer.outputs) == 1:
+            return layer.outputs[0]
+        return layer.outputs
 
     def conv2d(self, input: Tensor, out_channels: int, kernel_h: int,
                kernel_w: int, stride_h: int, stride_w: int, padding_h: int,
@@ -303,6 +319,153 @@ class FFModel:
     def scalar_true_divide(self, x, scalar: float, inplace=True, name=""):
         return self._unary(OperatorType.OP_SCALAR_TRUE_DIV, x, name,
                            scalar=scalar)
+
+    def batch_matmul(self, A: Tensor, B: Tensor, a_seq_length_dim: int = -1,
+                     b_seq_length_dim: int = -1, name: str = "") -> Tensor:
+        p = BatchMatmulParams(a_seq_length_dim, b_seq_length_dim)
+        return self._add_layer(OperatorType.OP_BATCHMATMUL, p, [A, B], name)
+
+    # shape ops
+    def concat(self, tensors: Sequence[Tensor], axis: int,
+               name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_CONCAT,
+                               ConcatParams(axis=axis), list(tensors), name)
+
+    def split(self, input: Tensor, sizes, axis: int,
+              name: str = "") -> List[Tensor]:
+        """Split along `axis` into `sizes` (a list) or into that many
+        equal parts (an int); always returns a list."""
+        if isinstance(sizes, int):
+            if input.dims[axis] % sizes:
+                raise ValueError(f"split: dim {input.dims[axis]} not "
+                                 f"divisible into {sizes} parts")
+            sizes = [input.dims[axis] // sizes] * sizes
+        if sum(sizes) != input.dims[axis]:
+            raise ValueError(f"split sizes {list(sizes)} don't sum to dim "
+                             f"{input.dims[axis]}")
+        out = self._add_layer(OperatorType.OP_SPLIT,
+                              SplitParams(tuple(sizes), axis), [input], name)
+        return out if isinstance(out, list) else [out]
+
+    def reshape(self, input: Tensor, shape: Sequence[int],
+                name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_RESHAPE,
+                               ReshapeParams(tuple(shape)), [input], name)
+
+    def transpose(self, input: Tensor, perm: Sequence[int],
+                  name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_TRANSPOSE,
+                               TransposeParams(tuple(perm)), [input], name)
+
+    def reverse(self, input: Tensor, axis: int, name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_REVERSE,
+                               ReverseParams(axis=axis), [input], name)
+
+    def cast(self, input: Tensor, dtype, name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_CAST,
+                               CastParams(dtype=to_data_type(dtype)),
+                               [input], name)
+
+    def squeeze(self, input: Tensor, axes: Sequence[int] = (),
+                name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_SQUEEZE,
+                               SqueezeParams(tuple(axes)), [input], name)
+
+    def unsqueeze(self, input: Tensor, axes: Sequence[int],
+                  name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_UNSQUEEZE,
+                               UnsqueezeParams(tuple(axes)), [input], name)
+
+    def where(self, cond: Tensor, x: Tensor, y: Tensor,
+              name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_WHERE, WhereParams(),
+                               [cond, x, y], name)
+
+    def resize(self, input: Tensor, out_shape: Sequence[int],
+               name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_RESIZE,
+                               ResizeParams(tuple(out_shape)), [input], name)
+
+    def prelu(self, input: Tensor, name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_PRELU, PReluParams(), [input],
+                               name)
+
+    def gather(self, input: Tensor, index: Tensor, dim: int = 0,
+               name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_GATHER, GatherParams(dim=dim),
+                               [input, index], name)
+
+    # reductions
+    def reduce_sum(self, input: Tensor, axes: Sequence[int],
+                   keepdims: bool = False, name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_REDUCE_SUM,
+                               ReduceParams(tuple(axes), keepdims), [input],
+                               name)
+
+    def reduce_mean(self, input: Tensor, axes: Sequence[int],
+                    keepdims: bool = False, name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_REDUCE_MEAN,
+                               ReduceParams(tuple(axes), keepdims), [input],
+                               name)
+
+    def mean(self, input: Tensor, dims: Sequence[int], keepdims: bool = False,
+             name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_MEAN,
+                               ReduceParams(tuple(dims), keepdims), [input],
+                               name)
+
+    def top_k(self, input: Tensor, k: int, sorted: bool = True,
+              name: str = "") -> List[Tensor]:
+        """[values, int32 indices] of the k largest along the last axis,
+        sorted, ties to the lower index (ops/reduce.py)."""
+        return self._add_layer(OperatorType.OP_TOPK,
+                               TopKParams(k=k, sorted=sorted), [input], name)
+
+    # the MoE family (reference: moe.cc:20-44 FFModel::moe composite)
+    def group_by(self, input: Tensor, assign: Tensor, n: int, alpha: float,
+                 name: str = ""):
+        return self._add_layer(OperatorType.OP_GROUP_BY,
+                               GroupByParams(n=n, alpha=alpha),
+                               [input, assign], name)
+
+    def aggregate(self, tensors: Sequence[Tensor], n: int,
+                  lambda_bal: float = 0.0, name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_AGGREGATE,
+                               AggregateParams(n=n, lambda_bal=lambda_bal),
+                               list(tensors), name)
+
+    def aggregate_spec(self, tensors: Sequence[Tensor], n: int,
+                       lambda_bal: float = 0.0, name: str = "") -> Tensor:
+        return self._add_layer(OperatorType.OP_AGG_SPEC,
+                               AggregateSpecParams(n=n,
+                                                   lambda_bal=lambda_bal),
+                               list(tensors), name)
+
+    def cache(self, input: Tensor, num_batches: int = 1,
+              name: str = "") -> Tensor:
+        """Cross-batch activation cache (ops/moe.py CacheParams): training
+        passes the input through and blends it into the op's buffers in
+        `state.net_state`; inference serves the cached value."""
+        return self._add_layer(OperatorType.OP_CACHE,
+                               CacheParams(num_batches=num_batches), [input],
+                               name)
+
+    def moe(self, input: Tensor, num_exp: int, num_select: int,
+            expert_hidden_size: int, alpha: float = 2.0,
+            lambda_bal: float = 0.0) -> Tensor:
+        """reference: src/ops/moe.cc:20-44 -- gate -> top_k -> group_by ->
+        per-expert dense -> aggregate."""
+        gate_preds = self.dense(input, num_exp, ActiMode.AC_MODE_RELU)
+        topk_out, topk_assign = self.top_k(gate_preds, num_select)
+        exp_tensors = self.group_by(input, topk_assign, num_exp, alpha)
+        if not isinstance(exp_tensors, list):
+            exp_tensors = [exp_tensors]
+        agg_inputs = [self.softmax(topk_out), topk_assign, topk_assign,
+                      gate_preds]
+        for et in exp_tensors:
+            agg_inputs.append(self.dense(et, expert_hidden_size,
+                                         ActiMode.AC_MODE_RELU))
+        return self.aggregate(agg_inputs, num_exp, lambda_bal)
 
     # -- compile ------------------------------------------------------------
     def set_optimizer(self, opt) -> None:

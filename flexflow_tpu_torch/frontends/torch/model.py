@@ -21,12 +21,18 @@ Linear, Conv2d, MaxPool2d, AvgPool2d, AdaptiveAvgPool2d (to 1x1 or the
 identity size), BatchNorm2d, LayerNorm, Embedding, the activations,
 Flatten, Softmax, Dropout, MultiheadAttention and Identity, and
 `_replay_fn` the arithmetic, the activations, softmax, flatten, dropout,
-`getitem` on MultiheadAttention's tuple and the no-ops. Every other
-module or target raises NotImplementedError with its name, as the JAX
-package does for what it lacks. Not ported yet: concrete tensors meeting
-the graph (they need `create_constant_tensor`) and Hugging Face tracing.
-As in the JAX package, MultiheadAttention's weights and BatchNorm2d's
-running statistics are not carried over from torch.
+`cat`/`concat`, `matmul`/`bmm` (batch_matmul), the casts (`to`,
+`type_as`, `float`, `half`, `double`, `type`), `unsqueeze`, `squeeze`,
+`mean`, `transpose`, `permute`, `view`/`reshape`, the metadata the
+shape rows read (`size`, `dim`, `getattr` of shape, dtype, ndim and
+device), `getitem` on a list of outputs or MultiheadAttention's tuple,
+and the no-ops. Every other module or target raises NotImplementedError
+with its name, as the JAX package does for what it lacks. Not ported
+yet: concrete tensors meeting the graph (they need
+`create_constant_tensor`, and with it the `where`, `masked_fill` and
+`expand` rows and the `*_like` fills) and Hugging Face tracing. As in
+the JAX package, MultiheadAttention's weights and BatchNorm2d's running
+statistics are not carried over from torch.
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ import numpy as np
 import torch
 import torch.fx
 
-from ...ff_types import AggrMode, OperatorType, PoolType
+from ...ff_types import (AggrMode, DataType, OperatorType, PoolType,
+                         to_data_type)
 
 
 def _pair(v):
@@ -500,6 +507,62 @@ def _is_scalar(v) -> bool:
     return isinstance(v, (int, float))
 
 
+def _cast_row(ff, target, x, args, kwargs):
+    """to / type_as / float / half / double / type: a Cast op, or x
+    itself where only the device changes (placement is the model's)."""
+    fixed = {"float": DataType.DT_FLOAT, "half": DataType.DT_HALF,
+             "double": DataType.DT_DOUBLE}
+    if target in fixed:
+        return ff.cast(_lift(ff, x), fixed[target])
+    other = kwargs.get("dtype", args[1] if len(args) > 1 else None)
+    if other is None:
+        return x
+    if _is_ff_tensor(other):
+        return ff.cast(_lift(ff, x), other.data_type)
+    c = _concrete_np(other)
+    if c is not None:  # type_as(concrete tensor)
+        return ff.cast(_lift(ff, x), to_data_type(c.dtype))
+    if isinstance(other, (str, torch.device)):
+        return x
+    return ff.cast(_lift(ff, x), to_data_type(other))  # loud when unknown
+
+
+def _shape_row(ff, target, x, args, kwargs):
+    """mean, transpose, permute, view / reshape, as the JAX package maps
+    them."""
+    if target == "mean":
+        dims = kwargs.get("dim", args[1] if len(args) > 1 else None)
+        keep = kwargs.get("keepdim", False)
+        if dims is None:  # torch.mean(x): the mean over every axis
+            dims = list(range(len(x.dims)))
+        dims = [dims] if isinstance(dims, int) else list(dims)
+        return ff.mean(x, dims, keep)
+    if target == "transpose":
+        perm = list(range(len(x.dims)))
+        perm[args[1]], perm[args[2]] = perm[args[2]], perm[args[1]]
+        return ff.transpose(x, perm)
+    if target == "permute":
+        perm = args[1] if isinstance(args[1], (list, tuple)) else args[1:]
+        return ff.transpose(x, list(perm))
+    shape = args[1:] if not isinstance(args[1], (list, tuple)) else args[1]
+    shape = [-1 if isinstance(v, str) else int(v) for v in shape]
+    return ff.reshape(x, shape)
+
+
+def _getattr_row(x, attr):
+    """x.shape / x.dtype / x.ndim / x.device on a graph tensor."""
+    if attr == "shape":
+        return tuple(x.dims)
+    if attr == "dtype":
+        # a torch.dtype, which both eager torch and the cast rows take
+        return x.data_type.torch_dtype
+    if attr == "ndim":
+        return len(x.dims)
+    if attr == "device":
+        return "cpu"  # eager ops at import time run on the host
+    raise NotImplementedError(f"getattr({attr}) on graph tensor")
+
+
 _UNARY_TARGETS = ("relu", "gelu", "sigmoid", "tanh", "elu", "exp", "sin",
                   "cos", "rsqrt", "sqrt", "log")
 
@@ -537,8 +600,13 @@ def _replay_fn(ff, target: str, args, kwargs):
     if target == "softmax":
         dim = kwargs.get("dim", args[1] if len(args) > 1 else -1)
         return ff.softmax(x, axis=dim if dim is not None else -1)
+    if target in ("cat", "concat"):
+        dim = kwargs.get("dim", args[1] if len(args) > 1 else 0)
+        return ff.concat(list(args[0]), dim)
     if target in ("flatten", "flat"):
         return ff.flat(x)
+    if target in ("matmul", "bmm"):
+        return ff.batch_matmul(_lift(ff, x), _lift(ff, args[1]))
     if target in ("min", "max") and len(args) > 1:
         op = ff.min if target == "min" else ff.max
         return op(_lift(ff, x), _lift(ff, args[1]))
@@ -554,8 +622,23 @@ def _replay_fn(ff, target: str, args, kwargs):
         if not training:  # F.dropout(..., training=False) is a no-op
             return x
         return ff.dropout(x, rate=float(p))
+    if target in ("to", "type_as", "float", "half", "double", "type"):
+        return _cast_row(ff, target, x, args, kwargs)
+    if target == "dim":
+        return len(x.dims)
+    if target == "unsqueeze":
+        return ff.unsqueeze(x, [args[1]])
+    if target == "squeeze":
+        dim = kwargs.get("dim", args[1] if len(args) > 1 else None)
+        return ff.squeeze(x, () if dim is None else [dim])
+    if target == "getattr" and _is_ff_tensor(x):
+        return _getattr_row(x, args[1])
+    if target in ("mean", "transpose", "permute", "view", "reshape"):
+        return _shape_row(ff, target, x, args, kwargs)
     if target in ("contiguous", "detach", "clone", "identity"):
         return x
+    if target == "size":
+        return x.dims if len(args) == 1 else x.dims[args[1]]
     if target == "getitem":
         if isinstance(x, (list, tuple)):
             return x[args[1]]

@@ -3,8 +3,9 @@
 The PyTorch counterpart of flexflow_tpu/ops/elementwise.py (reference:
 src/ops/element_unary.cc, element_binary.cc): one dispatch table per
 family. OP_GELU is jax.nn.gelu's default, the tanh approximation, not
-torch's exact erf. Binary ops broadcast as numpy does. PReLU is not
-ported yet.
+torch's exact erf. Binary ops broadcast as numpy does. PReLU keeps a
+learnable per-channel negative slope ("alpha", 0.25 at init) over the
+channel axis: axis 1 of an NCHW input, else the last.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ff_types import DataType, OperatorType
-from .registry import register_op
+from .registry import WeightSpec, register_op
 
 _UNARY_FNS = {
     OperatorType.OP_EXP: torch.exp,
@@ -109,3 +110,33 @@ def _binary_forward(params: ElementBinaryParams, weights, inputs, ctx):
 for _t in _BINARY_FNS:
     register_op(_t, f"ElementBinary_{_t.name}", infer=_binary_infer,
                 forward=_binary_forward, num_inputs=2)
+
+
+# -- PReLU (learnable per-channel negative slope; ONNX frontend op) ---------
+@dataclasses.dataclass(frozen=True)
+class PReluParams:
+    pass
+
+
+def _prelu_channels(shape):
+    # NCHW conv layout for 4-D (ops/conv2d.py is NCHW), else the last axis
+    return shape[1] if len(shape) == 4 else shape[-1]
+
+
+def _prelu_weights(params, in_shapes, in_dtypes):
+    (s,) = in_shapes
+    return [WeightSpec("alpha", (_prelu_channels(s),), in_dtypes[0],
+                       "constant:0.25")]
+
+
+def _prelu_forward(params, weights, inputs, ctx):
+    (x,) = inputs
+    a = weights["alpha"].to(x.dtype)
+    if x.dim() == 4:  # per channel over the NCHW spatial axes
+        a = a.reshape(1, -1, 1, 1)
+    return [torch.where(x >= 0, x, a * x)]
+
+
+register_op(OperatorType.OP_PRELU, "PReLU",
+            infer=lambda p, s, dt: ([s[0]], [dt[0]]),
+            weights=_prelu_weights, forward=_prelu_forward)

@@ -6,12 +6,15 @@ and a forward function over torch tensors; incremental decoding adds
 `forward_decode`, and ops that carry state across batches (BatchNorm's
 running statistics) add `state_spec` and `forward_stateful`. Backward
 comes from autograd (through the flash
-kernels' autograd Function for attention on the card).
+kernels' autograd Function for attention on the card). Ops whose
+objective carries a term of its own (MoE's load-balance loss) append it
+to the context's `aux_losses` (`add_aux_loss`); the training objectives
+add those terms to the loss.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -115,10 +118,18 @@ class FwdCtx:
     # serving's cache of compute-dtype weight copies (ops/common.py
     # WeightCache); None on the training path
     weight_cache: Optional[object] = None
+    # differentiable auxiliary losses collected during a training walk
+    # (MoE load balancing, ops/moe.py); the executor adds them to the
+    # loss. None: nothing collects them (inference, raw op calls)
+    aux_losses: Optional[List[torch.Tensor]] = None
+
+    def add_aux_loss(self, value: torch.Tensor) -> None:
+        if self.aux_losses is not None:
+            self.aux_losses.append(value)
 
 
 def ensure_ops_loaded():
     """Import all op modules so their register_op calls run."""
-    from . import (attention, conv2d, dropout, elementwise,  # noqa: F401
-                   embedding, linear, normalization, pool2d, softmax,
-                   tensor_ops)
+    from . import (attention, batch_matmul, conv2d, dropout,  # noqa: F401
+                   elementwise, embedding, linear, moe, normalization,
+                   pool2d, reduce, softmax, tensor_ops)

@@ -18,7 +18,12 @@ The train step differentiates through detached copies of the weights
 updates the weight tensors themselves in place under no_grad, so the
 params dict a model serves from is the one training updates.
 
-Stateful ops (BatchNorm's running statistics) keep their state in
+Ops with a loss term of their own (MoE's load balance, ops/moe.py) put
+it in the walk's `aux_out` list; every training objective (the eager
+step, the scan, the grad step and so the stepwise `backward`) adds those
+terms to the loss, and the reported loss includes them, as in JAX.
+
+Stateful ops (BatchNorm's running statistics, Cache) keep their state in
 `TrainState.net_state` ({op name: {buffer name: tensor}},
 `init_net_state`). `apply` hands each such op its state and collects
 what it returns in `net_out`; the train step writes that back into the
@@ -62,7 +67,9 @@ from ..pcg.graph import Graph
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 # ops recomputed in the backward under config.remat (the JAX package's
-# _REMAT_OPS): attention, whose internals dominate the saved residuals
+# _REMAT_OPS): attention, whose internals dominate the saved residuals.
+# No op that adds an aux loss (MoE) may join: the recompute would run
+# its forward, and so add its loss, a second time
 _REMAT_OPS = frozenset({OperatorType.OP_MULTIHEAD_ATTENTION})
 # captured graphs kept: train scans per executor (one per chunk length
 # and batch shapes, on the live state), decode steps per (batch, max_len)
@@ -223,10 +230,11 @@ class PCGExecutor:
                           net_state=self.init_net_state())
 
     def _ctx(self, op_name: str = "", training: bool = False, rng=None,
-             seq_length: int = -1, weight_cache=None) -> FwdCtx:
+             seq_length: int = -1, weight_cache=None,
+             aux_losses=None) -> FwdCtx:
         return FwdCtx(training=training, compute_dtype=self.compute_dtype,
                       op_name=op_name, rng=rng, seq_length=seq_length,
-                      weight_cache=weight_cache)
+                      weight_cache=weight_cache, aux_losses=aux_losses)
 
     def seed_table(self, step_seeds) -> torch.Tensor:
         """The (N, n_ops, 2) int32 CPU seed table of N steps' seeds
@@ -268,7 +276,8 @@ class PCGExecutor:
               training: bool = False, rng=None, seq_length: int = -1,
               weight_cache: Optional[WeightCache] = None,
               net_state: Optional[Params] = None,
-              net_out: Optional[Params] = None) -> Dict[int, torch.Tensor]:
+              net_out: Optional[Params] = None,
+              aux_out: Optional[list] = None) -> Dict[int, torch.Tensor]:
         """Walk the PCG and compute every tensor. Returns guid -> value.
         `rng` is the step's seed (an int) or its seed-table row on the
         device: op i of the walk that draws gets row[i], the seeds of
@@ -276,7 +285,8 @@ class PCGExecutor:
         is recomputed in the backward; the recompute reads the same row,
         so it rebuilds the same dropout mask. Stateful ops read their
         buffers from `net_state` (none: batch statistics) and, when
-        `net_out` is a dict, put their new buffers there, detached."""
+        `net_out` is a dict, put their new buffers there, detached. Ops'
+        differentiable aux losses are appended to `aux_out` (a list)."""
         row = self._seed_row(rng)
         drawing = set(self.drawing_ops) if row is not None else ()
         vals = dict(inputs)
@@ -284,7 +294,7 @@ class PCGExecutor:
             opdef = get_op_def(op.op_type)
             ctx = self._ctx(op.name, training,
                             row[compute_idx] if compute_idx in drawing
-                            else None, seq_length, weight_cache)
+                            else None, seq_length, weight_cache, aux_out)
             w = params.get(op.name, {})
             ins = [vals[t.guid] for t in op.inputs]
             if training and self.remat and op.op_type in _REMAT_OPS:
@@ -312,8 +322,8 @@ class PCGExecutor:
         Ops read their compute-dtype weights from the executor's weight
         cache, and stateful ops their buffers from `net_state` (none:
         batch statistics). `seq_length` >= 0 reaches the ops' context
-        (JAX: the iteration config's seq_length; no ported op truncates
-        yet)."""
+        (JAX: the iteration config's seq_length; batch_matmul slices its
+        a/b_seq_length_dim axes to it)."""
 
         @torch.inference_mode()
         def fwd(params, batch_inputs, net_state=None):
@@ -344,19 +354,23 @@ class PCGExecutor:
                         net_out=None):
         """(loss, logits, grads) of the training forward under `rng` (a
         step seed, its seed-table row on the device, or None: no op
-        draws); grads are cast by `_cast_grads`. Stateful ops read
-        `net_state` and put their new buffers in `net_out`. The weights
-        themselves are not touched."""
+        draws); grads are cast by `_cast_grads`. The loss includes the
+        ops' aux losses. Stateful ops read `net_state` and put their new
+        buffers in `net_out`. The weights themselves are not touched."""
         names = [(op, n) for op, ws in params.items() for n in ws]
         leaves = {op: {n: w.detach().requires_grad_() for n, w in ws.items()}
                   for op, ws in params.items()}
         flat = [leaves[op][n] for op, n in names]
+        aux: list = []
         with torch.enable_grad():
             vals = self.apply(leaves, self._input_vals(batch_inputs),
                               training=True, rng=rng, seq_length=seq_length,
-                              net_state=net_state, net_out=net_out)
+                              net_state=net_state, net_out=net_out,
+                              aux_out=aux)
             logits = vals[self.logits_pt.guid]
             loss = self.loss_fn(logits, truncate_labels(labels, logits))
+            for a in aux:
+                loss = loss + a
             gs = torch.autograd.grad(loss, flat, allow_unused=True)
         grads: Params = {}
         for (op, n), w, g in zip(names, flat, gs):

@@ -933,3 +933,93 @@ def test_scan_with_batchnorm_equals_stepwise_fit_on_the_card(gen):
                 assert torch.equal(ta[op][n], tb[op][n]), f"{tree} {op}.{n}"
     rv = next(iter(b.state.net_state.values()))["running_var"]
     assert not torch.equal(rv, torch.ones_like(rv))
+
+
+def test_top_k_breaks_ties_toward_the_lower_index_on_the_card(gen):
+    """RELU'd gate rows with many zeros (and ties among positive values)
+    give the same top-k indices and values on the card as on the CPU,
+    where tests/test_torch_port_ops2.py holds them to lax.top_k's."""
+    from flexflow_tpu_torch.ops.reduce import top_k
+
+    for shape, dtype in (((8192, 4), torch.bfloat16), ((256, 64),
+                                                        torch.float32)):
+        g = torch.relu(torch.randn(shape, generator=gen, device="cuda"))
+        g[: shape[0] // 4] = 0.0
+        g[shape[0] // 4: shape[0] // 2, ::2] = 1.25
+        g = g.to(dtype)
+        v, i = top_k(g, 2)
+        vc, ic = top_k(g.cpu(), 2)
+        assert torch.equal(i.cpu(), ic)
+        assert torch.equal(v.cpu(), vc)
+
+
+def test_dispatch_mask_on_the_card_equals_the_cpu(gen):
+    """Capacity overflow (every token to expert 0 first) builds the same
+    mask on the card as on the CPU, with no device assert from slots
+    out of range (ops/moe.py builds it by comparison)."""
+    from flexflow_tpu_torch.ops.moe import dispatch_mask
+
+    assign = torch.randint(0, 4, (512, 2), generator=gen, device="cuda")
+    assign[:, 0] = 0
+    assign[:, 1] = torch.where(assign[:, 1] == 0, 1, assign[:, 1])
+    m = dispatch_mask(assign, 4, 100)
+    torch.cuda.synchronize()
+    assert torch.equal(m.cpu(), dispatch_mask(assign.cpu(), 4, 100))
+    assert m[:, 0].sum() == 100
+
+
+def test_gather_backward_is_deterministic_on_the_card(gen):
+    """The Gather op's backward sums repeated indices in a fixed order:
+    two runs give the same bits, and torch's deterministic setting is
+    the caller's again after each."""
+    from flexflow_tpu_torch.ff_types import OperatorType
+    from flexflow_tpu_torch.ops.registry import FwdCtx, get_op_def
+    from flexflow_tpu_torch.ops.tensor_ops import GatherParams
+
+    fwd = get_op_def(OperatorType.OP_GATHER).forward
+    idx = torch.randint(0, 64, (4096, 256), generator=gen, device="cuda")
+    cot = torch.randn(4096, 256, generator=gen, device="cuda")
+    grads = []
+    for _ in range(2):
+        x = torch.randn(64, 256, generator=torch.Generator(
+            device="cuda").manual_seed(1), device="cuda").requires_grad_()
+        (y,) = fwd(GatherParams(0), {}, [x, idx], FwdCtx(training=True))
+        (g,) = torch.autograd.grad((y * cot).sum(), [x])
+        assert not torch.are_deterministic_algorithms_enabled()
+        grads.append(g)
+    assert torch.equal(grads[0], grads[1])
+
+
+def _moe_cache_model(spd=1):
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import ActiMode, LossType
+
+    m = FFModel(FFConfig(batch_size=16, seed=0, iterations_per_dispatch=spd))
+    t = m.create_tensor((16, 32))
+    t = m.cache(m.dense(t, 32, ActiMode.AC_MODE_RELU), num_batches=2)
+    t = m.moe(t, 4, 2, 16, alpha=1.0, lambda_bal=0.5)
+    m.softmax(m.dense(t, 4))
+    m.compile(SGDOptimizer(lr=0.05),
+              LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    return m
+
+
+def test_scan_with_cache_and_balance_loss_equals_stepwise_on_the_card(gen):
+    """A Cache op (its buffers updated in place by the captured graph)
+    feeding an MoE layer (the balance loss in every captured step, tokens
+    dropped by capacity): fit with iterations_per_dispatch 3 over 7
+    batches against stepwise fit, weights and buffers bit for bit."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(112, 32).astype(np.float32)
+    y = rng.randint(0, 4, (112, 1)).astype(np.int32)
+    a, b = _moe_cache_model(), _moe_cache_model(spd=3)
+    a.fit(x, y, epochs=2)
+    b.fit(x, y, epochs=2)
+    for tree in ("params", "net_state"):
+        ta, tb = getattr(a.state, tree), getattr(b.state, tree)
+        assert ta
+        for op in ta:
+            for n in ta[op]:
+                assert torch.equal(ta[op][n], tb[op][n]), f"{tree} {op}.{n}"
+    (bufs,) = b.state.net_state.values()
+    assert float(bufs["filled"]) == 1.0

@@ -203,8 +203,11 @@ class _Conv(nn.Module):
 
 
 class _Matmul(nn.Module):
+    """A matmul variant the frontend has no row for (torch.matmul and
+    bmm have one since the batch_matmul op was ported)."""
+
     def forward(self, x):
-        return torch.matmul(x, x)
+        return torch.chain_matmul(x, x, x)
 
 
 class _Const(nn.Module):
