@@ -90,7 +90,30 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      memory, a traced step by family (the MoE dispatch/combine products
      and the embedding bags as families of their own) and a scan
      dispatch's idle share. No new kernel: the ops are library calls,
-     as the JAX package's are XLA's.
+     as the JAX package's are XLA's;
+ 10. the long-context Transformer (models/zoo.py
+     build_long_context_transformer at its defaults: batch 4, 32768
+     positions, hidden 512, 8 heads of 64, 2 blocks, 10 classes a
+     position; bf16 over f32, sparse CE, SGD lr 0.01). Both flash kernels
+     at its attention shape (bh 32, 32768 x 32768, d 64), where they are
+     bound by operations: the forward against chunked_attention in f32,
+     the backward (dO live on a few blocks of queries, scaled so the
+     gradients are of order 1) against the plain backward over those
+     rows under the derived limit, each output also held to FLASH_NORM_TOL
+     by the norm of its error (and a planted fault shown to fail that),
+     each timed beside SDPA and its bound. Then stepwise fit against the scan (bit-equal,
+     every flash launch on wgmma), the loss on one batch falling, ABBA
+     samples/s, traces, peak memory, and the model's gradients at 4096
+     positions against an f32 recomputation with dense attention;
+ 11. NMT (models/nmt.py build_nmt as examples/python/nmt.py -b 32 runs
+     it, the config made through FFConfig.parse_args; 5 LSTMs x 32
+     steps, vocabulary 8000, f32, SGD lr 0.1): stepwise fit against the
+     scan (bit-equal), the epoch CE falling, ABBA samples/s, the stepwise
+     step's idle share, one step's gradients against float64;
+ 12. --fusion: the flagship Transformer compiled with perform_fusion
+     (one OP_FUSED node a block), fit stepwise and as a scan against the
+     unfused model's fit from the same weights, bit for bit, and ABBA
+     samples/s of the two.
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -128,7 +151,10 @@ card's name and power limit, a `kernels` JSON line, a `serving`, a
 `training`, a `training_scan`, a `bert`, a `bert_scan`, a `cnn` (after
 the card's name and power limit), an `alexnet` and a `resnext` JSON
 line, a `zoo_models` line (after the card's name and power limit), a
-`moe`, a `dlrm`, an `inception` and a `zoo` line and, last, {"ok": true,
+`moe`, a `dlrm`, an `inception` and a `zoo` line, a
+`longctx_nmt_fusion` line (after the card's name and power limit; the
+`kernels` line's flash rows carry their long-context shape's readings),
+a `longctx`, an `nmt` and a `fusion` line and, last, {"ok": true,
 "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import contextlib
@@ -294,6 +320,60 @@ ZOO_SPD, ZOO_ROUNDS = 4, 3
 # layers, ~1e-6 of a gradient. Limit 1e-4 per weight gradient, 1e-5 on
 # the loss.
 ZOO_ORACLE_RTOL, ZOO_ORACLE_LOSS_RTOL = 1e-4, 1e-5
+# The long-context Transformer (models/zoo.py build_long_context_transformer
+# at its defaults, the JAX package's: batch 4, 32768 positions, hidden
+# 512, 8 heads of 64, 2 blocks, 10 classes a position), bf16 over f32 as
+# bench.py's longctx leg, sparse CE, SGD lr 0.01, over LC_BATCHES batches
+# stepwise and as one scan of LC_SPD; its labels are skewed (class c drawn
+# with weight 1/(c+1)), so the classifier has something to learn that
+# attention averaging over 32768 tokens cannot wash out, and the loss on
+# a batch falls within LC_STEPS steps.
+LC_BATCH, LC_SEQ, LC_HIDDEN, LC_HEADS, LC_LAYERS, LC_CLASSES = \
+    4, 32768, 512, 8, 2, 10
+LC_BATCHES, LC_SPD, LC_STEPS, LC_ROUNDS = 4, 4, 4, 3
+# The flash backward at 32768 positions is held on LC_BWD_BLOCKS blocks
+# of LC_BWD_ROWS queries with dO live (elsewhere dO = 0, so those rows'
+# dS is exactly 0 and dq, dk, dv come from the live blocks alone): the
+# plain backward over those rows against all 32768 keys fits in f32.
+LC_BWD_BLOCKS, LC_BWD_ROWS = 3, 128
+# At this length |O| is ~sqrt(e / 32768) ~ 0.009 and, with dO ~ N(0, 1)
+# on 384 rows, |dk| and |dv| ~ 1e-3: under the per-element limits' atol
+# (4e-3 forward, 3e-3 backward) an error of half a value would pass. So
+# the live dO is scaled by LC_DO_SCALE (a power of two: exact in bf16,
+# and every product and rounding of the backward scales with it), which
+# puts dk and dv near 1 and leaves the derived limit's rtol and slack,
+# which scale with the values, to decide; and each of O, dq, dk, dv is
+# also held to FLASH_NORM_TOL by ||err|| / ||ref||, which no scale
+# moves. The forward's values stay as they are: its error is P's
+# rounding, which does not shrink with |O| where O crosses 0, so the
+# per-element limit holds it only at this |O|, and the norm check is
+# what sees a fault of a few percent of O there. A planted fault (one
+# K/V tile of LC_BWD_ROWS keys dropped from the forward; dv * 1.5 and
+# one tile of dk zeroed) must fail the norm check.
+LC_DO_SCALE = 2.0 ** 10
+# Its gradient oracle at LC_ORACLE_SEQ positions (the same widths), where
+# dense f32 attention fits: one bf16 step (flash kernels) against the
+# same step recomputed in f32 with dense attention, per weight over its
+# op's f32 gradient norm. Predicted before the first reading from the MoE
+# Transformer's two-layer bf16 reading (worst 0.0568 against f64): twice
+# that; the loss as the MoE oracle's, 2e-3. A wiring fault moves a
+# gradient by its own size.
+LC_ORACLE_SEQ, LC_ORACLE_RTOL, LC_ORACLE_LOSS_RTOL = 4096, 0.12, 2e-3
+# NMT as examples/python/nmt.py -b 32 runs it (batch 32, vocab 8000 both
+# sides, 32 positions each, embed 256, hidden 512, 2 layers, SGD lr 0.1,
+# sparse CE, f32) over its 4 batches for NMT_EPOCHS epochs, stepwise and
+# as one scan of NMT_SPD.
+NMT_BATCH, NMT_VOCAB, NMT_LEN, NMT_EPOCHS, NMT_SPD = 32, 8000, 32, 4, 4
+# Its oracle: one f32 step's gradients against float64 (an LSTM loop of
+# our own in plain torch), per weight ||g - g64|| / ||g64||. Each step's
+# f32 products and gates round at 2^-24 of their values, and the
+# recurrence carries them through 32 steps and five stacked LSTMs into
+# the backward through time: ~1e-5 predicted; limit 1e-3, the loss 1e-5.
+NMT_ORACLE_RTOL, NMT_ORACLE_LOSS_RTOL = 1e-3, 1e-5
+# --fusion: the flagship Transformer (bench.py's default leg) compiled
+# with perform_fusion, FUSION_BATCHES batches, stepwise and as scans of
+# SCAN_SPD, against the unfused model from the same weights.
+FUSION_BATCHES, FUSION_ROUNDS = 8, 2
 
 
 def log(*a):
@@ -1254,16 +1334,18 @@ def serve(torch, model):
     return summary
 
 
-def build_transformer_model(torch, spd=1):
+def build_transformer_model(torch, spd=1, fusion=False):
     """bench.py's default workload through the port's builder: the
     reference's headline Transformer, bf16 compute over f32 weights;
-    `spd` steps a dispatch in fit."""
+    `spd` steps a dispatch in fit; `fusion` compiles it with
+    perform_fusion (--fusion)."""
     from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
     from flexflow_tpu_torch.ff_types import LossType, MetricsType
     from flexflow_tpu_torch.models import build_transformer
 
     m = FFModel(FFConfig(batch_size=TRAIN_BATCH, allow_mixed_precision=True,
-                         seed=0, iterations_per_dispatch=spd))
+                         seed=0, iterations_per_dispatch=spd,
+                         perform_fusion=fusion))
     build_transformer(m, TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS, LAYERS)
     m.compile(SGDOptimizer(lr=0.01),
               LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
@@ -2507,8 +2589,9 @@ def plain_graph(torch, model, inputs, weights, routing=None):
     """The model's graph recomputed in plain torch in the dtype of
     `weights` ({op: {name: tensor}}, e.g. float64 leaves) and of the
     `inputs` (by the model's input tensors): the dense products and
-    embedding bags, concat, reshape, softmax, attention (scores and
-    probabilities in full, no kernel), and the MoE layer as gathers: each
+    embedding bags, concat, reshape, softmax, the LSTM (a step loop of
+    its own), attention (scores and probabilities in full, no kernel),
+    and the MoE layer as gathers: each
     expert takes its first `capacity` (token, choice) pairs in token
     order, and each token sums its kept choices' outputs weighted by its
     gate (index_select / index_add, not the port's dispatch mask). top_k
@@ -2546,6 +2629,8 @@ def plain_graph(torch, model, inputs, weights, routing=None):
             s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
             o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
             outs = [torch.einsum("bqhd,hde->bqe", o, w["wo"]) + w["bias_o"]]
+        elif t == Op.OP_LSTM:
+            outs = [_plain_lstm(torch, ins[0], w, p)]
         elif t == Op.OP_TOPK:
             idx = routing[layer.name].long()
             outs = [torch.gather(ins[0], -1, idx), idx]
@@ -3074,6 +3159,456 @@ def zoo(torch):
     return out
 
 
+def check_flash_long(torch):
+    """Both flash kernels at the long-context model's attention shape
+    (bh 32 = 4 x 8 heads, 32768 x 32768, d 64, non-causal, bf16): the
+    forward against chunked_attention on the same values in f32 (no_grad;
+    dense f32 would need 137 GB of scores), the backward with dO live on
+    LC_BWD_BLOCKS blocks of queries (scaled by LC_DO_SCALE) against the
+    plain backward over those rows under the derived 16-bit limit, each
+    output also by the norm of its error under FLASH_NORM_TOL, with
+    planted faults shown to fail that; and both timed beside SDPA at the
+    same shape, chunked_attention (the streaming plain version) and their
+    bounds, which are by operations here."""
+    from flexflow_tpu_torch.kernels import attention as ka
+    from flexflow_tpu_torch.kernels import build
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    bh, s, d = LC_BATCH * LC_HEADS, LC_SEQ, LC_HIDDEN // LC_HEADS
+    q, k, v = (torch.randn(bh, s, d, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    what = f"flash bh={bh} sq=sk={s} d=dv={d} non-causal bf16"
+    norm_tol = ka.FLASH_NORM_TOL[torch.bfloat16]
+    norms, planted = {}, {}
+
+    def hold_norm(name, got, ref):
+        norms[name] = ka.rel_norm_err(got, ref)
+        if not norms[name] <= norm_tol:
+            raise AssertionError(f"{what} {name}: ||err||/||ref|| "
+                                 f"{norms[name]} over {norm_tol}")
+
+    def plant(name, got, ref):
+        planted[name] = ka.rel_norm_err(got, ref)
+        if not planted[name] > norm_tol:
+            raise AssertionError(f"{what}: planted fault {name} reads "
+                                 f"{planted[name]}, under the norm limit "
+                                 f"{norm_tol}: the check cannot see it")
+
+    before = dict(build.path_counts)
+    o, lse = ka._flash_fwd_cuda(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    expect_path(what, before, "flash_fwd", "wgmma")
+    with torch.no_grad():
+        ref = ka.chunked_attention(*(ka._fold_to_bhsd(x.float(), LC_BATCH,
+                                                      LC_HEADS)
+                                     for x in (q, k, v)))
+        ref = ka._bhsd_to_fold(ref)
+    if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+        raise AssertionError(f"{what}: non-finite")
+    eo, ratio = check_close(f"{what} vs chunked", "flash_fwd", o, ref)
+    hold_norm("o", o, ref)
+    tile = LC_BWD_ROWS
+    bad, _ = ka._flash_fwd_cuda(q, k[:, tile:].contiguous(),
+                                v[:, tile:].contiguous(), causal=False)
+    plant("o without keys 0..127", bad, ref)
+    # what the per-element limit makes of that fault
+    atol, rtol = TOL["flash_fwd"]
+    bad_ratio = ((bad.float() - ref.float()).abs()
+                 / (atol + rtol * ref.float().abs())).max().item()
+    del ref, bad
+    log(f"  {what}: max|O-chunked f32|={eo:.3g} (err/limit {ratio:.3g}), "
+        f"||err||/||O|| {norms['o']:.3g} (limit {norm_tol:.3g})")
+    # the backward on LC_BWD_BLOCKS blocks of live dO
+    starts = [int(i * (s - LC_BWD_ROWS) / (LC_BWD_BLOCKS - 1))
+              for i in range(LC_BWD_BLOCKS)]
+    rows = torch.cat([torch.arange(r, r + LC_BWD_ROWS, device="cuda")
+                      for r in starts])
+    do = torch.zeros_like(o)
+    do[:, rows] = (LC_DO_SCALE * torch.randn(
+        bh, len(rows), d, generator=g, device="cuda")).to(torch.bfloat16)
+    before = dict(build.path_counts)
+    dq, dk, dv = ka._flash_bwd_cuda(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    expect_path(f"{what} backward", before, "flash_bwd", "wgmma")
+    dead = torch.ones(s, dtype=torch.bool, device="cuda")
+    dead[rows] = False
+    if dq[:, dead].any():
+        raise AssertionError(f"{what} backward: dq is not 0 where dO is")
+    ins = (q[:, rows].contiguous(), k, v, o[:, rows].contiguous(),
+           lse[:, :, rows].contiguous(), do[:, rows].contiguous())
+    ref = ka.flash_bwd_plain(*ins, causal=False)
+    slack = ka.flash_bwd_slack(*ins, causal=False)
+    got = (dq[:, rows], dk, dv)
+    eb, r_old, r_new = check_bwd_close(f"{what} backward", got, ref, slack,
+                                       torch.bfloat16)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        hold_norm(name, a, b)
+    plant("dv * 1.5", dv * 1.5, ref[2])
+    dk_bad = dk.clone()
+    dk_bad[:, :tile] = 0
+    plant("dk with keys 0..127 zeroed", dk_bad, ref[1])
+    scale = {n: x.float().abs().mean().item()
+             for n, x in zip(("dq", "dk", "dv"), ref)}
+    del ref, slack, ins, got, dk_bad
+    log(f"  {what} backward ({LC_BWD_BLOCKS} blocks of {LC_BWD_ROWS} live "
+        f"rows, dO x{LC_DO_SCALE:g}; mean |dq| {scale['dq']:.3g}, |dk| "
+        f"{scale['dk']:.3g}, |dv| {scale['dv']:.3g}): max|grad-plain| "
+        f"{eb:.3g}, err/limit {r_new:.3g} (old limit {r_old:.3g}); "
+        f"||err||/||ref|| dq {norms['dq']:.3g} dk {norms['dk']:.3g} dv "
+        f"{norms['dv']:.3g}")
+    log(f"  {what}: planted faults' ||err||/||ref|| " + ", ".join(
+        f"{n} {x:.3g}" for n, x in planted.items())
+        + f"; the dropped tile's per-element err/limit {bad_ratio:.3g}")
+    # timing, with dO live everywhere, by CUDA events around each call: a
+    # call takes 5-800 ms here, so the host's ~0.1 ms a call is under 2%,
+    # and a profiler trace of calls this long has come back with kernels
+    # missing (a backward that read below its bound)
+    do = torch.randn(bh, s, d, generator=g, device="cuda").to(torch.bfloat16)
+    t_f = time_ms(lambda: ka._flash_fwd_cuda(q, k, v, causal=False), 10,
+                  per_launch=True)
+    t_b = time_ms(lambda: ka._flash_bwd_cuda(q, k, v, o, lse, do,
+                                             causal=False), 5,
+                  per_launch=True)
+    q4, k4, v4 = (x.view(LC_BATCH, LC_HEADS, s, d).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_lf = time_ms(lambda: sdpa(q4, k4, v4), 10, per_launch=True)
+    out = sdpa(q4, k4, v4)
+    do4 = do.view(LC_BATCH, LC_HEADS, s, d)
+    t_lb = time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
+                                               retain_graph=True), 5,
+                   per_launch=True)
+    del out
+    with torch.no_grad():
+        qs, ks, vs = (ka._fold_to_bhsd(x.float(), LC_BATCH, LC_HEADS)
+                      for x in (q, k, v))
+        t_c = time_ms(lambda: ka.chunked_attention(qs, ks, vs), 2,
+                      per_launch=True)
+    del qs, ks, vs
+    fb, ff_by = bound_ms(2 * 4 * bh * s * d + 4 * bh * s,
+                         bh * s * s * (2 * d + 2 * d))
+    bb, bb_by = bound_ms(2 * 8 * bh * s * d + 4 * bh * s,
+                         5 * 2 * bh * s * s * d)
+    for what_t, t, bound in (("forward", t_f, fb), ("SDPA", t_lf, fb),
+                             ("backward", t_b, bb),
+                             ("SDPA backward", t_lb, bb)):
+        if not t >= bound:
+            raise AssertionError(f"{what} {what_t}: {t} ms reads below its "
+                                 f"bound {bound} ms: the timing is wrong")
+    log(f"  {what}: forward {t_f:.3f} ms (bound {fb:.3f} ms, {ff_by}; "
+        f"x{t_f / fb:.2f}), SDPA {t_lf:.3f} ms, chunked f32 {t_c:.3f} ms; "
+        f"backward {t_b:.3f} ms (bound {bb:.3f} ms, {bb_by}; "
+        f"x{t_b / bb:.2f}), SDPA backward {t_lb:.3f} ms")
+    shape = f"bh={bh} sq=sk={s} d=dv={d} non-causal bf16"
+    return {"flash_fwd": {
+        "shape": shape, "ms": t_f, "bound_ms": fb, "bound_by": ff_by,
+        "library_ms": t_lf, "over_bound": t_f / fb,
+        "over_library": t_f / t_lf, "chunked_f32_ms": t_c,
+        "plain_ms": "not run: dense f32 scores would take 137 GB",
+        "max_abs_err_vs_chunked": eo, "err_over_limit": ratio,
+        "tol": TOL["flash_fwd"], "rel_norm_err": norms["o"],
+        "norm_tol": norm_tol, "planted_faults_rel_norm": planted,
+        "dropped_tile_err_over_limit": bad_ratio},
+        "flash_bwd": {
+        "shape": shape, "ms": t_b, "bound_ms": bb, "bound_by": bb_by,
+        "library_ms": t_lb, "over_bound": t_b / bb,
+        "over_library": t_b / t_lb,
+        "plain_ms": "not run: dense f32 scores would take 137 GB",
+        "checked_rows": f"{LC_BWD_BLOCKS} blocks of {LC_BWD_ROWS} queries "
+                        f"at {starts}, dO 0 elsewhere",
+        "do_scale": LC_DO_SCALE, "mean_abs_ref": scale,
+        "max_abs_err": eb, "err_over_limit": r_new,
+        "err_over_old_limit": r_old,
+        "tol": "FLASH_BWD_TOL + flash_bwd_slack",
+        "rel_norm_err": {n: norms[n] for n in ("dq", "dk", "dv")},
+        "norm_tol": norm_tol}}
+
+
+def build_lc_model(torch, spd=1, seq=LC_SEQ):
+    """build_long_context_transformer at its defaults (or `seq`
+    positions), bf16 over f32, sparse CE, SGD lr 0.01."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType
+    from flexflow_tpu_torch.models import build_long_context_transformer
+
+    m = FFModel(FFConfig(batch_size=LC_BATCH, allow_mixed_precision=True,
+                         seed=0, iterations_per_dispatch=spd))
+    build_long_context_transformer(m, LC_BATCH, seq, LC_HIDDEN, LC_HEADS,
+                                   LC_LAYERS, LC_CLASSES)
+    m.compile(SGDOptimizer(lr=0.01),
+              LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    return m
+
+
+def lc_data(n, seq, seed):
+    """n samples of normal tokens and skewed labels (class c with weight
+    1/(c+1)), made in bulk."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, seq, LC_HIDDEN), dtype=np.float32)
+    p = 1.0 / np.arange(1, LC_CLASSES + 1)
+    y = rng.choice(LC_CLASSES, size=(n, seq, 1), p=p / p.sum())
+    return x, y.astype(np.int32)
+
+
+def lc_oracle(torch, x, y):
+    """One bf16 train step of the long-context model at LC_ORACLE_SEQ
+    positions through the flash kernels against the same step in f32 with
+    dense attention (plain_graph), per weight over its op's f32 gradient
+    norm."""
+    from flexflow_tpu_torch.kernels import build
+
+    model = build_lc_model(torch, seq=LC_ORACLE_SEQ)
+    leaves = {op: {n: w.detach().float().requires_grad_()
+                   for n, w in ws.items()} for op, ws in model.params.items()}
+    out, _ = plain_graph(torch, model, [torch.as_tensor(x, device="cuda")],
+                         leaves)
+    lab = torch.as_tensor(y, device="cuda", dtype=torch.int64)
+    loss = -torch.log(out.clamp(1e-12, 1.0)).gather(-1, lab).mean()
+    flat = [(op, n, w) for op, ws in leaves.items() for n, w in ws.items()]
+    gs = torch.autograd.grad(loss, [w for _, _, w in flat])
+    ref = {}
+    for (op, n, _), g in zip(flat, gs):
+        ref.setdefault(op, {})[n] = g
+    del out, gs
+    ex = model.executor
+    build.reset_launch_counts()
+    loss_port, _, grads = ex._loss_and_grads(model.params, [x],
+                                             ex._as_labels(y), None)
+    torch.cuda.synchronize()
+    check_training_counts("longctx oracle step", build.launch_counts, {
+        "flash_fwd": LC_LAYERS, "flash_bwd": LC_LAYERS})
+    check_wgmma_paths("longctx oracle step", build.launch_counts,
+                      build.path_counts)
+    rel = grad_rel_errors(torch, grads, ref)
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_port.item() - loss.item()) / abs(loss.item())
+    res = {"seq": LC_ORACLE_SEQ, "loss_bf16": loss_port.item(),
+           "loss_f32": loss.item(), "loss_rel_err": loss_rel,
+           "loss_limit": LC_ORACLE_LOSS_RTOL,
+           "worst_grad_rel_err": rel[worst], "worst_at": worst,
+           "median_grad_rel_err": float(np.median(list(rel.values()))),
+           "grad_limit": LC_ORACLE_RTOL, "grad_rel_err": rel}
+    log(f"  longctx oracle at {LC_ORACLE_SEQ} positions (one bf16 step "
+        f"through the flash kernels vs f32 dense): loss {loss_port.item()} "
+        f"vs {loss.item()} (rel {loss_rel:.3g}, limit "
+        f"{LC_ORACLE_LOSS_RTOL}); worst gradient {rel[worst]:.4g} at "
+        f"{worst} (limit {LC_ORACLE_RTOL}), median "
+        f"{res['median_grad_rel_err']:.4g}")
+    if loss_rel > LC_ORACLE_LOSS_RTOL or rel[worst] > LC_ORACLE_RTOL:
+        raise AssertionError(f"longctx oracle: {res}")
+    return res
+
+
+def longctx(torch):
+    """The long-context Transformer at 32768 positions: both flash kernels
+    at its attention shape against chunked_attention and the plain
+    backward; stepwise fit against the scan (bit-equal; every flash
+    launch on wgmma); the loss on one batch falling over LC_STEPS steps;
+    ABBA samples/s, a traced step and scan dispatch, peak memory; and the
+    gradient oracle at LC_ORACLE_SEQ positions."""
+    from flexflow_tpu_torch.kernels import build
+
+    kernels = check_flash_long(torch)
+    torch.cuda.empty_cache()
+    n = LC_BATCHES * LC_BATCH
+    x, y = lc_data(n, LC_SEQ, 31)
+    a, b = build_lc_model(torch), build_lc_model(torch, LC_SPD)
+    text, _, gap, peak, counts = scan_vs_stepwise(
+        torch, "longctx", a, b, [x], y, [x], y, 1)
+    paths = dict(build.path_counts)
+    want = (LC_BATCHES + LC_BATCHES + 1) * LC_LAYERS
+    check_training_counts("longctx fits", counts, {
+        "flash_fwd": want, "flash_bwd": want, "paged_decode": 0})
+    check_wgmma_paths("longctx fits", counts, paths)
+    summary = {
+        "model": "build_long_context_transformer (its defaults)",
+        "batch": LC_BATCH, "seq": LC_SEQ, "hidden": LC_HIDDEN,
+        "heads": LC_HEADS, "layers": LC_LAYERS, "classes": LC_CLASSES,
+        "precision": "bf16 compute and grads, f32 weights",
+        "optimizer": "SGD lr 0.01", "loss": "sparse categorical CE",
+        "labels": "class c with weight 1/(c+1)", "batches": LC_BATCHES,
+        "iterations_per_dispatch": LC_SPD,
+        "weights": sum(w.numel() for ws in a.params.values()
+                       for w in ws.values()),
+        "scan_vs_stepwise": gap, "peak_mem_gb": peak, "launches": counts,
+        "launches_by_path": paths, "flash_long_shape": kernels}
+    summary.update(fit_readings(text))
+    summary.update(zoo_timing(torch, "longctx", a, b, [x], y, n, LC_BATCH,
+                              LC_SPD, rounds=LC_ROUNDS))
+    # the loss on one batch over LC_STEPS steps
+    step = a.executor.build_train_step()
+    bx, by = [x[:LC_BATCH]], y[:LC_BATCH]
+    losses = []
+    for _ in range(LC_STEPS):
+        a.state, parts = step(a.state, bx, by)
+        losses.append(float(parts["loss"]))
+    log(f"  longctx losses on one batch over {LC_STEPS} steps: {losses}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"longctx: losses {losses} must be finite and "
+                             "fall")
+    summary["losses_one_batch"] = losses
+    del a, b, x, y
+    torch.cuda.empty_cache()
+    xo, yo = lc_data(LC_BATCH, LC_ORACLE_SEQ, 32)
+    summary["oracle"] = lc_oracle(torch, xo, yo)
+    return summary
+
+
+def _plain_lstm(torch, x, w, p):
+    """An LSTM in plain torch in x's dtype: gates i, f, g, o of
+    x_t Wx + h Wh + b, c and h carried in that dtype."""
+    b, steps, _ = x.shape
+    h = x.new_zeros(b, p.hidden_size)
+    c = x.new_zeros(b, p.hidden_size)
+    hs = []
+    for t in range(steps):
+        z = x[:, t] @ w["wx"] + h @ w["wh"] + w["bias"]
+        i, f, gg, o = (z[:, j * p.hidden_size:(j + 1) * p.hidden_size]
+                       for j in range(4))
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs, 1) if p.return_sequences else hs[-1]
+
+
+def build_nmt_model(torch, spd=1):
+    """build_nmt as examples/python/nmt.py -b 32 runs it, the config made
+    through FFConfig.parse_args."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType, MetricsType
+    from flexflow_tpu_torch.models import build_nmt
+
+    cfg = FFConfig(seed=0, iterations_per_dispatch=spd)
+    cfg.parse_args(["-b", str(NMT_BATCH)])
+    if cfg.batch_size != NMT_BATCH:
+        raise AssertionError(f"parse_args -b: batch {cfg.batch_size}")
+    m = FFModel(cfg)
+    build_nmt(m, cfg.batch_size, src_vocab=NMT_VOCAB, tgt_vocab=NMT_VOCAB,
+              src_len=NMT_LEN, tgt_len=NMT_LEN)
+    m.compile(SGDOptimizer(lr=0.1),
+              LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+              [MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY])
+    return m
+
+
+def nmt(torch):
+    """NMT (5 LSTMs x 32 steps, vocabulary 8000): stepwise fit against the
+    scan over NMT_EPOCHS epochs (bit-equal), the epoch CE falling, ABBA
+    samples/s with the stepwise step's idle share, and one f32 step's
+    gradients against float64."""
+    n = 4 * NMT_BATCH                    # nmt.py's dataset
+    a, b = build_nmt_model(torch), build_nmt_model(torch, NMT_SPD)
+    rng = np.random.RandomState(0)       # nmt.py's data
+    xs = [rng.randint(0, NMT_VOCAB, (n, NMT_LEN)).astype(np.int32)
+          for _ in range(2)]
+    y = rng.randint(0, NMT_VOCAB, (n, NMT_LEN, 1)).astype(np.int32)
+    text, ce, gap, peak, counts = scan_vs_stepwise(
+        torch, "nmt", a, b, xs, y, xs, y, NMT_EPOCHS)
+    if not all(np.isfinite(ce)) or not ce[-1] < ce[0]:
+        raise AssertionError(f"nmt: epoch CE {ce} must be finite and fall")
+    summary = {"model": "build_nmt (examples/python/nmt.py -b 32)",
+               "batch": NMT_BATCH, "vocab": NMT_VOCAB, "src_len": NMT_LEN,
+               "tgt_len": NMT_LEN, "embed": 256, "hidden": 512, "layers": 2,
+               "precision": "f32", "optimizer": "SGD lr 0.1",
+               "loss": "sparse categorical CE", "samples": n,
+               "epochs": NMT_EPOCHS, "iterations_per_dispatch": NMT_SPD,
+               "weights": sum(w.numel() for ws in a.params.values()
+                              for w in ws.values()),
+               "epoch_ce": ce, "scan_vs_stepwise": gap, "peak_mem_gb": peak,
+               "launches": counts}
+    summary.update(fit_readings(text))
+    summary.update(zoo_timing(torch, "nmt", a, b, xs, y, n, NMT_BATCH,
+                              NMT_SPD))
+    summary["oracle"] = grad_oracle(
+        torch, "nmt", a, [v[:NMT_BATCH] for v in xs], y[:NMT_BATCH],
+        "sparse", NMT_ORACLE_RTOL, NMT_ORACLE_LOSS_RTOL)
+    return summary
+
+
+def fused_gap(torch, fused, unfused):
+    """weight_gap of a fused model against an unfused one, each fused
+    step's weights read under its chain op's name."""
+    differ, total = 0, 0
+    for op in fused.executor.topo:
+        chain = getattr(op, "fused_from", None)
+        for n, w in fused.params.get(op.name, {}).items():
+            if chain is None:
+                v = unfused.params[op.name][n]
+            else:
+                step, name = n.split("/", 1)
+                v = unfused.params[chain[int(step[4:])]][name]
+            total += 1
+            differ += not torch.equal(w, v)
+    return {"weights": total, "weights_not_bit_equal": differ}
+
+
+def fusion(torch):
+    """--fusion on the flagship Transformer: the fused PCG (its OP_FUSED
+    nodes counted), `fit` of the fused model stepwise and as scans of
+    SCAN_SPD against the unfused model's stepwise fit from the same
+    weights (epoch lines and weights bit for bit), and ABBA samples/s of
+    the unfused against the fused model."""
+    from flexflow_tpu_torch.ff_types import OperatorType
+    from flexflow_tpu_torch.kernels import build
+
+    u = build_transformer_model(torch)
+    f1, fs = (build_transformer_model(torch, spd, fusion=True)
+              for spd in (1, SCAN_SPD))
+    n_fused = sum(op.op_type == OperatorType.OP_FUSED for op in f1.graph.ops)
+    if n_fused != LAYERS or len(f1.graph.ops) != 2 * LAYERS:
+        raise AssertionError(f"fusion: {n_fused} fused ops in "
+                             f"{len(f1.graph.ops)}, expected {LAYERS} of "
+                             f"{2 * LAYERS}")
+    for m in (f1, fs):
+        start = fused_gap(torch, m, u)
+        if start["weights_not_bit_equal"]:
+            raise AssertionError(f"fusion: the models start apart {start}")
+    n = FUSION_BATCHES * TRAIN_BATCH
+    rng = np.random.RandomState(41)
+    x, y = (rng.randn(n, TRAIN_SEQ, HIDDEN).astype(np.float32)
+            for _ in range(2))
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    _, lines_u, _ = fit_lines(torch, u, x, y, 1)
+    counts_u = dict(build.launch_counts)
+    build.reset_launch_counts()
+    _, lines_f, _ = fit_lines(torch, f1, x, y, 1)
+    _, lines_s, _ = fit_lines(torch, fs, x, y, 1)
+    counts = dict(build.launch_counts)
+    paths = dict(build.path_counts)
+    gaps = {"stepwise": fused_gap(torch, f1, u),
+            "scan": fused_gap(torch, fs, u)}
+    log(f"  fusion: unfused {lines_u}; fused {lines_f}; fused scan "
+        f"{lines_s}; {gaps}")
+    if (lines_f != lines_u or lines_s != lines_u
+            or any(g["weights_not_bit_equal"] for g in gaps.values())):
+        raise AssertionError(f"fusion: fused vs unfused {lines_f} "
+                             f"{lines_s} vs {lines_u}, {gaps}")
+    # the fused fits launch the kernels the unfused fit does: stepwise
+    # FUSION_BATCHES steps, the scan as many plus one warm-up step
+    want = (2 * FUSION_BATCHES + 1) * LAYERS
+    check_training_counts("fused fits", counts, {
+        "flash_fwd": want, "flash_bwd": want, "paged_decode": 0})
+    check_wgmma_paths("fused fits", counts, paths)
+    if counts_u["flash_fwd"] != FUSION_BATCHES * LAYERS:
+        raise AssertionError(f"unfused fit: {counts_u}")
+    ru, rf = restorer(torch, u), restorer(torch, f1)
+    timing = abba(torch, {
+        "unfused": lambda: timed_turn(torch, u, ru, x, y),
+        "fused": lambda: timed_turn(torch, f1, rf, x, y)}, FUSION_ROUNDS, n)
+    log(f"  fusion ABBA x{FUSION_ROUNDS}: unfused "
+        f"{timing['unfused']['samples_per_s_median']:.2f} samples/s, fused "
+        f"{timing['fused']['samples_per_s_median']:.2f} "
+        f"(x{timing['speedup_median']:.4f})")
+    return {"model": "flagship Transformer (bench.py's default leg), "
+                     "perform_fusion", "fused_ops": n_fused,
+            "pcg_ops": len(f1.graph.ops), "unfused_pcg_ops": len(u.graph.ops),
+            "batches": FUSION_BATCHES, "iterations_per_dispatch": SCAN_SPD,
+            "epoch_lines": lines_u, "fused_vs_unfused": gaps,
+            "launches": counts, "launches_unfused": counts_u,
+            "abba": timing}
+
+
 def wgmma_build_report(build):
     """Registers, spill bytes and shared memory of each wgmma kernel
     instance, from ptxas's report in the build log (-Xptxas -v) and the
@@ -3299,6 +3834,18 @@ def main() -> int:
 
     log("# zoo phase: CANDLE-Uno, MLP_Unify, XDL")
     zo = zoo(torch)
+    torch.cuda.empty_cache()
+
+    log("# longctx phase: the long-context Transformer at 32768 positions")
+    lc = longctx(torch)
+    torch.cuda.empty_cache()
+
+    log("# nmt phase: the LSTM seq2seq model")
+    nm = nmt(torch)
+    torch.cuda.empty_cache()
+
+    log("# fusion phase: the flagship Transformer with --fusion")
+    fu = fusion(torch)
 
     # the CNN and zoo paths run none of the three kernels (cuDNN
     # convolutions and cuBLAS products, as the JAX package's are XLA's);
@@ -3310,7 +3857,12 @@ def main() -> int:
                 "bert_scan": bscan["launches"],
                 "alexnet": alex["launches"], "resnext": rx["launches"],
                 "moe": moe_summary["launches"], "dlrm": dl["launches"],
-                "inception": inc["launches"], "zoo": zo["launches"]}
+                "inception": inc["launches"], "zoo": zo["launches"],
+                "longctx": lc["launches"], "nmt": nm["launches"],
+                "fusion": fu["launches"]}
+    # rows 1 and 2 at the long-context model's shape (bound by operations)
+    for k in kernels[:2]:
+        k["long_context_shape"] = lc["flash_long_shape"][k["name"]]
     for k in kernels:
         k["launches_by_phase"] = {p: c.get(k["name"], 0)
                                   for p, c in by_phase.items()}
@@ -3320,7 +3872,8 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "wmma_ms", "block_ms", "path")
+            "bound_by", "library_ms", "wmma_ms", "block_ms", "path",
+            "long_context_shape")
     line = {"kernels": [{k: kr[k] for k in keys if k in kr}
                         for kr in kernels]}
     for row in line["kernels"]:
@@ -3329,7 +3882,7 @@ def main() -> int:
     report.update(kernels=kernels, serving=summary, training=training,
                   training_scan=scan, bert=bert_summary, bert_scan=bscan,
                   alexnet=alex, resnext=rx, moe=moe_summary, dlrm=dl,
-                  inception=inc, zoo=zo)
+                  inception=inc, zoo=zo, longctx=lc, nmt=nm, fusion=fu)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -3374,6 +3927,26 @@ def main() -> int:
     log(json.dumps({"dlrm": dl}))
     log(json.dumps({"inception": inc}))
     log(json.dumps({"zoo": zo}))
+    lcs = lc["flash_long_shape"]
+    log(smi + " " + json.dumps({"longctx_nmt_fusion": {
+        "longctx": dict(readings(lc), losses_one_batch=lc["losses_one_batch"],
+                        oracle_worst=lc["oracle"]["worst_grad_rel_err"],
+                        flash_fwd_ms=lcs["flash_fwd"]["ms"],
+                        flash_fwd_bound_ms=lcs["flash_fwd"]["bound_ms"],
+                        flash_fwd_sdpa_ms=lcs["flash_fwd"]["library_ms"],
+                        flash_bwd_ms=lcs["flash_bwd"]["ms"],
+                        flash_bwd_bound_ms=lcs["flash_bwd"]["bound_ms"],
+                        flash_bwd_sdpa_ms=lcs["flash_bwd"]["library_ms"]),
+        "nmt": dict(readings(nm), epoch_ce=nm["epoch_ce"],
+                    oracle_worst=nm["oracle"]["worst_grad_rel_err"]),
+        "fusion": {"fused_ops": fu["fused_ops"],
+                   "samples_per_s_unfused":
+                   fu["abba"]["unfused"]["samples_per_s_median"],
+                   "samples_per_s_fused":
+                   fu["abba"]["fused"]["samples_per_s_median"]}}}))
+    log(json.dumps({"longctx": lc}))
+    log(json.dumps({"nmt": nm}))
+    log(json.dumps({"fusion": fu}))
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

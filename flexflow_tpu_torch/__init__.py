@@ -18,13 +18,17 @@ with running statistics, flat: AlexNet from its `.ff` export through
 data loaders, ResNet and ResNeXt-50); and the rest of the zoo (the shape
 ops, reductions and top_k, batch_matmul, PReLU, the MoE ops with their
 balance loss, Cache: DLRM, Inception-v3, CANDLE-Uno, MLP_Unify, XDL and
-the MoE Transformer).
+the MoE Transformer); the long-context Transformer (chunked attention
+off the card), the LSTM with the NMT model, and --fusion.
 """
 from .config import FFConfig  # noqa: F401
 from .core.initializers import (  # noqa: F401
     ConstantInitializer,
     GlorotUniformInitializer,
     Initializer,
+    NormInitializer,
+    OneInitializer,
+    UniformInitializer,
     ZeroInitializer,
 )
 from .core.dataloader import SingleDataLoader  # noqa: F401

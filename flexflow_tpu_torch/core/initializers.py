@@ -1,8 +1,9 @@
 """Weight initializers.
 
 The PyTorch counterpart of flexflow_tpu/core/initializers.py (reference:
-src/runtime/initializer.cc), with the initializers the ported ops name:
-glorot_uniform, zero, one and "constant:<value>" (PReLU's slope). Each draws from an explicit `torch.Generator`;
+src/runtime/initializer.cc): glorot_uniform, zero(s), one(s),
+"constant:<value>" (PReLU's slope), uniform and normal (norm). Each draws
+from an explicit `torch.Generator`;
 the executor seeds one from FFConfig.seed and draws on the CPU, so a seed
 gives the same weights on every device. JAX's PRNG and torch's give
 different numbers from one seed: to compare the two packages, carry
@@ -63,8 +64,40 @@ class ConstantInitializer(Initializer):
         return torch.full(tuple(shape), self.value, dtype=dtype)
 
 
+@dataclasses.dataclass
+class UniformInitializer(Initializer):
+    """Uniform on [min_value, max_value), drawn in f32. `seed` is the
+    reference's argument: the draws come from the generator handed in."""
+
+    seed: int = 0
+    min_value: float = 0.0
+    max_value: float = 1.0
+
+    def __call__(self, gen, shape, dtype):
+        u = torch.rand(tuple(shape), generator=gen, dtype=torch.float32)
+        return (self.min_value + (self.max_value - self.min_value) * u
+                ).to(dtype)
+
+
+@dataclasses.dataclass
+class NormInitializer(Initializer):
+    """Normal with `mean` and `stddev`, drawn in f32. `seed` is the
+    reference's argument: the draws come from the generator handed in."""
+
+    seed: int = 0
+    mean: float = 0.0
+    stddev: float = 1.0
+
+    def __call__(self, gen, shape, dtype):
+        z = torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+        return (self.mean + self.stddev * z).to(dtype)
+
+
 _BY_NAME = {"glorot_uniform": GlorotUniformInitializer(),
-            "zero": ZeroInitializer(), "one": OneInitializer()}
+            "zero": ZeroInitializer(), "zeros": ZeroInitializer(),
+            "one": OneInitializer(), "ones": OneInitializer(),
+            "uniform": UniformInitializer(), "normal": NormInitializer(),
+            "norm": NormInitializer()}
 
 
 def get_initializer(spec) -> Initializer:

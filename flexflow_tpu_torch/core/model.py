@@ -3,10 +3,11 @@
 The PyTorch counterpart of flexflow_tpu/core/model.py: the builder methods
 of the ported ops (the ones the served LM, the flagship Transformer, the
 PyTorch frontend, the CNNs and the rest of the zoo call: the shape ops,
-the reductions and top_k, batch_matmul, PReLU and the MoE family with
-its `moe` composite; an op with several outputs returns their list),
-`compile` on the manual single-device branch
-(it creates the label tensor, `get_label_tensor`), `init_layers`,
+the reductions and top_k, batch_matmul, PReLU, the MoE family with its
+`moe` composite and the LSTM; an op with several outputs returns their
+list), `compile` on the manual single-device branch (it creates the
+label tensor, `get_label_tensor`; with `config.perform_fusion` it packs
+op chains into fused ops, pcg/fusion.py), `init_layers`,
 `create_data_loader`, `fit` and `eval` (training; both take arrays or
 data loaders), `predict` (serving) and the stepwise API
 (`set_iteration_batch`, `forward`, `zero_gradients`, `backward`,
@@ -31,6 +32,7 @@ and telemetry are not ported.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -47,6 +49,7 @@ from ..ops.elementwise import (ElementBinaryParams, ElementUnaryParams,
                                PReluParams)
 from ..ops.embedding import EmbeddingParams
 from ..ops.linear import LinearParams
+from ..ops.lstm import LSTMParams
 from ..ops.moe import (AggregateParams, AggregateSpecParams, CacheParams,
                        GroupByParams)
 from ..ops.normalization import BatchNormParams, LayerNormParams
@@ -59,6 +62,7 @@ from ..ops.tensor_ops import (CastParams, ConcatParams, FlatParams,
                               ReverseParams, SplitParams, SqueezeParams,
                               TransposeParams, UnsqueezeParams, WhereParams)
 from ..parallel.executor import PCGExecutor, TrainState
+from ..pcg.fusion import apply_fusion
 from ..pcg.lowering import layers_to_pcg
 from .dataloader import SingleDataLoader
 from .losses import to_loss_type
@@ -414,6 +418,16 @@ class FFModel:
                                ReduceParams(tuple(dims), keepdims), [input],
                                name)
 
+    def lstm(self, input: Tensor, hidden_size: int,
+             return_sequences: bool = True, name: str = "") -> Tensor:
+        """An LSTM over (batch, seq, features) (ops/lstm.py): the hidden
+        states of every step, or the last step's with return_sequences
+        False."""
+        return self._add_layer(OperatorType.OP_LSTM,
+                               LSTMParams(hidden_size=hidden_size,
+                                          return_sequences=return_sequences),
+                               [input], name)
+
     def top_k(self, input: Tensor, k: int, sorted: bool = True,
               name: str = "") -> List[Tensor]:
         """[values, int32 indices] of the k largest along the last axis,
@@ -503,12 +517,17 @@ class FFModel:
         if optimizer is not None:
             self.optimizer = optimizer
         if self.optimizer is None:
-            # the JAX package's default, SGD at its config's default lr
-            self.optimizer = SGDOptimizer()
+            # the JAX package's default, SGD at the config's rate
+            self.optimizer = SGDOptimizer(lr=self.config.learning_rate)
         self.loss_type = (to_loss_type(loss_type) if loss_type is not None
                           else None)
         self.metrics = tuple(metrics)
         self.graph, tensor_map = layers_to_pcg(self.layers)
+        if self.config.perform_fusion:
+            # reference: apply_fusion (model.cc:2495, --fusion); the
+            # chains' weights move under their fused ops
+            self.graph = apply_fusion(self.graph)
+        self._check_probability_tail()
         if self.label_tensor is None:
             # class ids (..., 1) for sparse CE, else the output's shape
             logits_pt = self.graph.output_tensors()[-1]
@@ -539,6 +558,26 @@ class FFModel:
         self.state = self.executor.init_state()
         self.perf_metrics = PerfMetrics()
         self._rng = torch.Generator().manual_seed(self.config.seed)
+
+    def _check_probability_tail(self) -> None:
+        """Warn, as the JAX package does, when a cross-entropy loss is
+        put on an output that is not a probability (its value-producing
+        tail op, through --fusion chains and shape-only steps)."""
+        if self.loss_type not in (
+                LossType.LOSS_CATEGORICAL_CROSSENTROPY,
+                LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY):
+            return
+        guid = self.graph.output_tensors()[-1].guid
+        op = next(o for o in self.graph.ops
+                  if any(t.guid == guid for t in o.outputs))
+        tail_type, tail_params = _resolve_value_tail(op)
+        if not _probability_like_tail(tail_type, tail_params):
+            warnings.warn(
+                "cross-entropy losses expect probability outputs (the "
+                "reference's loss kernels take them; loss_functions.cc) but "
+                f"the model's final op is {tail_type.name} — raw logits get "
+                "clipped to [1e-12, 1] and gradients die. End the model "
+                "with model.softmax(...).")
 
     def init_layers(self) -> None:
         """Initialize every weight, the optimizer state and the stateful
@@ -740,6 +779,32 @@ class FFModel:
         self.state.step += 1
         self._pending_grads = None
         self._pending_net_state = None
+
+
+_SHAPE_ONLY_OPS = (OperatorType.OP_RESHAPE, OperatorType.OP_FLAT,
+                   OperatorType.OP_NOOP, OperatorType.OP_IDENTITY)
+
+
+def _resolve_value_tail(op):
+    """(op type, params) of the step that produced an output's VALUES:
+    --fusion chains unpacked and shape-only steps skipped (the JAX
+    package's `_resolve_value_tail`)."""
+    steps = ([(s[0], s[1]) for s in op.params.chain]
+             if op.op_type == OperatorType.OP_FUSED and op.params.chain
+             else [(op.op_type, op.params)])
+    for op_type, params in reversed(steps):
+        if op_type not in _SHAPE_ONLY_OPS:
+            return op_type, params
+    return steps[-1]
+
+
+def _probability_like_tail(op_type, params) -> bool:
+    """Does this value-producing tail op emit probabilities (in [0, 1])?
+    A softmax or a sigmoid, or an op with a fused sigmoid activation
+    (DLRM's last dense)."""
+    if op_type in (OperatorType.OP_SOFTMAX, OperatorType.OP_SIGMOID):
+        return True
+    return getattr(params, "activation", None) == ActiMode.AC_MODE_SIGMOID
 
 
 def _unwrap_loaders(x, y):

@@ -507,6 +507,33 @@ def _is_scalar(v) -> bool:
     return isinstance(v, (int, float))
 
 
+def _slice_is_identity(x, idx) -> bool:
+    """True when x[idx] would return x unchanged (static shapes): full
+    slices, an Ellipsis expanded over the dims it stands for."""
+    items = idx if isinstance(idx, tuple) else (idx,)
+    if sum(1 for it in items if it is Ellipsis) > 1:
+        return False
+    if any(it is Ellipsis for it in items):
+        pos = items.index(Ellipsis)
+        n_missing = len(x.dims) - (len(items) - 1)
+        if n_missing < 0:
+            return False
+        items = items[:pos] + (slice(None),) * n_missing + items[pos + 1:]
+    if (len(items) > len(x.dims)
+            or any(not isinstance(it, slice) for it in items)):
+        return False
+    for dim, sl in zip(x.dims, items):
+        try:
+            bounds = slice(*(None if v is None else int(v)
+                             for v in (sl.start, sl.stop, sl.step))
+                           ).indices(dim)
+        except (TypeError, ValueError):
+            return False
+        if bounds != (0, dim, 1):
+            return False
+    return True
+
+
 def _cast_row(ff, target, x, args, kwargs):
     """to / type_as / float / half / double / type: a Cast op, or x
     itself where only the device changes (placement is the model's)."""
@@ -642,10 +669,23 @@ def _replay_fn(ff, target: str, args, kwargs):
     if target == "getitem":
         if isinstance(x, (list, tuple)):
             return x[args[1]]
-        owner_op = getattr(getattr(x, "owner_layer", None), "op_type", None)
-        if args[1] == 0 and owner_op == OperatorType.OP_MULTIHEAD_ATTENTION:
-            # MultiheadAttention's (output, weights) maps to its single
-            # output tensor; true tensor indexing stays a loud error
+        idx = args[1]
+        if _slice_is_identity(x, idx):
+            # e.g. T5's position_bias[:, :, -seq_len:, :] with no KV cache
             return x
-        raise NotImplementedError(f"getitem[{args[1]}] on single-output op")
+        if (isinstance(idx, tuple) and any(it is None for it in idx)
+                and all(it is None or (isinstance(it, slice)
+                                       and it == slice(None))
+                        for it in idx)):
+            # newaxis-only indexing: unsqueeze at the None positions
+            return ff.unsqueeze(x, [i for i, it in enumerate(idx)
+                                    if it is None])
+        owner_op = getattr(getattr(x, "owner_layer", None), "op_type", None)
+        if idx == 0 and owner_op in (OperatorType.OP_MULTIHEAD_ATTENTION,
+                                     OperatorType.OP_LSTM):
+            # tuple-returning torch modules (MultiheadAttention's (output,
+            # weights), LSTM's (output, state)) map to their single output
+            # tensor; true tensor indexing stays a loud error
+            return x
+        raise NotImplementedError(f"getitem[{idx}] on single-output op")
     raise NotImplementedError(f"torch call {target}")

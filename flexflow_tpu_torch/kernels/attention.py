@@ -18,7 +18,15 @@ take; on CPU tensors it runs
 `flash_fwd_plain` / `flash_bwd_plain`, the same arithmetic in plain
 PyTorch. There is no fallback between the two.
 `flash_attention_folded` joins them through `FlashAttentionFolded`, the
-counterpart of the JAX package's custom VJP `_flash_folded_core`.
+counterpart of the JAX package's custom VJP `_flash_folded_core`, and
+`flash_attention` runs it on (batch, seq, heads, head_dim) operands.
+
+`chunked_attention` (over `_chunk_scan`) is the JAX package's
+memory-efficient exact attention in plain PyTorch: an online softmax over
+K/V chunks, differentiable through autograd, on any device.
+`local_attention` is the single-device streaming dispatch: the flash
+kernels on a CUDA tensor (they stream K/V through shared memory, so any
+length fits), `chunked_attention` elsewhere.
 """
 from __future__ import annotations
 
@@ -61,6 +69,75 @@ def _bhsd_to_fold(x: torch.Tensor) -> torch.Tensor:
 def _fold_to_bhsd(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
     bh, s, d = x.shape
     return x.reshape(b, h, s, d).permute(0, 2, 1, 3)
+
+
+# ---------------------------------------------------------------------------
+# Chunked (online-softmax) attention
+# ---------------------------------------------------------------------------
+
+def _chunk_scan(q, k, v, *, causal: bool, chunk_size: int, q_offset=0,
+                kv_offset=0):
+    """Online-softmax accumulation over K/V chunks of `chunk_size` keys,
+    the JAX package's `_chunk_scan`. q: (b, sq, h, d), k: (b, sk, h, d),
+    v: (b, sk, h, dv). Scores and the running (max m, sum l, accumulator)
+    are f32; keys past sk (the last chunk's padding) and, when causal,
+    keys after their query (positions offset by q_offset / kv_offset) are
+    masked with NEG_INF; m starts at NEG_INF and l is clamped at 1e-30.
+    Returns (out (b, sq, h, dv) in q's dtype, m, l (b, h, sq) f32)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    dv = v.shape[-1]
+    n_chunks = max(1, -(-sk // chunk_size))
+    pad = n_chunks * chunk_size - sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    q32 = q.float()
+    q_pos = q_offset + torch.arange(sq, device=dev)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        blk = slice(ci * chunk_size, (ci + 1) * chunk_size)
+        s = torch.einsum("bqhd,bkhd->bhqk", q32, k[:, blk].float()) * scale
+        kv_pos = (kv_offset + ci * chunk_size
+                  + torch.arange(chunk_size, device=dev))
+        mask = (kv_pos <= sk + kv_offset - 1)[None, :]     # padding
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p, v[:, blk].float())
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype), m, l
+
+
+def chunked_attention(q, k, v, *, causal: bool = False,
+                      chunk_size: int = 256):
+    """Memory-efficient exact attention: (b, s, h, d) -> (b, s, h, dv).
+    O(s * chunk) scores at a time, differentiable through autograd."""
+    out, _, _ = _chunk_scan(q, k, v, causal=causal,
+                            chunk_size=min(chunk_size, k.shape[1]))
+    return out
+
+
+def local_attention(q, k, v, *, causal: bool = False):
+    """The JAX package's single-device streaming policy on (b, s, h, d)
+    operands: the flash kernels on a CUDA tensor (`flash_attention`; they
+    stream K/V and take any length), `chunked_attention` elsewhere. The
+    MHA op does not come here: it projects into the folded layout and
+    calls the kernels itself on the card, and `chunked_attention` off
+    it."""
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, causal)
+    return chunked_attention(q, k, v, causal=causal)
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +461,22 @@ _MANTISSA_BITS = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}
 # round dS or P to the other side of a boundary.
 FLASH_BWD_TOL = {torch.bfloat16: (3e-3, 2.0 ** -7),
                  torch.float16: (5e-4, 2.0 ** -10)}
+# The norm of a 16-bit kernel's error over the norm of the output it is
+# held to (O, dq, dk or dv, each whole), which unlike the per-element
+# limits above does not depend on the outputs' scale. Each output comes
+# from one product whose 16-bit operand (P, or dS) was rounded once, and
+# is rounded once itself: on random operands each rounding, spread evenly
+# over +-u (the unit roundoff, half a step), adds u / sqrt(3) of the
+# output's norm, and two add 0.82 u. The limit is 2u, one step of the
+# dtype at 1.
+FLASH_NORM_TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+def rel_norm_err(got, ref) -> float:
+    """||got - ref|| / ||ref|| over every element, in f32."""
+    ref = ref.float()
+    return (torch.linalg.vector_norm(got.float() - ref)
+            / torch.linalg.vector_norm(ref)).item()
 
 
 def _ulp(x, dtype):
@@ -527,3 +620,15 @@ def flash_attention_folded(qf, kf, vf, causal: bool = False, *,
         return FlashAttentionFolded.apply(qf, kf, vf, causal, dropout, seeds)
     return _flash_fwd_folded(qf, kf, vf, causal=causal, dropout=dropout,
                              seeds=seeds)[0]
+
+
+def flash_attention(q, k, v, causal: bool = False, *, dropout: float = 0.0,
+                    seeds=None):
+    """`flash_attention_folded` on (batch, seq, heads, head_dim) operands:
+    folded to (batch*heads, seq, head_dim), run through the kernels (the
+    plain versions on CPU tensors) and unfolded; returns (b, sq, h, dv)."""
+    b, _, h, _ = q.shape
+    out = flash_attention_folded(
+        *(_bhsd_to_fold(x).contiguous() for x in (q, k, v)), causal,
+        dropout=dropout, seeds=seeds)
+    return _fold_to_bhsd(out, b, h)

@@ -1,13 +1,14 @@
-"""Workload-zoo models: the MoE Transformer.
+"""Workload-zoo models: the MoE Transformer and the long-context
+Transformer.
 
-The PyTorch counterpart of flexflow_tpu/models/zoo.py's
-`build_moe_transformer`. Its `build_long_context_transformer` waits for
-chunked attention.
+The PyTorch counterpart of flexflow_tpu/models/zoo.py. Default sizes are
+the real workloads; tests pass CPU-sized overrides.
 """
 from __future__ import annotations
 
 from ..core.model import FFModel
 from ..ff_types import DataType
+from .transformer import create_attention_encoder
 
 
 def build_moe_transformer(model: FFModel, batch_size: int,
@@ -35,6 +36,28 @@ def build_moe_transformer(model: FFModel, batch_size: int,
                       expert_hidden_size=hidden_size, alpha=capacity_factor,
                       lambda_bal=lambda_bal)
         t = model.reshape(t, (batch_size, seq_length, hidden_size))
+    t = model.dense(t, num_classes)
+    t = model.softmax(t)
+    return input_t, t
+
+
+def build_long_context_transformer(model: FFModel, batch_size: int = 4,
+                                   seq_length: int = 32768,
+                                   hidden_size: int = 512,
+                                   num_heads: int = 8, num_layers: int = 2,
+                                   num_classes: int = 10):
+    """The flagship encoder at long context: 32k positions, small batch,
+    the blocks of build_transformer (models/transformer.py), then a dense
+    classifier and a softmax per position. Its attention streams: the
+    flash kernels on the card, chunked attention off it past the score
+    budget (ops/attention.py). Returns (input, output)."""
+    input_t = model.create_tensor((batch_size, seq_length, hidden_size),
+                                  DataType.DT_FLOAT, name="tokens")
+    t = input_t
+    kdim = hidden_size // num_heads
+    for _ in range(num_layers):
+        t = create_attention_encoder(model, t, hidden_size, num_heads, kdim,
+                                     kdim)
     t = model.dense(t, num_classes)
     t = model.softmax(t)
     return input_t, t

@@ -9,18 +9,24 @@ JAX package's names and layouts: wq/wk/wv (embed, heads, head_dim), wo
 (kernels/attention.py: the forward kernel, and in training the backward
 kernel through its autograd Function) whenever the tensors are on CUDA,
 in any compute dtype; the kernels raise on a shape they do not take. On
-the CPU it takes the dense masked path. FF_ATTENTION_IMPL picks the path
-as in the JAX package: "auto" (unset: flash on CUDA, dense on the CPU),
-"flash" (the folded path on any device; on the CPU its wrappers run the
-kernels' plain versions) or "dense" (the masked reference path, on any
-device); "chunked", "ring" and "ulysses" are not ported and raise.
+the CPU it takes the dense masked path, or, once the f32 scores of the
+call would pass STREAMING_SCORE_BYTES, streams through
+`chunked_attention` (what the JAX package's one-device dispatch,
+`local_attention`, runs off its kernels' device). FF_ATTENTION_IMPL
+picks the path as in the JAX package: "auto" (unset: the above), "flash" (the folded path on any device; on the
+CPU its wrappers run the kernels' plain versions), "chunked"
+(`chunked_attention` on any device) or "dense" (the masked reference
+path, on any device); "ring" and "ulysses" need multi-device execution,
+which is not ported, and raise.
 Attention dropout applies where the JAX package applies it (dropout > 0,
 training, an rng given): the folded path hands the rate and
 `dropout_seeds(rng)` to the flash kernels, which rebuild the
 counter-based keep-mask per tile; the dense path multiplies its
 probabilities by the same mask built whole (`attention_dropout_mask`),
-so both paths drop the same elements. Serving never drops. The seeds
-are the op's seed-table entry on the device (what a captured train step
+so both paths drop the same elements. The chunked path threads no
+dropout: where it would run with dropout the op takes the dense path
+instead, with the JAX package's one-time warning. Serving never drops.
+The seeds are the op's seed-table entry on the device (what a captured train step
 reads at replay) or, called with a host int, `dropout_seeds` of it.
 Serving reads its compute-dtype weights from the executor's cache
 (ops/common.py `WeightCache`) instead of casting them per call.
@@ -140,16 +146,43 @@ def _dense_attention(q, k, v, keep, dropout: float = 0.0, seeds=None):
                         v.float()).to(q.dtype)
 
 
+# "auto" streams off the card once one call's f32 scores (4*b*h*s*t
+# bytes) would pass this (the JAX package's per-device budget)
+STREAMING_SCORE_BYTES = 256 * 1024 * 1024
+
+_FALLBACK_WARNED: set = set()
+_FALLBACK_DETAIL = {
+    "kernel": "FF_ATTENTION_IMPL={impl} does not thread the dropout rng "
+              "(only the flash kernels do)",
+    "backend": "the flash kernels need a CUDA device, and off the card "
+               "the streaming path (chunked) threads no dropout rng",
+}
+
+
+def _dropout_fallback(impl: str, op_name: str, reason: str) -> None:
+    """Warn once per (impl, op, reason) that attention dropout keeps the
+    dense path where `impl` would have streamed."""
+    key = (impl, op_name, reason)
+    if key in _FALLBACK_WARNED:
+        return
+    _FALLBACK_WARNED.add(key)
+    warnings.warn(
+        f"attention dropout on {op_name or 'a MHA op'} "
+        f"(FF_ATTENTION_IMPL={impl}) falls back to the dense path: "
+        + _FALLBACK_DETAIL[reason].format(impl=impl))
+
+
 def _attention_impl() -> str:
     impl = os.environ.get("FF_ATTENTION_IMPL", "auto")
     if impl not in ("auto", "dense", "flash", "chunked", "ring", "ulysses"):
         raise ValueError(
             f"FF_ATTENTION_IMPL={impl!r}: "
             "expected auto|dense|flash|chunked|ring|ulysses")
-    if impl in ("chunked", "ring", "ulysses"):
+    if impl in ("ring", "ulysses"):
         raise NotImplementedError(
-            f"FF_ATTENTION_IMPL={impl}: not ported to flexflow_tpu_torch "
-            "yet (auto, flash and dense are)")
+            f"FF_ATTENTION_IMPL={impl}: sequence parallelism needs "
+            "multi-device execution, which is not ported to "
+            "flexflow_tpu_torch yet (auto, flash, chunked and dense are)")
     return impl
 
 
@@ -183,14 +216,25 @@ def _forward(params: MultiHeadAttentionParams, weights, inputs, ctx):
             dropout=rate, seeds=seeds)
         return [_project_out(params, weights, "bhsd,hde->bse",
                              attn.view(b, h, seq_len, dv), wo, q_in.dtype, ctx)]
+    score_bytes = 4 * b * h * seq_len * kv_len
+    streaming = impl == "chunked" or (
+        impl == "auto" and score_bytes > STREAMING_SCORE_BYTES)
+    if streaming and use_dropout:
+        _dropout_fallback(impl, ctx.op_name,
+                          "kernel" if impl == "chunked" else "backend")
+        streaming = False
     q = torch.einsum("bse,ehd->bshd", q_in, wq)
     k = torch.einsum("bse,ehd->bshd", k_in, wk)
     v = torch.einsum("bse,ehd->bshd", v_in, wv)
-    keep = None
-    if params.causal:
-        keep = torch.ones(seq_len, kv_len, dtype=torch.bool,
-                          device=q.device).tril()
-    attn = _dense_attention(q, k, v, keep, rate, seeds)
+    if streaming:
+        # O(seq) memory: chunked on request, or "auto" off the card
+        attn = katt.chunked_attention(q, k, v, causal=params.causal)
+    else:
+        keep = None
+        if params.causal:
+            keep = torch.ones(seq_len, kv_len, dtype=torch.bool,
+                              device=q.device).tril()
+        attn = _dense_attention(q, k, v, keep, rate, seeds)
     return [_project_out(params, weights, "bshd,hde->bse", attn, wo,
                          q_in.dtype, ctx)]
 

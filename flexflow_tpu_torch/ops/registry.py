@@ -131,5 +131,5 @@ class FwdCtx:
 def ensure_ops_loaded():
     """Import all op modules so their register_op calls run."""
     from . import (attention, batch_matmul, conv2d, dropout,  # noqa: F401
-                   elementwise, embedding, linear, moe, normalization,
-                   pool2d, reduce, softmax, tensor_ops)
+                   elementwise, embedding, fused, linear, lstm, moe,
+                   normalization, pool2d, reduce, softmax, tensor_ops)

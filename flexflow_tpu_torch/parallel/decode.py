@@ -12,7 +12,8 @@ position flows through it:
 
 Axis info propagates forward from the decode input through per-op rules.
 An op the rules cannot prove exact raises DecodeExactnessError at build
-time. The JAX package's further rules (primitive-op attention through
+time; so does a fused op (--fusion), which has no rule in the JAX package
+either. The JAX package's further rules (primitive-op attention through
 batch_matmul with prefix caches, reshapes, transposes, static slicing and
 the causality proof over baked masks) come with the ops they govern.
 """

@@ -66,6 +66,7 @@ def layers_to_pcg(layers: List[Layer]) -> Tuple[Graph, Dict[int, int]]:
             )
             op.weights.append(wpt)
             op.weight_names.append(spec.name)
+            op.weight_tags.append(spec.parallel_dim_tags)
             op.initializers[spec.name] = layer.initializers.get(
                 spec.name, spec.initializer)
         for wt, wpt in zip(layer.weights, op.weights):

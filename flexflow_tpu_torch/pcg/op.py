@@ -7,7 +7,7 @@ inputs/outputs/weights -- whose execution is the registered forward.
 from __future__ import annotations
 
 import itertools
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 from ..ff_types import OperatorType
 from .parallel_tensor import ParallelTensor
@@ -29,6 +29,8 @@ class PCGOp:
         self.outputs: List[ParallelTensor] = []
         self.weights: List[ParallelTensor] = []
         self.weight_names: List[str] = []
+        # each weight's parallel-dim tags (its WeightSpec's)
+        self.weight_tags: List[Tuple[str, ...]] = []
         self.layer_guid = layer_guid
         # initializer per weight name (resolved at executor init)
         self.initializers: Dict[str, object] = {}

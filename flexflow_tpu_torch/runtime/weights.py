@@ -8,6 +8,10 @@ a compiled model of this package, after checking that the two name sets
 and every shape agree. `net_state_from_numpy` does the same for the
 stateful ops' buffers (BatchNorm's running mean and variance,
 `TrainState.net_state`), so both packages can start from one state.
+
+A fused op (pcg/fusion.py, --fusion) keeps its chain's weights as
+`step<i>/<name>`, as the JAX package's fused graph does, so JAX's fused
+params carry over as they are.
 """
 from __future__ import annotations
 

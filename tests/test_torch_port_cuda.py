@@ -1023,3 +1023,78 @@ def test_scan_with_cache_and_balance_loss_equals_stepwise_on_the_card(gen):
                 assert torch.equal(ta[op][n], tb[op][n]), f"{tree} {op}.{n}"
     (bufs,) = b.state.net_state.values()
     assert float(bufs["filled"]) == 1.0
+
+
+def _assert_norm_close(got, ref):
+    """||got - ref|| / ||ref|| under FLASH_NORM_TOL, a limit no scale of
+    the values moves."""
+    err = ka.rel_norm_err(got, ref)
+    assert err <= ka.FLASH_NORM_TOL[got.dtype], f"||err||/||ref|| {err}"
+
+
+def test_flash_at_a_long_length_matches_chunked_attention(gen):
+    """local_attention on the card takes the flash kernels (wgmma) at
+    8192 positions; the forward against chunked_attention on the same
+    bf16 values in f32 (the flash limit: chunked keeps P in f32, which
+    the limit's P term covers), and the backward, with dO live on one
+    block of 128 queries (every other row's dS is then exactly 0), against
+    the plain backward over that block under the derived limit. At this
+    length |O| ~ sqrt(e / 8192) and |dv| ~ 2e-3, under the limits' atol,
+    so every output is also held by the norm of its error
+    (FLASH_NORM_TOL), and the live dO is scaled by 2^10 (exact in bf16;
+    the backward's products and roundings scale with it), which puts dk
+    and dv near 1, where the derived limit's rtol and slack decide."""
+    b, s, h, d = 1, 8192, 2, 64
+    q, k, v = (_randn(gen, b, s, h, d) for _ in range(3))
+    before = dict(build.path_counts)
+    out = ka.local_attention(q, k, v, causal=False)
+    ref = ka.chunked_attention(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert build.path_counts["flash_fwd_wgmma"] == \
+        before["flash_fwd_wgmma"] + 1
+    _assert_close(out, ref, "flash")
+    _assert_norm_close(out, ref)
+    qf, kf, vf = (ka._bhsd_to_fold(x).contiguous() for x in (q, k, v))
+    o, lse = ka._flash_fwd_cuda(qf, kf, vf, causal=False)
+    do = torch.zeros_like(o)
+    rows = slice(4096, 4096 + 128)
+    do[:, rows] = _randn(gen, b * h, 128, d) * 2.0 ** 10
+    got = ka._flash_bwd_cuda(qf, kf, vf, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    ins = (qf[:, rows].contiguous(), kf, vf, o[:, rows].contiguous(),
+           lse[:, :, rows].contiguous(), do[:, rows].contiguous())
+    ref = ka.flash_bwd_plain(*ins, causal=False)
+    assert not got[0][:, :4096].any() and not got[0][:, 4096 + 128:].any()
+    got = (got[0][:, rows], got[1], got[2])
+    _assert_bwd_close(got, ref, ins, causal=False)
+    for g, r in zip(got, ref):
+        _assert_norm_close(g, r)
+
+
+def _nmt(spd):
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType
+    from flexflow_tpu_torch.models import build_nmt
+
+    m = FFModel(FFConfig(batch_size=8, seed=0, iterations_per_dispatch=spd))
+    build_nmt(m, 8, src_vocab=64, tgt_vocab=64, src_len=6, tgt_len=5,
+              embed_dim=16, hidden=32, num_layers=2)
+    m.compile(SGDOptimizer(lr=0.1),
+              LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    return m
+
+
+def test_lstm_in_a_captured_scan_equals_stepwise_on_the_card(gen):
+    """NMT's five LSTMs (their step loops captured in the scan's CUDA
+    graph): fit with iterations_per_dispatch 2 over 5 batches against
+    stepwise fit, every weight bit for bit."""
+    rng = np.random.RandomState(6)
+    xs = [rng.randint(0, 64, (40, n)).astype(np.int32) for n in (6, 5)]
+    y = rng.randint(0, 64, (40, 5, 1)).astype(np.int32)
+    a, b = _nmt(1), _nmt(2)
+    a.fit(xs, y, epochs=2)
+    b.fit(xs, y, epochs=2)
+    assert b.executor._scan_graphs
+    for op, ws in a.params.items():
+        for n, w in ws.items():
+            assert torch.equal(w, b.params[op][n]), f"{op}.{n}"

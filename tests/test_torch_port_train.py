@@ -265,24 +265,26 @@ def test_training_with_dropout_raises_where_jax_would_apply_it():
 
 def test_attention_impl_env(monkeypatch):
     """FF_ATTENTION_IMPL as in JAX: unknown values raise ValueError, the
-    unported streaming kernels NotImplementedError; "flash" runs the
-    folded path through the flash autograd Function (on the CPU its plain
-    versions) and gives the dense path's gradients."""
+    sequence-parallel kernels (multi-device) NotImplementedError; "flash"
+    runs the folded path through the flash autograd Function (on the CPU
+    its plain versions) and "chunked" the online-softmax scan, and both
+    give the dense path's gradients."""
     m = _mha_model(0.0)
     (x, y), = _batches(7, 1)
     grad = m.executor.build_grad_step()
     monkeypatch.setenv("FF_ATTENTION_IMPL", "bogus")
     with pytest.raises(ValueError, match="FF_ATTENTION_IMPL"):
         m.executor.build_forward()(m.params, [x])
-    for impl in ("chunked", "ring", "ulysses"):
+    for impl in ("ring", "ulysses"):
         monkeypatch.setenv("FF_ATTENTION_IMPL", impl)
         with pytest.raises(NotImplementedError):
             grad(m.params, [x], y)
     monkeypatch.setenv("FF_ATTENTION_IMPL", "dense")
     dense = grad(m.params, [x], y)
-    monkeypatch.setenv("FF_ATTENTION_IMPL", "flash")
-    flash = grad(m.params, [x], y)
-    _assert_params_close(flash, dense, rtol=RTOL, atol=GRAD_ATOL)
+    for impl in ("flash", "chunked"):
+        monkeypatch.setenv("FF_ATTENTION_IMPL", impl)
+        _assert_params_close(grad(m.params, [x], y), dense, rtol=RTOL,
+                             atol=GRAD_ATOL)
 
 
 def test_apply_is_differentiable_and_serving_records_no_graph():
