@@ -113,7 +113,21 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
  12. --fusion: the flagship Transformer compiled with perform_fusion
      (one OP_FUSED node a block), fit stepwise and as a scan against the
      unfused model's fit from the same weights, bit for bit, and ABBA
-     samples/s of the two.
+     samples/s of the two;
+ 13. the Unity search: the flagship compiled with search_budget 10 in the
+     measured mode (search/measure.py: each operator's forward and
+     forward-with-backward timed at its shard shapes in CUDA graphs of R
+     and 4R calls, the attention op through both flash kernels) on the
+     default machine of H100s, for 1 worker and for 8 simulated workers
+     (that winner exported to chiprun_out/ and read back by
+     import_strategy). Every compute op of each winner must be priced
+     from a finite measurement, no measurement may be below 0.9 x the
+     bound of what its calls moved and computed, the measurement must
+     launch both flash kernels on wgmma; each op type's measured times
+     stand beside the analytic model's and the bound. Each winner,
+     demoted to the one card, trains SEARCH_STEPS steps beside an
+     unsearched compile from the same weights on the same batches: bit
+     for bit where it keeps the lowering's compute ops.
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -154,8 +168,8 @@ line, a `zoo_models` line (after the card's name and power limit), a
 `moe`, a `dlrm`, an `inception` and a `zoo` line, a
 `longctx_nmt_fusion` line (after the card's name and power limit; the
 `kernels` line's flash rows carry their long-context shape's readings),
-a `longctx`, an `nmt` and a `fusion` line and, last, {"ok": true,
-"device": {...}}. Details go to chiprun_out/chip_smoke.json.
+a `longctx`, an `nmt` and a `fusion` line, a `search` line (after the
+card's name and power limit) and, last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import contextlib
 import io
@@ -165,6 +179,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -3609,6 +3624,249 @@ def fusion(torch):
             "abba": timing}
 
 
+# The search phase: the flagship searched with search_budget 10 in the
+# measured mode, for 1 worker and for 8 simulated H100 workers; each
+# winner trains SEARCH_STEPS steps beside an unsearched compile on the
+# same batches. A measured time may sit at its roofline bound but not
+# below: SEARCH_BOUND_FLOOR leaves room for the events' microsecond
+# resolution and for a clock above base.
+SEARCH_BUDGET, SEARCH_WORKERS, SEARCH_STEPS = 10, 8, 4
+SEARCH_BOUND_FLOOR = 0.9
+# a winner whose compute ops differ from the lowering's (a merge
+# rewrite) starts from other weights: its losses are held to the
+# unsearched model's within this relative limit instead of bit for bit
+SEARCH_LOSS_RTOL = 0.05
+
+
+def measured_flops(rec):
+    """Forward FLOPs of one shard the measurer timed (search/measure.py
+    Measurement), from the shapes it ran: a Linear's product, or an
+    attention op's projections, scores, weighted sum and output
+    projection."""
+    if rec.op_type == "OP_LINEAR":
+        return 2.0 * float(np.prod(rec.shard_shapes[0])) * \
+            rec.weight_shapes[0][-1]
+    if rec.op_type == "OP_MULTIHEAD_ATTENTION":
+        (b, sq, e), (_, sk, _), _ = rec.shard_shapes
+        _, h, d = rec.weight_shapes[0]
+        dv, out = rec.weight_shapes[3][1], rec.weight_shapes[3][2]
+        return (2.0 * b * sq * e * h * d * 3 + 2.0 * b * h * sq * sk * d
+                + 2.0 * b * h * sq * sk * dv + 2.0 * b * sq * h * dv * out)
+    raise AssertionError(f"no FLOP count for {rec.op_type}")
+
+
+def measured_bounds(rec):
+    """(forward, forward with backward) least times in seconds of what
+    one measurement's calls moved and computed on an H100: the bytes the
+    forward call read and wrote (and the gradients the other call wrote
+    besides) over the HBM rate, and the forward's FLOPs (three times
+    them with the backward: dgrad and wgrad, or attention's four
+    products against two) over the bf16 peak; times the shards a device
+    runs."""
+    flops = measured_flops(rec)
+    fwd = max(rec.fwd_bytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOP_PER_S)
+    total = max((rec.fwd_bytes + rec.grad_bytes) / PEAK_BYTES_PER_S,
+                3 * flops / PEAK_BF16_FLOP_PER_S)
+    return fwd * rec.shards_per_device, total * rec.shards_per_device
+
+
+def build_searched_model(torch, workers, export=""):
+    """The flagship as the training phase builds it, compiled with the
+    Unity search in the measured mode for `workers` H100s (the default
+    machine, search/machine_model.py h100_machine)."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType, MetricsType
+    from flexflow_tpu_torch.models import build_transformer
+
+    m = FFModel(FFConfig(batch_size=TRAIN_BATCH, allow_mixed_precision=True,
+                         seed=0, search_budget=SEARCH_BUDGET,
+                         measure_operator_costs=True,
+                         search_num_workers=workers,
+                         export_strategy_file=export))
+    build_transformer(m, TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS, LAYERS)
+    t0 = time.perf_counter()
+    m.compile(SGDOptimizer(lr=0.01),
+              LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
+              [MetricsType.METRICS_MEAN_SQUARED_ERROR])
+    torch.cuda.synchronize()
+    return m, time.perf_counter() - t0
+
+
+def search_run(torch, workers, export=""):
+    """One measured search: its host seconds, what it measured (each
+    measurement held to its bound), each op type's measured times beside
+    the analytic model's and the bound, the winner, and the flash
+    launches the measurement made by path."""
+    from flexflow_tpu_torch.kernels import build
+
+    build.reset_launch_counts()
+    model, secs = build_searched_model(torch, workers, export)
+    counts, paths = dict(build.launch_counts), dict(build.path_counts)
+    phases = dict(model.compile_phase_s)
+    meas = model.measurer
+    table = model.searched_op_costs
+    # every compute op of the winner priced from a finite measurement
+    bad = [e["name"] for e in table
+           if not (e["measured"] and e["measurement"] is not None
+                   and np.isfinite(e["fwd_s"]) and np.isfinite(e["bwd_s"]))]
+    if not table or bad:
+        raise AssertionError(f"search x{workers}: ops of the winner not "
+                             f"measured: {bad or 'no ops'}")
+    below = []
+    for rec in meas.measurements.values():
+        fb, tb = measured_bounds(rec)
+        if not (np.isfinite(rec.fwd_s) and np.isfinite(rec.total_s)):
+            below.append((rec.op_type, "not finite"))
+        if rec.fwd_s < SEARCH_BOUND_FLOOR * fb \
+                or rec.total_s < SEARCH_BOUND_FLOOR * tb:
+            below.append((rec.op_type, rec.shard_shapes, rec.fwd_s, fb,
+                          rec.total_s, tb))
+    if below:
+        raise AssertionError(f"search x{workers}: measured below "
+                             f"{SEARCH_BOUND_FLOOR} x bound: {below}")
+    if not (paths["flash_fwd_wgmma"] and paths["flash_bwd_wgmma"]):
+        raise AssertionError(f"search x{workers}: the measurement launched "
+                             f"no flash forward and backward on wgmma: "
+                             f"{paths}")
+    check_wgmma_paths(f"search x{workers}", counts, paths)
+    by_type = {}
+    for e in table:
+        if e["op_type"] in by_type:
+            continue
+        rec = e["measurement"]
+        fb, tb = measured_bounds(rec)
+        by_type[e["op_type"]] = {
+            "shard_shapes": rec.shard_shapes, "view": e["view"],
+            "measured_fwd_ms": 1e3 * e["fwd_s"],
+            "measured_bwd_ms": 1e3 * e["bwd_s"],
+            "analytic_fwd_ms": 1e3 * e["analytic_fwd_s"],
+            "analytic_bwd_ms": 1e3 * e["analytic_bwd_s"],
+            "bound_fwd_ms": 1e3 * fb, "bound_fwd_bwd_ms": 1e3 * tb,
+            "measured_fwd_bwd_ms": 1e3 * rec.total_s,
+            "repeats": rec.repeats}
+    views = sorted({str(list(e["view"][1])) for e in table})
+    out = {"workers": workers, "compile_s": secs,
+           "search_s": phases.get("strategy_search"), "phases_s": phases,
+           "measured_keys": len(meas.measurements),
+           "fallbacks": meas.fallbacks, "searched_cost": model.searched_cost,
+           "winner_ops": [e["op_type"] for e in table],
+           "winner_view_dims": views, "by_op_type": by_type,
+           "measurement_launches": counts,
+           "measurement_launches_by_path": {k: v for k, v in paths.items()
+                                            if v}}
+    log(f"  search x{workers}: compile {secs:.1f}s (search "
+        f"{out['search_s']:.1f}s), {out['measured_keys']} keys measured, "
+        f"cost {model.searched_cost:.6g}, views {views}, flash "
+        f"{out['measurement_launches_by_path']}")
+    for t, r in by_type.items():
+        log(f"    {t}: fwd {r['measured_fwd_ms']:.4f} ms (analytic "
+            f"{r['analytic_fwd_ms']:.4f}, bound {r['bound_fwd_ms']:.4f}); "
+            f"bwd {r['measured_bwd_ms']:.4f} ms (analytic "
+            f"{r['analytic_bwd_ms']:.4f}); fwd+bwd bound "
+            f"{r['bound_fwd_bwd_ms']:.4f}")
+    return model, out
+
+
+def compute_ops(model):
+    return [op for op in model.executor.topo if not op.is_parallel_op]
+
+
+def compute_signature(model):
+    """The compiled graph's compute ops in topo order: type, weight names
+    and shapes (not op names: a rule's rewrite names the op it builds
+    afresh, in both packages)."""
+    return [(op.op_type.name, tuple(op.weight_names),
+             tuple(tuple(w.material_shape()) for w in op.weights))
+            for op in compute_ops(model)]
+
+
+def search(torch):
+    """The Unity search on the card: the flagship (bench.py's default
+    leg at full width) searched with the measured mode for 1 H100 and for
+    8 simulated H100s (the winner exported to chiprun_out/ and read back
+    by import_strategy), each winner demoted to the one card and trained
+    SEARCH_STEPS steps beside an unsearched compile on the same batches."""
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.runtime.strategy_io import import_strategy
+
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    export = os.path.join(out_dir, f"search_strategy_x{SEARCH_WORKERS}.json")
+    if os.path.exists(export):
+        os.remove(export)
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in build.launch_counts}
+    runs, models = {}, {}
+    for workers in (1, SEARCH_WORKERS):
+        models[workers], runs[workers] = search_run(
+            torch, workers, export if workers > 1 else "")
+        for k, v in runs[workers]["measurement_launches"].items():
+            total[k] += v
+    recs = import_strategy(export)
+    if len(recs) != len(models[SEARCH_WORKERS].searched_views):
+        raise AssertionError(f"exported strategy: {len(recs)} records for "
+                             f"{len(models[SEARCH_WORKERS].searched_views)} "
+                             "ops")
+    runs[SEARCH_WORKERS]["exported"] = os.path.relpath(export, REPO)
+    runs[SEARCH_WORKERS]["exported_records"] = len(recs)
+    # training: the unsearched compile and each winner from the same
+    # weights, on the same batches
+    base = build_transformer_model(torch)
+    lowering = compute_signature(base)
+    start = {op: {n: w.clone() for n, w in ws.items()}
+             for op, ws in base.params.items()}
+    rng = np.random.RandomState(43)
+    x, y = (rng.randn(SEARCH_STEPS * TRAIN_BATCH, TRAIN_SEQ,
+                      HIDDEN).astype(np.float32) for _ in range(2))
+    build.reset_launch_counts()
+    _, lines_base, _ = fit_lines(torch, base, x, y, 1)
+    for workers, m in models.items():
+        same_ops = compute_signature(m) == lowering
+        if same_ops:
+            # the winner's op for each of the lowering's, by position
+            name = {a.name: b.name
+                    for a, b in zip(compute_ops(base), compute_ops(m))}
+            with torch.no_grad():
+                for op, ws in start.items():
+                    for n, w in ws.items():
+                        m.params[name[op]][n].copy_(w)
+        _, lines, _ = fit_lines(torch, m, x, y, 1)
+        gap = (weight_gap(torch, base, types.SimpleNamespace(params={
+            op: m.params[name[op]] for op in base.params}))
+            if same_ops else None)
+        runs[workers]["training"] = {
+            "steps": SEARCH_STEPS, "keeps_lowering_ops": same_ops,
+            "epoch_line": lines, "unsearched_epoch_line": lines_base,
+            "weights_vs_unsearched": gap}
+        if same_ops:
+            if gap["weights_not_bit_equal"] or lines != lines_base:
+                raise AssertionError(f"search x{workers}: the winner trained "
+                                     f"apart from the unsearched compile: "
+                                     f"{gap}, {lines} vs {lines_base}")
+        else:
+            la = float(re.search(r"loss=(\S+)", lines[0]).group(1))
+            lb = float(re.search(r"loss=(\S+)", lines_base[0]).group(1))
+            runs[workers]["training"]["loss_rel_diff"] = abs(la - lb) / lb
+            if not abs(la - lb) <= SEARCH_LOSS_RTOL * abs(lb):
+                raise AssertionError(f"search x{workers}: loss {la} vs "
+                                     f"unsearched {lb}")
+        log(f"  search x{workers}: winner trained {SEARCH_STEPS} steps, "
+            f"keeps the lowering's ops: {same_ops}; vs unsearched {gap}")
+    train_counts = dict(build.launch_counts)
+    for k, v in train_counts.items():
+        total[k] += v
+    check_wgmma_paths("search training", train_counts, build.path_counts)
+    # three fits of SEARCH_STEPS steps
+    check_training_counts("search training", train_counts, {
+        "flash_fwd": 3 * SEARCH_STEPS * LAYERS,
+        "flash_bwd": 3 * SEARCH_STEPS * LAYERS, "paged_decode": 0})
+    return {"model": "flagship Transformer (bench.py's default leg), "
+                     f"search_budget {SEARCH_BUDGET}, measured",
+            "x1": runs[1], f"x{SEARCH_WORKERS}": runs[SEARCH_WORKERS],
+            "training_launches": train_counts, "launches": total,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def wgmma_build_report(build):
     """Registers, spill bytes and shared memory of each wgmma kernel
     instance, from ptxas's report in the build log (-Xptxas -v) and the
@@ -3846,6 +4104,10 @@ def main() -> int:
 
     log("# fusion phase: the flagship Transformer with --fusion")
     fu = fusion(torch)
+    torch.cuda.empty_cache()
+
+    log("# search phase: the Unity search, operators measured on the card")
+    se = search(torch)
 
     # the CNN and zoo paths run none of the three kernels (cuDNN
     # convolutions and cuBLAS products, as the JAX package's are XLA's);
@@ -3859,7 +4121,7 @@ def main() -> int:
                 "moe": moe_summary["launches"], "dlrm": dl["launches"],
                 "inception": inc["launches"], "zoo": zo["launches"],
                 "longctx": lc["launches"], "nmt": nm["launches"],
-                "fusion": fu["launches"]}
+                "fusion": fu["launches"], "search": se["launches"]}
     # rows 1 and 2 at the long-context model's shape (bound by operations)
     for k in kernels[:2]:
         k["long_context_shape"] = lc["flash_long_shape"][k["name"]]
@@ -3882,7 +4144,8 @@ def main() -> int:
     report.update(kernels=kernels, serving=summary, training=training,
                   training_scan=scan, bert=bert_summary, bert_scan=bscan,
                   alexnet=alex, resnext=rx, moe=moe_summary, dlrm=dl,
-                  inception=inc, zoo=zo, longctx=lc, nmt=nm, fusion=fu)
+                  inception=inc, zoo=zo, longctx=lc, nmt=nm, fusion=fu,
+                  search=se)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -3947,6 +4210,21 @@ def main() -> int:
     log(json.dumps({"longctx": lc}))
     log(json.dumps({"nmt": nm}))
     log(json.dumps({"fusion": fu}))
+
+    def searched(r):
+        return {k: r[k] for k in (
+            "search_s", "compile_s", "measured_keys", "searched_cost",
+            "winner_view_dims", "by_op_type",
+            "measurement_launches_by_path", "fallbacks")} | {
+            "trained_vs_unsearched": r["training"]["weights_vs_unsearched"],
+            "keeps_lowering_ops": r["training"]["keeps_lowering_ops"]}
+
+    log(smi + " " + json.dumps({"search": {
+        "x1": searched(se["x1"]),
+        f"x{SEARCH_WORKERS}": dict(searched(se[f"x{SEARCH_WORKERS}"]),
+                                   exported=se[f"x{SEARCH_WORKERS}"][
+                                       "exported"]),
+        "phase_s": se["phase_s"]}}))
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,115 @@
+"""Graph-wellformedness pass: wiring, validity, acyclicity.
+
+The PyTorch counterpart of flexflow_tpu/analysis/structure.py. Backs
+`Graph.check_correctness` (pcg/graph.py), which the substitution engine
+uses as the gate on every rewrite candidate -- so this pass stays cheap
+(O(V+E), no recursion) and holds exactly the invariants the reference's
+Graph::check_correctness promises: every op input either comes from
+another op in the graph or is a true graph input, every tensor is
+produced at most once, shapes are valid, and the graph is acyclic.
+
+Codes: FFA001 dangling input, FFA002 invalid dims, FFA003 cycle,
+FFA004 duplicate producer.
+"""
+from __future__ import annotations
+
+from typing import List
+
+from .diagnostics import AnalysisReport, Severity
+
+
+def structural_diagnostics(graph) -> AnalysisReport:
+    rep = AnalysisReport()
+    producers = {}
+    for op in graph.ops:
+        for i, t in enumerate(op.outputs):
+            if t.guid in producers:
+                other = producers[t.guid][0]
+                rep.add(
+                    Severity.ERROR, "FFA004",
+                    f"tensor {t.guid} produced by both {other.name} and "
+                    f"{op.name} (output {i})",
+                    op=op,
+                    fix_hint="a rewrite duplicated a tensor; rebuild the "
+                             "destination op's outputs with fresh tensors",
+                )
+            else:
+                producers[t.guid] = (op, i)
+            if not t.check_valid():
+                rep.add(
+                    Severity.ERROR, "FFA002",
+                    f"output {i} has invalid dims {t.get_shape()!r} "
+                    "(degree < 1, size not divisible by degree, or a "
+                    "replica dim whose size != degree)",
+                    op=op,
+                )
+    op_guids = {op.guid for op in graph.ops}
+    for op in graph.ops:
+        for j, t in enumerate(op.inputs):
+            if t.guid in producers:
+                continue
+            owner = getattr(t, "owner_op", None)
+            owner_guid = getattr(owner, "guid", None)
+            if owner is not None and owner_guid not in op_guids:
+                rep.add(
+                    Severity.ERROR, "FFA001",
+                    f"input {j} (tensor {t.guid}) is produced by "
+                    f"{getattr(owner, 'name', owner_guid)!r}, which is not "
+                    "in the graph — dangling input, not a graph input",
+                    op=op,
+                    fix_hint="the rewrite that removed the producer must "
+                             "rewire this consumer to a mapped output",
+                )
+            # owner None -> true graph input: fine
+    _check_acyclic(graph, producers, rep)
+    return rep
+
+
+def _check_acyclic(graph, producers, rep: AnalysisReport) -> None:
+    """Iterative DFS with white/gray/black coloring (graph.topo_order's
+    recursive visit terminates on cycles but silently yields a broken
+    order — the analyzer must name the cycle instead)."""
+    WHITE, GRAY, BLACK = 0, 1, 2
+    color = {op.guid: WHITE for op in graph.ops}
+    by_guid = {op.guid: op for op in graph.ops}
+    for root in graph.ops:
+        if color[root.guid] != WHITE:
+            continue
+        stack = [(root, iter(_dep_guids(root, producers)))]
+        color[root.guid] = GRAY
+        while stack:
+            op, it = stack[-1]
+            advanced = False
+            for dep_guid in it:
+                c = color.get(dep_guid)
+                if c == GRAY:
+                    dep = by_guid[dep_guid]
+                    rep.add(
+                        Severity.ERROR, "FFA003",
+                        f"dependency cycle through {dep.name} and {op.name}",
+                        op=op,
+                    )
+                    continue
+                if c == WHITE:
+                    dep = by_guid[dep_guid]
+                    color[dep_guid] = GRAY
+                    stack.append((dep, iter(_dep_guids(dep, producers))))
+                    advanced = True
+                    break
+            if not advanced:
+                color[op.guid] = BLACK
+                stack.pop()
+
+
+def _dep_guids(op, producers) -> List[int]:
+    out = []
+    for t in op.inputs:
+        p = producers.get(t.guid)
+        if p is not None:
+            out.append(p[0].guid)
+    return out
+
+
+def graph_is_wellformed(graph) -> bool:
+    """Boolean gate for Graph.check_correctness: no ERROR diagnostics."""
+    return structural_diagnostics(graph).ok

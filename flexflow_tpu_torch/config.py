@@ -16,16 +16,16 @@ construction: the port never continues on the CPU by itself.
 Like the JAX package's, a config reads the reference's command-line
 flags (`parse_args`, model.cc:3556 spellings) from sys.argv[1:] when it
 is made. A flag whose field this package reads sets it; a flag of a
-feature not ported here (the strategy search and its simulator, strategy
-files, multi-node and multi-device parallelism, profiling) raises
-NotImplementedError naming the flag; anything else is skipped, as the
-reference passes unknown flags on to Legion.
+feature not ported here (the memory-aware search, the topology machine
+model, strategy import, multi-node and multi-device execution,
+profiling) raises NotImplementedError naming the flag; anything else is
+skipped, as the reference passes unknown flags on to Legion.
 """
 from __future__ import annotations
 
 import dataclasses
 import sys
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -58,9 +58,37 @@ class FFConfig:
     # devices; 0 = all visible cards. One by default: compile() runs on
     # one device and refuses more until multi-device execution is ported
     workersPerNode: int = 1
-    # strategy search (>= 0) is not ported yet: compile() refuses it;
-    # -1 = the manual lowering
+    # the Unity strategy search (search/): >= 0 runs it at compile()
+    # (0 = the JAX package's default budget of 10 expansions); -1 = the
+    # manual lowering
     search_budget: int = -1
+    # best-first pruning: candidates costing more than alpha x the best
+    # are dropped (reference config.h search_alpha)
+    search_alpha: float = 1.2
+    # no search, whatever the budget (reference --only-data-parallel)
+    only_data_parallel: bool = False
+    # read by no substitution generator in either package; kept so the
+    # reference's flags parse to the same fields
+    enable_parameter_parallel: bool = False
+    enable_attribute_parallel: bool = False
+    # a simulated machine for the search (-1 = the config's own): the
+    # winner is searched for this many nodes x workers, then demoted to
+    # the one device the port runs on
+    search_num_nodes: int = -1
+    search_num_workers: int = -1
+    # price operators from times measured on the device
+    # (search/measure.py) instead of the analytic roofline
+    measure_operator_costs: bool = False
+    # a JSON file the measurements persist in across runs ("" = memory)
+    measured_cache_path: str = ""
+    # write the searched strategy here (runtime/strategy_io.py)
+    export_strategy_file: str = ""
+    # a key = value machine description (search/machine_model.py
+    # parse_machine_config); "" = the H100's published numbers
+    machine_model_file: str = ""
+    # a substitution-rule collection to search with instead of the
+    # shipped ones (search/substitutions/*.json)
+    substitution_json_path: Optional[str] = None
     # bf16 compute (and KV cache) over f32 master weights
     allow_mixed_precision: bool = False
     seed: int = 0
@@ -131,35 +159,38 @@ _FLAGS = {
     "-ll:gpu": ("workersPerNode", int), "-ll:tpu": ("workersPerNode", int),
     "--budget": ("search_budget", int),
     "--search-budget": ("search_budget", int),
+    "--alpha": ("search_alpha", float), "--search-alpha": ("search_alpha", float),
+    "--search-num-nodes": ("search_num_nodes", int),
+    "--search-num-workers": ("search_num_workers", int),
+    "--measured-cache": ("measured_cache_path", str),
+    "--export": ("export_strategy_file", str),
+    "--export-strategy": ("export_strategy_file", str),
+    "--machine-model-file": ("machine_model_file", str),
+    "--substitution-json": ("substitution_json_path", str),
     "--iterations-per-dispatch": ("iterations_per_dispatch", int),
 }
 # flags without a value that set a field to True
-_SWITCHES = {"--fusion": "perform_fusion"}
+_SWITCHES = {
+    "--fusion": "perform_fusion",
+    "--only-data-parallel": "only_data_parallel",
+    "--enable-parameter-parallel": "enable_parameter_parallel",
+    "--enable-attribute-parallel": "enable_attribute_parallel",
+    "--measured-search": "measure_operator_costs",
+}
 # the JAX package's flags whose features are not ported: what each sets
 _UNPORTED_FLAGS = {
     "--wd": "the config's weight decay (read by no optimizer)",
     "-wd": "the config's weight decay (read by no optimizer)",
     "-ll:cpu": "CPU workers per node",
     "--nodes": "multi-node execution",
-    "--alpha": "the strategy search", "--search-alpha": "the strategy search",
-    "--only-data-parallel": "the strategy search",
-    "--enable-parameter-parallel": "the strategy search",
-    "--enable-attribute-parallel": "the strategy search",
     "--enable-sequence-parallel": "sequence parallelism",
     "--profiling": "op profiling",
-    "--measured-search": "the measured strategy search",
-    "--measured-cache": "the measured strategy search",
-    "--search-num-nodes": "the strategy search",
-    "--search-num-workers": "the strategy search",
-    "--export": "strategy export", "--export-strategy": "strategy export",
     "--import": "strategy import", "--import-strategy": "strategy import",
-    "--memory-search": "the memory-aware search",
+    "--memory-search": "the memory-aware search (search/memory_optimization.py)",
     "--overlap-backward-update": "overlapped gradient synchronisation",
     "--no-overlap-backward-update": "overlapped gradient synchronisation",
     "--fsdp-degree": "FSDP weight sharding",
-    "--machine-model-version": "the search's machine model",
-    "--machine-model-file": "the search's machine model",
-    "--substitution-json": "the search's substitutions",
+    "--machine-model-version": "the topology-aware machine model (search/network.py)",
     "--simulator-workspace-size": "the search's simulator",
     "--iterations": "the config's iteration count",
 }

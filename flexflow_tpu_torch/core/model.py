@@ -19,10 +19,17 @@ by (op name, weight name) (runtime/weights.py).
 
 `compile` builds the loss, the metrics and the optimizer state into
 `self.state` (a TrainState); `self.params` is `self.state.params`, the one
-dict that training updates and serving reads. It refuses a strategy search
-(search_budget >= 0) and more than one device, neither of which is ported
-yet. `fit` is the JAX package's loop: per-epoch metrics, the reference's
-throughput line, each step's seed drawn from the model's CPU generator
+dict that training updates and serving reads. With `search_budget >= 0`
+it runs the Unity strategy search first (substitutions and the DP over
+machine views, priced by the machine and cost models of search/, from
+times measured on the device with `measure_operator_costs`) for the
+configured machine -- a machine file, or H100s with their published
+numbers -- and then demotes the winner to the one device it runs on, as
+the JAX package does on a smaller mesh. Each compile records its phases
+and the search's decisions in `self.search_trajectory`. More than one
+device is refused: multi-device execution is not ported yet. `fit` is
+the JAX package's loop: per-epoch metrics, the reference's throughput
+line, each step's seed drawn from the model's CPU generator
 (as the JAX loop splits its key), and one eager train step per batch or,
 with `config.iterations_per_dispatch` N > 1, chunks of N batches through
 the executor's train scan (one CUDA graph replay per chunk on a card),
@@ -61,6 +68,7 @@ from ..ops.tensor_ops import (CastParams, ConcatParams, FlatParams,
                               GatherParams, ReshapeParams, ResizeParams,
                               ReverseParams, SplitParams, SqueezeParams,
                               TransposeParams, UnsqueezeParams, WhereParams)
+from ..obs.trajectory import SearchTrajectory
 from ..parallel.executor import PCGExecutor, TrainState
 from ..pcg.fusion import apply_fusion
 from ..pcg.lowering import layers_to_pcg
@@ -499,21 +507,31 @@ class FFModel:
                                "call compile() first")
         return self.label_tensor
 
-    def compile(self, optimizer=None, loss_type=None, metrics: Sequence = ()):
-        """Lower the layers to a PCG and initialize the weights and the
-        optimizer state on `config.device`. A model compiled without a
-        loss_type serves but cannot train. Only the manual single-device
-        branch is ported: a strategy search or more than one device
-        raises."""
-        if self.config.search_budget >= 0:
+    def compile(self, optimizer=None, loss_type=None, metrics: Sequence = (),
+                calibration=None, artifact_store=None):
+        """Lower the layers to a PCG, choose its strategy (the Unity search
+        when config.search_budget >= 0 and not only_data_parallel) and
+        initialize the weights and the optimizer state on
+        `config.device`. A model compiled without a loss_type serves but
+        cannot train. More than one device, a calibration store and an
+        artifact store are not ported and raise."""
+        if calibration is not None:
             raise NotImplementedError(
-                "strategy search (search_budget >= 0) is not ported to "
-                "flexflow_tpu_torch yet; use search_budget=-1")
+                "compile(calibration=...): measured calibration stores (the "
+                "JAX package's obs/calibration.py) are not ported to "
+                "flexflow_tpu_torch yet; measure_operator_costs prices ops "
+                "from the device instead")
+        if artifact_store is not None:
+            raise NotImplementedError(
+                "compile(artifact_store=...): the strategy artifact store "
+                "(the JAX package's runtime/artifact_store.py) is not "
+                "ported to flexflow_tpu_torch yet")
         n_dev = self.config.workersPerNode
         if n_dev != 1:
             raise NotImplementedError(
                 f"{n_dev} devices requested: only single-device execution "
-                "is ported to flexflow_tpu_torch (set workersPerNode=1)")
+                "is ported to flexflow_tpu_torch (set workersPerNode=1; "
+                "search_num_workers searches for a bigger machine)")
         if optimizer is not None:
             self.optimizer = optimizer
         if self.optimizer is None:
@@ -522,11 +540,40 @@ class FFModel:
         self.loss_type = (to_loss_type(loss_type) if loss_type is not None
                           else None)
         self.metrics = tuple(metrics)
+        # every compile records its phases and the search's decisions
+        self.search_trajectory = SearchTrajectory()
+        self.compile_phase_s = {}
+        t_phase = time.perf_counter()
         self.graph, tensor_map = layers_to_pcg(self.layers)
         if self.config.perform_fusion:
             # reference: apply_fusion (model.cc:2495, --fusion); the
             # chains' weights move under their fused ops
             self.graph = apply_fusion(self.graph)
+        self._phase("lowering", t_phase,
+                                     ops=len(self.graph.ops))
+        # the user's inputs by their position among the graph's inputs:
+        # a search rewrite copies the graph with fresh tensors, and the
+        # positions survive the copy
+        pre_pos = {pt.guid: i
+                   for i, pt in enumerate(self.graph.input_tensors())}
+        self._fit_input_tensors = [
+            t for t in self.input_tensors
+            if tensor_map.get(t.guid) in pre_pos]
+        positions = [pre_pos[tensor_map[t.guid]]
+                     for t in self._fit_input_tensors]
+        self.searched_views = None
+        self.searched_cost = None
+        self.searched_op_costs = None
+        if self.config.search_budget >= 0 and \
+                not self.config.only_data_parallel:
+            t_phase = time.perf_counter()
+            self._run_strategy_search(1)
+            self.strategy_provenance = {"source": "search"}
+            self._phase("strategy_search", t_phase,
+                                         devices=1)
+        else:
+            # the manual lowering: every degree 1 on the one device
+            self.strategy_provenance = {"source": "manual"}
         self._check_probability_tail()
         if self.label_tensor is None:
             # class ids (..., 1) for sparse CE, else the output's shape
@@ -539,11 +586,9 @@ class FFModel:
                 DataType.DT_INT32 if sparse else logits_pt.data_type,
                 name="label")
             self.label_tensor._model = self
-        graph_inputs = {pt.guid: pt for pt in self.graph.input_tensors()}
-        self._fit_input_tensors = [
-            t for t in self.input_tensors
-            if tensor_map.get(t.guid) in graph_inputs]
+        graph_inputs = self.graph.input_tensors()
         mixed = self.config.allow_mixed_precision
+        t_phase = time.perf_counter()
         self.executor = PCGExecutor(
             self.graph, self.device, optimizer=self.optimizer,
             loss_type=self.loss_type,
@@ -552,12 +597,188 @@ class FFModel:
             # bf16 gradient storage rides mixed precision, as in JAX
             grad_dtype=torch.bfloat16 if mixed else None,
             seed=self.config.seed,
-            input_order=[graph_inputs[tensor_map[t.guid]]
-                         for t in self._fit_input_tensors],
+            input_order=[graph_inputs[i] for i in positions],
             remat=self.config.remat)
+        self._phase("executor_build", t_phase)
+        t_phase = time.perf_counter()
         self.state = self.executor.init_state()
+        self._phase("init_state", t_phase)
         self.perf_metrics = PerfMetrics()
         self._rng = torch.Generator().manual_seed(self.config.seed)
+
+    def _phase(self, name: str, t0: float, **fields) -> None:
+        """Record a compile phase in the trajectory and in
+        `compile_phase_s` (the trajectory is bounded, and a long search
+        can fill it before the phases after it land)."""
+        self.search_trajectory.phase(name, t0, **fields)
+        self.compile_phase_s[name] = time.perf_counter() - t0
+
+    # -- the strategy search --------------------------------------------------
+    def _build_cost_model(self):
+        """The search's cost oracle: the machine of the config's machine
+        file, else H100s with their published numbers
+        (search/machine_model.py h100_machine), search_num_nodes x
+        search_num_workers of them when set (1 x 1 otherwise). No
+        calibration is applied: the port ships no fit."""
+        from ..search import CostModel, h100_machine, parse_machine_config
+
+        cfg = self.config
+        if cfg.machine_model_file:
+            machine = parse_machine_config(cfg.machine_model_file)
+        else:
+            nodes = cfg.search_num_nodes if cfg.search_num_nodes > 0 else 1
+            workers = (cfg.search_num_workers if cfg.search_num_workers > 0
+                       else cfg.workersPerNode)
+            machine = h100_machine(nodes, workers)
+        # the JAX package's default search_survivability_penalty (auto):
+        # a bias toward node-loss-survivable strategies only where nodes
+        # exist as failure domains
+        pen = 0.25 if machine.num_nodes > 1 else 0.0
+        return CostModel(machine, bf16=cfg.allow_mixed_precision,
+                         survivability_penalty=pen)
+
+    def _is_training_compile(self) -> bool:
+        """A compile without a loss serves: it allocates no gradients or
+        optimizer slots, so the memory check charges none."""
+        return self.loss_type is not None
+
+    def _grad_bytes_ratio(self) -> float:
+        """Gradient-buffer width relative to the master weight: 0.5 under
+        the bf16-grad recipe mixed precision uses, else 1.0."""
+        return 0.5 if self.config.allow_mixed_precision else 1.0
+
+    def _run_strategy_search(self, ndev: int) -> None:
+        """Unity search over the lowered PCG (reference: compile's
+        GRAPH_OPTIMIZE_TASK -> GraphSearchHelper::graph_optimize,
+        substitution.cc:1898), then the winner's lowering onto `ndev`
+        devices: every degree that does not fit is demoted to replicated
+        (parallel/strategies.py assign_mesh_axes)."""
+        import os
+
+        from ..parallel import strategies
+        from ..pcg.machine_view import MachineResource
+        from ..search import (GraphSearchHelper, SearchHelper,
+                              generate_all_pcg_xfers,
+                              run_strategy_validators)
+        from ..search.substitution_loader import (
+            default_rules_path, load_rule_collection_from_path,
+            rules_to_substitutions, zoo_rules_path)
+
+        cfg = self.config
+        cost_model = self._build_cost_model()
+        self.search_cost_model = cost_model
+        machine = cost_model.machine
+        self.measurer = None
+        if cfg.measure_operator_costs:
+            # --measured-search: per-op device timing feeds the search
+            from ..search.measure import attach_measured_mode
+
+            self.measurer = attach_measured_mode(
+                cost_model,
+                compute_dtype=(torch.bfloat16
+                               if cfg.allow_mixed_precision else None),
+                device=self.device,
+                cache_path=cfg.measured_cache_path or None)
+        sh = SearchHelper(cost_model, trajectory=self.search_trajectory)
+        degrees = []
+        d = 2
+        while d <= machine.num_workers:
+            degrees.append(d)
+            d *= 2
+        budget = cfg.search_budget if cfg.search_budget > 0 else 10
+        xfers = generate_all_pcg_xfers(degrees or [1], cfg)
+        # declarative rules: --substitution-json, or the shipped ones
+        if cfg.substitution_json_path:
+            # an explicit file that is missing raises: no silent fallback
+            # to the shipped rules
+            rules = load_rule_collection_from_path(cfg.substitution_json_path)
+            xfers = xfers + rules_to_substitutions(rules)
+        else:
+            for rp in (default_rules_path(), zoo_rules_path()):
+                if os.path.exists(rp):
+                    rules = load_rule_collection_from_path(rp)
+                    xfers = xfers + rules_to_substitutions(rules)
+        res = MachineResource(
+            num_nodes=machine.num_nodes,
+            all_procs_per_node=machine.workers_per_node,
+            available_procs_per_node=machine.workers_per_node)
+        gsh = GraphSearchHelper(sh, xfers, alpha=cfg.search_alpha,
+                                budget=budget,
+                                trajectory=self.search_trajectory)
+        best_graph, result = gsh.graph_optimize(self.graph, res)
+        self.graph = best_graph
+        self.searched_views = result.views
+        self.searched_cost = result.cost
+        self._check_searched_memory(cost_model, result)
+        problems = run_strategy_validators(self.graph, self.searched_views,
+                                           ndev)
+        if problems:
+            warnings.warn(
+                "searched strategy failed structural validation (falling "
+                "through to lowering, which demotes infeasible degrees to "
+                "replicated): " + "; ".join(problems[:5]))
+        if cfg.export_strategy_file:
+            from ..runtime.strategy_io import export_strategy
+
+            export_strategy(self.graph, result, cfg.export_strategy_file)
+        self.searched_op_costs = self._searched_op_costs(cost_model, result)
+        self.searched_axes = strategies.assign_mesh_axes(self.graph, ndev)
+
+    def _searched_op_costs(self, cost_model, result) -> List[dict]:
+        """How the winner's compute ops were priced, in topo order: each
+        op's view, whether its cost came from a measurement (and which),
+        and the cost beside the analytic roofline's for the same op and
+        view. Read before the lowering to one device changes the ops'
+        degrees."""
+        from ..search import CostModel
+
+        analytic = CostModel(cost_model.machine, bf16=cost_model.bf16)
+        meas = getattr(cost_model.measure_fn, "measurements", None)
+        table = []
+        for op in self.graph.topo_order():
+            view = result.views.get(op.guid)
+            if op.is_parallel_op or view is None:
+                continue
+            got = cost_model.measure_operator_cost(op, view)
+            ref = analytic.measure_operator_cost(op, view)
+            rec = (meas.get(cost_model.measure_fn.key_of(op, view))
+                   if meas is not None else None)
+            table.append({
+                "name": op.name, "op_type": op.op_type.name,
+                "view": (view.start_device_id, tuple(view.dim),
+                         tuple(view.stride)),
+                "measured": cost_model._key(op, view) in cost_model.measured,
+                "measurement": rec,
+                "fwd_s": got.forward_time, "bwd_s": got.backward_time,
+                "analytic_fwd_s": ref.forward_time,
+                "analytic_bwd_s": ref.backward_time})
+        return table
+
+    def _check_searched_memory(self, cost_model, result) -> None:
+        """The head of the JAX package's _search_pipeline_degree: the
+        winner's per-device training memory (weights, gradients,
+        optimizer slots and activations) against the device's capacity.
+        When it does not fit, the JAX package weighs pipeline stages and
+        a memory-aware re-search; neither is ported, so this raises
+        rather than pick a strategy the port cannot run."""
+        from ..search.memory_optimization import measure_memory
+
+        train = self._is_training_compile()
+        mem = measure_memory(
+            self.graph, result.views, cost_model, train=train,
+            optimizer=self.optimizer,
+            grad_bytes_ratio=self._grad_bytes_ratio()).max_bytes
+        budget = cost_model.machine.chip.hbm_capacity
+        self.search_trajectory.event("memory_check", bytes=mem,
+                                     budget=budget)
+        if mem > budget:
+            raise NotImplementedError(
+                f"the searched strategy needs {mem / 2 ** 20:.0f} MiB a "
+                f"device, over the {budget / 2 ** 20:.0f} MiB budget; the "
+                "pipeline search and the memory-aware search that would "
+                "look for one that fits (the JAX package's "
+                "_search_pipeline_degree, search/memory_optimization.py) "
+                "are not ported to flexflow_tpu_torch yet")
 
     def _check_probability_tail(self) -> None:
         """Warn, as the JAX package does, when a cross-entropy loss is

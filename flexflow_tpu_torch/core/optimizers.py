@@ -41,6 +41,12 @@ class Optimizer:
     def init_state(self, params: Params) -> Any:
         raise NotImplementedError
 
+    def state_slots_per_weight(self) -> int:
+        """How many weight-sized buffers init_state allocates per
+        parameter: the search's memory accounting charges `weights *
+        slots` on top of params and grads (search/memory_optimization.py)."""
+        return 0
+
     def update(self, params: Params, grads: Params, state):
         """Updates params and state in place; returns (params, state)."""
         raise NotImplementedError
@@ -54,6 +60,9 @@ class SGDOptimizer(Optimizer):
     momentum: float = 0.0
     nesterov: bool = False
     weight_decay: float = 0.0
+
+    def state_slots_per_weight(self) -> int:
+        return 1 if self.momentum != 0.0 else 0
 
     def init_state(self, params):
         if self.momentum == 0.0:
@@ -85,6 +94,9 @@ class AdamOptimizer(Optimizer):
     beta2: float = 0.999
     weight_decay: float = 0.0
     epsilon: float = 1e-8
+
+    def state_slots_per_weight(self) -> int:
+        return 2  # m and v
 
     def init_state(self, params):
         dev = next((w.device for ws in params.values() for w in ws.values()),

@@ -234,3 +234,18 @@ class OperatorType(enum.IntEnum):
     OP_ALL_TO_ALL = 1120
     OP_WEIGHT_SHARD = 1121
     OP_LSTM = 1130
+
+
+# the parallel ops the strategy search inserts (parallel/parallel_ops.py)
+PARALLEL_OP_TYPES = frozenset(
+    {
+        OperatorType.OP_REPARTITION,
+        OperatorType.OP_COMBINE,
+        OperatorType.OP_REPLICATE,
+        OperatorType.OP_REDUCTION,
+        OperatorType.OP_PIPELINE,
+        OperatorType.OP_FUSED_PARALLEL,
+        OperatorType.OP_ALL_TO_ALL,
+        OperatorType.OP_WEIGHT_SHARD,
+    }
+)

@@ -133,3 +133,4 @@ def ensure_ops_loaded():
     from . import (attention, batch_matmul, conv2d, dropout,  # noqa: F401
                    elementwise, embedding, fused, linear, lstm, moe,
                    normalization, pool2d, reduce, softmax, tensor_ops)
+    from ..parallel import parallel_ops  # noqa: F401

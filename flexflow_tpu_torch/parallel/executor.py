@@ -34,8 +34,12 @@ Randomness (dropout) follows the JAX package's key structure on host
 integers (core/seeds.py): a training step draws one seed from the
 caller's CPU generator, and each compute op that draws gets the two
 dropout seeds of `fold_in(step seed, compute index)`, so an op's draws do
-not depend on the order in which other ops draw. The seeds reach the ops
-as rows of a seed table on the device (`seed_table`), one row per step.
+not depend on the order in which other ops draw. A compute index counts
+compute ops only: the parallel ops a searched graph carries
+(parallel/parallel_ops.py, the identity on one device) take none, as in
+the JAX package, so a searched graph draws the masks of the unsearched
+one. The seeds reach the ops as rows of a seed table on the device
+(`seed_table`), one row per step.
 
 Where the JAX package jits a program, the port captures a CUDA graph on
 a card (parallel/graphs.py): `build_train_scan` runs N train steps as one
@@ -63,6 +67,7 @@ from ..ops.attention import init_decode_cache
 from ..ops.common import WeightCache
 from ..ops.registry import FwdCtx, get_op_def
 from ..pcg.graph import Graph
+from . import parallel_ops
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -162,6 +167,11 @@ class PCGExecutor:
         self.grad_dtype = grad_dtype
         self.seed = seed
         self.topo = graph.topo_order()
+        # each compute op's index among the compute ops (parallel ops
+        # take none)
+        self.compute_index = {
+            op.guid: i for i, op in enumerate(
+                o for o in self.topo if not o.is_parallel_op)}
         # user-facing input order is tensor creation order
         self.input_pts = (list(input_order) if input_order is not None
                           else graph.input_tensors())
@@ -181,8 +191,9 @@ class PCGExecutor:
         self.weight_cache = WeightCache()
         # compute indices of the ops that draw random numbers in training
         self.drawing_ops = [
-            i for i, op in enumerate(self.topo)
-            if get_op_def(op.op_type).draws is not None
+            self.compute_index[op.guid] for op in self.topo
+            if not op.is_parallel_op
+            and get_op_def(op.op_type).draws is not None
             and get_op_def(op.op_type).draws(op.params)]
 
     # -- parameter init ----------------------------------------------------
@@ -201,6 +212,10 @@ class PCGExecutor:
                 ).to(self.device)
                 for name, wpt in zip(op.weight_names, op.weights)
             }
+        # a merge substitution (search/substitution_loader.py) builds its
+        # merged op's weights afresh: it refuses a graph whose weights
+        # exist
+        self.graph.weights_materialized = True
         return params
 
     def init_net_state(self) -> Params:
@@ -239,7 +254,8 @@ class PCGExecutor:
     def seed_table(self, step_seeds) -> torch.Tensor:
         """The (N, n_ops, 2) int32 CPU seed table of N steps' seeds
         (core/seeds.py)."""
-        return seed_table(step_seeds, self.drawing_ops, len(self.topo))
+        return seed_table(step_seeds, self.drawing_ops,
+                          len(self.compute_index))
 
     def _seed_row(self, rng) -> Optional[torch.Tensor]:
         """One step's (n_ops, 2) row of seeds on the device: `rng` is None
@@ -290,13 +306,18 @@ class PCGExecutor:
         row = self._seed_row(rng)
         drawing = set(self.drawing_ops) if row is not None else ()
         vals = dict(inputs)
-        for compute_idx, op in enumerate(self.topo):
+        for op in self.topo:
+            ins = [vals[t.guid] for t in op.inputs]
+            if op.is_parallel_op:
+                for t, o in zip(op.outputs, parallel_ops.execute(op, ins)):
+                    vals[t.guid] = o
+                continue
+            compute_idx = self.compute_index[op.guid]
             opdef = get_op_def(op.op_type)
             ctx = self._ctx(op.name, training,
                             row[compute_idx] if compute_idx in drawing
                             else None, seq_length, weight_cache, aux_out)
             w = params.get(op.name, {})
-            ins = [vals[t.guid] for t in op.inputs]
             if training and self.remat and op.op_type in _REMAT_OPS:
                 # preserve_rng_state off: no op draws from torch's RNG
                 outs = checkpoint(
@@ -623,8 +644,9 @@ class _ScanGraph:
                    for s, dt in zip(shapes, dtypes)]
         self.y = torch.empty(label_shape, dtype=ex.label_dtype, device=dev)
         n = label_shape[0]
-        self.seeds = (torch.zeros((n, len(ex.topo), 2), dtype=torch.int32,
-                                  device=dev) if with_seeds else None)
+        self.seeds = (torch.zeros((n, len(ex.compute_index), 2),
+                                  dtype=torch.int32, device=dev)
+                      if with_seeds else None)
         self.pinned = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
                        for b in self.xs + [self.y]]
         self.pinned_seeds = (torch.empty(self.seeds.shape, dtype=torch.int32,

@@ -1,0 +1,835 @@
+"""Graph-substitution candidate generation + best-first strategy search.
+
+The PyTorch counterpart of flexflow_tpu/search/substitution.py, the
+reference substitution engine (src/runtime/substitution.cc, 3802 LoC): the reference pattern-matches
+OpX/TensorX templates and rewrites the PCG, generating parallelization
+candidates (GraphXfer::run, substitution.cc:596), then best-first-searches
+over candidate graphs ordered by DP-evaluated cost with pruning threshold
+alpha and a budget (GraphSearchHelper::base_optimize, substitution.cc:2229).
+
+Our xfers are direct PCG rewriters (the reference's
+generate_all_pcg_xfers, substitution.cc:1726, builds the same fixed family
+programmatically — parallel-degree-parameterized):
+
+  * partition_linear_combine   — Megatron column-parallel Linear:
+                                 Replicate(in) → Linear[out/k] → Combine
+  * reduce_linear_partition    — row-parallel Linear:
+                                 Repartition(in-channel) → Linear → Reduction
+  * partition_attention_combine— heads partitioned (attribute parallelism,
+                                 reference substitution.cc:1764-1770)
+  * partition_conv2d_combine   — conv out-channel partition
+  * partition_batch            — sample-dim partition (data parallelism)
+  * partition_seq_allgather    — sequence/context parallelism (the JAX
+                                 package's addition; no reference
+                                 equivalent)
+
+Rewrites mutate tensor degrees + insert explicit parallel-op nodes, so the
+DP search (dp_search.py) can place every op. On one device the lowering
+(parallel/strategies.py assign_mesh_axes) demotes the degrees to 1 and
+every inserted parallel op runs as the identity (parallel/parallel_ops.py).
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import itertools
+from typing import Callable, Dict, Iterator, List, Tuple
+
+from ..ff_types import OperatorType
+from ..parallel.parallel_ops import (
+    CombineParams,
+    ReductionParams,
+    RepartitionParams,
+)
+from ..pcg.graph import Graph
+from ..pcg.machine_view import MachineResource
+from ..pcg.op import PCGOp
+from ..pcg.parallel_tensor import ParallelDim, ParallelTensor
+from .dp_search import GraphCostResult, SearchHelper
+
+
+# ---------------------------------------------------------------------------
+# graph copying (reference: Graph copy in GraphXfer::create_new_graph)
+# ---------------------------------------------------------------------------
+
+def copy_graph(graph: Graph) -> Tuple[Graph, Dict[int, ParallelTensor]]:
+    """Deep-copy a PCG. Returns (new_graph, old_tensor_guid -> new tensor).
+    New ops/tensors get fresh guids; params (frozen) are shared."""
+    tmap: Dict[int, ParallelTensor] = {}
+
+    def map_tensor(t: ParallelTensor) -> ParallelTensor:
+        if t.guid not in tmap:
+            nt = ParallelTensor(
+                dims=[dataclasses.replace(d) for d in t.dims],
+                data_type=t.data_type,
+            )
+            tmap[t.guid] = nt
+        return tmap[t.guid]
+
+    g2 = Graph()
+    for op in graph.topo_order():
+        op2 = PCGOp(
+            op.op_type,
+            op.params,
+            [map_tensor(t) for t in op.inputs],
+            name=op.name,
+            layer_guid=op.layer_guid,
+        )
+        for t in op.outputs:
+            nt = map_tensor(t)
+            nt.owner_op = op2
+            op2.outputs.append(nt)
+        for w in op.weights:
+            nw = map_tensor(w)
+            nw.owner_op = op2
+            op2.weights.append(nw)
+        op2.weight_names = list(op.weight_names)
+        op2.weight_tags = list(getattr(op, "weight_tags", []))
+        op2.initializers = dict(op.initializers)
+        op2.machine_view = op.machine_view
+        g2.add_op(op2)
+    return g2, tmap
+
+
+def _consumers(graph: Graph, tensor: ParallelTensor) -> List[Tuple[PCGOp, int]]:
+    out = []
+    for op in graph.ops:
+        for i, t in enumerate(op.inputs):
+            if t.guid == tensor.guid:
+                out.append((op, i))
+    return out
+
+
+def _insert_after(
+    graph: Graph, producer_out: ParallelTensor, par_op: PCGOp
+) -> ParallelTensor:
+    """Reroute all consumers of producer_out through par_op's output."""
+    new_t = par_op.outputs[0]
+    for op, i in _consumers(graph, producer_out):
+        if op is par_op:
+            continue
+        op.inputs[i] = new_t
+    graph.add_op(par_op)
+    return new_t
+
+
+def _make_parallel_op(
+    op_type: OperatorType, params, in_tensor: ParallelTensor, out_dims
+) -> PCGOp:
+    op = PCGOp(op_type, params, [in_tensor])
+    out = ParallelTensor(dims=out_dims, data_type=in_tensor.data_type)
+    out.owner_op = op
+    op.outputs.append(out)
+    return op
+
+
+# ---------------------------------------------------------------------------
+# xfers (reference: create_xfers / generate_all_pcg_xfers)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Substitution:
+    name: str
+    apply: Callable[[Graph], Iterator[Graph]]
+
+
+def _find_ops(graph: Graph, op_type: OperatorType) -> List[PCGOp]:
+    return [o for o in graph.ops if o.op_type == op_type]
+
+
+def _partition_channel_combine(name: str, op_type, degree: int,
+                               channel_axis: int) -> Substitution:
+    """Shared shard-out-channel-plus-Combine pattern: shard the
+    "out_channel"-tagged weight dims by `degree`, partition the output's
+    channel dim, and insert a Combine so consumers see a full tensor.
+    Instantiated for Linear / Conv2D / Embedding (their only differences
+    are the op type and which output dim is the channel)."""
+
+    def apply(graph: Graph) -> Iterator[Graph]:
+        for op in _find_ops(graph, op_type):
+            if not op.outputs:
+                continue
+            out_dim = op.outputs[0].dims[channel_axis]
+            if out_dim.degree > 1 or out_dim.size % degree != 0:
+                continue
+            if any(d.degree > 1 for w in op.weights for d in w.dims):
+                # the weights are already sharded — by FSDP (a WeightShard
+                # node targets this op) or another weight rewrite; channel
+                # sharding on top would double-shard one dim
+                continue
+            g2, _ = copy_graph(graph)
+            op2 = next(o for o in g2.ops if o.layer_guid == op.layer_guid
+                       and o.name == op.name)
+            out = op2.outputs[0]
+            axis = channel_axis % len(out.dims)
+            for w, tags in zip(op2.weights, op2.weight_tags):
+                for i, tag in enumerate(tags):
+                    if tag == "out_channel" and w.dims[i].size % degree == 0:
+                        w.dims[i].degree = degree
+            out.dims[axis].degree = degree
+            comb_dims = [dataclasses.replace(d) for d in out.dims]
+            comb_dims[axis].degree = 1
+            comb = _make_parallel_op(
+                OperatorType.OP_COMBINE,
+                CombineParams(combine_dim=axis, combine_degree=degree),
+                out,
+                comb_dims,
+            )
+            _insert_after(g2, out, comb)
+            yield g2
+
+    return Substitution(f"{name}_{degree}", apply)
+
+
+def partition_linear_combine(degree: int) -> Substitution:
+    """Column-parallel Linear (reference:
+    substitution.cc create_partition_linear_combine)."""
+    return _partition_channel_combine(
+        "partition_linear_combine", OperatorType.OP_LINEAR, degree, -1
+    )
+
+
+def partition_embedding_combine(degree: int) -> Substitution:
+    """Parameter parallelism for Embedding (reference: embedding.cc:132-200
+    — the table shards over vocab or channel; DLRM's strategy files place
+    each table's shards on distinct GPUs). Channel split: every device
+    holds all rows × channels/degree, the lookup emits a
+    channel-partitioned activation, Combine restores it — the table's
+    gradient then syncs over `degree`-fold fewer bytes per device than
+    pure DP's full-table allreduce."""
+    return _partition_channel_combine(
+        "partition_embedding_combine", OperatorType.OP_EMBEDDING, degree, -1
+    )
+
+
+def reduce_linear_partition(degree: int) -> Substitution:
+    """Row-parallel Linear (reference: create_replicate_linear_combine's
+    dual): partition the contraction dim; partial outputs summed by a
+    Reduction node."""
+
+    def apply(graph: Graph) -> Iterator[Graph]:
+        for op in _find_ops(graph, OperatorType.OP_LINEAR):
+            in_t = op.inputs[0]
+            if in_t.dims[-1].size % degree != 0 or in_t.dims[-1].degree > 1:
+                continue
+            if any(d.degree > 1 for w in op.weights for d in w.dims):
+                continue  # FSDP/TP already owns these weight shards
+            g2, tmap = copy_graph(graph)
+            op2 = next(o for o in g2.ops if o.layer_guid == op.layer_guid
+                       and o.name == op.name)
+            in2 = op2.inputs[0]
+            # Repartition input channel dim
+            rep_dims = [dataclasses.replace(d) for d in in2.dims]
+            rep_dims[-1].degree = degree
+            rep = _make_parallel_op(
+                OperatorType.OP_REPARTITION,
+                RepartitionParams(
+                    repartition_dim=len(in2.dims) - 1, repartition_degree=degree
+                ),
+                in2,
+                rep_dims,
+            )
+            # insert before op2 only (not all consumers)
+            g2.add_op(rep)
+            op2.inputs[0] = rep.outputs[0]
+            # weight sharded on in-channel
+            for w, tags in zip(op2.weights, op2.weight_tags):
+                for i, tag in enumerate(tags):
+                    if tag == "in_channel" and w.dims[i].size % degree == 0:
+                        w.dims[i].degree = degree
+            # output becomes partial over a replica dim; Reduction sums it
+            out = op2.outputs[0]
+            partial_dims = [ParallelDim(size=degree, degree=degree, is_replica_dim=True)]
+            partial_dims += [dataclasses.replace(d) for d in out.dims]
+            out.dims = partial_dims
+            red_dims = [dataclasses.replace(d) for d in out.dims[1:]]
+            red = _make_parallel_op(
+                OperatorType.OP_REDUCTION,
+                ReductionParams(reduction_dim=0, reduction_degree=degree),
+                out,
+                red_dims,
+            )
+            _insert_after(g2, out, red)
+            yield g2
+
+    return Substitution(f"reduce_linear_partition_{degree}", apply)
+
+
+def partition_attention_combine(degree: int) -> Substitution:
+    """Attribute parallelism over attention heads (reference:
+    substitution.cc:1764 create_partition_attention_combine)."""
+
+    def apply(graph: Graph) -> Iterator[Graph]:
+        for op in _find_ops(graph, OperatorType.OP_MULTIHEAD_ATTENTION):
+            if op.params.num_heads % degree != 0:
+                continue
+            already = any(
+                w.dims[i].degree > 1
+                for w, tags in zip(op.weights, getattr(op, "weight_tags", []))
+                for i, tag in enumerate(tags)
+                if tag == "head"
+            )
+            if already:
+                continue
+            g2, _ = copy_graph(graph)
+            op2 = next(o for o in g2.ops if o.layer_guid == op.layer_guid
+                       and o.name == op.name)
+            for w, tags in zip(op2.weights, op2.weight_tags):
+                for i, tag in enumerate(tags):
+                    if tag == "head":
+                        w.dims[i].degree = degree
+            yield g2
+
+    return Substitution(f"partition_attention_combine_{degree}", apply)
+
+
+def partition_conv2d_combine(degree: int) -> Substitution:
+    """Conv out-channel partition (reference: conv mapping xfers)."""
+    return _partition_channel_combine(
+        "partition_conv2d_combine", OperatorType.OP_CONV2D, degree, 1
+    )
+
+
+def partition_batch(degree: int) -> Substitution:
+    """Sample-dim (data) parallelism across the whole graph (reference:
+    the --only-data-parallel lowering, model.cc:2637, as a searchable
+    xfer)."""
+
+    def apply(graph: Graph) -> Iterator[Graph]:
+        # applicable if any activation batch dim is unpartitioned
+        needs = any(
+            op.outputs and op.outputs[0].dims
+            and op.outputs[0].dims[0].degree == 1
+            and not op.outputs[0].dims[0].is_replica_dim
+            and op.outputs[0].dims[0].size % degree == 0
+            for op in graph.ops
+            if not op.is_parallel_op
+        )
+        if not needs:
+            return
+        g2, _ = copy_graph(graph)
+        for t in g2.input_tensors():
+            if t.dims and t.dims[0].size % degree == 0:
+                t.dims[0].degree = degree
+        for op in g2.ops:
+            # WeightShard is an identity pass-through on the activation:
+            # its output must carry the batch degree its input gets, or
+            # the two fall out of sync (FFA104). Other parallel ops keep
+            # their own degree bookkeeping.
+            if op.is_parallel_op and \
+                    op.op_type != OperatorType.OP_WEIGHT_SHARD:
+                continue
+            for t in op.outputs:
+                if (
+                    t.dims
+                    and not t.dims[0].is_replica_dim
+                    and t.dims[0].degree == 1
+                    and t.dims[0].size % degree == 0
+                ):
+                    t.dims[0].degree = degree
+        yield g2
+
+    return Substitution(f"partition_batch_{degree}", apply)
+
+
+def partition_seq_allgather(degree: int) -> Substitution:
+    """Sequence/context parallelism for 3-D activations (JAX addition —
+    the reference has no sequence-dim xfer, SURVEY §5)."""
+
+    def apply(graph: Graph) -> Iterator[Graph]:
+        has_seq = any(
+            op.outputs and len(op.outputs[0].dims) == 3
+            and op.outputs[0].dims[1].degree == 1
+            and op.outputs[0].dims[1].size % degree == 0
+            for op in graph.ops
+            if op.op_type != OperatorType.OP_MULTIHEAD_ATTENTION
+            and not op.is_parallel_op
+        )
+        if not has_seq:
+            return
+        g2, _ = copy_graph(graph)
+        for op in g2.ops:
+            if op.is_parallel_op:
+                continue
+            if op.op_type == OperatorType.OP_MULTIHEAD_ATTENTION:
+                continue  # attention needs full seq; executor all-gathers
+            for t in op.outputs:
+                if len(t.dims) == 3 and t.dims[1].size % degree == 0:
+                    t.dims[1].degree = degree
+        yield g2
+
+    return Substitution(f"partition_seq_allgather_{degree}", apply)
+
+
+def partition_seq_ring(degree: int) -> Substitution:
+    """Sequence/context parallelism INCLUDING attention: shard the seq dim
+    of every 3-D activation — attention too — and tag it "seq" so
+    assign_mesh_axes lowers it onto a dedicated mesh axis. Attention with
+    a seq-sharded mesh takes the ring/ulysses path in ops/attention.py
+    (K/V stay resident, shards rotate over the links) instead of the allgather
+    the MHA-skipping partition_seq_allgather forces. Only offered when
+    every attention op is self-attention with a divisible seq dim — ring
+    needs kv_len == seq_len and even shards (Liu et al., Ring
+    Attention)."""
+
+    def apply(graph: Graph) -> Iterator[Graph]:
+        for op in _find_ops(graph, OperatorType.OP_MULTIHEAD_ATTENTION):
+            q, k, v = op.inputs[:3]
+            if not (q.guid == k.guid == v.guid):
+                return  # cross-attention somewhere: ring can't lower it
+            if len(q.dims) != 3 or q.dims[1].size % degree != 0:
+                return
+        has_seq = any(
+            op.outputs and len(op.outputs[0].dims) == 3
+            and op.outputs[0].dims[1].degree == 1
+            and op.outputs[0].dims[1].size % degree == 0
+            for op in graph.ops
+            if not op.is_parallel_op
+        )
+        if not has_seq:
+            return
+        g2, _ = copy_graph(graph)
+        for t in g2.input_tensors():
+            if len(t.dims) == 3 and t.dims[1].degree == 1 \
+                    and t.dims[1].size % degree == 0:
+                t.dims[1].degree = degree
+                t.dims[1].axis_tag = "seq"
+        for op in g2.ops:
+            if op.is_parallel_op:
+                continue
+            for t in op.outputs:
+                if len(t.dims) == 3 and t.dims[1].degree == 1 \
+                        and t.dims[1].size % degree == 0:
+                    t.dims[1].degree = degree
+                    t.dims[1].axis_tag = "seq"
+        yield g2
+
+    return Substitution(f"partition_seq_ring_{degree}", apply)
+
+
+def partition_experts_alltoall(degree: int) -> Substitution:
+    """Expert parallelism for MoE blocks (GShard-style, Lepikhin et al.):
+    one OP_ALL_TO_ALL dispatches the batch-sharded token tensor into a
+    hidden-sharded layout over the "expert" mesh axis, group_by's dispatch
+    einsum and EVERY expert FFN then run on hidden shards (row-parallel
+    experts), and the per-expert Reduction nodes combine the partial
+    activations. Composes with partition_batch at the same degree — the
+    expert axis reshards the SAME device group that shards the batch
+    (assign_mesh_axes merges the two axes).
+
+    Why this beats per-expert reduce_linear_partition: ONE all-to-all of
+    the token tensor (T*d bytes) feeds all n experts, instead of n
+    Repartitions moving alpha*k*T*d bytes total — and the expert weights
+    end up degree-sharded, so their gradients need no replica sync. It is
+    also the only rewrite that shards the expert block at all when the
+    capacity dim (ceil(alpha*k/n*T), ops/moe.py) doesn't divide the mesh
+    — the shape where pure data parallelism leaves group_by and every
+    expert dense at full per-device flops."""
+
+    def apply(graph: Graph) -> Iterator[Graph]:
+        from ..parallel.parallel_ops import AllToAllParams
+
+        if degree < 2:
+            return
+        for op in _find_ops(graph, OperatorType.OP_GROUP_BY):
+            in_t = op.inputs[0]  # (tokens, hidden)
+            if len(in_t.dims) != 2:
+                continue
+            if in_t.dims[0].degree != degree or in_t.dims[0].is_replica_dim:
+                continue  # compose after partition_batch at this degree
+            if in_t.dims[1].degree != 1 or in_t.dims[1].size % degree != 0:
+                continue
+            if any(d.degree > 1 for t in op.outputs for d in t.dims):
+                continue
+            experts = []
+            ok = True
+            for t in op.outputs:
+                for c, slot in _consumers(graph, t):
+                    if c.op_type != OperatorType.OP_LINEAR or slot != 0:
+                        ok = False
+                        break
+                    if any(d.degree > 1 for w in c.weights for d in w.dims):
+                        ok = False  # FSDP/TP owns these shards
+                        break
+                    if c.inputs[0].dims[-1].size % degree != 0:
+                        ok = False
+                        break
+                    experts.append(c)
+                if not ok:
+                    break
+            if not ok or not experts:
+                continue
+            g2, _ = copy_graph(graph)
+            op2 = next(o for o in g2.ops if o.layer_guid == op.layer_guid
+                       and o.name == op.name)
+            in2 = op2.inputs[0]
+            # dispatch: gather the token dim, scatter the hidden dim
+            a2a_dims = [dataclasses.replace(d) for d in in2.dims]
+            a2a_dims[0].degree = 1
+            a2a_dims[1].degree = degree
+            a2a_dims[1].axis_tag = "expert"
+            a2a = _make_parallel_op(
+                OperatorType.OP_ALL_TO_ALL,
+                AllToAllParams(scatter_dim=1, gather_dim=0, degree=degree),
+                in2,
+                a2a_dims,
+            )
+            # before op2 only — the gate dense keeps the batch-sharded view
+            g2.add_op(a2a)
+            op2.inputs[0] = a2a.outputs[0]
+            # the dispatch einsum preserves the hidden sharding: every
+            # expert slab comes out (capacity, hidden/degree)
+            for t in op2.outputs:
+                t.dims[-1].degree = degree
+                t.dims[-1].axis_tag = "expert"
+            # each expert FFN goes row-parallel over the expert axis; its
+            # partial output is combined by a Reduction (the combine leg
+            # of the dispatch/combine pair, fused per expert)
+            for c in experts:
+                c2 = next(o for o in g2.ops if o.layer_guid == c.layer_guid
+                          and o.name == c.name)
+                for w, tags in zip(c2.weights, c2.weight_tags):
+                    for i, tag in enumerate(tags):
+                        if tag == "in_channel" and w.dims[i].size % degree == 0:
+                            w.dims[i].degree = degree
+                            w.dims[i].axis_tag = "expert"
+                out = c2.outputs[0]
+                partial_dims = [ParallelDim(size=degree, degree=degree,
+                                            is_replica_dim=True)]
+                partial_dims += [dataclasses.replace(d) for d in out.dims]
+                out.dims = partial_dims
+                red_dims = [dataclasses.replace(d) for d in out.dims[1:]]
+                red = _make_parallel_op(
+                    OperatorType.OP_REDUCTION,
+                    ReductionParams(reduction_dim=0, reduction_degree=degree),
+                    out,
+                    red_dims,
+                )
+                _insert_after(g2, out, red)
+            if g2.check_correctness():
+                yield g2
+
+    return Substitution(f"partition_experts_alltoall_{degree}", apply)
+
+
+def fsdp_shard_weights(degree: int) -> Substitution:
+    """FSDP/ZeRO weight sharding per layer (parallel/weight_sharding.py;
+    SNIPPETS [2]'s fsdp mesh axis, ZeRO SC'20 — no reference equivalent:
+    the reference always replicates weights within a model-parallel
+    group). Applies to one weight-carrying op at a time whose batch dim is
+    already partitioned by `degree` (compose with partition_batch — ZeRO
+    shards state over the SAME workers that shard the batch): shard the
+    op's weight dims and insert the WeightShard bookkeeping node after its
+    output. Strictly slower on pure runtime (all-gather x2 +
+    reduce-scatter = 3(p-1)/p wire bytes vs the replicated all-reduce's
+    2(p-1)/p), so the plain search never picks it; the memory-lambda loop
+    (graph_optimize_with_memory) does, per layer, when replicated
+    params+grads+optimizer slots overflow the HBM budget."""
+
+    def apply(graph: Graph) -> Iterator[Graph]:
+        from ..parallel.weight_sharding import insert_weight_shard, shardable_dim
+
+        if degree < 2:
+            # single-device search passes degree 1 (generate_all_pcg_xfers
+            # falls back to [1]); a 1-way shard is a no-op that
+            # insert_weight_shard rejects with ValueError
+            return
+        for op in graph.ops:
+            if op.is_parallel_op or not op.weights or not op.outputs:
+                continue
+            out0 = op.outputs[0]
+            if not out0.dims or out0.dims[0].is_replica_dim \
+                    or out0.dims[0].degree != degree:
+                continue
+            if any(d.degree > 1 for w in op.weights for d in w.dims):
+                continue  # TP owns these shards (or FSDP already applied)
+            if all(shardable_dim(w, degree) is None for w in op.weights):
+                continue
+            g2, _ = copy_graph(graph)
+            op2 = next(o for o in g2.ops if o.layer_guid == op.layer_guid
+                       and o.name == op.name)
+            insert_weight_shard(g2, op2, degree)
+            yield g2
+
+    return Substitution(f"fsdp_shard_weights_{degree}", apply)
+
+
+def fsdp_zero_shard(degree: int) -> Substitution:
+    """One-shot ZeRO rewrite: partition the batch by `degree` (when it
+    isn't already) AND weight-shard every eligible op in a single
+    candidate. The per-layer fsdp_shard_weights rule needs the
+    batch-partitioned graph on the best-first frontier, but under a high
+    memory lambda that intermediate (batch sharded, weights still
+    replicated) prices far worse than e.g. a column-parallel chain and
+    gets alpha-pruned — a search valley the one-shot rewrite jumps
+    directly, the same reason partition_batch itself is a whole-graph
+    xfer. The search can then back individual layers out via
+    fsdp_unshard_weights."""
+
+    def apply(graph: Graph) -> Iterator[Graph]:
+        from ..parallel.weight_sharding import insert_weight_shard, shardable_dim
+
+        if degree < 2:
+            return  # 1-way shard is a no-op; insert_weight_shard rejects it
+
+        def eligible(op) -> bool:
+            return (not op.is_parallel_op and bool(op.weights)
+                    and bool(op.outputs) and bool(op.outputs[0].dims)
+                    and not op.outputs[0].dims[0].is_replica_dim
+                    and op.outputs[0].dims[0].degree in (1, degree)
+                    and op.outputs[0].dims[0].size % degree == 0
+                    and not any(d.degree > 1
+                                for w in op.weights for d in w.dims)
+                    and any(shardable_dim(w, degree) is not None
+                            for w in op.weights))
+
+        targets = [op for op in graph.ops if eligible(op)]
+        if not targets:
+            return
+        needs_dp = any(op.outputs[0].dims[0].degree == 1 for op in targets)
+        base = graph
+        if needs_dp:
+            base = next(iter(partition_batch(degree).apply(graph)), None)
+            if base is None:
+                return
+        g2, _ = copy_graph(base)
+        sharded = 0
+        for op in list(g2.ops):
+            if eligible(op) and op.outputs[0].dims[0].degree == degree:
+                insert_weight_shard(g2, op, degree)
+                sharded += 1
+        if sharded:
+            yield g2
+
+    return Substitution(f"fsdp_zero_shard_{degree}", apply)
+
+
+def fsdp_unshard_weights() -> Substitution:
+    """Inverse of fsdp_shard_weights: drop one WeightShard node and
+    restore its target's replicated weights, so the search can back out
+    of weight sharding it no longer needs (e.g. after a cheaper layout
+    appeared under a lower lambda)."""
+
+    def apply(graph: Graph) -> Iterator[Graph]:
+        from ..parallel.weight_sharding import (
+            unshard_op_weights,
+            weight_shard_target,
+        )
+
+        for op in _find_ops(graph, OperatorType.OP_WEIGHT_SHARD):
+            g2, _ = copy_graph(graph)
+            ws2 = next(o for o in g2.ops if o.name == op.name)
+            target = weight_shard_target(ws2)
+            if target is not None:
+                unshard_op_weights(target)
+            out_t, in_t = ws2.outputs[0], ws2.inputs[0]
+            for o in g2.ops:
+                for i, t in enumerate(o.inputs):
+                    if t.guid == out_t.guid:
+                        o.inputs[i] = in_t
+            g2.ops = [o for o in g2.ops if o.guid != ws2.guid]
+            g2._producer_cache = None
+            if g2.check_correctness():
+                yield g2
+
+    return Substitution("fsdp_unshard_weights", apply)
+
+
+def merge_parallel_linears() -> Substitution:
+    """TASO-style ALGEBRAIC rewrite (reference: the fusion family of
+    substitutions/graph_subst_3_v2.json rules): two Linear ops consuming
+    the SAME input with identical settings merge into ONE Linear of
+    out1+out2 channels followed by a Split. One bigger GEMM instead
+    of two, and — decisive for the search — the merged out-channel can
+    column-shard at degrees neither original out_dim divides by."""
+
+    def apply(graph: Graph) -> Iterator[Graph]:
+        from ..ops.registry import get_op_def
+        from ..ops.tensor_ops import SplitParams
+
+        by_input: Dict[int, List[PCGOp]] = {}
+        for op in _find_ops(graph, OperatorType.OP_LINEAR):
+            if (op.outputs and op.outputs[0].get_total_degree() == 1
+                    and not any(w.get_total_degree() > 1 for w in op.weights)):
+                by_input.setdefault(op.inputs[0].guid, []).append(op)
+        for ops in by_input.values():
+            for i in range(len(ops)):
+                for j in range(i + 1, len(ops)):
+                    a, b = ops[i], ops[j]
+                    pa, pb = a.params, b.params
+                    # (the port's LinearParams carries no regularizer,
+                    # the JAX package's last two fields compared here)
+                    if (pa.use_bias != pb.use_bias
+                            or pa.activation != pb.activation
+                            or pa.data_type != pb.data_type):
+                        continue
+                    # graph outputs must keep their identity: only merge
+                    # linears whose outputs are consumed inside the graph
+                    if not _consumers(graph, a.outputs[0]) or \
+                            not _consumers(graph, b.outputs[0]):
+                        continue
+                    g2, _ = copy_graph(graph)
+                    a2 = next(o for o in g2.ops
+                              if o.layer_guid == a.layer_guid
+                              and o.name == a.name)
+                    b2 = next(o for o in g2.ops
+                              if o.layer_guid == b.layer_guid
+                              and o.name == b.name)
+                    x = a2.inputs[0]
+                    o1, o2 = pa.out_channels, pb.out_channels
+                    params = dataclasses.replace(pa, out_channels=o1 + o2)
+                    merged = PCGOp(OperatorType.OP_LINEAR, params, [x],
+                                   name=f"{a2.name}+{b2.name}")
+                    out_dims = [dataclasses.replace(d) for d in x.dims[:-1]]
+                    out_dims.append(ParallelDim(size=o1 + o2, degree=1))
+                    out = ParallelTensor(dims=out_dims, data_type=x.data_type)
+                    out.owner_op = merged
+                    merged.outputs.append(out)
+                    # fresh weights from the op definition (search runs
+                    # pre-init, so a merged kernel is just a bigger init)
+                    d = get_op_def(OperatorType.OP_LINEAR)
+                    merged.weight_tags = []
+                    for spec in d.weights(params, [x.material_shape()],
+                                          [x.data_type]):
+                        wpt = ParallelTensor(
+                            dims=[ParallelDim(size=s, degree=1)
+                                  for s in spec.shape],
+                            data_type=spec.dtype, owner_op=merged,
+                        )
+                        merged.weights.append(wpt)
+                        merged.weight_names.append(spec.name)
+                        merged.weight_tags.append(spec.parallel_dim_tags)
+                        merged.initializers[spec.name] = spec.initializer
+                    split = PCGOp(
+                        OperatorType.OP_SPLIT,
+                        SplitParams(sizes=(o1, o2), axis=-1),
+                        [out],
+                    )
+                    for sz in (o1, o2):
+                        sdims = [dataclasses.replace(dd)
+                                 for dd in out.dims[:-1]]
+                        sdims.append(ParallelDim(size=sz, degree=1))
+                        spt = ParallelTensor(dims=sdims,
+                                             data_type=out.data_type)
+                        spt.owner_op = split
+                        split.outputs.append(spt)
+                    for cons, k in _consumers(g2, a2.outputs[0]):
+                        cons.inputs[k] = split.outputs[0]
+                    for cons, k in _consumers(g2, b2.outputs[0]):
+                        cons.inputs[k] = split.outputs[1]
+                    g2.ops = [o for o in g2.ops
+                              if o.guid not in (a2.guid, b2.guid)]
+                    g2.add_op(merged)
+                    g2.add_op(split)
+                    g2._producer_cache = None
+                    if g2.check_correctness():
+                        yield g2
+
+    return Substitution("merge_parallel_linears", apply)
+
+
+def generate_all_pcg_xfers(degrees: List[int], config=None) -> List[Substitution]:
+    """reference: GraphSearchHelper::generate_all_pcg_xfers
+    (substitution.cc:1726) — one xfer per (kind, degree)."""
+    xfers: List[Substitution] = [merge_parallel_linears(),
+                                 fsdp_unshard_weights()]
+    for d in degrees:
+        xfers.append(partition_batch(d))
+        xfers.append(partition_linear_combine(d))
+        xfers.append(reduce_linear_partition(d))
+        xfers.append(partition_attention_combine(d))
+        xfers.append(partition_conv2d_combine(d))
+        xfers.append(partition_embedding_combine(d))
+        xfers.append(fsdp_shard_weights(d))
+        xfers.append(fsdp_zero_shard(d))
+        xfers.append(partition_experts_alltoall(d))
+        if config is None or getattr(config, "enable_sequence_parallel", False):
+            xfers.append(partition_seq_allgather(d))
+            xfers.append(partition_seq_ring(d))
+    return xfers
+
+
+# ---------------------------------------------------------------------------
+# best-first search (reference: GraphSearchHelper::base_optimize,
+# substitution.cc:2229)
+# ---------------------------------------------------------------------------
+
+class GraphSearchHelper:
+    def __init__(
+        self,
+        search: SearchHelper,
+        xfers: List[Substitution],
+        *,
+        alpha: float = 1.2,
+        budget: int = 20,
+        trajectory=None,
+    ):
+        self.search = search
+        self.xfers = xfers
+        self.alpha = alpha
+        self.budget = budget
+        # obs.SearchTrajectory: one entry per evaluated rewrite candidate
+        # (which substitution produced it, its DP cost, whether it became
+        # the best / was enqueued), so `explain_strategy` can show WHY
+        # the final graph was chosen (obs/trajectory.py)
+        self.trajectory = trajectory
+
+    def graph_optimize(
+        self, graph: Graph, res: MachineResource
+    ) -> Tuple[Graph, GraphCostResult]:
+        """Best-first search over rewrite candidates, each evaluated by the
+        DP machine-view assignment."""
+        best_graph = graph
+        best_result = self.search.graph_cost(graph, res)
+        traj = self.trajectory
+        if traj is not None:
+            traj.event("search_begin", engine="best_first",
+                       cost=best_result.cost, budget=self.budget,
+                       xfers=len(self.xfers))
+        counter = itertools.count()
+        pq: List[Tuple[float, int, Graph]] = [(best_result.cost, next(counter), graph)]
+        seen = {graph.hash()}
+        expansions = 0
+        while pq and expansions < max(1, self.budget):
+            cost, _, g = heapq.heappop(pq)
+            if cost > best_result.cost * self.alpha:
+                break  # pruned (reference: best_cost * alpha threshold)
+            expansions += 1
+            for xfer in self.xfers:
+                for cand in xfer.apply(g):
+                    h = cand.hash()
+                    if h in seen:
+                        continue
+                    seen.add(h)
+                    if not cand.check_correctness():
+                        continue
+                    r = self.search.graph_cost(cand, res)
+                    if r.cost <= best_result.cost * self.alpha:
+                        # competitive candidate: vet degree consistency
+                        # BEFORE it can become the winner — composed
+                        # rewrites can produce graphs that price well but
+                        # fail the post-search structural validation,
+                        # which would demote the whole strategy to
+                        # replicated (core/model.py fallback)
+                        from ..analysis.structure import (
+                            structural_diagnostics,
+                        )
+
+                        if structural_diagnostics(cand).errors:
+                            continue
+                    improved = r.cost < best_result.cost
+                    if improved:
+                        best_graph, best_result = cand, r
+                    enqueue = r.cost <= best_result.cost * self.alpha
+                    if traj is not None:
+                        traj.event("xfer_candidate", xfer=xfer.name,
+                                   cost=r.cost, best=improved,
+                                   enqueued=enqueue, ops=len(cand.ops),
+                                   expansion=expansions)
+                    if enqueue:
+                        heapq.heappush(pq, (r.cost, next(counter), cand))
+        if traj is not None:
+            traj.event("search_end", engine="best_first",
+                       cost=best_result.cost, expansions=expansions,
+                       candidates_seen=len(seen) - 1)
+        return best_graph, best_result

@@ -1098,3 +1098,67 @@ def test_lstm_in_a_captured_scan_equals_stepwise_on_the_card(gen):
     for op, ws in a.params.items():
         for n, w in ws.items():
             assert torch.equal(w, b.params[op][n]), f"{op}.{n}"
+
+
+# the H100 SXM's published peaks (dense bf16, HBM3), the search's
+# H100_SPEC (search/machine_model.py)
+H100_BF16_FLOP_PER_S, H100_BYTES_PER_S = 989e12, 3.35e12
+
+
+def test_measured_attention_runs_the_flash_kernels_above_its_bound(gen):
+    """The measured mode's MHA forward and forward-with-backward
+    (search/measure.py: R calls captured in a CUDA graph, R against 4R)
+    are positive, not below the roofline bound of what the call moves and
+    computes, and launch flash_fwd and flash_bwd on the wgmma path and no
+    other."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.pcg.lowering import layers_to_pcg
+    from flexflow_tpu_torch.pcg.machine_view import MachineView
+    from flexflow_tpu_torch.search.cost_model import op_flops
+    from flexflow_tpu_torch.search.measure import OperatorMeasurer
+
+    m = FFModel(FFConfig(batch_size=4))
+    x = m.create_tensor((4, 256, 512))
+    m.multihead_attention(x, x, x, 512, 8)
+    (op,) = layers_to_pcg(m.layers)[0].ops
+    meas = OperatorMeasurer(repeats=10, device="cuda",
+                            compute_dtype=torch.bfloat16)
+    build.reset_launch_counts()
+    fwd, bwd = meas(op, MachineView())
+    torch.cuda.synchronize()
+    rec = next(iter(meas.measurements.values()))
+    flops = op_flops(op)
+    fwd_bound = max(rec.fwd_bytes / H100_BYTES_PER_S,
+                    flops / H100_BF16_FLOP_PER_S)
+    total_bound = max((rec.fwd_bytes + rec.grad_bytes) / H100_BYTES_PER_S,
+                      3 * flops / H100_BF16_FLOP_PER_S)
+    assert fwd > 0 and bwd > 0 and not meas.fallbacks
+    assert fwd >= fwd_bound, (fwd, fwd_bound)
+    assert rec.total_s >= total_bound, (rec.total_s, total_bound)
+    assert build.path_counts["flash_fwd_wgmma"] > 0
+    assert build.path_counts["flash_bwd_wgmma"] > 0
+    assert all(c == 0 for k, c in build.path_counts.items()
+               if k.startswith("flash") and not k.endswith("wgmma"))
+
+
+def test_measured_search_compile_trains_on_the_card(gen):
+    """compile(search_budget >= 0) with measure_operator_costs on the
+    card: every op priced from a measurement, the winner trains."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType
+    from flexflow_tpu_torch.models import build_transformer
+
+    m = FFModel(FFConfig(batch_size=4, search_budget=2,
+                         measure_operator_costs=True,
+                         allow_mixed_precision=True))
+    build_transformer(m, 4, 128, 256, 4, 2)
+    m.compile(SGDOptimizer(lr=0.01),
+              LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE)
+    assert m.searched_cost > 0 and not m.measurer.fallbacks
+    assert m.searched_op_costs and all(
+        e["measured"] and e["measurement"] is not None
+        for e in m.searched_op_costs)
+    x = np.random.RandomState(0).randn(4, 128, 256).astype(np.float32)
+    m.fit(x, x, epochs=2)
+    assert all(torch.isfinite(w).all() for ws in m.params.values()
+               for w in ws.values())

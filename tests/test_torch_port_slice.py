@@ -161,11 +161,17 @@ def test_params_from_numpy_rejects_mismatches(models):
 
 
 def test_compile_refuses_what_is_not_ported():
-    for kw in ({"search_budget": 1}, {"workersPerNode": 2}):
-        m = FFModel(FFConfig(device="cpu", **kw))
-        m.softmax(m.create_tensor((2, 4)))
+    m = FFModel(FFConfig(device="cpu", workersPerNode=2))
+    m.softmax(m.create_tensor((2, 4)))
+    with pytest.raises(NotImplementedError):
+        m.compile()
+    # the search runs (tests/test_torch_port_search.py); a calibration
+    # store and an artifact store are not ported
+    m = FFModel(FFConfig(device="cpu", search_budget=1))
+    m.softmax(m.create_tensor((2, 4)))
+    for kw in ({"calibration": {}}, {"artifact_store": object()}):
         with pytest.raises(NotImplementedError):
-            m.compile()
+            m.compile(**kw)
     # parallel degrees have no field until multi-device execution is ported
     with pytest.raises(TypeError):
         FFConfig(device="cpu", tensor_parallel_degree=2)
@@ -187,7 +193,11 @@ def test_entry_points_default_to_cuda():
 
 def test_port_imports_no_jax():
     code = ("import sys, flexflow_tpu_torch, flexflow_tpu_torch.runtime.serving,"
-            " flexflow_tpu_torch.runtime.weights;"
+            " flexflow_tpu_torch.runtime.weights,"
+            " flexflow_tpu_torch.runtime.strategy_io,"
+            " flexflow_tpu_torch.search, flexflow_tpu_torch.search.measure,"
+            " flexflow_tpu_torch.search.substitution_loader,"
+            " flexflow_tpu_torch.analysis.substitution_lint;"
             " bad = sorted(m for m in sys.modules if m == 'jax'"
             " or m.startswith(('jax.', 'flexflow_tpu.')) or m == 'flexflow_tpu');"
             " print(bad); sys.exit(1 if bad else 0)")

@@ -338,7 +338,11 @@ def test_training_modules_import_no_jax():
     code = ("import sys, flexflow_tpu_torch, flexflow_tpu_torch.models,"
             " flexflow_tpu_torch.core.losses, flexflow_tpu_torch.core.metrics,"
             " flexflow_tpu_torch.core.optimizers,"
-            " flexflow_tpu_torch.parallel.executor;"
+            " flexflow_tpu_torch.parallel.executor,"
+            " flexflow_tpu_torch.search, flexflow_tpu_torch.search.measure,"
+            " flexflow_tpu_torch.search.substitution_loader,"
+            " flexflow_tpu_torch.analysis.substitution_lint,"
+            " flexflow_tpu_torch.runtime.strategy_io;"
             " bad = sorted(m for m in sys.modules if m == 'jax'"
             " or m.startswith(('jax.', 'flexflow_tpu.')) or m == 'flexflow_tpu');"
             " print(bad); sys.exit(1 if bad else 0)")
