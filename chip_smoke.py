@@ -127,7 +127,23 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      stand beside the analytic model's and the bound. Each winner,
      demoted to the one card, trains SEARCH_STEPS steps beside an
      unsearched compile from the same weights on the same batches: bit
-     for bit where it keeps the lowering's compute ops.
+     for bit where it keeps the lowering's compute ops;
+ 14. encoder-decoder serving: Transformer (big) (Vaswani et al. 2017,
+     Table 3: d_model 1024, 16 heads, d_ff 4096, 6+6 post-LN blocks,
+     sinusoidal position constants, vocab 32000; source 128, decoder cap
+     128, bf16 over f32, random weights from the seed) through
+     incremental_seq2seq_generate on two source batches in a row
+     (captured steps against eager, cached logits against the full
+     forward, the logit rows' spread above a floor) and
+     incremental_beam_generate (4 beams: captured against eager, each
+     beam rescored through the full forward, num_beams 1 against
+     greedy); NMT's beam_generate at its published widths; a
+     primitive-op attention decoder (batch_matmul with a baked tril
+     mask, prefix caches, width 1024) decoded without assume_causal
+     against its forward; compile_decode on the serving LM and a
+     ContinuousBatcher on the decode executor. The encoder's flash
+     forward (non-causal, 128 x 128) and the decoder's paged decode (cap
+     128) are then held against their plain versions at those shapes.
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -168,7 +184,9 @@ line, a `zoo_models` line (after the card's name and power limit), a
 `moe`, a `dlrm`, an `inception` and a `zoo` line, a
 `longctx_nmt_fusion` line (after the card's name and power limit; the
 `kernels` line's flash rows carry their long-context shape's readings),
-a `longctx`, an `nmt` and a `fusion` line, a `search` line (after the
+a `longctx`, an `nmt` and a `fusion` line, a `search` and a `seq2seq`
+line (the `kernels` line's flash and paged rows carry their seq2seq
+shapes' readings; both lines after the
 card's name and power limit) and, last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import contextlib
@@ -1188,15 +1206,16 @@ def check_paged(torch, rng_seed=1):
     return row
 
 
-def build_model(torch):
+def build_model(torch, layers=LAYERS, **cfg):
+    """The serving LM (`layers` blocks; `cfg`: further FFConfig fields)."""
     from flexflow_tpu_torch import FFConfig, FFModel
     from flexflow_tpu_torch.ff_types import ActiMode, AggrMode, DataType
 
-    cfg = FFConfig(batch_size=SLOTS, allow_mixed_precision=True, seed=0)
-    m = FFModel(cfg)
+    m = FFModel(FFConfig(batch_size=SLOTS, allow_mixed_precision=True, seed=0,
+                         **cfg))
     ids = m.create_tensor((SLOTS, MAX_LEN), DataType.DT_INT32)
     t = m.embedding(ids, VOCAB, HIDDEN, AggrMode.AGGR_MODE_NONE)
-    for _ in range(LAYERS):
+    for _ in range(layers):
         t = m.multihead_attention(t, t, t, HIDDEN, HEADS, causal=True)
         t = m.dense(t, HIDDEN, ActiMode.AC_MODE_RELU, use_bias=False)
         t = m.dense(t, HIDDEN, use_bias=False)
@@ -1229,22 +1248,26 @@ def unit_scale_weights(torch, model, inputs):
                         out.std().item()
 
 
-def check_cached_vs_forward(torch, model, seqs, plen):
+def check_cached_vs_forward(torch, model, seqs, plen, max_len=MAX_LEN,
+                            per_row=False):
     """The KV-cached path (prefill, then one paged-decode step per token)
     against the full causal forward (the flash kernel) on the same tokens:
-    the JAX package's own oracle for its serving. Error metric per
-    position: max over the vocab of |p_cached - p_forward|, over the max
-    of p_forward (LOGIT_RTOL says why it is not 0)."""
-    init, step = model.executor.build_decode(SLOTS, MAX_LEN)
+    the JAX package's own oracle for its serving. With `per_row` the
+    one-token steps pass per-row positions (on the card: the captured
+    step's replays). Error metric per position: max over the vocab of
+    |p_cached - p_forward|, over the max of p_forward (LOGIT_RTOL says
+    why it is not 0)."""
+    init, step = model.executor.build_decode(SLOTS, max_len)
     caches = init(model.params)
     n = seqs.shape[1]
     logits, caches = step(model.params, caches, 0, [seqs[:, :plen]])
-    cached = [logits[:, -1]]
+    cached = [logits[:, -1].float()]
     for t in range(plen, n - 1):
-        logits, caches = step(model.params, caches, t, [seqs[:, t:t + 1]])
-        cached.append(logits[:, 0])
-    cached = torch.stack(cached, 1).float()           # positions plen-1..n-2
-    padded = np.zeros((SLOTS, MAX_LEN), np.int32)
+        pos = np.full(SLOTS, t, np.int32) if per_row else t
+        logits, caches = step(model.params, caches, pos, [seqs[:, t:t + 1]])
+        cached.append(logits[:, 0].float())
+    cached = torch.stack(cached, 1)                   # positions plen-1..n-2
+    padded = np.zeros((SLOTS, max_len), np.int32)
     padded[:, :n] = seqs
     full = model.executor.build_forward()(model.params, [padded])[
         :, plen - 1:n - 1].float()
@@ -3867,6 +3890,584 @@ def search(torch):
             "phase_s": time.perf_counter() - t_phase}
 
 
+# -- the seq2seq phase: encoder-decoder serving -------------------------------
+# Transformer (big) (Vaswani et al. 2017, "Attention Is All You Need",
+# Table 3 row "big"): d_model 1024, 16 heads of 64, d_ff 4096, 6 encoder
+# and 6 decoder post-LN blocks, ReLU FFN, sinusoidal positions (section
+# 3.5) added as constant tensors, embeddings scaled by sqrt(d_model), the
+# En-Fr word-piece vocabulary of 32000 (section 5.1). Cuts: untied
+# embedding/softmax weights (FFModel has no weight sharing); no dropout
+# or label smoothing (training only). Source length 128, decoder cap 128,
+# bf16 compute over f32 weights, random weights from the seed.
+S2S_VOCAB, S2S_D, S2S_HEADS, S2S_FF, S2S_LAYERS = 32000, 1024, 16, 4096, 6
+S2S_BATCH, S2S_SRC, S2S_DEC, S2S_NEW = 8, 128, 128, 64
+S2S_BEAMS, S2S_BEAM_SOURCES, S2S_BEAM_NEW = 4, 4, 32
+# The cached logits against the full forward, per decoder position: max
+# over the vocab of |cached - forward| over the max |forward| of the row.
+# Each path rounds its activations to bf16 at other places (the flash
+# kernel's P against the paged kernel's f32 P, the cross-attention's
+# plain products against the flash kernel's), a few 2^-9 relative steps
+# a layer; post-LN keeps them from compounding, so 12 blocks should stay
+# within a few percent of the row's largest logit: 0.05, the serving
+# LM's limit (LOGIT_RTOL), predicted before the first reading.
+S2S_LOGIT_RTOL = 0.05
+# The logits must not be vacuous: every row's standard deviation over the
+# vocabulary at least this (glorot's output projection over unit-scale
+# layer-normed activations gives ~sqrt(1024) * 0.0135 / sqrt(3) ~ 0.25).
+S2S_LOGIT_STD_FLOOR = 0.05
+# A returned beam rescored through the full forward: its summed log-prob
+# against the incremental scorer's (the same tokens teacher-forced
+# through the decode step). Per token the two log-probs differ by about
+# the logits' error (a few hundredths worst); over 32 tokens of ~-10 each
+# that is well under 1% of the sum.
+S2S_BEAM_SCORE_RTOL = 0.01
+# NMT's full-forward beam search (examples/python/nmt.py -b 32 widths,
+# its softmax head): NMT_BEAM_SOURCES sources, NMT_BEAM_NEW tokens.
+NMT_BEAM_SOURCES, NMT_BEAM_NEW = 4, 16
+# The primitive-op attention decoder at the serving LM's width: 2 blocks
+# of batch_matmul attention with a baked tril mask, batch 8, 128
+# positions (the mask's length caps the decode).
+PRIM_LAYERS, PRIM_LEN = 2, 128
+# compile_decode on the serving LM (cut to COMPILE_DECODE_LAYERS blocks),
+# searched for SEARCH_WORKERS simulated H100s under the decode
+# objective, then a ContinuousBatcher on its executor.
+COMPILE_DECODE_LAYERS = 2
+# The seq2seq shapes the kernels are held at: the encoder's flash forward
+# (8 rows x 16 heads, 128 x 128, non-causal) and the decoder's paged
+# decode (8 slots x 16 heads, cap 128).
+S2S_PAGED_LENGTHS = (1, 17, 40, 64, 65, 100, 127, 128)
+
+
+def sinusoid(n, d):
+    """The paper's positional encoding (section 3.5), (n, d) float32."""
+    pos = np.arange(n, dtype=np.float64)[:, None]
+    i = np.arange(d // 2, dtype=np.float64)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    out = np.zeros((n, d))
+    out[:, 0::2], out[:, 1::2] = np.sin(ang), np.cos(ang)
+    return out.astype(np.float32)
+
+
+def build_seq2seq_model(torch, batch=S2S_BATCH, layers=S2S_LAYERS):
+    """Transformer (big) through the FFModel API."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.ff_types import ActiMode, AggrMode, DataType
+
+    m = FFModel(FFConfig(batch_size=batch, allow_mixed_precision=True,
+                         seed=0))
+    d = S2S_D
+    src = m.create_tensor((batch, S2S_SRC), DataType.DT_INT32)
+    tgt = m.create_tensor((batch, S2S_DEC), DataType.DT_INT32)
+
+    def embed(ids, n):
+        e = m.embedding(ids, S2S_VOCAB, d, AggrMode.AGGR_MODE_NONE)
+        e = m.scalar_multiply(e, float(np.sqrt(d)))
+        return m.add(e, m.create_constant_tensor(sinusoid(n, d)[None],
+                                                 DataType.DT_FLOAT))
+
+    def ffn(x):
+        f = m.dense(x, S2S_FF, ActiMode.AC_MODE_RELU)
+        return m.layer_norm(m.add(x, m.dense(f, d)))
+
+    e = embed(src, S2S_SRC)
+    for _ in range(layers):
+        e = m.layer_norm(m.add(e, m.multihead_attention(e, e, e, d,
+                                                        S2S_HEADS)))
+        e = ffn(e)
+    x = embed(tgt, S2S_DEC)
+    for _ in range(layers):
+        x = m.layer_norm(m.add(x, m.multihead_attention(
+            x, x, x, d, S2S_HEADS, causal=True)))
+        x = m.layer_norm(m.add(x, m.multihead_attention(x, e, e, d,
+                                                        S2S_HEADS)))
+        x = ffn(x)
+    m.dense(x, S2S_VOCAB)
+    m.compile()
+    return m
+
+
+def cached_logits(torch, model, src, dec, n, batch):
+    """Logits of decoder positions 0..n-1 through the decode step, one
+    token a step at per-row positions (replays on the card): (batch, n,
+    vocab) float32."""
+    init, step = model.executor.build_decode(batch, S2S_DEC)
+    caches = init(model.params, [src])
+    out = []
+    for t in range(n):
+        logits, _ = step(model.params, caches, np.full(batch, t, np.int32),
+                         [dec[:, t:t + 1]])
+        out.append(logits[:, 0].float())
+    return torch.stack(out, 1)
+
+
+def full_logits(torch, model, src, dec, n):
+    """The full forward's logits of decoder positions 0..n-1 (the decoder
+    buffer padded to its compiled length)."""
+    padded = np.zeros((dec.shape[0], S2S_DEC), np.int32)
+    padded[:, :dec.shape[1]] = dec
+    return model.executor.build_forward()(model.params, [src, padded])[
+        :, :n].float()
+
+
+def hold_logits(torch, what, cached, full, rtol):
+    """The cached logits against the full forward's: per position the
+    max error over the row's max |logit| (under rtol), the argmax
+    agreement, and the rows' spread over the vocabulary (above
+    S2S_LOGIT_STD_FLOOR: not vacuous)."""
+    if not (torch.isfinite(cached).all() and torch.isfinite(full).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    rel = (cached - full).abs().amax(-1) / full.abs().amax(-1)
+    err, mean_err = rel.max().item(), rel.mean().item()
+    agree = (cached.argmax(-1) == full.argmax(-1)).float().mean().item()
+    spread = full.std(-1).min().item()
+    if not err <= rtol:
+        raise AssertionError(f"{what}: cached vs forward {err} > {rtol}")
+    if not spread >= S2S_LOGIT_STD_FLOOR:
+        raise AssertionError(f"{what}: a logit row's std {spread} < "
+                             f"{S2S_LOGIT_STD_FLOOR}: vacuous logits")
+    return {"max_rel_err": err, "mean_rel_err": mean_err, "tol": rtol,
+            "argmax_agree": agree, "min_row_std": spread,
+            "row_std_floor": S2S_LOGIT_STD_FLOOR}
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def seq2seq_step_profile(torch, model, src, toks):
+    """One warm captured decoder step (every row at the last generated
+    position, the caches of `src`), traced, beside the host-clock time of
+    such a step (best of 5)."""
+    init, step = model.executor.build_decode(S2S_BATCH, S2S_DEC)
+    caches = init(model.params, [src])
+    t = np.full(S2S_BATCH, S2S_NEW - 1, np.int32)
+    tok = toks[:, S2S_NEW - 1:S2S_NEW]
+    times = []
+    for _ in range(7):
+        _, dt = timed(torch, lambda: step(model.params, caches, t, [tok]))
+        times.append(1e3 * dt)
+    prof = profile_step(torch, lambda: step(model.params, caches, t, [tok]))
+    host = min(times[2:])
+    log(f"  seq2seq decode step ({S2S_BATCH} rows at {S2S_NEW - 1}, "
+        f"captured): {host:.3f} ms on the host clock, device busy "
+        f"{prof['device_busy_ms']:.3f} ms, idle share "
+        f"{max(0.0, 1.0 - prof['device_busy_ms'] / host):.4f}")
+    return {"step_ms_reading": host, "device_busy_ms": prof[
+        "device_busy_ms"], "idle_share_host_clock": max(
+        0.0, 1.0 - prof["device_busy_ms"] / host),
+        "by_family_ms": prof["by_family_ms"],
+        "events_by_family": prof["events_by_family"]}
+
+
+def seq2seq_generation(torch, model):
+    """incremental_seq2seq_generate (captured against eager, cached
+    logits against the full forward, on two source batches in a row) and
+    incremental_beam_generate (captured against eager, each beam
+    rescored through the full forward, num_beams 1 against greedy)."""
+    from flexflow_tpu_torch.runtime.serving import (
+        _log_softmax, incremental_beam_generate, incremental_generate,
+        incremental_seq2seq_generate)
+
+    rng = np.random.RandomState(11)
+    out = {}
+    runs = []
+    for k in range(2):   # two source batches: new caches, new statics
+        src = rng.randint(0, S2S_VOCAB, (S2S_BATCH, S2S_SRC)).astype(np.int32)
+        toks, dt = timed(torch, lambda: incremental_seq2seq_generate(
+            model, src, max_new_tokens=S2S_NEW))
+        eager, dt_e = timed(torch, lambda: incremental_seq2seq_generate(
+            model, src, max_new_tokens=S2S_NEW, _eager=True))
+        if not np.array_equal(toks, eager):
+            at = int(np.argmax((toks != eager).any(0)))
+            raise AssertionError(f"seq2seq batch {k}: captured and eager "
+                                 f"steps disagree from position {at}")
+        n = toks.shape[1]
+        held = hold_logits(torch, f"seq2seq batch {k}",
+                           cached_logits(torch, model, src, toks, n,
+                                         S2S_BATCH),
+                           full_logits(torch, model, src, toks, n),
+                           S2S_LOGIT_RTOL)
+        runs.append({"s": dt, "tokens_per_s": S2S_BATCH * S2S_NEW / dt,
+                     "step_ms": 1e3 * dt / S2S_NEW, "eager_s": dt_e,
+                     "eager_tokens_per_s": S2S_BATCH * S2S_NEW / dt_e,
+                     "exact_vs_eager": True, "cached_vs_forward": held,
+                     "distinct_tokens": int(len(np.unique(toks[:, 1:])))})
+        log(f"  incremental_seq2seq_generate batch {k}: {S2S_BATCH}x"
+            f"{S2S_NEW} tokens in {dt:.3f}s ({S2S_BATCH * S2S_NEW / dt:.1f} "
+            f"tokens/s; eager {dt_e:.3f}s), equal to eager; cached vs "
+            f"forward {held['max_rel_err']:.4g} (tol {S2S_LOGIT_RTOL}), "
+            f"argmax agree {held['argmax_agree']:.4f}, min row std "
+            f"{held['min_row_std']:.3g}")
+        if k == 0:
+            first = toks
+    if np.array_equal(first, toks):
+        raise AssertionError("two source batches gave the same tokens")
+    out["incremental_seq2seq_generate"] = {
+        "batch": S2S_BATCH, "src_len": S2S_SRC, "new_tokens": S2S_NEW,
+        "runs": runs, "step_profile": seq2seq_step_profile(
+            torch, model, src, toks)}
+    # beam search: num_beams 4 over 4 sources
+    src = rng.randint(0, S2S_VOCAB, (S2S_BEAM_SOURCES, S2S_SRC)) \
+        .astype(np.int32)
+    starts = np.zeros((S2S_BEAM_SOURCES, 1), np.int32)
+    kw = dict(max_new_tokens=S2S_BEAM_NEW, max_len=S2S_DEC, encoder_ids=src)
+    beams, dt = timed(torch, lambda: incremental_beam_generate(
+        model, starts, num_beams=S2S_BEAMS, **kw))
+    eager, dt_e = timed(torch, lambda: incremental_beam_generate(
+        model, starts, num_beams=S2S_BEAMS, _eager=True, **kw))
+    if not np.array_equal(beams, eager):
+        raise AssertionError("beam search: captured and eager steps "
+                             "disagree")
+    # each returned beam's summed log-prob: the incremental scorer (the
+    # beam teacher-forced through the decode step) against the full
+    # forward
+    n = beams.shape[1] - 1
+    inc = cached_logits(torch, model, src, beams, n, S2S_BEAM_SOURCES)
+    full = full_logits(torch, model, np.concatenate([src, src]),
+                       np.concatenate([beams, beams]), n)[:S2S_BEAM_SOURCES]
+    idx = beams[:, 1:]
+
+    def score(lg):
+        lp = _log_softmax(lg.cpu().numpy().astype(np.float64))
+        return np.take_along_axis(lp, idx[..., None], -1)[..., 0].sum(-1)
+
+    s_inc, s_full = score(inc), score(full)
+    rel = np.abs(s_inc - s_full) / np.abs(s_full)
+    if not rel.max() <= S2S_BEAM_SCORE_RTOL:
+        raise AssertionError(f"beam rescoring: {s_inc} vs {s_full}")
+    # num_beams 1 is greedy on the same (batch 1) decode build
+    one = incremental_beam_generate(model, starts, num_beams=1, **kw)
+    greedy = np.concatenate([incremental_generate(
+        model, starts[i:i + 1], max_new_tokens=S2S_BEAM_NEW,
+        max_len=S2S_DEC, static_inputs=[src[i:i + 1]])
+        for i in range(S2S_BEAM_SOURCES)])
+    ties = equal_or_tie(torch, model, src, one, greedy)
+    out["incremental_beam_generate"] = {
+        "num_beams": S2S_BEAMS, "sources": S2S_BEAM_SOURCES,
+        "new_tokens": S2S_BEAM_NEW, "s": dt,
+        "tokens_per_s": S2S_BEAM_SOURCES * S2S_BEAM_NEW / dt,
+        "eager_s": dt_e, "exact_vs_eager": True,
+        "score_incremental": s_inc.tolist(), "score_full": s_full.tolist(),
+        "score_max_rel_err": float(rel.max()), "score_tol":
+        S2S_BEAM_SCORE_RTOL, "one_beam_equals_greedy": ties == 0,
+        "one_beam_rows_apart_at_an_exact_tie": ties}
+    log(f"  incremental_beam_generate: {S2S_BEAM_SOURCES} sources x "
+        f"{S2S_BEAMS} beams x {S2S_BEAM_NEW} tokens in {dt:.3f}s (eager "
+        f"{dt_e:.3f}s), equal to eager; rescored max rel err "
+        f"{rel.max():.3g} (tol {S2S_BEAM_SCORE_RTOL}); num_beams 1 == "
+        f"greedy ({ties} rows apart from an exact bf16 tie on)")
+    return out
+
+
+def equal_or_tie(torch, model, src, a, b):
+    """num_beams 1 against greedy, both on the batch-1 decode build: equal
+    token for token, except that a row may part where the two tokens'
+    logits are exactly equal (bf16 logits over 32000 words tie now and
+    then; greedy's argmax takes the lower index, the beam's top-k either).
+    Returns how many rows parted at such a tie; raises on any other
+    difference."""
+    ties = 0
+    for i in range(a.shape[0]):
+        apart = np.nonzero(a[i] != b[i])[0]
+        if not len(apart):
+            continue
+        j = int(apart[0])
+        lg = cached_logits(torch, model, src[i:i + 1], a[i:i + 1], j, 1)[
+            0, j - 1]
+        if lg[int(a[i, j])].item() != lg[int(b[i, j])].item():
+            raise AssertionError(f"num_beams 1 differs from greedy in row "
+                                 f"{i} at {j}, not at a tie")
+        ties += 1
+    return ties
+
+
+def nmt_beam(torch):
+    """beam_generate on NMT at its published widths (softmax head):
+    output_probability_like, num_beams 1 against greedy_generate, and
+    a 4-beam search timed."""
+    from flexflow_tpu_torch.runtime.serving import (beam_generate,
+                                                    greedy_generate)
+
+    m = build_nmt_model(torch)
+    if m.output_probability_like() is not True:
+        raise AssertionError("NMT: output_probability_like is not True")
+    src = np.random.RandomState(12).randint(
+        0, NMT_VOCAB, (NMT_BATCH, NMT_LEN)).astype(np.int32)
+    greedy = greedy_generate(m, src, max_new_tokens=NMT_BEAM_NEW)
+    one = beam_generate(m, src[:NMT_BEAM_SOURCES], num_beams=1,
+                        max_new_tokens=NMT_BEAM_NEW)
+    if not np.array_equal(one, greedy[:NMT_BEAM_SOURCES]):
+        raise AssertionError("NMT: num_beams 1 differs from greedy")
+    beams, dt = timed(torch, lambda: beam_generate(
+        m, src[:NMT_BEAM_SOURCES], num_beams=S2S_BEAMS,
+        max_new_tokens=NMT_BEAM_NEW))
+    log(f"  NMT beam_generate: {NMT_BEAM_SOURCES} sources x {S2S_BEAMS} "
+        f"beams x {NMT_BEAM_NEW} tokens in {dt:.3f}s; num_beams 1 == "
+        "greedy_generate")
+    return {"model": "build_nmt (examples/python/nmt.py -b 32)",
+            "output_probability_like": True, "sources": NMT_BEAM_SOURCES,
+            "num_beams": S2S_BEAMS, "new_tokens": NMT_BEAM_NEW, "s": dt,
+            "one_beam_equals_greedy": True,
+            "shape": list(beams.shape)}
+
+
+def build_primitive_decoder(torch):
+    """A decoder whose attention is primitive ops at the serving LM's
+    width: per block q/k/v dense, reshape and transpose to heads,
+    batch_matmul scores scaled by 1/8, a baked tril mask constant,
+    softmax, batch_matmul with V, back to (b, s, 1024), the output dense,
+    a residual and a layer norm."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.ff_types import AggrMode, DataType
+
+    b, n, d, h = SLOTS, PRIM_LEN, HIDDEN, HEADS
+    m = FFModel(FFConfig(batch_size=b, allow_mixed_precision=True, seed=0))
+    ids = m.create_tensor((b, n), DataType.DT_INT32)
+    x = m.embedding(ids, VOCAB, d, AggrMode.AGGR_MODE_NONE)
+    mask = np.where(np.tril(np.ones((n, n), bool)), 0.0, -1e9) \
+        .astype(np.float32)[None, None]
+    for _ in range(PRIM_LAYERS):
+        def heads(t):
+            return m.transpose(m.reshape(m.dense(t, d), (b, n, h, d // h)),
+                               (0, 2, 1, 3))
+        q, k, v = heads(x), heads(x), heads(x)
+        s = m.batch_matmul(q, m.transpose(k, (0, 1, 3, 2)))
+        s = m.add(m.scalar_multiply(s, 1.0 / np.sqrt(d // h)),
+                  m.create_constant_tensor(mask, DataType.DT_FLOAT))
+        a = m.batch_matmul(m.softmax(s, axis=-1), v)
+        a = m.reshape(m.transpose(a, (0, 2, 1, 3)), (b, n, d))
+        x = m.layer_norm(m.add(x, m.dense(a, d)))
+    m.softmax(m.dense(x, VOCAB))
+    m.compile()
+    return m
+
+
+def primitive_decoder(torch):
+    """build_decode without assume_causal (the baked mask proves the
+    attention causal), prefix caches, and per-row replayed steps against
+    the full forward; incremental_generate captured against eager."""
+    from flexflow_tpu_torch.runtime.serving import incremental_generate
+
+    m = build_primitive_decoder(torch)
+    init, _ = m.executor.build_decode(SLOTS, PRIM_LEN)
+    prefix = len(init(m.params)["prefix"])
+    if prefix != 2 * PRIM_LAYERS:
+        raise AssertionError(f"primitive decoder: {prefix} prefix caches")
+    prompts = np.random.RandomState(13).randint(
+        0, VOCAB, (SLOTS, 16)).astype(np.int32)
+    toks, dt = timed(torch, lambda: incremental_generate(
+        m, prompts, max_new_tokens=PRIM_LEN - 16, max_len=PRIM_LEN))
+    eager = incremental_generate(m, prompts, max_new_tokens=PRIM_LEN - 16,
+                                 max_len=PRIM_LEN, _eager=True)
+    if not np.array_equal(toks, eager):
+        raise AssertionError("primitive decoder: captured and eager steps "
+                             "disagree")
+    err, _, _ = check_cached_vs_forward(torch, m, toks, 16, PRIM_LEN,
+                                        per_row=True)
+    log(f"  primitive-op decoder ({PRIM_LAYERS} blocks, width {HIDDEN}): "
+        f"built without assume_causal, {prefix} prefix caches; "
+        f"{SLOTS}x{PRIM_LEN - 16} tokens in {dt:.3f}s, equal to eager; "
+        f"cached vs forward {err:.4g} (tol {LOGIT_RTOL})")
+    return {"blocks": PRIM_LAYERS, "width": HIDDEN, "heads": HEADS,
+            "len": PRIM_LEN, "prefix_caches": prefix, "s": dt,
+            "tokens_per_s": SLOTS * (PRIM_LEN - 16) / dt,
+            "exact_vs_eager": True, "cached_vs_forward_max_rel_err": err,
+            "tol": LOGIT_RTOL}
+
+
+def compile_decode_serving(torch):
+    """compile_decode on the serving LM (SEARCH_WORKERS simulated H100s,
+    the decode objective), then a ContinuousBatcher on its executor:
+    decode_strategy_active, every answer equal to incremental_generate's,
+    the page pool clean."""
+    from flexflow_tpu_torch.runtime.serving import (AdmissionQueue,
+                                                    ContinuousBatcher,
+                                                    GenerationRequest,
+                                                    ServingConfig,
+                                                    incremental_generate)
+
+    model = build_model(torch, layers=COMPILE_DECODE_LAYERS,
+                        search_num_workers=SEARCH_WORKERS)
+    ids = np.random.RandomState(14).randint(0, VOCAB, (SLOTS, MAX_LEN))
+    unit_scale_weights(torch, model, ids.astype(np.int32))
+    t0 = time.perf_counter()
+    model.compile_decode()
+    search_s = time.perf_counter() - t0
+    views = sorted({tuple(v.dim) for v in
+                    model.decode_searched_views.values()})
+    lens = [16, 40, 64, 97, 128, 150]
+    new = 16
+    rng = np.random.RandomState(15)
+    prompts = [rng.randint(0, VOCAB, n).astype(np.int32) for n in lens]
+    q = AdmissionQueue(max_depth=len(lens))
+    b = ContinuousBatcher(model, ServingConfig(max_len=MAX_LEN, slots=SLOTS,
+                                               page_size=16), q)
+    if not b.decode_strategy_active:
+        raise AssertionError("the batcher did not take the decode executor")
+    reqs = [GenerationRequest(p, new, deadline_s=600.0) for p in prompts]
+    t0 = time.perf_counter()
+    b.start()
+    try:
+        for r in reqs:
+            q.offer(r)
+        outs = [r.result(timeout=600) for r in reqs]
+    finally:
+        b.stop()
+    dt = time.perf_counter() - t0
+    if b.dead or b.stats["finished"] != len(reqs):
+        raise AssertionError(f"batcher: {b.stats}, died: {b.death_cause!r}")
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        ref = incremental_generate(model, p[None], max_new_tokens=new,
+                                   max_len=MAX_LEN)[0]
+        if not np.array_equal(o, ref):
+            raise AssertionError(f"decode-executor batcher: request {i} "
+                                 "differs from incremental_generate")
+    if b.pool.audit() or b.pool.pages_in_use:
+        raise AssertionError(f"page pool not clean: {b.pool.audit()}")
+    log(f"  compile_decode (serving LM, {COMPILE_DECODE_LAYERS} blocks, "
+        f"{SEARCH_WORKERS} simulated H100s): {search_s:.2f}s, cost "
+        f"{model.decode_searched_cost:.6g}, views {views}; batcher on the "
+        f"decode executor: {len(reqs)} requests exact, pool clean")
+    return {"layers": COMPILE_DECODE_LAYERS, "workers": SEARCH_WORKERS,
+            "search_s": search_s, "searched_cost": model.decode_searched_cost,
+            "winner_view_dims": [list(v) for v in views],
+            "phases_s": {e["name"]: e["dur"] for e in
+                         model.decode_trajectory.of_kind("phase")},
+            "decode_strategy_active": True, "requests": len(reqs),
+            "new_tokens": new, "batcher_s": dt,
+            "exact_vs_incremental_generate": len(reqs),
+            "pool_audit_ok": True}
+
+
+def check_seq2seq_kernels(torch, rng_seed=4):
+    """Both kernels of the path held against their plain versions at the
+    seq2seq shapes, and timed beside SDPA and their bound: the encoder's
+    flash forward (non-causal, 8 x 16 rows of 128 x 128, d 64) and the
+    decoder's paged decode (8 slots x 16 heads, cap 128, the strided
+    cache view)."""
+    from flexflow_tpu_torch.kernels import attention as ka
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.kernels import decode as kd
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    bf16 = torch.bfloat16
+    bh, s, d = S2S_BATCH * S2S_HEADS, S2S_SRC, S2S_D // S2S_HEADS
+    q, k, v = (torch.randn(bh, s, d, generator=g, device="cuda").to(bf16)
+               for _ in range(3))
+    before = dict(build.path_counts)
+    o, _ = ka._flash_fwd_cuda(q, k, v, causal=False)
+    po, _ = ka.flash_fwd_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    expect_path("seq2seq flash", before, "flash_fwd", "wgmma")
+    eo, ratio = check_close("seq2seq flash", "flash_fwd", o, po)
+    q4, k4, v4 = (x.view(1, bh, s, d) for x in (q, k, v))
+    # q, k, v read and O written in bf16, lse written in f32; QK^T and PV
+    b_ms, b_by = bound_ms(2 * 4 * bh * s * d + 4 * bh * s,
+                          bh * s * s * 4 * d)
+    flash = {"shape": f"bh={bh} sq=sk={s} d=dv={d} non-causal bf16 (the "
+                      "encoder's self-attention), L2 warm",
+             "max_abs_err": eo, "err_over_limit": ratio,
+             "ms": time_ms(lambda: ka._flash_fwd_cuda(q, k, v,
+                                                      causal=False), 50),
+             "plain_ms": time_ms(lambda: ka.flash_fwd_plain(
+                 q, k, v, causal=False), 10),
+             "library_ms": time_ms(
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     q4, k4, v4), 50),
+             "bound_ms": b_ms, "bound_by": b_by}
+    h, lens = S2S_HEADS, S2S_PAGED_LENGTHS
+    page = kd.decode_page_size(S2S_DEC)
+    kc, vc = (torch.randn(S2S_BATCH, S2S_DEC, h, d, generator=g,
+                          device="cuda").to(bf16) for _ in range(2))
+    qd = torch.randn(S2S_BATCH, h, d, generator=g, device="cuda").to(bf16)
+    kp, vp, table = kd.paged_view_of_cache(kc, vc, page)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    args = (qd, kp, vp, table, lengths)
+    before = dict(build.path_counts)
+    out = kd._paged_decode_cuda(*args)
+    plain = kd.paged_decode_plain(*args)
+    torch.cuda.synchronize()
+    expect_path("seq2seq paged", before, "paged_decode", "cluster")
+    ep, pratio = check_close("seq2seq paged", "paged_decode", out, plain)
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    mask = (torch.arange(S2S_DEC, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    pb_ms, pb_by = paged_bound(lens, h, d, d, page)
+    paged = {"shape": (f"{S2S_BATCH} slots x {h} heads, d {d}, cap "
+                       f"{S2S_DEC}, page {page}, lengths "
+                       + "/".join(map(str, lens)) + ", strided cache view, "
+                       "bf16, L2 cold"),
+             "max_abs_err": ep, "err_over_limit": pratio,
+             "ms": time_ms(lambda: kd._paged_decode_cuda(*args), 50,
+                           flush_buf.zero_),
+             "plain_ms": time_ms(lambda: kd.paged_decode_plain(*args), 3,
+                                 flush_buf.zero_, per_launch=True),
+             "library_ms": time_ms(
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                     attn_mask=mask), 50, flush_buf.zero_),
+             "bound_ms": pb_ms, "bound_by": pb_by,
+             "ranks": kd.paged_ranks(table.shape[1], page)}
+    log(f"  seq2seq kernels: flash (non-causal {bh}x{s}x{s}) "
+        f"{flash['ms']:.4f} ms, plain {flash['plain_ms']:.4f}, SDPA "
+        f"{flash['library_ms']:.4f}, bound {b_ms:.5f} ({b_by}), err "
+        f"{eo:.3g}; paged (cap {S2S_DEC}) {paged['ms']:.5f} ms, plain "
+        f"{paged['plain_ms']:.4f}, SDPA {paged['library_ms']:.5f}, bound "
+        f"{pb_ms:.5f} ({pb_by}), err {ep:.3g}")
+    return {"flash_fwd": flash, "paged_decode": paged}
+
+
+def seq2seq(torch):
+    """The encoder-decoder serving phase: Transformer (big) through
+    incremental_seq2seq_generate and incremental_beam_generate, NMT's
+    beam_generate, the primitive-op attention decoder and compile_decode
+    with the batcher on its executor; every kernel launch of those runs
+    counted, then both kernels held against their plain versions at the
+    seq2seq shapes (those launches not counted)."""
+    from flexflow_tpu_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    model, build_s = timed(torch, lambda: build_seq2seq_model(torch))
+    summary = {"model": "Transformer (big), Vaswani et al. 2017 Table 3",
+               "d_model": S2S_D, "heads": S2S_HEADS, "d_ff": S2S_FF,
+               "layers": f"{S2S_LAYERS}+{S2S_LAYERS}", "vocab": S2S_VOCAB,
+               "src_len": S2S_SRC, "dec_cap": S2S_DEC,
+               "precision": "bf16 compute over f32 weights",
+               "weights": sum(w.numel() for ws in model.params.values()
+                              for w in ws.values()), "build_s": build_s}
+    summary.update(seq2seq_generation(torch, model))
+    del model
+    torch.cuda.empty_cache()
+    summary["nmt_beam_generate"] = nmt_beam(torch)
+    summary["primitive_decoder"] = primitive_decoder(torch)
+    summary["compile_decode"] = compile_decode_serving(torch)
+    torch.cuda.synchronize()
+    counts = dict(build.launch_counts)
+    check_wgmma_paths("seq2seq", counts, build.path_counts)
+    paged = {k: build.path_counts[k] for k in ("paged_decode_cluster",
+                                               "paged_decode_block")}
+    if paged != {"paged_decode_cluster": counts["paged_decode"],
+                 "paged_decode_block": 0}:
+        raise AssertionError(f"seq2seq: paged launches by path {paged}, "
+                             "expected all on cluster")
+    if not (counts["flash_fwd"] and counts["paged_decode"]):
+        raise AssertionError(f"a kernel of the seq2seq path never "
+                             f"launched: {counts}")
+    summary.update(launches=counts,
+                   launches_by_path=dict(build.path_counts),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    summary["kernels"] = check_seq2seq_kernels(torch)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return summary
+
+
 def wgmma_build_report(build):
     """Registers, spill bytes and shared memory of each wgmma kernel
     instance, from ptxas's report in the build log (-Xptxas -v) and the
@@ -4108,6 +4709,10 @@ def main() -> int:
 
     log("# search phase: the Unity search, operators measured on the card")
     se = search(torch)
+    torch.cuda.empty_cache()
+
+    log("# seq2seq phase: encoder-decoder serving, Transformer (big)")
+    s2 = seq2seq(torch)
 
     # the CNN and zoo paths run none of the three kernels (cuDNN
     # convolutions and cuBLAS products, as the JAX package's are XLA's);
@@ -4121,10 +4726,15 @@ def main() -> int:
                 "moe": moe_summary["launches"], "dlrm": dl["launches"],
                 "inception": inc["launches"], "zoo": zo["launches"],
                 "longctx": lc["launches"], "nmt": nm["launches"],
-                "fusion": fu["launches"], "search": se["launches"]}
+                "fusion": fu["launches"], "search": se["launches"],
+                "seq2seq": s2["launches"]}
     # rows 1 and 2 at the long-context model's shape (bound by operations)
     for k in kernels[:2]:
         k["long_context_shape"] = lc["flash_long_shape"][k["name"]]
+    # rows 1 and 3 at the seq2seq phase's shapes
+    for k in kernels:
+        if k["name"] in s2["kernels"]:
+            k["seq2seq_shape"] = s2["kernels"][k["name"]]
     for k in kernels:
         k["launches_by_phase"] = {p: c.get(k["name"], 0)
                                   for p, c in by_phase.items()}
@@ -4135,7 +4745,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "wmma_ms", "block_ms", "path",
-            "long_context_shape")
+            "long_context_shape", "seq2seq_shape")
     line = {"kernels": [{k: kr[k] for k in keys if k in kr}
                         for kr in kernels]}
     for row in line["kernels"]:
@@ -4145,7 +4755,7 @@ def main() -> int:
                   training_scan=scan, bert=bert_summary, bert_scan=bscan,
                   alexnet=alex, resnext=rx, moe=moe_summary, dlrm=dl,
                   inception=inc, zoo=zo, longctx=lc, nmt=nm, fusion=fu,
-                  search=se)
+                  search=se, seq2seq=s2)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -4225,6 +4835,7 @@ def main() -> int:
                                    exported=se[f"x{SEARCH_WORKERS}"][
                                        "exported"]),
         "phase_s": se["phase_s"]}}))
+    log(smi + " " + json.dumps({"seq2seq": s2}))
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

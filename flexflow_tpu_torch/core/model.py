@@ -11,9 +11,13 @@ op chains into fused ops, pcg/fusion.py), `init_layers`,
 `create_data_loader`, `fit` and `eval` (training; both take arrays or
 data loaders), `predict` (serving) and the stepwise API
 (`set_iteration_batch`, `forward`, `zero_gradients`, `backward`,
-`update`). Stateful ops' buffers (BatchNorm's running statistics,
-Cache's cached value) live in `self.state.net_state`: training updates
-them, eval, `predict` and the stepwise `forward` read them. Op names follow the JAX package
+`update`), constant inputs (`create_constant`, `create_constant_tensor`),
+`compile_decode` (a second search under the decode objective, whose
+executor the ContinuousBatcher serves from) and
+`output_probability_like`. Stateful ops' buffers (BatchNorm's running
+statistics, Cache's cached value) live in `self.state.net_state`:
+training updates them, eval, `predict` and the stepwise `forward` read
+them. Op names follow the JAX package
 (`f"{op_type.name.lower()}_{len(self.layers)}"`), so weights carry across
 by (op name, weight name) (runtime/weights.py).
 
@@ -104,6 +108,14 @@ class FFModel:
         self._last_logits: Optional[torch.Tensor] = None
         self._pending_grads = None
         self._pending_net_state = None
+        # constant inputs: tensor guid -> a float or a baked array
+        self._constant_values: Dict[int, Union[float, np.ndarray]] = {}
+        # compile_decode's products
+        self.decode_graph = None
+        self.decode_executor: Optional[PCGExecutor] = None
+        self.decode_searched_views = None
+        self.decode_searched_cost = None
+        self.decode_trajectory = None
 
     @property
     def params(self) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
@@ -125,6 +137,25 @@ class FFModel:
                    create_gradients=create_grad, name=name)
         t._model = self
         self.input_tensors.append(t)
+        return t
+
+    def create_constant(self, dims: Sequence[int], value: float,
+                        data_type: DataType = DataType.DT_FLOAT) -> Tensor:
+        """A constant input tensor filled with `value`: materialized by the
+        executor, never one of fit()'s batch inputs (reference:
+        flexflow_cffi.py:941)."""
+        t = self.create_tensor(dims, data_type, create_grad=False)
+        self._constant_values[t.guid] = float(value)
+        return t
+
+    def create_constant_tensor(self, array, data_type=None) -> Tensor:
+        """A constant tensor with arbitrary (non-trainable) contents: baked
+        masks, position tables."""
+        arr = np.asarray(array)
+        dt = to_data_type(arr.dtype) if data_type is None \
+            else to_data_type(data_type)
+        t = self.create_tensor(arr.shape, dt, create_grad=False)
+        self._constant_values[t.guid] = arr.astype(dt.np_dtype)
         return t
 
     def _add_layer(self, op_type: OperatorType, params, inputs: List[Tensor],
@@ -558,9 +589,15 @@ class FFModel:
                    for i, pt in enumerate(self.graph.input_tensors())}
         self._fit_input_tensors = [
             t for t in self.input_tensors
-            if tensor_map.get(t.guid) in pre_pos]
-        positions = [pre_pos[tensor_map[t.guid]]
-                     for t in self._fit_input_tensors]
+            if tensor_map.get(t.guid) in pre_pos
+            and t.guid not in self._constant_values]
+        self._input_positions = [pre_pos[tensor_map[t.guid]]
+                                 for t in self._fit_input_tensors]
+        self._constant_positions = {
+            pre_pos[tensor_map[t.guid]]: self._constant_values[t.guid]
+            for t in self.input_tensors
+            if t.guid in self._constant_values
+            and tensor_map.get(t.guid) in pre_pos}
         self.searched_views = None
         self.searched_cost = None
         self.searched_op_costs = None
@@ -586,9 +623,9 @@ class FFModel:
                 DataType.DT_INT32 if sparse else logits_pt.data_type,
                 name="label")
             self.label_tensor._model = self
-        graph_inputs = self.graph.input_tensors()
         mixed = self.config.allow_mixed_precision
         t_phase = time.perf_counter()
+        inputs, constants = self._graph_inputs(self.graph)
         self.executor = PCGExecutor(
             self.graph, self.device, optimizer=self.optimizer,
             loss_type=self.loss_type,
@@ -596,15 +633,24 @@ class FFModel:
             compute_dtype=torch.bfloat16 if mixed else None,
             # bf16 gradient storage rides mixed precision, as in JAX
             grad_dtype=torch.bfloat16 if mixed else None,
-            seed=self.config.seed,
-            input_order=[graph_inputs[i] for i in positions],
-            remat=self.config.remat)
+            seed=self.config.seed, input_order=inputs,
+            remat=self.config.remat, constants=constants)
         self._phase("executor_build", t_phase)
         t_phase = time.perf_counter()
         self.state = self.executor.init_state()
         self._phase("init_state", t_phase)
         self.perf_metrics = PerfMetrics()
         self._rng = torch.Generator().manual_seed(self.config.seed)
+
+    def _graph_inputs(self, graph):
+        """(the batch inputs in creation order, the constants {guid:
+        (tensor, value)}) of a lowering of this model's layers, by their
+        positions among its inputs: a search rewrite copies the graph with
+        fresh tensors, and the positions survive the copy."""
+        cur = graph.input_tensors()
+        return ([cur[i] for i in self._input_positions],
+                {cur[i].guid: (cur[i], v)
+                 for i, v in self._constant_positions.items()})
 
     def _phase(self, name: str, t0: float, **fields) -> None:
         """Record a compile phase in the trajectory and in
@@ -614,12 +660,15 @@ class FFModel:
         self.compile_phase_s[name] = time.perf_counter() - t0
 
     # -- the strategy search --------------------------------------------------
-    def _build_cost_model(self):
+    def _build_cost_model(self, objective: str = "train"):
         """The search's cost oracle: the machine of the config's machine
         file, else H100s with their published numbers
         (search/machine_model.py h100_machine), search_num_nodes x
         search_num_workers of them when set (1 x 1 otherwise). No
-        calibration is applied: the port ships no fit."""
+        calibration is applied: the port ships no fit. `objective` is what
+        it prices (search/cost_model.py CostObjective): "train" or
+        "decode", the one-token memory-roofline pricing of
+        compile_decode's search."""
         from ..search import CostModel, h100_machine, parse_machine_config
 
         cfg = self.config
@@ -635,7 +684,139 @@ class FFModel:
         # exist as failure domains
         pen = 0.25 if machine.num_nodes > 1 else 0.0
         return CostModel(machine, bf16=cfg.allow_mixed_precision,
-                         survivability_penalty=pen)
+                         survivability_penalty=pen, objective=objective)
+
+    def compile_decode(self, *, strategy_path: Optional[str] = None,
+                       export_path: Optional[str] = None) -> PCGExecutor:
+        """Run the Unity search a SECOND time over the same layer graph
+        with the DECODE cost objective: one-token decode is bound by
+        memory where training is bound by compute, so the cheapest
+        parallelization differs (search/cost_model.py CostObjective).
+
+        The model then carries two strategies: `graph`/`searched_views`
+        (training and prefill) and `decode_graph`/`decode_searched_views`
+        with `decode_searched_cost`, and `decode_trajectory` records this
+        search. The ContinuousBatcher builds its running-batch decode step
+        from `decode_executor` while prefill keeps the training strategy
+        (runtime/serving.py). As `compile` does, the winner is demoted to
+        the one device the port runs on.
+
+        strategy_path: import the decode strategy from a strategy_io JSON
+        file instead of searching (ServingConfig.decode_strategy_path feeds
+        this). export_path: export the searched strategy for a later
+        import. Returns the decode executor. The JAX package's perf and
+        precision lints of the winner are not ported."""
+        if self.executor is None:
+            raise RuntimeError(
+                "compile() the model before compile_decode(): the decode "
+                "strategy is searched over the same layer graph and serves "
+                "alongside the training one")
+        from types import SimpleNamespace
+
+        from ..parallel import strategies
+        from ..runtime.strategy_io import (apply_imported_strategy,
+                                           export_strategy, import_strategy)
+        from ..search import run_strategy_validators
+
+        cfg = self.config
+        ndev = 1
+        self.decode_trajectory = SearchTrajectory()
+        t_phase = time.perf_counter()
+        # a fresh lowering: the training search rewrote self.graph with
+        # its own substitutions; the decode search starts from the layers
+        graph, _ = layers_to_pcg(self.layers)
+        if cfg.perform_fusion:
+            graph = apply_fusion(graph)
+        self.decode_trajectory.phase("decode_lowering", t_phase,
+                                     ops=len(graph.ops))
+        cost_model = self._build_cost_model(objective="decode")
+        t_phase = time.perf_counter()
+        if strategy_path:
+            strategy = import_strategy(strategy_path)
+            apply_imported_strategy(graph, strategy, num_devices=ndev)
+            views = {op.guid: op.machine_view for op in graph.ops
+                     if op.machine_view is not None}
+            cost = None
+            self.decode_trajectory.phase(
+                "decode_strategy_import", t_phase, records=len(strategy),
+                devices=ndev)
+        else:
+            from ..pcg.machine_view import MachineResource
+            from ..search import (GraphSearchHelper, SearchHelper,
+                                  generate_all_pcg_xfers)
+
+            machine = cost_model.machine
+            sh = SearchHelper(cost_model, trajectory=self.decode_trajectory)
+            degrees = []
+            d = 2
+            while d <= machine.num_workers:
+                degrees.append(d)
+                d *= 2
+            budget = cfg.search_budget if cfg.search_budget > 0 else 10
+            # parallelization xfers ONLY, no operator substitutions: a
+            # substitution builds its ops' weights afresh, but the decode
+            # strategy serves the weights trained under the training graph
+            # (the batcher feeds both lowerings one param store, by op
+            # name)
+            xfers = generate_all_pcg_xfers(degrees or [1], cfg)
+            res = MachineResource(
+                num_nodes=machine.num_nodes,
+                all_procs_per_node=machine.workers_per_node,
+                available_procs_per_node=machine.workers_per_node)
+            gsh = GraphSearchHelper(sh, xfers, alpha=cfg.search_alpha,
+                                    budget=budget,
+                                    trajectory=self.decode_trajectory)
+            graph, result = gsh.graph_optimize(graph, res)
+            views, cost = result.views, result.cost
+            self.decode_trajectory.phase("decode_strategy_search", t_phase,
+                                         devices=ndev)
+        self.decode_graph = graph
+        self.decode_searched_views = views
+        self.decode_searched_cost = cost
+        problems = run_strategy_validators(graph, views, ndev)
+        if problems:
+            warnings.warn(
+                "decode-searched strategy failed structural validation "
+                "(falling through to lowering, which demotes infeasible "
+                "degrees to replicated): " + "; ".join(problems[:5]))
+        if export_path:
+            export_strategy(graph, SimpleNamespace(views=views, cost=cost),
+                            export_path)
+        # demotes every degree the one device cannot hold
+        strategies.assign_mesh_axes(graph, ndev)
+        # params stay keyed by op name, so the decode executor serves the
+        # training state's weights; the batcher checks that before
+        # swapping it in (runtime/serving.py)
+        inputs, constants = self._graph_inputs(graph)
+        t_phase = time.perf_counter()
+        self.decode_executor = PCGExecutor(
+            graph, self.device, optimizer=self.optimizer,
+            loss_type=self.loss_type,
+            metrics=Metrics(self.loss_type, self.metrics),
+            compute_dtype=(torch.bfloat16 if cfg.allow_mixed_precision
+                           else None),
+            grad_dtype=None,  # decode never makes gradients
+            seed=cfg.seed, input_order=inputs, constants=constants)
+        self.decode_trajectory.phase("decode_executor_build", t_phase)
+        return self.decode_executor
+
+    def output_probability_like(self, output_index: int = -1
+                                ) -> Optional[bool]:
+        """Whether the model's output carries PROBABILITIES (its tail op is
+        softmax/sigmoid or a fused sigmoid activation) rather than raw
+        logits; None when undetermined (not compiled). Serving's beam
+        scorer uses this instead of sniffing values."""
+        if self.graph is None:
+            return None
+        outs = self.graph.output_tensors()
+        if not outs:
+            return None
+        pt = outs[output_index]
+        ops = [o for o in self.graph.ops
+               if any(t.guid == pt.guid for t in o.outputs)]
+        if not ops:
+            return None
+        return _probability_like_tail(*_resolve_value_tail(ops[0]))
 
     def _is_training_compile(self) -> bool:
         """A compile without a loss serves: it allocates no gradients or

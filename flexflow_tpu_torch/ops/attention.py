@@ -38,6 +38,9 @@ queries against the prefix. FF_DECODE_IMPL picks the single-token path:
 "paged" (the paged flash-decode kernel, kernels/decode.py), "dense" (the
 per-row masked reference path) or "auto" (paged when the tensors are on
 CUDA). Multi-token blocks (prefill) always take the dense path.
+Cross-attention decodes against encoder K/V projected once
+(`cross_decode_kv`) with plain products (`_forward_decode_cross`), as the
+JAX package computes them outside its kernels.
 """
 from __future__ import annotations
 
@@ -313,6 +316,40 @@ def _forward_decode(params, weights, inputs, ctx, cache, t):
     return [_project_out(params, weights, "bshd,hde->bse", attn, wo,
                          q_in.dtype, ctx)], \
         (k_cache, v_cache)
+
+
+def cross_decode_kv(params: MultiHeadAttentionParams, weights, k_in, v_in,
+                    ctx):
+    """The FULL encoder-side K/V of a cross-attention op, for decode
+    (executor.build_decode's init): k_in/v_in are the static encoder
+    outputs (b, s_enc, e). Computed once per sequence; each decode step
+    then attends its queries against them without projecting again."""
+    cdt = ctx.compute_dtype
+    if cdt is not None:
+        k_in, v_in = k_in.to(cdt), v_in.to(cdt)
+    wk = cast_weight(ctx, weights["wk"], cdt)
+    wv = cast_weight(ctx, weights["wv"], cdt)
+    k = torch.einsum("bse,ehd->bshd", k_in, wk).to(k_in.dtype)
+    v = torch.einsum("bse,ehd->bshd", v_in, wv).to(k_in.dtype)
+    return (k, v)
+
+
+def _forward_decode_cross(params, weights, q_in, ctx, kv):
+    """Cross-attention decode step: project this block's queries and
+    attend over the precomputed full encoder K/V (cross_decode_kv). No
+    causal mask: every decoder position sees the whole encoder sequence,
+    as in the full forward. Plain products, as the JAX package computes
+    them outside its kernels."""
+    cdt = ctx.compute_dtype
+    if cdt is not None:
+        q_in = q_in.to(cdt)
+    wq = cast_weight(ctx, weights["wq"], cdt)
+    wo = cast_weight(ctx, weights["wo"], cdt)
+    q = torch.einsum("bse,ehd->bshd", q_in, wq).to(q_in.dtype)
+    k, v = kv
+    attn = _dense_attention(q, k.to(q.dtype), v.to(q.dtype), None)
+    return [_project_out(params, weights, "bshd,hde->bse", attn, wo,
+                         q_in.dtype, ctx)]
 
 
 def init_decode_cache(params: MultiHeadAttentionParams, batch: int,

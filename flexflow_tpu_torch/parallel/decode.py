@@ -1,32 +1,107 @@
-"""Incremental (KV-cache) decoding plan.
+"""Incremental (KV-cache) decoding plan for arbitrary PCGs.
 
-The PyTorch counterpart of flexflow_tpu/parallel/decode.py, for the ops
-this package has ported. Every tensor is classified by how the decode
-position flows through it:
+The PyTorch counterpart of flexflow_tpu/parallel/decode.py: O(1)-per-token
+decoding for any causal decoder or encoder-decoder PCG, including graphs
+whose attention is built from primitive ops (batch_matmul / softmax /
+elementwise masks) rather than the fused MHA op.
 
-  * live axis   -- the axis indexed by decoder position; per step only the
-    newest s0 positions are computed (s0 = 1, or the prompt at prefill);
-  * static      -- everything not downstream of the decode input (the
-    executor refuses graphs that have any, until static inputs are
-    ported).
+How: classify every tensor by how the decode position flows through it.
 
-Axis info propagates forward from the decode input through per-op rules.
-An op the rules cannot prove exact raises DecodeExactnessError at build
-time; so does a fused op (--fusion), which has no rule in the JAX package
-either. The JAX package's further rules (primitive-op attention through
-batch_matmul with prefix caches, reshapes, transposes, static slicing and
-the causality proof over baked masks) come with the ops they govern.
+  * live axis    -- the axis indexed by decoder position; per step only the
+    newest s0 positions are computed (s0 = 1, or prompt_len at prefill).
+  * prefix axis  -- an axis that ranges over ALL positions so far (the
+    key/value axis of attention scores); reads come from a persistent
+    cache of shape cap (= max_len) that each step appends to.
+  * static       -- everything not downstream of the decode input: the
+    encoder subgraph, baked mask constants, position tables. Computed
+    ONCE at init (with the static graph inputs) and sliced per step where
+    a static axis aligns with a live/prefix axis.
+
+Axis info propagates forward from the decode input through a per-op-type
+rule table (pointwise ops pass it through; transpose/reshape remap it;
+batch_matmul creates/consumes prefix axes). Ops the rules can't prove
+exact raise DecodeExactnessError (a NotImplementedError) at build time.
+
+Exactness: a softmax over a prefix axis gets an injected causality/
+validity mask (cache position <= query position), which both enforces
+causal attention and hides the cache's unwritten tail; for causal models
+this reproduces the full forward modulo float association.
+
+Causality of PRIMITIVE-op attention: the injected mask is only exact if
+the graph's own attention IS causal, and that fact lives in baked mask
+constants. build_plan PROVES it where it can -- it walks the live chain
+between the score matmul and each prefix softmax looking for a baked
+constant aligned to the (query, key) plane whose strict upper triangle is
+masked (additive <= -1e4, or all-False for a boolean where-condition) --
+and otherwise REFUSES to build unless the caller passes
+assume_causal=True. The fused-MHA path rejects non-causal self-attention
+through its op params.
+
+Per-row positions (continuous batching, and every one-token step of the
+generation APIs, which a card replays from a captured graph) slice static
+operands with device-side gathers (`_slice_aligned`): no host sync, so
+the step captures.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import warnings
 from typing import Dict, List, Optional
 
+import numpy as np
+import torch
+
 from ..ff_types import AggrMode, OperatorType
+from ..ops.registry import get_op_def
+
+NEG_INF = -1e30
 
 
 class DecodeExactnessError(NotImplementedError):
-    """Incremental decode cannot prove a step exact for this graph."""
+    """Incremental decode cannot prove a step exact for this graph.
+
+    Subclasses NotImplementedError so existing callers keep working; the
+    serving layer catches THIS type to fall back (the batcher keeps the
+    training-strategy executor when a decode-searched graph's step can't
+    be built) instead of swallowing unrelated bugs."""
+
+
+# Decode-fallback bookkeeping: every occurrence counts in
+# DECODE_FALLBACK_COUNTS[reason] (the JAX package's
+# ff_decode_fallback_total{reason}); each distinct (site, reason) warns
+# once per process. Exactness failures that have NO exact recovery still
+# raise DecodeExactnessError -- but counted.
+DECODE_FALLBACK_COUNTS: collections.Counter = collections.Counter()
+_DECODE_FALLBACK_WARNED: set = set()
+
+
+def reset_decode_fallback_warnings() -> None:
+    """Forget which (site, reason) decode fallbacks already warned
+    (tests; a fresh process starts empty)."""
+    _DECODE_FALLBACK_WARNED.clear()
+
+
+def decode_fallback(site: str, reason: str, detail: str) -> None:
+    """Count + warn-once for a decode fast path falling back (or, for
+    unrecoverable exactness failures, aborting visibly)."""
+    DECODE_FALLBACK_COUNTS[reason] += 1
+    key = (site, reason)
+    if key in _DECODE_FALLBACK_WARNED:
+        return
+    _DECODE_FALLBACK_WARNED.add(key)
+    warnings.warn(
+        f"incremental decode on {site or 'a decode graph'} fell back "
+        f"({reason}): {detail}")
+
+
+# pointwise in every axis (rank-preserving): the live/prefix axes pass
+# straight through; execution on a slice is the plain forward
+_POINTWISE = frozenset({
+    OperatorType.OP_EW_ADD, OperatorType.OP_EW_SUB, OperatorType.OP_EW_MUL,
+    OperatorType.OP_EW_DIV, OperatorType.OP_EW_MAX, OperatorType.OP_EW_MIN,
+    OperatorType.OP_WHERE,
+})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,10 +109,11 @@ class AxisInfo:
     """Where the decode position lives in a tensor. None = static/full."""
 
     live: Optional[int] = None
+    prefix: Optional[int] = None
 
     @property
     def is_live(self) -> bool:
-        return self.live is not None
+        return self.live is not None or self.prefix is not None
 
 
 @dataclasses.dataclass
@@ -47,14 +123,47 @@ class DecodePlan:
     live_ops: List  # topo-ordered ops downstream of the decode input
     static_ops: List  # topo-ordered ops computable from static inputs
     info: Dict[int, AxisInfo]  # guid -> axis info (live tensors only)
+    cached_guids: List[int]  # tensors consumed at full prefix length
+    static_needed: List[int]  # static guids consumed by live ops
+    live_len: int  # compiled decoder length L
     decode_pt: object  # the decode-driving input ParallelTensor
+    requires_cap_le_live_len: bool  # static slicing present
+
+
+def _is_unary_pointwise(op) -> bool:
+    d = get_op_def(op.op_type)
+    # rank-preserving single-input ops whose forward treats every axis as
+    # a batch axis: elementwise unaries, cast, dropout(inference), linear
+    # (contracts the LAST axis only), embedding lookup, identity
+    return op.op_type in (
+        OperatorType.OP_CAST, OperatorType.OP_DROPOUT, OperatorType.OP_NOOP,
+        OperatorType.OP_IDENTITY,
+    ) or (d.num_inputs == 1 and op.op_type.name.startswith(("OP_SCALAR_",))
+          ) or op.op_type in (
+        OperatorType.OP_EXP, OperatorType.OP_LOG, OperatorType.OP_RELU,
+        OperatorType.OP_SIGMOID, OperatorType.OP_TANH, OperatorType.OP_ELU,
+        OperatorType.OP_GELU, OperatorType.OP_RSQRT, OperatorType.OP_SQRT,
+        OperatorType.OP_SIN, OperatorType.OP_COS, OperatorType.OP_POW,
+        OperatorType.OP_PRELU,
+    )
+
+
+def _bcast_axis(in_rank: int, out_rank: int, axis: int) -> int:
+    """Right-aligned broadcast: input axis -> output axis position."""
+    return axis + (out_rank - in_rank)
 
 
 class _Propagator:
     """Forward axis-info propagation + build-time validation."""
 
-    def __init__(self):
+    def __init__(self, live_len: int):
+        self.live_len = live_len
         self.info: Dict[int, AxisInfo] = {}
+        self.cached: set = set()
+        self.saw_static_slicing = False
+        # softmax ops over a prefix axis (primitive-op attention rows):
+        # each needs a causality proof or an assume_causal opt-in
+        self.prefix_softmaxes: List = []
 
     def get(self, guid) -> AxisInfo:
         return self.info.get(guid, AxisInfo())
@@ -63,66 +172,621 @@ class _Propagator:
         t = op.op_type
         ins = [self.get(x.guid) for x in op.inputs]
         in_shapes = [tuple(x.material_shape()) for x in op.inputs]
+        out_shapes = [tuple(x.material_shape()) for x in op.outputs]
 
         def fail(msg):
             raise DecodeExactnessError(
                 f"{op.name} ({t.name}): incremental decode can't prove "
-                f"exactness -- {msg}")
+                f"exactness — {msg}")
 
-        def set_out(info):
-            self.info[op.outputs[0].guid] = info
+        def set_out(i, info):
+            self.info[op.outputs[i].guid] = info
 
         if t == OperatorType.OP_MULTIHEAD_ATTENTION:
             q, k, v = ins
-            if q.live != 1:
+            if q.live != 1 or q.prefix is not None:
                 fail("attention query must be (batch, seq, embed) with the "
                      "live axis at 1")
-            if not (k.live == 1 and v.live == 1):
-                fail("attention k/v must be live at axis 1 (cross-attention "
-                     "decode is not ported yet)")
-            if not op.params.causal:
-                fail("needs causal=True (otherwise each position sees the "
-                     "future and the cached prefix is stale)")
-            set_out(AxisInfo(live=1))
+            if k.is_live or v.is_live:
+                # self-attention via the op's own KV cache
+                if not (k.live == 1 and v.live == 1 and k.prefix is None
+                        and v.prefix is None):
+                    fail("attention k/v must be live at axis 1")
+                if not op.params.causal:
+                    fail("needs causal=True (otherwise each position sees "
+                         "the future and the cached prefix is stale)")
+            elif op.params.causal:
+                # the full forward would tril-mask cross scores; the
+                # decode step attends the full encoder unmasked
+                fail("causal cross-attention has no decode rule")
+            # cross-attention: k/v static (encoder side) -- full-length
+            # K/V computed once, no causal mask (matches the full forward)
+            set_out(0, AxisInfo(live=1))
             return
 
-        if t == OperatorType.OP_LINEAR:
+        if _is_unary_pointwise(op) or (
+            t == OperatorType.OP_LINEAR
+        ) or (
+            t == OperatorType.OP_EMBEDDING
+            and op.params.aggr == AggrMode.AGGR_MODE_NONE
+        ):
             a = ins[0]
-            if a.live == len(in_shapes[0]) - 1:
-                fail("linear contracts the live axis")
-            set_out(a)
+            if t == OperatorType.OP_LINEAR and (
+                a.live == len(in_shapes[0]) - 1
+                or a.prefix == len(in_shapes[0]) - 1
+            ):
+                fail("linear contracts the live/prefix axis")
+            if t == OperatorType.OP_EMBEDDING:
+                # (.., L) ids -> (.., L, E): axes keep their positions
+                set_out(0, AxisInfo(live=a.live, prefix=a.prefix))
+                return
+            set_out(0, a)
             return
 
-        if t == OperatorType.OP_EMBEDDING:
-            if op.params.aggr != AggrMode.AGGR_MODE_NONE:
-                fail("bag aggregation reduces over the ids axis")
-            # (.., L) ids -> (.., L, E): axes keep their positions
-            set_out(ins[0])
+        if t in (OperatorType.OP_LAYERNORM,):
+            a = ins[0]
+            nd = len(in_shapes[0])
+            if any(ax % nd in (a.live, a.prefix) for ax in op.params.axes):
+                fail("layernorm normalizes over the live/prefix axis")
+            set_out(0, a)
+            return
+
+        if t in (OperatorType.OP_REDUCE_SUM, OperatorType.OP_REDUCE_MEAN,
+                 OperatorType.OP_MEAN):
+            a = ins[0]
+            nd = len(in_shapes[0])
+            axes = sorted(ax % nd for ax in op.params.axes)
+            if any(ax in (a.live, a.prefix) for ax in axes):
+                fail("reduce over the live/prefix axis")
+            if getattr(op.params, "keepdims", True):
+                set_out(0, a)
+            else:
+                def drop(axis):
+                    if axis is None:
+                        return None
+                    return axis - sum(1 for ax in axes if ax < axis)
+                set_out(0, AxisInfo(live=drop(a.live), prefix=drop(a.prefix)))
             return
 
         if t == OperatorType.OP_SOFTMAX:
             a = ins[0]
-            dim = op.params.dim % len(in_shapes[0])
+            nd = len(in_shapes[0])
+            dim = op.params.dim % nd
             if dim == a.live:
                 fail("softmax over the live axis")
-            set_out(a)
+            # softmax over the prefix axis is the attention row softmax;
+            # the step injects the causality/validity mask there
+            if dim == a.prefix:
+                self.prefix_softmaxes.append(op)
+            set_out(0, a)
+            return
+
+        if t == OperatorType.OP_TRANSPOSE:
+            a = ins[0]
+            perm = list(op.params.perm)
+
+            def remap(axis):
+                return None if axis is None else perm.index(axis)
+            set_out(0, AxisInfo(live=remap(a.live), prefix=remap(a.prefix)))
+            return
+
+        if t in (OperatorType.OP_SQUEEZE, OperatorType.OP_UNSQUEEZE):
+            a = ins[0]
+            nd_in, nd_out = len(in_shapes[0]), len(out_shapes[0])
+            if t == OperatorType.OP_UNSQUEEZE:
+                added = sorted(ax % nd_out for ax in op.params.axes)
+
+                def remap(axis):
+                    if axis is None:
+                        return None
+                    for ad in added:
+                        if ad <= axis:
+                            axis += 1
+                    return axis
+            else:
+                removed = sorted(ax % nd_in for ax in op.params.axes)
+                if any(ax in (a.live, a.prefix) for ax in removed):
+                    fail("squeeze removes the live/prefix axis")
+
+                def remap(axis):
+                    if axis is None:
+                        return None
+                    return axis - sum(1 for ax in removed if ax < axis)
+            set_out(0, AxisInfo(live=remap(a.live), prefix=remap(a.prefix)))
+            return
+
+        if t in (OperatorType.OP_RESHAPE, OperatorType.OP_FLAT):
+            a = ins[0]
+            if a.prefix is not None:
+                fail("reshape of a tensor with a prefix axis")
+            if a.live is None:
+                set_out(0, AxisInfo())
+                return
+            s_in, s_out = in_shapes[0], out_shapes[0]
+            # the live axis must survive as a standalone axis: volumes
+            # before/at it must match some output prefix
+            pre = int(np.prod(s_in[:a.live], dtype=np.int64))
+            out_live = None
+            acc = 1
+            for i, d in enumerate(s_out):
+                if acc == pre and d == s_in[a.live]:
+                    out_live = i
+                    break
+                acc *= d
+            if out_live is None:
+                fail(f"reshape {s_in}->{s_out} splits/merges the live axis")
+            set_out(0, AxisInfo(live=out_live))
+            return
+
+        if t in _POINTWISE:
+            out_rank = len(out_shapes[0])
+            live = prefix = None
+            for inf, s in zip(ins, in_shapes):
+                if inf.live is not None:
+                    al = _bcast_axis(len(s), out_rank, inf.live)
+                    if live is not None and live != al:
+                        fail("two live inputs broadcast to different axes")
+                    live = al
+                if inf.prefix is not None:
+                    ap = _bcast_axis(len(s), out_rank, inf.prefix)
+                    if prefix is not None and prefix != ap:
+                        fail("two prefix inputs broadcast to different axes")
+                    prefix = ap
+            # static operands with a full-length axis aligned to live or
+            # prefix get sliced per step -- note that slicing happens
+            for inf, s in zip(ins, in_shapes):
+                if not inf.is_live:
+                    for ax, d in enumerate(s):
+                        pos = _bcast_axis(len(s), out_rank, ax)
+                        if d > 1 and pos in (live, prefix):
+                            if d != self.live_len:
+                                fail(
+                                    f"static operand axis {ax} (size {d}) "
+                                    f"aligns with the decode axis but isn't "
+                                    f"the compiled decoder length "
+                                    f"{self.live_len}")
+                            self.saw_static_slicing = True
+            if live is None and prefix is None:
+                fail("elementwise op classified live but no live input")
+            set_out(0, AxisInfo(live=live, prefix=prefix))
+            return
+
+        if t == OperatorType.OP_CONCAT:
+            axis = op.params.axis % len(out_shapes[0])
+            lives = {inf.live for inf in ins}
+            prefixes = {inf.prefix for inf in ins}
+            if len(lives) != 1 or len(prefixes) != 1:
+                fail("concat mixes live and static inputs")
+            a = ins[0]
+            if axis in (a.live, a.prefix):
+                fail("concat along the live/prefix axis")
+            set_out(0, a)
+            return
+
+        if t == OperatorType.OP_SPLIT:
+            a = ins[0]
+            axis = op.params.axis % len(in_shapes[0])
+            if axis in (a.live, a.prefix):
+                fail("split along the live/prefix axis")
+            for i in range(len(op.outputs)):
+                set_out(i, a)
+            return
+
+        if t == OperatorType.OP_BATCHMATMUL:
+            a, b = ins
+            ra, rb = len(in_shapes[0]), len(in_shapes[1])
+            ro = len(out_shapes[0])
+            M, K_a = ra - 2, ra - 1
+            K_b, N = rb - 2, rb - 1
+
+            # batch-dim liveness: both operands sliced at the same step --
+            # behaves like an elementwise op over the batch dims
+            a_batch_live = a.live is not None and a.live < M
+            b_batch_live = b.live is not None and b.live < K_b
+
+            if a.prefix is not None and a.prefix == K_a:
+                # probs @ V: contract the prefix axis against a cached
+                # full-length operand
+                if b.is_live:
+                    if b.live != K_b or b.prefix is not None:
+                        fail("prefix contraction needs the rhs live on its "
+                             "contraction axis")
+                    self.cached.add(op.inputs[1].guid)
+                elif in_shapes[1][K_b] != self.live_len:
+                    fail("prefix contraction against a static rhs of the "
+                         "wrong length")
+                else:
+                    self.saw_static_slicing = True
+                if a.live is not None and a.live != M and not a_batch_live:
+                    fail("unsupported live-axis position in lhs")
+                set_out(0, AxisInfo(live=a.live if a.live != K_a else None))
+                return
+            if a.prefix is not None:
+                fail("lhs prefix axis not on the contraction dim")
+
+            if a.live == K_a or (b.is_live and b.live == K_b):
+                fail("contraction over a live axis without a prefix lhs")
+
+            out_live = None
+            out_prefix = None
+            if a_batch_live or b_batch_live:
+                la = a.live if a_batch_live else None
+                lb = b.live + (ro - rb) if b_batch_live else None
+                if la is not None and lb is not None and la != lb:
+                    fail("lhs/rhs live on different batch axes")
+                out_live = la if la is not None else lb
+            if a.live == M:
+                if out_live is not None:
+                    fail("live axis on both batch and M dims")
+                out_live = ro - 2
+            if b.is_live and b.live == N:
+                # Q @ K^T: rhs is the transposed key matrix, consumed at
+                # full prefix length -> the output's N axis is a prefix
+                if b.prefix is not None:
+                    fail("rhs has both live and prefix axes")
+                self.cached.add(op.inputs[1].guid)
+                out_prefix = ro - 1
+            set_out(0, AxisInfo(live=out_live, prefix=out_prefix))
             return
 
         fail("op mixes sequence positions and has no decode rule")
 
 
-def build_plan(topo, input_pts) -> DecodePlan:
-    """Classify ops/tensors and validate decodability. The decode input
-    is the last graph input (the JAX package's default)."""
-    decode_pt = list(input_pts)[-1]
-    prop = _Propagator()
+def _is_causal_mask_constant(arr, live_ax: int, prefix_ax: int) -> bool:
+    """True iff the baked constant masks every future position in the
+    (query=live, key=prefix) plane: additive masks have strict-upper
+    entries <= -1e4 for every leading index; boolean where-conditions
+    (True = keep) have them all False. Entries on/below the diagonal are
+    unconstrained -- a combined bias+mask still proves causal."""
+    v = np.asarray(arr)
+    if v.ndim < 2:
+        return False
+    v = np.moveaxis(v, (live_ax, prefix_ax), (-2, -1))
+    L = min(v.shape[-2], v.shape[-1])
+    iu = np.triu_indices(n=v.shape[-2], k=1, m=v.shape[-1])
+    if iu[0].size == 0:
+        return L > 0  # 1x1 plane: nothing future-facing to mask
+    upper = v[..., iu[0], iu[1]]
+    if v.dtype == np.bool_:
+        return not bool(upper.any())
+    if not np.issubdtype(v.dtype, np.floating):
+        return False
+    return bool(np.all(upper <= -1e4))
+
+
+def _static_chain_causal(guid: int, q_ax: int, k_ax: int, producer,
+                         constants, live_len: int, depth: int = 0) -> bool:
+    """Does the STATIC value `guid` carry a causal mask on its (q_ax, k_ax)
+    plane? Baked constants are checked directly; computed statics (a
+    position bias = relative-bias embedding + baked causal mask) are
+    traced through mask-preserving ops: EW_ADD (adding anything finite to
+    a -inf-masked entry keeps it masked), axis-remapping transpose/
+    (un)squeeze, and cast/identity. Anything else ends the proof."""
+    if depth > 32:
+        return False
+    if guid in constants:
+        _, value = constants[guid]
+        if not isinstance(value, np.ndarray):
+            return False
+        if (value.ndim <= max(q_ax, k_ax)
+                or value.shape[q_ax] != live_len
+                or value.shape[k_ax] != live_len):
+            return False
+        return _is_causal_mask_constant(value, q_ax, k_ax)
+    p = producer.get(guid)
+    if p is None:
+        return False  # a graph input: value unknown at build time
+    t = p.op_type
+    out_rank = len(p.outputs[0].material_shape())
+    if t == OperatorType.OP_CAST:
+        # only float->float preserves additive-mask semantics (a -1e9 mask
+        # cast to bool becomes all-True -- the OPPOSITE of masked)
+        src_f = np.issubdtype(p.inputs[0].data_type.np_dtype, np.floating)
+        dst_f = np.issubdtype(p.outputs[0].data_type.np_dtype, np.floating)
+        if not (src_f and dst_f):
+            return False
+        return _static_chain_causal(p.inputs[0].guid, q_ax, k_ax, producer,
+                                    constants, live_len, depth + 1)
+    if getattr(p, "is_parallel_op", False) or t in (
+        OperatorType.OP_NOOP, OperatorType.OP_IDENTITY,
+        OperatorType.OP_DROPOUT,
+    ):
+        return _static_chain_causal(p.inputs[0].guid, q_ax, k_ax, producer,
+                                    constants, live_len, depth + 1)
+    if t in (OperatorType.OP_EW_ADD,):
+        for x in p.inputs:
+            s = tuple(x.material_shape())
+            off = out_rank - len(s)
+            qa, ka = q_ax - off, k_ax - off
+            if (qa >= 0 and ka >= 0 and s[qa] == live_len
+                    and s[ka] == live_len
+                    and _static_chain_causal(x.guid, qa, ka, producer,
+                                             constants, live_len, depth + 1)):
+                return True
+        return False
+    if t == OperatorType.OP_TRANSPOSE:
+        perm = list(p.params.perm)
+        return _static_chain_causal(p.inputs[0].guid, perm[q_ax], perm[k_ax],
+                                    producer, constants, live_len, depth + 1)
+    if t == OperatorType.OP_UNSQUEEZE:
+        added = sorted(ax % out_rank for ax in p.params.axes)
+        if q_ax in added or k_ax in added:
+            return False
+
+        def back(axis):
+            return axis - sum(1 for ad in added if ad < axis)
+        return _static_chain_causal(p.inputs[0].guid, back(q_ax), back(k_ax),
+                                    producer, constants, live_len, depth + 1)
+    if t == OperatorType.OP_SQUEEZE:
+        in_rank = len(p.inputs[0].material_shape())
+        removed = sorted(ax % in_rank for ax in p.params.axes)
+
+        def fwd(axis):
+            for r in removed:
+                if r <= axis:
+                    axis += 1
+            return axis
+        return _static_chain_causal(p.inputs[0].guid, fwd(q_ax), fwd(k_ax),
+                                    producer, constants, live_len, depth + 1)
+    return False
+
+
+def _prove_causal(softmax_op, prop: "_Propagator", live_ops, static_ops,
+                  constants, live_len: int) -> bool:
+    """Walk the live chain feeding a prefix softmax (back to the score
+    matmul that created the prefix axis) and look for a static operand,
+    aligned to the (live, prefix) plane, that provably masks the strict
+    upper triangle (directly baked, or computed from a baked causal mask --
+    _static_chain_causal). Finding one proves the graph's own attention is
+    causal, so the injected decode mask reproduces the full forward."""
+    producer = {}
+    for op in list(live_ops) + list(static_ops):
+        for t in op.outputs:
+            producer[t.guid] = op
+
+    seen = set()
+    stack = [softmax_op.inputs[0].guid]
+    while stack:
+        guid = stack.pop()
+        if guid in seen:
+            continue
+        seen.add(guid)
+        p = producer.get(guid)
+        if p is None:
+            continue
+        if getattr(p, "is_parallel_op", False):
+            stack.append(p.inputs[0].guid)
+            continue
+        out_info = prop.get(p.outputs[0].guid)
+        if out_info.prefix is None:
+            continue  # left the attention-score region
+        made_prefix = all(
+            prop.get(x.guid).prefix is None for x in p.inputs)
+        out_rank = len(p.outputs[0].material_shape())
+        # Check this op's non-live operands for a provable mask -- but ONLY
+        # where the op APPLIES the operand in a mask-preserving way:
+        #   * EW_ADD: adding a -inf-masked operand masks the output;
+        #   * WHERE(cond, x, y): a tril boolean condition proves causal
+        #     only if the else-branch y is itself provably <= -1e4.
+        # An EW_SUB of a tril-negative constant would UNMASK the future,
+        # and a WHERE with a finite else-branch doesn't mask at all -- a
+        # causal-looking constant on those ops must not count as proof.
+        t = p.op_type
+        if t == OperatorType.OP_EW_ADD:
+            candidates = list(p.inputs)
+        elif t == OperatorType.OP_WHERE and len(p.inputs) == 3:
+            y = p.inputs[2]
+            y_masked = False
+            if y.guid in constants:
+                _, yv = constants[y.guid]
+                yarr = np.asarray(yv)
+                y_masked = (np.issubdtype(yarr.dtype, np.floating)
+                            and bool(np.all(yarr <= -1e4)))
+            candidates = [p.inputs[0]] if y_masked else []
+        else:
+            candidates = []
+        for x in candidates:
+            if prop.get(x.guid).is_live:
+                continue
+            amap = _static_alignment(
+                tuple(x.material_shape()), out_rank, out_info, live_len)
+            axes = dict((kind, ax) for ax, kind in amap)
+            if "live" in axes and "prefix" in axes and _static_chain_causal(
+                x.guid, axes["live"], axes["prefix"], producer, constants,
+                live_len,
+            ):
+                return True
+        if not made_prefix:
+            for x in p.inputs:
+                if prop.get(x.guid).is_live:
+                    stack.append(x.guid)
+    return False
+
+
+def build_plan(topo, input_pts, constants, decode_input: Optional[int] = None,
+               assume_causal: bool = False) -> DecodePlan:
+    """Classify ops/tensors and validate decodability.
+
+    constants: guid -> (ParallelTensor, float or baked np.ndarray), the
+    executor's constants (the causality proof reads baked masks).
+    decode_input: index into input_pts of the decode-driven input; default
+    is the last input (enc-dec convention: (encoder_ids, decoder_ids)).
+    assume_causal: skip the causality proof for primitive-op attention
+    (graphs whose masks are computed rather than baked can't be verified
+    at build time -- the caller vouches that decoder self-attention is
+    causal).
+    """
+    inputs = list(input_pts)
+    if decode_input is None:
+        decode_input = len(inputs) - 1
+    decode_pt = inputs[decode_input]
+    live_len = decode_pt.material_shape()[1]
+
+    prop = _Propagator(live_len)
     prop.info[decode_pt.guid] = AxisInfo(live=1)
+
     live_ops, static_ops = [], []
     for op in topo:
+        if op.is_parallel_op:
+            # decode runs on one device; parallel ops are the identity
+            # over an unsharded value (degree bookkeeping only)
+            src = op.inputs[0].guid
+            if prop.get(src).is_live:
+                prop.info[op.outputs[0].guid] = prop.get(src)
+                live_ops.append(op)
+            else:
+                static_ops.append(op)
+            continue
         if any(prop.get(x.guid).is_live for x in op.inputs):
             prop.visit(op)
             live_ops.append(op)
         else:
             static_ops.append(op)
-    return DecodePlan(live_ops=live_ops, static_ops=static_ops,
-                      info=prop.info, decode_pt=decode_pt)
+
+    # static guids live ops actually read: outputs of static ops AND
+    # static graph inputs consumed directly (an explicit attention mask
+    # input added to live scores)
+    static_out = {pt.guid for pt in inputs if pt.guid != decode_pt.guid}
+    for op in static_ops:
+        for x in op.outputs:
+            static_out.add(x.guid)
+    needed = []
+    for op in live_ops:
+        for x in op.inputs:
+            if not prop.get(x.guid).is_live and x.guid in static_out:
+                if x.guid not in needed:
+                    needed.append(x.guid)
+
+    if not assume_causal:
+        for sm in prop.prefix_softmaxes:
+            if not _prove_causal(sm, prop, live_ops, static_ops, constants,
+                                 live_len):
+                raise DecodeExactnessError(
+                    f"{sm.name} ({sm.op_type.name}): primitive-op attention "
+                    "whose causality can't be proven from baked mask "
+                    "constants — the decode step would inject a causal "
+                    "mask, which is wrong for bidirectional/prefix-LM "
+                    "graphs. Pass assume_causal=True to vouch that "
+                    "decoder self-attention is causal.")
+    return DecodePlan(
+        live_ops=live_ops,
+        static_ops=static_ops,
+        info=prop.info,
+        cached_guids=sorted(prop.cached),
+        static_needed=needed,
+        live_len=live_len,
+        decode_pt=decode_pt,
+        requires_cap_le_live_len=prop.saw_static_slicing,
+    )
+
+
+def _per_row_positions(t: torch.Tensor, s0: int) -> torch.Tensor:
+    """(b, s0) int64 positions t[i] .. t[i] + s0 - 1, on t's device."""
+    return (t.to(torch.long)[:, None]
+            + torch.arange(s0, device=t.device)[None, :])
+
+
+def _slice_aligned(val, info_axis_map, t, s0, cap, out_rank=None,
+                   site: str = ""):
+    """Slice a static/full value per its alignment: live-aligned axes take
+    [t:t+s0], prefix-aligned axes take [0:cap].
+
+    When `t` is a (b,) tensor of per-row positions (continuous batching:
+    each decode slot is at its own position), live-aligned axes are sliced
+    per row -- a device-side gather (no host sync, so the step captures)
+    that materializes a leading batch axis. `out_rank` (the consuming op's
+    output rank) is then required to re-align the result so broadcasting
+    still lines the batch axis up with the live stream's axis 0. (A
+    static operand has at most one live-aligned axis: only one output
+    axis is live.)
+
+    Alignment cases an exact recovery exists for fall back to it with a
+    count in DECODE_FALLBACK_COUNTS[reason] + one warning (the
+    batch-position live axis at s0=1 turns into a dense per-row gather);
+    genuinely unprovable cases raise DecodeExactnessError -- still
+    counted."""
+    per_row_t = isinstance(t, torch.Tensor) and t.dim() == 1
+    live_axes = [axis for axis, kind in info_axis_map if kind == "live"]
+    for axis, kind in info_axis_map:
+        if kind == "prefix":
+            val = val.narrow(axis, 0, cap)
+    if not live_axes:
+        return val
+    if not per_row_t:
+        for axis in live_axes:
+            val = val.narrow(axis, int(t), s0)
+        return val
+    if out_rank is None:
+        decode_fallback(site, "no_out_rank",
+                        "per-row decode positions need the consuming "
+                        "op's output rank to realign a sliced static "
+                        "operand — no exact recovery, aborting the build")
+        raise DecodeExactnessError(
+            "per-row decode positions need the consuming op's output rank "
+            "to realign a sliced static operand")
+    (axis,) = live_axes
+    b = t.shape[0]
+    offset = out_rank - val.dim()  # right-aligned broadcast offset
+    pos = _per_row_positions(t, s0)  # (b, s0)
+    if axis + offset == 0:
+        # the live-aligned axis IS the output's batch axis (offset == 0,
+        # axis == 0). For single-token steps (s0 == 1 -- the only shape
+        # per-row positions arrive in) row i of the output reads exactly
+        # position t[i]: a dense per-row gather is exact, so recover
+        # instead of aborting the batcher boot.
+        if s0 == 1 and offset == 0:
+            decode_fallback(
+                site, "batch_live_gather",
+                "a static operand's live-aligned axis coincides with the "
+                "batch axis; recovered with a dense per-row gather "
+                "(index_select over the position vector) instead of the "
+                "sliced fast path")
+            return val.index_select(0, pos[:, 0])  # (b,) + val.shape[1:]
+        decode_fallback(
+            site, "batch_live_block",
+            "a static operand's live-aligned axis coincides with the "
+            "batch axis and the step has s0 > 1 (a prefill block) — no "
+            "exact per-row recovery, aborting the build")
+        raise DecodeExactnessError(
+            "per-row decode positions: a static operand's live-aligned axis "
+            "coincides with the batch axis")
+    if offset == 0:
+        # the value's axis 0 occupies the batch position
+        if val.shape[0] == b:
+            # row i takes positions pos[i] along `axis`
+            idx = pos.view(b, *([1] * (axis - 1)), s0,
+                           *([1] * (val.dim() - axis - 1)))
+            full = list(val.shape)
+            full[axis] = s0
+            return torch.gather(val, axis, idx.expand(full))
+        if val.shape[0] != 1:
+            decode_fallback(
+                site, "batch_mismatch",
+                f"static operand batch axis {val.shape[0]} matches "
+                f"neither the decode batch {b} nor 1 — rows cannot be "
+                "matched to slots, no exact recovery")
+            raise DecodeExactnessError(
+                f"static operand batch axis {val.shape[0]} matches neither "
+                f"the decode batch {b} nor 1")
+    # every row slices the whole value: (b,) + the sliced value's shape
+    sliced = val.index_select(axis, pos.reshape(-1)) \
+        .unflatten(axis, (b, s0)).movedim(axis, 0)
+    if offset == 0:  # drop the original size-1 batch axis
+        return sliced.squeeze(1)
+    # no batch axis on the static value: the new leading axis is the
+    # batch; pad interior size-1 axes so right-aligned broadcasting puts
+    # it at the output's axis 0
+    return sliced.reshape((b,) + (1,) * (offset - 1) + sliced.shape[1:])
+
+
+def _static_alignment(shape, out_rank, out_info: AxisInfo, live_len):
+    """Which axes of a static operand need slicing against a live stream."""
+    plan = []
+    for ax, d in enumerate(shape):
+        pos = _bcast_axis(len(shape), out_rank, ax)
+        if d > 1 and d == live_len:
+            if pos == out_info.live:
+                plan.append((ax, "live"))
+            elif pos == out_info.prefix:
+                plan.append((ax, "prefix"))
+    return plan

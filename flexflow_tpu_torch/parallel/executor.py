@@ -41,6 +41,11 @@ the JAX package, so a searched graph draws the masks of the unsearched
 one. The seeds reach the ops as rows of a seed table on the device
 (`seed_table`), one row per step.
 
+Constant inputs (FFModel.create_constant / create_constant_tensor) are
+materialized once on the device and fed into every walk; `build_decode`
+decodes any graph parallel/decode.py can prove exact: decoder-only or
+encoder-decoder, fused or primitive-op attention, static inputs.
+
 Where the JAX package jits a program, the port captures a CUDA graph on
 a card (parallel/graphs.py): `build_train_scan` runs N train steps as one
 captured graph over staged batches (JAX: one lax.scan program), and the
@@ -139,6 +144,15 @@ def _stage_rows(pinned: torch.Tensor, rows) -> None:
         pinned[j].copy_(row)
 
 
+def _constant_tensor(pt, value, shape, device) -> torch.Tensor:
+    """A constant's value on `device` in its tensor's dtype: a baked
+    array as it is, a float filled to `shape`."""
+    dtype = pt.data_type.torch_dtype
+    if isinstance(value, np.ndarray):
+        return torch.as_tensor(value, dtype=dtype, device=device)
+    return torch.full(shape, value, dtype=dtype, device=device)
+
+
 @dataclasses.dataclass
 class TrainState:
     """The training state of a compiled model: weights, optimizer state,
@@ -157,7 +171,8 @@ class PCGExecutor:
                  optimizer=None, loss_type: Optional[LossType] = None,
                  metrics=None, compute_dtype: Optional[torch.dtype] = None,
                  grad_dtype: Optional[torch.dtype] = None, seed: int = 0,
-                 input_order: Optional[List] = None, remat: bool = False):
+                 input_order: Optional[List] = None, remat: bool = False,
+                 constants: Optional[Dict] = None):
         self.graph = graph
         self.device = torch.device(device)
         self.optimizer = optimizer
@@ -185,6 +200,16 @@ class PCGExecutor:
             if loss_type == LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY
             else self.logits_pt.data_type.torch_dtype)
         self.remat = remat
+        # guid -> (ParallelTensor, float OR baked np.ndarray): graph inputs
+        # that are not batch inputs (FFModel.create_constant /
+        # create_constant_tensor; reference: flexflow_constant_create,
+        # flexflow_cffi.py:941). Materialized once on the device, so every
+        # walk (and every captured graph) reads the same tensors
+        self.constants = constants or {}
+        self._const_vals = {
+            guid: _constant_tensor(pt, value, tuple(pt.material_shape()),
+                                   self.device)
+            for guid, (pt, value) in self.constants.items()}
         self._decode_builds = {}
         self._scan_graphs = collections.OrderedDict()
         # serving's compute-dtype weight copies (ops/common.py)
@@ -306,6 +331,7 @@ class PCGExecutor:
         row = self._seed_row(rng)
         drawing = set(self.drawing_ops) if row is not None else ()
         vals = dict(inputs)
+        vals.update(self._const_vals)
         for op in self.topo:
             ins = [vals[t.guid] for t in op.inputs]
             if op.is_parallel_op:
@@ -530,70 +556,301 @@ class PCGExecutor:
         return step
 
     # -- incremental decode (serving KV cache) -----------------------------
-    def build_decode(self, batch: int, max_len: int):
-        """(init_caches, step) for KV-cache decoding of a causal decoder.
+    def build_decode(self, batch: int, max_len: int, cache_dtype=None,
+                     decode_input: Optional[int] = None,
+                     assume_causal: bool = False):
+        """(init_caches, step) for KV-cache autoregressive decoding over an
+        arbitrary causal decoder or encoder-decoder PCG (the liveness/
+        prefix analysis of parallel/decode.py: attention built from
+        primitive batch_matmul/softmax/mask ops decodes O(1)/token too).
 
-        init_caches(params=None) zero-fills one (k, v) cache per
-        self-attention op: {"mha": {op_name: (k, v)}}. step(params,
-        caches, t, [token_block]) runs the block's positions: t is an int
-        (every row at the same position) or a (batch,) int array of
-        per-row positions (continuous batching). Returns (logits, caches);
-        the caches are updated in place, and ops read their compute-dtype
-        weights from the executor's weight cache.
+        init_caches(params=None, static_inputs=()) computes the static
+        (encoder-side) subgraph once and zero-fills the prefix and KV
+        caches: {"static": {guid: value}, "prefix": {guid: cache},
+        "mha": {op: (k, v)}, "mha_static": {op: (k, v)}} ("mha_static"
+        holds the cross-attention ops' encoder K/V). step(params, caches,
+        t, [token_block]) runs the block's positions: seq-pointwise ops
+        execute on the (batch, s0, ...) slice, self-attention appends this
+        block's K/V and attends against the prefix, cross-attention attends
+        the precomputed encoder K/V, and static/constant operands (position
+        tables, masks) are sliced per step. t is an int (every row at the
+        same position) or a (batch,) int array of per-row positions
+        (continuous batching). Returns (logits, caches); the caches are
+        updated in place, and ops read their compute-dtype weights from
+        the executor's weight cache.
 
         On a card a one-token block with per-row positions replays a CUDA
         graph (the JAX package's jitted decode step), captured at the first
-        such step for each cache set and weight set: token ids and
-        positions go into static device buffers, and the logits returned
-        are the graph's output buffer, which the next step overwrites, so
-        consume or clone them first. Do not re-create the caches or the
-        weights between steps if you want replays (new tensors capture a
-        new graph). Prefill (blocks longer than one token) and int
-        positions run eagerly, as does every step given `_eager=True`."""
+        such step for each cache set and weight set (the key holds the
+        address and shape of every cache tensor the step reads): token ids
+        and positions go into static device buffers, and the logits
+        returned are the graph's output buffer, which the next step
+        overwrites, so consume or clone them first. Keep the caches (and
+        the weights) between steps if you want replays: new tensors at new
+        addresses capture a new graph. Prefill (blocks longer than one
+        token) and int positions run eagerly, as does every step given
+        `_eager=True`.
+
+        Build-time validation rejects graphs the scheme can't prove exact:
+        ops mixing sequence positions without a decode rule, non-causal
+        self-attention, softmax over the live axis."""
+        from ..ops.attention import (_forward_decode_cross, cross_decode_kv,
+                                     init_decode_cache)
         from . import decode as dec
 
-        key = (batch, max_len)
+        key = (batch, max_len, cache_dtype, decode_input, assume_causal)
         if key in self._decode_builds:
             return self._decode_builds[key]
-        plan = dec.build_plan(self.topo, self.input_pts)
-        if plan.static_ops or len(self.input_pts) != 1:
-            raise dec.DecodeExactnessError(
-                "graphs with static (non-decode) inputs or ops are not "
-                "ported yet: decoder-only graphs with one input decode")
+        plan = dec.build_plan(self.topo, self.input_pts, self.constants,
+                              decode_input, assume_causal=assume_causal)
+        # prefix caches patch ONLY axis 0 to the decode batch; a graph that
+        # folds batch with heads on axis 0 (B*H, ...) would get a
+        # wrong-sized cache when decoding at a different batch than
+        # compile (beam search at num_beams) -- reject at build like the
+        # other exactness checks
+        compile_batch = plan.decode_pt.material_shape()[0]
+        produced = {x.guid: x for op in plan.live_ops for x in op.outputs}
+        for g in plan.cached_guids:
+            pt = produced[g]
+            if plan.info[g].live != 0 and \
+                    pt.material_shape()[0] != compile_batch:
+                raise NotImplementedError(
+                    f"cached tensor guid {g} has axis-0 size "
+                    f"{pt.material_shape()[0]} != compiled batch "
+                    f"{compile_batch}: its batch dim is folded with "
+                    "another axis, so decoding at a different batch "
+                    "would mis-size the cache")
+        if plan.requires_cap_le_live_len and max_len > plan.live_len:
+            raise NotImplementedError(
+                f"max_len {max_len} > compiled decoder length "
+                f"{plan.live_len}: the graph bakes full-length constants "
+                "(masks/position tables) that can't be extended")
         if not plan.info.get(self.logits_pt.guid, dec.AxisInfo()).is_live:
             raise NotImplementedError(
                 "the graph output does not depend on the decode input")
-        cdt = self.compute_dtype or torch.float32
-        mha = [op for op in plan.live_ops
-               if op.op_type == OperatorType.OP_MULTIHEAD_ATTENTION]
-        graphs = collections.OrderedDict()
+        cdt = cache_dtype or self.compute_dtype or torch.float32
+        static_pts = [pt for pt in self.input_pts
+                      if pt.guid != plan.decode_pt.guid]
 
-        def init_caches(params=None):
-            return {"mha": {op.name: init_decode_cache(
-                op.params, batch, max_len, cdt, self.device) for op in mha}}
-
-        def walk(params, caches, t, tok):
-            vals = {plan.decode_pt.guid: tok}
-            for op in plan.live_ops:
-                d = get_op_def(op.op_type)
-                w = params.get(op.name, {})
-                ins = [vals[x.guid] for x in op.inputs]
-                ctx = self._ctx(op.name, weight_cache=self.weight_cache)
-                if op.op_type == OperatorType.OP_MULTIHEAD_ATTENTION:
-                    outs, caches["mha"][op.name] = d.forward_decode(
-                        op.params, w, ins, ctx, caches["mha"][op.name], t)
+        # MHA classification: self-attention (live k/v -> per-op KV cache)
+        # vs cross-attention (static k/v -> precomputed encoder K/V)
+        mha_self, mha_cross = set(), set()
+        for op in plan.live_ops:
+            if op.op_type == OperatorType.OP_MULTIHEAD_ATTENTION:
+                if plan.info.get(op.inputs[1].guid, dec.AxisInfo()).is_live:
+                    mha_self.add(op.name)
                 else:
-                    outs = d.forward(op.params, w, ins, ctx)
+                    mha_cross.add(op.name)
+
+        # Baked constants, with batch-uniform leading axes collapsed to 1:
+        # decode may run at another batch than compile (beam search runs
+        # at num_beams), and a constant carrying the compiled batch whose
+        # rows are all equal is exact as a broadcastable row. Made once,
+        # so captured steps read stable tensors.
+        consts = {}
+        for guid, (pt, value) in self.constants.items():
+            shape = tuple(pt.material_shape())
+            if isinstance(value, np.ndarray):
+                if (value.ndim >= 1 and value.shape[0] not in (1, batch)
+                        and np.array_equal(value, np.broadcast_to(
+                            value[:1], value.shape), equal_nan=True)):
+                    value = value[:1]
+            elif len(shape) >= 1 and shape[0] not in (1, batch):
+                shape = (1,) + shape[1:]
+            consts[guid] = _constant_tensor(pt, value, shape, self.device)
+
+        def compute_statics(params, static_arrays):
+            vals = dict(consts)
+            for pt, arr in zip(static_pts, static_arrays):
+                vals[pt.guid] = self._as_input(pt, arr)
+            for op in plan.static_ops:
+                ins = [vals[x.guid] for x in op.inputs]
+                if op.is_parallel_op:
+                    outs = parallel_ops.execute(op, ins)
+                elif (op.op_type == OperatorType.OP_RESHAPE
+                        and tuple(ins[0].shape)
+                        != tuple(op.inputs[0].material_shape())):
+                    # the reshape's params bake the compiled batch size;
+                    # decode may run at another batch (beam search):
+                    # recompute the batch axis
+                    target = list(op.outputs[0].material_shape())
+                    target[0] = -1
+                    outs = [ins[0].reshape(target)]
+                else:
+                    outs = get_op_def(op.op_type).forward(
+                        op.params, (params or {}).get(op.name, {}), ins,
+                        self._ctx(op.name, weight_cache=self.weight_cache))
                 for x, v in zip(op.outputs, outs):
                     vals[x.guid] = v
+            return vals
+
+        needs_params = bool(mha_cross) or any(
+            op.weights for op in plan.static_ops)
+        # static values whose ONLY live consumers are cross-attention k/v
+        # slots are folded into the precomputed K/V -- keeping the raw
+        # encoder hidden states in the cache would waste memory per layer
+        cross_ops = [op for op in plan.live_ops if op.name in mha_cross]
+        cross_kv_guids = {op.inputs[i].guid for op in cross_ops
+                          for i in (1, 2)}
+        other_uses = {op.inputs[0].guid for op in cross_ops}
+        for op in plan.live_ops:
+            if op.name not in mha_cross:
+                other_uses.update(x.guid for x in op.inputs)
+        static_kept = [g for g in plan.static_needed
+                       if g not in cross_kv_guids or g in other_uses]
+
+        def init_caches(params=None, static_inputs=()):
+            if len(static_inputs) != len(static_pts):
+                raise AssertionError(
+                    f"need {len(static_pts)} static (non-decode) input "
+                    f"arrays, got {len(static_inputs)}")
+            if params is None and needs_params:
+                raise AssertionError(
+                    "this graph has encoder-side ops: call "
+                    "init_caches(params, static_inputs)")
+            caches = {"static": {}, "prefix": {}, "mha": {},
+                      "mha_static": {}}
+            # the zero-filled caches are ordinary tensors (the serving
+            # loop writes them in place outside inference mode); the
+            # statics are only ever read
+            for g in plan.cached_guids:
+                pt = produced[g]
+                shape = list(pt.material_shape())
+                shape[plan.info[g].live] = max_len
+                if plan.info[g].live != 0:
+                    shape[0] = batch  # decode batch, not compile batch
+                caches["prefix"][g] = torch.zeros(
+                    shape, dtype=pt.data_type.torch_dtype,
+                    device=self.device)
+            for op in plan.live_ops:
+                if op.name in mha_self:
+                    caches["mha"][op.name] = init_decode_cache(
+                        op.params, batch, max_len, cdt, self.device)
+            with torch.inference_mode():
+                svals = compute_statics(params, static_inputs)
+                caches["static"] = {g: svals[g] for g in static_kept}
+                for op in cross_ops:
+                    caches["mha_static"][op.name] = cross_decode_kv(
+                        op.params, params.get(op.name, {}),
+                        svals[op.inputs[1].guid], svals[op.inputs[2].guid],
+                        self._ctx(op.name, weight_cache=self.weight_cache))
+            return caches
+
+        info = plan.info
+        cached_set = set(plan.cached_guids)
+
+        def walk(params, caches, t, tok):
+            s0 = tok.shape[1]
+            per_row_t = isinstance(t, torch.Tensor) and t.dim() == 1
+            statics = caches["static"]
+            vals = {plan.decode_pt.guid: tok}
+
+            def get_static(g):
+                return statics[g] if g in statics else consts[g]
+
+            def aligned_input(x, out_rank, out_info, site):
+                """A live op's input value: live tensors yield their
+                current slice; static/constant operands are sliced where
+                their full-length axes align with the live/prefix axes."""
+                if x.guid in vals:
+                    return vals[x.guid]
+                full = get_static(x.guid)
+                # the runtime shape, not the compiled tensor's: a
+                # batch-collapsed constant differs on axis 0
+                amap = dec._static_alignment(
+                    tuple(full.shape), out_rank, out_info, plan.live_len)
+                return dec._slice_aligned(full, amap, t, s0, max_len,
+                                          out_rank=out_rank, site=site)
+
+            for op in plan.live_ops:
+                if op.is_parallel_op:
+                    vals[op.outputs[0].guid] = vals[op.inputs[0].guid]
+                    continue
+                d = get_op_def(op.op_type)
+                w = params.get(op.name, {})
+                ot = op.op_type
+                out_info = info.get(op.outputs[0].guid, dec.AxisInfo())
+                ctx = self._ctx(op.name, weight_cache=self.weight_cache)
+                if op.name in mha_self:
+                    outs, caches["mha"][op.name] = d.forward_decode(
+                        op.params, w, [vals[x.guid] for x in op.inputs],
+                        ctx, caches["mha"][op.name], t)
+                elif op.name in mha_cross:
+                    outs = _forward_decode_cross(
+                        op.params, w, vals[op.inputs[0].guid], ctx,
+                        caches["mha_static"][op.name])
+                elif ot == OperatorType.OP_BATCHMATMUL:
+                    a_pt, b_pt = op.inputs
+                    # the lhs may itself be static (live operand on the rhs)
+                    a = (vals[a_pt.guid] if a_pt.guid in vals
+                         else get_static(a_pt.guid))
+                    if b_pt.guid in cached_set:
+                        b = caches["prefix"][b_pt.guid]
+                    elif info.get(b_pt.guid, dec.AxisInfo()).is_live:
+                        b = vals[b_pt.guid]
+                    else:
+                        b = get_static(b_pt.guid)
+                        a_info = info.get(a_pt.guid, dec.AxisInfo())
+                        if a_info.prefix == len(a_pt.material_shape()) - 1:
+                            # probs @ static V of compiled length: keep
+                            # only the cap positions the cache covers
+                            b = b.narrow(b.dim() - 2, 0, max_len)
+                    outs = d.forward(op.params, w, [a, b], ctx)
+                elif ot == OperatorType.OP_SOFTMAX:
+                    x = vals[op.inputs[0].guid]
+                    dim = op.params.dim % x.dim()
+                    a_info = info[op.inputs[0].guid]
+                    if a_info.prefix is not None and dim == a_info.prefix:
+                        # attention row softmax over the prefix axis:
+                        # inject the causality/validity mask (hides the
+                        # cache's unwritten tail; for causal models this
+                        # matches the graph's own mask)
+                        if a_info.live is None:
+                            raise NotImplementedError(
+                                "prefix softmax without a live query axis")
+                        kv = _iota(x, dim)
+                        q = _iota(x, a_info.live)
+                        if per_row_t:
+                            if x.shape[0] != t.shape[0]:
+                                raise NotImplementedError(
+                                    f"per-row positions: attention scores "
+                                    f"fold batch with another axis "
+                                    f"(axis 0 is {x.shape[0]}, batch "
+                                    f"{t.shape[0]})")
+                            qp = t.to(torch.long).view(
+                                (t.shape[0],) + (1,) * (x.dim() - 1)) + q
+                        else:
+                            qp = int(t) + q
+                        x = torch.where(kv <= qp, x, dec.NEG_INF)
+                    outs = [torch.softmax(x, dim=dim)]
+                elif ot in (OperatorType.OP_RESHAPE, OperatorType.OP_FLAT):
+                    x = vals[op.inputs[0].guid]
+                    target = list(op.outputs[0].material_shape())
+                    if out_info.live is not None:
+                        target[out_info.live] = s0
+                    if out_info.live != 0:
+                        target[0] = -1  # batch may differ from compile
+                    outs = [x.reshape(target)]
+                else:
+                    out_rank = len(op.outputs[0].material_shape())
+                    outs = d.forward(op.params, w, [
+                        aligned_input(x, out_rank, out_info, op.name)
+                        for x in op.inputs], ctx)
+                for x, v in zip(op.outputs, outs):
+                    vals[x.guid] = v
+                    if x.guid in cached_set:
+                        _write_prefix(caches["prefix"][x.guid], v,
+                                      info[x.guid].live, t, per_row_t, x.guid)
             return vals[self.logits_pt.guid]
+
+        graphs = collections.OrderedDict()
 
         def replay(params, caches, t, tok):
             weights = [w for op in plan.live_ops
                        for w in params.get(op.name, {}).values()]
             gkey = (tuple(w.data_ptr() for w in weights),
-                    tuple(x.data_ptr() for kv in caches["mha"].values()
-                          for x in kv),
+                    tuple((x.data_ptr(), tuple(x.shape))
+                          for x in _tensors(caches)),
                     tuple(np.shape(tok)))
             g = graphs.get(gkey) or _DecodeGraph(
                 np.shape(tok), plan.decode_pt.data_type.torch_dtype,
@@ -628,6 +885,33 @@ class PCGExecutor:
         built = (init_caches, step)
         self._decode_builds[key] = built
         return built
+
+
+def _iota(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Positions along `axis` of x, shaped to broadcast against x."""
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    return torch.arange(x.shape[axis], device=x.device).view(shape)
+
+
+def _write_prefix(cache: torch.Tensor, v: torch.Tensor, ax: int, t,
+                  per_row_t: bool, guid: int) -> None:
+    """Write a block's values `v` into a prefix cache in place at live axis
+    `ax`, from position t (an int), or per row from t[i] (a (b,) tensor:
+    a device-side scatter, no host sync, so the step captures)."""
+    s0 = v.shape[ax]
+    v = v.to(cache.dtype)
+    if not per_row_t:
+        cache.narrow(ax, t, s0).copy_(v)
+        return
+    if ax == 0 or cache.shape[0] != t.shape[0]:
+        raise NotImplementedError(
+            f"per-row positions: prefix cache guid {guid} has no "
+            f"batch-leading axis (live axis {ax}, axis 0 {cache.shape[0]})")
+    from .decode import _per_row_positions
+
+    rows = torch.arange(t.shape[0], device=cache.device)[:, None]
+    cache.movedim(ax, 1)[rows, _per_row_positions(t, s0)] = v.movedim(ax, 1)
 
 
 class _ScanGraph:

@@ -17,6 +17,7 @@ optimizer state, KV caches, the seed table) must stay where it was.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import torch
@@ -46,11 +47,25 @@ class CapturedGraph:
     def capture(self, fn: Callable, *,
                 capture_error_mode: str = "global"):
         """Record `fn()` (nothing runs) and keep its result, the static
-        outputs each replay overwrites. Raises what the capture raises."""
-        with build.captured_launches(self.launches):
-            with torch.cuda.graph(self.graph,
-                                  capture_error_mode=capture_error_mode):
-                self.outputs = fn()
+        outputs each replay overwrites. Raises what the capture raises.
+
+        Python's cycle collector is run first and held off during the
+        capture: an executor and its graphs form a reference cycle, so a
+        dropped model's graphs die only when the collector runs, and a
+        graph destroyed while a capture is open (its cudaGraphExecDestroy)
+        invalidates that capture. torch.cuda.graph no longer collects on
+        entry by default."""
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with build.captured_launches(self.launches):
+                with torch.cuda.graph(self.graph,
+                                      capture_error_mode=capture_error_mode):
+                    self.outputs = fn()
+        finally:
+            if was_enabled:
+                gc.enable()
         return self.outputs
 
     def replay(self):

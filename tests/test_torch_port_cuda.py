@@ -1162,3 +1162,179 @@ def test_measured_search_compile_trains_on_the_card(gen):
     m.fit(x, x, epochs=2)
     assert all(torch.isfinite(w).all() for ws in m.params.values()
                for w in ws.values())
+
+
+def _seq2seq(src=16, dec=16, vocab=89, d=64, heads=4, layers=2, batch=4,
+             mixed=True):
+    """A small post-LN encoder-decoder (Transformer (big)'s graph at width
+    64: sinusoidal position constants, cross-attention) on the card."""
+    import math
+
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.ff_types import ActiMode, AggrMode, DataType
+
+    def table(n):
+        ang = np.arange(n)[:, None] / np.power(
+            10000.0, 2 * np.arange(d // 2)[None, :] / d)
+        out = np.zeros((1, n, d), np.float32)
+        out[0, :, 0::2], out[0, :, 1::2] = np.sin(ang), np.cos(ang)
+        return out
+
+    m = FFModel(FFConfig(batch_size=batch, allow_mixed_precision=mixed))
+    s = m.create_tensor((batch, src), DataType.DT_INT32)
+    g = m.create_tensor((batch, dec), DataType.DT_INT32)
+
+    def embed(ids, n):
+        e = m.scalar_multiply(m.embedding(ids, vocab, d, AggrMode.AGGR_MODE_NONE),
+                              math.sqrt(d))
+        return m.add(e, m.create_constant_tensor(table(n), DataType.DT_FLOAT))
+
+    def ffn(x):
+        f = m.dense(x, 2 * d, ActiMode.AC_MODE_RELU)
+        return m.layer_norm(m.add(x, m.dense(f, d)))
+
+    e = embed(s, src)
+    for _ in range(layers):
+        e = ffn(m.layer_norm(m.add(e, m.multihead_attention(e, e, e, d,
+                                                            heads))))
+    x = embed(g, dec)
+    for _ in range(layers):
+        x = m.layer_norm(m.add(x, m.multihead_attention(x, x, x, d, heads,
+                                                        causal=True)))
+        x = m.layer_norm(m.add(x, m.multihead_attention(x, e, e, d, heads)))
+        x = ffn(x)
+    m.dense(x, vocab)
+    m.compile()
+    return m
+
+
+def _count_captures(monkeypatch):
+    from flexflow_tpu_torch.parallel import executor
+
+    captures = []
+    real = executor._DecodeGraph.capture
+
+    def capture(self, fn):
+        captures.append(self)
+        return real(self, fn)
+
+    monkeypatch.setattr(executor._DecodeGraph, "capture", capture)
+    return captures
+
+
+def test_decode_replays_across_two_cache_sets(gen):
+    """Two source batches' caches alive at once, stepped in turns: each
+    replay reads its own cache set's encoder K/V and position rows (the
+    graph key holds every cache tensor), so each equals the eager steps
+    on fresh caches; incremental_seq2seq_generate on two sources in a row
+    equals its eager steps."""
+    from flexflow_tpu_torch.runtime.serving import \
+        incremental_seq2seq_generate
+
+    m = _seq2seq()
+    rng = np.random.RandomState(6)
+    srcs = [rng.randint(0, 89, (4, 16)).astype(np.int32) for _ in range(2)]
+    dec = rng.randint(0, 89, (4, 16)).astype(np.int32)
+    init, step = m.executor.build_decode(4, 16)
+    sets = [init(m.params, [s]) for s in srcs]
+    eager = [init(m.params, [s]) for s in srcs]
+    for t in range(6):
+        pos = np.full(4, t, np.int32)
+        for c, e in zip(sets, eager):
+            got = step(m.params, c, pos, [dec[:, t:t + 1]])[0].clone()
+            want = step(m.params, e, pos, [dec[:, t:t + 1]], _eager=True)[0]
+            torch.testing.assert_close(got, want)
+    toks = [incremental_seq2seq_generate(m, s, max_new_tokens=12)
+            for s in srcs]
+    assert not np.array_equal(toks[0], toks[1])
+    for s, tk in zip(srcs, toks):
+        np.testing.assert_array_equal(tk, incremental_seq2seq_generate(
+            m, s, max_new_tokens=12, _eager=True))
+
+
+def test_beam_reorder_in_place_keeps_replaying_one_graph(gen, monkeypatch):
+    """incremental_beam_generate gathers the per-beam caches into the same
+    tensors: one sample's 11 one-token steps capture one graph and replay
+    it, and the beams equal the eager steps'."""
+    from flexflow_tpu_torch.runtime.serving import incremental_beam_generate
+
+    m = _seq2seq()
+    src = np.random.RandomState(7).randint(0, 89, (1, 16)).astype(np.int32)
+    starts = np.zeros((1, 1), np.int32)
+    captures = _count_captures(monkeypatch)
+    got = incremental_beam_generate(m, starts, num_beams=4,
+                                    max_new_tokens=12, max_len=16,
+                                    encoder_ids=src)
+    assert len(captures) == 1
+    want = incremental_beam_generate(m, starts, num_beams=4,
+                                     max_new_tokens=12, max_len=16,
+                                     encoder_ids=src, _eager=True)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_per_row_prefix_writes_under_capture(gen):
+    """Primitive-op attention (batch_matmul, a baked tril mask, softmax,
+    batch_matmul) with its prefix caches: rows at different positions
+    write their own cache positions inside the captured step, and the
+    replayed logits equal the eager steps' and the full forward's."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.ff_types import AggrMode, DataType
+
+    n, e = 16, 32
+    m = FFModel(FFConfig(batch_size=4))
+    ids = m.create_tensor((4, n), DataType.DT_INT32)
+    x = m.embedding(ids, 50, e, AggrMode.AGGR_MODE_NONE)
+    s = m.batch_matmul(x, m.transpose(x, (0, 2, 1)))
+    mask = np.where(np.tril(np.ones((n, n), bool)), 0.0, -1e9)
+    s = m.add(s, m.create_constant_tensor(mask[None].astype(np.float32),
+                                          DataType.DT_FLOAT))
+    m.dense(m.batch_matmul(m.softmax(s, axis=-1), x), 50)
+    m.compile()
+    xs = np.random.RandomState(8).randint(0, 50, (4, n)).astype(np.int32)
+    full = m.executor.build_forward()(m.params, [xs])
+    init, step = m.executor.build_decode(4, n)
+    cap, eag = init(m.params), init(m.params)
+    # one token a step from position 0, row i held back i steps (it
+    # rewrites position 0 with the same token until it starts): every
+    # step's rows sit at different positions
+    rows = np.arange(4)
+    for k in range(n + 3):
+        pos = np.clip(k - rows, 0, n - 1).astype(np.int32)
+        tok = xs[rows, pos][:, None]
+        got = step(m.params, cap, pos, [tok])[0].clone()
+        want = step(m.params, eag, pos, [tok], _eager=True)[0]
+        torch.testing.assert_close(got, want)
+        torch.testing.assert_close(got[:, 0], full[rows, pos], atol=1e-4,
+                                   rtol=1e-4)
+    for g in cap["prefix"]:
+        torch.testing.assert_close(cap["prefix"][g], eag["prefix"][g])
+
+
+def test_a_dropped_models_graphs_do_not_break_a_capture(gen):
+    """A dropped model's captured graphs sit in a reference cycle (an
+    executor and its graphs) until Python's cycle collector runs; run
+    while another capture is open, their destruction would invalidate
+    it. With the collector at its most eager, a scan still captures and
+    leaves the stepwise weights."""
+    import gc
+
+    from flexflow_tpu_torch.runtime.serving import incremental_generate
+
+    for _ in range(2):
+        m = _lm()
+        incremental_generate(m, np.zeros((4, 3), np.int32),
+                             max_new_tokens=4, max_len=64)
+        del m
+    x, y = _drop_data(n=6)
+    a = _drop_model(spd=1)
+    a.fit(x, y, epochs=1)
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        b = _drop_model(spd=3)
+        b.fit(x, y, epochs=1)
+    finally:
+        gc.set_threshold(*old)
+    for op, ws in a.params.items():
+        for n, w in ws.items():
+            assert torch.equal(w, b.params[op][n]), f"{op}.{n}"

@@ -194,6 +194,9 @@ def test_entry_points_default_to_cuda():
 def test_port_imports_no_jax():
     code = ("import sys, flexflow_tpu_torch, flexflow_tpu_torch.runtime.serving,"
             " flexflow_tpu_torch.runtime.weights,"
+            " flexflow_tpu_torch.parallel.decode,"
+            " flexflow_tpu_torch.parallel.executor,"
+            " flexflow_tpu_torch.ops.attention,"
             " flexflow_tpu_torch.runtime.strategy_io,"
             " flexflow_tpu_torch.search, flexflow_tpu_torch.search.measure,"
             " flexflow_tpu_torch.search.substitution_loader,"
