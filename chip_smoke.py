@@ -143,7 +143,23 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      against its forward; compile_decode on the serving LM and a
      ContinuousBatcher on the decode executor. The encoder's flash
      forward (non-causal, 128 x 128) and the decoder's paged decode (cap
-     128) are then held against their plain versions at those shapes.
+     128) are then held against their plain versions at those shapes;
+ 15. checkpoints and the resilient training loop: BERT-base (the BERT
+     phase's widths, dropout on, SGD lr 1e-3 momentum 0.9, 12 batches
+     from seed 0) through the resilient `fit` with the step guard (scale
+     1024, regrowth every 3 good steps). Run A, a NaN step injected at
+     index 4, checkpoints every 3 steps, the last 2 kept: the state after
+     step 4 equals that after step 3 (device digests), the scale reads
+     512 after step 4 and 1024 after step 7, one skip, the epoch line
+     says skipped_steps=1. Run B, hard-killed before step 8, resumed by
+     a fresh model from the step-6 checkpoint: weights, momentum and
+     guard bit-equal to run A's. A resilient `fit` with checkpoints and
+     no faults bit-equal to plain `fit`. In a telemetry session a
+     corrupt newest checkpoint (the `bitflip` site, on disk) is skipped
+     and counted. Every flash launch of those runs on wgmma. Readings:
+     checkpoint bytes, save and restore ms, the guarded against the
+     unguarded step (ABBA) beside the bound of the guard's bytes, and
+     what the guard does with the BERT phase's lr 0.01 (a finding).
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -184,9 +200,9 @@ line, a `zoo_models` line (after the card's name and power limit), a
 `moe`, a `dlrm`, an `inception` and a `zoo` line, a
 `longctx_nmt_fusion` line (after the card's name and power limit; the
 `kernels` line's flash rows carry their long-context shape's readings),
-a `longctx`, an `nmt` and a `fusion` line, a `search` and a `seq2seq`
-line (the `kernels` line's flash and paged rows carry their seq2seq
-shapes' readings; both lines after the
+a `longctx`, an `nmt` and a `fusion` line, a `search`, a `seq2seq`
+and a `resilience` line (the `kernels` line's flash and paged rows carry
+their seq2seq shapes' readings; those lines after the
 card's name and power limit) and, last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import contextlib
@@ -1630,14 +1646,14 @@ def train(torch):
     return summary
 
 
-def build_bert_model(torch, spd=1):
+def build_bert_model(torch, spd=1, optimizer=None):
     """BERT-base as a plain torch.nn.Module (models/bert.py), imported
     through the PyTorch frontend and compiled like the training phase:
     bf16 compute and gradients over f32 weights, MSE-avg, SGD lr 0.01
-    (examples/python/bert_proxy.py). The module's Linear and LayerNorm
-    weights come from torch's seed 0 and are carried over with
-    `load_weights`; attention keeps the port's own init, as in the JAX
-    frontend."""
+    (examples/python/bert_proxy.py) unless `optimizer` is given. The
+    module's Linear and LayerNorm weights come from torch's seed 0 and
+    are carried over with `load_weights`; attention keeps the port's own
+    init, as in the JAX frontend."""
     from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
     from flexflow_tpu_torch.ff_types import LossType, MetricsType
     from flexflow_tpu_torch.frontends.torch import PyTorchModel
@@ -1651,7 +1667,7 @@ def build_bert_model(torch, spd=1):
     x = m.create_tensor((BERT_BATCH, BERT_SEQ, BERT_HIDDEN))
     pt = PyTorchModel(module)
     pt.torch_to_ff(m, [x])
-    m.compile(SGDOptimizer(lr=0.01),
+    m.compile(optimizer or SGDOptimizer(lr=0.01),
               LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
               [MetricsType.METRICS_MEAN_SQUARED_ERROR])
     pt.load_weights(m)
@@ -4468,6 +4484,430 @@ def seq2seq(torch):
     return summary
 
 
+# The resilience phase: BERT-base at the BERT phase's widths and data
+# seed, SGD with momentum 0.9 at lr 1e-3 (which keeps its 12 steps
+# finite; the BERT phase's 0.01 diverges within tens of steps), one
+# epoch of RES_BATCHES batches. The step guard starts at scale 1024 and
+# regrows every 3 good steps, so a NaN step at index 4 backs it off to
+# 512 and indices 5-7 grow it back; checkpoints every 3 steps, the last
+# 2 kept; run B is hard-killed before step index 8.
+RES_BATCHES, RES_LR, RES_MOMENTUM = 12, 1e-3, 0.9
+RES_SCALE, RES_GROWTH = 1024.0, 3
+RES_NAN_AT, RES_PREEMPT_AT, RES_EVERY, RES_KEEP = 4, 8, 3, 2
+RES_PLAIN_BATCHES = 4
+RES_ABBA_ROUNDS, RES_TURN_STEPS, RES_TIMED_IO = 5, 4, 3
+# the optional finding: the BERT phase's SGD lr 0.01 without momentum
+# under the default guard (scale 1, 10 skips in a row fail the run)
+RES_DIVERGE_EPOCHS = 4
+
+
+def device_digest(torch, tensors):
+    """One int64 per tensor, on the device: the position-weighted sum of
+    its 32-bit words (2i + 1 for word i, wrapping), so equal digests mean
+    bit-equal tensors up to a collision. Every tensor here is 32-bit."""
+    out = []
+    for t in tensors:
+        words = t.detach().contiguous().reshape(-1).view(torch.int32) \
+            .to(torch.int64)
+        pos = torch.arange(words.numel(), device=words.device,
+                           dtype=torch.int64) * 2 + 1
+        out.append((words * pos).sum())
+    return torch.stack(out)
+
+
+def record_each_step(model, on_step):
+    """Wrap the executor's build_train_step so that `on_step(state)` sees
+    the state after each step of the next fit; `del model.executor.
+    build_train_step` unwraps. The script's observation, not the path:
+    the step itself is unchanged."""
+    ex = model.executor
+    build_step = type(ex).build_train_step
+
+    def build():
+        step = build_step(ex)
+
+        def run(*a, **k):
+            state, partials = step(*a, **k)
+            on_step(state)
+            return state, partials
+        return run
+
+    ex.build_train_step = build
+
+
+def quiet_fit(model, x, y, **kw):
+    """`fit` with its printout captured and logged; returns the text."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        model.fit(x, y, **kw)
+    text = out.getvalue()
+    log("  " + text.strip().replace("\n", "\n  "))
+    return text
+
+
+def state_tensors(model):
+    """Every tensor of a model's training state by name: weights,
+    optimizer state, the guard's counters."""
+    from flexflow_tpu_torch.runtime.verify import (_flat_path,
+                                                   _leaves_with_path)
+
+    st = model.state
+    tree = {"params": st.params, "opt_state": st.opt_state,
+            "guard": st.guard.as_dict() if st.guard is not None else None}
+    return {_flat_path(p): t for p, t in _leaves_with_path(tree)
+            if t is not None}
+
+
+def states_not_equal(torch, a, b, guard=True):
+    """The names of the state tensors that differ in any bit (or exist in
+    one model only); the guard's counters left out unless `guard`."""
+    ta, tb = state_tensors(a), state_tensors(b)
+    if not guard:
+        ta, tb = ({k: v for k, v in t.items() if not k.startswith("guard/")}
+                  for t in (ta, tb))
+    return sorted(k for k in ta.keys() | tb.keys()
+                  if k not in ta or k not in tb
+                  or not torch.equal(ta[k], tb[k]))
+
+
+def epoch_lines(text):
+    """fit's epoch lines without the throughput reading (a clock)."""
+    return [ln.split("throughput")[0] + ln.split("samples/s")[1]
+            for ln in text.splitlines() if ln.startswith("epoch")]
+
+
+def guard_overhead(torch, model, guard, x, y):
+    """The guarded against the unguarded stepwise train step on the host
+    clock (each step synchronised), in ABBA rounds of RES_TURN_STEPS
+    steps, every turn from one snapshot of the state; beside the bound of
+    the bytes the guard's extra passes move."""
+    from flexflow_tpu_torch.parallel.executor import _tensors
+
+    ex = model.executor
+    restore = restorer(torch, model)
+    poison = torch.ones((), dtype=torch.float32, device="cuda")
+
+    def turn(guarded):
+        restore()
+        ex.set_step_guard(guard if guarded else None)
+        model.state.guard = ex.init_guard_state() if guarded else None
+        step = ex.build_train_step()
+        gen = torch.Generator().manual_seed(1)
+        times = []
+        for j in range(RES_TURN_STEPS):
+            sl = slice(j * BERT_BATCH, (j + 1) * BERT_BATCH)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.state, _ = step(model.state, [x[sl]], y[sl], gen,
+                                  poison if guarded else None)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return float(np.mean(times))
+
+    turn(False)
+    turn(True)   # warm-up
+    got = {"unguarded": [], "guarded": []}
+    for _ in range(RES_ABBA_ROUNDS):
+        for name in ("unguarded", "guarded", "guarded", "unguarded"):
+            got[name].append(turn(name == "guarded"))
+    restore()
+    ex.set_step_guard(None)
+    model.state.guard = None
+    if not weights_finite(torch, model):
+        raise AssertionError("the timed steps left non-finite weights")
+    out = {}
+    for name, v in got.items():
+        med = float(np.median(v))
+        out[name] = {"step_ms_median": med, "readings": v,
+                     "spread": (max(v) - min(v)) / med}
+    out["overhead_ms"] = (out["guarded"]["step_ms_median"]
+                          - out["unguarded"]["step_ms_median"])
+    # bytes: the weights (P f32) and their momentum (S f32) and the
+    # gradients (P in grad_dtype). The guard's own function: unscale the
+    # gradients (read, write) and take their norm (read). Its
+    # implementation here adds the snapshot of the state (read, write)
+    # and the select (read the new and the old, write)
+    weights = sum(w.numel() for ws in model.params.values()
+                  for w in ws.values())
+    slots = sum(t.numel() for t in _tensors(model.state.opt_state))
+    gb = torch.finfo(ex.grad_dtype or torch.float32).bits // 8
+    function_bytes = 3 * weights * gb
+    passes_bytes = function_bytes + 5 * 4 * (weights + slots)
+    out.update(weights=weights, optimizer_slots=slots, grad_bytes=gb,
+               bound_ms_function=1e3 * function_bytes / PEAK_BYTES_PER_S,
+               bound_ms_passes=1e3 * passes_bytes / PEAK_BYTES_PER_S,
+               bytes_function=function_bytes, bytes_passes=passes_bytes)
+    return out
+
+
+def resilience(torch):
+    """The resilience phase: the resilient `fit` of BERT-base (dropout
+    on: both flash kernels' dropout variants every step) with the step
+    guard, checkpoints, a hard kill and resume, against a plain `fit`,
+    and the integrity gate; then its readings. Every check raises. The
+    launch counts cover runs A, B (and its resume) and the plain against
+    resilient pair."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from flexflow_tpu_torch import SGDOptimizer, obs
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.parallel.executor import _tensors
+    from flexflow_tpu_torch.runtime.checkpoint import (restore_checkpoint,
+                                                       save_checkpoint)
+    from flexflow_tpu_torch.runtime.resilience import (
+        CheckpointManager, FaultInjector, NonFiniteGradientsError,
+        StepGuardConfig, TrainingPreempted, restore_latest)
+    from flexflow_tpu_torch.runtime.verify import verify_checkpoint
+
+    t_phase = time.perf_counter()
+    os.environ.pop("FF_ATTENTION_IMPL", None)
+    rng = np.random.RandomState(0)
+    n = RES_BATCHES * BERT_BATCH
+    x, y = (rng.randn(n, BERT_SEQ, BERT_HIDDEN).astype(np.float32)
+            for _ in range(2))
+    guard = StepGuardConfig(init_loss_scale=RES_SCALE,
+                            growth_interval=RES_GROWTH)
+
+    def model():
+        return build_bert_model(torch, optimizer=SGDOptimizer(
+            lr=RES_LR, momentum=RES_MOMENTUM))
+
+    def injector():
+        return FaultInjector().inject("nan_grads", at_step=RES_NAN_AT)
+
+    summary = {"model": "BERT-base encoder via PyTorchModel",
+               "batch": BERT_BATCH, "seq": BERT_SEQ, "batches": RES_BATCHES,
+               "optimizer": f"SGD lr {RES_LR} momentum {RES_MOMENTUM}",
+               "guard": f"init_loss_scale {RES_SCALE}, growth_interval "
+                        f"{RES_GROWTH}", "nan_at": RES_NAN_AT,
+               "preempt_at": RES_PREEMPT_AT, "every": RES_EVERY,
+               "keep_last_n": RES_KEEP}
+    root = tempfile.mkdtemp(prefix="ff_resilience_")
+    try:
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        # -- run A: uninterrupted, a NaN step at index RES_NAN_AT --------
+        a = model()
+        digests, scales = [], []
+
+        def on_step(state):
+            digests.append(device_digest(
+                torch, _tensors((state.params, state.opt_state))))
+            scales.append(state.guard.loss_scale.clone())
+
+        record_each_step(a, on_step)
+        dir_a = os.path.join(root, "a")
+        text_a = quiet_fit(a, x, y, checkpoint_dir=dir_a,
+                           checkpoint_every_n_steps=RES_EVERY,
+                           keep_last_n=RES_KEEP, step_guard=guard,
+                           fault_injector=injector())
+        del a.executor.build_train_step
+        torch.cuda.synchronize()
+        if len(digests) != RES_BATCHES:
+            raise AssertionError(f"run A took {len(digests)} steps")
+        unchanged = [i for i in range(1, RES_BATCHES)
+                     if torch.equal(digests[i], digests[i - 1])]
+        if unchanged != [RES_NAN_AT]:
+            raise AssertionError(f"run A: the state stood still after "
+                                 f"steps {unchanged}, expected only "
+                                 f"[{RES_NAN_AT}] (the NaN step)")
+        scale_seq = [s.item() for s in scales]
+        want = [RES_SCALE] * RES_NAN_AT + [RES_SCALE / 2] * RES_GROWTH + \
+            [RES_SCALE] * (RES_BATCHES - RES_NAN_AT - RES_GROWTH)
+        if scale_seq != want:
+            raise AssertionError(f"run A: loss scales {scale_seq}, "
+                                 f"expected {want}")
+        g = a.state.guard
+        if (g.total_skips.item(), g.consecutive_skips.item()) != (1, 0):
+            raise AssertionError(f"run A: guard {g}")
+        if "skipped_steps=1" not in text_a:
+            raise AssertionError(f"run A printed {text_a!r}")
+        kept = CheckpointManager(dir_a).list_steps()
+        if kept != [RES_BATCHES - RES_EVERY, RES_BATCHES]:
+            raise AssertionError(f"run A kept checkpoints {kept}")
+        log(f"  run A: loss scales {scale_seq}; the state stood still "
+            f"only after the NaN step {RES_NAN_AT}; checkpoints {kept}")
+        summary["run_a"] = {"loss_scales": scale_seq,
+                            "state_unchanged_after_steps": unchanged,
+                            "checkpoints_kept": kept,
+                            "epoch_line": epoch_lines(text_a)}
+
+        # -- run B: hard-killed before step RES_PREEMPT_AT, resumed -------
+        b = model()
+        fi = injector().inject("preempt", at_step=RES_PREEMPT_AT,
+                               graceful=False)
+        dir_b = os.path.join(root, "b")
+        try:
+            quiet_fit(b, x, y, checkpoint_dir=dir_b,
+                      checkpoint_every_n_steps=RES_EVERY,
+                      keep_last_n=RES_KEEP, step_guard=guard,
+                      fault_injector=fi)
+        except TrainingPreempted as e:
+            killed = e
+        else:
+            raise AssertionError("run B was not preempted")
+        if (killed.step, killed.graceful, killed.checkpoint_path) != \
+                (RES_PREEMPT_AT, False, None):
+            raise AssertionError(f"run B: preempted at {killed.step}, "
+                                 f"graceful {killed.graceful}, checkpoint "
+                                 f"{killed.checkpoint_path}")
+        del b
+        torch.cuda.empty_cache()
+        c = model()
+        text_c = quiet_fit(c, x, y, checkpoint_dir=dir_b,
+                           checkpoint_every_n_steps=RES_EVERY,
+                           keep_last_n=RES_KEEP, step_guard=guard)
+        resumed_at = (RES_PREEMPT_AT // RES_EVERY) * RES_EVERY
+        if f"resumed from step {resumed_at} " not in text_c:
+            raise AssertionError(f"run B's resume printed {text_c!r}")
+        differ = states_not_equal(torch, a, c)
+        if differ or c.state.step != a.state.step:
+            raise AssertionError(f"run B resumed: {len(differ)} state "
+                                 f"tensors differ from run A's: {differ[:8]}")
+        log(f"  run B: killed before step {killed.step} (no checkpoint), "
+            f"resumed from step {resumed_at}: weights, momentum and guard "
+            f"bit-equal to run A's ({len(state_tensors(a))} tensors)")
+        summary["run_b"] = {"preempted_at": killed.step,
+                            "resumed_from": resumed_at,
+                            "state_tensors_bit_equal": len(state_tensors(a))}
+
+        # -- plain against resilient fit, from run A's state --------------
+        with torch.no_grad():
+            for t, v in zip(_tensors((c.state.params, c.state.opt_state)),
+                            _tensors((a.state.params, a.state.opt_state))):
+                t.copy_(v)
+        c._rng.set_state(a._rng.get_state())
+        xp = x[:RES_PLAIN_BATCHES * BERT_BATCH]
+        yp = y[:RES_PLAIN_BATCHES * BERT_BATCH]
+        plain = quiet_fit(c, xp, yp)
+        resil = quiet_fit(a, xp, yp, checkpoint_dir=os.path.join(root, "e"))
+        differ = states_not_equal(torch, a, c)
+        if differ or epoch_lines(plain) != epoch_lines(resil):
+            raise AssertionError(f"resilient fit against plain fit: {differ}"
+                                 f" differ; {plain!r} against {resil!r}")
+        log(f"  resilient fit with checkpoints, no faults, bit-equal to "
+            f"plain fit over {RES_PLAIN_BATCHES} steps")
+        torch.cuda.synchronize()
+        counts = dict(build.launch_counts)
+        paths = dict(build.path_counts)
+        steps_run = (RES_BATCHES + RES_PREEMPT_AT
+                     + (RES_BATCHES - resumed_at) + 2 * RES_PLAIN_BATCHES)
+        per = steps_run * BERT_LAYERS
+        check_training_counts("resilience", counts, {
+            "flash_fwd_dropout": per, "flash_bwd_dropout": per,
+            "flash_fwd": 0, "flash_bwd": 0, "paged_decode": 0})
+        check_wgmma_paths("resilience", counts, paths)
+        summary.update(launches=counts, launches_by_path=paths,
+                       steps=steps_run)
+
+        # -- the integrity gate, in a telemetry session -------------------
+        tel_dir = os.path.join(root, "tel")
+        newest = RES_BATCHES + 1
+        with obs.session(obs.TelemetryConfig(
+                dir=tel_dir, flight_recorder=False,
+                anomaly_detection=False)):
+            mgr = CheckpointManager(dir_a, keep_last_n=RES_KEEP,
+                                    fault_injector=FaultInjector().inject(
+                                        "bitflip", target="disk"))
+            mgr.save(a, newest)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                info = restore_latest(c, dir_a)
+        if info is None or info.step != RES_BATCHES or c.state.step != \
+                RES_BATCHES:
+            raise AssertionError(f"restore_latest past the corrupt "
+                                 f"newest: {info}")
+        if not any("falling back" in str(w.message) for w in caught):
+            raise AssertionError("restore_latest gave no fallback warning")
+        with open(os.path.join(tel_dir, "metrics.prom")) as f:
+            prom = obs.parse_prometheus(f.read())
+        if prom.get("ff_checkpoint_restore_fallbacks_total") != 1:
+            raise AssertionError(f"metrics: {prom}")
+        audit = verify_checkpoint(mgr.step_path(newest))
+        if audit["ok"] or len(audit["corrupt"]) != 1 or \
+                not audit["corrupt"][0].startswith("params/"):
+            raise AssertionError(f"audit of the corrupt newest: {audit}")
+        log(f"  integrity: the corrupt newest (step {newest}, "
+            f"{audit['corrupt'][0]}) skipped, step {info.step} restored; "
+            f"ff_checkpoint_restore_fallbacks_total "
+            f"{prom['ff_checkpoint_restore_fallbacks_total']}")
+        summary["integrity"] = {
+            "corrupt": audit["corrupt"], "restored_step": info.step,
+            "fallbacks_total": prom["ff_checkpoint_restore_fallbacks_total"],
+            "checkpoint_counters": {k: v for k, v in prom.items()
+                                    if k.startswith("ff_checkpoint_")}}
+
+        # -- readings: bytes, save and restore, the guard's overhead ------
+        ck = os.path.join(root, "timed")
+        save_ms, restore_ms = [], []
+        for _ in range(RES_TIMED_IO):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(a, ck)
+            save_ms.append(1e3 * (time.perf_counter() - t0))
+        for _ in range(RES_TIMED_IO):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore_checkpoint(c, ck)
+            torch.cuda.synchronize()
+            restore_ms.append(1e3 * (time.perf_counter() - t0))
+        if states_not_equal(torch, a, c, guard=False):
+            raise AssertionError("the timed restore differs from the save")
+        summary["checkpoint"] = {
+            "state_bytes": prom["ff_checkpoint_bytes"],
+            "file_bytes": os.path.getsize(os.path.join(ck, "state.pt")),
+            "save_ms_median": float(np.median(save_ms)),
+            "restore_ms_median": float(np.median(restore_ms)),
+            "save_ms": save_ms, "restore_ms": restore_ms}
+        overhead = guard_overhead(torch, a, guard, x, y)
+        summary["guard_overhead"] = overhead
+        log(f"  checkpoint {summary['checkpoint']['state_bytes']:.0f} B: "
+            f"save {summary['checkpoint']['save_ms_median']:.1f} ms, restore "
+            f"{summary['checkpoint']['restore_ms_median']:.1f} ms (median "
+            f"of {RES_TIMED_IO}); step unguarded "
+            f"{overhead['unguarded']['step_ms_median']:.3f} ms, guarded "
+            f"{overhead['guarded']['step_ms_median']:.3f} ms (spreads "
+            f"{overhead['unguarded']['spread']:.3f}, "
+            f"{overhead['guarded']['spread']:.3f}); bound of the guard "
+            f"{overhead['bound_ms_function']:.3f} ms, of its passes "
+            f"{overhead['bound_ms_passes']:.3f} ms")
+        del a, c
+        torch.cuda.empty_cache()
+
+        # -- a finding, not a pass criterion: lr 0.01 under the guard -----
+        d = build_bert_model(torch)
+        skipped = []
+        record_each_step(d, lambda st: skipped.append(
+            st.guard.consecutive_skips.clone()))
+        try:
+            text_d = quiet_fit(d, x, y, epochs=RES_DIVERGE_EPOCHS,
+                               step_guard=StepGuardConfig())
+            outcome = "completed"
+        except NonFiniteGradientsError as e:
+            # the guard's answer to a run that keeps diverging: recorded
+            text_d, outcome = "", f"NonFiniteGradientsError: {e}"
+        g = d.state.guard
+        skip_steps = [i for i, c in enumerate(skipped) if c.item()]
+        summary["lr_0_01"] = {
+            "steps_planned": RES_DIVERGE_EPOCHS * RES_BATCHES,
+            "steps_run": d.state.step, "outcome": outcome,
+            "skipped_steps": skip_steps,
+            "total_skips": g.total_skips.item(),
+            "loss_scale": g.loss_scale.item(),
+            "epoch_lines": epoch_lines(text_d)}
+        log(f"  lr 0.01 under the default guard: {outcome}; "
+            f"{d.state.step} steps, steps {skip_steps} skipped, scale "
+            f"{g.loss_scale.item()}")
+        del d
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return summary
+
+
+
 def wgmma_build_report(build):
     """Registers, spill bytes and shared memory of each wgmma kernel
     instance, from ptxas's report in the build log (-Xptxas -v) and the
@@ -4713,6 +5153,10 @@ def main() -> int:
 
     log("# seq2seq phase: encoder-decoder serving, Transformer (big)")
     s2 = seq2seq(torch)
+    torch.cuda.empty_cache()
+
+    log("# resilience phase: checkpoints and the resilient fit, BERT-base")
+    rs = resilience(torch)
 
     # the CNN and zoo paths run none of the three kernels (cuDNN
     # convolutions and cuBLAS products, as the JAX package's are XLA's);
@@ -4727,7 +5171,7 @@ def main() -> int:
                 "inception": inc["launches"], "zoo": zo["launches"],
                 "longctx": lc["launches"], "nmt": nm["launches"],
                 "fusion": fu["launches"], "search": se["launches"],
-                "seq2seq": s2["launches"]}
+                "seq2seq": s2["launches"], "resilience": rs["launches"]}
     # rows 1 and 2 at the long-context model's shape (bound by operations)
     for k in kernels[:2]:
         k["long_context_shape"] = lc["flash_long_shape"][k["name"]]
@@ -4755,7 +5199,7 @@ def main() -> int:
                   training_scan=scan, bert=bert_summary, bert_scan=bscan,
                   alexnet=alex, resnext=rx, moe=moe_summary, dlrm=dl,
                   inception=inc, zoo=zo, longctx=lc, nmt=nm, fusion=fu,
-                  search=se, seq2seq=s2)
+                  search=se, seq2seq=s2, resilience=rs)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -4836,6 +5280,7 @@ def main() -> int:
                                        "exported"]),
         "phase_s": se["phase_s"]}}))
     log(smi + " " + json.dumps({"seq2seq": s2}))
+    log(smi + " " + json.dumps({"resilience": rs}))
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

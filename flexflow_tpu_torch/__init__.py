@@ -19,7 +19,10 @@ data loaders, ResNet and ResNeXt-50); and the rest of the zoo (the shape
 ops, reductions and top_k, batch_matmul, PReLU, the MoE ops with their
 balance loss, Cache: DLRM, Inception-v3, CANDLE-Uno, MLP_Unify, XDL and
 the MoE Transformer); the long-context Transformer (chunked attention
-off the card), the LSTM with the NMT model, and --fusion.
+off the card), the LSTM with the NMT model, and --fusion; checkpoints
+and the resilient training loop (atomic crc32-checked checkpoints,
+mid-epoch resume, the NaN/Inf step guard with a dynamic loss scale,
+preemption and fault injection).
 """
 from .config import FFConfig  # noqa: F401
 from .core.initializers import (  # noqa: F401
@@ -34,6 +37,25 @@ from .core.initializers import (  # noqa: F401
 from .core.dataloader import SingleDataLoader  # noqa: F401
 from .core.model import FFModel  # noqa: F401
 from .core.optimizers import AdamOptimizer, Optimizer, SGDOptimizer  # noqa: F401
+from .runtime.checkpoint import restore_checkpoint, save_checkpoint  # noqa: F401
+from .runtime.resilience import (  # noqa: F401
+    CheckpointManager,
+    FaultInjector,
+    InferenceTimeout,
+    NonFiniteGradientsError,
+    PreemptionSignal,
+    RetryPolicy,
+    StepGuardConfig,
+    TrainingPreempted,
+    restore_latest,
+    retry,
+)
+from .runtime.verify import (  # noqa: F401
+    CheckpointCorruptionError,
+    NotCompiledError,
+    VerificationError,
+    verify_checkpoint,
+)
 from .ff_types import (  # noqa: F401
     ActiMode,
     AggrMode,

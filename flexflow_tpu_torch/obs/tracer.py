@@ -1,0 +1,414 @@
+"""Structured span/event tracer.
+
+The reference ships `-lg:prof` (Legion profiler logs rendered by
+legion_prof into a browsable timeline) plus per-op cudaEvent prints under
+--profiling (SURVEY §5); this is the unification, the PyTorch port's
+copy of flexflow_tpu/obs/tracer.py: a
+low-overhead in-process tracer emitting a structured JSONL event log that
+exports to Chrome-trace/Perfetto JSON, with the SAME schema used by the
+simulator's timeline export (the JAX package's runtime/profiler.py
+export_simulated_timeline, not ported yet) so simulated and measured timelines overlay in
+one Perfetto view.
+
+Event schema (one JSON object per events.jsonl line):
+
+    {"ts": <float, seconds since session start>,
+     "ph": "X" | "i" | "C",        # complete span | instant | counter
+     "name": <str>,                # e.g. "step", "mcmc_iter"
+     "cat": <str>,                 # "compile" | "search" | "train" |
+                                   # "checkpoint" | "runtime" | "serving"
+                                   # | "simulated" | ...
+     "dur": <float, seconds>,      # spans only
+     "tid": <int>,                 # lane within the category (device id
+                                   # for simulated timelines, else 0)
+     "args": {...}}                # free-form structured payload; for
+                                   # counters (ph=C) every value must be
+                                   # numeric — each key becomes a series
+                                   # on the Perfetto counter track
+
+Disabled-path cost is ~zero: when no telemetry session is active the
+module-level helpers in `flexflow_tpu_torch.obs` hand out the shared
+`NULL_TRACER`, whose `span()` returns one preallocated no-op context
+manager and whose `instant()` is a constant `return` — no per-call
+allocation.
+"""
+from __future__ import annotations
+
+import json
+import threading
+import time
+from typing import Dict, Iterable, List, Optional, Tuple
+
+EVENT_REQUIRED_KEYS = ("ts", "ph", "name", "cat")
+_PHASES = ("X", "i", "C")
+
+
+def validate_event(obj) -> List[str]:
+    """Schema-check one decoded event; returns problem strings (empty =
+    valid). Used by tests and the CLI's summary command."""
+    problems = []
+    if not isinstance(obj, dict):
+        return [f"event is {type(obj).__name__}, not an object"]
+    for k in EVENT_REQUIRED_KEYS:
+        if k not in obj:
+            problems.append(f"missing key {k!r}")
+    ph = obj.get("ph")
+    if ph not in _PHASES:
+        problems.append(f"ph={ph!r} not in {_PHASES}")
+    if ph == "X" and not isinstance(obj.get("dur"), (int, float)):
+        problems.append("span (ph=X) without numeric dur")
+    if ph == "C":
+        series = obj.get("args")
+        if not isinstance(series, dict) or not series:
+            problems.append("counter (ph=C) without args series")
+        else:
+            for k, v in series.items():
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    problems.append(
+                        f"counter (ph=C) series {k!r} value {v!r} not numeric")
+    if not isinstance(obj.get("ts", 0.0), (int, float)):
+        problems.append(f"ts={obj.get('ts')!r} not numeric")
+    if "args" in obj and not isinstance(obj["args"], dict):
+        problems.append("args is not an object")
+    return problems
+
+
+class _NullSpan:
+    """Shared do-nothing context manager (the disabled-tracer span)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **args):  # matches Span.set
+        return self
+
+    def done(self):  # matches Span.done
+        return None
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class NullTracer:
+    """The disabled tracer: every call is a no-op and `span()` returns a
+    single preallocated context manager, so the off path allocates
+    nothing per step."""
+
+    __slots__ = ()
+    enabled = False
+
+    def span(self, name, cat="runtime", **args):
+        return _NULL_SPAN
+
+    def instant(self, name, cat="runtime", **args):
+        return None
+
+    def counter(self, name, cat="runtime", tid=0, **series):
+        return None
+
+    def emit(self, event):
+        return None
+
+    def lane(self, cat, name):
+        return 0
+
+    def add_sink(self, fn):
+        return None
+
+    def remove_sink(self, fn):
+        return None
+
+
+NULL_TRACER = NullTracer()
+
+
+class Span:
+    """A completed-event ("X") recorder; use as a context manager or via
+    the explicit `done()` call."""
+
+    __slots__ = ("_tracer", "name", "cat", "args", "_t0", "tid")
+
+    def __init__(self, tracer, name, cat, args, tid=0):
+        self._tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.args = args
+        self.tid = tid
+        self._t0 = time.perf_counter()
+
+    def set(self, **args):
+        """Attach/overwrite args mid-span (e.g. the step's loss)."""
+        if self.args is None:
+            self.args = {}
+        self.args.update(args)
+        return self
+
+    def done(self):
+        t1 = time.perf_counter()
+        self._tracer.emit({
+            "ts": self._t0 - self._tracer.t0,
+            "ph": "X",
+            "name": self.name,
+            "cat": self.cat,
+            "dur": t1 - self._t0,
+            "tid": self.tid,
+            "args": self.args or {},
+        })
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.done()
+        return False
+
+
+class Tracer:
+    """Buffered JSONL event recorder.
+
+    Events accumulate in memory and flush to `path` (append) every
+    `flush_every` events and on `close()`. A `max_events` cap bounds both
+    memory and disk; overflow is counted in `dropped`, reported live
+    through the `on_drop` callback (telemetry wires it to the
+    `ff_trace_events_dropped_total` counter so the fleet page sees trace
+    loss before process exit) and summarized as one final instant event
+    at close. Sinks added via `add_sink` see EVERY emitted event —
+    including ones past the cap — so a flight recorder's bounded ring
+    keeps the freshest tail even after the trace file stops growing."""
+
+    enabled = True
+
+    def __init__(self, path: Optional[str] = None, *, t0: Optional[float] = None,
+                 flush_every: int = 256, max_events: int = 200_000,
+                 on_drop=None):
+        self.path = path
+        self.t0 = time.perf_counter() if t0 is None else t0
+        self.flush_every = max(1, flush_every)
+        self.max_events = max_events
+        self.on_drop = on_drop  # callable(n_dropped) or None
+        self.events: List[dict] = []
+        self.dropped = 0
+        self._written = 0  # events already flushed to disk
+        self._emitted = 0
+        self._sinks: List = []
+        self._lock = threading.Lock()
+        # named lanes: (cat, lane-name) -> stable tid within the category.
+        # tid 0 is the anonymous default lane, so named lanes start at 1;
+        # the mapping exports through to_chrome_trace(lane_names=...) as
+        # Perfetto thread_name metadata (per-replica request tracks).
+        self._lanes: Dict[Tuple[str, str], int] = {}
+
+    def lane(self, cat: str, name: str) -> int:
+        """Stable tid for a named lane within `cat` (get-or-assign). A
+        first assignment also records a "lane" instant event, so the
+        name->tid mapping survives in events.jsonl and the offline CLI
+        (`obs trace`) can label the Perfetto tracks a live session
+        labels via `lane_names`."""
+        key = (cat, name)
+        with self._lock:
+            tid = self._lanes.get(key)
+            fresh = tid is None
+            if fresh:
+                tid = 1 + sum(1 for c, _ in self._lanes if c == cat)
+                self._lanes[key] = tid
+        if fresh:  # emit outside the lock (emit() re-takes it)
+            self.instant("lane", cat=cat, tid=tid, lane=name)
+        return tid
+
+    @property
+    def lane_names(self) -> Dict[Tuple[str, str], int]:
+        with self._lock:
+            return dict(self._lanes)
+
+    # -- recording -------------------------------------------------------
+    def span(self, name, cat="runtime", tid=0, **args) -> Span:
+        return Span(self, name, cat, args or None, tid=tid)
+
+    def instant(self, name, cat="runtime", tid=0, **args) -> None:
+        self.emit({
+            "ts": time.perf_counter() - self.t0,
+            "ph": "i",
+            "name": name,
+            "cat": cat,
+            "tid": tid,
+            "args": args,
+        })
+
+    def counter(self, name, cat="runtime", tid=0, ts=None, **series) -> None:
+        """Record one sample of a Perfetto counter track. Each kwarg is a
+        series on the track named `name` (e.g. hbm_bytes per device);
+        values must be numeric — non-numeric samples are rejected by
+        `validate_event` and dropped at export."""
+        self.emit({
+            "ts": (time.perf_counter() - self.t0) if ts is None else ts,
+            "ph": "C",
+            "name": name,
+            "cat": cat,
+            "tid": tid,
+            "args": series,
+        })
+
+    def add_sink(self, fn) -> None:
+        """Register `fn(event)` to observe every emitted event (even past
+        `max_events`). Sinks must be fast and non-throwing; exceptions
+        are swallowed so a broken observer cannot take down the traced
+        workload."""
+        with self._lock:
+            if fn not in self._sinks:
+                self._sinks.append(fn)
+
+    def remove_sink(self, fn) -> None:
+        with self._lock:
+            if fn in self._sinks:
+                self._sinks.remove(fn)
+
+    def emit(self, event: dict) -> None:
+        on_drop = None
+        with self._lock:
+            sinks = list(self._sinks)
+            if self._emitted >= self.max_events:
+                self.dropped += 1
+                on_drop = self.on_drop
+            else:
+                self._emitted += 1
+                self.events.append(event)
+                if (self.path
+                        and len(self.events) - self._written
+                        >= self.flush_every):
+                    self._flush_locked()
+        # callbacks run outside the lock: on_drop typically bumps a
+        # metric counter (own lock) and sinks may be arbitrary observers
+        if on_drop is not None:
+            try:
+                on_drop(1)
+            except Exception:  # fflint: disable=FFL002
+                pass
+        for fn in sinks:
+            try:
+                fn(event)
+            except Exception:  # fflint: disable=FFL002
+                pass
+
+    # -- output ----------------------------------------------------------
+    def _flush_locked(self) -> None:
+        if not self.path:
+            return
+        chunk = self.events[self._written:]
+        if not chunk:
+            return
+        with open(self.path, "a") as f:
+            for e in chunk:
+                f.write(json.dumps(e) + "\n")
+        self._written = len(self.events)
+
+    def flush(self) -> None:
+        with self._lock:
+            self._flush_locked()
+
+    def close(self) -> None:
+        with self._lock:
+            if self.dropped:
+                self._emitted += 1
+                self.events.append({
+                    "ts": time.perf_counter() - self.t0,
+                    "ph": "i", "name": "events_dropped", "cat": "obs",
+                    "tid": 0, "args": {"dropped": self.dropped},
+                })
+            self._flush_locked()
+
+
+# ----------------------------------------------------------------------
+# Chrome-trace / Perfetto export (the shared schema both the runtime
+# tracer and the simulator's timeline export emit)
+# ----------------------------------------------------------------------
+def to_chrome_trace(events: Iterable[dict],
+                    lane_names: Optional[Dict[Tuple[str, str], int]] = None,
+                    ) -> dict:
+    """Internal events -> Chrome trace JSON (Perfetto-loadable).
+
+    Categories become processes (stable pid per cat, named via
+    process_name metadata) so a simulated timeline (cat "simulated") and
+    the measured runtime (cat "train" etc.) overlay as separate tracks in
+    one Perfetto view; `tid` is the lane within a category (device id for
+    per-device timelines, replica name for request traces). Passing a
+    tracer's `lane_names` ({(cat, name): tid}) emits thread_name metadata
+    so named lanes render labeled in Perfetto. Seconds become
+    microseconds and the whole trace is shifted so the earliest timestamp
+    is 0 (compile-time events replayed into a later session may carry
+    negative session-relative ts)."""
+    events = [e for e in events if not validate_event(e)]
+    pids: Dict[str, int] = {}
+    out: List[dict] = []
+    min_ts = min((float(e["ts"]) for e in events), default=0.0)
+    for e in events:
+        cat = str(e.get("cat", "runtime"))
+        pid = pids.setdefault(cat, len(pids))
+        entry = {
+            "name": e["name"],
+            "cat": cat,
+            "ph": e["ph"],
+            "ts": (float(e["ts"]) - min_ts) * 1e6,
+            "pid": pid,
+            "tid": int(e.get("tid", 0)),
+            "args": e.get("args", {}),
+        }
+        if e["ph"] == "X":
+            entry["dur"] = float(e.get("dur", 0.0)) * 1e6
+        elif e["ph"] == "i":
+            entry["s"] = "t"  # instant scope: thread
+        # ph=C needs nothing extra: args already hold the series values
+        out.append(entry)
+    meta = [
+        {"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+         "args": {"name": cat}}
+        for cat, pid in pids.items()
+    ]
+    for (cat, name), tid in sorted((lane_names or {}).items(),
+                                   key=lambda kv: kv[1]):
+        if cat in pids:  # a lane with no events has no process to hang on
+            meta.append({"name": "thread_name", "ph": "M",
+                         "pid": pids[cat], "tid": int(tid),
+                         "args": {"name": name}})
+    return {"traceEvents": meta + out, "displayTimeUnit": "ms"}
+
+
+def lanes_from_events(events: Iterable[dict]) -> Dict[Tuple[str, str], int]:
+    """Reconstruct a tracer's {(cat, lane-name): tid} mapping from the
+    "lane" instant events it recorded — the offline complement of
+    `Tracer.lane_names` for CLI conversion of an events.jsonl file."""
+    out: Dict[Tuple[str, str], int] = {}
+    for e in events:
+        if e.get("name") == "lane":
+            name = e.get("args", {}).get("lane")
+            if name is not None:
+                out[(str(e.get("cat", "runtime")), str(name))] = \
+                    int(e.get("tid", 0))
+    return out
+
+
+def read_events_jsonl(path: str) -> Tuple[List[dict], List[str]]:
+    """Load an events.jsonl file; returns (events, problems) where
+    problems collects per-line schema violations."""
+    events: List[dict] = []
+    problems: List[str] = []
+    with open(path) as f:
+        for i, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                obj = json.loads(line)
+            except ValueError as e:
+                problems.append(f"line {i}: not JSON ({e})")
+                continue
+            bad = validate_event(obj)
+            if bad:
+                problems.append(f"line {i}: " + "; ".join(bad))
+            else:
+                events.append(obj)
+    return events, problems

@@ -46,6 +46,19 @@ materialized once on the device and fed into every walk; `build_decode`
 decodes any graph parallel/decode.py can prove exact: decoder-only or
 encoder-decoder, fused or primitive-op attention, static inputs.
 
+The NaN/Inf step guard (runtime/resilience.py StepGuardConfig,
+`set_step_guard`) runs inside the eager train step, on the device, as
+the JAX package's runs inside its jitted step: the loss scaled by the
+dynamic loss scale, the gradients unscaled (and poisoned by fit's
+`nan_grads` fault site), one global gradient norm, the update kept only
+where that norm is finite, and the scale and skip counters advanced in
+`TrainState.guard`, with no host sync. The optimizers update in place,
+so a guarded step snapshots the weights and optimizer buffers first and
+writes the snapshot back where the norm is not finite: a skipped step
+leaves them bit for bit as they were. The train scan refuses an armed
+guard, as the JAX package's does: fit with the guard dispatches
+stepwise.
+
 Where the JAX package jits a program, the port captures a CUDA graph on
 a card (parallel/graphs.py): `build_train_scan` runs N train steps as one
 captured graph over staged batches (JAX: one lax.scan program), and the
@@ -154,14 +167,55 @@ def _constant_tensor(pt, value, shape, device) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class GuardState:
+    """Device-resident step-guard counters (runtime/resilience.py
+    StepGuardConfig): dynamic loss scale + skip bookkeeping, 0-d tensors
+    advanced in place inside the train step, so the guarded step needs
+    no host sync."""
+
+    loss_scale: torch.Tensor        # f32: the dynamic loss scale
+    good_steps: torch.Tensor        # i32: consecutive finite steps (regrowth)
+    consecutive_skips: torch.Tensor  # i32: fit() hard-fails past the max
+    total_skips: torch.Tensor       # i32: run-lifetime skipped steps
+
+    FIELDS = ("loss_scale", "good_steps", "consecutive_skips", "total_skips")
+
+    @classmethod
+    def create(cls, loss_scale: float, device) -> "GuardState":
+        """A fresh guard on `device`: the scale, no steps counted."""
+        zero = torch.zeros((), dtype=torch.int32, device=device)
+        return cls(loss_scale=torch.full((), loss_scale, dtype=torch.float32,
+                                         device=device),
+                   good_steps=zero.clone(), consecutive_skips=zero.clone(),
+                   total_skips=zero.clone())
+
+    def as_dict(self) -> Dict[str, torch.Tensor]:
+        return {k: getattr(self, k) for k in self.FIELDS}
+
+
+@dataclasses.dataclass
 class TrainState:
     """The training state of a compiled model: weights, optimizer state,
-    the step count and the stateful ops' buffers (net_state)."""
+    the step count, the stateful ops' buffers (net_state) and the step
+    guard's counters (None when the guard is off, the default)."""
 
     params: Params
     opt_state: Any
     step: int = 0
     net_state: Params = dataclasses.field(default_factory=dict)
+    guard: Optional[GuardState] = None
+
+
+def global_grad_norm(grads) -> torch.Tensor:
+    """L2 norm over every gradient tensor, accumulated in f32 (bf16 grads
+    would overflow the squares). NaN/Inf anywhere in any gradient
+    surfaces here as a non-finite norm: one scalar finiteness check
+    covers them all."""
+    leaves = _tensors(grads)
+    if not leaves:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(leaves, 2, dtype=torch.float32)))
 
 
 class PCGExecutor:
@@ -212,6 +266,10 @@ class PCGExecutor:
             for guid, (pt, value) in self.constants.items()}
         self._decode_builds = {}
         self._scan_graphs = collections.OrderedDict()
+        # the NaN/Inf step guard (set_step_guard) and the synced step-time
+        # EMA behind drain_window_s
+        self.step_guard = None
+        self._step_dur_ema: Optional[float] = None
         # serving's compute-dtype weight copies (ops/common.py)
         self.weight_cache = WeightCache()
         # compute indices of the ops that draw random numbers in training
@@ -268,6 +326,48 @@ class PCGExecutor:
                      if self.optimizer is not None else None)
         return TrainState(params=params, opt_state=opt_state,
                           net_state=self.init_net_state())
+
+    # -- the step guard and the drain window -------------------------------
+    def set_step_guard(self, cfg) -> None:
+        """Enable/disable the NaN/Inf step guard (a
+        resilience.StepGuardConfig or None). A change drops the captured
+        train scans: they were captured without it."""
+        if cfg != self.step_guard:
+            self.step_guard = cfg
+            self._scan_graphs.clear()
+
+    def init_guard_state(self) -> GuardState:
+        if self.step_guard is None:
+            raise RuntimeError("init_guard_state: set_step_guard() first")
+        return GuardState.create(self.step_guard.init_loss_scale, self.device)
+
+    def note_step_duration(self, dur_s: float) -> None:
+        """Feed the step-time EMA behind `drain_window_s`. fit() calls
+        this only for SYNCED steps (drain mode), where the wall time
+        measured a whole step rather than an asynchronous launch."""
+        if dur_s <= 0:
+            return
+        ema = self._step_dur_ema
+        self._step_dur_ema = (dur_s if ema is None
+                              else 0.5 * ema + 0.5 * dur_s)
+
+    @property
+    def step_dur_ema(self) -> Optional[float]:
+        """The measured synced-step wall-time EMA (None until fed)."""
+        return self._step_dur_ema
+
+    def drain_window_s(self, checkpoint_s: Optional[float] = None,
+                       safety: float = 2.0) -> float:
+        """How much of a preemption deadline must remain for fit() to
+        risk ONE more step: the expected step time plus the expected
+        checkpoint flush, with a safety factor (steps and flushes
+        jitter; blowing the deadline means a hard kill mid-write, which
+        costs a whole checkpoint interval of replay). The drain protocol
+        keeps training while deadline_remaining() > this window, then
+        flushes and leaves."""
+        step = self._step_dur_ema or 0.0
+        ckpt = checkpoint_s or 0.0
+        return safety * (step + ckpt) + 0.25
 
     def _ctx(self, op_name: str = "", training: bool = False, rng=None,
              seq_length: int = -1, weight_cache=None,
@@ -398,12 +498,15 @@ class PCGExecutor:
 
     def _loss_and_grads(self, params: Params, batch_inputs, labels,
                         rng, seq_length: int = -1, net_state=None,
-                        net_out=None):
+                        net_out=None, loss_scale=None):
         """(loss, logits, grads) of the training forward under `rng` (a
         step seed, its seed-table row on the device, or None: no op
         draws); grads are cast by `_cast_grads`. The loss includes the
         ops' aux losses. Stateful ops read `net_state` and put their new
-        buffers in `net_out`. The weights themselves are not touched."""
+        buffers in `net_out`. With `loss_scale` (a 0-d device tensor) the
+        gradients are those of the loss times it (dynamic loss scaling:
+        the step guard unscales them); the loss returned stays unscaled.
+        The weights themselves are not touched."""
         names = [(op, n) for op, ws in params.items() for n in ws]
         leaves = {op: {n: w.detach().requires_grad_() for n, w in ws.items()}
                   for op, ws in params.items()}
@@ -418,23 +521,37 @@ class PCGExecutor:
             loss = self.loss_fn(logits, truncate_labels(labels, logits))
             for a in aux:
                 loss = loss + a
-            gs = torch.autograd.grad(loss, flat, allow_unused=True)
+            gs = torch.autograd.grad(
+                loss if loss_scale is None else loss * loss_scale, flat,
+                allow_unused=True)
         grads: Params = {}
         for (op, n), w, g in zip(names, flat, gs):
             grads.setdefault(op, {})[n] = torch.zeros_like(w) if g is None else g
         return loss.detach(), logits.detach(), self._cast_grads(grads)
 
     def _train(self, state: TrainState, batch_inputs, labels: torch.Tensor,
-               row) -> Dict[str, torch.Tensor]:
+               row, poison=None) -> Dict[str, torch.Tensor]:
         """One train step's device work: forward, backward and the
         in-place update under seed row `row`, and the stateful ops' new
         buffers copied into state.net_state; returns the partials. The
-        eager step, the scan and its captured graph all run this."""
+        eager step, the scan and its captured graph all run this. With
+        the step guard armed, the guarded step (`_guarded_update`), whose
+        `poison` (a 0-d f32 device tensor, NaN to simulate a bad batch;
+        None: 1.0) multiplies the unscaled gradients."""
+        guard = self.step_guard
+        if guard is not None and state.guard is None:
+            raise RuntimeError("the step guard is armed but the state has "
+                               "no guard counters: init_guard_state()")
         net_out: Params = {}
         loss, logits, grads = self._loss_and_grads(
             state.params, batch_inputs, labels, row,
-            net_state=state.net_state, net_out=net_out)
-        self.optimizer.update(state.params, grads, state.opt_state)
+            net_state=state.net_state, net_out=net_out,
+            loss_scale=state.guard.loss_scale if guard is not None else None)
+        finite = None
+        if guard is None:
+            self.optimizer.update(state.params, grads, state.opt_state)
+        else:
+            finite, gnorm = self._guarded_update(state, grads, poison)
         with torch.no_grad():
             for op, bufs in net_out.items():
                 for k, v in bufs.items():
@@ -442,22 +559,87 @@ class PCGExecutor:
         with torch.no_grad():
             partials = self.metrics.compute(logits, labels)
         partials["loss"] = loss
+        if finite is not None:
+            # skipped steps contribute nothing to epoch metrics (their
+            # logits/loss are NaN — summing would poison the epoch)
+            partials = {k: torch.where(finite, v, torch.zeros_like(v))
+                        for k, v in partials.items()}
+            partials["skipped"] = 1.0 - finite.to(torch.float32)
+            partials["grad_norm"] = torch.where(finite, gnorm, 0.0)
         return partials
 
+    @torch.no_grad()
+    def _guarded_update(self, state: TrainState, grads: Params, poison):
+        """The step guard (the JAX package's guarded `_make_step`, in its
+        order): unscale the gradients (and poison them) in f32, take the
+        global norm, apply the update only where it is finite, then back
+        the loss scale off or grow it and advance the counters, all on
+        the device. Returns (finite, grad norm), 0-d device tensors."""
+        cfg, g = self.step_guard, state.guard
+        if poison is None:
+            poison = torch.ones((), dtype=torch.float32, device=self.device)
+        inv = (poison / g.loss_scale).to(torch.float32)
+        # unscale (and poison) in f32, then round back to the gradient's
+        # dtype, in place. The foreach calls launch a few kernels for the
+        # whole list where per-tensor calls launch one each: the eager
+        # step is bound by the host's launches
+        flat = _tensors(grads)
+        wide = [t if t.dtype == torch.float32 else t.to(torch.float32)
+                for t in flat]
+        torch._foreach_mul_(wide, inv)
+        for t, w in zip(flat, wide):
+            if w is not t:
+                t.copy_(w)
+        gnorm = global_grad_norm(grads).to(self.device)
+        finite = torch.isfinite(gnorm)
+        # a skipped step carries params AND optimizer state through
+        # unchanged — momentum/bias-correction (Adam's beta_t too) must
+        # not advance on a discarded gradient. The update is in place,
+        # so snapshot first and write the snapshot back where not finite
+        live = _tensors((state.params, state.opt_state))
+        kept = [torch.empty_like(t) for t in live]
+        torch._foreach_copy_(kept, live)
+        self.optimizer.update(state.params, grads, state.opt_state)
+        for t, old in zip(live, kept):
+            torch.where(finite, t, old, out=t)
+        cap = (cfg.max_loss_scale if cfg.max_loss_scale is not None
+               else cfg.init_loss_scale)
+        good = torch.where(finite, g.good_steps + 1, 0)
+        grow = finite & (good >= cfg.growth_interval)
+        backed = torch.clamp_min(g.loss_scale * cfg.backoff_factor,
+                                 cfg.min_loss_scale)
+        scale = torch.where(
+            finite,
+            torch.where(grow,
+                        torch.clamp_max(g.loss_scale * cfg.growth_factor,
+                                        cap),
+                        g.loss_scale),
+            backed)
+        g.loss_scale.copy_(scale)
+        g.good_steps.copy_(torch.where(grow, 0, good))
+        g.consecutive_skips.copy_(
+            torch.where(finite, 0, g.consecutive_skips + 1))
+        g.total_skips.add_((~finite).to(torch.int32))
+        return finite, gnorm
+
     def build_train_step(self) -> Callable:
-        """step(state, batch_inputs, labels, rng=None) -> (state,
-        partials): one forward, backward and optimizer update, run
+        """step(state, batch_inputs, labels, rng=None, poison=None) ->
+        (state, partials): one forward, backward and optimizer update, run
         eagerly. `rng` is a CPU torch.Generator the step draws its seed
         from (the JAX step's key), or that seed as an int; None draws
         nothing. The weights and optimizer buffers are updated in place,
         so the returned state holds the same params dict; partials are the
         metrics' summed partials plus "loss", 0-d tensors left on the
-        device."""
+        device. With the step guard armed (set_step_guard), `poison` is
+        fit's fault-injection seam (a 0-d f32 device tensor, 1.0 or NaN)
+        and the partials also carry "skipped" and "grad_norm"."""
         self._require_training("build_train_step")
 
-        def step(state: TrainState, batch_inputs, labels, rng=None):
+        def step(state: TrainState, batch_inputs, labels, rng=None,
+                 poison=None):
             partials = self._train(state, batch_inputs,
-                                   self._as_labels(labels), step_seed(rng))
+                                   self._as_labels(labels), step_seed(rng),
+                                   poison)
             return dataclasses.replace(state, step=state.step + 1), partials
 
         return step
@@ -478,8 +660,14 @@ class PCGExecutor:
         into slot j of static (N,) buffers. The first call of a shape
         warms the step up on a side stream from a snapshot of the state
         (restored after), then captures. A failed capture raises. On the
-        CPU the scan is a loop over the same step."""
+        CPU the scan is a loop over the same step. An armed step guard
+        is refused, as the JAX package refuses it."""
         self._require_training("build_train_scan")
+        if self.step_guard is not None:
+            raise RuntimeError(
+                "the fused multi-step scan does not take the step "
+                "guard's per-step poison/skip monitoring; resilient fit() "
+                "dispatches stepwise (build_train_step)")
 
         def scan(state: TrainState, stacked_inputs, stacked_labels,
                  seed_table=None):

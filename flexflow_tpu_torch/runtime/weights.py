@@ -8,6 +8,10 @@ a compiled model of this package, after checking that the two name sets
 and every shape agree. `net_state_from_numpy` does the same for the
 stateful ops' buffers (BatchNorm's running mean and variance,
 `TrainState.net_state`), so both packages can start from one state.
+`train_state_from_numpy` carries a whole training state across: the
+weights, the optimizer state (momentum, Adam's moments and beta_t), the
+buffers, the step guard's counters and the step, so both packages can
+start mid-run.
 
 A fused op (pcg/fusion.py, --fusion) keeps its chain's weights as
 `step<i>/<name>`, as the JAX package's fused graph does, so JAX's fused
@@ -15,7 +19,7 @@ params carry over as they are.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -83,3 +87,49 @@ def net_state_from_numpy(model, net_state: Mapping[str, Mapping[str,
             for n, b in bufs.items():
                 b.copy_(torch.as_tensor(np.array(net_state[op][n])))
     return mine
+
+
+def _as_tensors(tree):
+    """A nest of dicts of arrays as the same nest of host tensors."""
+    if isinstance(tree, Mapping):
+        return {k: _as_tensors(v) for k, v in tree.items()}
+    return None if tree is None else torch.as_tensor(np.array(tree))
+
+
+def train_state_from_numpy(model, params: Mapping[str, Mapping[str,
+                                                              np.ndarray]],
+                           opt_state: Optional[Any] = None,
+                           net_state: Optional[Mapping] = None,
+                           guard: Optional[Mapping[str, Any]] = None,
+                           step: int = 0):
+    """Turn a JAX package TrainState, given as numpy arrays, into this
+    model's: `params` through `params_from_numpy`, then `opt_state` (the
+    optimizer's nest, e.g. ``{"v": {op: {weight: array}}}`` or Adam's
+    ``{"m", "v", "beta1_t", "beta2_t"}``), `net_state` and the step
+    guard's counters (``{"loss_scale", "good_steps",
+    "consecutive_skips", "total_skips"}``) copied in place, and the
+    step. A guard given to a model that has none gets a fresh
+    GuardState on its device. Raises ValueError where a structure or
+    shape differs. Returns `model.state`."""
+    from ..parallel.executor import GuardState
+    from .checkpoint import _leaf_pairs
+
+    if model.state is None:
+        raise RuntimeError("compile() the model first")
+    params_from_numpy(model, params)
+    pairs = []
+    if opt_state is not None:
+        pairs += _leaf_pairs(model.state.opt_state, _as_tensors(opt_state),
+                             "opt_state")
+    if guard is not None:
+        if model.state.guard is None:
+            model.state.guard = GuardState.create(1.0, model.device)
+        pairs += _leaf_pairs(model.state.guard.as_dict(), _as_tensors(guard),
+                             "guard")
+    if net_state is not None:
+        net_state_from_numpy(model, net_state)
+    with torch.no_grad():
+        for live, src in pairs:
+            live.copy_(src)
+    model.state.step = int(step)
+    return model.state

@@ -1338,3 +1338,126 @@ def test_a_dropped_models_graphs_do_not_break_a_capture(gen):
     for op, ws in a.params.items():
         for n, w in ws.items():
             assert torch.equal(w, b.params[op][n]), f"{op}.{n}"
+
+
+# -- the step guard and checkpoint restore on the card ----------------------
+def _guard_pair(adam):
+    """The same f32 MHA model on the card and on the CPU (same weights),
+    SGD with momentum or Adam, the step guard armed at scale 4."""
+    from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel,
+                                    SGDOptimizer)
+    from flexflow_tpu_torch.ff_types import LossType
+    from flexflow_tpu_torch.runtime.resilience import StepGuardConfig
+
+    def make(device):
+        m = FFModel(FFConfig(batch_size=2, device=device, seed=0))
+        x = m.create_tensor((2, 24, 40))
+        t = m.multihead_attention(x, x, x, 40, 4, causal=True)
+        m.dense(t, 40)
+        m.compile(AdamOptimizer(alpha=0.01) if adam
+                  else SGDOptimizer(lr=0.01, momentum=0.9),
+                  LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE)
+        m.executor.set_step_guard(StepGuardConfig(init_loss_scale=4.0,
+                                                  growth_interval=2))
+        m.state.guard = m.executor.init_guard_state()
+        return m
+
+    gm, cm = make("cuda"), make("cpu")
+    for op, ws in gm.params.items():
+        for n, w in ws.items():
+            cm.params[op][n].copy_(w.cpu())
+    return gm, cm
+
+
+def _state_tensors(m):
+    from flexflow_tpu_torch.parallel.executor import _tensors
+
+    return _tensors((m.state.params, m.state.opt_state,
+                     m.state.guard.as_dict()))
+
+
+@pytest.mark.parametrize("adam", [False, True])
+def test_guarded_steps_on_the_card_match_the_cpu(gen, adam):
+    """Guarded steps on the card (good, poisoned, good, good) against the
+    same steps on the CPU: the guard's counters equal, the weights and
+    optimizer state within f32 summation order (1e-5), and the poisoned
+    step leaves every weight and optimizer slot on the card (Adam's
+    beta_t too) bit for bit as it was."""
+    gm, cm = _guard_pair(adam)
+    rng = np.random.RandomState(2)
+    steps = {m: m.executor.build_train_step() for m in (gm, cm)}
+    for i, poisoned in enumerate((False, True, False, False)):
+        x = rng.randn(2, 24, 40).astype(np.float32)
+        y = rng.randn(2, 24, 40).astype(np.float32)
+        before = [t.clone() for t in _state_tensors(gm)]
+        for m in (gm, cm):
+            poison = torch.full((), float("nan") if poisoned else 1.0,
+                                device=m.executor.device)
+            m.state, _ = steps[m](m.state, [x], y, None, poison)
+        torch.cuda.synchronize()
+        g, c = _state_tensors(gm), _state_tensors(cm)
+        for a, b in zip(g[-4:], c[-4:]):
+            assert a.item() == b.item(), f"step {i}: guard"
+        if poisoned:
+            for t, old in zip(g[:-4], before[:-4]):
+                assert torch.equal(t, old), f"step {i}"
+        for a, b in zip(g[:-4], c[:-4]):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-5, atol=1e-5)
+    assert gm.state.guard.loss_scale.item() == 4.0
+    assert gm.state.guard.total_skips.item() == 1
+
+
+def test_a_restore_keeps_the_captured_scan_graph(gen, tmp_path):
+    """A restore writes into the live tensors: the train scan's graph,
+    keyed by their addresses, replays without a new capture (the launch
+    counts take no warm-up), and the weights it trains equal those of a
+    fresh model restored from the same checkpoint."""
+    from flexflow_tpu_torch.runtime.checkpoint import (restore_checkpoint,
+                                                       save_checkpoint)
+
+    x, y = _drop_data(8)
+    m = _drop_model(spd=2)
+    path = str(tmp_path / "ck")
+    save_checkpoint(m, path)
+    m.fit(x, y, verbose=False)
+    rng_state = m._rng.get_state()
+    restore_checkpoint(m, path)
+    build.reset_launch_counts()
+    m.fit(x, y, verbose=False)
+    torch.cuda.synchronize()
+    assert build.launch_counts["flash_fwd_dropout"] == 4
+    fresh = _drop_model(spd=2, seed=1)
+    restore_checkpoint(fresh, path)
+    fresh._rng.set_state(rng_state)
+    fresh.fit(x, y, verbose=False)
+    for op, ws in m.params.items():
+        for n, w in ws.items():
+            assert torch.equal(w, fresh.params[op][n]), f"{op}.{n}"
+
+
+def test_a_restored_model_serves_through_its_captured_decode_graph(
+        gen, tmp_path):
+    """A model that served (its decode graph captured on its weights and
+    their bf16 copies), restored from another model's checkpoint, replays
+    that graph on the restored weights: its tokens equal a fresh model's
+    eager steps on the checkpoint's weights."""
+    from flexflow_tpu_torch.runtime.checkpoint import (restore_checkpoint,
+                                                       save_checkpoint)
+    from flexflow_tpu_torch.runtime.serving import incremental_generate
+
+    prompts = np.random.RandomState(8).randint(0, 97, (4, 9)) \
+        .astype(np.int32)
+    m = _lm()
+    first = incremental_generate(m, prompts, max_new_tokens=12, max_len=64)
+    other = _lm(seed=1)
+    path = str(tmp_path / "other")
+    save_checkpoint(other, path)
+    restore_checkpoint(m, path)
+    got = incremental_generate(m, prompts, max_new_tokens=12, max_len=64)
+    fresh = _lm(seed=2)
+    restore_checkpoint(fresh, path)
+    want = incremental_generate(fresh, prompts, max_new_tokens=12,
+                                max_len=64, _eager=True)
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, first)

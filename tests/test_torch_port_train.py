@@ -323,15 +323,18 @@ def test_model_served_after_fit_serves_the_trained_weights():
                                out0, rtol=0, atol=0)
 
 
-def test_fit_needs_a_loss():
+def test_fit_needs_a_loss(tmp_path):
     m = FFModel(FFConfig(batch_size=BATCH, device="cpu"))
     m.dense(m.create_tensor((BATCH, 4)), 3)
     m.compile()
     with pytest.raises(RuntimeError, match="loss_type"):
         m.fit(np.zeros((BATCH, 4), np.float32), np.zeros((BATCH, 3), np.float32))
-    with pytest.raises(TypeError):
+    # the resilient loop refuses it too, before it makes a checkpoint dir
+    with pytest.raises(RuntimeError, match="loss_type"):
         m.fit(np.zeros((BATCH, 4), np.float32),
-              np.zeros((BATCH, 3), np.float32), checkpoint_dir="x")
+              np.zeros((BATCH, 3), np.float32),
+              checkpoint_dir=str(tmp_path / "ck"))
+    assert not (tmp_path / "ck").exists()
 
 
 def test_training_modules_import_no_jax():
