@@ -175,7 +175,30 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      beside their bounds; the store applied and saved, a fresh compile
      with calibration=path pricing every MHA and dense key at the stored
      seconds exactly and training a finite step, and a copy stamped "tpu"
-     rejected and counted.
+     rejected and counted;
+ 17. the strategy toolchain (verify), on the flagship at full width,
+     searched for 8 simulated H100s on analytic costs: (1) the artifact
+     store (runtime/artifact_store.py): a cold compile misses, searches
+     and puts; a fresh model replays the winner with no search, the same
+     views by topological position, and both train 4 steps bit for bit;
+     an injected corruption is quarantined, counted and re-searched to
+     the same views; (2) verify_strategy on the searched flagship (ok,
+     its diffs) and with the top block's RELU dropped (not ok, that op
+     named), fit(verify_strategy="preflight") passing a sound model and
+     raising StrategyDivergenceError on the broken one; (3) the
+     determinism canary every 2 steps over 8 batches (4 checks, 0
+     violations, bit-equal to an uncanaried resilient twin), a bitflip
+     at step 4 caught with the pre-step state live and checkpointed, the
+     sdc mode catching an exponent flip, ABBA time against the plain fit
+     and the snapshot's bytes beside their bound; (4) --memory-search on
+     2 blocks with device_mem halfway between the fastest winner's bytes
+     and the least a strategy reaches: lambda above 0, the winner at or
+     under the budget, 4 finite steps; (5) simulate_runtime of the DP
+     winner and of MCMC's start, MCMC at budget 200 native (it must
+     leave an mcmc_native event) and in Python; (6) the topology-aware
+     machine's winner against the flat one's. Then, as a finding, a
+     2-step determinism canary on DLRM. The flash launches of (1)-(4)
+     count in the kernels line and must all take wgmma.
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -217,9 +240,9 @@ line, a `zoo_models` line (after the card's name and power limit), a
 `longctx_nmt_fusion` line (after the card's name and power limit; the
 `kernels` line's flash rows carry their long-context shape's readings),
 a `longctx`, an `nmt` and a `fusion` line, a `search`, a `seq2seq`
-a `resilience` and an `observatory` line (the `kernels` line's flash and
-paged rows carry their seq2seq shapes' readings; those lines after the
-card's name and power limit) and, last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+a `resilience`, an `observatory` and a `verify` line (the `kernels`
+line's flash and paged rows carry their seq2seq shapes' readings; those
+lines after the card's name and power limit) and, last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import contextlib
 import io
@@ -5225,6 +5248,558 @@ def observatory(torch, search_summary):
     return summary
 
 
+# -- the verify phase: the strategy toolchain ---------------------------------
+# The flagship as the training phase builds it (full width, 12 blocks), its
+# searches on VERIFY_WORKERS simulated H100s on analytic costs (no
+# --measured-search) at VERIFY_BUDGET expansions: a 12-block search at
+# budget 1 takes ~5 s of host (this sandbox's CPU), and the phase runs
+# three of them. The memory search runs its lambda loop (up to 17
+# searches) on MEM_LAYERS blocks at the same widths, budget MEM_BUDGET.
+VERIFY_WORKERS, VERIFY_BUDGET, VERIFY_STEPS = SEARCH_WORKERS, 1, 4
+CANARY_BATCHES, CANARY_EVERY, CANARY_FLIP_AT, CANARY_ROUNDS = 8, 2, 4, 2
+MEM_LAYERS, MEM_BUDGET, MEM_STEPS = 2, 2, 4
+MCMC_BUDGET = 200
+# a lambda (seconds a byte) under which memory alone decides the search:
+# 1 s a byte against step costs of milliseconds
+MEM_LAMBDA_MAX = 1.0
+# The verifier's tolerance on the flagship. At the bf16 row (rtol = atol =
+# 0.05, the default drift budget 0.25 x 0.2) it cannot see a dropped RELU:
+# the glorot-initialised 12-block Transformer has no residuals or norms,
+# its activations shrink to ~1e-5 at the top (the output's mean |value|
+# reads 1.25e-5 at hidden 256 on the CPU), far under atol 0.05, and a
+# dropped first-block RELU moves the first step's grad norm by 0.7% (the
+# top block's by 32%). The searched winner, demoted to the one card,
+# keeps the lowering's compute ops and runs the same kernels on the same
+# inputs as the serial reference, so the sound verdict reads 0; the
+# phase tightens the drift budget (config.precision_drift_budget, which
+# caps the verifier's rtol and atol at 0.2 x the budget) to 1e-6, and
+# drops the top block's RELU.
+VERIFY_DRIFT_BUDGET = 1e-6
+# DLRM's determinism canary: 2 steps, each re-executed (a finding: the
+# embedding bags' backward scatters with atomics)
+DLRM_CANARY_STEPS = 2
+
+
+def _verify_flagship(torch, layers=LAYERS, **cfg):
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import build_transformer
+
+    m = FFModel(FFConfig(batch_size=TRAIN_BATCH, allow_mixed_precision=True,
+                         seed=0, **cfg))
+    build_transformer(m, TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS, layers)
+    return m
+
+
+def _verify_compile(m, **kw):
+    """compile as the training phase does; host seconds. The 8-worker
+    winners' views address devices the one card lacks, and compile warns
+    so before it demotes them: those warnings are expected here."""
+    import warnings
+
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType, MetricsType
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m.compile(SGDOptimizer(lr=0.01),
+                  LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
+                  [MetricsType.METRICS_MEAN_SQUARED_ERROR], **kw)
+    return time.perf_counter() - t0
+
+
+def _views_by_position(m):
+    pos = {op.guid: i for i, op in enumerate(m.graph.topo_order())}
+    return sorted((pos.get(g, -1), v.start_device_id, tuple(v.dim),
+                   tuple(v.stride)) for g, v in m.searched_views.items())
+
+
+def _state_equal(torch, a, b):
+    from flexflow_tpu_torch.parallel.executor import _tensors
+
+    ta = _tensors((a.state.params, a.state.opt_state, a.state.net_state))
+    tb = _tensors((b.state.params, b.state.opt_state, b.state.net_state))
+    return (len(ta) == len(tb) and all(torch.equal(p, q)
+                                       for p, q in zip(ta, tb))
+            and a.state.step == b.state.step
+            and torch.equal(a._rng.get_state(), b._rng.get_state()))
+
+
+def _quiet_fit(torch, m, x, y, **kw):
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = m.fit(x, y, epochs=1, **kw)
+    torch.cuda.synchronize()
+    return out
+
+
+def _break_activation(m):
+    """A broken substitution: the rewrite 'lost' one dense op's RELU (the
+    JAX package's tests/test_verify.py _break_activation, which takes the
+    first; here the last, the top block's: see VERIFY_DRIFT_BUDGET).
+    Returns the op and its params, to put them back."""
+    import dataclasses
+
+    from flexflow_tpu_torch.ff_types import ActiMode
+
+    for op in reversed(m.graph.topo_order()):
+        if (op.op_type.name == "OP_LINEAR"
+                and getattr(op.params, "activation", None)
+                == ActiMode.AC_MODE_RELU):
+            old = op.params
+            op.params = dataclasses.replace(old,
+                                            activation=ActiMode.AC_MODE_NONE)
+            return op, old
+    raise AssertionError("verify: no RELU dense op to break")
+
+
+def verify_store(torch, store_root, x, y):
+    """Phase step 1: the artifact store. A cold compile misses, searches
+    and puts; a fresh model of the same config replays the winner (no
+    search) and both train VERIFY_STEPS steps bit for bit; an injected
+    corruption quarantines the entry, is counted, and a fresh search
+    finds the same views."""
+    from flexflow_tpu_torch.runtime import FaultInjector
+    from flexflow_tpu_torch.runtime.artifact_store import ArtifactStore
+
+    fi = FaultInjector()
+    store = ArtifactStore(os.path.join(store_root, f"x{VERIFY_WORKERS}"),
+                          fault_injector=fi)
+    cfg = dict(search_budget=VERIFY_BUDGET,
+               search_num_workers=VERIFY_WORKERS)
+    cold = _verify_flagship(torch, **cfg)
+    cold_s = _verify_compile(cold, artifact_store=store)
+    if cold.strategy_provenance != {"source": "search",
+                                    "cause": "cache_miss"} \
+            or store.counts != {"miss": 1, "put": 1}:
+        raise AssertionError(f"verify: cold compile {cold.strategy_provenance}"
+                             f", counts {store.counts}")
+    warm = _verify_flagship(torch, **cfg)
+    warm_s = _verify_compile(warm, artifact_store=store)
+    kinds = {e["kind"] for e in warm.search_trajectory.events}
+    if warm.strategy_provenance["source"] != "artifact_cache" \
+            or "search_begin" in kinds \
+            or "strategy_search" in warm.compile_phase_s \
+            or store.counts != {"miss": 1, "put": 1, "hit": 1}:
+        raise AssertionError(f"verify: warm compile {warm.strategy_provenance}"
+                             f", trajectory kinds {sorted(kinds)}, phases "
+                             f"{warm.compile_phase_s}, counts {store.counts}")
+    if _views_by_position(warm) != _views_by_position(cold):
+        raise AssertionError("verify: the replayed views differ from the "
+                             "winner's")
+    warm_hit_s = warm.compile_phase_s["strategy_cache_hit"]
+    n = VERIFY_STEPS * TRAIN_BATCH
+    _quiet_fit(torch, cold, x[:n], y[:n])
+    _quiet_fit(torch, warm, x[:n], y[:n])
+    if not _state_equal(torch, cold, warm):
+        raise AssertionError(f"verify: the replayed model trained other "
+                             f"weights than the searched one "
+                             f"{weight_gap(torch, cold, warm)}")
+    del warm
+    fi.inject("artifact_corruption")
+    again = _verify_flagship(torch, **cfg)
+    again_s = _verify_compile(again, artifact_store=store)
+    want = {"miss": 1, "put": 2, "hit": 1, "corrupt": 1}
+    if again.strategy_provenance != {"source": "search",
+                                     "cause": "cache_corrupt"} \
+            or store.counts != want or fi.fired.get("artifact_corruption") != 1 \
+            or not os.listdir(store.quarantine_dir) \
+            or _views_by_position(again) != _views_by_position(cold):
+        raise AssertionError(f"verify: after the corruption "
+                             f"{again.strategy_provenance}, counts "
+                             f"{store.counts}, quarantine "
+                             f"{os.listdir(store.quarantine_dir)}")
+    del again
+    out = {"cold_compile_s": cold_s, "warm_compile_s": warm_s,
+           "corrupt_recompile_s": again_s,
+           "cold_search_s": cold.compile_phase_s["strategy_search"],
+           "warm_cache_hit_s": warm_hit_s, "counts": dict(store.counts),
+           "searched_cost": cold.searched_cost,
+           "views": len(cold.searched_views),
+           "trained_bit_equal_steps": VERIFY_STEPS,
+           "quarantined": len(os.listdir(store.quarantine_dir))}
+    log(f"  store: cold compile {cold_s:.2f} s (search "
+        f"{out['cold_search_s']:.2f} s), warm {warm_s:.2f} s (no search), "
+        f"after a corruption {again_s:.2f} s; counts {store.counts}; "
+        f"{VERIFY_STEPS} steps bit-equal")
+    return cold, store, out
+
+
+def verify_verifier(torch, cold, twin_cfg, x, y):
+    """Phase step 2: verify_strategy on the searched flagship (ok), with
+    one dense op's RELU dropped (not ok, that op named), and
+    fit(verify_strategy="preflight") on a sound model (passes, trains)
+    and on the broken one (raises StrategyDivergenceError)."""
+    from flexflow_tpu_torch import StrategyDivergenceError, verify_strategy
+
+    n = 2 * TRAIN_BATCH
+    cold.config.precision_drift_budget = VERIFY_DRIFT_BUDGET
+    t0 = time.perf_counter()
+    v = verify_strategy(cold, (x[:n], y[:n]), steps=2)
+    ok_s = time.perf_counter() - t0
+    if not v.ok or v.steps != 2:
+        raise AssertionError(f"verify: the searched flagship diverged:\n"
+                             f"{v.summary()}")
+    op, old = _break_activation(cold)
+    t0 = time.perf_counter()
+    bad = verify_strategy(cold, (x[:n], y[:n]), steps=2)
+    bad_s = time.perf_counter() - t0
+    if bad.ok or bad.diverging_op is None or op.name not in bad.diverging_op:
+        raise AssertionError(f"verify: the broken activation of {op.name} "
+                             f"was not named:\n{bad.summary()}")
+    try:
+        _quiet_fit(torch, cold, x[:n], y[:n], verify_strategy="preflight")
+        raise AssertionError("verify: the preflight passed a broken model")
+    except StrategyDivergenceError as e:
+        named = e.diverging_op
+    op.params = old
+    sound = _verify_flagship(torch, **twin_cfg)
+    _verify_compile(sound)
+    sound.config.precision_drift_budget = VERIFY_DRIFT_BUDGET
+    _quiet_fit(torch, sound, x[:n], y[:n], verify_strategy="preflight")
+    if sound.state.step != 2:
+        raise AssertionError("verify: the preflighted fit did not train")
+    del sound
+    out = {"ok": v.ok, "loss_diffs": v.loss_diffs,
+           "grad_norm_diff": v.grad_norm_diff,
+           "max_param_diff": v.max_param_diff, "rtol": v.rtol,
+           "atol": v.atol, "unmatched_weights": len(v.unmatched_weights),
+           "validator_problems": len(v.validator_problems),
+           "verify_s": ok_s, "broken_op": op.name,
+           "broken_diverging_op": bad.diverging_op,
+           "broken_loss_diffs": bad.loss_diffs, "broken_verify_s": bad_s,
+           "preflight_named": named}
+    log(f"  verify_strategy: ok, loss diffs {v.loss_diffs}, grad-norm diff "
+        f"{v.grad_norm_diff:.3g}, max param diff {v.max_param_diff:.3g} "
+        f"(rtol {v.rtol:g}, atol {v.atol:g}) in {ok_s:.2f} s; RELU of "
+        f"{op.name} dropped: diverging op {bad.diverging_op}; preflight "
+        f"raised naming {named}")
+    return out
+
+
+def _snapshot_bytes(torch, m):
+    return sum(t.numel() * t.element_size()
+               for t in m.executor._state_tensors(m.state))
+
+
+def verify_canary(torch, x, y):
+    """Phase step 3: the canary on the flash kernels. A determinism canary
+    every CANARY_EVERY steps over CANARY_BATCHES batches: every check
+    passes and the weights equal an uncanaried resilient twin's bit for
+    bit; a bitflip at step CANARY_FLIP_AT raises CanaryMismatchError
+    with a checkpoint and the live state back at the pre-step state; sdc
+    mode catches an exponent flip; ABBA time against the plain fit."""
+    import shutil
+    import tempfile
+
+    from flexflow_tpu_torch import (CanaryConfig, CanaryMismatchError,
+                                    CheckpointManager, FaultInjector, obs,
+                                    verify_checkpoint)
+
+    a = build_transformer_model(torch)
+    b = build_transformer_model(torch)
+    restore = restorer(torch, a)
+    n = CANARY_BATCHES * TRAIN_BATCH
+    canary = CanaryConfig(every_n_steps=CANARY_EVERY, mode="determinism")
+    root = tempfile.mkdtemp(prefix="ff_verify_canary_")
+    try:
+        with obs.session(obs.TelemetryConfig(
+                dir=os.path.join(root, "tel"), flight_recorder=False,
+                anomaly_detection=False)) as tel:
+            t0 = time.perf_counter()
+            _quiet_fit(torch, a, x[:n], y[:n], canary=canary)
+            canary_s = time.perf_counter() - t0
+            checks = tel.metrics.counter("ff_canary_checks_total", "").value
+            violations = tel.metrics.counter("ff_canary_violations_total",
+                                             "").value
+        want_checks = len(range(0, CANARY_BATCHES, CANARY_EVERY))
+        _quiet_fit(torch, b, x[:n], y[:n], fault_injector=FaultInjector())
+        if checks != want_checks or violations != 0 \
+                or not _state_equal(torch, a, b):
+            raise AssertionError(f"verify: canary {checks} checks, "
+                                 f"{violations} violations; against the "
+                                 f"uncanaried twin {weight_gap(torch, a, b)}")
+        # the bitflip: a from the start, b trains the steps before it
+        restore()
+        a.state.step = 0
+        b2 = build_transformer_model(torch)
+        a._rng.set_state(b2._rng.get_state())
+        _quiet_fit(torch, b2, x[:CANARY_FLIP_AT * TRAIN_BATCH],
+                   y[:CANARY_FLIP_AT * TRAIN_BATCH],
+                   fault_injector=FaultInjector())
+        fi = FaultInjector()
+        fi.inject("bitflip", at_step=CANARY_FLIP_AT)
+        ck = os.path.join(root, "ckpts")
+        try:
+            _quiet_fit(torch, a, x[:n], y[:n], checkpoint_dir=ck,
+                       checkpoint_every_n_steps=100, resume=False,
+                       fault_injector=fi, canary=canary)
+            raise AssertionError("verify: the bitflip went uncaught")
+        except CanaryMismatchError as e:
+            flip = {"step": e.step, "mismatches": e.mismatches[:2],
+                    "checkpoint_ok": verify_checkpoint(
+                        e.checkpoint_path)["ok"],
+                    "checkpoint_steps": CheckpointManager(ck).list_steps()}
+        # the live state is the pre-step state: b2 trained exactly the
+        # steps before it (the step counts differ only by the fits' runs)
+        b2.state.step = a.state.step
+        if flip["step"] != CANARY_FLIP_AT or not flip["checkpoint_ok"] \
+                or flip["checkpoint_steps"] != [CANARY_FLIP_AT] \
+                or not _state_equal(torch, a, b2):
+            raise AssertionError(f"verify: bitflip escalation {flip}, live "
+                                 f"state vs pre-step "
+                                 f"{weight_gap(torch, a, b2)}")
+        del b2
+        fi = FaultInjector()
+        fi.inject("bitflip", at_step=0, bit=6, index=3)
+        try:
+            _quiet_fit(torch, a, x[:2 * TRAIN_BATCH], y[:2 * TRAIN_BATCH],
+                       fault_injector=fi,
+                       canary=CanaryConfig(every_n_steps=CANARY_EVERY,
+                                           mode="sdc"))
+            raise AssertionError("verify: sdc mode missed an exponent flip")
+        except CanaryMismatchError as e:
+            sdc = e.mismatches[:2]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def timed(**kw):
+        def run():
+            restore()
+            t0 = time.perf_counter()
+            _quiet_fit(torch, a, x[:n], y[:n], **kw)
+            return time.perf_counter() - t0
+        return run
+
+    timing = abba(torch, {"plain": timed(), "canary": timed(canary=canary)},
+                  CANARY_ROUNDS, n)
+    snap = _snapshot_bytes(torch, a)
+    out = {"every_n_steps": CANARY_EVERY, "batches": CANARY_BATCHES,
+           "checks": checks, "violations": violations,
+           "bit_equal_to_uncanaried": True, "first_fit_s": canary_s,
+           "bitflip": flip, "sdc_mismatches": sdc, "abba": timing,
+           "snapshot_bytes": snap,
+           "snapshot_bound_ms": 1e3 * 2 * snap / PEAK_BYTES_PER_S}
+    log(f"  canary: {checks} checks, {violations} violations, bit-equal to "
+        f"the uncanaried twin; bitflip at step {flip['step']} caught "
+        f"({flip['mismatches'][:1]}), checkpoint ok; sdc caught {sdc[:1]}; "
+        f"samples/s plain {timing['plain']['samples_per_s_median']:.1f}, "
+        f"canary {timing['canary']['samples_per_s_median']:.1f}; snapshot "
+        f"{snap / 2 ** 20:.1f} MiB a step, bound "
+        f"{out['snapshot_bound_ms']:.3f} ms")
+    return out
+
+
+def verify_dlrm_canary(torch):
+    """The finding: does a determinism canary pass on DLRM, whose
+    embedding bags' backward scatters with atomics? Recorded, not
+    required."""
+    from flexflow_tpu_torch import CanaryConfig, CanaryMismatchError
+    from flexflow_tpu_torch.models import build_dlrm
+
+    m = build_zoo_model(torch, build_dlrm, DLRM_BATCH)
+    xs, y = zoo_data(m, DLRM_CANARY_STEPS * DLRM_BATCH, 12, DLRM_ROWS)
+    try:
+        _quiet_fit(torch, m, xs, y,
+                   canary=CanaryConfig(every_n_steps=1, mode="determinism"))
+        out = {"passed": True, "mismatches": []}
+    except CanaryMismatchError as e:
+        out = {"passed": False, "step": e.step, "mismatches": e.mismatches}
+    out["steps"] = DLRM_CANARY_STEPS
+    log(f"  dlrm determinism canary over {DLRM_CANARY_STEPS} steps: {out}")
+    return out
+
+
+def verify_memory(torch, x, y):
+    """Phase step 4: --memory-search. The unconstrained winner's bytes and
+    the least a strategy reaches (memory alone deciding) from the same
+    search at lambda 0 and MEM_LAMBDA_MAX; device_mem halfway between;
+    the lambda loop must end above 0 with a winner at or under it, which
+    trains MEM_STEPS finite steps."""
+    from flexflow_tpu_torch.pcg.machine_view import MachineResource
+    from flexflow_tpu_torch.search import GraphSearchHelper, simulate_runtime
+    from flexflow_tpu_torch.search.memory_optimization import (
+        MemorySearchHelper, measure_memory, weight_bytes_multiplier)
+
+    from flexflow_tpu_torch import SGDOptimizer
+
+    cfg = dict(search_budget=MEM_BUDGET, search_num_workers=VERIFY_WORKERS)
+    # uncompiled: its layers, config and search pieces are what the
+    # memory-searched compile below runs with
+    probe = _verify_flagship(torch, layers=MEM_LAYERS, **cfg)
+    opt = SGDOptimizer(lr=0.01)
+    cm = probe._build_cost_model()
+    machine = cm.machine
+    xfers = probe._search_xfers(machine)
+    res = MachineResource(num_nodes=machine.num_nodes,
+                          all_procs_per_node=machine.workers_per_node,
+                          available_procs_per_node=machine.workers_per_node)
+    # bf16 gradients (grad_bytes_ratio 0.5) under mixed precision
+    wmul = weight_bytes_multiplier(opt, 0.5)
+
+    def run(lam):
+        sh = MemorySearchHelper(cm, mem_lambda=lam, weight_mult=wmul)
+        g, r = GraphSearchHelper(sh, xfers, alpha=1.2,
+                                 budget=MEM_BUDGET).graph_optimize(
+            probe._lower_layers()[0], res)
+        mem = measure_memory(g, r.views, cm, train=True, optimizer=opt,
+                             grad_bytes_ratio=0.5).max_bytes
+        return mem, simulate_runtime(g, r.views, cm)
+
+    t0 = time.perf_counter()
+    fast_bytes, fast_cost = run(0.0)
+    least_bytes, least_cost = run(MEM_LAMBDA_MAX)
+    probe_s = time.perf_counter() - t0
+    if not least_bytes < fast_bytes:
+        raise AssertionError(f"verify: no strategy needs less memory than "
+                             f"the fastest ({least_bytes} >= {fast_bytes})")
+    budget = (fast_bytes + least_bytes) // 2
+    m = _verify_flagship(torch, layers=MEM_LAYERS, perform_memory_search=True,
+                         device_mem=int(budget), **cfg)
+    compile_s = _verify_compile(m)
+    got = m.memory_search
+    if not (got["lambda"] > 0 and got["bytes"] <= budget):
+        raise AssertionError(f"verify: memory search {got} against budget "
+                             f"{budget}")
+    n = MEM_STEPS * TRAIN_BATCH
+    _quiet_fit(torch, m, x[:n], y[:n])
+    if m.state.step != MEM_STEPS or not weights_finite(torch, m):
+        raise AssertionError("verify: the memory-searched winner did not "
+                             "train finite steps")
+    out = {"layers": MEM_LAYERS, "budget": MEM_BUDGET,
+           "fastest_bytes": fast_bytes, "fastest_cost": fast_cost,
+           "least_bytes": least_bytes, "least_cost": least_cost,
+           "device_mem": int(budget), "lambda": got["lambda"],
+           "winner_bytes": got["bytes"], "winner_cost": got["cost"],
+           "lambda_runs": len(m.search_trajectory.of_kind("memory_lambda")),
+           "probe_s": probe_s, "compile_s": compile_s,
+           "search_s": m.compile_phase_s["strategy_search"],
+           "trained_steps": MEM_STEPS}
+    log(f"  memory search ({MEM_LAYERS} blocks): fastest "
+        f"{fast_bytes / 2 ** 20:.1f} MiB at {1e3 * fast_cost:.4f} ms, least "
+        f"{least_bytes / 2 ** 20:.1f} MiB; device_mem "
+        f"{budget / 2 ** 20:.1f} MiB -> lambda {got['lambda']:.3g}, "
+        f"{got['bytes'] / 2 ** 20:.1f} MiB at {1e3 * got['cost']:.4f} ms "
+        f"simulated; {out['lambda_runs']} lambda runs, search "
+        f"{out['search_s']:.2f} s; {MEM_STEPS} finite steps")
+    return out
+
+
+def verify_mcmc(torch, cold, store):
+    """Phase step 5: simulate_runtime of the DP search's winner (replayed
+    from the store onto a fresh lowering, before the demotion) and of
+    MCMCSearch's data-parallel start, then MCMC from that start at
+    MCMC_BUDGET proposals, native and Python: the native run must leave
+    an "mcmc_native" event and no "mcmc_iter"."""
+    from flexflow_tpu_torch import native
+    from flexflow_tpu_torch.obs.trajectory import SearchTrajectory
+    from flexflow_tpu_torch.runtime.artifact_store import replay_strategy
+    from flexflow_tpu_torch.search import MCMCSearch, simulate_runtime
+
+    if not native.available():
+        raise AssertionError("verify: the native library did not build")
+    cm = cold._build_cost_model()
+    g2, views, _, _ = replay_strategy(
+        cold._lower_layers()[0], store.get(cold._artifact_key),
+        num_devices=cm.machine.num_workers)
+    winner_sim = simulate_runtime(g2, views, cm)
+    graph = cold._lower_layers()[0]
+    start = MCMCSearch(cm).data_parallel_start(graph)
+    start_sim = simulate_runtime(graph, start, cm)
+    out = {"dp_winner_simulated_s": winner_sim,
+           "dp_winner_search_cost": cold.searched_cost,
+           "data_parallel_start_simulated_s": start_sim,
+           "budget": MCMC_BUDGET, "native_lib": str(native.lib_path())}
+    for name, use_native in (("native", True), ("python", False)):
+        traj = SearchTrajectory()
+        mc = MCMCSearch(cm, seed=0, trajectory=traj)
+        t0 = time.perf_counter()
+        _views, best = mc.optimize(graph, budget=MCMC_BUDGET, start=start,
+                                   use_native=use_native)
+        dt = time.perf_counter() - t0
+        nat, its = traj.of_kind("mcmc_native"), traj.of_kind("mcmc_iter")
+        if (use_native and (len(nat) != 1 or its)) or \
+                (not use_native and (nat or len(its) != MCMC_BUDGET)):
+            raise AssertionError(f"verify: mcmc {name} left {len(nat)} "
+                                 f"mcmc_native and {len(its)} mcmc_iter")
+        if not best <= start_sim * (1 + 1e-12):
+            raise AssertionError(f"verify: mcmc {name} best {best} above "
+                                 f"its start {start_sim}")
+        out[name] = {"best_s": best, "host_s": dt}
+    log(f"  simulate_runtime: DP winner {1e3 * winner_sim:.4f} ms, data "
+        f"parallel start {1e3 * start_sim:.4f} ms; MCMC x{MCMC_BUDGET}: "
+        f"native best {1e3 * out['native']['best_s']:.4f} ms in "
+        f"{out['native']['host_s']:.3f} s, python best "
+        f"{1e3 * out['python']['best_s']:.4f} ms in "
+        f"{out['python']['host_s']:.3f} s")
+    return out
+
+
+def verify_topology(torch, cold):
+    """Phase step 6: --machine-model-version 1: the winner on the
+    topology-aware machine against the flat machine's."""
+    topo = _verify_flagship(torch, search_budget=VERIFY_BUDGET,
+                            search_num_workers=VERIFY_WORKERS,
+                            machine_model_version=1)
+    compile_s = _verify_compile(topo)
+    kind = type(topo.search_cost_model.machine).__name__
+    if kind != "TopologyAwareMachineModel":
+        raise AssertionError(f"verify: version 1 searched on {kind}")
+    out = {"machine": kind, "winner_cost": topo.searched_cost,
+           "flat_winner_cost": cold.searched_cost, "compile_s": compile_s,
+           "search_s": topo.compile_phase_s["strategy_search"],
+           "views_differ_from_flat":
+           _views_by_position(topo) != _views_by_position(cold)}
+    log(f"  topology model: winner {1e3 * topo.searched_cost:.4f} ms "
+        f"against the flat model's {1e3 * cold.searched_cost:.4f} ms "
+        f"(search {out['search_s']:.2f} s)")
+    return out
+
+
+def verify(torch):
+    """The verify phase: the strategy toolchain on the flagship at full
+    width (steps 1-6 of the module docstring's phase 17). Every check
+    raises; the flash launches of steps 1-4 must all take wgmma."""
+    import shutil
+    import tempfile
+
+    from flexflow_tpu_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(0)
+    x, y = (rng.randn(CANARY_BATCHES * TRAIN_BATCH, TRAIN_SEQ,
+                      HIDDEN).astype(np.float32) for _ in range(2))
+    build.reset_launch_counts()
+    store_root = tempfile.mkdtemp(prefix="ff_verify_store_")
+    try:
+        cold, store, st = verify_store(torch, store_root, x, y)
+        ve = verify_verifier(torch, cold, dict(
+            search_budget=VERIFY_BUDGET, search_num_workers=VERIFY_WORKERS),
+            x, y)
+        torch.cuda.empty_cache()
+        ca = verify_canary(torch, x, y)
+        torch.cuda.empty_cache()
+        me = verify_memory(torch, x, y)
+        torch.cuda.synchronize()
+        counts, paths = dict(build.launch_counts), dict(build.path_counts)
+        check_wgmma_paths("verify", counts, paths)
+        if not (counts["flash_fwd"] and counts["flash_bwd"]):
+            raise AssertionError(f"verify: flash launches {counts}")
+        mc = verify_mcmc(torch, cold, store)
+        to = verify_topology(torch, cold)
+    finally:
+        shutil.rmtree(store_root, ignore_errors=True)
+    del cold
+    torch.cuda.empty_cache()
+    dl = verify_dlrm_canary(torch)
+    return {"model": "flagship Transformer (bench.py's default leg)",
+            "workers": VERIFY_WORKERS, "search_budget": VERIFY_BUDGET,
+            "store": st, "verify_strategy": ve, "canary": ca, "memory": me,
+            "mcmc": mc, "topology": to, "dlrm_determinism_canary": dl,
+            "launches": counts,
+            "launches_by_path": {k: v for k, v in paths.items() if v},
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def wgmma_build_report(build):
     """Registers, spill bytes and shared memory of each wgmma kernel
     instance, from ptxas's report in the build log (-Xptxas -v) and the
@@ -5481,6 +6056,11 @@ def main() -> int:
     ob = observatory(torch, se)
     torch.cuda.empty_cache()
 
+    log("# verify phase: the artifact store, verify_strategy, the canary, "
+        "the memory search, MCMC and the topology-aware machine")
+    vf = verify(torch)
+    torch.cuda.empty_cache()
+
     # the CNN and zoo paths run none of the three kernels (cuDNN
     # convolutions and cuBLAS products, as the JAX package's are XLA's);
     # their counts stand in the table as 0. The MoE Transformer's
@@ -5495,7 +6075,7 @@ def main() -> int:
                 "longctx": lc["launches"], "nmt": nm["launches"],
                 "fusion": fu["launches"], "search": se["launches"],
                 "seq2seq": s2["launches"], "resilience": rs["launches"],
-                "observatory": ob["launches"]}
+                "observatory": ob["launches"], "verify": vf["launches"]}
     # rows 1 and 2 at the long-context model's shape (bound by operations)
     for k in kernels[:2]:
         k["long_context_shape"] = lc["flash_long_shape"][k["name"]]
@@ -5523,7 +6103,8 @@ def main() -> int:
                   training_scan=scan, bert=bert_summary, bert_scan=bscan,
                   alexnet=alex, resnext=rx, moe=moe_summary, dlrm=dl,
                   inception=inc, zoo=zo, longctx=lc, nmt=nm, fusion=fu,
-                  search=se, seq2seq=s2, resilience=rs, observatory=ob)
+                  search=se, seq2seq=s2, resilience=rs, observatory=ob,
+                  verify=vf)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -5610,6 +6191,7 @@ def main() -> int:
         k: ob[k] for k in ("analysis", "step_profile", "memory", "explain",
                            "store", "phase_s", "fit_pair_s", "explain_s",
                            "calibrated_compile_s", "launches")}}))
+    log(smi + " " + json.dumps({"verify": vf}))
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

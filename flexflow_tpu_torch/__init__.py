@@ -22,7 +22,10 @@ the MoE Transformer); the long-context Transformer (chunked attention
 off the card), the LSTM with the NMT model, and --fusion; checkpoints
 and the resilient training loop (atomic crc32-checked checkpoints,
 mid-epoch resume, the NaN/Inf step guard with a dynamic loss scale,
-preemption and fault injection).
+preemption and fault injection); the strategy search (the Unity search,
+the memory-aware search, MCMC over the native simulator, the
+topology-aware machine model) and its toolchain (the strategy artifact
+store, the differential strategy verifier and the SDC canary).
 """
 from .config import FFConfig  # noqa: F401
 from .core.initializers import (  # noqa: F401
@@ -51,10 +54,15 @@ from .runtime.resilience import (  # noqa: F401
     retry,
 )
 from .runtime.verify import (  # noqa: F401
+    CanaryConfig,
+    CanaryMismatchError,
     CheckpointCorruptionError,
+    InvariantViolationError,
     NotCompiledError,
+    StrategyDivergenceError,
     VerificationError,
     verify_checkpoint,
+    verify_strategy,
 )
 from .ff_types import (  # noqa: F401
     ActiMode,

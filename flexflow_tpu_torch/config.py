@@ -16,8 +16,8 @@ construction: the port never continues on the CPU by itself.
 Like the JAX package's, a config reads the reference's command-line
 flags (`parse_args`, model.cc:3556 spellings) from sys.argv[1:] when it
 is made. A flag whose field this package reads sets it; a flag of a
-feature not ported here (the memory-aware search, the topology machine
-model, strategy import, multi-node and multi-device execution) raises NotImplementedError naming the flag; anything else is
+feature not ported here (strategy import, multi-node and multi-device
+execution) raises NotImplementedError naming the flag; anything else is
 skipped, as the reference passes unknown flags on to Legion.
 """
 from __future__ import annotations
@@ -85,6 +85,18 @@ class FFConfig:
     # a key = value machine description (search/machine_model.py
     # parse_machine_config); "" = the H100's published numbers
     machine_model_file: str = ""
+    # >= 1: the search prices collectives on the topology-aware machine
+    # model (search/network.py: hops on a torus of one node's devices,
+    # congestion) instead of the flat one
+    machine_model_version: int = 0
+    # the memory-aware search (search/memory_optimization.py
+    # graph_optimize_with_memory, the reference's --memory-search): the
+    # lambda loop trades run time for per-device memory until the winner
+    # fits device_mem (the chip's capacity when 0)
+    perform_memory_search: bool = False
+    # the reference simulator's workspace; read by neither package's
+    # search, kept so the flag parses to the same field
+    simulator_work_space_size: int = 64 * 1024 * 1024
     # a substitution-rule collection to search with instead of the
     # shipped ones (search/substitutions/*.json)
     substitution_json_path: Optional[str] = None
@@ -105,7 +117,8 @@ class FFConfig:
     # (pcg/fusion.py; the reference's --fusion)
     perform_fusion: bool = False
     # per-device memory budget in bytes for the static analyzers
-    # (analysis/memory.py FFA301); 0 = the cost model's chip capacity
+    # (analysis/memory.py FFA301) and the memory-aware search; 0 = the
+    # cost model's chip capacity
     device_mem: int = 0
     # the FFA705 accumulated-drift budget of the precision pass
     # (analysis/precision.py); None = its DEFAULT_DRIFT_BUDGET
@@ -176,6 +189,8 @@ _FLAGS = {
     "--export-strategy": ("export_strategy_file", str),
     "--machine-model-file": ("machine_model_file", str),
     "--substitution-json": ("substitution_json_path", str),
+    "--machine-model-version": ("machine_model_version", int),
+    "--simulator-workspace-size": ("simulator_work_space_size", int),
     "--iterations-per-dispatch": ("iterations_per_dispatch", int),
 }
 # flags without a value that set a field to True
@@ -186,6 +201,7 @@ _SWITCHES = {
     "--enable-attribute-parallel": "enable_attribute_parallel",
     "--measured-search": "measure_operator_costs",
     "--profiling": "profiling",
+    "--memory-search": "perform_memory_search",
 }
 # the JAX package's flags whose features are not ported: what each sets
 _UNPORTED_FLAGS = {
@@ -195,11 +211,8 @@ _UNPORTED_FLAGS = {
     "--nodes": "multi-node execution",
     "--enable-sequence-parallel": "sequence parallelism",
     "--import": "strategy import", "--import-strategy": "strategy import",
-    "--memory-search": "the memory-aware search (search/memory_optimization.py)",
     "--overlap-backward-update": "overlapped gradient synchronisation",
     "--no-overlap-backward-update": "overlapped gradient synchronisation",
     "--fsdp-degree": "FSDP weight sharding",
-    "--machine-model-version": "the topology-aware machine model (search/network.py)",
-    "--simulator-workspace-size": "the search's simulator",
     "--iterations": "the config's iteration count",
 }

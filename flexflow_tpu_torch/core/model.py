@@ -52,9 +52,16 @@ resilient loop dispatches stepwise, as the JAX package's does.
 with `step_profile`, the step observatory's capture after the loop,
 obs/step_profile.py). `compile(calibration=...)` prices the search from a
 measured CalibrationStore (obs/calibration.py), and the compiled strategy
-is linted (analysis/perf.py, analysis/precision.py). Not ported yet, and
-refused by name: `elastic`, `health_monitor`, `verify_strategy`, `canary`
-and `tuner`.
+is linted (analysis/perf.py, analysis/precision.py).
+`compile(artifact_store=...)` replays a stored winner instead of
+searching (runtime/artifact_store.py); `--memory-search` searches for a
+winner that fits `device_mem` (search/memory_optimization.py) and
+`--machine-model-version 1` prices the search on the topology-aware
+machine (search/network.py). `fit(verify_strategy="preflight")` checks
+the compiled graph against a serial reference first, and
+`fit(canary=...)` re-executes steps and checks them (runtime/verify.py).
+Not ported yet, and refused by name: `elastic`, `health_monitor` and
+`tuner`.
 """
 from __future__ import annotations
 
@@ -137,6 +144,9 @@ class FFModel:
         # compile_decode ({"compile"|"decode": {"perf_lint"|
         # "precision_lint": {errors, warnings, codes}}})
         self.lint_events: Dict[str, dict] = {}
+        # the strategy store compile() reads and writes through
+        # (runtime/artifact_store.py), kept for the next compile
+        self.artifact_store = None
 
     @property
     def params(self) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
@@ -573,15 +583,15 @@ class FFModel:
         with a warning. The winner is linted (analysis/perf.py FFA5xx)
         and the compiled graph's precision flow annotated and audited
         (analysis/precision.py FFA7xx); findings warn, fit(lint=...)
-        re-checks. More than one device and an artifact store are not
-        ported and raise."""
+        re-checks. `artifact_store` (runtime/artifact_store.py
+        ArtifactStore; None: the store of this model's previous compile,
+        else the ambient one, `with store.ambient():`) replays a stored
+        winner of the same graph, device and calibration instead of
+        searching, and stores a fresh winner; a corrupt or stale entry
+        degrades to a fresh search. More than one device is not ported
+        and raises."""
         from ..obs.calibration import resolve_calibration
 
-        if artifact_store is not None:
-            raise NotImplementedError(
-                "compile(artifact_store=...): the strategy artifact store "
-                "(the JAX package's runtime/artifact_store.py) is not "
-                "ported to flexflow_tpu_torch yet")
         n_dev = self.config.workersPerNode
         if n_dev != 1:
             raise NotImplementedError(
@@ -610,16 +620,29 @@ class FFModel:
         self.compile_phase_s = {}
         self.lint_events = {}
         t_phase = time.perf_counter()
-        self.graph, tensor_map = layers_to_pcg(self.layers)
-        if self.config.perform_fusion:
-            # reference: apply_fusion (model.cc:2495, --fusion); the
-            # chains' weights move under their fused ops
-            self.graph = apply_fusion(self.graph)
-        self._phase("lowering", t_phase,
-                                     ops=len(self.graph.ops))
+        self.graph, self._tensor_map = self._lower_layers()
+        self._phase("lowering", t_phase, ops=len(self.graph.ops))
+        # the artifact cache probe (runtime/artifact_store.py): a prior
+        # compile of this exact (graph, topology, calibration) key already
+        # paid for the search -- replay its winner instead. Store
+        # resolution: the argument > the store a previous compile of this
+        # model attached > the thread's ambient store. Corrupt or stale
+        # entries degrade to a fresh search; the cause rides in
+        # strategy_provenance.
+        from ..runtime.artifact_store import get_ambient
+
+        store = artifact_store or self.artifact_store or get_ambient()
+        self.artifact_store = store
+        search_enabled = (self.config.search_budget >= 0
+                          and not self.config.only_data_parallel)
+        self._artifact_key = None
+        cache_entry, research_cause = None, "no_store"
+        if store is not None and search_enabled:
+            cache_entry, research_cause = self._probe_artifact_store(store, 1)
         # the user's inputs by their position among the graph's inputs:
         # a search rewrite copies the graph with fresh tensors, and the
         # positions survive the copy
+        tensor_map = self._tensor_map
         pre_pos = {pt.guid: i
                    for i, pt in enumerate(self.graph.input_tensors())}
         self._fit_input_tensors = [
@@ -636,13 +659,31 @@ class FFModel:
         self.searched_views = None
         self.searched_cost = None
         self.searched_op_costs = None
-        if self.config.search_budget >= 0 and \
-                not self.config.only_data_parallel:
-            t_phase = time.perf_counter()
+        self.search_cost_model = None
+        self.measurer = None
+        # --memory-search's result: {"lambda", "bytes", "cost"} of the winner
+        self.memory_search = None
+        t_phase = time.perf_counter()
+        if cache_entry is not None:
+            # artifact-cache hit: the stored winner replayed onto the fresh
+            # lowering (degrees and views set, validators passed); it is
+            # demoted to the one device as a searched winner is
+            from ..parallel import strategies
+
+            views, _mesh_axes, cost = cache_entry
+            self.searched_views = views
+            self.searched_cost = cost
+            self.searched_axes = strategies.assign_mesh_axes(self.graph, 1)
+            self.strategy_provenance = {"source": "artifact_cache",
+                                        "key": dict(self._artifact_key),
+                                        "cost": cost}
+            self._phase("strategy_cache_hit", t_phase, devices=1,
+                        ops=len(self.graph.ops))
+        elif search_enabled:
             self._run_strategy_search(1)
-            self.strategy_provenance = {"source": "search"}
-            self._phase("strategy_search", t_phase,
-                                         devices=1)
+            self.strategy_provenance = {"source": "search",
+                                        "cause": research_cause}
+            self._phase("strategy_search", t_phase, devices=1)
         else:
             # the manual lowering: every degree 1 on the one device
             self.strategy_provenance = {"source": "manual"}
@@ -689,6 +730,96 @@ class FFModel:
         return ([cur[i] for i in self._input_positions],
                 {cur[i].guid: (cur[i], v)
                  for i, v in self._constant_positions.items()})
+
+    def _lower_layers(self):
+        """(a fresh PCG of the layer list, layer tensor guid -> PCG tensor):
+        layers_to_pcg, then apply_fusion under --fusion (reference:
+        model.cc:2495; the chains' weights move under their fused ops)."""
+        graph, tensor_map = layers_to_pcg(self.layers)
+        if self.config.perform_fusion:
+            graph = apply_fusion(graph)
+        return graph, tensor_map
+
+    def _probe_artifact_store(self, store, ndev: int):
+        """Look up + replay a stored strategy for the current lowering
+        (the JAX package's `_probe_artifact_store`).
+
+        Returns `((views, mesh_axes, cost), None)` on a usable hit, else
+        `(None, cause)` where cause names why a search still runs
+        ("cache_miss" / "cache_corrupt"). The key holds `ndev`, the live
+        device count, as the JAX package's does. The replay checks the
+        stored degrees and views against the machine the search runs for
+        (search_num_workers may exceed the one device; compile demotes
+        the replayed winner as it demotes a searched one). A replay that
+        fails partway has already mutated tensor degrees, so the stale
+        path re-lowers self.graph fresh before handing it to the search.
+        Store failures of any kind degrade to a fresh search -- a
+        poisoned cache is never worse than no cache."""
+        from ..runtime.artifact_store import (
+            ArtifactCorruptionError,
+            calibration_fingerprint,
+            graph_fingerprint,
+            make_key,
+            replay_strategy,
+            topology_digest,
+        )
+        from ..runtime.elastic import topology_fingerprint
+        from ..runtime.strategy_io import StrategyImportError
+
+        parts = {
+            "graph": graph_fingerprint(self.graph),
+            "topology": topology_digest(topology_fingerprint(self.device)),
+            "calibration": calibration_fingerprint(
+                getattr(self, "_profiled_op_costs", None),
+                getattr(self, "_calibration_globals", None),
+            ),
+        }
+        key = make_key(objective="train", num_devices=ndev, **parts)
+        self._artifact_key = key
+        try:
+            payload = store.get(key)
+        except ArtifactCorruptionError:
+            return None, "cache_corrupt"
+        except Exception as e:  # a broken store must not fail the compile
+            warnings.warn(
+                f"artifact store lookup failed ({e!r}); falling back to "
+                "a fresh search")
+            return None, "cache_corrupt"
+        if payload is None:
+            return None, "cache_miss"
+        try:
+            # the rebuilt graph REPLACES the fresh lowering, exactly as a
+            # search would
+            graph2, views, mesh_axes, cost = replay_strategy(
+                self.graph, payload,
+                num_devices=self._build_cost_model().machine.num_workers)
+            self.graph = graph2
+            return (views, mesh_axes, cost), None
+        except StrategyImportError as e:
+            warnings.warn(
+                f"artifact store entry could not be replayed ({e}); "
+                "quarantining it and falling back to a fresh search")
+            try:
+                store.note_stale(key, str(e))
+            except OSError as qe:
+                warnings.warn(
+                    f"artifact store could not quarantine the stale "
+                    f"entry ({qe!r}); the fresh search proceeds anyway")
+            # the failed replay mutated tensor degrees in place -- the
+            # search must start from an unmutated lowering
+            self.graph, self._tensor_map = self._lower_layers()
+            return None, "cache_miss"
+
+    def _artifact_store_put(self, store, payload) -> None:
+        """Write the freshly searched winner's payload through to the
+        artifact store under the key _probe_artifact_store computed.
+        Never fails the compile -- the strategy is already in hand."""
+        try:
+            store.put(self._artifact_key, payload)
+        except Exception as e:  # a broken store must not fail the compile
+            warnings.warn(
+                f"artifact store write failed ({e!r}); continuing "
+                "without caching the strategy")
 
     def _precision_lint(self, graph, trajectory, views, *, grad_bf16: bool,
                         what: str) -> None:
@@ -760,7 +891,9 @@ class FFModel:
         explain_strategy(...).apply(model) or a CalibrationStore price
         serial views, and the store's globals override the defaults.
         (--measured-search, attached after this, supersedes the per-op
-        table.) `objective` is what it prices (search/cost_model.py
+        table.) --machine-model-version 1 wraps the machine in the
+        topology-aware model (search/network.py), as the JAX package
+        does. `objective` is what it prices (search/cost_model.py
         CostObjective): "train" or "decode", the one-token memory-roofline
         pricing of compile_decode's search."""
         from ..search import (CostModel, apply_calibration, h100_machine,
@@ -774,6 +907,19 @@ class FFModel:
             workers = (cfg.search_num_workers if cfg.search_num_workers > 0
                        else cfg.workersPerNode)
             machine = h100_machine(nodes, workers)
+        if cfg.machine_model_version >= 1 and not hasattr(machine,
+                                                          "topology"):
+            # the EnhancedMachineModel analog (search/network.py): the
+            # same chip and links, collectives priced by torus hops
+            from ..search.network import TopologyAwareMachineModel
+
+            machine = TopologyAwareMachineModel(
+                num_nodes=machine.num_nodes,
+                workers_per_node=machine.workers_per_node,
+                ici_bandwidth=machine.ici_bandwidth,
+                dcn_bandwidth=machine.dcn_bandwidth,
+                chip=machine.chip,
+            )
         # the JAX package's default search_survivability_penalty (auto):
         # a bias toward node-loss-survivable strategies only where nodes
         # exist as failure domains
@@ -939,28 +1085,53 @@ class FFModel:
         the bf16-grad recipe mixed precision uses, else 1.0."""
         return 0.5 if self.config.allow_mixed_precision else 1.0
 
+    def _search_xfers(self, machine) -> list:
+        """The substitutions the search rewrites with: the generated ones
+        for every power-of-two degree up to the machine's workers, then
+        the declarative rules of --substitution-json (a missing file
+        raises: no silent fallback to the shipped rules), else the
+        shipped collections (search/substitutions/*.json)."""
+        import os
+
+        from ..search import generate_all_pcg_xfers
+        from ..search.substitution_loader import (
+            default_rules_path, load_rule_collection_from_path,
+            rules_to_substitutions, zoo_rules_path)
+
+        degrees = []
+        d = 2
+        while d <= machine.num_workers:
+            degrees.append(d)
+            d *= 2
+        xfers = generate_all_pcg_xfers(degrees or [1], self.config)
+        if self.config.substitution_json_path:
+            rules = load_rule_collection_from_path(
+                self.config.substitution_json_path)
+            xfers = xfers + rules_to_substitutions(rules)
+        else:
+            for rp in (default_rules_path(), zoo_rules_path()):
+                if os.path.exists(rp):
+                    rules = load_rule_collection_from_path(rp)
+                    xfers = xfers + rules_to_substitutions(rules)
+        return xfers
+
     def _run_strategy_search(self, ndev: int) -> None:
         """Unity search over the lowered PCG (reference: compile's
         GRAPH_OPTIMIZE_TASK -> GraphSearchHelper::graph_optimize,
         substitution.cc:1898), then the winner's lowering onto `ndev`
         devices: every degree that does not fit is demoted to replicated
-        (parallel/strategies.py assign_mesh_axes)."""
-        import os
-
+        (parallel/strategies.py assign_mesh_axes). With --memory-search
+        the lambda loop (search/memory_optimization.py) searches for a
+        winner that fits the memory budget (`_memory_budget`)."""
         from ..parallel import strategies
         from ..pcg.machine_view import MachineResource
         from ..search import (GraphSearchHelper, SearchHelper,
-                              generate_all_pcg_xfers,
                               run_strategy_validators)
-        from ..search.substitution_loader import (
-            default_rules_path, load_rule_collection_from_path,
-            rules_to_substitutions, zoo_rules_path)
 
         cfg = self.config
         cost_model = self._build_cost_model()
         self.search_cost_model = cost_model
         machine = cost_model.machine
-        self.measurer = None
         if cfg.measure_operator_costs:
             # --measured-search: per-op device timing feeds the search
             from ..search.measure import attach_measured_mode
@@ -971,33 +1142,32 @@ class FFModel:
                                if cfg.allow_mixed_precision else None),
                 device=self.device,
                 cache_path=cfg.measured_cache_path or None)
-        sh = SearchHelper(cost_model, trajectory=self.search_trajectory)
-        degrees = []
-        d = 2
-        while d <= machine.num_workers:
-            degrees.append(d)
-            d *= 2
         budget = cfg.search_budget if cfg.search_budget > 0 else 10
-        xfers = generate_all_pcg_xfers(degrees or [1], cfg)
-        # declarative rules: --substitution-json, or the shipped ones
-        if cfg.substitution_json_path:
-            # an explicit file that is missing raises: no silent fallback
-            # to the shipped rules
-            rules = load_rule_collection_from_path(cfg.substitution_json_path)
-            xfers = xfers + rules_to_substitutions(rules)
-        else:
-            for rp in (default_rules_path(), zoo_rules_path()):
-                if os.path.exists(rp):
-                    rules = load_rule_collection_from_path(rp)
-                    xfers = xfers + rules_to_substitutions(rules)
+        xfers = self._search_xfers(machine)
         res = MachineResource(
             num_nodes=machine.num_nodes,
             all_procs_per_node=machine.workers_per_node,
             available_procs_per_node=machine.workers_per_node)
-        gsh = GraphSearchHelper(sh, xfers, alpha=cfg.search_alpha,
-                                budget=budget,
-                                trajectory=self.search_trajectory)
-        best_graph, result = gsh.graph_optimize(self.graph, res)
+        if cfg.perform_memory_search:
+            # reference: --memory-search lambda loop (graph.cc:2060-2130)
+            from ..search.memory_optimization import (
+                graph_optimize_with_memory)
+
+            best_graph, result, mem, lam = graph_optimize_with_memory(
+                self.graph, cost_model, res, xfers,
+                device_mem_budget=self._memory_budget(machine),
+                alpha=cfg.search_alpha, budget=budget,
+                train=self._is_training_compile(), optimizer=self.optimizer,
+                grad_bytes_ratio=self._grad_bytes_ratio(),
+                trajectory=self.search_trajectory)
+            self.memory_search = {"lambda": lam, "bytes": mem.max_bytes,
+                                  "cost": result.cost}
+        else:
+            sh = SearchHelper(cost_model, trajectory=self.search_trajectory)
+            gsh = GraphSearchHelper(sh, xfers, alpha=cfg.search_alpha,
+                                    budget=budget,
+                                    trajectory=self.search_trajectory)
+            best_graph, result = gsh.graph_optimize(self.graph, res)
         self.graph = best_graph
         self.searched_views = result.views
         self.searched_cost = result.cost
@@ -1020,7 +1190,37 @@ class FFModel:
 
             export_strategy(self.graph, result, cfg.export_strategy_file)
         self.searched_op_costs = self._searched_op_costs(cost_model, result)
+        payload = self._strategy_payload_for_store()
         self.searched_axes = strategies.assign_mesh_axes(self.graph, ndev)
+        if payload is not None:
+            payload["mesh_axes"] = dict(self.searched_axes)
+            self._artifact_store_put(self.artifact_store, payload)
+
+    def _strategy_payload_for_store(self) -> Optional[dict]:
+        """The searched winner as an artifact-store payload
+        (runtime/artifact_store.py strategy_payload), taken before the
+        winner is demoted to the one device, so a replay demotes it as
+        the search's is; None when no store waits for it or the graph is
+        not serializable (warned: the write is best effort). The graph's
+        precision is annotated first, as the JAX package's payload
+        carries it."""
+        if self.artifact_store is None or self._artifact_key is None:
+            return None
+        from ..analysis.precision import annotate_graph_precision
+        from ..runtime.artifact_store import strategy_payload
+
+        annotate_graph_precision(
+            self.graph, compute_dtype=(DataType.DT_BF16
+                                       if self.config.allow_mixed_precision
+                                       else None))
+        try:
+            return strategy_payload(
+                self.graph, self.searched_views, cost=self.searched_cost,
+                mesh_axes={}, provenance={"writer": "compile"})
+        except ValueError as e:
+            warnings.warn(f"artifact store payload not written ({e}); "
+                          "continuing without caching the strategy")
+            return None
 
     def _searched_op_costs(self, cost_model, result) -> List[dict]:
         """How the winner's compute ops were priced, in topo order: each
@@ -1052,13 +1252,20 @@ class FFModel:
                 "analytic_bwd_s": ref.backward_time})
         return table
 
+    def _memory_budget(self, machine) -> int:
+        """Per-device bytes a strategy may use: config.device_mem, else
+        the machine's chip capacity (the JAX package's mem_budget)."""
+        return self.config.device_mem or machine.chip.hbm_capacity
+
     def _check_searched_memory(self, cost_model, result) -> None:
         """The head of the JAX package's _search_pipeline_degree: the
         winner's per-device training memory (weights, gradients,
-        optimizer slots and activations) against the device's capacity.
-        When it does not fit, the JAX package weighs pipeline stages and
-        a memory-aware re-search; neither is ported, so this raises
-        rather than pick a strategy the port cannot run."""
+        optimizer slots and activations) against the budget
+        (`_memory_budget`). When it does not fit, the JAX package weighs
+        pipeline stages and a memory-pressured re-search against each
+        other; the pipeline search is not ported, so this raises rather
+        than pick a strategy the port cannot run (--memory-search looks
+        for a winner that fits before this check)."""
         from ..search.memory_optimization import measure_memory
 
         train = self._is_training_compile()
@@ -1066,17 +1273,18 @@ class FFModel:
             self.graph, result.views, cost_model, train=train,
             optimizer=self.optimizer,
             grad_bytes_ratio=self._grad_bytes_ratio()).max_bytes
-        budget = cost_model.machine.chip.hbm_capacity
+        budget = self._memory_budget(cost_model.machine)
         self.search_trajectory.event("memory_check", bytes=mem,
                                      budget=budget)
         if mem > budget:
             raise NotImplementedError(
                 f"the searched strategy needs {mem / 2 ** 20:.0f} MiB a "
                 f"device, over the {budget / 2 ** 20:.0f} MiB budget; the "
-                "pipeline search and the memory-aware search that would "
-                "look for one that fits (the JAX package's "
-                "_search_pipeline_degree, search/memory_optimization.py) "
-                "are not ported to flexflow_tpu_torch yet")
+                "pipeline search that "
+                "weighs pipeline stages against a memory-pressured "
+                "re-search (the JAX package's _search_pipeline_degree) is "
+                "not ported to flexflow_tpu_torch yet; --memory-search "
+                "looks for a strategy that fits")
 
     def _check_probability_tail(self) -> None:
         """Warn, as the JAX package does, when a cross-entropy loss is
@@ -1142,8 +1350,8 @@ class FFModel:
 
         The resilience keywords are the JAX package's, with its
         semantics; any of `checkpoint_dir`, `skip_nonfinite_steps`,
-        `step_guard`, `fault_injector` or `preemption_signal` runs the
-        resilient loop (`_fit_resilient`, stepwise).
+        `step_guard`, `fault_injector`, `preemption_signal` or `canary`
+        runs the resilient loop (`_fit_resilient`, stepwise).
 
         `lint="warn"|"error"` runs the static analyzers over the compiled
         model (analysis.analyze_model) before any device time is spent:
@@ -1155,9 +1363,16 @@ class FFModel:
         active session is fed. An out-of-memory step under a session
         leaves ``oom_forensics.json`` in its directory. With
         config.profiling each op's forward and backward are timed on the
-        first batch and printed. `elastic`, `health_monitor`,
-        `verify_strategy`, `canary` and `tuner` need modules not ported
-        yet and raise NotImplementedError naming them."""
+        first batch and printed.
+        `verify_strategy="preflight"` runs the differential verifier
+        (runtime/verify.py verify_strategy: 2 steps of the compiled graph
+        against a serial reference, on copies) before training and raises
+        StrategyDivergenceError naming the first diverging op.
+        `canary=CanaryConfig(...)` runs the resilient loop with the
+        SDC/determinism canary and the per-step invariants
+        (`_canary_check`). `elastic`, `health_monitor` and `tuner` need
+        modules not ported yet and raise NotImplementedError naming
+        them."""
         from ..runtime.verify import NotCompiledError
 
         if self.executor is None:
@@ -1169,7 +1384,6 @@ class FFModel:
             )
         _refuse_unported_fit_keywords(
             elastic=bool(elastic), health_monitor=health_monitor is not None,
-            verify_strategy=bool(verify_strategy), canary=canary is not None,
             tuner=tuner is not None)
         # -- telemetry session (obs/): fit(telemetry=TelemetryConfig(...))
         # runs one session end to end and flushes events.jsonl /
@@ -1197,7 +1411,8 @@ class FFModel:
                 step_guard=step_guard,
                 max_consecutive_skips=max_consecutive_skips,
                 fault_injector=fault_injector,
-                preemption_signal=preemption_signal)
+                preemption_signal=preemption_signal,
+                verify_strategy=verify_strategy, canary=canary)
         except torch.cuda.OutOfMemoryError as e:
             # OOM forensics (obs/step_profile.py): the static memory
             # prediction, the allocator's stats and the top allocations
@@ -1220,7 +1435,8 @@ class FFModel:
     def _fit_impl(self, x, y, batch_size, epochs, verbose, *, lint, tel,
                   checkpoint_dir, checkpoint_every_n_steps, keep_last_n,
                   resume, skip_nonfinite_steps, step_guard,
-                  max_consecutive_skips, fault_injector, preemption_signal):
+                  max_consecutive_skips, fault_injector, preemption_signal,
+                  verify_strategy, canary):
         if lint in ("warn", "error"):
             # static preflight (analysis/): shape/sharding inference,
             # collective consistency, precision flow, memory fit and the
@@ -1251,9 +1467,27 @@ class FFModel:
                 f"samples (dataset {n} % batch {bs})",
                 name="tail_samples_dropped", dropped=n % bs)
         tel = obs.active()
+        if verify_strategy:
+            # differential preflight (runtime/verify.py): 2 steps of the
+            # compiled graph vs a serial reference from identical weights
+            # and seeds; divergence raises StrategyDivergenceError naming
+            # the first diverging op BEFORE any training is spent on it
+            from ..runtime import verify as vfy
+
+            if verify_strategy not in (True, "preflight"):
+                raise ValueError(
+                    "fit(verify_strategy=...) accepts 'preflight' "
+                    f"(got {verify_strategy!r})")
+            verdict = vfy.verify_strategy(
+                self, (xs, y), steps=2, batch_size=bs,
+                raise_on_divergence=True)
+            obs.progress(
+                "[verify] preflight: " + verdict.summary().split("\n")[0],
+                verbose=verbose, name="verify_preflight", cat="runtime",
+                ok=verdict.ok)
         if (checkpoint_dir is not None or skip_nonfinite_steps
                 or step_guard is not None or fault_injector is not None
-                or preemption_signal is not None):
+                or preemption_signal is not None or canary is not None):
             return self._fit_resilient(
                 xs, y, bs, ep, verbose, checkpoint_dir=checkpoint_dir,
                 checkpoint_every_n_steps=checkpoint_every_n_steps,
@@ -1262,7 +1496,7 @@ class FFModel:
                 step_guard=step_guard,
                 max_consecutive_skips=max_consecutive_skips,
                 fault_injector=fault_injector,
-                preemption_signal=preemption_signal, tel=tel)
+                preemption_signal=preemption_signal, canary=canary, tel=tel)
         # guard residue from a previous resilient fit would change the
         # step; drop it for the fast unguarded paths
         self.executor.set_step_guard(None)
@@ -1399,19 +1633,114 @@ class FFModel:
             "done": done,
         }})
 
+    def _canary_check(self, vfy, canary, prev_state, kept, rng_before,
+                      args, step_fn, partials, fault_injector, manager,
+                      global_step, epoch, bi, pnorm_fn, prev_pnorm,
+                      prev_loss):
+        """SDC/determinism canary + per-step invariants (the JAX
+        package's `_canary_check`; runtime/verify.py CanaryConfig). At the
+        canary cadence the step is re-executed on the SAME inputs and
+        seed (`args`) from the SAME pre-step state (`kept`, the executor's
+        snapshot, written back in place) and the two results compared;
+        the model is then left where the FIRST execution left it. The
+        per-step invariants bound param-norm drift and loss deltas. Any
+        violation reverts to the pre-step state (and the seed generator to
+        its pre-step state), flushes it as a checkpoint (the state AFTER
+        the step is untrusted) and raises. Returns the updated
+        (prev_pnorm, prev_loss) trackers."""
+        ex = self.executor
+
+        def escalate(exc):
+            obs.event("canary_violation", cat="runtime", step=global_step,
+                      error=type(exc).__name__, detail=str(exc)[:500])
+            obs.count("ff_canary_violations_total",
+                      help="canary / invariant violations")
+            ex.restore_state(self.state, kept)
+            self.state = prev_state
+            self._rng.set_state(rng_before)
+            if manager is not None:
+                exc.checkpoint_path = self._save_resilient_ckpt(
+                    manager, global_step, epoch, bi)
+            raise exc
+
+        if canary.every_n_steps > 0 \
+                and global_step % canary.every_n_steps == 0:
+            if fault_injector is not None:
+                # SDC simulation: flip one bit in one weight of the FIRST
+                # execution's result, as a faulty core would have
+                # (target=None leaves disk-targeted plans to
+                # CheckpointManager.save)
+                plan = fault_injector.fire("bitflip", global_step,
+                                           target=None)
+                if plan is not None:
+                    flipped, name = vfy.bitflip_params(
+                        self.state.params, op=plan.get("op"),
+                        weight=plan.get("weight"),
+                        bit=plan.get("bit", 6),
+                        index=plan.get("index", 3))
+                    opn, wn = name.rsplit("/", 1)
+                    with torch.no_grad():
+                        self.state.params[opn][wn].copy_(flipped[opn][wn])
+            obs.count("ff_canary_checks_total",
+                      help="canary step re-executions")
+            first = ex.snapshot_state(self.state)
+            first_params = _params_of_snapshot(self.state.params, first)
+            ex.restore_state(self.state, kept)
+            state2, partials2 = step_fn(*args)
+            bad = vfy.compare_step_results(
+                {"params": first_params, "loss": partials["loss"]},
+                {"params": state2.params, "loss": partials2["loss"]},
+                mode=canary.mode, rtol=canary.rtol, atol=canary.atol)
+            if bad:
+                escalate(vfy.CanaryMismatchError(
+                    f"step {global_step}: canary re-execution disagrees "
+                    f"({canary.mode} mode) — non-deterministic step or "
+                    "silent data corruption: " + "; ".join(bad),
+                    step=global_step, mismatches=bad))
+            ex.restore_state(self.state, first)
+        if pnorm_fn is not None:
+            loss = float(partials["loss"].reshape(-1)[-1])
+            if not np.isfinite(loss) and ex.step_guard is None:
+                escalate(vfy.InvariantViolationError(
+                    f"step {global_step}: non-finite loss {loss} (enable "
+                    "skip_nonfinite_steps for skip-and-rescale instead)",
+                    step=global_step, invariant="finite_loss"))
+            if (canary.max_loss_delta is not None and prev_loss is not None
+                    and abs(loss - prev_loss) > canary.max_loss_delta):
+                escalate(vfy.InvariantViolationError(
+                    f"step {global_step}: loss moved "
+                    f"{abs(loss - prev_loss):.3g} in one step "
+                    f"(bound {canary.max_loss_delta:g})",
+                    step=global_step, invariant="loss_delta"))
+            pn = float(pnorm_fn(self.state.params))
+            if not np.isfinite(pn) or (
+                    prev_pnorm is not None and prev_pnorm > 0
+                    and pn > prev_pnorm * canary.max_param_norm_ratio):
+                escalate(vfy.InvariantViolationError(
+                    f"step {global_step}: global param norm {pn:.3g} "
+                    f"drifted past {canary.max_param_norm_ratio:g}x the "
+                    f"previous step's ({prev_pnorm})",
+                    step=global_step, invariant="param_norm_drift"))
+            return pn, loss
+        return prev_pnorm, prev_loss
+
     def _fit_resilient(self, xs, y, bs, ep, verbose, *, checkpoint_dir,
                        checkpoint_every_n_steps, keep_last_n, resume,
                        skip_nonfinite_steps, step_guard,
                        max_consecutive_skips, fault_injector,
-                       preemption_signal, tel=None):
+                       preemption_signal, canary=None, tel=None):
         """The JAX package's resilient stepwise loop on one device:
         periodic atomic checkpoints and mid-epoch resume, the NaN/Inf step
         guard, preemption between steps (hard, graceful, and the drain
-        protocol of a deadline-bearing notice) and deterministic fault
-        injection. Each step draws its seed from the model's generator as
-        the plain loop does, so a run without faults equals a plain run
-        bit for bit."""
+        protocol of a deadline-bearing notice), deterministic fault
+        injection and the SDC/determinism canary (`_canary_check`). Each
+        step draws its seed from the model's generator as the plain loop
+        does, so a run without faults equals a plain run bit for bit,
+        canaried or not."""
+        from ..core.seeds import step_seed
+        from ..parallel.executor import global_grad_norm
         from ..runtime import resilience as rz
+        from ..runtime import verify as vfy
 
         step_fn = self.executor.build_train_step()
         guard_cfg = step_guard
@@ -1434,6 +1763,12 @@ class FFModel:
             )
         every = checkpoint_every_n_steps or steps_per_epoch
         preempt = preemption_signal or rz.PreemptionSignal()
+        # the canary's per-step invariants: the global param norm and the
+        # loss of the previous step
+        pnorm_fn = (global_grad_norm
+                    if canary is not None and canary.check_invariants
+                    else None)
+        prev_pnorm = prev_loss = None
         # drain-protocol state: how many steps ran inside a preemption
         # notice's grace window, whether the notice came from the fault
         # injector, and the last measured checkpoint-flush duration (feeds
@@ -1574,7 +1909,17 @@ class FFModel:
                             raise exc
                         drain_steps += 1
                     t0 = time.perf_counter()
-                    args = [self.state, batch[:-1], batch[-1], self._rng]
+                    if canary is not None:
+                        # the optimizers update in place: keep the
+                        # pre-step state (and the seed generator's) for
+                        # the canary's re-execution and its escalation
+                        rng_before = self._rng.get_state()
+                        prev_state = self.state
+                        kept = self.executor.snapshot_state(self.state)
+                    # the step's seed, drawn as the step itself would draw
+                    # it (a canary re-execution reuses it)
+                    args = [self.state, batch[:-1], batch[-1],
+                            step_seed(self._rng)]
                     if guard_cfg is not None:
                         poison = 1.0
                         if fault_injector is not None and \
@@ -1584,6 +1929,12 @@ class FFModel:
                             (), poison, dtype=torch.float32,
                             device=self.executor.device))
                     self.state, partials = step_fn(*args)
+                    if canary is not None:
+                        prev_pnorm, prev_loss = self._canary_check(
+                            vfy, canary, prev_state, kept, rng_before, args,
+                            step_fn, partials, fault_injector, manager,
+                            global_step, epoch, bi, pnorm_fn, prev_pnorm,
+                            prev_loss)
                     if preempt.draining:
                         # feed the executor's step-time EMA (drain-window
                         # estimate) only from synced steps, where the wall
@@ -1810,8 +2161,6 @@ _UNPORTED_FIT_KEYWORDS = {
     "elastic": ("runtime/elastic.py (restore_elastic, shrunk_devices)",
                 "item 6"),
     "health_monitor": ("runtime/elastic.py HealthMonitor", "item 6"),
-    "verify_strategy": ("runtime/verify.py verify_strategy", "item 5"),
-    "canary": ("runtime/verify.py CanaryConfig", "item 5"),
     "tuner": ("runtime/tuner.py StrategyTuner", "items 5-6"),
 }
 
@@ -1826,6 +2175,14 @@ def _refuse_unported_fit_keywords(**given) -> None:
                 f"fit({kw}=...): needs the JAX package's {module}, not "
                 f"ported to flexflow_tpu_torch yet (ROADMAP queue 1 "
                 f"{item})")
+
+
+def _params_of_snapshot(params, kept) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The weights of an executor's `snapshot_state` as a params tree:
+    the snapshot's leading tensors, in the order the state's tensors are
+    listed (params first, op by op, weight by weight)."""
+    it = iter(kept)
+    return {op: {n: next(it) for n in ws} for op, ws in params.items()}
 
 
 def _fold_partials(device_partials) -> Tuple[Dict[str, float], float]:

@@ -1,7 +1,13 @@
 """Runtime services: checkpointing, the fault-tolerance layer
 (resilience: preemption-safe checkpointing, step guards, retry/backoff,
-fault injection) and checkpoint integrity, as the JAX package's
-runtime/__init__.py exports them."""
+fault injection), the numerical-trust layer (checkpoint integrity, the
+differential strategy verifier, the SDC/determinism canary) and the
+strategy artifact store, as the JAX package's runtime/__init__.py
+exports them."""
+from .artifact_store import (  # noqa: F401
+    ArtifactCorruptionError,
+    ArtifactStore,
+)
 from .checkpoint import (  # noqa: F401
     load_checkpoint_meta,
     restore_checkpoint,
@@ -21,8 +27,13 @@ from .resilience import (  # noqa: F401
     retry,
 )
 from .verify import (  # noqa: F401
+    CanaryConfig,
+    CanaryMismatchError,
     CheckpointCorruptionError,
+    InvariantViolationError,
     NotCompiledError,
+    StrategyDivergenceError,
     VerificationError,
     verify_checkpoint,
+    verify_strategy,
 )

@@ -330,11 +330,25 @@ class FaultInjector:
                                along): fit() finishes the in-flight
                                step(s), checkpoints before the deadline
                                and raises SliceDrained.
-      * ``bitflip``          — with ``target="disk"``
-                               CheckpointManager.save corrupts the
-                               just-written checkpoint so the
-                               restore-time checksum path fires
-                               (runtime/verify.py).
+      * ``bitflip``          — silent-data-corruption simulation
+                               (runtime/verify.py): the canary's consumer
+                               flips one bit of one live weight tensor
+                               after a step executes (default), or with
+                               ``target="disk"`` CheckpointManager.save
+                               corrupts the just-written checkpoint so
+                               the restore-time checksum path fires.
+      * ``artifact_corruption`` — an ArtifactStore.get
+                               (runtime/artifact_store.py) treats the
+                               existing entry as corrupt: it is
+                               quarantined, counted under
+                               ff_artifact_cache_total{event=corrupt}
+                               and the typed ArtifactCorruptionError is
+                               raised — compile() must degrade to a
+                               fresh search.
+      * ``artifact_stale``   — an ArtifactStore.get treats the existing
+                               entry as fingerprint-stale: quarantined,
+                               counted under event=stale and returned
+                               as a miss (fresh search, no error).
 
     The JAX package's sites ``slice_loss``, ``host_loss``, ``hung_step``
     and ``serving_worker`` keep their names here, but nothing consumes

@@ -1,10 +1,9 @@
-"""Strategy search: the machine and cost models, the measured mode, the
-DP machine-view assignment and the substitution engine -- the PyTorch
-counterparts of the JAX package's search/ (reference:
-src/runtime/{simulator,graph,substitution}.cc). Not ported yet: the MCMC
-search (search/mcmc.py), the memory-aware search
-(search/memory_optimization.py, --memory-search) and the
-topology-aware machine model (search/network.py)."""
+"""Strategy search: the machine models (flat and topology-aware), the
+cost model, the measured mode, the DP machine-view assignment, the
+substitution engine, the memory-aware search and the MCMC search with
+its task-graph simulator -- the PyTorch counterparts of the JAX
+package's search/ (reference:
+src/runtime/{simulator,graph,substitution,model-mcmc,network}.cc)."""
 from .cost_model import (  # noqa: F401
     apply_calibration,
     CostMetrics,
@@ -21,6 +20,7 @@ from .machine_model import (  # noqa: F401
     h100_machine,
     parse_machine_config,
 )
+from .mcmc import MCMCSearch, simulate_runtime  # noqa: F401
 from .survivability import (  # noqa: F401
     OpSurvivability,
     StrategySurvivability,
@@ -39,7 +39,8 @@ from .substitution import (  # noqa: F401
 # Validators run over every search result before it is lowered: each is
 # called as fn(graph, views, num_devices) and returns a list of
 # human-readable violation strings (empty = fine). FFModel.compile()
-# warns on violations.
+# warns on violations; the differential verifier
+# (runtime.verify.verify_strategy) folds them into its verdict.
 _STRATEGY_VALIDATORS: list = []
 
 

@@ -13,8 +13,8 @@ between nodes, `TPUChipSpec` the per-device peaks.
 The defaults describe the JAX package's chip. The port's compile() does
 not use them: without a machine file it builds `h100_machine`, the
 H100's published numbers (`H100_SPEC`). The topology-aware model
-(`--machine-model-version 1`, `topology_dims`; the JAX package's
-search/network.py) is not ported and raises.
+(`--machine-model-version 1`, or `topology_dims` in a machine file) is
+search/network.py's TopologyAwareMachineModel.
 """
 from __future__ import annotations
 
@@ -280,6 +280,14 @@ def for_device_count(n: int, like: Optional[MachineModel] = None) -> MachineMode
     if wpn > n or n % wpn != 0:
         wpn = max(d for d in range(1, min(wpn, n) + 1) if n % d == 0)
     kwargs = {"num_nodes": n // wpn, "workers_per_node": wpn}
+    if getattr(base, "topology", None) is not None \
+            and wpn != base.workers_per_node:
+        # a torus of the OLD node shape can't describe the shrunk node;
+        # degrade to a 1-D ring of the surviving devices (replace() re-runs
+        # __post_init__, which asserts topology matches workers_per_node)
+        from .network import TorusTopology
+
+        kwargs["topology"] = TorusTopology(dims=(wpn,))
     return dataclasses.replace(base, **kwargs)
 
 
@@ -287,9 +295,15 @@ def parse_machine_config(path: str) -> MachineModel:
     """Parse a key = value machine description file (same shape as the
     reference's machine_config_example; accepts both GPU-era and TPU-era
     key spellings). Keys not in the file keep MachineModel()'s values.
-    The topology keys (topology_dims, machine_model_version >= 1) select
-    the JAX package's topology-aware model, which is not ported: they
-    raise NotImplementedError.
+
+    Topology keys select the EnhancedMachineModel analog
+    (TopologyAwareMachineModel, search/network.py: per-link hops on a
+    torus of one node's devices, the node network across nodes,
+    congestion):
+      topology_dims = 4x8         # the torus of ONE node
+      machine_model_version = 1   # same switch as --machine-model-version
+      congestion_factor = 0.15
+      ici_latency / dcn_latency   # seconds
     """
     kv: Dict[str, str] = {}
     with open(path) as f:
@@ -334,10 +348,21 @@ def parse_machine_config(path: str) -> MachineModel:
     version = get_i(["machine_model_version"], 0)
     topo_str = kv.get("topology_dims", "")
     if version >= 1 or topo_str:
-        raise NotImplementedError(
-            f"{path}: machine_model_version / topology_dims select the "
-            "topology-aware machine model (search/network.py), which is "
-            "not ported to flexflow_tpu_torch yet")
+        from .network import TopologyAwareMachineModel, TorusTopology
+
+        dims = (tuple(int(d) for d in topo_str.replace("x", " ").split())
+                if topo_str else (m.workers_per_node,))
+        return TopologyAwareMachineModel(
+            num_nodes=m.num_nodes,
+            workers_per_node=m.workers_per_node,
+            chip=m.chip,
+            ici_bandwidth=m.ici_bandwidth,
+            ici_latency=m.ici_latency,
+            dcn_bandwidth=m.dcn_bandwidth,
+            dcn_latency=m.dcn_latency,
+            topology=TorusTopology(dims=dims),
+            congestion_factor=get_f(["congestion_factor"], 0.15),
+        )
     return m
 
 

@@ -1526,3 +1526,44 @@ def test_time_train_step_leaves_weights_momentum_and_generator(gen):
     assert wall > 0
     assert all(torch.equal(a, b) for a, b in zip(before, live))
     assert torch.equal(rng, m._rng.get_state())
+
+
+def test_determinism_canary_passes_on_the_flash_kernels(gen):
+    """A 2-block bf16 Transformer's determinism canary re-executes every
+    step through both flash kernels (on wgmma) and finds every weight's
+    bytes equal; the canaried fit is bit-equal to an uncanaried one."""
+    from flexflow_tpu_torch import CanaryConfig, FaultInjector
+    from flexflow_tpu_torch.parallel.executor import _tensors
+
+    a, x = _observatory_model()
+    b, _ = _observatory_model()
+    build.reset_launch_counts()
+    a.fit(x, x, verbose=False, canary=CanaryConfig(every_n_steps=1))
+    assert build.path_counts["flash_fwd_wgmma"] > 0
+    assert build.path_counts["flash_bwd_wgmma"] > 0
+    b.fit(x, x, verbose=False, fault_injector=FaultInjector())
+    assert all(torch.equal(p, q) for p, q in zip(
+        _tensors((a.state.params, a.state.opt_state)),
+        _tensors((b.state.params, b.state.opt_state))))
+
+
+def test_native_library_builds_under_build_not_the_jax_package(gen):
+    """The native simulator and data loader build from the port's own
+    sources into build/native, and nothing is written or loaded under
+    flexflow_tpu/native."""
+    import pathlib
+
+    from flexflow_tpu_torch import native
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    jax_dir = repo / "flexflow_tpu" / "native"
+    before = sorted(p.name for p in jax_dir.iterdir()) \
+        if jax_dir.exists() else []
+    assert native.available()
+    path = native.lib_path()
+    assert path.parent == repo / "build" / "native" and path.exists()
+    assert (sorted(p.name for p in jax_dir.iterdir())
+            if jax_dir.exists() else []) == before
+    maps = open("/proc/self/maps").read()
+    assert str(path) in maps
+    assert "/flexflow_tpu/native/" not in maps

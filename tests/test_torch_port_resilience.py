@@ -722,7 +722,6 @@ def test_fit_has_the_jax_signature():
 
 @pytest.mark.parametrize("kw,value", [
     ("elastic", True), ("health_monitor", object()),
-    ("verify_strategy", "preflight"), ("canary", object()),
     ("tuner", object())])
 def test_unported_fit_keywords_raise_naming_themselves(kw, value):
     x, y = dataset(16)

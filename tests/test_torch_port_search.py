@@ -658,9 +658,9 @@ def test_search_flags_parse_to_jax_fields(argv):
 
 
 @pytest.mark.parametrize("flag,what", [
-    ("--memory-search", "memory-aware search"),
-    ("--machine-model-version", "topology-aware machine model"),
-    ("--import-strategy", "strategy import")])
+    ("--import-strategy", "strategy import"),
+    ("--fsdp-degree", "FSDP weight sharding"),
+    ("--nodes", "multi-node execution")])
 def test_unported_search_flags_raise_naming_what_is_missing(flag, what):
     with pytest.raises(NotImplementedError, match=what):
         tff.FFConfig(device="cpu").parse_args([flag, "1"])
@@ -673,16 +673,10 @@ def test_unported_search_arguments_raise(tmp_path):
     with pytest.raises(TypeError, match="calibration"):
         m.compile(tff.SGDOptimizer(), getattr(tff.LossType, MSE),
                   calibration={"mxu_efficiency": 0.5})
-    with pytest.raises(NotImplementedError, match="artifact store"):
-        m.compile(tff.SGDOptimizer(), getattr(tff.LossType, MSE),
-                  artifact_store=object())
-    topo = tmp_path / "topo.cfg"
-    topo.write_text("num_nodes = 1\nnum_gpus_per_node = 4\n"
-                    "topology_dims = 2x2\n")
-    with pytest.raises(NotImplementedError, match="topology-aware"):
-        tsearch.parse_machine_config(str(topo))
-    # a device too small for the winner: the pipeline and memory-aware
-    # searches that would look further are not ported
+    # a device too small for the winner: the pipeline search that would
+    # look further is not ported (the artifact store, topology_dims and
+    # the memory-aware search are: tests/test_torch_port_mcmc.py and
+    # tests/test_torch_port_artifact_store.py)
     small = tmp_path / "small.cfg"
     small.write_text("num_nodes = 1\nnum_gpus_per_node = 4\n"
                      "device_mem = 100000\n")

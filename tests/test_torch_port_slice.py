@@ -165,12 +165,10 @@ def test_compile_refuses_what_is_not_ported():
     m.softmax(m.create_tensor((2, 4)))
     with pytest.raises(NotImplementedError):
         m.compile()
-    # the search runs (tests/test_torch_port_search.py); an artifact
-    # store is not ported, and a calibration must be a measured store
+    # the search runs (tests/test_torch_port_search.py), and a
+    # calibration must be a measured store
     m = FFModel(FFConfig(device="cpu", search_budget=1))
     m.softmax(m.create_tensor((2, 4)))
-    with pytest.raises(NotImplementedError):
-        m.compile(artifact_store=object())
     with pytest.raises(TypeError):
         m.compile(calibration={})
     # parallel degrees have no field until multi-device execution is ported
