@@ -198,7 +198,25 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      leave an mcmc_native event) and in Python; (6) the topology-aware
      machine's winner against the flat one's. Then, as a finding, a
      2-step determinism canary on DLRM. The flash launches of (1)-(4)
-     count in the kernels line and must all take wgmma.
+     count in the kernels line and must all take wgmma;
+ 18. the mesh executor (parallel/executor.py MeshExecutor) at world size
+     1: a process group of one rank through NCCL (runtime/distributed.py
+     init_distributed on a free 127.0.0.1 port), the flagship at full
+     width with --only-data-parallel on the mesh against the plain
+     single-device executor from the same seed's weights, 4 SGD steps
+     each: the largest weight gap (expected 0) and both loss
+     trajectories; every flash launch of the mesh run per shard through
+     local_map (attention's MESH_PATHS) on the wgmma kernels; eager
+     stepwise samples/s of mesh against plain in ABBA rounds; host ms a
+     step (the time the host takes to issue a step, before the
+     synchronise) and one profiled step of each (NCCL kernels a step,
+     device busy, idle share). Then BERT-base (attention and hidden
+     dropout 0.1) on the mesh against the plain executor, 2 steps each
+     from the same weights and step seeds: on a mesh of one device the
+     flash kernels keep their dropout per shard through local_map (every
+     launch flash_fwd_dropout/flash_bwd_dropout on wgmma, routes all
+     local_map), the weight gap (expected 0). The group is destroyed at
+     the phase's end.
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -240,9 +258,9 @@ line, a `zoo_models` line (after the card's name and power limit), a
 `longctx_nmt_fusion` line (after the card's name and power limit; the
 `kernels` line's flash rows carry their long-context shape's readings),
 a `longctx`, an `nmt` and a `fusion` line, a `search`, a `seq2seq`
-a `resilience`, an `observatory` and a `verify` line (the `kernels`
-line's flash and paged rows carry their seq2seq shapes' readings; those
-lines after the card's name and power limit) and, last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+a `resilience`, an `observatory`, a `verify` and a `mesh` line (the
+`kernels` line's flash and paged rows carry their seq2seq shapes'
+readings; those lines after the card's name and power limit) and, last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import contextlib
 import io
@@ -1685,7 +1703,255 @@ def train(torch):
     return summary
 
 
-def build_bert_model(torch, spd=1, optimizer=None):
+MESH_STEPS, MESH_ROUNDS = 4, 3
+# BERT-base on the mesh (attention and hidden dropout): steps of each run
+MESH_BERT_STEPS = 2
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _host_and_sync_ms(torch, step, model, x, y):
+    """(host ms to issue one train step, ms until the card is done)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.state, _ = step(model.state, [x], y)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0)
+
+
+def _weight_gap(torch, plain, mesh):
+    """(weights not bit-equal, largest gap, where) between the plain
+    executor's weights and the mesh's local tensors."""
+    from flexflow_tpu_torch.parallel.mesh import local
+
+    differ, worst, at = 0, 0.0, None
+    for op, ws in plain.params.items():
+        for n, w in ws.items():
+            v = local(mesh.params[op][n])
+            if not torch.equal(w, v):
+                differ += 1
+                gap = (w - v).abs().max().item()
+                if gap > worst:
+                    worst, at = gap, f"{op}.{n}"
+    return differ, worst, at
+
+
+def mesh_bert(torch, plain):
+    """BERT-base (attention and hidden dropout) on the world-1 mesh
+    against `plain`, the same model on the plain executor, MESH_BERT_STEPS
+    steps each from the same weights and step seeds: on a mesh of one
+    device the flash kernels keep their dropout per shard through
+    local_map, as the JAX package keeps its flash dropout kernel on a
+    trivial mesh. Returns (summary, the mesh run's launch counts)."""
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.ops import attention as att
+
+    mesh = build_bert_model(torch, only_data_parallel=True)
+    if type(mesh.executor).__name__ != "MeshExecutor":
+        raise AssertionError(f"mesh bert: {type(mesh.executor).__name__}")
+    rng = np.random.RandomState(5)
+    x, y = (rng.randn(BERT_BATCH, BERT_SEQ, BERT_HIDDEN).astype(np.float32)
+            for _ in range(2))
+    losses, counts = {}, {}
+    for name, m in (("plain", plain), ("mesh", mesh)):
+        step = m.executor.build_train_step()
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        att.MESH_PATHS.clear()
+        ls = []
+        for i in range(MESH_BERT_STEPS):
+            m.state, partials = step(m.state, [x], y, i)
+            ls.append(float(partials["loss"]))
+        torch.cuda.synchronize()
+        losses[name] = ls
+        counts[name] = (dict(build.launch_counts), dict(build.path_counts),
+                        dict(att.MESH_PATHS))
+    per = MESH_BERT_STEPS * BERT_LAYERS
+    want = {"flash_fwd_dropout": per, "flash_bwd_dropout": per,
+            "flash_fwd": 0, "flash_bwd": 0}
+    for name in ("plain", "mesh"):
+        launches, paths, routes = counts[name]
+        check_training_counts(f"mesh bert ({name})", launches, want)
+        check_wgmma_paths(f"mesh bert ({name})", launches, paths)
+        if not all(np.isfinite(losses[name])):
+            raise AssertionError(f"mesh bert ({name}): losses "
+                                 f"{losses[name]}")
+    routes = counts["mesh"][2]
+    if routes != {"local_map": per}:
+        raise AssertionError(f"mesh bert: attention routes {routes}, "
+                             f"expected local_map {per}")
+    differ, worst, at = _weight_gap(torch, plain, mesh)
+    log(f"  mesh bert (dropout {BERT_DROPOUT}) vs plain after "
+        f"{MESH_BERT_STEPS} steps: {differ} weights differ, largest gap "
+        f"{worst} at {at}; losses mesh {losses['mesh']} plain "
+        f"{losses['plain']}; routes {routes}")
+    return {"steps": MESH_BERT_STEPS, "dropout": BERT_DROPOUT,
+            "losses_mesh": losses["mesh"], "losses_plain": losses["plain"],
+            "weights": sum(len(ws) for ws in plain.params.values()),
+            "weights_not_bit_equal": differ, "largest_weight_gap": worst,
+            "largest_gap_at": at, "attention_routes": routes,
+            "grad_syncs": mesh.executor.grad_syncs,
+            "launches": counts["mesh"][0]}, counts["mesh"][0]
+
+
+def mesh_phase(torch):
+    """The mesh executor at world size 1 through NCCL against the plain
+    executor: the weight gap after MESH_STEPS steps (expected 0), the
+    flash launches per shard through local_map on wgmma, ABBA samples/s,
+    host ms a step and NCCL kernels a step; then BERT-base with dropout
+    (mesh_bert). Returns the `mesh` summary."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType, MetricsType
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.ops import attention as att
+    from flexflow_tpu_torch.runtime import distributed as rdist
+
+    t_phase = time.perf_counter()
+
+    def flagship(**cfg):
+        m = FFModel(FFConfig(batch_size=TRAIN_BATCH,
+                             allow_mixed_precision=True, seed=0, **cfg))
+        build_transformer(m, TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS, LAYERS)
+        m.compile(SGDOptimizer(lr=0.01),
+                  LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
+                  [MetricsType.METRICS_MEAN_SQUARED_ERROR])
+        return m
+
+    os.environ.pop("FF_ATTENTION_IMPL", None)
+    plain = flagship()
+    # built before the group is up: under a group compile builds the
+    # mesh executor
+    plain_bert = build_bert_model(torch)
+    rank, world, dev = rdist.init_distributed(
+        f"127.0.0.1:{_free_port()}", 1, 0, device="cuda", timeout_s=120)
+    try:
+        mesh = flagship(only_data_parallel=True)
+        ex = mesh.executor
+        if type(ex).__name__ != "MeshExecutor" or ex.mesh.size != 1:
+            raise AssertionError(f"mesh phase: {type(ex).__name__} on "
+                                 f"{ex.mesh}")
+        rng = np.random.RandomState(0)
+        x, y = (rng.randn(TRAIN_BATCH, TRAIN_SEQ, HIDDEN).astype(np.float32)
+                for _ in range(2))
+        steps = {"mesh": ex.build_train_step(),
+                 "plain": plain.executor.build_train_step()}
+        models = {"mesh": mesh, "plain": plain}
+        losses = {}
+        for name in ("plain", "mesh"):
+            m = models[name]
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            att.MESH_PATHS.clear()
+            syncs = getattr(m.executor, "grad_syncs", 0)
+            ls = []
+            for _ in range(MESH_STEPS):
+                m.state, partials = steps[name](m.state, [x], y)
+                ls.append(float(partials["loss"]))
+            torch.cuda.synchronize()
+            losses[name] = ls
+            if name == "mesh":
+                counts = dict(build.launch_counts)
+                paths = dict(build.path_counts)
+                routes = dict(att.MESH_PATHS)
+                grad_syncs = ex.grad_syncs - syncs
+        per = MESH_STEPS * LAYERS
+        check_training_counts("mesh", counts, {"flash_fwd": per,
+                                               "flash_bwd": per,
+                                               "paged_decode": 0})
+        check_wgmma_paths("mesh", counts, paths)
+        if routes != {"local_map": per}:
+            raise AssertionError(f"mesh: attention routes {routes}, "
+                                 f"expected local_map {per}")
+        if not all(np.isfinite(losses["mesh"])):
+            raise AssertionError(f"mesh: losses {losses['mesh']}")
+        differ, worst, at = _weight_gap(torch, plain, mesh)
+        log(f"  mesh vs plain after {MESH_STEPS} steps: {differ} weights "
+            f"differ, largest gap {worst} at {at}; losses mesh "
+            f"{losses['mesh']} plain {losses['plain']}")
+
+        def turn(name):
+            m = models[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MESH_STEPS):
+                m.state, _ = steps[name](m.state, [x], y)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        timing = abba(torch, {"plain": lambda: turn("plain"),
+                              "mesh": lambda: turn("mesh")},
+                      MESH_ROUNDS, MESH_STEPS * TRAIN_BATCH)
+        host = {}
+        for name in ("plain", "mesh"):
+            reads = [_host_and_sync_ms(torch, steps[name], models[name], x,
+                                       y) for _ in range(3)]
+            host[name] = {"host_ms_a_step": min(r[0] for r in reads),
+                          "step_ms": min(r[1] for r in reads)}
+        profiles = {}
+        for name in ("plain", "mesh"):
+            m = models[name]
+            prof = profile_step(torch, lambda: steps[name](m.state, [x], y))
+            nccl = {k: v for k, v in prof["top_kernels_ms"].items()
+                    if "nccl" in k.lower()}
+            profiles[name] = {"wall_ms": prof["wall_ms"],
+                              "device_busy_ms": prof["device_busy_ms"],
+                              "idle_share": prof["idle_share"],
+                              "device_events": prof["device_events"],
+                              "nccl_kernels_a_step": _nccl_events(
+                                  torch, steps[name], m, x, y),
+                              "nccl_top_ms": nccl}
+        summary = {
+            "world_size": world, "backend": "nccl", "device": str(dev),
+            "mesh": ex.mesh.shape, "live_mesh_axes": list(ex.mesh.live_axes),
+            "steps": MESH_STEPS, "losses_mesh": losses["mesh"],
+            "losses_plain": losses["plain"],
+            "weights": sum(len(ws) for ws in plain.params.values()),
+            "weights_not_bit_equal": differ, "largest_weight_gap": worst,
+            "largest_gap_at": at, "launches": counts,
+            "launches_by_path": paths, "attention_routes": routes,
+            "grad_syncs": grad_syncs,
+            "samples_per_s_mesh": timing["mesh"]["samples_per_s_median"],
+            "samples_per_s_plain": timing["plain"]["samples_per_s_median"],
+            "abba": timing, "host": host, "profile": profiles}
+        del plain, mesh, models, steps, ex
+        torch.cuda.empty_cache()
+        summary["bert"], bert_counts = mesh_bert(torch, plain_bert)
+        summary["launches"] = {k: counts.get(k, 0) + bert_counts.get(k, 0)
+                               for k in set(counts) | set(bert_counts)}
+    finally:
+        rdist.shutdown()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"  mesh: {summary['samples_per_s_mesh']:.1f} samples/s against "
+        f"plain {summary['samples_per_s_plain']:.1f}; host ms a step mesh "
+        f"{host['mesh']['host_ms_a_step']:.1f} plain "
+        f"{host['plain']['host_ms_a_step']:.1f}; NCCL kernels a step "
+        f"{profiles['mesh']['nccl_kernels_a_step']}; phase "
+        f"{summary['phase_s']:.1f} s")
+    return summary
+
+
+def _nccl_events(torch, step, model, x, y):
+    """The NCCL kernels the card runs in one train step (a profiled
+    step's device events whose name holds "nccl")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.state, _ = step(model.state, [x], y)
+        torch.cuda.synchronize()
+    return sum(1 for e in _device_events(torch, prof)
+               if "nccl" in e.name.lower())
+
+
+def build_bert_model(torch, spd=1, optimizer=None, **cfg):
     """BERT-base as a plain torch.nn.Module (models/bert.py), imported
     through the PyTorch frontend and compiled like the training phase:
     bf16 compute and gradients over f32 weights, MSE-avg, SGD lr 0.01
@@ -1702,7 +1968,7 @@ def build_bert_model(torch, spd=1, optimizer=None):
     module = BertEncoder(BERT_LAYERS, BERT_HIDDEN, BERT_HEADS, BERT_FFN,
                          BERT_DROPOUT, BERT_DROPOUT)
     m = FFModel(FFConfig(batch_size=BERT_BATCH, allow_mixed_precision=True,
-                         seed=0, iterations_per_dispatch=spd))
+                         seed=0, iterations_per_dispatch=spd, **cfg))
     x = m.create_tensor((BERT_BATCH, BERT_SEQ, BERT_HIDDEN))
     pt = PyTorchModel(module)
     pt.torch_to_ff(m, [x])
@@ -5991,6 +6257,11 @@ def main() -> int:
     training = train(torch)
     torch.cuda.empty_cache()
 
+    log("# mesh phase: the mesh executor at world size 1 through NCCL")
+    build.reset_launch_counts()
+    mesh = mesh_phase(torch)
+    torch.cuda.empty_cache()
+
     log("# training scan phase")
     scan = train_scan(torch)
     torch.cuda.empty_cache()
@@ -6075,7 +6346,8 @@ def main() -> int:
                 "longctx": lc["launches"], "nmt": nm["launches"],
                 "fusion": fu["launches"], "search": se["launches"],
                 "seq2seq": s2["launches"], "resilience": rs["launches"],
-                "observatory": ob["launches"], "verify": vf["launches"]}
+                "observatory": ob["launches"], "verify": vf["launches"],
+                "mesh": mesh["launches"]}
     # rows 1 and 2 at the long-context model's shape (bound by operations)
     for k in kernels[:2]:
         k["long_context_shape"] = lc["flash_long_shape"][k["name"]]
@@ -6104,7 +6376,7 @@ def main() -> int:
                   alexnet=alex, resnext=rx, moe=moe_summary, dlrm=dl,
                   inception=inc, zoo=zo, longctx=lc, nmt=nm, fusion=fu,
                   search=se, seq2seq=s2, resilience=rs, observatory=ob,
-                  verify=vf)
+                  verify=vf, mesh=mesh)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -6192,6 +6464,19 @@ def main() -> int:
                            "store", "phase_s", "fit_pair_s", "explain_s",
                            "calibrated_compile_s", "launches")}}))
     log(smi + " " + json.dumps({"verify": vf}))
+    log(smi + " " + json.dumps({"mesh": {
+        k: mesh[k] for k in (
+            "world_size", "backend", "live_mesh_axes", "steps",
+            "weights_not_bit_equal", "largest_weight_gap", "largest_gap_at",
+            "losses_mesh", "losses_plain", "samples_per_s_mesh",
+            "samples_per_s_plain", "host", "attention_routes", "grad_syncs",
+            "launches_by_path", "phase_s")} | {
+        "bert": {k: v for k, v in mesh["bert"].items() if k != "launches"},
+        "nccl_kernels_a_step": mesh["profile"]["mesh"]["nccl_kernels_a_step"],
+        "idle_share_mesh": mesh["profile"]["mesh"]["idle_share"],
+        "idle_share_plain": mesh["profile"]["plain"]["idle_share"],
+        "abba_spread_mesh": mesh["abba"]["mesh"]["spread"],
+        "abba_spread_plain": mesh["abba"]["plain"]["spread"]}}))
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -41,6 +41,7 @@ from .core.dataloader import SingleDataLoader  # noqa: F401
 from .core.model import FFModel  # noqa: F401
 from .core.optimizers import AdamOptimizer, Optimizer, SGDOptimizer  # noqa: F401
 from .runtime.checkpoint import restore_checkpoint, save_checkpoint  # noqa: F401
+from .runtime.distributed import init_distributed  # noqa: F401
 from .runtime.resilience import (  # noqa: F401
     CheckpointManager,
     FaultInjector,

@@ -1,8 +1,12 @@
 """Runtime configuration.
 
 The PyTorch counterpart of flexflow_tpu/config.py, with the fields this
-package reads, under the JAX package's names. Device counts come from
-`torch.cuda`.
+package reads, under the JAX package's names. The port runs one process
+per device: with a torch.distributed process group up
+(runtime/distributed.py) `workersPerNode` defaults to the processes on
+this host (LOCAL_WORLD_SIZE, else the world size) and `numNodes` to the
+world size over that, as the JAX package's read jax.local_device_count
+and jax.process_count; without a group both default to 1.
 
 The dataclass has slots, so a field the port does not read (a JAX
 field not ported yet) cannot be set: `cfg.unported = 1` raises
@@ -16,8 +20,9 @@ construction: the port never continues on the CPU by itself.
 Like the JAX package's, a config reads the reference's command-line
 flags (`parse_args`, model.cc:3556 spellings) from sys.argv[1:] when it
 is made. A flag whose field this package reads sets it; a flag of a
-feature not ported here (strategy import, multi-node and multi-device
-execution) raises NotImplementedError naming the flag; anything else is
+feature not ported here (strategy import, the multi-node mesh, FSDP,
+overlapped gradient sync, sequence parallelism) raises
+NotImplementedError naming the flag; anything else is
 skipped, as the reference passes unknown flags on to Legion.
 """
 from __future__ import annotations
@@ -54,9 +59,24 @@ class FFConfig:
     # fit()'s default number of passes over the data
     epochs: int = 1
     batch_size: int = 64
-    # devices; 0 = all visible cards. One by default: compile() runs on
-    # one device and refuses more until multi-device execution is ported
+    # devices a node (a host): one process each. 0 = the local processes
+    # of the process group, else the visible cards. Default: the local
+    # processes of the group when one is up, else 1
     workersPerNode: int = 1
+    # nodes (hosts); numNodes x workersPerNode must equal the world size
+    # of the process group (1 without one). Default: the world size over
+    # workersPerNode when a group is up, else 1
+    numNodes: int = 1
+    # the manual strategy's degrees (no search), the JAX package's
+    # fields: the data degree fills the devices the others leave.
+    # tensor_parallel_degree executes (Megatron-style weight sharding over
+    # the "model" mesh axis); the sequence, expert, pipeline and fsdp
+    # degrees are refused above 1 at compile until their slices land
+    tensor_parallel_degree: int = 1
+    sequence_parallel_degree: int = 1
+    expert_parallel_degree: int = 1
+    pipeline_parallel_degree: int = 1
+    fsdp_degree: int = 1
     # the Unity strategy search (search/): >= 0 runs it at compile()
     # (0 = the JAX package's default budget of 10 expansions); -1 = the
     # manual lowering
@@ -129,8 +149,15 @@ class FFConfig:
     profiling: bool = False
 
     def __post_init__(self):
+        from .runtime import distributed as rdist
+
         dev = resolve_device(self.device)
-        if self.workersPerNode == 0:
+        if rdist.is_initialized():
+            if self.workersPerNode in (0, 1) and self.numNodes == 1:
+                self.workersPerNode = rdist.local_world_size()
+                self.numNodes = max(1, rdist.process_count()
+                                    // self.workersPerNode)
+        elif self.workersPerNode == 0:
             self.workersPerNode = (torch.cuda.device_count()
                                    if dev.type == "cuda" else 1)
         argv = sys.argv[1:]

@@ -5,9 +5,9 @@ of the ported ops (the ones the served LM, the flagship Transformer, the
 PyTorch frontend, the CNNs and the rest of the zoo call: the shape ops,
 the reductions and top_k, batch_matmul, PReLU, the MoE family with its
 `moe` composite and the LSTM; an op with several outputs returns their
-list), `compile` on the manual single-device branch (it creates the
-label tensor, `get_label_tensor`; with `config.perform_fusion` it packs
-op chains into fused ops, pcg/fusion.py), `init_layers`,
+list), `compile` (it creates the label tensor, `get_label_tensor`;
+with `config.perform_fusion` it packs op chains into fused ops,
+pcg/fusion.py), `init_layers`,
 `create_data_loader`, `fit` and `eval` (training; both take arrays or
 data loaders), `predict` (serving) and the stepwise API
 (`set_iteration_batch`, `forward`, `zero_gradients`, `backward`,
@@ -28,10 +28,16 @@ it runs the Unity strategy search first (substitutions and the DP over
 machine views, priced by the machine and cost models of search/, from
 times measured on the device with `measure_operator_costs`) for the
 configured machine -- a machine file, or H100s with their published
-numbers -- and then demotes the winner to the one device it runs on, as
-the JAX package does on a smaller mesh. Each compile records its phases
-and the search's decisions in `self.search_trajectory`. More than one
-device is refused: multi-device execution is not ported yet. `fit` is
+numbers -- and then lowers the winner onto the live devices, demoting
+what does not fit, as the JAX package does on a smaller mesh. The live
+devices are the process group's, one per process
+(runtime/distributed.py; one device without a group): with a group up,
+compile builds a device mesh of the strategy's axes (the manual data and
+tensor degrees, or the winner's) and the mesh executor
+(parallel/executor.py MeshExecutor) runs the PCG as one SPMD program
+over it; every rank must feed the same global batch and reach the same
+winner, and a mismatch raises. Each compile records its phases and the
+search's decisions in `self.search_trajectory`. `fit` is
 the JAX package's loop: per-epoch metrics, the reference's throughput
 line, each step's seed drawn from the model's CPU generator
 (as the JAX loop splits its key), and one eager train step per batch or,
@@ -97,7 +103,8 @@ from ..ops.tensor_ops import (CastParams, ConcatParams, FlatParams,
                               ReverseParams, SplitParams, SqueezeParams,
                               TransposeParams, UnsqueezeParams, WhereParams)
 from ..obs.trajectory import SearchTrajectory
-from ..parallel.executor import PCGExecutor, TrainState
+from ..parallel.executor import MeshExecutor, PCGExecutor, TrainState
+from ..runtime import distributed as rdist
 from ..pcg.fusion import apply_fusion
 from ..pcg.lowering import layers_to_pcg
 from .dataloader import SingleDataLoader
@@ -588,16 +595,21 @@ class FFModel:
         else the ambient one, `with store.ambient():`) replays a stored
         winner of the same graph, device and calibration instead of
         searching, and stores a fresh winner; a corrupt or stale entry
-        degrades to a fresh search. More than one device is not ported
-        and raises."""
+        degrades to a fresh search.
+
+        The device count is the live machine's: numNodes x
+        workersPerNode, which must equal the world size of the process
+        group (runtime/distributed.py; 1 without one). Whenever a group is
+        up, the model runs on the mesh executor (parallel/executor.py
+        MeshExecutor) over a mesh of the strategy's axes: the manual
+        degrees (tensor_parallel_degree, the data degree filling the
+        rest) or the searched winner at the degrees it was searched for.
+        Every rank searches and must reach the same winner: a hash of its
+        views and degrees is compared across ranks, and a mismatch
+        raises."""
         from ..obs.calibration import resolve_calibration
 
-        n_dev = self.config.workersPerNode
-        if n_dev != 1:
-            raise NotImplementedError(
-                f"{n_dev} devices requested: only single-device execution "
-                "is ported to flexflow_tpu_torch (set workersPerNode=1; "
-                "search_num_workers searches for a bigger machine)")
+        ndev = self._live_device_count()
         if optimizer is not None:
             self.optimizer = optimizer
         if self.optimizer is None:
@@ -638,7 +650,8 @@ class FFModel:
         self._artifact_key = None
         cache_entry, research_cause = None, "no_store"
         if store is not None and search_enabled:
-            cache_entry, research_cause = self._probe_artifact_store(store, 1)
+            cache_entry, research_cause = self._probe_artifact_store(
+                store, ndev)
         # the user's inputs by their position among the graph's inputs:
         # a search rewrite copies the graph with fresh tensors, and the
         # positions survive the copy
@@ -664,29 +677,44 @@ class FFModel:
         # --memory-search's result: {"lambda", "bytes", "cost"} of the winner
         self.memory_search = None
         t_phase = time.perf_counter()
+        from ..parallel import strategies
+
         if cache_entry is not None:
             # artifact-cache hit: the stored winner replayed onto the fresh
-            # lowering (degrees and views set, validators passed); it is
-            # demoted to the one device as a searched winner is
-            from ..parallel import strategies
-
+            # lowering (degrees and views set, validators passed), lowered
+            # onto the live devices as a searched winner is
             views, _mesh_axes, cost = cache_entry
             self.searched_views = views
             self.searched_cost = cost
-            self.searched_axes = strategies.assign_mesh_axes(self.graph, 1)
+            self.searched_axes = strategies.assign_mesh_axes(self.graph,
+                                                             ndev)
             self.strategy_provenance = {"source": "artifact_cache",
                                         "key": dict(self._artifact_key),
                                         "cost": cost}
-            self._phase("strategy_cache_hit", t_phase, devices=1,
+            self._phase("strategy_cache_hit", t_phase, devices=ndev,
                         ops=len(self.graph.ops))
+            axes = self.searched_axes
         elif search_enabled:
-            self._run_strategy_search(1)
+            self._run_strategy_search(ndev)
             self.strategy_provenance = {"source": "search",
                                         "cause": research_cause}
-            self._phase("strategy_search", t_phase, devices=1)
+            self._phase("strategy_search", t_phase, devices=ndev)
+            axes = self.searched_axes
         else:
-            # the manual lowering: every degree 1 on the one device
+            # the manual lowering (the JAX package's): the tensor degree
+            # over the "model" axis, the data degree filling the rest
+            tp = max(1, self.config.tensor_parallel_degree)
+            if ndev % tp:
+                raise ValueError(f"tensor_parallel_degree {tp} does not "
+                                 f"divide the {ndev} devices")
+            dp = ndev // tp
+            strategies.apply_data_parallel(self.graph, dp, axis_idx=0)
+            strategies.apply_tensor_parallel(self.graph, tp, axis_idx=1)
+            axes = {"data": dp, "model": tp}
             self.strategy_provenance = {"source": "manual"}
+        if search_enabled:
+            self._assert_same_strategy()
+        self.mesh_axes = self._mesh_axes(axes)
         self._check_probability_tail()
         if self.label_tensor is None:
             # class ids (..., 1) for sparse CE, else the output's shape
@@ -705,8 +733,16 @@ class FFModel:
                              grad_bf16=mixed, what="compiled strategy")
         t_phase = time.perf_counter()
         inputs, constants = self._graph_inputs(self.graph)
-        self.executor = PCGExecutor(
-            self.graph, self.device, optimizer=self.optimizer,
+        executor_cls, where = PCGExecutor, (self.device,)
+        if rdist.is_initialized():
+            # one SPMD program over the mesh, even at world size 1
+            from ..parallel.mesh import build_mesh
+
+            executor_cls = MeshExecutor
+            where = (build_mesh(self.mesh_axes, self.device.type),
+                     self.device)
+        self.executor = executor_cls(
+            self.graph, *where, optimizer=self.optimizer,
             loss_type=self.loss_type,
             metrics=Metrics(self.loss_type, self.metrics),
             compute_dtype=torch.bfloat16 if mixed else None,
@@ -720,6 +756,87 @@ class FFModel:
         self._phase("init_state", t_phase)
         self.perf_metrics = PerfMetrics()
         self._rng = torch.Generator().manual_seed(self.config.seed)
+
+    def _live_device_count(self) -> int:
+        """The devices this compile runs on: numNodes x workersPerNode,
+        which must equal the process group's world size (one process per
+        device; 1 without a group). The parallel degrees whose execution
+        is not ported raise here, naming their slice."""
+        cfg = self.config
+        for field in ("sequence_parallel_degree", "expert_parallel_degree",
+                      "pipeline_parallel_degree", "fsdp_degree"):
+            if getattr(cfg, field) > 1:
+                raise NotImplementedError(
+                    f"{field}={getattr(cfg, field)}: "
+                    f"{_LATER_SLICES[field]} is not ported to "
+                    "flexflow_tpu_torch yet: it comes with a later slice "
+                    "of multi-device execution (ROADMAP queue 1 item 6); "
+                    "data and tensor parallelism are ported")
+        n = max(1, cfg.numNodes) * max(1, cfg.workersPerNode)
+        if not rdist.is_initialized():
+            if n != 1:
+                raise NotImplementedError(
+                    f"{n} devices requested in one process: the port runs "
+                    f"one process per device; start {n} processes "
+                    "(torchrun --nproc-per-node N, or FF_COORDINATOR_"
+                    "ADDRESS/FF_NUM_PROCESSES/FF_PROCESS_ID) and call "
+                    "runtime.distributed.init_distributed first "
+                    "(search_num_workers searches for a bigger machine)")
+            return 1
+        world = rdist.process_count()
+        if n != world:
+            raise ValueError(
+                f"numNodes x workersPerNode = {cfg.numNodes} x "
+                f"{cfg.workersPerNode} = {n} devices, but the process group "
+                f"has {world} processes (one per device)")
+        backend = torch.distributed.get_backend()
+        if (backend == "nccl") != (self.device.type == "cuda"):
+            raise ValueError(
+                f"the config's device {self.device} does not match the "
+                f"process group's {backend} backend (NCCL drives cards, "
+                "gloo the CPU; neither stands in for the other)")
+        return n
+
+    def _mesh_axes(self, axes: Dict[str, int]) -> Dict[str, int]:
+        """The mesh of a strategy's axes in the JAX package's order, size-1
+        axes kept. A winner that needs an axis whose execution is not
+        ported (seq, expert, pipe, fsdp) raises, naming it."""
+        out = {"data": 1, "model": 1, "seq": 1, "expert": 1, "pipe": 1}
+        for k, v in axes.items():
+            if int(v) > 1 and k not in ("data", "model"):
+                raise NotImplementedError(
+                    f"the strategy needs a {k!r} mesh axis of {v}: "
+                    f"{_LATER_SLICES[k]} is not ported to "
+                    "flexflow_tpu_torch yet: it comes with a later slice "
+                    "of multi-device execution (ROADMAP queue 1 item 6)")
+            out[k] = int(v)
+        return out
+
+    def _assert_same_strategy(self) -> None:
+        """Every rank searched; they must execute one strategy. With
+        measured costs each rank times its own card and two may pick
+        different winners: compare a hash of the winner's op sequence,
+        views and degrees across ranks with one all-gather, and raise on
+        every rank on a mismatch (never train on differing strategies)."""
+        if not rdist.is_initialized() or rdist.process_count() == 1:
+            return
+        import hashlib
+
+        pos = {op.guid: i for i, op in enumerate(self.graph.topo_order())}
+        views = sorted(
+            (pos.get(g, -1), v.start_device_id, tuple(v.dim),
+             tuple(v.stride))
+            for g, v in (self.searched_views or {}).items())
+        dims = [(op.op_type.name, tuple(
+            (d.size, d.degree, d.parallel_idx, d.is_replica_dim)
+            for t in op.outputs + op.weights for d in t.dims))
+            for op in self.graph.topo_order()]
+        digest = hashlib.sha256(repr((views, dims)).encode()).hexdigest()
+        rdist.assert_same(
+            digest, "multi-process contract violated: the ranks' searches "
+            "chose different strategies (every rank must execute the SAME "
+            "strategy; measured costs differ by card: pass a shared "
+            "calibration or strategy)")
 
     def _graph_inputs(self, graph):
         """(the batch inputs in creation order, the constants {guid:
@@ -956,6 +1073,12 @@ class FFModel:
         perf pass under objective="decode" and the precision pass, each
         recorded in `decode_trajectory` ("perf_lint", "precision_lint").
         Returns the decode executor."""
+        if rdist.process_count() > 1:
+            raise NotImplementedError(
+                f"compile_decode on {rdist.process_count()} processes: "
+                "decode and serving over a mesh are not ported to "
+                "flexflow_tpu_torch yet: they come with a later slice of "
+                "multi-device execution (ROADMAP queue 1 item 6)")
         if self.executor is None:
             raise RuntimeError(
                 "compile() the model before compile_decode(): the decode "
@@ -1432,6 +1555,28 @@ class FFModel:
             if own_session:
                 obs.finish()
 
+    def _assert_same_global_batch(self, xs, y, bs: int) -> None:
+        """The multi-process contract (the JAX package's): every process
+        feeds the SAME global batch. A diverging feed would silently
+        corrupt training (each rank keeps its shard of what it believes is
+        the global batch) and an uneven batch count would hang a
+        collective: a cheap signature (dataset size, batch size, the first
+        batch's sums) is compared across ranks with one all-gather, and a
+        mismatch raises on every rank."""
+        if not rdist.is_initialized() or rdist.process_count() == 1:
+            return
+        first = next(self._batches(list(xs) + [y], bs), [])
+        sig = [float(bs), float(np.shape(xs[0])[0])]
+        for a in first:
+            arr = np.asarray(a)
+            head = arr.reshape(-1)[:4096]
+            sig += [float(np.sum(arr.astype(np.float64))),
+                    float(np.sum(np.abs(head.astype(np.float64))))]
+        rdist.assert_same(
+            sig, "multi-process contract violated: every process must feed "
+            "the SAME global batch and dataset (runtime/distributed.py) — "
+            "rank data/batch signatures differ")
+
     def _fit_impl(self, x, y, batch_size, epochs, verbose, *, lint, tel,
                   checkpoint_dir, checkpoint_every_n_steps, keep_last_n,
                   resume, skip_nonfinite_steps, step_guard,
@@ -1458,6 +1603,19 @@ class FFModel:
         bs = batch_size or self.config.batch_size
         ep = epochs or self.config.epochs
         n = xs[0].shape[0]
+        mesh = self.executor.mesh
+        if mesh is not None and mesh.size > 1:
+            for what, given in (("checkpoint_dir", checkpoint_dir),
+                                ("verify_strategy", verify_strategy),
+                                ("canary", canary)):
+                if given:
+                    raise NotImplementedError(
+                        f"fit({what}=...) on a mesh of {mesh.size} devices "
+                        "is not ported to flexflow_tpu_torch yet: "
+                        "checkpoints, the verifier and the canary over a "
+                        "mesh come with a later slice of multi-device "
+                        "execution (ROADMAP queue 1 item 6)")
+        self._assert_same_global_batch(xs, y, bs)
         if n < bs:
             raise ValueError(
                 f"dataset has {n} samples < batch_size {bs}; nothing to train on")
@@ -1531,7 +1689,8 @@ class FFModel:
                 if tel is not None:
                     tel.record_chunk(first_step=first_step, steps=len(chunk),
                                      dur_s=time.perf_counter() - t0,
-                                     batch_size=bs, n_chips=1, t0=t0)
+                                     batch_size=bs,
+                                     n_chips=rdist.process_count(), t0=t0)
 
             for batch in self._batches(xs + [y], bs):
                 if scan_fn is not None:
@@ -1550,7 +1709,8 @@ class FFModel:
                             loss_val = float(partials["loss"])
                         tel.record_step(step=tstep,
                                         dur_s=time.perf_counter() - t0,
-                                        batch_size=bs, n_chips=1,
+                                        batch_size=bs,
+                                        n_chips=rdist.process_count(),
                                         loss=loss_val, t0=t0)
                 num_samples += bs
                 tstep += 1
@@ -1949,7 +2109,9 @@ class FFModel:
                         tel.record_step(
                             step=global_step,
                             dur_s=time.perf_counter() - t0,
-                            batch_size=bs, n_chips=1, loss=loss_val, t0=t0,
+                            batch_size=bs,
+                            n_chips=rdist.process_count(), loss=loss_val,
+                            t0=t0,
                         )
                     device_partials.append(partials)
                     num_samples += bs
@@ -2037,6 +2199,8 @@ class FFModel:
         x, y = _unwrap_loaders(x, y)
         step_fn = self.executor.build_eval_step()
         xs = list(x) if isinstance(x, (list, tuple)) else [x]
+        self._assert_same_global_batch(
+            xs, y, batch_size or self.config.batch_size)
         pm = PerfMetrics()
         for batch in self._batches(xs + [y],
                                    batch_size or self.config.batch_size):
@@ -2131,6 +2295,19 @@ class FFModel:
 
 _SHAPE_ONLY_OPS = (OperatorType.OP_RESHAPE, OperatorType.OP_FLAT,
                    OperatorType.OP_NOOP, OperatorType.OP_IDENTITY)
+
+
+# the slice of multi-device execution each unported axis waits for
+_LATER_SLICES = {
+    "sequence_parallel_degree": "sequence parallelism",
+    "seq": "sequence parallelism",
+    "expert_parallel_degree": "expert parallelism",
+    "expert": "expert parallelism",
+    "pipeline_parallel_degree": "pipeline parallelism",
+    "pipe": "pipeline parallelism",
+    "fsdp_degree": "FSDP weight sharding",
+    "fsdp": "FSDP weight sharding",
+}
 
 
 def _resolve_value_tail(op):

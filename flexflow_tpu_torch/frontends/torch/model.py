@@ -345,7 +345,9 @@ class PyTorchModel:
         """Copy the torch module's parameters (Linear, Conv2d,
         BatchNorm2d's scale and bias, LayerNorm, Embedding) into the
         compiled model's params, in place, so the optimizer state stays
-        the model's own."""
+        the model's own (on a device mesh, each rank its shard)."""
+        from ...parallel.mesh import shard_like
+
         model = ffmodel or self._ffmodel
         if model is None or model.params is None:
             raise RuntimeError("load_weights: torch_to_ff and compile() the "
@@ -358,7 +360,7 @@ class PyTorchModel:
                         raise ValueError(
                             f"{layer.name}.{wt.name}: torch shape "
                             f"{tuple(arr.shape)} != {tuple(dst.shape)}")
-                    dst.copy_(torch.as_tensor(arr))
+                    dst.copy_(shard_like(torch.as_tensor(arr), dst))
 
     @staticmethod
     def file_to_ff(filename: str, ffmodel, input_tensors: List) -> List:

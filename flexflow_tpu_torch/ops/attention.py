@@ -16,8 +16,27 @@ call would pass STREAMING_SCORE_BYTES, streams through
 picks the path as in the JAX package: "auto" (unset: the above), "flash" (the folded path on any device; on the
 CPU its wrappers run the kernels' plain versions), "chunked"
 (`chunked_attention` on any device) or "dense" (the masked reference
-path, on any device); "ring" and "ulysses" need multi-device execution,
-which is not ported, and raise.
+path, on any device); "ring" and "ulysses" (sequence parallelism) are
+not ported yet and raise.
+
+On a device mesh (the mesh executor, parallel/mesh.py; the JAX
+package's `_forward` on a mesh) q, k and v are DTensors of the global
+(b, s, h, d) arrays. Where the flash kernels would run (FF_ATTENTION_IMPL
+"flash", or "auto" on a card) and the batch divides the data axis, the
+heads the model axis, with no seq or expert axis, they run per shard:
+`local_map` around the folded kernels, on the one-device path's (b, h,
+s, d) projections with the batch over "data" and the heads over "model"
+(the placements of JAX's P("data", None, "model", None) on (b, s, h,
+d)), so the backward kernel runs per shard too
+(`MESH_PATHS["local_map"]`). Where those dims do not divide, chunked
+attention runs instead, as in JAX, on local shards too (its running
+buffers are plain tensors DTensor cannot propagate): the batch over
+"data" where it divides, the heads over "model" where they divide, and
+whole over an axis that does not (`MESH_PATHS["chunked"]` and
+`"replicated_over_<axis>"`). Dropout on a mesh of more than one device
+takes the dense path with its mask built over the global shape, as
+JAX's `_dropout_fallback(..., "mesh")` does; on a mesh of one device
+the flash kernels keep their dropout, as on one device.
 Attention dropout applies where the JAX package applies it (dropout > 0,
 training, an rng given): the folded path hands the rate and
 `dropout_seeds(rng)` to the flash kernels, which rebuild the
@@ -44,6 +63,7 @@ JAX package computes them outside its kernels.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import os
@@ -132,17 +152,19 @@ def _dense_attention(q, k, v, keep, dropout: float = 0.0, seeds=None):
     `dropout` > 0 zeroes the probs that `attention_dropout_mask(seeds)`
     drops and scales the rest by 1/(1 - dropout)."""
     from ..kernels.attention import attention_dropout_mask
+    from ..parallel.mesh import like
 
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     if keep is not None:
-        scores = scores.masked_fill(~keep, torch.finfo(torch.float32).min)
+        scores = scores.masked_fill(like(~keep, scores),
+                                    torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     if dropout > 0.0:
         b, h, s, t = probs.shape
         drop_keep = attention_dropout_mask(seeds, dropout, b * h, s, t,
                                            device=probs.device)
-        probs = torch.where(drop_keep.view(b, h, s, t),
+        probs = torch.where(like(drop_keep.view(b, h, s, t), probs),
                             probs * (1.0 / (1.0 - dropout)), 0.0
                             ).to(probs.dtype)
     return torch.einsum("bhst,bthd->bshd", probs.float(),
@@ -159,7 +181,14 @@ _FALLBACK_DETAIL = {
               "(only the flash kernels do)",
     "backend": "the flash kernels need a CUDA device, and off the card "
                "the streaming path (chunked) threads no dropout rng",
+    "mesh": "on a device mesh the per-shard flash kernels and chunked "
+            "attention thread no dropout rng",
 }
+# the mesh dispatch's routes, counted per call (tests and chip_smoke.py
+# read them): "local_map" (the flash kernels per shard), "chunked" (and
+# "replicated_over_data"/"replicated_over_model" where the batch or the
+# heads do not divide that axis), "dense"
+MESH_PATHS: collections.Counter = collections.Counter()
 
 
 def _dropout_fallback(impl: str, op_name: str, reason: str) -> None:
@@ -183,9 +212,11 @@ def _attention_impl() -> str:
             "expected auto|dense|flash|chunked|ring|ulysses")
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
-            f"FF_ATTENTION_IMPL={impl}: sequence parallelism needs "
-            "multi-device execution, which is not ported to "
-            "flexflow_tpu_torch yet (auto, flash, chunked and dense are)")
+            f"FF_ATTENTION_IMPL={impl}: sequence parallelism (ring and "
+            "ulysses attention over a seq mesh axis) is not ported to "
+            "flexflow_tpu_torch yet: it comes with the sequence-parallel "
+            "slice of multi-device execution (auto, flash, chunked and "
+            "dense are ported)")
     return impl
 
 
@@ -208,6 +239,9 @@ def _forward(params: MultiHeadAttentionParams, weights, inputs, ctx):
     kv_len = k_in.shape[1]
     h = params.num_heads
     dqk, dv = params.qk_head_dim, params.v_head_dim
+    if ctx.mesh is not None:
+        return _forward_mesh(params, weights, ctx, impl, use_dropout, rate,
+                             seeds, q_in, k_in, v_in, wq, wk, wv, wo)
     if impl == "flash" or (impl == "auto" and q_in.device.type == "cuda"):
         # folded fast path: project straight into (b*h, s, d); the kernels
         # raise on a dtype or shape they do not take
@@ -238,6 +272,124 @@ def _forward(params: MultiHeadAttentionParams, weights, inputs, ctx):
         if params.causal:
             keep = torch.ones(seq_len, kv_len, dtype=torch.bool,
                               device=q.device).tril()
+        attn = _dense_attention(q, k, v, keep, rate, seeds)
+    return [_project_out(params, weights, "bshd,hde->bse", attn, wo,
+                         q_in.dtype, ctx)]
+
+
+def _mesh_placements(mesh, by_axis) -> list:
+    """Placements over `mesh`'s live axes: Shard(dim) for the axes of
+    size > 1 named in `by_axis` ({axis: dim}), Replicate() for the rest
+    (a size-1 axis shards nothing, and a Shard over it would only turn
+    the weights' gradients Partial)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(by_axis[a]) if a in by_axis and mesh.shape[a] > 1
+            else Replicate() for a in mesh.live_axes]
+
+
+def _forward_mesh(params, weights, ctx, impl, use_dropout, rate, seeds,
+                  q_in, k_in, v_in, wq, wk, wv, wo):
+    """The MHA forward on a device mesh (the JAX package's `_forward` on a
+    mesh): the flash kernels per shard through `local_map` where batch
+    and heads divide the data and model axes, chunked attention where
+    they do not (sharded over whichever of the two divides, replicated
+    over the other), dense with a global dropout mask under dropout on a
+    mesh of more than one device. On a mesh of one device every shard is
+    the whole array, so the flash kernels keep their dropout, as they do
+    on one device."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..kernels import attention as katt
+
+    mesh = ctx.mesh
+    shape = mesh.shape
+    data, model = shape.get("data", 1), shape.get("model", 1)
+    seq, expert = shape.get("seq", 1), shape.get("expert", 1)
+    b, seq_len, _ = q_in.shape
+    kv_len = k_in.shape[1]
+    h = params.num_heads
+    # the axes that shard this op (JAX's degree product; pipe and fsdp
+    # do not divide it)
+    mesh_nontrivial = data * model * seq * expert > 1
+    flash_shardable = (seq == 1 and expert == 1 and b % data == 0
+                       and h % model == 0)
+    on_card = q_in.device.type == "cuda"
+    # only the axes that shard the scores divide the per-device footprint
+    score_bytes = 4 * b * h * seq_len * kv_len // max(1, data * model * seq)
+    want_flash = impl == "flash" or (impl == "auto" and on_card
+                                     and flash_shardable)
+    streaming = want_flash or impl == "chunked" or (
+        impl == "auto" and score_bytes > STREAMING_SCORE_BYTES)
+    # the flash kernels hash the dropout mask over each call's folded
+    # (b*h, s, t) index, which is the global one only where a shard is
+    # the whole array
+    flash_dropout = want_flash and flash_shardable and not mesh_nontrivial
+    if use_dropout and streaming and not flash_dropout:
+        _dropout_fallback(impl, ctx.op_name,
+                          "kernel" if impl == "chunked" else
+                          "mesh" if mesh_nontrivial else "backend")
+        streaming = want_flash = False
+    dm = mesh.device_mesh
+    if want_flash and flash_shardable:
+        # the one-device folded path's projections, per shard: (b, h, s,
+        # d) with the batch over "data" and the heads over "model" (JAX's
+        # P("data", None, "model", None) on (b, s, h, d))
+        spec = _mesh_placements(mesh, {"data": 0, "model": 1})
+        bwd_range = f"{ctx.op_name}.bwd" if ctx.profile_ranges else None
+
+        def per_shard(ql, kl, vl):
+            bl, hl = ql.shape[:2]
+            fold = [x.reshape(bl * hl, x.shape[2], x.shape[3]).contiguous()
+                    for x in (ql, kl, vl)]
+            o = katt.flash_attention_folded(*fold, params.causal,
+                                            dropout=rate, seeds=seeds,
+                                            bwd_range=bwd_range)
+            return o.view(bl, hl, ql.shape[2], -1)
+
+        qf, kf, vf = (torch.einsum("bse,ehd->bhsd", x, w) for x, w in
+                      ((q_in, wq), (k_in, wk), (v_in, wv)))
+        MESH_PATHS["local_map"] += 1
+        attn = local_map(per_shard, out_placements=spec,
+                         in_placements=(spec, spec, spec), device_mesh=dm,
+                         redistribute_inputs=True)(qf, kf, vf)
+        return [_project_out(params, weights, "bhsd,hde->bse", attn, wo,
+                             q_in.dtype, ctx)]
+    q = torch.einsum("bse,ehd->bshd", q_in, wq)
+    k = torch.einsum("bse,ehd->bshd", k_in, wk)
+    v = torch.einsum("bse,ehd->bshd", v_in, wv)
+    if streaming:
+        if impl == "flash":
+            warnings.warn(
+                "FF_ATTENTION_IMPL=flash ignored: batch/heads don't divide "
+                "the data/model mesh axes (or the seq axis is sharded) — "
+                "using chunked attention")
+        # chunked attention's running buffers are plain tensors, so it
+        # runs on local shards: (b, s, h, d) with the batch over "data"
+        # where it divides and the heads over "model" where they divide;
+        # an axis that does not divide holds the operands whole (each of
+        # its ranks computes that axis's share again)
+        by_axis = {}
+        if b % data == 0:
+            by_axis["data"] = 0
+        if h % model == 0:
+            by_axis["model"] = 2
+        MESH_PATHS["chunked"] += 1
+        for a in ("data", "model"):
+            if shape.get(a, 1) > 1 and a not in by_axis:
+                MESH_PATHS[f"replicated_over_{a}"] += 1
+        spec = _mesh_placements(mesh, by_axis)
+        attn = local_map(
+            lambda ql, kl, vl: katt.chunked_attention(
+                ql, kl, vl, causal=params.causal),
+            out_placements=spec, in_placements=(spec, spec, spec),
+            device_mesh=dm, redistribute_inputs=True)(q, k, v)
+    else:
+        keep = None
+        if params.causal:
+            keep = torch.ones(seq_len, kv_len, dtype=torch.bool,
+                              device=q_in.device).tril()
+        MESH_PATHS["dense"] += 1
         attn = _dense_attention(q, k, v, keep, rate, seeds)
     return [_project_out(params, weights, "bshd,hde->bse", attn, wo,
                          q_in.dtype, ctx)]

@@ -117,13 +117,21 @@ def conv2d(x, kernel, stride=(1, 1), padding=(0, 0), groups=1):
 
 
 def _forward(params: Conv2DParams, weights, inputs, ctx):
+    from ..parallel.mesh import per_shard
+
     (x,) = inputs
     cdt = ctx.compute_dtype
     if cdt is not None:
         x = x.to(cdt)
-    y = conv2d(x, cast_weight(ctx, weights["kernel"], x.dtype),
-               (params.stride_h, params.stride_w),
-               (params.padding_h, params.padding_w), params.groups)
+    # on a mesh, on each rank's batch shard with C, H and W whole and the
+    # kernel whole: torch 2.11's DTensor refuses a strided, padded
+    # convolution
+    y = per_shard(
+        lambda t, k: conv2d(t, k, (params.stride_h, params.stride_w),
+                            (params.padding_h, params.padding_w),
+                            params.groups),
+        x, (1, 2, 3), "conv2d",
+        shared=(cast_weight(ctx, weights["kernel"], x.dtype),))
     if params.use_bias:
         y = y + cast_weight(ctx, weights["bias"], y.dtype)[None, :, None,
                                                            None]

@@ -63,13 +63,17 @@ def keep_mask(seeds, rate: float, shape, device, salt: int = 0):
 
 def _forward(params: DropoutParams, weights, inputs, ctx):
     from ..kernels import attention as katt
+    from ..parallel.mesh import like
 
     (x,) = inputs
     if not ctx.training or params.rate <= 0.0 or ctx.rng is None:
         return [x]
     seeds = (ctx.rng if isinstance(ctx.rng, torch.Tensor)
              else katt.dropout_seeds(ctx.rng))
-    mask = keep_mask(seeds, params.rate, x.shape, x.device, params.seed)
+    # over the global shape: on a mesh, every rank draws the whole mask
+    # and DTensor keeps each rank's part of it
+    mask = like(keep_mask(seeds, params.rate, x.shape, x.device,
+                          params.seed), x)
     return [torch.where(mask, x / (1.0 - params.rate), 0).to(x.dtype)]
 
 

@@ -53,12 +53,16 @@ def dispatch_mask(assign: torch.Tensor, n: int,
     """The f32 [b * k, n, capacity] dispatch mask of the assignments
     ([b, k] expert ids): row t (token t // k's choice t % k) has a 1 at
     (its expert, its 1-based rank among that expert's rows - 1) if the
-    rank is within capacity, else no 1 at all."""
-    flat = assign.reshape(-1).long()
+    rank is within capacity, else no 1 at all. A row's rank counts the
+    rows of the whole batch before it, so on a mesh the assignments are
+    gathered whole first and the mask comes back replicated."""
+    from ..parallel.mesh import gathered, like
+
+    flat = gathered(assign, "dispatch_mask").reshape(-1).long()
     onehot = flat[:, None] == torch.arange(n, device=flat.device)
     pos = torch.cumsum(onehot.int(), dim=0) * onehot  # 0: not chosen
     slots = torch.arange(1, capacity + 1, device=flat.device)
-    return (pos[..., None] == slots).float()
+    return like((pos[..., None] == slots).float(), assign)
 
 
 def dropped_share(assign: torch.Tensor, n: int, capacity: int) -> float:

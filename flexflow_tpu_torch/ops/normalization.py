@@ -56,8 +56,10 @@ def _bn_state(params, in_shapes, in_dtypes):
 
 def _bn_batch_stats(x):
     """Per-channel (mean, biased var) over every axis but 1, in f32."""
+    from ..parallel.mesh import var_mean
+
     axes = tuple(i for i in range(x.dim()) if i != 1)
-    var, mean = torch.var_mean(x.float(), dim=axes, correction=0)
+    var, mean = var_mean(x.float(), axes)
     return mean, var
 
 
@@ -120,10 +122,12 @@ def _weights(params: LayerNormParams, in_shapes, in_dtypes):
 
 
 def _forward(params: LayerNormParams, weights, inputs, ctx):
+    from ..parallel.mesh import var_mean
+
     (x,) = inputs
     axes = tuple(a % x.dim() for a in params.axes)
     xf = x.float()
-    var, mean = torch.var_mean(xf, dim=axes, keepdim=True, correction=0)
+    var, mean = var_mean(xf, axes, keepdim=True)
     y = (xf - mean) / torch.sqrt(var + params.eps)
     if params.elementwise_affine:
         bshape = [x.shape[a] if a in axes else 1 for a in range(x.dim())]

@@ -45,7 +45,17 @@ def _infer(params: Pool2DParams, in_shapes, in_dtypes):
 
 
 def _forward(params: Pool2DParams, weights, inputs, ctx):
+    from ..parallel.mesh import per_shard
+
     (x,) = inputs
+    # on a mesh, on each rank's (N, C) shard with H and W whole: torch
+    # 2.11's DTensor has no rule for max_pool2d_with_indices
+    y = per_shard(lambda t: _pool(params, t), x, (2, 3), "pool2d")
+    return [apply_activation(params.activation, y)]
+
+
+def _pool(params: Pool2DParams, x):
+    """The pooling of (N, C, H, W) `x`, before the activation."""
     k = (params.kernel_h, params.kernel_w)
     s = (params.stride_h, params.stride_w)
     p = (params.padding_h, params.padding_w)
@@ -67,7 +77,7 @@ def _forward(params: Pool2DParams, weights, inputs, ctx):
                               device=x.device)
             count = F.avg_pool2d(F.pad(ones, pads), k, s, divisor_override=1)
             y = total / count
-    return [apply_activation(params.activation, y)]
+    return y
 
 
 register_op(OperatorType.OP_POOL2D, "Pool2D", infer=_infer, forward=_forward)

@@ -117,7 +117,12 @@ def top_k(x: torch.Tensor, k: int):
 
 
 def _topk_forward(params: TopKParams, w, x, ctx):
-    values, indices = top_k(x[0], params.k)
+    from ..parallel.mesh import per_shard
+
+    # on a mesh, on each rank's rows with the last axis whole: torch
+    # 2.11's DTensor cannot run the sort's backward scatter
+    values, indices = per_shard(lambda t: top_k(t, params.k), x[0], (-1,),
+                                "top_k", n_out=2)
     return [values, indices.int()]
 
 

@@ -131,6 +131,12 @@ class FwdCtx:
     # ops whose backward runs in an autograd Function of their own name
     # it "<op_name>.bwd"
     profile_ranges: bool = False
+    # the mesh the executor runs on (parallel/mesh.py Mesh; None: one
+    # device, no process group) and its device count, as in the JAX
+    # context: ops that shard work by hand (attention's per-shard flash
+    # kernels) read the axis sizes
+    mesh: Optional[object] = None
+    n_devices: int = 1
 
     def add_aux_loss(self, value: torch.Tensor) -> None:
         if self.aux_losses is not None:

@@ -1,13 +1,15 @@
 """PCG executor: weights, the forward walk, the train step and the
 serving decode step.
 
-The PyTorch counterpart of flexflow_tpu/parallel/executor.py on one
-device: `init_params`/`init_state`, `apply`/`build_forward`, the training
-steps (`build_train_step`, `build_grad_step`, `build_eval_step`) and
+The PyTorch counterpart of flexflow_tpu/parallel/executor.py:
+`init_params`/`init_state`, `apply`/`build_forward`, the training steps
+(`build_train_step`, `build_grad_step`, `build_eval_step`) and
 `build_decode`, with `compute_dtype` (bf16 compute over f32 master weights
 under mixed precision) and `grad_dtype` (gradients rounded to bf16 before
-the update, the JAX package's default under mixed precision). Meshes and
-sharding are not ported. PyTorch runs eagerly, so the "built" functions
+the update, the JAX package's default under mixed precision).
+`PCGExecutor` runs on one device; `MeshExecutor` runs the same walk as
+one SPMD program over a device mesh of one process per device (see its
+docstring). PyTorch runs eagerly, so the "built" functions
 are plain closures. `apply` records an autograd graph when its weights
 require grad; the serving entry points (`build_forward`'s closure and
 the decode step) run under `torch.inference_mode`, so serving records
@@ -88,6 +90,7 @@ from ..ops.common import WeightCache
 from ..ops.registry import FwdCtx, get_op_def
 from ..pcg.graph import Graph
 from . import parallel_ops
+from .mesh import distribute, full, is_dtensor, local
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -218,12 +221,20 @@ def global_grad_norm(grads) -> torch.Tensor:
     leaves = _tensors(grads)
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
+    # a DTensor's norm is partial over its shards: each is reduced to the
+    # norm of the global gradient
     return torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm(leaves, 2, dtype=torch.float32)))
+        [full(n) for n in torch._foreach_norm(leaves, 2,
+                                               dtype=torch.float32)]))
 
 
 class PCGExecutor:
     """Runs a PCG on one device."""
+
+    # the device mesh (MeshExecutor); None: one device
+    mesh = None
+    # the grad mode of the serving forward: no autograd record at all
+    _serving_mode = torch.inference_mode
 
     def __init__(self, graph: Graph, device: torch.device, *,
                  optimizer=None, loss_type: Optional[LossType] = None,
@@ -427,7 +438,8 @@ class PCGExecutor:
         return FwdCtx(training=training, compute_dtype=self.compute_dtype,
                       op_name=op_name, rng=rng, seq_length=seq_length,
                       weight_cache=weight_cache, aux_losses=aux_losses,
-                      profile_ranges=self._profile_ranges)
+                      profile_ranges=self._profile_ranges, mesh=self.mesh,
+                      n_devices=1 if self.mesh is None else self.mesh.size)
 
     def seed_table(self, step_seeds) -> torch.Tensor:
         """The (N, n_ops, 2) int32 CPU seed table of N steps' seeds
@@ -452,6 +464,13 @@ class PCGExecutor:
 
     def _as_input(self, pt, array) -> torch.Tensor:
         return torch.as_tensor(array, dtype=pt.data_type.torch_dtype,
+                               device=self.device)
+
+    def place_param(self, wpt, value) -> torch.Tensor:
+        """A whole weight (an array or tensor) as this executor holds
+        tensor `wpt`: on its device in its dtype (MeshExecutor: this
+        rank's shard of it)."""
+        return torch.as_tensor(value, dtype=wpt.data_type.torch_dtype,
                                device=self.device)
 
     def _input_vals(self, batch_inputs) -> Dict[int, torch.Tensor]:
@@ -488,8 +507,9 @@ class PCGExecutor:
         for op in self.topo:
             ins = [vals[t.guid] for t in op.inputs]
             if op.is_parallel_op:
-                for t, o in zip(op.outputs, parallel_ops.execute(op, ins)):
-                    vals[t.guid] = o
+                for t, o in zip(op.outputs,
+                                parallel_ops.execute(op, ins, self.mesh)):
+                    vals[t.guid] = self._constrain(o, t)
                 continue
             compute_idx = self.compute_index[op.guid]
             opdef = get_op_def(op.op_type)
@@ -501,8 +521,13 @@ class PCGExecutor:
                 outs = self._op_forward(op, opdef, w, ins, ctx, training,
                                         net_state, net_out)
             for t, o in zip(op.outputs, outs):
-                vals[t.guid] = o
+                vals[t.guid] = self._constrain(o, t)
         return vals
+
+    def _constrain(self, val, pt):
+        """The value of tensor `pt` as the strategy places it: on one
+        device, as it is (MeshExecutor redistributes)."""
+        return val
 
     def _op_forward(self, op, opdef, w, ins, ctx, training, net_state,
                     net_out):
@@ -533,12 +558,12 @@ class PCGExecutor:
         (JAX: the iteration config's seq_length; batch_matmul slices its
         a/b_seq_length_dim axes to it)."""
 
-        @torch.inference_mode()
         def fwd(params, batch_inputs, net_state=None):
-            vals = self.apply(params, self._input_vals(batch_inputs),
-                              seq_length=seq_length,
-                              weight_cache=self.weight_cache,
-                              net_state=net_state)
+            with self._serving_mode():
+                vals = self.apply(params, self._input_vals(batch_inputs),
+                                  seq_length=seq_length,
+                                  weight_cache=self.weight_cache,
+                                  net_state=net_state)
             return vals[self.logits_pt.guid]
 
         return fwd
@@ -659,8 +684,9 @@ class PCGExecutor:
         # unscale (and poison) in f32, then round back to the gradient's
         # dtype, in place. The foreach calls launch a few kernels for the
         # whole list where per-tensor calls launch one each: the eager
-        # step is bound by the host's launches
-        flat = _tensors(grads)
+        # step is bound by the host's launches. On a mesh they act on
+        # each rank's shards
+        flat = [local(t) for t in _tensors(grads)]
         wide = [t if t.dtype == torch.float32 else t.to(torch.float32)
                 for t in flat]
         torch._foreach_mul_(wide, inv)
@@ -673,7 +699,7 @@ class PCGExecutor:
         # unchanged — momentum/bias-correction (Adam's beta_t too) must
         # not advance on a discarded gradient. The update is in place,
         # so snapshot first and write the snapshot back where not finite
-        live = _tensors((state.params, state.opt_state))
+        live = [local(t) for t in _tensors((state.params, state.opt_state))]
         kept = [torch.empty_like(t) for t in live]
         torch._foreach_copy_(kept, live)
         self.optimizer.update(state.params, grads, state.opt_state)
@@ -754,9 +780,10 @@ class PCGExecutor:
 
     @staticmethod
     def _state_tensors(state: TrainState) -> List[torch.Tensor]:
-        return _tensors((state.params, state.opt_state, state.net_state,
-                         state.guard.as_dict() if state.guard is not None
-                         else {}))
+        """Every tensor of the state, each rank's shard of a DTensor."""
+        return [local(t) for t in _tensors(
+            (state.params, state.opt_state, state.net_state,
+             state.guard.as_dict() if state.guard is not None else {}))]
 
     def snapshot_state(self, state: TrainState) -> List[torch.Tensor]:
         """Copies of every tensor a train step updates in place (weights,
@@ -1325,3 +1352,185 @@ class _DecodeGraph:
         graph = CapturedGraph()
         graph.capture(fn, capture_error_mode="thread_local")
         self.graph = graph
+
+
+class MeshExecutor(PCGExecutor):
+    """Runs a PCG as one SPMD program over a device mesh (parallel/
+    mesh.py Mesh: one process per device, NCCL on cards, gloo on the
+    CPU), the JAX package's PCGExecutor on a mesh.
+
+    Every value of the walk is a DTensor holding the GLOBAL array, so an
+    op computes what it computes on one device and DTensor's sharding
+    propagation inserts the collectives (the JAX package's GSPMD):
+    a data-parallel BatchNorm takes the statistics of the whole batch, a
+    row-parallel contraction comes out `Partial` and is summed where the
+    graph asks for it. `init_params` draws every weight whole from the
+    same CPU generator on every rank, exactly as PCGExecutor does, and
+    each rank keeps its shard (the draws do not depend on the mesh).
+    Every ParallelTensor with a sharded dim is redistributed to its
+    placements (`_constrain`, JAX's with_sharding_constraint), the
+    parallel ops redistribute to theirs (parallel/parallel_ops.py), the
+    batch inputs and the labels are sharded from the global batch that
+    every rank passes, and each weight's gradient is redistributed to
+    the weight's placement once a step: the gradient all-reduce of a
+    replicated weight (`grad_syncs` counts the redistributes that run: a
+    gradient that comes out placed as its weight is needs none). Loss,
+    metric partials, the forward's output and the eval step's logits
+    are replicated whole on every rank before the host can read them.
+    The optimizers, the step guard (on the global gradient norm) and
+    snapshot/restore act on DTensors or each rank's shards.
+
+    No op is gathered behind its back: an op that builds a plain tensor
+    over the global shape (a dropout mask, the MoE dispatch mask) wraps
+    it as a replicated DTensor itself (parallel/mesh.py `like`), and the
+    ops that DTensor has no rule for in some torch release (var_mean in
+    LayerNorm and BatchNorm, pooling, a strided padded convolution,
+    top_k's sort) run on local shards through `per_shard`, as
+    attention's kernels and chunked path run through `local_map`; an op
+    DTensor refuses otherwise raises. Not ported on a mesh of more than
+    one device, and refused by name: the captured train scan and the
+    decode step."""
+
+    # DTensor's views cannot set the version counter of an inference
+    # tensor (a conv2d bias broadcast raises), so the mesh's forward runs
+    # under no_grad
+    _serving_mode = torch.no_grad
+
+    def __init__(self, graph: Graph, mesh, device: torch.device, **kw):
+        super().__init__(graph, device, **kw)
+        self.mesh = mesh
+        self._pl: Dict[int, tuple] = {}
+        self._weight_pts = {(op.name, n): wpt for op in self.topo
+                            for n, wpt in zip(op.weight_names, op.weights)}
+        self._const_vals = {g: self._replicated(v)
+                            for g, v in self._const_vals.items()}
+        # the gradient redistributes that ran (at most one a weight a step)
+        self.grad_syncs = 0
+
+    def placements(self, pt) -> tuple:
+        pl = self._pl.get(pt.guid)
+        if pl is None:
+            pl = self._pl[pt.guid] = self.mesh.placements(pt)
+        return pl
+
+    def _replicated(self, t: torch.Tensor):
+        """`t`, which every rank holds alike, as a replicated DTensor."""
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(t, self.mesh.device_mesh,
+                                  self.mesh.replicate(), run_check=False)
+
+    def _unsupported(self, what: str) -> None:
+        if self.mesh.size > 1:
+            raise NotImplementedError(
+                f"{what} on a mesh of {self.mesh.size} devices is not "
+                "ported to flexflow_tpu_torch yet: it comes with a later "
+                "slice of multi-device execution (ROADMAP queue 1 item 6)")
+
+    # -- placement -------------------------------------------------------
+    def init_params(self) -> Params:
+        params = super().init_params()
+        return {op: {n: distribute(w, self.mesh, self.placements(
+            self._weight_pts[(op, n)])) for n, w in ws.items()}
+            for op, ws in params.items()}
+
+    def init_net_state(self) -> Params:
+        return {op: {n: self._replicated(b) for n, b in bufs.items()}
+                for op, bufs in super().init_net_state().items()}
+
+    def place_param(self, wpt, value) -> torch.Tensor:
+        return distribute(super().place_param(wpt, value), self.mesh,
+                          self.placements(wpt))
+
+    def _input_vals(self, batch_inputs) -> Dict[int, torch.Tensor]:
+        vals = super()._input_vals(batch_inputs)
+        return {pt.guid: distribute(vals[pt.guid], self.mesh,
+                                    self.placements(pt))
+                for pt in self.input_pts}
+
+    def _as_labels(self, labels) -> torch.Tensor:
+        """The global labels, sharded as the logits are on every dim but
+        the class dim (a sparse label's trailing 1 cannot shard)."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        y = super()._as_labels(labels)
+        lshape = self.logits_pt.material_shape()
+        pl = tuple(
+            p if isinstance(p, Shard) and p.dim < len(lshape) - 1
+            and p.dim < y.dim() - 1 and y.shape[p.dim] == lshape[p.dim]
+            else Replicate()
+            for p in self.placements(self.logits_pt))
+        return distribute(y, self.mesh, pl)
+
+    def _constrain(self, val, pt):
+        from torch.distributed.tensor import Shard
+
+        if not is_dtensor(val):
+            val = self._replicated(val)
+        pl = self.placements(pt)
+        if any(isinstance(p, Shard) for p in pl) and \
+                tuple(val.placements) != pl:
+            val = val.redistribute(self.mesh.device_mesh, pl)
+        return val
+
+    # -- the walk --------------------------------------------------------
+    def _cast_grads(self, grads: Params) -> Params:
+        """Cast as PCGExecutor casts, then redistribute each gradient to
+        its weight's placement: the gradient all-reduce (reduce-scatter
+        for a sharded weight) of the step, at most once a weight. A
+        gradient that comes out placed as its weight is (a weight sharded
+        as its activations are) needs no collective and is not counted."""
+        grads = super()._cast_grads(grads)
+        out: Params = {}
+        for op, gs in grads.items():
+            for n, g in gs.items():
+                pl = self.placements(self._weight_pts[(op, n)])
+                if not is_dtensor(g):
+                    g = self._replicated(g)
+                if tuple(g.placements) != pl:
+                    g = g.redistribute(self.mesh.device_mesh, pl)
+                    self.grad_syncs += 1
+                out.setdefault(op, {})[n] = g
+        return out
+
+    def _train(self, state, batch_inputs, labels, row, poison=None):
+        return {k: full(v) for k, v in super()._train(
+            state, batch_inputs, labels, row, poison).items()}
+
+    def build_forward(self, seq_length: int = -1) -> Callable:
+        fwd = super().build_forward(seq_length)
+        return lambda params, batch_inputs, net_state=None: full(
+            fwd(params, batch_inputs, net_state))
+
+    def build_eval_step(self) -> Callable:
+        step = super().build_eval_step()
+
+        def whole(params, batch_inputs, labels, net_state=None):
+            logits, partials = step(params, batch_inputs, labels, net_state)
+            return full(logits), {k: full(v) for k, v in partials.items()}
+
+        return whole
+
+    def build_train_scan(self) -> Callable:
+        self._unsupported("the captured multi-step train scan "
+                          "(iterations_per_dispatch > 1)")
+        return super().build_train_scan()
+
+    def build_decode(self, *args, **kw):
+        """On a mesh of one device: PCGExecutor's decode on each weight's
+        local tensor (the whole weight). Refused on a bigger mesh."""
+        self._unsupported("the serving decode step (build_decode)")
+        init_caches, step = super().build_decode(*args, **kw)
+
+        def whole(params):
+            return None if params is None else {
+                op: {n: local(w) for n, w in ws.items()}
+                for op, ws in params.items()}
+
+        def init(params=None, static_inputs=()):
+            return init_caches(whole(params), static_inputs)
+
+        def decode_step(params, caches, t, batch_inputs, **k):
+            return step(whole(params), caches, t, batch_inputs, **k)
+
+        return init, decode_step

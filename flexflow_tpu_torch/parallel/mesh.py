@@ -1,0 +1,288 @@
+"""Device mesh construction and ParallelTensor -> DTensor placements.
+
+The PyTorch counterpart of flexflow_tpu/parallel/mesh.py. Where the JAX
+package lowers a ParallelTensor to a PartitionSpec over a jax Mesh and
+lets GSPMD insert the collectives, the port lowers it to DTensor
+placements (`Shard(d)` / `Replicate()`, one per mesh axis) over a
+`torch.distributed` DeviceMesh of one process per device, and DTensor's
+sharding propagation inserts them: an op on DTensors computes the value
+of the GLOBAL array, as the JAX program does.
+
+A `Mesh` keeps JAX's named axes, size-1 axes included, so a
+ParallelDim's `parallel_idx` indexes the same axis in both packages. The
+DeviceMesh under it spans only the axes of size > 1 (one axis of size 1
+when every axis is): DTensor enumerates its sharding strategies over the
+product of the mesh's dims, so every size-1 dim multiplies the cost of
+propagating each op (a matmul on a 2 x 2 x 1 x 1 x 1 mesh took seconds
+where the 2 x 2 mesh takes milliseconds) and shards nothing.
+
+The ops use a few helpers where DTensor alone would not do: `like`
+turns a plain tensor built over the global shape (a mask) into a
+replicated DTensor, `shard_like` places a whole tensor as a DTensor is
+placed, `gathered` reads a value whole, and `per_shard` runs an op on
+local shards through `local_map` where DTensor has no rule for it in
+some torch release (`var_mean` is one). Every gather of a sharded
+operand they make is counted in `GATHERED`.
+"""
+from __future__ import annotations
+
+import collections
+import sys
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+# Canonical axis names in priority order (the JAX package's): data =
+# sample dim, model = tensor parallel, seq = sequence parallel, expert =
+# MoE experts, pipe = pipeline stages, fsdp = weight sharding (the batch
+# shards over data AND fsdp jointly).
+AXIS_NAMES = ("data", "model", "seq", "expert", "pipe", "fsdp")
+
+
+def _dtensor_module():
+    """torch.distributed.tensor once something imported it (every
+    DTensor comes from it), else None: plain tensors need no import."""
+    return sys.modules.get("torch.distributed.tensor")
+
+
+def is_dtensor(t) -> bool:
+    mod = _dtensor_module()
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def local(t):
+    """This rank's shard of a DTensor; any other value as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def full(t):
+    """The whole global value of a DTensor on every rank (an all-gather
+    or all-reduce where it is sharded or partial); any other value as it
+    is. Every host read of a mesh value goes through this (the JAX
+    package's `_fetch_global`)."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def like(t: torch.Tensor, ref):
+    """`t`, a plain tensor that every rank builds alike over the GLOBAL
+    shape (a mask), as a replicated DTensor on `ref`'s mesh when `ref` is
+    a DTensor, else as it is: an op on DTensors takes no plain operand
+    but a scalar."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def shard_like(t: torch.Tensor, ref):
+    """`t`, a whole tensor of `ref`'s global shape that every rank holds
+    alike, placed as DTensor `ref` is (each rank keeps its own shard,
+    sliced locally); with any other `ref`, `t` as it is."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t.to(local(ref).device), ref.device_mesh,
+                             ref.placements, src_data_rank=None)
+
+
+# the calls of `per_shard` and `gathered` that gathered a sharded
+# operand first ({op name: calls}); the tests read it
+GATHERED: collections.Counter = collections.Counter()
+
+
+def per_shard(fn, x: torch.Tensor, whole: Sequence[int], name: str, *,
+              shared: Sequence[torch.Tensor] = (), n_out: int = 1,
+              dropped: Sequence[int] = ()):
+    """`fn(x, *shared)` for an op that some torch release's DTensor has
+    no rule for (or a rule that refuses the op's arguments) and that
+    computes each position of `x`'s dims outside `whole` on its own
+    (pooling, a convolution over N, a per-row reduction or sort). On a
+    DTensor `fn` runs on each rank's local tensors through `local_map`:
+    the dims in `whole` held whole on every rank (a mesh axis that
+    shards one of them is gathered first), the other dims placed as `x`
+    places them; each of `shared` (a weight) held whole on every rank,
+    its gradient a partial sum over the axes that shard `x`. Gathering a
+    sharded operand counts `name` in GATHERED. `fn` returns `n_out`
+    tensors, each without the dims in `dropped` (a reduction without
+    keepdim). Without a DTensor: `fn(x, *shared)`."""
+    if not is_dtensor(x):
+        return fn(x, *shared)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    whole = tuple(d % x.dim() for d in whole)
+    pl = [p if isinstance(p, Shard) and p.dim not in whole else Replicate()
+          for p in x.placements]
+    rep = [Replicate()] * len(pl)
+    if any(isinstance(p, Shard) and p.dim in whole for p in x.placements) \
+            or any(is_dtensor(w) and any(not isinstance(p, Replicate)
+                                         for p in w.placements)
+                   for w in shared):
+        GATHERED[name] += 1
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    out = [Shard(p.dim - sum(d < p.dim for d in dropped))
+           if isinstance(p, Shard) else p for p in pl]
+    return local_map(fn, out_placements=out if n_out == 1 else (out,) * n_out,
+                     in_placements=(pl,) + (rep,) * len(shared),
+                     in_grad_placements=(pl,) + (grad,) * len(shared),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, *shared)
+
+
+def gathered(t, name: str):
+    """The whole value of `t` (`full`) for an op that needs every rank to
+    see all of it, counting `name` in GATHERED where `t` is sharded."""
+    from torch.distributed.tensor import Replicate
+
+    if is_dtensor(t) and any(not isinstance(p, Replicate)
+                             for p in t.placements):
+        GATHERED[name] += 1
+    return full(t)
+
+
+def var_mean(x: torch.Tensor, dims: Sequence[int], keepdim: bool = False):
+    """(var, mean) of `x` over `dims`, biased (`torch.var_mean(...,
+    correction=0)`), through `per_shard` on a DTensor (torch 2.11's
+    DTensor has no rule for var_mean)."""
+    dims = tuple(d % x.dim() for d in dims)
+    return per_shard(
+        lambda t: torch.var_mean(t, dim=dims, keepdim=keepdim, correction=0),
+        x, dims, "var_mean", n_out=2, dropped=() if keepdim else dims)
+
+
+def placements_for_parallel_tensor(pt, axis_names: Sequence[str],
+                                   axis_sizes: Sequence[int]) -> tuple:
+    """Lower ParallelTensor dims to DTensor placements, one per axis of
+    `axis_names` (the JAX package's `pspec_for_parallel_tensor`, as a pure
+    function of the names and sizes).
+
+    Partitioned material dims shard over their axis (`Shard(material
+    dim)`); replica dims are dropped (their axis stays `Replicate()`). A
+    mesh axis is used at most once per tensor: when two dims land on the
+    same axis the first keeps it and the later ones stay replicated. The
+    ZeRO/FSDP batch rule: a "data" (or "expert") dim whose degree is the
+    data size times the fsdp size shards over both axes jointly, data
+    major (JAX's ("data", "fsdp") tuple)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(axis_names)
+    sizes = dict(zip(names, axis_sizes))
+    out = [Replicate() for _ in names]
+    used = set()
+    md = 0
+    for d in pt.dims:
+        if d.is_replica_dim:
+            continue
+        if d.degree > 1 and 0 <= d.parallel_idx < len(names) \
+                and names[d.parallel_idx] not in used:
+            name = names[d.parallel_idx]
+            entry = (name,)
+            if (name in ("data", "expert") and "fsdp" in names
+                    and "fsdp" not in used
+                    and d.degree != sizes[name]
+                    and d.degree == sizes[name] * sizes.get("fsdp", 1)):
+                entry = (name, "fsdp")
+                used.add("fsdp")
+            used.add(name)
+            for n in entry:
+                out[names.index(n)] = Shard(md)
+        md += 1
+    return tuple(out)
+
+
+class Mesh:
+    """A device mesh of named axes over the default process group, one
+    device per process (the JAX package's jax.sharding.Mesh). `shape`
+    maps every axis name to its size, size-1 axes kept; `device_mesh` is
+    the DeviceMesh over the axes of size > 1 (`live_axes`), ranks laid out
+    row-major in axis order as JAX's build_mesh lays out devices."""
+
+    def __init__(self, axis_sizes: Dict[str, int], device_type: str):
+        from torch.distributed.device_mesh import init_device_mesh
+
+        self.axis_names: Tuple[str, ...] = tuple(axis_sizes)
+        self.shape: Dict[str, int] = {k: int(v)
+                                      for k, v in axis_sizes.items()}
+        self.size = 1
+        for v in self.shape.values():
+            self.size *= v
+        live = [(k, v) for k, v in self.shape.items() if v > 1] \
+            or [(self.axis_names[0], 1)]
+        self.live_axes: Tuple[str, ...] = tuple(k for k, _ in live)
+        self._live_idx = [self.axis_names.index(k) for k in self.live_axes]
+        self.device_type = device_type
+        self.device_mesh = init_device_mesh(
+            device_type, tuple(v for _, v in live),
+            mesh_dim_names=self.live_axes)
+
+    def placements(self, pt) -> tuple:
+        """The DTensor placements of a ParallelTensor on this mesh (one
+        per live axis)."""
+        full_pl = placements_for_parallel_tensor(
+            pt, self.axis_names, [self.shape[k] for k in self.axis_names])
+        return tuple(full_pl[i] for i in self._live_idx)
+
+    def replicate(self) -> tuple:
+        from torch.distributed.tensor import Replicate
+
+        return tuple(Replicate() for _ in self.live_axes)
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, {self.device_type})"
+
+
+def build_mesh(axis_sizes: Dict[str, int],
+               device_type: Optional[str] = None) -> Mesh:
+    """A Mesh of {axis name: size} over the default process group (size-1
+    axes kept). The sizes must multiply to the world size: one process
+    per device, and no process may sit outside the program. The device
+    type defaults to the group's ("cuda" under NCCL, "cpu" under gloo)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("build_mesh needs the process group: "
+                           "runtime/distributed.py init_distributed()")
+    axes = dict(axis_sizes) or {"data": 1}
+    n = 1
+    for v in axes.values():
+        n *= int(v)
+    world = dist.get_world_size()
+    if n != world:
+        raise ValueError(f"mesh {axes} needs {n} devices; the process "
+                         f"group has {world}")
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return Mesh(axes, device_type)
+
+
+def default_data_parallel_mesh(num_devices: Optional[int] = None,
+                               device_type: Optional[str] = None) -> Mesh:
+    import torch.distributed as dist
+
+    return build_mesh({"data": num_devices or dist.get_world_size()},
+                      device_type)
+
+
+def machine_view_to_axes(view, mesh: Mesh) -> Tuple[str, ...]:
+    """Map a MachineView's dims onto mesh axis names by size (the JAX
+    package's round-1 restriction: views align with the axis sizes)."""
+    out = []
+    for d in view.dim:
+        for name, sz in mesh.shape.items():
+            if sz == d and name not in out:
+                out.append(name)
+                break
+    return tuple(out)
+
+
+def distribute(t: torch.Tensor, mesh: Mesh, placements):
+    """A DTensor of the whole tensor `t`, which every rank holds alike:
+    each rank keeps its own shard, sliced locally (no communication)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, mesh.device_mesh, placements,
+                             src_data_rank=None)

@@ -7,13 +7,21 @@ fused_parallel_op}.cc) -- the parallelism vocabulary the Unity search
 inserts into the PCG. The parameter records are the JAX package's, so a
 searched graph and a strategy file mean the same in both packages.
 
-The port runs a PCG on one device, where every parallel op is the
-identity on the activation it passes on: a shard of the whole is the
-whole. The one exception is Reduction, which sums the partial copies
-when its input carries them as a material replica axis (an input with
-one more dim than the op's output), as the JAX package's shard_map path
-does. The weight-sharding node (parallel/weight_sharding.py) is an
-identity on the activation path too.
+On a device mesh (parallel/mesh.py, the mesh executor) each op is a
+resharding of a DTensor: its input is redistributed to the placements of
+the op's output ParallelTensor, and DTensor inserts the matching
+collective (the JAX package's `with_sharding_constraint`, whose
+collectives XLA inserts): Repartition splits a dim (a local slice),
+Combine gathers it (all-gather), Replicate broadcasts, AllToAll moves
+the split from one dim to another, and Reduction turns a `Partial` input
+(a row-parallel contraction's partial sums) into its output placement
+(an all-reduce or reduce-scatter). A Reduction whose input carries the
+partial copies as a material replica axis (an input with one more dim
+than the op's output, the JAX package's shard_map path) sums that axis
+first. Without a mesh (one device, no process group) every op is the
+identity on the activation it passes on, but for that sum. The
+weight-sharding node (parallel/weight_sharding.py) reshards the
+activation path only.
 """
 from __future__ import annotations
 
@@ -95,14 +103,20 @@ for _t, _name in (
     register_op(_t, _name, infer=_same_shape, forward=_identity)
 
 
-def execute(op: PCGOp, inputs: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Run a parallel op on one device: its registry row (the identity),
-    except that a Reduction whose input carries the partial copies as a
-    material axis (one more dim than its output) sums them over
-    `reduction_dim`."""
+def execute(op: PCGOp, inputs: List[torch.Tensor],
+            mesh=None) -> List[torch.Tensor]:
+    """Run a parallel op: on a `mesh`, a redistribute of its input
+    DTensor to the placements of its output; without one, its registry
+    row (the identity). Either way a Reduction whose input carries the
+    partial copies as a material axis (one more dim than its output) sums
+    them over `reduction_dim` first."""
     (x,) = inputs
     if op.op_type == OperatorType.OP_REDUCTION:
         out_ndim = len(op.outputs[0].material_shape())
         if x.dim() == out_ndim + 1:
-            return [x.sum(dim=op.params.reduction_dim)]
-    return get_op_def(op.op_type).forward(op.params, {}, inputs, None)
+            x = x.sum(dim=op.params.reduction_dim)
+            if mesh is None:
+                return [x]
+    if mesh is None:
+        return get_op_def(op.op_type).forward(op.params, {}, [x], None)
+    return [x.redistribute(mesh.device_mesh, mesh.placements(op.outputs[0]))]

@@ -4,12 +4,15 @@ The PyTorch counterpart of flexflow_tpu/parallel/strategies.py. The
 reference reaches a parallelized PCG either through the Unity search or
 through `--only-data-parallel` lowering (model.cc:2637-2642). These
 passes assign degrees/parallel_idx to ParallelTensor dims in place;
-`assign_mesh_axes` lowers a searched PCG to the device axes a machine of
-`max_devices` devices can hold, demoting every degree that does not fit
-to replicated. The port runs on one device, so a searched strategy
-comes out of it with every degree 1 (the JAX package's demotion on a
-mesh of one device), and the manual `apply_*` passes run at degree 1,
-where they change nothing.
+`assign_mesh_axes` lowers a searched PCG to the named axes of the live
+mesh (`max_devices`: the world size of the process group, one device per
+process), keeping every degree that fits and demoting the rest to
+replicated, as the JAX package does on a smaller mesh. `compile` runs
+`apply_data_parallel` and `apply_tensor_parallel` at the config's
+degrees, and the mesh executor (parallel/executor.py MeshExecutor)
+executes both at those degrees; the sequence, expert, pipeline and fsdp
+passes are kept for the search's lowering, and a strategy that needs
+their axes is refused at compile until their slices land.
 """
 from __future__ import annotations
 

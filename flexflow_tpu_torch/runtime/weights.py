@@ -11,7 +11,8 @@ stateful ops' buffers (BatchNorm's running mean and variance,
 `train_state_from_numpy` carries a whole training state across: the
 weights, the optimizer state (momentum, Adam's moments and beta_t), the
 buffers, the step guard's counters and the step, so both packages can
-start mid-run.
+start mid-run. `params_to_numpy` and `net_state_to_numpy` read them back
+whole, gathered first on a device mesh.
 
 A fused op (pcg/fusion.py, --fusion) keeps its chain's weights as
 `step<i>/<name>`, as the JAX package's fused graph does, so JAX's fused
@@ -23,6 +24,8 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import full, local
 
 
 def _check(want, params, what: str) -> None:
@@ -51,9 +54,10 @@ def _check(want, params, what: str) -> None:
 def params_from_numpy(model, params: Mapping[str, Mapping[str, np.ndarray]]
                       ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Replace `model.params` with `params`, each weight cast to the dtype
-    the model declares and placed on its device. Raises ValueError on any
-    difference in op names, weight names or shapes. Returns the new
-    params."""
+    the model declares and placed on its device (on a device mesh, each
+    rank keeps its shard of the whole weight it is given). Raises
+    ValueError on any difference in op names, weight names or shapes.
+    Returns the new params."""
     if model.executor is None:
         raise RuntimeError("compile() the model first")
     want = {op.name: {n: wpt for n, wpt in zip(op.weight_names, op.weights)}
@@ -61,12 +65,26 @@ def params_from_numpy(model, params: Mapping[str, Mapping[str, np.ndarray]]
     _check({op: {n: tuple(wpt.material_shape()) for n, wpt in ws.items()}
             for op, ws in want.items()}, params, "weights")
     model.params = {
-        op: {n: torch.as_tensor(np.array(params[op][n]),
-                                dtype=wpt.data_type.torch_dtype,
-                                device=model.device)
+        op: {n: model.executor.place_param(wpt, np.array(params[op][n]))
              for n, wpt in ws.items()}
         for op, ws in want.items()}
     return model.params
+
+
+def params_to_numpy(model) -> Dict[str, Dict[str, np.ndarray]]:
+    """Every weight of `model` whole, as f32 numpy arrays ({op: {weight:
+    array}}): on a device mesh each is gathered first, so every rank
+    reads the global weight, never its own shard."""
+    return {op: {n: full(w).detach().float().cpu().numpy()
+                 for n, w in ws.items()}
+            for op, ws in model.params.items()}
+
+
+def net_state_to_numpy(model) -> Dict[str, Dict[str, np.ndarray]]:
+    """The stateful ops' buffers whole, as numpy arrays."""
+    return {op: {n: full(b).detach().cpu().numpy()
+                 for n, b in bufs.items()}
+            for op, bufs in model.state.net_state.items()}
 
 
 def net_state_from_numpy(model, net_state: Mapping[str, Mapping[str,
@@ -85,7 +103,7 @@ def net_state_from_numpy(model, net_state: Mapping[str, Mapping[str,
     with torch.no_grad():
         for op, bufs in mine.items():
             for n, b in bufs.items():
-                b.copy_(torch.as_tensor(np.array(net_state[op][n])))
+                local(b).copy_(torch.as_tensor(np.array(net_state[op][n])))
     return mine
 
 

@@ -1567,3 +1567,105 @@ def test_native_library_builds_under_build_not_the_jax_package(gen):
     maps = open("/proc/self/maps").read()
     assert str(path) in maps
     assert "/flexflow_tpu/native/" not in maps
+
+
+def test_world_one_nccl_mesh_matches_the_plain_executor(gen):
+    """The mesh executor at world size 1 through NCCL (a process group of
+    one rank, the flash kernels per shard through local_map on wgmma)
+    trains a 2-block bf16 Transformer 2 steps bit for bit like the plain
+    single-device executor from the same seed's weights."""
+    import socket
+
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.ops import attention as att
+    from flexflow_tpu_torch.parallel.mesh import local
+    from flexflow_tpu_torch.runtime import distributed as rdist
+
+    def model(**cfg):
+        m = FFModel(FFConfig(batch_size=4, allow_mixed_precision=True,
+                             **cfg))
+        build_transformer(m, 4, 128, 256, 4, 2)
+        m.compile(SGDOptimizer(lr=0.01), "mse")
+        return m
+
+    x = np.random.RandomState(0).randn(4, 128, 256).astype(np.float32)
+    plain = model()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    rdist.init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        mesh = model(only_data_parallel=True)
+        assert type(mesh.executor).__name__ == "MeshExecutor"
+        assert torch.distributed.get_backend() == "nccl"
+        att.MESH_PATHS.clear()
+        build.reset_launch_counts()
+        for m in (mesh, plain):
+            step = m.executor.build_train_step()
+            for _ in range(2):
+                m.state, partials = step(m.state, [x], x)
+                assert np.isfinite(float(partials["loss"]))
+        assert att.MESH_PATHS["local_map"] == 4
+        assert build.path_counts["flash_fwd_wgmma"] == 8
+        assert build.path_counts["flash_bwd_wgmma"] == 8
+        for op, ws in plain.params.items():
+            for n, w in ws.items():
+                assert torch.equal(w, local(mesh.params[op][n])), (op, n)
+    finally:
+        rdist.shutdown()
+
+
+def test_world_one_nccl_mesh_keeps_flash_dropout(gen):
+    """On a mesh of one device every shard is the whole array, so a
+    2-block bf16 BERT with attention and hidden dropout keeps the flash
+    kernels' dropout variants per shard through local_map (never the
+    dense path) and trains 2 steps bit for bit like the plain executor
+    from the same weights and step seeds."""
+    import socket
+
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.frontends.torch import PyTorchModel
+    from flexflow_tpu_torch.models import BertEncoder
+    from flexflow_tpu_torch.ops import attention as att
+    from flexflow_tpu_torch.parallel.mesh import local
+    from flexflow_tpu_torch.runtime import distributed as rdist
+
+    def model(**cfg):
+        torch.manual_seed(0)
+        m = FFModel(FFConfig(batch_size=4, allow_mixed_precision=True,
+                             seed=0, **cfg))
+        pt = PyTorchModel(BertEncoder(2, 256, 4, 1024, 0.1, 0.1))
+        pt.torch_to_ff(m, [m.create_tensor((4, 128, 256))])
+        m.compile(SGDOptimizer(lr=0.01), "mse")
+        pt.load_weights(m)
+        return m
+
+    x = np.random.RandomState(0).randn(4, 128, 256).astype(np.float32)
+    plain = model()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    rdist.init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        mesh = model(only_data_parallel=True)
+        assert type(mesh.executor).__name__ == "MeshExecutor"
+        for m in (mesh, plain):
+            att.MESH_PATHS.clear()
+            build.reset_launch_counts()
+            step = m.executor.build_train_step()
+            for i in range(2):
+                m.state, partials = step(m.state, [x], x, i)
+                assert np.isfinite(float(partials["loss"]))
+            assert build.launch_counts["flash_fwd_dropout"] == 4
+            assert build.launch_counts["flash_bwd_dropout"] == 4
+            assert build.path_counts["flash_fwd_wgmma"] == 4
+            assert build.path_counts["flash_bwd_wgmma"] == 4
+            if m is mesh:
+                assert dict(att.MESH_PATHS) == {"local_map": 4}
+                assert m.executor.grad_syncs == 0
+        for op, ws in plain.params.items():
+            for n, w in ws.items():
+                assert torch.equal(w, local(mesh.params[op][n])), (op, n)
+    finally:
+        rdist.shutdown()

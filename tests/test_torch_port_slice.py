@@ -171,9 +171,11 @@ def test_compile_refuses_what_is_not_ported():
     m.softmax(m.create_tensor((2, 4)))
     with pytest.raises(TypeError):
         m.compile(calibration={})
-    # parallel degrees have no field until multi-device execution is ported
-    with pytest.raises(TypeError):
-        FFConfig(device="cpu", tensor_parallel_degree=2)
+    # the parallel degrees whose execution is not ported raise at compile
+    m = FFModel(FFConfig(device="cpu", sequence_parallel_degree=2))
+    m.softmax(m.create_tensor((2, 4)))
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+        m.compile()
 
 
 def test_entry_points_default_to_cuda():

@@ -172,11 +172,17 @@ def test_config_rejects_unported_fields_and_carries_the_new_ones():
     for name in ("iterations_per_dispatch", "remat"):
         assert getattr(cfg, name) == getattr(jcfg, name)
         setattr(cfg, name, getattr(cfg, name))
-    for name in ("fsdp_degree", "pipeline_parallelism_degree", "anything"):
+    for name in ("overlap_backward_update", "pipeline_parallelism_degree",
+                 "anything"):
         with pytest.raises(AttributeError):
             setattr(cfg, name, 2)
     with pytest.raises(TypeError):
-        FFConfig(device="cpu", fsdp_degree=2)
+        FFConfig(device="cpu", overlap_backward_update=True)
+    # the parallel degrees are fields (JAX's names and defaults); those
+    # whose execution is not ported raise at compile
+    for name in ("tensor_parallel_degree", "fsdp_degree",
+                 "pipeline_parallel_degree"):
+        assert getattr(cfg, name) == getattr(jcfg, name) == 1
     cfg.remat = True
     cfg.iterations_per_dispatch = 4
     m = FFModel(cfg)

@@ -1,0 +1,276 @@
+"""The cases the multi-process mesh tests run on every rank.
+
+`python -m flexflow_tpu_torch.runtime.mesh_run --device cpu
+tests/torch_mesh_cases.py spec.json out_dir` runs, on each rank, each
+case of a JSON spec in order:
+
+    {"name": ..., "builder": "transformer" | "dense_softmax" | "bn_cnn"
+     | "dropout_mlp" | "mlp" | "search_mlp" | "attention" | "bert"
+     | "moe",
+     "builder_kwargs": {...},
+     "config": {FFConfig fields}, "config_by_rank": {"1": {...}},
+     "env": {variables set for the case}, "loss": "mse" | ...,
+     "metrics": [...], "lr": 0.01 (SGD's rate), "optimizer": {SGD's
+     fields, or "adam": true and Adam's}, "weights": "<npz of op/weight>",
+     "data": "<npz of x0, x1, ..., y>", "rank_data": "<npz rank 1+ use>",
+     "random_data": {"x_shapes": [...], "y_shape": [...], "seed": 0},
+     "mode": "steps" | "guard" | "fit" | "scan" | "decode"
+     | "compile_decode" | "compile",
+     "steps": 3, "epochs": 1, "fit": {fit keywords},
+     "forward": true (then the forward of the first batch)}
+
+"steps" runs the executor's train step on the first `steps` batches
+(every rank passes the SAME global batch; the step seed is the step
+index; past the data, the batches repeat) and records each step's loss
+and its seconds (the loss read synchronises); "guard" does so with the
+step guard armed and the second step's gradients poisoned with NaN, and
+records the global gradient norms and the skips; "fit" runs FFModel.fit.
+With "forward", the serving forward of the first batch runs after them
+(on the state's buffers) and rank 0 keeps its output whole.
+Each rank writes `<out_dir>/<name>.rank<r>.json` (the error, if the case
+raised, else the losses, the mesh, the gradient redistributes, the
+attention mesh routes, the ops run on gathered operands, and each
+weight's local shape and placements) and
+rank 0 writes the final weights and buffers whole to
+`<out_dir>/<name>.npz` (`params_to_numpy`: gathered, never one shard).
+A case that raises is recorded and the next case runs. The tests build
+their one-device references with the same `build`.
+"""
+import json
+import os
+import time
+import traceback
+
+
+def build(model, name: str, kw: dict):
+    """Build model `name` into `model`; a frontend model returns its
+    PyTorchModel, whose weights are loaded after compile."""
+    from flexflow_tpu_torch.ff_types import ActiMode, DataType
+
+    if name == "transformer":
+        from flexflow_tpu_torch.models import build_transformer
+
+        build_transformer(model, kw["batch"], kw["seq"], kw["hidden"],
+                          kw["heads"], kw["layers"])
+    elif name == "dense_softmax":
+        # tests/test_sharding.py test_dp_matches_single_device's model
+        x = model.create_tensor((kw["batch"], 12), DataType.DT_FLOAT)
+        t = model.dense(x, 16, ActiMode.AC_MODE_RELU)
+        t = model.dense(t, 4)
+        model.softmax(t)
+    elif name == "dropout_mlp":
+        # a Dropout op: its mask is drawn over the global shape
+        x = model.create_tensor((kw["batch"], 12), DataType.DT_FLOAT)
+        t = model.dense(x, 16, ActiMode.AC_MODE_RELU)
+        t = model.dropout(t, 0.5)
+        t = model.dense(t, 4)
+        model.softmax(t)
+    elif name == "mlp":
+        x = model.create_tensor((kw["batch"], kw.get("width", 784)),
+                                DataType.DT_FLOAT)
+        t = model.dense(x, kw.get("hidden", 256), ActiMode.AC_MODE_RELU)
+        t = model.dense(t, 10)
+        model.softmax(t)
+    elif name == "search_mlp":
+        # tests/test_torch_port_search.py mlp_model: on a 4-worker machine
+        # its winner is tensor parallel, with Combine ops
+        x = model.create_tensor((kw["batch"], 512), DataType.DT_FLOAT)
+        t = model.dense(x, 1024, ActiMode.AC_MODE_RELU)
+        model.dense(t, 256)
+    elif name == "bn_cnn":
+        x = model.create_tensor((kw["batch"], 3, 8, 8), DataType.DT_FLOAT)
+        t = model.conv2d(x, 8, 3, 3, 1, 1, 1, 1)
+        t = model.batch_norm(t)
+        t = model.pool2d(t, 2, 2, 2, 2, 0, 0)
+        t = model.conv2d(t, 8, 3, 3, 1, 1, 1, 1)
+        t = model.batch_norm(t)
+        t = model.flat(t)
+        t = model.dense(t, 10)
+        model.softmax(t)
+    elif name == "attention":
+        e, h = kw["embed"], kw["heads"]
+        x = model.create_tensor((kw["batch"], kw["seq"], e),
+                                DataType.DT_FLOAT)
+        t = model.multihead_attention(x, x, x, e, h,
+                                      dropout=kw.get("dropout", 0.0))
+        model.dense(t, e)
+    elif name == "moe":
+        # the zoo's MoE: top-k gating, GroupBy's capacity-limited dispatch
+        # over the whole batch, Aggregate with the balance loss
+        from flexflow_tpu_torch.models import build_moe
+
+        build_moe(model, kw["batch"], input_dim=32, num_classes=4,
+                  num_exp=4, num_select=2, hidden=16, lambda_bal=0.04)
+    elif name == "bert":
+        # BERT through the PyTorch frontend: attention and hidden dropout
+        import torch
+
+        from flexflow_tpu_torch.frontends.torch import PyTorchModel
+        from flexflow_tpu_torch.models import BertEncoder
+
+        torch.manual_seed(0)
+        module = BertEncoder(kw["layers"], kw["hidden"], kw["heads"],
+                             kw["ffn"], kw["dropout"], kw["dropout"])
+        x = model.create_tensor((kw["batch"], kw["seq"], kw["hidden"]))
+        pt = PyTorchModel(module)
+        pt.torch_to_ff(model, [x])
+        # run_case loads the module's weights once the model is compiled
+        return pt
+    else:
+        raise ValueError(f"unknown builder {name!r}")
+
+
+def run_case(case: dict, rank: int, device: str) -> dict:
+    import numpy as np
+
+    from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel,
+                                    SGDOptimizer)
+    from flexflow_tpu_torch.ops import attention as att
+    from flexflow_tpu_torch.parallel import mesh as pmesh
+    from flexflow_tpu_torch.runtime.weights import (net_state_to_numpy,
+                                                    params_from_numpy,
+                                                    params_to_numpy)
+
+    cfg_kw = dict(case.get("config", {}))
+    cfg_kw.update(case.get("config_by_rank", {}).get(str(rank), {}))
+    for k, v in case.get("env", {}).items():
+        os.environ[k] = str(v)
+    att.MESH_PATHS.clear()
+    pmesh.GATHERED.clear()
+    model = FFModel(FFConfig(device=device, **cfg_kw))
+    source = build(model, case["builder"], case.get("builder_kwargs", {}))
+    opt = dict(case.get("optimizer", {"lr": case.get("lr", 0.01)}))
+    opt = (AdamOptimizer(**{k: v for k, v in opt.items() if k != "adam"})
+           if opt.get("adam") else SGDOptimizer(**opt))
+    model.compile(opt, case.get("loss", "mse"), case.get("metrics", []))
+    if source is not None:
+        source.load_weights(model)
+    if case.get("weights"):
+        with np.load(case["weights"]) as z:
+            tree = {}
+            for key in z.files:
+                op, n = key.split("/", 1)
+                tree.setdefault(op, {})[n] = z[key]
+        params_from_numpy(model, tree)
+    out: dict = {"losses": []}
+    data_path = case.get("data")
+    if rank > 0 and case.get("rank_data"):
+        data_path = case["rank_data"]
+    xs, y = [], None
+    if data_path:
+        with np.load(data_path) as z:
+            xs = [z[f"x{i}"] for i in range(sum(
+                1 for f in z.files if f.startswith("x")))]
+            y = z["y"]
+    elif "random_data" in case:
+        rd = case["random_data"]
+        rng = np.random.RandomState(rd.get("seed", 0))
+        xs = [rng.randn(*shape).astype(np.float32)
+              for shape in rd["x_shapes"]]
+        y = rng.randn(*rd["y_shape"]).astype(np.float32)
+    mode = case.get("mode", "steps")
+    ex = model.executor
+    bs = model.config.batch_size
+    if mode == "steps":
+        step = ex.build_train_step()
+        out["step_s"] = []
+        for i in range(case.get("steps", 1)):
+            j = i % max(1, len(y) // bs)
+            batch = [a[j * bs:(j + 1) * bs] for a in xs + [y]]
+            t0 = time.perf_counter()
+            model.state, partials = step(model.state, batch[:-1], batch[-1],
+                                         i)
+            out["losses"].append(float(partials["loss"]))
+            out["step_s"].append(time.perf_counter() - t0)
+    elif mode == "guard":
+        # the step guard armed, the second step's gradients poisoned
+        import torch
+
+        from flexflow_tpu_torch.runtime.resilience import StepGuardConfig
+
+        ex.set_step_guard(StepGuardConfig(init_loss_scale=4.0))
+        model.state.guard = ex.init_guard_state()
+        step = ex.build_train_step()
+        out["grad_norms"], out["skipped"] = [], []
+        for i in range(case.get("steps", 1)):
+            batch = [a[i * bs:(i + 1) * bs] for a in xs + [y]]
+            poison = torch.tensor(float("nan") if i == 1 else 1.0,
+                                  device=ex.device)
+            model.state, partials = step(model.state, batch[:-1], batch[-1],
+                                         i, poison)
+            out["losses"].append(float(partials["loss"]))
+            out["grad_norms"].append(float(partials["grad_norm"]))
+            out["skipped"].append(float(partials["skipped"]))
+    elif mode == "fit":
+        pm = model.fit(xs, y, batch_size=bs, epochs=case.get("epochs", 1),
+                       verbose=rank == 0, **case.get("fit", {}))
+        out["train_all"] = pm.train_all
+    elif mode == "scan":
+        ex.build_train_scan()
+    elif mode == "decode":
+        ex.build_decode(bs, 4)
+    elif mode == "compile_decode":
+        model.compile_decode()
+    mesh = ex.mesh
+    out.update(
+        mesh=None if mesh is None else mesh.shape,
+        executor=type(ex).__name__,
+        grad_syncs=getattr(ex, "grad_syncs", 0),
+        mesh_paths=dict(att.MESH_PATHS),
+        gathered=dict(pmesh.GATHERED),
+        searched_views=None if model.searched_views is None else sorted(
+            (pos, v.start_device_id, list(v.dim), list(v.stride))
+            for pos, v in _views_by_position(model)),
+        local_shapes={f"{op}/{n}": list(pmesh.local(w).shape)
+                      for op, ws in model.params.items()
+                      for n, w in ws.items()},
+        weight_placements={
+            f"{op}/{n}": [str(p) for p in getattr(w, "placements", ())]
+            for op, ws in model.params.items() for n, w in ws.items()})
+    fwd = None
+    if case.get("forward"):
+        fwd = ex.build_forward()(model.params, [a[:bs] for a in xs],
+                                 model.state.net_state)
+        fwd = fwd.detach().float().cpu().numpy()
+    weights = params_to_numpy(model)
+    buffers = net_state_to_numpy(model)
+    if rank == 0:
+        arrays = {f"w/{op}/{n}": a for op, ws in weights.items()
+                  for n, a in ws.items()}
+        arrays.update({f"s/{op}/{n}": a for op, bufs in buffers.items()
+                       for n, a in bufs.items()})
+        if fwd is not None:
+            arrays["f/out"] = fwd
+        out["arrays"] = arrays
+    return out
+
+
+def _views_by_position(model):
+    pos = {op.guid: i for i, op in enumerate(model.graph.topo_order())}
+    return [(pos.get(g, -1), v) for g, v in model.searched_views.items()]
+
+
+def run(rank: int, world: int, device: str, args) -> int:
+    import numpy as np
+
+    spec, out_dir = args
+    with open(spec) as f:
+        cases = json.load(f)
+    for case in cases:
+        t0 = time.perf_counter()
+        try:
+            out = run_case(case, rank, device)
+        except Exception as e:  # recorded; the next case runs
+            out = {"error": f"{type(e).__name__}: {e}",
+                   "traceback": traceback.format_exc()}
+        out["seconds"] = time.perf_counter() - t0
+        arrays = out.pop("arrays", None)
+        if arrays is not None:
+            np.savez(os.path.join(out_dir, f"{case['name']}.npz"), **arrays)
+        with open(os.path.join(out_dir,
+                               f"{case['name']}.rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        print(f"[rank {rank}/{world}] {case['name']}: "
+              f"{out.get('error', 'ok')} ({out['seconds']:.1f} s)",
+              flush=True)
+    return 0
