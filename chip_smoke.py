@@ -114,8 +114,8 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      (one OP_FUSED node a block), fit stepwise and as a scan against the
      unfused model's fit from the same weights, bit for bit, and ABBA
      samples/s of the two;
- 13. the Unity search: the flagship compiled with search_budget 10 in the
-     measured mode (search/measure.py: each operator's forward and
+ 13. the Unity search: the flagship (cut to 6 blocks) compiled with
+     search_budget 10 in the measured mode (search/measure.py: each operator's forward and
      forward-with-backward timed at its shard shapes in CUDA graphs of R
      and 4R calls, the attention op through both flash kernels) on the
      default machine of H100s, for 1 worker and for 8 simulated workers
@@ -215,8 +215,28 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      from the same weights and step seeds: on a mesh of one device the
      flash kernels keep their dropout per shard through local_map (every
      launch flash_fwd_dropout/flash_bwd_dropout on wgmma, routes all
-     local_map), the weight gap (expected 0). The group is destroyed at
-     the phase's end.
+     local_map), the weight gap (expected 0). The flagship's host ms a
+     step with the overlapped gradient sync off and on, and the
+     executor's collective counters (`mesh_counters` line). Then 17 of
+     the port's models (MESH_MODELS_CUTS: the flagship, fused, the
+     serving LM, BERT-base, the BERT proxy, the MoE Transformer, the
+     long-context Transformer, NMT, AlexNet, ResNet, ResNeXt-50,
+     Inception-v3, DLRM, XDL, CANDLE-Uno, MLP_Unify, the MoE MLP) at
+     their widths with depth and batch cut, each through a train step,
+     an eval step and a forward on the mesh, bit-equal to the plain
+     executor (the plain runs are taken before the group is up); and
+     every DTensor call of the FSDP, overlapped-sync and repaired paths
+     (dtensor_checks: the fsdp gather and its reduce-scatter, the async
+     reduce-scatter of a gradient, the owned slice's gather, SGD with
+     momentum and Adam on Shard weights and slots, the guard's norm, the
+     statistics from partial sums, chunked attention with sharded query
+     rows) held against the same function on plain tensors. The group is
+     destroyed; on a machine of two or more cards the flagship (f32, 2
+     blocks) then runs at dp 2 x fsdp 2 (or dp 2) over NCCL through
+     runtime/mesh_run.py `launch`, this script's `run` as the rank
+     program, held against one card's run, with its samples/s and peak
+     memory a card; with one card that sub-case says why it did not
+     run.
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -1445,11 +1465,11 @@ def serve(torch, model):
     return summary
 
 
-def build_transformer_model(torch, spd=1, fusion=False):
+def build_transformer_model(torch, spd=1, fusion=False, layers=LAYERS):
     """bench.py's default workload through the port's builder: the
     reference's headline Transformer, bf16 compute over f32 weights;
     `spd` steps a dispatch in fit; `fusion` compiles it with
-    perform_fusion (--fusion)."""
+    perform_fusion (--fusion); `layers` blocks."""
     from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
     from flexflow_tpu_torch.ff_types import LossType, MetricsType
     from flexflow_tpu_torch.models import build_transformer
@@ -1457,7 +1477,7 @@ def build_transformer_model(torch, spd=1, fusion=False):
     m = FFModel(FFConfig(batch_size=TRAIN_BATCH, allow_mixed_precision=True,
                          seed=0, iterations_per_dispatch=spd,
                          perform_fusion=fusion))
-    build_transformer(m, TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS, LAYERS)
+    build_transformer(m, TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS, layers)
     m.compile(SGDOptimizer(lr=0.01),
               LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
               [MetricsType.METRICS_MEAN_SQUARED_ERROR])
@@ -1801,17 +1821,504 @@ def mesh_bert(torch, plain):
             "launches": counts["mesh"][0]}, counts["mesh"][0]
 
 
+# the port's models at world 1 on the mesh executor against the plain
+# executor (mesh_models): each at its configuration's widths, with the
+# depth and batch cut as listed here so the sub-case stays near a minute
+MESH_MODELS_BATCH = 2
+MESH_MODELS_LAYERS = 2
+MESH_MODELS_CUTS = {
+    "transformer": "batch 8 -> 2, 12 blocks -> 2",
+    "transformer_fused": "batch 8 -> 2, 12 blocks -> 2 (perform_fusion)",
+    "serving_lm": "8 slots -> batch 2, 12 blocks -> 2",
+    "bert_base": "batch 8 -> 2, 12 layers -> 2",
+    "bert_proxy": "batch 8 -> 2, 12 layers -> 2",
+    "moe_transformer": "batch 8 -> 2, 12 layers -> 2",
+    "long_context": "batch 4 -> 1",
+    "nmt": "batch 32 -> 8",
+    "alexnet": "batch 64 -> 4",
+    "resnet": "batch 64 -> 2, stages (3, 4, 6, 3) -> (1, 1, 1, 1)",
+    "resnext50": "batch 16 -> 2",
+    "inception_v3": "batch 64 -> 2",
+    "dlrm": "batch 64 -> 16",
+    "xdl": "batch 64 -> 16",
+    "candle_uno": "batch 64 -> 16",
+    "mlp_unify": "batch 64 -> 16",
+    "moe_mlp": "batch 64 -> 16",
+}
+
+
+def _mesh_model(torch, name):
+    """Model `name` of MESH_MODELS_CUTS, compiled (on the mesh executor
+    when a process group is up), with its inputs and labels from a
+    seed."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import (ActiMode, AggrMode, DataType,
+                                             LossType, MetricsType)
+    from flexflow_tpu_torch import models as zm
+
+    b, layers = MESH_MODELS_BATCH, MESH_MODELS_LAYERS
+    sparse = LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY
+    mse = LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE
+    mixed = name in ("transformer", "transformer_fused", "serving_lm",
+                     "bert_base", "moe_transformer", "long_context")
+    batch = {"long_context": 1, "nmt": 8, "alexnet": 4, "dlrm": 16,
+             "xdl": 16, "candle_uno": 16, "mlp_unify": 16,
+             "moe_mlp": 16}.get(name, b)
+    m = FFModel(FFConfig(batch_size=batch, seed=0,
+                         allow_mixed_precision=mixed,
+                         perform_fusion=name == "transformer_fused"))
+    loss, vocab, source = sparse, 1000, None
+    if name in ("transformer", "transformer_fused"):
+        zm.build_transformer(m, batch, TRAIN_SEQ, HIDDEN, HEADS, layers)
+        loss = mse
+    elif name == "serving_lm":
+        ids = m.create_tensor((batch, MAX_LEN), DataType.DT_INT32)
+        t = m.embedding(ids, VOCAB, HIDDEN, AggrMode.AGGR_MODE_NONE)
+        for _ in range(layers):
+            t = m.multihead_attention(t, t, t, HIDDEN, HEADS, causal=True)
+            t = m.dense(t, HIDDEN, ActiMode.AC_MODE_RELU, use_bias=False)
+            t = m.dense(t, HIDDEN, use_bias=False)
+        m.softmax(m.dense(t, VOCAB))
+        vocab = VOCAB
+    elif name == "bert_base":
+        from flexflow_tpu_torch.frontends.torch import PyTorchModel
+
+        torch.manual_seed(0)
+        x = m.create_tensor((batch, BERT_SEQ, BERT_HIDDEN))
+        source = PyTorchModel(zm.BertEncoder(layers, BERT_HIDDEN, BERT_HEADS,
+                                             BERT_FFN, BERT_DROPOUT,
+                                             BERT_DROPOUT))
+        source.torch_to_ff(m, [x])
+        loss = mse
+    elif name == "bert_proxy":
+        zm.build_bert_proxy(m, batch, num_layers=layers)
+        loss = mse
+    elif name == "moe_transformer":
+        zm.build_moe_transformer(m, batch, TRAIN_SEQ, HIDDEN, HEADS, layers,
+                                 MOE_EXPERTS, MOE_TOPK, MOE_CAPACITY,
+                                 MOE_LAMBDA, MOE_CLASSES)
+    elif name == "long_context":
+        zm.build_long_context_transformer(m, batch, LC_SEQ, LC_HIDDEN,
+                                          LC_HEADS, LC_LAYERS, LC_CLASSES)
+    elif name == "nmt":
+        zm.build_nmt(m, batch, src_vocab=NMT_VOCAB, tgt_vocab=NMT_VOCAB,
+                     src_len=NMT_LEN, tgt_len=NMT_LEN)
+        vocab = NMT_VOCAB
+    elif name == "alexnet":
+        zm.build_alexnet(m, batch, ALEX_CLASSES, ALEX_HW, ALEX_HW)
+    elif name == "resnet":
+        zm.build_resnet(m, batch, blocks_per_stage=(1, 1, 1, 1))
+    elif name == "resnext50":
+        zm.build_resnext50(m, batch, ALEX_CLASSES, RESNEXT_HW, RESNEXT_HW)
+    elif name == "inception_v3":
+        zm.build_inception_v3(m, batch, INCEPTION_CLASSES, INCEPTION_HW,
+                              INCEPTION_HW)
+    elif name == "dlrm":
+        zm.build_dlrm(m, batch)
+        vocab = DLRM_ROWS
+    elif name == "xdl":
+        zm.build_xdl(m, batch, embedding_sizes=(XDL_ROWS,) * 4)
+        vocab = XDL_ROWS
+    elif name == "candle_uno":
+        zm.build_candle_uno(m, batch)
+        loss = mse
+    elif name == "mlp_unify":
+        zm.build_mlp_unify(m, batch)
+    elif name == "moe_mlp":
+        zm.build_moe(m, batch)
+    else:
+        raise ValueError(name)
+    metrics = ([MetricsType.METRICS_MEAN_SQUARED_ERROR] if loss == mse
+               else [MetricsType.METRICS_ACCURACY])
+    m.compile(SGDOptimizer(lr=0.01, momentum=0.9), loss, metrics)
+    if source is not None:
+        source.load_weights(m)
+    xs, y = zoo_data(m, batch, 21, vocab)
+    return m, xs, y
+
+
+def _state_of(torch, m):
+    """Every weight, slot and stateful buffer of `m`, whole, as (name,
+    tensor) pairs."""
+    from flexflow_tpu_torch.parallel.mesh import full
+
+    out = []
+    trees = {"w": m.state.params, "s": m.state.net_state}
+    opt = m.state.opt_state
+    if isinstance(opt, dict):
+        trees.update({f"o_{k}": v for k, v in opt.items()
+                      if isinstance(v, dict)})
+    for kind, tree in trees.items():
+        for op, ws in tree.items():
+            for n, t in ws.items():
+                out.append((f"{kind}/{op}/{n}", full(t).detach().clone()))
+    return out
+
+
+def _mesh_model_run(torch, name):
+    """One train step (step seed 0), an eval step and a forward of model
+    `name`: (the loss, the eval logits and partials, the forward's
+    output, the state after the step), whole, on the card."""
+    from flexflow_tpu_torch.parallel.mesh import full
+
+    m, xs, y = _mesh_model(torch, name)
+    ex = m.executor
+    m.state, partials = ex.build_train_step()(m.state, xs, y, 0)
+    logits, ev = ex.build_eval_step()(m.params, xs, y, m.state.net_state)
+    fwd = ex.build_forward()(m.params, xs, m.state.net_state)
+    torch.cuda.synchronize()
+    got = [("loss", full(partials["loss"]).detach().clone()),
+           ("eval_logits", full(logits).detach().clone()),
+           ("forward", full(fwd).detach().clone())]
+    got += [(f"eval_{k}", full(v).detach().clone())
+            for k, v in sorted(ev.items())]
+    got += _state_of(torch, m)
+    return type(ex).__name__, got
+
+
+def _bit_equal(torch, a, b):
+    """Whether `a` and `b` hold the same bits (a NaN equals a NaN of the
+    same bits, which torch.equal denies)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {8: torch.int64, 4: torch.int32, 2: torch.int16}
+        a, b = (t.contiguous().view(ints[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def mesh_models_plain(torch):
+    """The plain executor's run of every model of MESH_MODELS_CUTS (no
+    process group up), kept on the card for `mesh_models`."""
+    out = {}
+    for name in MESH_MODELS_CUTS:
+        kind, got = _mesh_model_run(torch, name)
+        if kind != "PCGExecutor":
+            raise AssertionError(f"mesh models: {name} plain on {kind}")
+        out[name] = got
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_models(torch, plain):
+    """Every model of MESH_MODELS_CUTS on the world-1 mesh executor
+    through a train step, an eval step and a forward, held bit for bit
+    against `plain` (mesh_models_plain: the plain executor from the same
+    seed's weights and data). A DTensor refusal raises."""
+    from flexflow_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.reset_launch_counts()
+    rows = {}
+    for name, want in plain.items():
+        t = time.perf_counter()
+        kind, got = _mesh_model_run(torch, name)
+        if kind != "MeshExecutor":
+            raise AssertionError(f"mesh models: {name} on {kind}")
+        if [k for k, _ in got] != [k for k, _ in want]:
+            raise AssertionError(f"mesh models: {name}: other tensors")
+        differ = [k for (k, a), (_, b) in zip(got, want)
+                  if not _bit_equal(torch, a, b)]
+        rows[name] = {"tensors": len(got), "not_bit_equal": differ,
+                      "loss": want[0][1].item(),
+                      "finite": all(bool(torch.isfinite(b).all())
+                                    for _, b in want if b.is_floating_point()),
+                      "seconds": time.perf_counter() - t}
+        if differ:
+            raise AssertionError(f"mesh models: {name} not bit-equal to "
+                                 f"the plain executor: {differ[:8]}")
+        torch.cuda.empty_cache()
+    log(f"  mesh models: {len(rows)} models bit-equal to the plain "
+        f"executor through a train, an eval step and a forward "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"models": rows, "cuts": MESH_MODELS_CUTS,
+            "seconds": time.perf_counter() - t0,
+            "launches": dict(build.launch_counts),
+            "launches_by_path": dict(build.path_counts)}
+
+
+def dtensor_checks(torch, device="cuda"):
+    """Every DTensor call of the FSDP, overlapped-sync and repaired paths
+    run on this card's torch at world 1, on a (1, 1) DeviceMesh of the
+    "data" and "fsdp" axes with the placements those paths use, each held
+    against the same function on plain tensors: an fsdp weight gathered on
+    use and its gradient reduce-scattered onto the shard (Partial ->
+    Shard), a replicated weight's gradient reduce-scattered over "data"
+    by an async redistribute and waited on, an owned slice gathered back
+    (Shard -> Replicate), SGD with momentum and Adam on Shard weights and
+    slots, the guard's norm over Shard and Replicate gradients, the
+    statistics from partial sums, and chunked attention with its query
+    rows sharded and K/V gradients Partial. Returns {check: max abs
+    error, bit-equal}."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    from torch.distributed.tensor.experimental import local_map
+
+    from flexflow_tpu_torch import AdamOptimizer, SGDOptimizer
+    from flexflow_tpu_torch.kernels.attention import chunked_attention
+    from flexflow_tpu_torch.parallel import mesh as pmesh
+    from flexflow_tpu_torch.parallel.executor import _waited, global_grad_norm
+
+    dm = init_device_mesh(device, (1, 1), mesh_dim_names=("data", "fsdp"))
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = {}
+
+    def rand(*shape):
+        return torch.randn(*shape, device=device, generator=gen)
+
+    def dt(t, pl):
+        return distribute_tensor(t, dm, pl, src_data_rank=None)
+
+    def held(name, got, want, pl=None):
+        if pl is not None and tuple(got.placements) != tuple(pl):
+            raise AssertionError(f"dtensor {name}: placements "
+                                 f"{got.placements}, expected {pl}")
+        got = got.full_tensor() if isinstance(got, DTensor) else got
+        err = (got.double() - want.double()).abs().max().item()
+        scale = want.double().abs().max().item()
+        out[name] = {"max_abs_err": err, "bit_equal": torch.equal(got, want)}
+        if not err <= 1e-6 * (1.0 + scale):
+            raise AssertionError(f"dtensor {name}: max abs error {err}")
+
+    pmesh.GATHERED.clear()
+    w, x = rand(64, 32), rand(16, 64)
+    # an fsdp weight (Shard(0) over "fsdp"), the batch over data x fsdp
+    leaf = dt(w, [Replicate(), Shard(0)]).requires_grad_()
+    whole = leaf.redistribute(dm, [Replicate(), Replicate()])
+    y = dt(x, [Shard(0), Shard(0)]) @ whole
+    (g,) = torch.autograd.grad((y * y).sum(), [leaf])
+    wp = w.clone().requires_grad_()
+    (gp,) = torch.autograd.grad(((x @ wp) ** 2).sum(), [wp])
+    held("fsdp_weight_gather", whole, w, [Replicate(), Replicate()])
+    held("fsdp_grad_reduce_scatter", g, gp, [Replicate(), Shard(0)])
+    # the overlapped sync: a replicated weight's Partial gradient
+    # reduce-scattered over "data" from its leaf's hook, async
+    leaf = dt(w, [Replicate(), Replicate()]).requires_grad_()
+    pending = {}
+    leaf.register_hook(lambda gr: pending.update(g=gr.redistribute(
+        dm, [Shard(0), Replicate()], async_op=True)))
+    y = dt(x, [Shard(0), Replicate()]) @ leaf
+    torch.autograd.grad((y * y).sum(), [leaf])
+    held("overlap_grad_reduce_scatter", _waited(pending["g"]), gp,
+         [Shard(0), Replicate()])
+    # the updated owned slice gathered back into the weight
+    owned = DTensor.from_local(w.narrow(0, 0, w.shape[0]), dm,
+                               [Shard(0), Replicate()], run_check=False)
+    held("owned_slice_gather", owned.redistribute(
+        dm, [Replicate(), Replicate()]), w, [Replicate(), Replicate()])
+    # the optimizers on Shard weights and slots (zeros_like keeps the
+    # placement), two steps
+    for name, opt in (("sgd_momentum", SGDOptimizer(lr=0.1, momentum=0.9,
+                                                    nesterov=True,
+                                                    weight_decay=0.01)),
+                      ("adam", AdamOptimizer(alpha=0.01,
+                                             weight_decay=0.01))):
+        wd = {"op": {"k": dt(w.clone(), [Shard(0), Replicate()]),
+                     "b": dt(w[0].clone(), [Replicate(), Shard(0)])}}
+        wpl = {"op": {"k": w.clone(), "b": w[0].clone()}}
+        sd, sp = opt.init_state(wd), opt.init_state(wpl)
+        for step in range(2):
+            grads = {"op": {"k": gp * (step + 1), "b": gp[1] * (step + 1)}}
+            opt.update(wd, {"op": {
+                "k": dt(grads["op"]["k"], [Shard(0), Replicate()]),
+                "b": dt(grads["op"]["b"], [Replicate(), Shard(0)])}}, sd)
+            opt.update(wpl, grads, sp)
+        held(f"{name}_weight", wd["op"]["k"], wpl["op"]["k"],
+             [Shard(0), Replicate()])
+        held(f"{name}_bias", wd["op"]["b"], wpl["op"]["b"],
+             [Replicate(), Shard(0)])
+        slot = "v" if name == "sgd_momentum" else "m"
+        held(f"{name}_slot", sd[slot]["op"]["k"], sp[slot]["op"]["k"],
+             [Shard(0), Replicate()])
+    # the guard's norm from per-shard partials
+    held("guard_norm", global_grad_norm({"op": {
+        "k": dt(gp, [Shard(0), Replicate()]),
+        "b": dt(gp[0], [Replicate(), Replicate()])}}).reshape(()),
+        global_grad_norm({"op": {"k": gp, "b": gp[0]}}).reshape(()))
+    # BatchNorm's statistics from partial sums: the batch over "data"
+    xb = rand(8, 16, 6, 6)
+    var, mean = pmesh.var_mean(dt(xb, [Shard(0), Replicate()]), (0, 2, 3))
+    m_p = xb.sum(dim=(0, 2, 3), keepdim=True) / (8 * 36)
+    v_p = ((xb - m_p) * (xb - m_p)).sum(dim=(0, 2, 3), keepdim=True) / (8 * 36)
+    held("partial_sum_mean", mean, m_p.sum(dim=(0, 2, 3)),
+         [Replicate(), Replicate()])
+    held("partial_sum_var", var, v_p.sum(dim=(0, 2, 3)),
+         [Replicate(), Replicate()])
+    tv, tm = torch.var_mean(xb, dim=(0, 2, 3), correction=0)
+    out["partial_sum_vs_var_mean"] = {
+        "max_abs_err": max((var.full_tensor() - tv).abs().max().item(),
+                           (mean.full_tensor() - tm).abs().max().item())}
+    # chunked attention with its query rows sharded over "fsdp" and K/V
+    # whole, their gradients Partial (ops/attention.py _chunked_mesh)
+    q, k, v = (rand(2, 256, 4, 64) for _ in range(3))
+    spec, kv = [Replicate(), Shard(1)], [Replicate(), Replicate()]
+    part = [Replicate(), Partial()]
+    leaves = [dt(t, kv).requires_grad_() for t in (q, k, v)]
+    o = local_map(lambda a, b_, c: chunked_attention(a, b_, c, causal=True,
+                                                     q_offset=0),
+                  out_placements=spec, in_placements=(spec, kv, kv),
+                  in_grad_placements=(spec, part, part), device_mesh=dm,
+                  redistribute_inputs=True)(*leaves)
+    o = o.redistribute(dm, kv)
+    grads = torch.autograd.grad((o * o).sum(), leaves)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    op_ = chunked_attention(*plain, causal=True)
+    pgrads = torch.autograd.grad((op_ * op_).sum(), plain)
+    held("chunked_rows_out", o, op_.detach(), kv)
+    for n, a, b_ in zip("qkv", grads, pgrads):
+        held(f"chunked_rows_d{n}", a, b_)
+    if pmesh.GATHERED:
+        raise AssertionError(f"dtensor checks gathered {pmesh.GATHERED}")
+    bad = [k for k, r in out.items() if "bit_equal" in r and not
+           r["bit_equal"]]
+    log(f"  dtensor checks on torch {torch.__version__}: {len(out)} held "
+        f"(not bit-equal, within 1e-6: {bad})")
+    return out
+
+
+# the flagship over NCCL on more than one card (mesh_multi): f32, so the
+# run holds one card's weights closely; its batch and depth
+MULTI_BATCH, MULTI_LAYERS, MULTI_STEPS = 8, 2, 3
+MULTI_RTOL, MULTI_ATOL = 1e-3, 1e-5
+
+
+def _multi_model(fsdp, seq, hidden, heads, layers, batch, device):
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType
+    from flexflow_tpu_torch.models import build_transformer
+
+    m = FFModel(FFConfig(batch_size=batch, seed=0, fsdp_degree=fsdp,
+                         device=device))
+    build_transformer(m, batch, seq, hidden, heads, layers)
+    m.compile(SGDOptimizer(lr=0.01, momentum=0.9),
+              LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE)
+    return m
+
+
+def _multi_steps(torch, m, x, y, steps, device):
+    step = m.executor.build_train_step()
+    losses, times = [], []
+    for i in range(steps):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.state, partials = step(m.state, [x], y, i)
+        losses.append(float(partials["loss"]))
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def run(rank, world, device, args):
+    """The rank program of mesh_multi (runtime/mesh_run.py calls it):
+    the flagship at dp x fsdp over the group, its steps, samples/s, peak
+    memory, counters, and rank 0's weights whole in `<out>/multi.npz`."""
+    import torch
+
+    from flexflow_tpu_torch.parallel.mesh import local
+    from flexflow_tpu_torch.runtime.weights import params_to_numpy
+
+    out_dir, fsdp, seq, hidden, heads, layers, batch, steps = args
+    fsdp, seq, hidden, heads, layers, batch, steps = (
+        int(v) for v in (fsdp, seq, hidden, heads, layers, batch, steps))
+    x, y = (np.random.RandomState(s).randn(batch, seq, hidden).astype(
+        np.float32) for s in (0, 1))
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    m = _multi_model(fsdp, seq, hidden, heads, layers, batch, device)
+    losses, times = _multi_steps(torch, m, x, y, steps, device)
+    ex = m.executor
+    weights = params_to_numpy(m)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "multi.npz"),
+                 **{f"{op}/{n}": a for op, ws in weights.items()
+                    for n, a in ws.items()})
+        shards = sum(local(w).numel() for ws in m.params.values()
+                     for w in ws.values())
+        with open(os.path.join(out_dir, "multi.json"), "w") as f:
+            json.dump({
+                "mesh": ex.mesh.shape, "losses": losses,
+                "samples_per_s": batch / float(np.median(times[1:])),
+                "peak_mem_gb_per_card": (
+                    torch.cuda.max_memory_allocated() / 2 ** 30
+                    if device != "cpu" else None),
+                "weight_elements_on_rank0": shards,
+                "collectives": dict(ex.collectives),
+                "overlap_weights": len(ex._overlap_specs())}, f)
+    return 0
+
+
+def mesh_multi(torch):
+    """dp x fsdp of the flagship (f32, MULTI_LAYERS blocks, batch
+    MULTI_BATCH, seq and widths of bench.py's leg) over NCCL on every
+    card of the machine when it has two or more, held against one card's
+    run from the same seed (rtol MULTI_RTOL): samples/s and peak memory
+    per card. With one card it does not run, and says why."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        msg = (f"mesh multi-card: not run: this machine has {n} card "
+               "(dp x fsdp needs two or more)")
+        log("  " + msg)
+        return {"ran": False, "why": msg}
+    from flexflow_tpu_torch.runtime.mesh_run import launch
+
+    world = 4 if n >= 4 else 2
+    fsdp = 2 if world == 4 else 1
+    out_dir = os.path.join(REPO, "chiprun_out", "mesh_multi")
+    os.makedirs(out_dir, exist_ok=True)
+    sizes = (TRAIN_SEQ, HIDDEN, HEADS, MULTI_LAYERS, MULTI_BATCH, MULTI_STEPS)
+    x, y = (np.random.RandomState(s).randn(
+        MULTI_BATCH, TRAIN_SEQ, HIDDEN).astype(np.float32) for s in (0, 1))
+    torch.cuda.reset_peak_memory_stats()
+    one = _multi_model(1, *sizes[:-1], "cuda")
+    losses, times = _multi_steps(torch, one, x, y, MULTI_STEPS, "cuda")
+    want = {f"{op}/{n_}": w.detach().cpu().numpy()
+            for op, ws in one.params.items() for n_, w in ws.items()}
+    one_card = {"losses": losses,
+                "samples_per_s": MULTI_BATCH / float(np.median(times[1:])),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del one
+    torch.cuda.empty_cache()
+    rcs = launch(world, ["--device", "cuda", os.path.abspath(__file__),
+                         out_dir, str(fsdp), *(str(v) for v in sizes)],
+                 out_dir, timeout=600)
+    if rcs != [0] * world:
+        raise AssertionError(f"mesh multi-card: ranks exited {rcs} (logs "
+                             f"in {out_dir})")
+    with open(os.path.join(out_dir, "multi.json")) as f:
+        got = json.load(f)
+    with np.load(os.path.join(out_dir, "multi.npz")) as z:
+        worst = max(float(np.max(np.abs(z[k] - a) / (MULTI_ATOL + MULTI_RTOL
+                                                      * np.abs(a))))
+                    for k, a in want.items())
+    if worst > 1.0:
+        raise AssertionError(f"mesh multi-card: weights off one card's by "
+                             f"{worst} of the tolerance")
+    summary = {"ran": True, "world": world, "fsdp": fsdp, "one_card": one_card,
+               "mesh": got, "worst_of_tolerance": worst}
+    log(f"  mesh multi-card ({world} cards, fsdp {fsdp}): "
+        f"{got['samples_per_s']:.1f} samples/s against one card's "
+        f"{one_card['samples_per_s']:.1f}, peak "
+        f"{got['peak_mem_gb_per_card']:.2f} GiB a card")
+    return summary
+
+
 def mesh_phase(torch):
     """The mesh executor at world size 1 through NCCL against the plain
     executor: the weight gap after MESH_STEPS steps (expected 0), the
     flash launches per shard through local_map on wgmma, ABBA samples/s,
-    host ms a step and NCCL kernels a step; then BERT-base with dropout
-    (mesh_bert). Returns the `mesh` summary."""
+    host ms a step (and with the overlapped sync off and on), NCCL
+    kernels a step and the collective counters; then BERT-base with
+    dropout (mesh_bert), the port's models bit-equal to the plain
+    executor (mesh_models), the DTensor calls of the FSDP and overlapped
+    paths (dtensor_checks) and, on a machine of two or more cards, the
+    flagship over them (mesh_multi). Returns the `mesh` summary."""
     from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
     from flexflow_tpu_torch.ff_types import LossType, MetricsType
     from flexflow_tpu_torch.kernels import build
     from flexflow_tpu_torch.models import build_transformer
     from flexflow_tpu_torch.ops import attention as att
+    from flexflow_tpu_torch.parallel import mesh as pmesh
     from flexflow_tpu_torch.runtime import distributed as rdist
 
     t_phase = time.perf_counter()
@@ -1830,6 +2337,7 @@ def mesh_phase(torch):
     # built before the group is up: under a group compile builds the
     # mesh executor
     plain_bert = build_bert_model(torch)
+    plain_models = mesh_models_plain(torch)
     rank, world, dev = rdist.init_distributed(
         f"127.0.0.1:{_free_port()}", 1, 0, device="cuda", timeout_s=120)
     try:
@@ -1908,6 +2416,23 @@ def mesh_phase(torch):
                               "nccl_kernels_a_step": _nccl_events(
                                   torch, steps[name], m, x, y),
                               "nccl_top_ms": nccl}
+        # the overlapped sync off and on (inert at data degree 1: the
+        # same step either way)
+        host_overlap = {}
+        for flag in (False, True):
+            ex.set_overlap_grad_sync(flag)
+            host_overlap["on" if flag else "off"] = min(
+                _host_and_sync_ms(torch, steps["mesh"], mesh, x, y)[0]
+                for _ in range(3))
+        counters = {"grad_syncs": ex.grad_syncs,
+                    "grad_all_reduces": ex.grad_all_reduces,
+                    "grad_reduce_scatters": ex.grad_reduce_scatters,
+                    "weight_gathers": ex.weight_gathers,
+                    "overlap_issued_in_backward":
+                    ex.overlap_issued_in_backward,
+                    "overlap_weights": len(ex._overlap_specs()),
+                    "collectives": dict(ex.collectives),
+                    "gathered": dict(pmesh.GATHERED)}
         summary = {
             "world_size": world, "backend": "nccl", "device": str(dev),
             "mesh": ex.mesh.shape, "live_mesh_axes": list(ex.mesh.live_axes),
@@ -1920,14 +2445,21 @@ def mesh_phase(torch):
             "grad_syncs": grad_syncs,
             "samples_per_s_mesh": timing["mesh"]["samples_per_s_median"],
             "samples_per_s_plain": timing["plain"]["samples_per_s_median"],
-            "abba": timing, "host": host, "profile": profiles}
+            "abba": timing, "host": host, "profile": profiles,
+            "host_ms_overlap": host_overlap, "counters": counters}
         del plain, mesh, models, steps, ex
         torch.cuda.empty_cache()
         summary["bert"], bert_counts = mesh_bert(torch, plain_bert)
         summary["launches"] = {k: counts.get(k, 0) + bert_counts.get(k, 0)
                                for k in set(counts) | set(bert_counts)}
+        summary["models"] = mesh_models(torch, plain_models)
+        del plain_models
+        torch.cuda.empty_cache()
+        summary["dtensor_checks"] = dtensor_checks(torch)
     finally:
         rdist.shutdown()
+    summary["multi"] = mesh_multi(torch)
+    torch.cuda.empty_cache()
     summary["phase_s"] = time.perf_counter() - t_phase
     log(f"  mesh: {summary['samples_per_s_mesh']:.1f} samples/s against "
         f"plain {summary['samples_per_s_plain']:.1f}; host ms a step mesh "
@@ -3975,6 +4507,10 @@ def fusion(torch):
 # below: SEARCH_BOUND_FLOOR leaves room for the events' microsecond
 # resolution and for a clock above base.
 SEARCH_BUDGET, SEARCH_WORKERS, SEARCH_STEPS = 10, 8, 4
+# the searched flagship's blocks, cut from 12 to keep the script well
+# inside its time limit: the host-bound search's time grows with the
+# graph (255 s of host for 8 workers at 12 blocks on a slow host)
+SEARCH_LAYERS = 6
 SEARCH_BOUND_FLOOR = 0.9
 # a winner whose compute ops differ from the lowering's (a merge
 # rewrite) starts from other weights: its losses are held to the
@@ -4015,9 +4551,10 @@ def measured_bounds(rec):
 
 
 def build_searched_model(torch, workers, export=""):
-    """The flagship as the training phase builds it, compiled with the
-    Unity search in the measured mode for `workers` H100s (the default
-    machine, search/machine_model.py h100_machine)."""
+    """The flagship as the training phase builds it (SEARCH_LAYERS
+    blocks), compiled with the Unity search in the measured mode for
+    `workers` H100s (the default machine, search/machine_model.py
+    h100_machine)."""
     from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
     from flexflow_tpu_torch.ff_types import LossType, MetricsType
     from flexflow_tpu_torch.models import build_transformer
@@ -4027,7 +4564,8 @@ def build_searched_model(torch, workers, export=""):
                          measure_operator_costs=True,
                          search_num_workers=workers,
                          export_strategy_file=export))
-    build_transformer(m, TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS, LAYERS)
+    build_transformer(m, TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS,
+                      SEARCH_LAYERS)
     t0 = time.perf_counter()
     m.compile(SGDOptimizer(lr=0.01),
               LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
@@ -4159,7 +4697,7 @@ def search(torch):
     runs[SEARCH_WORKERS]["exported_records"] = len(recs)
     # training: the unsearched compile and each winner from the same
     # weights, on the same batches
-    base = build_transformer_model(torch)
+    base = build_transformer_model(torch, layers=SEARCH_LAYERS)
     lowering = compute_signature(base)
     start = {op: {n: w.clone() for n, w in ws.items()}
              for op, ws in base.params.items()}
@@ -4206,10 +4744,11 @@ def search(torch):
     check_wgmma_paths("search training", train_counts, build.path_counts)
     # three fits of SEARCH_STEPS steps
     check_training_counts("search training", train_counts, {
-        "flash_fwd": 3 * SEARCH_STEPS * LAYERS,
-        "flash_bwd": 3 * SEARCH_STEPS * LAYERS, "paged_decode": 0})
-    return {"model": "flagship Transformer (bench.py's default leg), "
-                     f"search_budget {SEARCH_BUDGET}, measured",
+        "flash_fwd": 3 * SEARCH_STEPS * SEARCH_LAYERS,
+        "flash_bwd": 3 * SEARCH_STEPS * SEARCH_LAYERS, "paged_decode": 0})
+    return {"model": "flagship Transformer (bench.py's default leg, "
+                     f"{SEARCH_LAYERS} blocks), search_budget "
+                     f"{SEARCH_BUDGET}, measured",
             "x1": runs[1], f"x{SEARCH_WORKERS}": runs[SEARCH_WORKERS],
             "training_launches": train_counts, "launches": total,
             "phase_s": time.perf_counter() - t_phase}
@@ -6476,7 +7015,15 @@ def main() -> int:
         "idle_share_mesh": mesh["profile"]["mesh"]["idle_share"],
         "idle_share_plain": mesh["profile"]["plain"]["idle_share"],
         "abba_spread_mesh": mesh["abba"]["mesh"]["spread"],
-        "abba_spread_plain": mesh["abba"]["plain"]["spread"]}}))
+        "abba_spread_plain": mesh["abba"]["plain"]["spread"],
+        "host_ms_overlap": mesh["host_ms_overlap"],
+        "models": {k: v["not_bit_equal"]
+                   for k, v in mesh["models"]["models"].items()},
+        "models_s": mesh["models"]["seconds"],
+        "models_launches": mesh["models"]["launches"],
+        "dtensor_checks": mesh["dtensor_checks"],
+        "multi": mesh["multi"]}}))
+    log(smi + " " + json.dumps({"mesh_counters": mesh["counters"]}))
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

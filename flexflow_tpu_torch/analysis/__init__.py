@@ -28,10 +28,10 @@ training through `fit(lint="error"|"warn"|"off")`.
 
 Design goal: reject malformed strategies, deadlocking collective
 schedules, and OOM-by-construction machine views *before any device time
-is spent*. The port's executor runs one device and has no overlapped
-gradient sync yet, so its `overlap_schedule()` is None and the schedule
-pass has nothing to audit on a live model (the pure functions of
-schedule.py are whole).
+is spent*. The mesh executor's overlapped gradient sync describes its
+step through `overlap_schedule()`, which the schedule pass audits on a
+live model; on one device, or at data degree 1, the sync is inert and
+the hook returns None.
 """
 from __future__ import annotations
 

@@ -2,8 +2,9 @@
 
 The PyTorch counterpart of flexflow_tpu/analysis/schedule.py.
 
-The JAX package's overlapped gradient sync (its parallel/executor.py
-``set_overlap_grad_sync``; the port's executor has none yet) decomposes the data-parallel step into
+The overlapped gradient sync (parallel/executor.py MeshExecutor,
+``set_overlap_grad_sync``, as the JAX package's) decomposes the
+data-parallel step into
 per-weight task chains — backward → reduce-scatter(grad) → sharded
 optimizer update → all-gather(updated params) — with the collectives
 issued asynchronously so they hide behind later backward compute, and

@@ -20,10 +20,9 @@ construction: the port never continues on the CPU by itself.
 Like the JAX package's, a config reads the reference's command-line
 flags (`parse_args`, model.cc:3556 spellings) from sys.argv[1:] when it
 is made. A flag whose field this package reads sets it; a flag of a
-feature not ported here (strategy import, the multi-node mesh, FSDP,
-overlapped gradient sync, sequence parallelism) raises
-NotImplementedError naming the flag; anything else is
-skipped, as the reference passes unknown flags on to Legion.
+feature not ported here (strategy import, the multi-node mesh, sequence
+parallelism) raises NotImplementedError naming the flag; anything else
+is skipped, as the reference passes unknown flags on to Legion.
 """
 from __future__ import annotations
 
@@ -70,8 +69,10 @@ class FFConfig:
     # the manual strategy's degrees (no search), the JAX package's
     # fields: the data degree fills the devices the others leave.
     # tensor_parallel_degree executes (Megatron-style weight sharding over
-    # the "model" mesh axis); the sequence, expert, pipeline and fsdp
-    # degrees are refused above 1 at compile until their slices land
+    # the "model" mesh axis) and fsdp_degree too (FSDP/ZeRO: weights
+    # sharded over an "fsdp" axis carved out of the data workers,
+    # gathered on use); the sequence, expert and pipeline degrees are
+    # refused above 1 at compile until their slices land
     tensor_parallel_degree: int = 1
     sequence_parallel_degree: int = 1
     expert_parallel_degree: int = 1
@@ -147,6 +148,17 @@ class FFConfig:
     # batch and prints "[profiling] <op>: x ms fwd + y ms bwd" lines (the
     # reference's --profiling)
     profiling: bool = False
+    # the search prices the weight-gradient syncs that a step can overlap
+    # with the backward as hidden (search/cost_model.py); off by default,
+    # as in the JAX package, so searched strategies stay reproducible
+    search_overlap_backward_update: bool = False
+    # the executed step's side (reference config.h:133): on a data axis
+    # the mesh executor reduce-scatters each eligible gradient from the
+    # backward as soon as it exists, updates the 1/d shard it owns (the
+    # optimizer state lives sharded, ZeRO-1) and all-gathers the updated
+    # weight (parallel/executor.py MeshExecutor). The same values as the
+    # all-reduce step; on by default, inert at data degree 1
+    overlap_backward_update: bool = True
 
     def __post_init__(self):
         from .runtime import distributed as rdist
@@ -169,8 +181,9 @@ class FFConfig:
         `argv`: each flag in _FLAGS sets its field from the value after it
         (a bad or missing value leaves the field as it was and is read as
         the next argument, as in the JAX package), each of _SWITCHES sets
-        its field, each in _UNPORTED_FLAGS raises NotImplementedError, and
-        any other argument is skipped."""
+        its field, each of _SETTINGS sets its fields to its values, each in
+        _UNPORTED_FLAGS raises NotImplementedError, and any other argument
+        is skipped."""
         i = 0
         while i < len(argv):
             a = argv[i]
@@ -180,6 +193,9 @@ class FFConfig:
                     "flexflow_tpu_torch yet")
             if a in _SWITCHES:
                 setattr(self, _SWITCHES[a], True)
+            elif a in _SETTINGS:
+                for field, value in _SETTINGS[a].items():
+                    setattr(self, field, value)
             elif a in _FLAGS:
                 field, kind = _FLAGS[a]
                 if kind is None:
@@ -219,6 +235,7 @@ _FLAGS = {
     "--machine-model-version": ("machine_model_version", int),
     "--simulator-workspace-size": ("simulator_work_space_size", int),
     "--iterations-per-dispatch": ("iterations_per_dispatch", int),
+    "--fsdp-degree": ("fsdp_degree", int),
 }
 # flags without a value that set a field to True
 _SWITCHES = {
@@ -230,6 +247,15 @@ _SWITCHES = {
     "--profiling": "profiling",
     "--memory-search": "perform_memory_search",
 }
+# flags without a value that set several fields (the executed step's and
+# the search's overlap switch together, as the JAX package's do)
+_SETTINGS = {
+    "--overlap-backward-update": {"overlap_backward_update": True,
+                                  "search_overlap_backward_update": True},
+    "--no-overlap-backward-update": {
+        "overlap_backward_update": False,
+        "search_overlap_backward_update": False},
+}
 # the JAX package's flags whose features are not ported: what each sets
 _UNPORTED_FLAGS = {
     "--wd": "the config's weight decay (read by no optimizer)",
@@ -238,8 +264,5 @@ _UNPORTED_FLAGS = {
     "--nodes": "multi-node execution",
     "--enable-sequence-parallel": "sequence parallelism",
     "--import": "strategy import", "--import-strategy": "strategy import",
-    "--overlap-backward-update": "overlapped gradient synchronisation",
-    "--no-overlap-backward-update": "overlapped gradient synchronisation",
-    "--fsdp-degree": "FSDP weight sharding",
     "--iterations": "the config's iteration count",
 }

@@ -708,9 +708,25 @@ class FFModel:
                 raise ValueError(f"tensor_parallel_degree {tp} does not "
                                  f"divide the {ndev} devices")
             dp = ndev // tp
+            # FSDP/ZeRO: the fsdp axis is carved out of the data workers
+            # (weights shard over it, the batch over ("data", "fsdp")
+            # jointly), so it must divide the data degree: clamped down
+            # otherwise, with the JAX package's warning
+            fsdp = max(1, self.config.fsdp_degree)
+            while fsdp > 1 and (fsdp > dp or dp % fsdp != 0):
+                fsdp //= 2
+            if fsdp != max(1, self.config.fsdp_degree):
+                warnings.warn(
+                    f"fsdp_degree {self.config.fsdp_degree} does not divide "
+                    f"the data-parallel degree {dp}; clamped to {fsdp}")
             strategies.apply_data_parallel(self.graph, dp, axis_idx=0)
             strategies.apply_tensor_parallel(self.graph, tp, axis_idx=1)
-            axes = {"data": dp, "model": tp}
+            axes = {"data": dp // fsdp, "model": tp, "seq": 1, "expert": 1,
+                    "pipe": 1}
+            if fsdp > 1:
+                axes["fsdp"] = fsdp
+                strategies.apply_weight_sharding(self.graph, fsdp,
+                                                 axis_idx=5)
             self.strategy_provenance = {"source": "manual"}
         if search_enabled:
             self._assert_same_strategy()
@@ -749,7 +765,8 @@ class FFModel:
             # bf16 gradient storage rides mixed precision, as in JAX
             grad_dtype=torch.bfloat16 if mixed else None,
             seed=self.config.seed, input_order=inputs,
-            remat=self.config.remat, constants=constants)
+            remat=self.config.remat, constants=constants,
+            overlap_grad_sync=self.config.overlap_backward_update)
         self._phase("executor_build", t_phase)
         t_phase = time.perf_counter()
         self.state = self.executor.init_state()
@@ -764,14 +781,14 @@ class FFModel:
         is not ported raise here, naming their slice."""
         cfg = self.config
         for field in ("sequence_parallel_degree", "expert_parallel_degree",
-                      "pipeline_parallel_degree", "fsdp_degree"):
+                      "pipeline_parallel_degree"):
             if getattr(cfg, field) > 1:
                 raise NotImplementedError(
                     f"{field}={getattr(cfg, field)}: "
                     f"{_LATER_SLICES[field]} is not ported to "
                     "flexflow_tpu_torch yet: it comes with a later slice "
-                    "of multi-device execution (ROADMAP queue 1 item 6); "
-                    "data and tensor parallelism are ported")
+                    "of multi-device execution (ROADMAP queue 1 item 2); "
+                    "data, tensor and fsdp parallelism are ported")
         n = max(1, cfg.numNodes) * max(1, cfg.workersPerNode)
         if not rdist.is_initialized():
             if n != 1:
@@ -798,17 +815,18 @@ class FFModel:
         return n
 
     def _mesh_axes(self, axes: Dict[str, int]) -> Dict[str, int]:
-        """The mesh of a strategy's axes in the JAX package's order, size-1
-        axes kept. A winner that needs an axis whose execution is not
-        ported (seq, expert, pipe, fsdp) raises, naming it."""
-        out = {"data": 1, "model": 1, "seq": 1, "expert": 1, "pipe": 1}
+        """The mesh of a strategy's axes in the strategy's own order, as
+        the JAX package builds it (a ParallelDim's `parallel_idx` indexes
+        that order), size-1 axes kept. A winner that needs an axis whose
+        execution is not ported (seq, expert, pipe) raises, naming it."""
+        out = {}
         for k, v in axes.items():
-            if int(v) > 1 and k not in ("data", "model"):
+            if int(v) > 1 and k not in ("data", "model", "fsdp"):
                 raise NotImplementedError(
                     f"the strategy needs a {k!r} mesh axis of {v}: "
                     f"{_LATER_SLICES[k]} is not ported to "
                     "flexflow_tpu_torch yet: it comes with a later slice "
-                    "of multi-device execution (ROADMAP queue 1 item 6)")
+                    "of multi-device execution (ROADMAP queue 1 item 2)")
             out[k] = int(v)
         return out
 
@@ -1042,6 +1060,8 @@ class FFModel:
         # exist as failure domains
         pen = 0.25 if machine.num_nodes > 1 else 0.0
         cm = CostModel(machine, bf16=cfg.allow_mixed_precision,
+                       overlap_backward_update=(
+                           cfg.search_overlap_backward_update),
                        survivability_penalty=pen, objective=objective)
         glb = getattr(self, "_calibration_globals", None) or {}
         return apply_calibration(
@@ -1078,7 +1098,7 @@ class FFModel:
                 f"compile_decode on {rdist.process_count()} processes: "
                 "decode and serving over a mesh are not ported to "
                 "flexflow_tpu_torch yet: they come with a later slice of "
-                "multi-device execution (ROADMAP queue 1 item 6)")
+                "multi-device execution (ROADMAP queue 1 item 2)")
         if self.executor is None:
             raise RuntimeError(
                 "compile() the model before compile_decode(): the decode "
@@ -1614,7 +1634,7 @@ class FFModel:
                         "is not ported to flexflow_tpu_torch yet: "
                         "checkpoints, the verifier and the canary over a "
                         "mesh come with a later slice of multi-device "
-                        "execution (ROADMAP queue 1 item 6)")
+                        "execution (ROADMAP queue 1 item 2)")
         self._assert_same_global_batch(xs, y, bs)
         if n < bs:
             raise ValueError(
@@ -2282,8 +2302,7 @@ class FFModel:
         step."""
         if self._pending_grads is None:
             raise RuntimeError("call backward() first")
-        self.optimizer.update(self.state.params, self._pending_grads,
-                              self.state.opt_state)
+        self.executor.update_weights(self.state, self._pending_grads)
         with torch.no_grad():
             for op, bufs in (self._pending_net_state or {}).items():
                 for k, v in bufs.items():
@@ -2305,8 +2324,6 @@ _LATER_SLICES = {
     "expert": "expert parallelism",
     "pipeline_parallel_degree": "pipeline parallelism",
     "pipe": "pipeline parallelism",
-    "fsdp_degree": "FSDP weight sharding",
-    "fsdp": "FSDP weight sharding",
 }
 
 

@@ -12,6 +12,12 @@ Gradients may arrive half-width (bf16 under mixed precision); the update
 math runs in the master weight's dtype. Where the JAX package returns new
 arrays, these update the weights and buffers IN PLACE (under no_grad) to
 save a copy of every weight; `update` returns the same dicts it was given.
+The math is elementwise, so on a device mesh it runs on DTensors as they
+are placed: a `Shard` weight (an fsdp weight, or the slice a rank owns
+under the overlapped gradient sync) with its `Shard` gradient updates
+each rank's shard in place, and the slots, made by `zeros_like`, keep
+the weight's placement (ZeRO), as the JAX package's slots inherit its
+sharding.
 """
 from __future__ import annotations
 

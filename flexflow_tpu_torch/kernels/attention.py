@@ -122,11 +122,14 @@ def _chunk_scan(q, k, v, *, causal: bool, chunk_size: int, q_offset=0,
 
 
 def chunked_attention(q, k, v, *, causal: bool = False,
-                      chunk_size: int = 256):
+                      chunk_size: int = 256, q_offset: int = 0):
     """Memory-efficient exact attention: (b, s, h, d) -> (b, s, h, dv).
-    O(s * chunk) scores at a time, differentiable through autograd."""
+    O(s * chunk) scores at a time, differentiable through autograd.
+    `q_offset` is the global position of q's first row (a block of a
+    longer sequence's queries) for the causal mask."""
     out, _, _ = _chunk_scan(q, k, v, causal=causal,
-                            chunk_size=min(chunk_size, k.shape[1]))
+                            chunk_size=min(chunk_size, k.shape[1]),
+                            q_offset=q_offset)
     return out
 
 

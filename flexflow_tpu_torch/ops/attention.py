@@ -25,15 +25,22 @@ package's `_forward` on a mesh) q, k and v are DTensors of the global
 "flash", or "auto" on a card) and the batch divides the data axis, the
 heads the model axis, with no seq or expert axis, they run per shard:
 `local_map` around the folded kernels, on the one-device path's (b, h,
-s, d) projections with the batch over "data" and the heads over "model"
-(the placements of JAX's P("data", None, "model", None) on (b, s, h,
-d)), so the backward kernel runs per shard too
+s, d) projections with the batch over "data" (and over "fsdp" with it
+where it divides both, as the activations are sharded; JAX's spec names
+"data" alone) and the heads over "model" (the placements of JAX's
+P("data", None, "model", None) on (b, s, h, d)), so the backward kernel
+runs per shard too
 (`MESH_PATHS["local_map"]`). Where those dims do not divide, chunked
 attention runs instead, as in JAX, on local shards too (its running
 buffers are plain tensors DTensor cannot propagate): the batch over
 "data" where it divides, the heads over "model" where they divide, and
-whole over an axis that does not (`MESH_PATHS["chunked"]` and
-`"replicated_over_<axis>"`). Dropout on a mesh of more than one device
+the query positions over an axis that divides neither, with K and V
+whole over it (`MESH_PATHS["chunked"]` and `"rows_over_<axis>"`; query
+rows are independent, so this is exact, and a causal mask takes each
+rank's global query offset), so each rank holds and computes 1/(data x
+model) of q, the scores and the output, as under JAX's GSPMD. Only
+where the positions do not divide either is an axis held whole
+(`"replicated_over_<axis>"`). Dropout on a mesh of more than one device
 takes the dense path with its mask built over the global shape, as
 JAX's `_dropout_fallback(..., "mesh")` does; on a mesh of one device
 the flash kernels keep their dropout, as on one device.
@@ -186,9 +193,15 @@ _FALLBACK_DETAIL = {
 }
 # the mesh dispatch's routes, counted per call (tests and chip_smoke.py
 # read them): "local_map" (the flash kernels per shard), "chunked" (and
-# "replicated_over_data"/"replicated_over_model" where the batch or the
-# heads do not divide that axis), "dense"
+# "rows_over_data"/"rows_over_model" where the batch or the heads do not
+# divide that axis and the query positions shard over it instead,
+# "replicated_over_<axis>" where the positions do not divide it either),
+# "dense"
 MESH_PATHS: collections.Counter = collections.Counter()
+# {op name: the shape of this rank's q in its last per-shard call on a
+# mesh: (b, h, s, d) on the flash path, (b, s, h, d) chunked} (the tests
+# read it)
+MESH_LOCAL_Q: dict = {}
 
 
 def _dropout_fallback(impl: str, op_name: str, reason: str) -> None:
@@ -277,6 +290,16 @@ def _forward(params: MultiHeadAttentionParams, weights, inputs, ctx):
                          q_in.dtype, ctx)]
 
 
+def _batch_axes(mesh, b: int) -> tuple:
+    """The mesh axes that shard a batch of `b` rows in the attention op:
+    "data" where it divides, and "fsdp" with it where it divides both."""
+    data, fsdp = mesh.shape.get("data", 1), mesh.shape.get("fsdp", 1)
+    if b % data:
+        return ()
+    return ("data", "fsdp") if fsdp > 1 and b % (data * fsdp) == 0 \
+        else ("data",)
+
+
 def _mesh_placements(mesh, by_axis) -> list:
     """Placements over `mesh`'s live axes: Shard(dim) for the axes of
     size > 1 named in `by_axis` ({axis: dim}), Replicate() for the rest
@@ -293,8 +316,9 @@ def _forward_mesh(params, weights, ctx, impl, use_dropout, rate, seeds,
     """The MHA forward on a device mesh (the JAX package's `_forward` on a
     mesh): the flash kernels per shard through `local_map` where batch
     and heads divide the data and model axes, chunked attention where
-    they do not (sharded over whichever of the two divides, replicated
-    over the other), dense with a global dropout mask under dropout on a
+    they do not (`_chunked_mesh`: the query positions sharded over an
+    axis that divides neither), dense with a global dropout mask under
+    dropout on a
     mesh of more than one device. On a mesh of one device every shard is
     the whole array, so the flash kernels keep their dropout, as they do
     on one device."""
@@ -309,14 +333,22 @@ def _forward_mesh(params, weights, ctx, impl, use_dropout, rate, seeds,
     b, seq_len, _ = q_in.shape
     kv_len = k_in.shape[1]
     h = params.num_heads
-    # the axes that shard this op (JAX's degree product; pipe and fsdp
-    # do not divide it)
-    mesh_nontrivial = data * model * seq * expert > 1
+    # the batch's axes: "data", and "fsdp" with it where the batch divides
+    # both, as the activations shard it (the ZeRO batch rule; JAX's spec
+    # names "data" alone, so its fsdp ranks attend the same rows)
+    batch_axes = _batch_axes(mesh, b)
+    batch_ways = 1
+    for a in batch_axes:
+        batch_ways *= shape[a]
+    # the axes that shard this op (JAX's degree product; pipe does not
+    # divide it)
+    mesh_nontrivial = batch_ways * model * seq * expert > 1
     flash_shardable = (seq == 1 and expert == 1 and b % data == 0
                        and h % model == 0)
     on_card = q_in.device.type == "cuda"
     # only the axes that shard the scores divide the per-device footprint
-    score_bytes = 4 * b * h * seq_len * kv_len // max(1, data * model * seq)
+    score_bytes = 4 * b * h * seq_len * kv_len // max(
+        1, batch_ways * model * seq)
     want_flash = impl == "flash" or (impl == "auto" and on_card
                                      and flash_shardable)
     streaming = want_flash or impl == "chunked" or (
@@ -333,12 +365,15 @@ def _forward_mesh(params, weights, ctx, impl, use_dropout, rate, seeds,
     dm = mesh.device_mesh
     if want_flash and flash_shardable:
         # the one-device folded path's projections, per shard: (b, h, s,
-        # d) with the batch over "data" and the heads over "model" (JAX's
-        # P("data", None, "model", None) on (b, s, h, d))
-        spec = _mesh_placements(mesh, {"data": 0, "model": 1})
+        # d) with the batch over its axes and the heads over "model"
+        # (JAX's P("data", None, "model", None) on (b, s, h, d))
+        spec = _mesh_placements(mesh, dict({a: 0 for a in batch_axes},
+                                           model=1))
         bwd_range = f"{ctx.op_name}.bwd" if ctx.profile_ranges else None
+        name = ctx.op_name
 
         def per_shard(ql, kl, vl):
+            MESH_LOCAL_Q[name] = tuple(ql.shape)
             bl, hl = ql.shape[:2]
             fold = [x.reshape(bl * hl, x.shape[2], x.shape[3]).contiguous()
                     for x in (ql, kl, vl)]
@@ -364,26 +399,7 @@ def _forward_mesh(params, weights, ctx, impl, use_dropout, rate, seeds,
                 "FF_ATTENTION_IMPL=flash ignored: batch/heads don't divide "
                 "the data/model mesh axes (or the seq axis is sharded) — "
                 "using chunked attention")
-        # chunked attention's running buffers are plain tensors, so it
-        # runs on local shards: (b, s, h, d) with the batch over "data"
-        # where it divides and the heads over "model" where they divide;
-        # an axis that does not divide holds the operands whole (each of
-        # its ranks computes that axis's share again)
-        by_axis = {}
-        if b % data == 0:
-            by_axis["data"] = 0
-        if h % model == 0:
-            by_axis["model"] = 2
-        MESH_PATHS["chunked"] += 1
-        for a in ("data", "model"):
-            if shape.get(a, 1) > 1 and a not in by_axis:
-                MESH_PATHS[f"replicated_over_{a}"] += 1
-        spec = _mesh_placements(mesh, by_axis)
-        attn = local_map(
-            lambda ql, kl, vl: katt.chunked_attention(
-                ql, kl, vl, causal=params.causal),
-            out_placements=spec, in_placements=(spec, spec, spec),
-            device_mesh=dm, redistribute_inputs=True)(q, k, v)
+        attn = _chunked_mesh(params, ctx, q, k, v, b, h, seq_len)
     else:
         keep = None
         if params.causal:
@@ -393,6 +409,70 @@ def _forward_mesh(params, weights, ctx, impl, use_dropout, rate, seeds,
         attn = _dense_attention(q, k, v, keep, rate, seeds)
     return [_project_out(params, weights, "bshd,hde->bse", attn, wo,
                          q_in.dtype, ctx)]
+
+
+def _chunked_mesh(params, ctx, q, k, v, b, h, seq_len):
+    """Chunked attention on a mesh, on local shards (its running buffers
+    are plain tensors DTensor cannot propagate): (b, s, h, d) with the
+    batch over its axes (`_batch_axes`) and the heads over "model" where
+    they divide. An axis that divides neither shards the query positions
+    (s) instead, K and V held whole over it: each rank attends its own
+    rows against every key, at its global query offset under a causal
+    mask, and the K and V gradients it returns are partial sums over
+    that axis; the output rows are gathered back over it for the output
+    projection. Where the positions do not divide the axes left, those
+    axes hold q whole too (each of their ranks computes their share
+    again)."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..kernels import attention as katt
+
+    mesh = ctx.mesh
+    by_axis = {a: 0 for a in _batch_axes(mesh, b)}
+    rows = [] if by_axis or mesh.shape.get("data", 1) == 1 else ["data"]
+    if h % mesh.shape.get("model", 1) == 0:
+        by_axis["model"] = 2
+    else:
+        rows.append("model")
+    # the row axes in DeviceMesh order: DTensor splits the positions by
+    # the first one, each part by the next
+    rows.sort(key=mesh.live_axes.index)
+    n_rows = 1
+    for a in rows:
+        n_rows *= mesh.shape[a]
+    MESH_PATHS["chunked"] += 1
+    if seq_len % n_rows:
+        for a in rows:
+            MESH_PATHS[f"replicated_over_{a}"] += 1
+        rows = []
+    kv_spec = _mesh_placements(mesh, by_axis)
+    q_spec = list(kv_spec)
+    grad_spec = list(kv_spec)
+    offset, part = 0, seq_len
+    coord = mesh.device_mesh.get_coordinate()
+    for a in rows:
+        MESH_PATHS[f"rows_over_{a}"] += 1
+        dim = mesh.live_axes.index(a)
+        q_spec[dim], grad_spec[dim] = Shard(1), Partial()
+        part //= mesh.shape[a]
+        offset += coord[dim] * part
+    name = ctx.op_name
+
+    def per_shard(ql, kl, vl):
+        MESH_LOCAL_Q[name] = tuple(ql.shape)
+        return katt.chunked_attention(ql, kl, vl, causal=params.causal,
+                                      q_offset=offset)
+
+    attn = local_map(
+        per_shard, out_placements=q_spec,
+        in_placements=(q_spec, kv_spec, kv_spec),
+        in_grad_placements=(q_spec, grad_spec, grad_spec),
+        device_mesh=mesh.device_mesh, redistribute_inputs=True)(q, k, v)
+    # the rows gathered back for the output projection, whose einsum
+    # DTensor cannot run on sharded positions (it folds them into the
+    # batch)
+    return attn.redistribute(mesh.device_mesh, kv_spec) if rows else attn
 
 
 _PAGED_BLOCK_WARNED: set = set()

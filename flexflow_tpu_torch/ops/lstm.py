@@ -54,6 +54,8 @@ def _weights(params: LSTMParams, in_shapes, in_dtypes):
 
 
 def _forward(params: LSTMParams, weights, inputs, ctx):
+    from ..parallel.mesh import like, local
+
     (x,) = inputs  # (b, s, f)
     cdt = ctx.compute_dtype
     wx, wh = (cast_weight(ctx, weights[n], cdt) for n in ("wx", "wh"))
@@ -65,9 +67,12 @@ def _forward(params: LSTMParams, weights, inputs, ctx):
     # XLA's preferred_element_type=f32
     xg = torch.matmul(x.float(), wx.float()) + weights["bias"].float()
     wh32 = wh.float()
-    h = torch.zeros((b, params.hidden_size), dtype=x.dtype, device=x.device)
-    c = torch.zeros((b, params.hidden_size), dtype=torch.float32,
-                    device=x.device)
+    # the zero state, a replicated DTensor on a device mesh (an op on
+    # DTensors takes no plain operand)
+    h = like(torch.zeros((b, params.hidden_size), dtype=x.dtype,
+                         device=local(x).device), x)
+    c = like(torch.zeros((b, params.hidden_size), dtype=torch.float32,
+                         device=local(x).device), x)
     hs = []
     for t in range(steps):
         gates = xg[:, t] + torch.matmul(h.float(), wh32)

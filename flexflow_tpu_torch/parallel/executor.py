@@ -74,6 +74,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -241,7 +242,8 @@ class PCGExecutor:
                  metrics=None, compute_dtype: Optional[torch.dtype] = None,
                  grad_dtype: Optional[torch.dtype] = None, seed: int = 0,
                  input_order: Optional[List] = None, remat: bool = False,
-                 constants: Optional[Dict] = None):
+                 constants: Optional[Dict] = None,
+                 overlap_grad_sync: bool = True):
         self.graph = graph
         self.device = torch.device(device)
         self.optimizer = optimizer
@@ -294,6 +296,10 @@ class PCGExecutor:
         self._profile_ranges = False
         # serving's compute-dtype weight copies (ops/common.py)
         self.weight_cache = WeightCache()
+        # the overlapped gradient sync (set_overlap_grad_sync; inert on
+        # one device) and its eligible weights, once computed
+        self.overlap_grad_sync = bool(overlap_grad_sync)
+        self._overlap_cache: Optional[Dict] = None
         # compute indices of the ops that draw random numbers in training
         self.drawing_ops = [
             self.compute_index[op.guid] for op in self.topo
@@ -343,8 +349,11 @@ class PCGExecutor:
         return net
 
     def init_state(self) -> TrainState:
+        """Fresh weights, their optimizer slots (made from `_owned`, so
+        on a mesh the overlap-eligible weights' slots live sharded:
+        ZeRO-1) and the stateful ops' buffers."""
         params = self.init_params()
-        opt_state = (self.optimizer.init_state(params)
+        opt_state = (self.optimizer.init_state(self._owned(params))
                      if self.optimizer is not None else None)
         return TrainState(params=params, opt_state=opt_state,
                           net_state=self.init_net_state())
@@ -390,14 +399,39 @@ class PCGExecutor:
             return torch.profiler.record_function(name)
         return _NO_RANGE
 
+    # -- the overlapped gradient sync ------------------------------------
+    def set_overlap_grad_sync(self, flag: bool) -> None:
+        """Enable/disable the reduce-scatter + sharded-update + all-gather
+        step (MeshExecutor; the reference's overlap_backward_update). A
+        change drops the eligible weights found so far and the captured
+        train scans: they were built for the other step."""
+        flag = bool(flag)
+        if flag != self.overlap_grad_sync:
+            self.overlap_grad_sync = flag
+            self._overlap_cache = None
+            self._scan_graphs.clear()
+
+    def _overlap_specs(self) -> Dict:
+        """(op name, weight name) -> (its owned-shard placements, the
+        dim it shards) of every weight the overlapped step updates on
+        owned shards (MeshExecutor). None on one device: there is no data
+        axis."""
+        return {}
+
     def overlap_schedule(self):
         """Schedule-introspection hook of the static analyzer
-        (analysis/schedule.py): the task chains of an overlapped
-        reduce-scatter / sharded-update / all-gather step. The port's
-        executor runs one device and has no overlapped gradient sync, so
-        there is none to audit: None, as the JAX executor returns when
-        its overlapped path is off."""
-        return None
+        (analysis/schedule.py): the per-weight task chains of the
+        overlapped step this executor runs (backward -> reduce-scatter of
+        the gradient -> update of the owned shard -> all-gather of the
+        updated weight), for the FFA502 race detector. None where the
+        overlapped path is off or inert (no weight eligible, as at data
+        degree 1), as the JAX executor returns."""
+        from ..analysis.schedule import build_overlap_schedule
+
+        omap = self._overlap_specs()
+        if not omap:
+            return None
+        return build_overlap_schedule(self.graph, set(omap))
 
     def init_guard_state(self) -> GuardState:
         if self.step_guard is None:
@@ -516,7 +550,7 @@ class PCGExecutor:
             ctx = self._ctx(op.name, training,
                             row[compute_idx] if compute_idx in drawing
                             else None, seq_length, weight_cache, aux_out)
-            w = params.get(op.name, {})
+            w = self._op_weights(op, params.get(op.name, {}))
             with self._range(op.name):
                 outs = self._op_forward(op, opdef, w, ins, ctx, training,
                                         net_state, net_out)
@@ -528,6 +562,11 @@ class PCGExecutor:
         """The value of tensor `pt` as the strategy places it: on one
         device, as it is (MeshExecutor redistributes)."""
         return val
+
+    def _op_weights(self, op, w):
+        """The weights op `op` reads: on one device, as they are
+        (MeshExecutor gathers the fsdp-sharded ones)."""
+        return w
 
     def _op_forward(self, op, opdef, w, ins, ctx, training, net_state,
                     net_out):
@@ -582,6 +621,11 @@ class PCGExecutor:
         return {op: {n: g.to(self.grad_dtype) for n, g in gs.items()}
                 for op, gs in grads.items()}
 
+    def _watch_leaves(self, names, leaves) -> None:
+        """Called with the autograd leaves of a training forward, before
+        it runs: on one device nothing (MeshExecutor hooks the overlapped
+        sync onto them)."""
+
     def _loss_and_grads(self, params: Params, batch_inputs, labels,
                         rng, seq_length: int = -1, net_state=None,
                         net_out=None, loss_scale=None):
@@ -597,6 +641,7 @@ class PCGExecutor:
         leaves = {op: {n: w.detach().requires_grad_() for n, w in ws.items()}
                   for op, ws in params.items()}
         flat = [leaves[op][n] for op, n in names]
+        self._watch_leaves(names, flat)
         aux: list = []
         with self._range("inputs"):
             inputs = self._input_vals(batch_inputs)
@@ -649,7 +694,7 @@ class PCGExecutor:
                     # path always computes it; here it is opt-in
                     with torch.no_grad():
                         gnorm = global_grad_norm(grads).to(self.device)
-                self.optimizer.update(state.params, grads, state.opt_state)
+                self.update_weights(state, grads)
             else:
                 finite, gnorm = self._guarded_update(state, grads, poison)
             with torch.no_grad():
@@ -669,6 +714,26 @@ class PCGExecutor:
             partials["skipped"] = 1.0 - finite.to(torch.float32)
             partials["grad_norm"] = torch.where(finite, gnorm, 0.0)
         return partials
+
+    def update_weights(self, state: TrainState, grads: Params) -> None:
+        """The optimizer's in-place update of state's weights and slots
+        from `grads` (the train step's and the stepwise `update`'s).
+        MeshExecutor updates the shards each rank owns under the
+        overlapped sync and then gathers the updated weights."""
+        self._update_shards(state, grads)
+        self._gather_updated(state.params)
+
+    def _update_shards(self, state: TrainState, grads: Params) -> None:
+        self.optimizer.update(self._owned(state.params), grads,
+                              state.opt_state)
+
+    def _owned(self, tree: Params) -> Params:
+        """The weights each rank updates: on one device all of `tree`
+        (MeshExecutor: the slices it owns under the overlapped sync)."""
+        return tree
+
+    def _gather_updated(self, params: Params) -> None:
+        """After `_update_shards`: nothing on one device."""
 
     @torch.no_grad()
     def _guarded_update(self, state: TrainState, grads: Params, poison):
@@ -702,9 +767,10 @@ class PCGExecutor:
         live = [local(t) for t in _tensors((state.params, state.opt_state))]
         kept = [torch.empty_like(t) for t in live]
         torch._foreach_copy_(kept, live)
-        self.optimizer.update(state.params, grads, state.opt_state)
+        self._update_shards(state, grads)
         for t, old in zip(live, kept):
             torch.where(finite, t, old, out=t)
+        self._gather_updated(state.params)
         cap = (cfg.max_loss_scale if cfg.max_loss_scale is not None
                else cfg.init_loss_scale)
         good = torch.where(finite, g.good_steps + 1, 0)
@@ -1235,6 +1301,20 @@ class PCGExecutor:
         return built
 
 
+def _waited(g):
+    """DTensor `g` whose local tensor an async collective is still
+    writing (`redistribute(..., async_op=True)`), once it has finished."""
+    from torch.distributed._functional_collectives import \
+        AsyncCollectiveTensor
+    from torch.distributed.tensor import DTensor
+
+    loc = g._local_tensor
+    if not isinstance(loc, AsyncCollectiveTensor):
+        return g
+    return DTensor.from_local(loc.wait(), g.device_mesh, g.placements,
+                              run_check=False)
+
+
 def _iota(x: torch.Tensor, axis: int) -> torch.Tensor:
     """Positions along `axis` of x, shaped to broadcast against x."""
     shape = [1] * x.dim()
@@ -1380,6 +1460,33 @@ class MeshExecutor(PCGExecutor):
     The optimizers, the step guard (on the global gradient norm) and
     snapshot/restore act on DTensors or each rank's shards.
 
+    FSDP/ZeRO (an "fsdp" mesh axis: `FFConfig.fsdp_degree`, or a searched
+    winner's WeightShard nodes): a target weight lives `Shard(d)` over
+    "fsdp" and is gathered where its op reads it (`_op_weights`: an
+    explicit redistribute to its placement without "fsdp", so DTensor
+    never moves the activation instead); the backward of that
+    redistribute is the gradient's reduce-scatter onto the shard, and
+    the optimizer slots, made by `zeros_like`, inherit the sharding.
+
+    The overlapped gradient sync (`overlap_grad_sync`, on by default, the
+    JAX package's): a weight with no data or fsdp placement and a dim
+    that the data size divides (`_overlap_specs`) has its gradient
+    reduce-scattered over "data" from a hook on its autograd leaf, an
+    async collective issued while the backward still runs, so NCCL
+    reduces layer i's gradient under layer i-1's backward kernels; it is
+    waited on after the backward. The optimizer then updates the 1/d
+    slice of the weight each rank owns (a `Shard` view of its local
+    tensor, no traffic) with slots that live sharded from `init_state` on
+    (ZeRO-1), and the updated slices are all-gathered back into the
+    weight. The values are the all-reduce step's.
+
+    `collectives` counts the collectives that run, by "<what>/<kind>/
+    <axis>": "grad" (a gradient's sync), "weight" (an fsdp weight gathered
+    on use) and "param" (an updated weight gathered after the sharded
+    update), each an "all_reduce", "reduce_scatter", "all_gather" or
+    "all_to_all" over a mesh axis; `grad_syncs` counts the gradient
+    syncs (at most one a weight a step).
+
     No op is gathered behind its back: an op that builds a plain tensor
     over the global shape (a dropout mask, the MoE dispatch mask) wraps
     it as a replicated DTensor itself (parallel/mesh.py `like`), and the
@@ -1404,8 +1511,16 @@ class MeshExecutor(PCGExecutor):
                             for n, wpt in zip(op.weight_names, op.weights)}
         self._const_vals = {g: self._replicated(v)
                             for g, v in self._const_vals.items()}
-        # the gradient redistributes that ran (at most one a weight a step)
+        # the gradient syncs that ran (at most one a weight a step), and
+        # every collective by "<what>/<kind>/<axis>" (class docstring)
         self.grad_syncs = 0
+        self.collectives: collections.Counter = collections.Counter()
+        # overlapped reduce-scatters issued from a leaf's hook while the
+        # backward ran, and those in flight until the update waits
+        self.overlap_issued_in_backward = 0
+        self._pending: Dict = {}
+        # (op, weight) -> the placements an fsdp weight is gathered to
+        self._gather_pl: Dict = {}
 
     def placements(self, pt) -> tuple:
         pl = self._pl.get(pt.guid)
@@ -1425,7 +1540,139 @@ class MeshExecutor(PCGExecutor):
             raise NotImplementedError(
                 f"{what} on a mesh of {self.mesh.size} devices is not "
                 "ported to flexflow_tpu_torch yet: it comes with a later "
-                "slice of multi-device execution (ROADMAP queue 1 item 6)")
+                "slice of multi-device execution (ROADMAP queue 1 item 2)")
+
+    # -- collectives -----------------------------------------------------
+    def _count(self, what: str, src, dst) -> bool:
+        """Count under `what` the collectives of a redistribute from
+        placements `src` to `dst`, one per mesh axis that moves data;
+        whether any does (Replicate -> Shard is a local slice)."""
+        from torch.distributed.tensor import Partial, Shard
+
+        moved = False
+        for axis, a, b in zip(self.mesh.live_axes, src, dst):
+            if a == b or (isinstance(b, Shard) and not isinstance(
+                    a, (Partial, Shard))):
+                continue
+            kind = ("all_to_all" if isinstance(a, Shard)
+                    and isinstance(b, Shard)
+                    else "all_gather" if isinstance(a, Shard)
+                    else "reduce_scatter" if isinstance(b, Shard)
+                    else "all_reduce")
+            self.collectives[f"{what}/{kind}/{axis}"] += 1
+            moved = True
+        return moved
+
+    def _kind_total(self, what: str, kind: str) -> int:
+        return sum(v for k, v in self.collectives.items()
+                   if k.startswith(f"{what}/{kind}/"))
+
+    @property
+    def grad_all_reduces(self) -> int:
+        return self._kind_total("grad", "all_reduce")
+
+    @property
+    def grad_reduce_scatters(self) -> int:
+        return self._kind_total("grad", "reduce_scatter")
+
+    @property
+    def weight_gathers(self) -> int:
+        """fsdp weights gathered on use, and updated weights gathered
+        after the overlapped step's sharded update."""
+        return (self._kind_total("weight", "all_gather")
+                + self._kind_total("param", "all_gather"))
+
+    # -- the overlapped gradient sync ------------------------------------
+    def _overlap_specs(self) -> Dict:
+        """(op name, weight name) -> (owned-shard placements, dim) for
+        every weight the overlapped step updates on owned shards, the
+        JAX package's `_overlap_specs` rule: the overlapped sync is on,
+        the data axis is larger than 1, the weight has no data or fsdp
+        placement (FSDP reduce-scatters on its own), and the weight's
+        first dim that no axis shards and that the data size divides
+        (and is at least) is sharded over "data" in the owned placements.
+        Other weights keep the all-reduce."""
+        if self._overlap_cache is not None:
+            return self._overlap_cache
+        from torch.distributed.tensor import Replicate, Shard
+
+        out: Dict = {}
+        dsize = self.mesh.shape.get("data", 1)
+        ddim = self.mesh.dim_of("data")
+        fdim = self.mesh.dim_of("fsdp")
+        if self.overlap_grad_sync and ddim is not None:
+            for op in self.topo:
+                for n, wpt in zip(op.weight_names, op.weights):
+                    pl = self.placements(wpt)
+                    if not isinstance(pl[ddim], Replicate) or (
+                            fdim is not None
+                            and not isinstance(pl[fdim], Replicate)):
+                        continue
+                    taken = {p.dim for p in pl if isinstance(p, Shard)}
+                    for di, size in enumerate(wpt.material_shape()):
+                        if di not in taken and size >= dsize \
+                                and size % dsize == 0:
+                            owned = list(pl)
+                            owned[ddim] = Shard(di)
+                            out[(op.name, n)] = (tuple(owned), di)
+                            break
+        self._overlap_cache = out
+        return out
+
+    def _owned_view(self, w, owned, di):
+        """The `Shard(di)`-over-"data" DTensor of the slice of weight `w`
+        (held whole over "data") that this rank owns: a view of its local
+        tensor, so an in-place update of it updates `w` there."""
+        from torch.distributed.tensor import DTensor
+
+        loc = local(w)
+        part = loc.shape[di] // self.mesh.shape["data"]
+        at = self.mesh.device_mesh.get_coordinate()[self.mesh.dim_of("data")]
+        return DTensor.from_local(loc.narrow(di, at * part, part),
+                                  self.mesh.device_mesh, owned,
+                                  run_check=False)
+
+    def _owned(self, tree: Params) -> Params:
+        """A params-shaped tree with each overlap-eligible weight
+        replaced by this rank's owned view of it."""
+        omap = self._overlap_specs()
+        if not omap:
+            return tree
+        return {op: {n: (self._owned_view(w, *omap[(op, n)])
+                         if (op, n) in omap else w)
+                     for n, w in ws.items()} for op, ws in tree.items()}
+
+    def _watch_leaves(self, names, leaves) -> None:
+        """Hook each overlap-eligible leaf: once autograd has its
+        gradient (a partial sum over "data"), cast it as `_cast_grads`
+        casts and issue its reduce-scatter onto the owned placements as
+        an async collective; `_cast_grads` waits on it."""
+        omap = self._overlap_specs()
+        self._pending = {}
+        for key, leaf in zip(names, leaves):
+            if key in omap:
+                leaf.register_hook(functools.partial(self._issue, key,
+                                                     omap[key][0]))
+
+    def _issue(self, key, owned, g):
+        if self.grad_dtype is not None:
+            g = g.to(self.grad_dtype)
+        if torch._C._current_graph_task_id() != -1:
+            self.overlap_issued_in_backward += 1
+        if self._count("grad", g.placements, owned):
+            self.grad_syncs += 1
+        self._pending[key] = g.redistribute(self.mesh.device_mesh, owned,
+                                            async_op=True)
+
+    @torch.no_grad()
+    def _gather_updated(self, params: Params) -> None:
+        """All-gather each updated owned slice back into its weight."""
+        for (op, n), (owned, di) in self._overlap_specs().items():
+            w = params[op][n]
+            whole = self._owned_view(w, owned, di).redistribute(
+                self.mesh.device_mesh, w.placements)
+            self._count("param", owned, w.placements)
+            local(w).copy_(local(whole))
 
     # -- placement -------------------------------------------------------
     def init_params(self) -> Params:
@@ -1462,6 +1709,40 @@ class MeshExecutor(PCGExecutor):
             for p in self.placements(self.logits_pt))
         return distribute(y, self.mesh, pl)
 
+    def _op_weights(self, op, w):
+        """Op `op`'s weights with each one sharded over "fsdp" gathered
+        to its placement without "fsdp" (an explicit all-gather before the
+        op reads it; in training the backward of the redistribute
+        reduce-scatters its gradient onto the shard)."""
+        fdim = self.mesh.dim_of("fsdp")
+        if fdim is None or not w:
+            return w
+        from torch.distributed.tensor import Replicate
+
+        out = {}
+        for n, t in w.items():
+            key = (op.name, n)
+            pl = self._gather_pl.get(key)
+            if pl is None:
+                pl = list(self.placements(self._weight_pts[key]))
+                pl[fdim] = Replicate()
+                pl = self._gather_pl[key] = tuple(pl)
+            if tuple(t.placements) != pl:
+                self._count("weight", t.placements, pl)
+                src = t.placements
+                t = t.redistribute(self.mesh.device_mesh, pl)
+                if t.requires_grad:
+                    t.register_hook(functools.partial(
+                        self._count_gather_grad, src))
+            out[n] = t
+        return out
+
+    def _count_gather_grad(self, src, g):
+        """The gradient of a gathered fsdp weight, about to be reduced
+        onto its shard by the redistribute's backward: count what runs."""
+        if self._count("grad", g.placements, src):
+            self.grad_syncs += 1
+
     def _constrain(self, val, pt):
         from torch.distributed.tensor import Shard
 
@@ -1475,21 +1756,30 @@ class MeshExecutor(PCGExecutor):
 
     # -- the walk --------------------------------------------------------
     def _cast_grads(self, grads: Params) -> Params:
-        """Cast as PCGExecutor casts, then redistribute each gradient to
-        its weight's placement: the gradient all-reduce (reduce-scatter
-        for a sharded weight) of the step, at most once a weight. A
-        gradient that comes out placed as its weight is (a weight sharded
-        as its activations are) needs no collective and is not counted."""
-        grads = super()._cast_grads(grads)
+        """An overlap-eligible gradient: its reduce-scatter, issued from
+        the backward, waited on here (already cast). Any other: cast as
+        PCGExecutor casts, then redistributed to its weight's placement,
+        the gradient all-reduce of the step. A gradient that comes out
+        placed as its weight is (a weight sharded as its activations are,
+        an fsdp weight reduce-scattered by its gather's backward) needs no
+        collective here."""
+        pending, self._pending = self._pending, {}
         out: Params = {}
         for op, gs in grads.items():
             for n, g in gs.items():
-                pl = self.placements(self._weight_pts[(op, n)])
+                key = (op, n)
+                if key in pending:
+                    out.setdefault(op, {})[n] = _waited(pending[key])
+                    continue
+                if self.grad_dtype is not None:
+                    g = g.to(self.grad_dtype)
+                pl = self.placements(self._weight_pts[key])
                 if not is_dtensor(g):
                     g = self._replicated(g)
                 if tuple(g.placements) != pl:
+                    if self._count("grad", g.placements, pl):
+                        self.grad_syncs += 1
                     g = g.redistribute(self.mesh.device_mesh, pl)
-                    self.grad_syncs += 1
                 out.setdefault(op, {})[n] = g
         return out
 

@@ -16,13 +16,21 @@ product of the mesh's dims, so every size-1 dim multiplies the cost of
 propagating each op (a matmul on a 2 x 2 x 1 x 1 x 1 mesh took seconds
 where the 2 x 2 mesh takes milliseconds) and shards nothing.
 
+A strategy may use fewer devices than the process group holds (the
+JAX package's `build_mesh` leaves the surplus devices out, as a
+MachineView that does not cover the machine): the port's surplus ranks
+run the same program as replicas, over a leading "replica" dim of the
+DeviceMesh that no tensor shards, so they compute the same values and
+exchange nothing.
+
 The ops use a few helpers where DTensor alone would not do: `like`
 turns a plain tensor built over the global shape (a mask) into a
 replicated DTensor, `shard_like` places a whole tensor as a DTensor is
-placed, `gathered` reads a value whole, and `per_shard` runs an op on
-local shards through `local_map` where DTensor has no rule for it in
-some torch release (`var_mean` is one). Every gather of a sharded
-operand they make is counted in `GATHERED`.
+placed, `gathered` reads a value whole, `per_shard` runs an op on local
+shards through `local_map` where DTensor has no rule for it in some
+torch release, and `var_mean` takes the statistics of a sharded
+reduction from partial sums. Every gather of a sharded operand they
+make is counted in `GATHERED`.
 """
 from __future__ import annotations
 
@@ -146,9 +154,42 @@ def gathered(t, name: str):
 
 def var_mean(x: torch.Tensor, dims: Sequence[int], keepdim: bool = False):
     """(var, mean) of `x` over `dims`, biased (`torch.var_mean(...,
-    correction=0)`), through `per_shard` on a DTensor (torch 2.11's
-    DTensor has no rule for var_mean)."""
+    correction=0)`). On a DTensor that a mesh axis shards along one of
+    `dims` (BatchNorm's batch under a data axis, LayerNorm's hidden dim
+    under a model axis), from partial sums, as GSPMD computes JAX's
+    `jnp.mean`/`jnp.var`: the mean is each rank's local sum all-reduced
+    over those axes and divided by the global count, then the variance
+    is the mean of (x - mean)^2 the same way (not E[x^2] - E[x]^2, which
+    cancels), so only vectors of the kept dims cross ranks. Built from
+    `sum` and elementwise ops alone: torch 2.11's DTensor has no rule for
+    var_mean. On any other DTensor (no reduced dim sharded) torch's
+    var_mean runs on each rank's local tensor through `per_shard`, which
+    gathers nothing there."""
     dims = tuple(d % x.dim() for d in dims)
+    if is_dtensor(x):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        if any(isinstance(p, Shard) and p.dim in dims
+               for p in x.placements):
+            count = 1
+            for d in dims:
+                count *= x.shape[d]
+            mesh = x.device_mesh
+
+            def mean_of(t):
+                s = t.sum(dim=dims, keepdim=True)
+                s = s.redistribute(mesh, [
+                    Replicate() if isinstance(p, Partial) else p
+                    for p in s.placements])
+                return s / count
+
+            mean = mean_of(x)
+            centred = x - mean
+            var = mean_of(centred * centred)
+            if not keepdim:
+                # a sum over the kept size-1 dims: each is its one element
+                mean, var = mean.sum(dim=dims), var.sum(dim=dims)
+            return var, mean
     return per_shard(
         lambda t: torch.var_mean(t, dim=dims, keepdim=keepdim, correction=0),
         x, dims, "var_mean", n_out=2, dropped=() if keepdim else dims)
@@ -194,14 +235,24 @@ def placements_for_parallel_tensor(pt, axis_names: Sequence[str],
     return tuple(out)
 
 
+# the DeviceMesh dim of the surplus ranks' replicas (Mesh); no tensor
+# shards over it
+REPLICA_AXIS = "replica"
+
+
 class Mesh:
     """A device mesh of named axes over the default process group, one
     device per process (the JAX package's jax.sharding.Mesh). `shape`
-    maps every axis name to its size, size-1 axes kept; `device_mesh` is
-    the DeviceMesh over the axes of size > 1 (`live_axes`), ranks laid out
-    row-major in axis order as JAX's build_mesh lays out devices."""
+    maps every axis name to its size, size-1 axes kept, and `size` is
+    their product, the devices the strategy uses; `device_mesh` is the
+    DeviceMesh over the axes of size > 1 (`live_axes`), ranks laid out
+    row-major in axis order as JAX's build_mesh lays out devices. With
+    `replicas` > 1 (a group of `replicas` x `size` processes) the
+    DeviceMesh has a leading REPLICA_AXIS dim of that size, first in
+    `live_axes`, over which every tensor is replicated."""
 
-    def __init__(self, axis_sizes: Dict[str, int], device_type: str):
+    def __init__(self, axis_sizes: Dict[str, int], device_type: str,
+                 replicas: int = 1):
         from torch.distributed.device_mesh import init_device_mesh
 
         self.axis_names: Tuple[str, ...] = tuple(axis_sizes)
@@ -210,10 +261,14 @@ class Mesh:
         self.size = 1
         for v in self.shape.values():
             self.size *= v
-        live = [(k, v) for k, v in self.shape.items() if v > 1] \
-            or [(self.axis_names[0], 1)]
+        self.replicas = int(replicas)
+        live = [(k, v) for k, v in self.shape.items() if v > 1]
+        if self.replicas > 1:
+            live.insert(0, (REPLICA_AXIS, self.replicas))
+        live = live or [(self.axis_names[0], 1)]
         self.live_axes: Tuple[str, ...] = tuple(k for k, _ in live)
-        self._live_idx = [self.axis_names.index(k) for k in self.live_axes]
+        self._live_idx = [self.axis_names.index(k) if k in self.shape
+                          else None for k in self.live_axes]
         self.device_type = device_type
         self.device_mesh = init_device_mesh(
             device_type, tuple(v for _, v in live),
@@ -222,9 +277,19 @@ class Mesh:
     def placements(self, pt) -> tuple:
         """The DTensor placements of a ParallelTensor on this mesh (one
         per live axis)."""
+        from torch.distributed.tensor import Replicate
+
         full_pl = placements_for_parallel_tensor(
             pt, self.axis_names, [self.shape[k] for k in self.axis_names])
-        return tuple(full_pl[i] for i in self._live_idx)
+        return tuple(Replicate() if i is None else full_pl[i]
+                     for i in self._live_idx)
+
+    def dim_of(self, axis: str) -> Optional[int]:
+        """The DeviceMesh dim of mesh axis `axis` (None where the axis
+        has size 1 and so no dim)."""
+        return (self.live_axes.index(axis)
+                if axis in self.live_axes and self.shape.get(axis, 1) > 1
+                else None)
 
     def replicate(self) -> tuple:
         from torch.distributed.tensor import Replicate
@@ -238,9 +303,11 @@ class Mesh:
 def build_mesh(axis_sizes: Dict[str, int],
                device_type: Optional[str] = None) -> Mesh:
     """A Mesh of {axis name: size} over the default process group (size-1
-    axes kept). The sizes must multiply to the world size: one process
-    per device, and no process may sit outside the program. The device
-    type defaults to the group's ("cuda" under NCCL, "cpu" under gloo)."""
+    axes kept). The sizes must multiply to a divisor of the world size
+    (one process per device): where they multiply to less, the surplus
+    processes run the program as replicas (Mesh `replicas`), where JAX's
+    build_mesh leaves the surplus devices out. The device type defaults
+    to the group's ("cuda" under NCCL, "cpu" under gloo)."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
@@ -251,12 +318,12 @@ def build_mesh(axis_sizes: Dict[str, int],
     for v in axes.values():
         n *= int(v)
     world = dist.get_world_size()
-    if n != world:
+    if n > world or world % n:
         raise ValueError(f"mesh {axes} needs {n} devices; the process "
                          f"group has {world}")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return Mesh(axes, device_type)
+    return Mesh(axes, device_type, replicas=world // n)
 
 
 def default_data_parallel_mesh(num_devices: Optional[int] = None,

@@ -7,12 +7,14 @@ passes assign degrees/parallel_idx to ParallelTensor dims in place;
 `assign_mesh_axes` lowers a searched PCG to the named axes of the live
 mesh (`max_devices`: the world size of the process group, one device per
 process), keeping every degree that fits and demoting the rest to
-replicated, as the JAX package does on a smaller mesh. `compile` runs
-`apply_data_parallel` and `apply_tensor_parallel` at the config's
-degrees, and the mesh executor (parallel/executor.py MeshExecutor)
-executes both at those degrees; the sequence, expert, pipeline and fsdp
-passes are kept for the search's lowering, and a strategy that needs
-their axes is refused at compile until their slices land.
+replicated, as the JAX package does on a smaller mesh; a winner's
+WeightShard nodes keep their degree where the mesh has room for it.
+`compile` runs `apply_data_parallel`, `apply_tensor_parallel` and
+`apply_weight_sharding` at the config's degrees, and the mesh executor
+(parallel/executor.py MeshExecutor) executes all three at those degrees;
+the sequence, expert and pipeline passes are kept for the search's
+lowering, and a strategy that needs their axes is refused at compile
+until their slices land.
 """
 from __future__ import annotations
 

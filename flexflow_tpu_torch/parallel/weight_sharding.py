@@ -9,9 +9,13 @@ gradient buffers and optimizer slots -- are sharded ``shard_degree``
 ways. The node is the identity on the activation path; the storage
 semantics live in the target op's weight ParallelDims, whose degrees
 this module sets. The search prices the all-gather-on-use and the
-gradient reduce-scatter (search/cost_model.py parallel_op_cost). On
-the one device the port runs on, the lowering (parallel/strategies.py
-assign_mesh_axes) backs the nodes out and the weights stay whole.
+gradient reduce-scatter (search/cost_model.py parallel_op_cost). On a
+mesh with room for the fsdp degree the lowering (parallel/strategies.py
+assign_mesh_axes) keeps the nodes and their degree, and the mesh
+executor (parallel/executor.py MeshExecutor) holds each target weight
+sharded over the ``fsdp`` axis, gathers it where its op reads it and
+reduce-scatters its gradient; where the mesh has no room (one device)
+the lowering backs the nodes out and the weights stay whole.
 """
 from __future__ import annotations
 

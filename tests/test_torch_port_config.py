@@ -41,7 +41,8 @@ def _jax_flags():
 
 
 def test_every_jax_flag_is_read_or_refused():
-    read = set(tconfig._FLAGS) | set(tconfig._SWITCHES)
+    read = (set(tconfig._FLAGS) | set(tconfig._SWITCHES)
+            | set(tconfig._SETTINGS))
     refused = set(tconfig._UNPORTED_FLAGS)
     assert not read & refused
     assert read | refused == _jax_flags()
@@ -49,6 +50,8 @@ def test_every_jax_flag_is_read_or_refused():
     for field, _ in tconfig._FLAGS.values():
         assert field is None or field in fields
     assert set(tconfig._SWITCHES.values()) <= fields
+    for settings in tconfig._SETTINGS.values():
+        assert set(settings) <= fields
 
 
 def _changes(cfg, argv, shared):
@@ -70,6 +73,9 @@ _ARGVS = [
     ["--search-budget", "3", "-ll:gpu", "1", "-ll:tpu", "2"],
     ["--unknown", "7", "-b", "16", "positional", "-x"],
     ["-p"],
+    ["--fsdp-degree", "4", "-b", "8"],
+    ["--no-overlap-backward-update"],
+    ["--no-overlap-backward-update", "--overlap-backward-update"],
 ]
 
 

@@ -15,7 +15,7 @@ Cases: the small Transformer of tests/test_sharding.py (batch 8, seq 16,
 hidden 64, 4 heads, 2 blocks) for 3 SGD steps under dp 4, tp 4 (batch 2,
 with the model-sharded local weight shapes) and dp 2 x tp 2; a BatchNorm
 CNN under dp 4 (the running statistics after 2 steps are the global
-batch's); the Unity winner of a 4-worker machine executed at its
+batch's, from partial sums); the Unity winner of a 4-worker machine executed at its
 degrees, and two ranks forced to different winners; the JAX package's
 multi-process data-parallel `fit` cases (2 and 3 ranks, a diverging
 global batch). Tolerance: f32 with rtol 1e-5 and atol 1e-6 (the
@@ -333,17 +333,18 @@ def test_transformer_matches_jax_on_the_same_mesh(runs, name, tp, batch):
 def test_bn_cnn_running_statistics_are_the_global_batchs(runs):
     """A BatchNorm CNN under dp 4: after 2 steps the running mean and
     variance are the global batch's, as the JAX package's are (local
-    statistics would differ), and so are the weights and the serving
-    forward on the running statistics."""
+    statistics would differ), taken from partial sums without gathering
+    the activation, and so are the weights and the serving forward on the
+    running statistics."""
     jm = runs["jax"]["cnn"]
     want = _jax_steps(jm, [runs["data"]["cnn"]["x0"]],
                       runs["data"]["cnn"]["y"], 2)
     run, _ = _wait(runs, "four")
     out = run.ok("bn_cnn")
-    # the batch statistics of 2 BatchNorms x 2 steps, each on the batch
-    # gathered whole (the convolutions and the pooling run on the batch
-    # shards)
-    assert out["gathered"] == {"var_mean": 4}
+    # the batch statistics come from partial sums all-reduced over
+    # "data" (parallel/mesh.py var_mean): no activation is gathered whole
+    # (the convolutions and the pooling run on the batch shards)
+    assert out["gathered"] == {}
     np.testing.assert_allclose(out["losses"], want, rtol=RTOL, atol=ATOL)
     got = run.arrays("bn_cnn")
     n_bufs = 0

@@ -25,8 +25,9 @@ port on one device in this process from the same seed's weights:
     routes through `local_map` (the kernels' plain versions per shard on
     the CPU) and trains 2 steps to the one-device dense losses and
     weights, rtol 1e-5, atol 1e-6; heads 6 on tp 4: chunked attention
-    with the heads whole on every rank, and the same agreement; heads 3
-    on dp 2 x tp 2: chunked with the batch still sharded over "data";
+    with the query positions sharded over "model", and the same
+    agreement; heads 3 on dp 2 x tp 2: the same, with the batch sharded
+    over "data";
   - attention dropout: at dp 4 the dense path with the global mask; a
     2-block BERT (attention and hidden dropout, weights loaded from its
     torch module) at dp 2 x tp 2 the same; on a mesh of one device the
@@ -132,8 +133,7 @@ def test_machine_view_to_axes_matches_jax(axes, dims):
 @pytest.mark.parametrize("field,slice_name", [
     ("sequence_parallel_degree", "sequence parallelism"),
     ("expert_parallel_degree", "expert parallelism"),
-    ("pipeline_parallel_degree", "pipeline parallelism"),
-    ("fsdp_degree", "FSDP weight sharding")])
+    ("pipeline_parallel_degree", "pipeline parallelism")])
 def test_unported_degrees_raise_naming_their_slice(field, slice_name):
     m = tff.FFModel(tff.FFConfig(device="cpu", **{field: 2}))
     m.softmax(m.create_tensor((2, 4)))
@@ -191,12 +191,6 @@ _REFUSED = {
                         "checkpoints, the verifier and the canary"),
     "canary": ({"mode": "fit", "fit": {"canary": True}},
                "checkpoints, the verifier and the canary"),
-    "fsdp_winner": ({"builder": "transformer",
-                     "builder_kwargs": {"batch": 8, "seq": 64,
-                                        "hidden": 128, "heads": 8,
-                                        "layers": 2},
-                     "config": {"batch_size": 8, "search_budget": 4}},
-                    "FSDP weight sharding"),
 }
 
 
@@ -242,17 +236,11 @@ def runs(tmp_path_factory):
                      y=rng.randn(4, 16, 64).astype(np.float32)),
         "moe": dict(x0=rng.randn(16, 32).astype(np.float32),
                     y=rng.randint(0, 4, (16, 1)).astype(np.int32)),
-        "tf": dict(x0=rng.randn(16, 64, 128).astype(np.float32),
-                   y=rng.randn(16, 64, 128).astype(np.float32)),
     }
     paths = {}
     for k, arrays in data.items():
         paths[k] = str(d / f"data_{k}.npz")
         np.savez(paths[k], **arrays)
-    machine = d / "machine_4.cfg"
-    machine.write_text("num_nodes = 1\nnum_gpus_per_node = 4\n"
-                       "intra_node_bandwidth = 90e9\n"
-                       "inter_node_bandwidth = 25e9\n")
     four = [
         {"name": "dp4_dense", "builder": "dense_softmax",
          "builder_kwargs": {"batch": 8}, "config": {"batch_size": 8},
@@ -316,11 +304,6 @@ def runs(tmp_path_factory):
         c = dict(base, name=name, **case)
         if name == "checkpoint_dir":
             c["fit"] = {"checkpoint_dir": str(d / "ck")}
-        if name == "fsdp_winner":
-            c["config"] = dict(c["config"],
-                               machine_model_file=str(machine))
-            c["data"] = paths["tf"]
-            c["loss"] = "mse"
         two.append(c)
     pool = concurrent.futures.ThreadPoolExecutor(2)
     out = {}
@@ -448,11 +431,13 @@ def test_step_guard_reads_the_global_gradient(runs):
     _compare(run, "guard", params_to_numpy(m))
 
 
-# the attention routes a case's ranks count: (route, count a step)
+# the attention routes a case's ranks count: (route, count a step). The
+# chunked cases' heads do not divide the model axis, which shards their
+# query positions instead (the batch over "data" where it divides)
 _ROUTES = {
     "local_map": {"local_map": 1},
-    "chunked_replicated": {"chunked": 1, "replicated_over_model": 1},
-    "chunked_batch_sharded": {"chunked": 1, "replicated_over_model": 1},
+    "chunked_replicated": {"chunked": 1, "rows_over_model": 1},
+    "chunked_batch_sharded": {"chunked": 1, "rows_over_model": 1},
     "dense": {"dense": 1},
 }
 
@@ -466,9 +451,10 @@ def test_flash_dispatch_on_a_sharded_mesh(runs, monkeypatch, name, kw,
                                           data, route):
     """FF_ATTENTION_IMPL=flash on a sharded mesh: heads that divide the
     model axis run the flash kernels per shard through local_map (here
-    their plain versions), indivisible heads take chunked attention (on
-    dp 2 x tp 2 with the batch still sharded over "data": no
-    `replicated_over_data`), and dropout at dp 4 takes the dense path
+    their plain versions), indivisible heads take chunked attention with
+    the query positions sharded over "model" (on dp 2 x tp 2 with the
+    batch still sharded over "data": no `rows_over_data`), and dropout at
+    dp 4 takes the dense path
     with the global mask; either way 2 train steps match one device's
     (the dense path; the flash path's plain versions under dropout,
     which drop the same elements)."""

@@ -659,7 +659,6 @@ def test_search_flags_parse_to_jax_fields(argv):
 
 @pytest.mark.parametrize("flag,what", [
     ("--import-strategy", "strategy import"),
-    ("--fsdp-degree", "FSDP weight sharding"),
     ("--nodes", "multi-node execution")])
 def test_unported_search_flags_raise_naming_what_is_missing(flag, what):
     with pytest.raises(NotImplementedError, match=what):

@@ -172,12 +172,14 @@ def test_config_rejects_unported_fields_and_carries_the_new_ones():
     for name in ("iterations_per_dispatch", "remat"):
         assert getattr(cfg, name) == getattr(jcfg, name)
         setattr(cfg, name, getattr(cfg, name))
-    for name in ("overlap_backward_update", "pipeline_parallelism_degree",
-                 "anything"):
+    for name in ("pipeline_parallelism_degree", "anything"):
         with pytest.raises(AttributeError):
             setattr(cfg, name, 2)
-    with pytest.raises(TypeError):
-        FFConfig(device="cpu", overlap_backward_update=True)
+    # the overlapped gradient sync is a field, on by default as JAX's
+    for name in ("overlap_backward_update",
+                 "search_overlap_backward_update"):
+        assert getattr(cfg, name) == getattr(jcfg, name)
+    assert FFConfig(device="cpu").overlap_backward_update is True
     # the parallel degrees are fields (JAX's names and defaults); those
     # whose execution is not ported raise at compile
     for name in ("tensor_parallel_degree", "fsdp_degree",

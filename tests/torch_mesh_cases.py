@@ -6,7 +6,7 @@ case of a JSON spec in order:
 
     {"name": ..., "builder": "transformer" | "dense_softmax" | "bn_cnn"
      | "dropout_mlp" | "mlp" | "search_mlp" | "attention" | "bert"
-     | "moe",
+     | "moe" | "overlap_mlp",
      "builder_kwargs": {...},
      "config": {FFConfig fields}, "config_by_rank": {"1": {...}},
      "env": {variables set for the case}, "loss": "mse" | ...,
@@ -15,22 +15,30 @@ case of a JSON spec in order:
      "data": "<npz of x0, x1, ..., y>", "rank_data": "<npz rank 1+ use>",
      "random_data": {"x_shapes": [...], "y_shape": [...], "seed": 0},
      "mode": "steps" | "guard" | "fit" | "scan" | "decode"
-     | "compile_decode" | "compile",
+     | "compile_decode" | "compile" | "var_mean",
      "steps": 3, "epochs": 1, "fit": {fit keywords},
-     "forward": true (then the forward of the first batch)}
+     "same_batch": true (every step on the first batch),
+     "guard": {"init_loss_scale": 4.0, "poison_step": 1} (StepGuardConfig's
+     scale; the step whose gradients are poisoned, -1 for none),
+     "forward": true (then the forward of the first batch),
+     "opt_state": true (rank 0 also writes the optimizer slots whole)}
 
 "steps" runs the executor's train step on the first `steps` batches
 (every rank passes the SAME global batch; the step seed is the step
 index; past the data, the batches repeat) and records each step's loss
 and its seconds (the loss read synchronises); "guard" does so with the
 step guard armed and the second step's gradients poisoned with NaN, and
-records the global gradient norms and the skips; "fit" runs FFModel.fit.
+records the global gradient norms and the skips; "fit" runs FFModel.fit;
+"var_mean" runs parallel/mesh.py `var_mean` on DTensors of a seeded
+array (no model) under CommDebugMode and records the collectives.
 With "forward", the serving forward of the first batch runs after them
 (on the state's buffers) and rank 0 keeps its output whole.
 Each rank writes `<out_dir>/<name>.rank<r>.json` (the error, if the case
-raised, else the losses, the mesh, the gradient redistributes, the
-attention mesh routes, the ops run on gathered operands, and each
-weight's local shape and placements) and
+raised, else the losses, the mesh, the gradient redistributes and the
+executor's collectives, the attention mesh routes and local q shapes,
+the ops run on gathered operands, each weight's local shape and
+placements, and the overlapped sync's eligible weights, hooks, slot
+shapes and schedule audit) and
 rank 0 writes the final weights and buffers whole to
 `<out_dir>/<name>.npz` (`params_to_numpy`: gathered, never one shard).
 A case that raises is recorded and the next case runs. The tests build
@@ -69,8 +77,13 @@ def build(model, name: str, kw: dict):
         x = model.create_tensor((kw["batch"], kw.get("width", 784)),
                                 DataType.DT_FLOAT)
         t = model.dense(x, kw.get("hidden", 256), ActiMode.AC_MODE_RELU)
-        t = model.dense(t, 10)
+        t = model.dense(t, kw.get("classes", 10))
         model.softmax(t)
+    elif name == "overlap_mlp":
+        # tests/test_perf_overlap.py _small_model
+        x = model.create_tensor((kw["batch"], 16), DataType.DT_FLOAT)
+        t = model.dense(x, 32, ActiMode.AC_MODE_RELU)
+        model.dense(t, 16, ActiMode.AC_MODE_NONE)
     elif name == "search_mlp":
         # tests/test_torch_port_search.py mlp_model: on a 4-worker machine
         # its winner is tensor parallel, with Combine ops
@@ -92,7 +105,8 @@ def build(model, name: str, kw: dict):
         x = model.create_tensor((kw["batch"], kw["seq"], e),
                                 DataType.DT_FLOAT)
         t = model.multihead_attention(x, x, x, e, h,
-                                      dropout=kw.get("dropout", 0.0))
+                                      dropout=kw.get("dropout", 0.0),
+                                      causal=kw.get("causal", False))
         model.dense(t, e)
     elif name == "moe":
         # the zoo's MoE: top-k gating, GroupBy's capacity-limited dispatch
@@ -136,7 +150,10 @@ def run_case(case: dict, rank: int, device: str) -> dict:
     for k, v in case.get("env", {}).items():
         os.environ[k] = str(v)
     att.MESH_PATHS.clear()
+    att.MESH_LOCAL_Q.clear()
     pmesh.GATHERED.clear()
+    if case.get("mode") == "var_mean":
+        return _var_mean_case(case, rank, device)
     model = FFModel(FFConfig(device=device, **cfg_kw))
     source = build(model, case["builder"], case.get("builder_kwargs", {}))
     opt = dict(case.get("optimizer", {"lr": case.get("lr", 0.01)}))
@@ -152,7 +169,7 @@ def run_case(case: dict, rank: int, device: str) -> dict:
                 op, n = key.split("/", 1)
                 tree.setdefault(op, {})[n] = z[key]
         params_from_numpy(model, tree)
-    out: dict = {"losses": []}
+    out: dict = {"losses": [], "opt_init": _slots(model)}
     data_path = case.get("data")
     if rank > 0 and case.get("rank_data"):
         data_path = case["rank_data"]
@@ -175,7 +192,7 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         step = ex.build_train_step()
         out["step_s"] = []
         for i in range(case.get("steps", 1)):
-            j = i % max(1, len(y) // bs)
+            j = 0 if case.get("same_batch") else i % max(1, len(y) // bs)
             batch = [a[j * bs:(j + 1) * bs] for a in xs + [y]]
             t0 = time.perf_counter()
             model.state, partials = step(model.state, batch[:-1], batch[-1],
@@ -188,14 +205,19 @@ def run_case(case: dict, rank: int, device: str) -> dict:
 
         from flexflow_tpu_torch.runtime.resilience import StepGuardConfig
 
-        ex.set_step_guard(StepGuardConfig(init_loss_scale=4.0))
+        gcfg = dict({"init_loss_scale": 4.0, "poison_step": 1},
+                    **case.get("guard", {}))
+        ex.set_step_guard(StepGuardConfig(
+            init_loss_scale=gcfg["init_loss_scale"]))
         model.state.guard = ex.init_guard_state()
         step = ex.build_train_step()
         out["grad_norms"], out["skipped"] = [], []
         for i in range(case.get("steps", 1)):
-            batch = [a[i * bs:(i + 1) * bs] for a in xs + [y]]
-            poison = torch.tensor(float("nan") if i == 1 else 1.0,
-                                  device=ex.device)
+            j = 0 if case.get("same_batch") else i
+            batch = [a[j * bs:(j + 1) * bs] for a in xs + [y]]
+            poison = torch.tensor(
+                float("nan") if i == gcfg["poison_step"] else 1.0,
+                device=ex.device)
             model.state, partials = step(model.state, batch[:-1], batch[-1],
                                          i, poison)
             out["losses"].append(float(partials["loss"]))
@@ -214,9 +236,17 @@ def run_case(case: dict, rank: int, device: str) -> dict:
     mesh = ex.mesh
     out.update(
         mesh=None if mesh is None else mesh.shape,
+        replicas=getattr(mesh, "replicas", 1),
         executor=type(ex).__name__,
         grad_syncs=getattr(ex, "grad_syncs", 0),
+        collectives=dict(getattr(ex, "collectives", {})),
+        overlap_issued_in_backward=getattr(
+            ex, "overlap_issued_in_backward", 0),
+        overlap_weights=sorted(f"{op}/{n}"
+                               for op, n in ex._overlap_specs()),
+        opt_slots=_slots(model),
         mesh_paths=dict(att.MESH_PATHS),
+        local_q=dict(att.MESH_LOCAL_Q),
         gathered=dict(pmesh.GATHERED),
         searched_views=None if model.searched_views is None else sorted(
             (pos, v.start_device_id, list(v.dim), list(v.stride))
@@ -227,6 +257,18 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         weight_placements={
             f"{op}/{n}": [str(p) for p in getattr(w, "placements", ())]
             for op, ws in model.params.items() for n, w in ws.items()})
+    if case.get("schedule"):
+        # the analyzer's audit of the overlapped step's schedule, then
+        # the schedule with the overlapped sync off
+        from flexflow_tpu_torch.analysis.schedule import \
+            schedule_race_diagnostics
+
+        sched = ex.overlap_schedule()
+        out["schedule_len"] = 0 if sched is None else len(sched)
+        out["schedule_ok"] = (sched is not None
+                              and schedule_race_diagnostics(sched).ok)
+        ex.set_overlap_grad_sync(False)
+        out["schedule_off"] = ex.overlap_schedule() is None
     fwd = None
     if case.get("forward"):
         fwd = ex.build_forward()(model.params, [a[:bs] for a in xs],
@@ -242,6 +284,58 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         if fwd is not None:
             arrays["f/out"] = fwd
         out["arrays"] = arrays
+    if case.get("opt_state"):
+        # every rank joins the gathers; rank 0 keeps them
+        slots = {f"o/{k}/{op}/{n}": pmesh.full(t).detach().cpu().numpy()
+                 for k, tree in model.state.opt_state.items()
+                 if isinstance(tree, dict)
+                 for op, ws in tree.items() for n, t in ws.items()}
+        if rank == 0:
+            out["arrays"].update(slots)
+    return out
+
+
+def _slots(model):
+    """{slot/op/weight: [local shape, placements]} of the optimizer's
+    weight-shaped slots."""
+    from flexflow_tpu_torch.parallel import mesh as pmesh
+
+    st = model.state.opt_state
+    return {f"{k}/{op}/{n}": [list(pmesh.local(t).shape),
+                              [str(p) for p in getattr(t, "placements", ())]]
+            for k, tree in (st.items() if isinstance(st, dict) else ())
+            if isinstance(tree, dict)
+            for op, ws in tree.items() for n, t in ws.items()}
+
+
+def _var_mean_case(case, rank, device):
+    """parallel/mesh.py `var_mean` on a seeded (b, c, h, w) array sharded
+    as `case["shard"]` ({mesh axis: tensor dim}) over a mesh of
+    `case["mesh"]`, reduced over `case["dims"]`: its values whole (rank 0
+    writes them) and the collectives CommDebugMode saw."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from flexflow_tpu_torch.parallel import mesh as pmesh
+
+    m = pmesh.build_mesh(case["mesh"], device)
+    x = torch.as_tensor(np.random.RandomState(0).randn(
+        *case["shape"]).astype(np.float32))
+    pl = [Shard(case["shard"][a]) if a in case["shard"] else Replicate()
+          for a in m.live_axes]
+    xd = pmesh.distribute(x, m, pl)
+    with CommDebugMode() as comm:
+        var, mean = pmesh.var_mean(xd, case["dims"],
+                                   keepdim=case.get("keepdim", False))
+    out = {"comms": {str(k): v for k, v in
+                     comm.get_comm_counts().items()},
+           "gathered": dict(pmesh.GATHERED),
+           "placements": [str(p) for p in var.placements]}
+    whole = {"var": pmesh.full(var).numpy(), "mean": pmesh.full(mean).numpy()}
+    if rank == 0:
+        out["arrays"] = whole
     return out
 
 
