@@ -230,13 +230,27 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      reduce-scatter of a gradient, the owned slice's gather, SGD with
      momentum and Adam on Shard weights and slots, the guard's norm, the
      statistics from partial sums, chunked attention with sharded query
-     rows) held against the same function on plain tensors. The group is
-     destroyed; on a machine of two or more cards the flagship (f32, 2
-     blocks) then runs at dp 2 x fsdp 2 (or dp 2) over NCCL through
-     runtime/mesh_run.py `launch`, this script's `run` as the rank
-     program, held against one card's run, with its samples/s and peak
-     memory a card; with one card that sub-case says why it did not
-     run.
+     rows; then the sequence axis's Shard -> Shard, the expert
+     dispatch's all-to-all and redistributes inside a captured graph)
+     held against the same function on plain tensors. The captured train
+     scan over the mesh (mesh_scan): the flagship through
+     fit(iterations_per_dispatch=4) over 8 batches, bit for bit against
+     the mesh's stepwise fit and the plain executor's scan, one graph,
+     48 + 48 wgmma flash launches a replay, NCCL kernels a step, ABBA
+     samples/s of the three and host ms a dispatch. Sequence
+     parallelism's per-shard compute (sp_local): ulysses_attention over a
+     seq group of one runs the flash kernels on bf16 shards of the
+     flagship's shape, held against their plain versions, and
+     ring_attention at n = 1 against chunked attention (one card has no
+     seq axis, so JAX would take neither path). The group is destroyed;
+     on a machine of two or more cards the multi-card sub-cases then run
+     over NCCL through runtime/mesh_run.py `launch`, this script's `run`
+     as the rank program (MULTI_CASES: the flagship, f32, 2 blocks, at
+     dp 2 x fsdp 2 or dp 2, at sp 2 with ring and with Ulysses
+     attention, through the captured scan at dp; the MoE Transformer's
+     merged expert 2 winner), each held against one card's run, with
+     samples/s and peak memory a card; with one card that sub-case says
+     why it did not run.
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -278,7 +292,8 @@ line, a `zoo_models` line (after the card's name and power limit), a
 `longctx_nmt_fusion` line (after the card's name and power limit; the
 `kernels` line's flash rows carry their long-context shape's readings),
 a `longctx`, an `nmt` and a `fusion` line, a `search`, a `seq2seq`
-a `resilience`, an `observatory`, a `verify` and a `mesh` line (the
+a `resilience`, an `observatory`, a `verify`, a `mesh`, a `mesh_scan`
+and an `sp_local` line (the
 `kernels` line's flash and paged rows carry their seq2seq shapes'
 readings; those lines after the card's name and power limit) and, last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -316,6 +331,11 @@ TOL = {
     "flash_fwd": (4e-3, BF16_STEP),
     # f32: nothing is rounded but the summation order
     "flash_fwd_f32": (1e-5, 1e-5),
+    # ring_attention at n = 1 against chunked_attention (the same f32
+    # online softmax): the ring's merge rescales chunked's bf16 output by
+    # l / l in f32 and its backward adds the merge's terms, which cancel
+    # to a few f32 steps; each output rounds to bf16 once
+    "ring_n1": (4e-3, BF16_STEP),
     # backward, 16-bit: the derived limit, kernels/attention.py
     # FLASH_BWD_TOL plus flash_bwd_slack per element (check_bwd_close)
     # backward, f32: summation order only, over up to 512 terms per output
@@ -2037,6 +2057,225 @@ def mesh_models(torch, plain):
             "launches_by_path": dict(build.path_counts)}
 
 
+# mesh_scan: fit over MESH_SCAN_BATCHES flagship batches, SCAN_SPD steps
+# a dispatch (two replays of one graph)
+MESH_SCAN_BATCHES = 2 * SCAN_SPD
+
+
+def _local_gap(torch, a, b):
+    """The weights of models `a` and `b` (each rank's shards) whose bits
+    differ, of all."""
+    from flexflow_tpu_torch.parallel.mesh import local
+
+    differ = [f"{op}.{n}" for op, ws in a.params.items()
+              for n, w in ws.items()
+              if not _bit_equal(torch, local(w), local(b.params[op][n]))]
+    return differ, sum(len(ws) for ws in a.params.values())
+
+
+def _scan_host_ms(torch, model, x, y, spd):
+    """Host ms to issue one scan dispatch of `spd` steps (the call's
+    return, before the synchronise), the least of 3, as fit calls it."""
+    from flexflow_tpu_torch.core.seeds import step_seed
+
+    ex = model.executor
+    scan = ex.build_train_scan()
+    b = TRAIN_BATCH
+    xs = [[x[j * b:(j + 1) * b] for j in range(spd)]]
+    ys = [y[j * b:(j + 1) * b] for j in range(spd)]
+    gen = torch.Generator().manual_seed(0)
+    reads = []
+    for _ in range(3):
+        seeds = ex.seed_table([step_seed(gen) for _ in range(spd)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.state, _ = scan(model.state, xs, ys, seeds)
+        reads.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    return min(reads)
+
+
+def mesh_scan(torch, plain):
+    """The captured train scan over the world-1 mesh (MeshExecutor
+    build_train_scan): the flagship at bench.py's width through
+    fit(iterations_per_dispatch=SCAN_SPD) over MESH_SCAN_BATCHES batches,
+    bit for bit against the mesh's stepwise fit and the plain executor's
+    scan (`plain`, built before the group was up) from the same seed;
+    graphs captured, the flash launches of one replay (SCAN_SPD x LAYERS
+    of each, on wgmma), NCCL kernels a step in a traced replay; ABBA
+    samples/s of mesh scan, mesh stepwise and plain scan, and host ms a
+    dispatch of each. DTensor's dispatch runs at capture only. Returns
+    the summary, with the launches of the mesh scan's fit."""
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.ops import attention as att
+
+    rng = np.random.RandomState(6)
+    n = MESH_SCAN_BATCHES * TRAIN_BATCH
+    x, y = (rng.randn(n, TRAIN_SEQ, HIDDEN).astype(np.float32)
+            for _ in range(2))
+    models = {"mesh_scan": build_transformer_model(torch, spd=SCAN_SPD),
+              "mesh_step": build_transformer_model(torch),
+              "plain_scan": plain}
+    for name in ("mesh_scan", "mesh_step"):
+        if type(models[name].executor).__name__ != "MeshExecutor":
+            raise AssertionError(f"mesh scan: {name} on "
+                                 f"{type(models[name].executor).__name__}")
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    att.MESH_PATHS.clear()
+    _, lines = fit_timed(torch, models["mesh_scan"], x, y)
+    counts, paths = dict(build.launch_counts), dict(build.path_counts)
+    routes = dict(att.MESH_PATHS)
+    ex = models["mesh_scan"].executor
+    graphs = len(ex._scan_graphs)
+    # the warm-up step and the capture run the Python walk; the replays
+    # add the launches the capture recorded
+    want = (MESH_SCAN_BATCHES + graphs) * LAYERS
+    check_training_counts("mesh scan", counts, {
+        "flash_fwd": want, "flash_bwd": want, "paged_decode": 0})
+    check_wgmma_paths("mesh scan", counts, paths)
+    if graphs != 1 or routes != {"local_map": (1 + SCAN_SPD) * LAYERS}:
+        raise AssertionError(f"mesh scan: {graphs} graphs, routes {routes}")
+    other = {k: fit_timed(torch, models[k], x, y)[1]
+             for k in ("mesh_step", "plain_scan")}
+    gaps = {k: _local_gap(torch, models["mesh_scan"], models[k])[0]
+            for k in other}
+    log(f"  mesh scan ({MESH_SCAN_BATCHES} batches, {SCAN_SPD} a dispatch, "
+        f"{graphs} graph): epoch lines {lines}; weights not bit-equal to "
+        f"the mesh's stepwise fit {gaps['mesh_step']}, to the plain scan "
+        f"{gaps['plain_scan']}")
+    if any(other[k] != lines for k in other) or any(gaps.values()):
+        raise AssertionError(f"mesh scan: lines {lines} vs {other}, "
+                             f"weights {gaps}")
+    # one replay: SCAN_SPD x LAYERS launches of each flash kernel, on wgmma
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    _scan_host_ms(torch, models["mesh_scan"], x, y, SCAN_SPD)
+    torch.cuda.synchronize()
+    replay = {k: v / 3 for k, v in build.launch_counts.items()}
+    check_training_counts("mesh scan replay", replay, {
+        "flash_fwd": SCAN_SPD * LAYERS, "flash_bwd": SCAN_SPD * LAYERS,
+        "paged_decode": 0})
+    check_wgmma_paths("mesh scan replay", build.launch_counts,
+                      build.path_counts)
+    host = {"mesh_scan": _scan_host_ms(torch, models["mesh_scan"], x, y,
+                                       SCAN_SPD),
+            "plain_scan": _scan_host_ms(torch, plain, x, y, SCAN_SPD)}
+    step = models["mesh_step"].executor.build_train_step()
+    reads = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(SCAN_SPD):
+            models["mesh_step"].state, _ = step(
+                models["mesh_step"].state,
+                [x[j * TRAIN_BATCH:(j + 1) * TRAIN_BATCH]],
+                y[j * TRAIN_BATCH:(j + 1) * TRAIN_BATCH])
+        reads.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    host["mesh_step"] = min(reads)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _scan_host_ms(torch, models["mesh_scan"], x, y, SCAN_SPD)
+        torch.cuda.synchronize()
+    nccl = sum(1 for e in _device_events(torch, prof)
+               if "nccl" in e.name.lower()) / (3 * SCAN_SPD)
+    restore = {k: restorer(torch, m) for k, m in models.items()}
+    timing = abba(torch, {k: (lambda k=k: timed_turn(
+        torch, models[k], restore[k], x, y)) for k in models},
+        MESH_ROUNDS, n)
+    log(f"  mesh scan ABBA x{MESH_ROUNDS}: " + ", ".join(
+        f"{k} {timing[k]['samples_per_s_median']:.2f} samples/s (spread "
+        f"{timing[k]['spread']:.3f})" for k in models)
+        + "; host ms a dispatch of " + f"{SCAN_SPD} steps: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in host.items())
+        + f"; NCCL kernels a step {nccl}")
+    summary = {"batches": MESH_SCAN_BATCHES,
+               "iterations_per_dispatch": SCAN_SPD, "graphs": graphs,
+               "weights": _local_gap(torch, models["mesh_scan"], plain)[1],
+               "weights_not_bit_equal": gaps, "epoch_lines": lines,
+               "flash_launches_a_replay": replay, "attention_routes": routes,
+               "nccl_kernels_a_step": nccl,
+               "host_ms_a_dispatch": host, "abba": timing,
+               "counters": dict(ex.collectives), "launches": counts,
+               "launches_by_path": paths}
+    return summary
+
+
+def sp_local(torch):
+    """The per-shard compute of sequence parallelism on the card.
+    ulysses_attention over a seq group of one (its all-to-alls move
+    nothing) runs local_attention, the flash kernels, on bf16 (b, s, h,
+    d) shards of the flagship's shape: the forward and the backward held
+    against their plain versions at the flash checks' tolerances
+    (TOL["flash_fwd"]; FLASH_BWD_TOL + flash_bwd_slack), every launch on
+    wgmma. ring_attention at n = 1 against chunked_attention, forward and
+    gradients (TOL["ring_n1"]). On one card the seq axis has size 1 and
+    the JAX package takes neither path, so this proves the per-shard
+    compute only: the exchanges run on two or more cards (mesh_multi).
+    Returns the summary, with the Ulysses path's launches."""
+    from flexflow_tpu_torch.kernels import attention as ka
+    from flexflow_tpu_torch.kernels import build
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, HEADS, HIDDEN // HEADS
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    out = {}
+    launches = {}
+    for causal in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        o = ka.ulysses_attention(*leaves, None, causal=causal)
+        grads = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        counts, paths = dict(build.launch_counts), dict(build.path_counts)
+        check_training_counts(f"sp_local ulysses causal={causal}", counts,
+                              {"flash_fwd": 1, "flash_bwd": 1})
+        check_wgmma_paths(f"sp_local ulysses causal={causal}", counts, paths)
+        for kname, c in counts.items():
+            launches[kname] = launches.get(kname, 0) + c
+        fold = [ka._bhsd_to_fold(t).contiguous() for t in (q, k, v, do)]
+        of, lse = ka._flash_fwd_folded(*fold[:3], causal=causal)
+        o_plain, _ = ka.flash_fwd_plain(*fold[:3], causal=causal)
+        e_fwd, r_fwd = check_close(
+            f"sp_local ulysses flash_fwd causal={causal}", "flash_fwd",
+            ka._bhsd_to_fold(o.detach()), o_plain)
+        ref = ka.flash_bwd_plain(*fold[:3], of, lse, fold[3], causal=causal)
+        slack = ka.flash_bwd_slack(*fold[:3], of, lse, fold[3],
+                                   causal=causal)
+        e_bwd, _, r_bwd = check_bwd_close(
+            f"sp_local ulysses flash_bwd causal={causal}",
+            [ka._bhsd_to_fold(t) for t in grads], ref, slack,
+            torch.bfloat16)
+        # the ring at n = 1 against chunked attention
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        r = ka.ring_attention(*leaves, None, causal=causal)
+        rg = torch.autograd.grad(r, leaves, do)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        c = ka.chunked_attention(*leaves, causal=causal)
+        cg = torch.autograd.grad(c, leaves, do)
+        e_ring, r_ring = check_close(f"sp_local ring causal={causal}",
+                                     "ring_n1", r.detach(), c.detach())
+        for name, a, bb in zip(("dq", "dk", "dv"), rg, cg):
+            e, rr = check_close(f"sp_local ring {name} causal={causal}",
+                                "ring_n1", a, bb)
+            e_ring, r_ring = max(e_ring, e), max(r_ring, rr)
+        out[f"causal={causal}"] = {
+            "ulysses_fwd_max_abs_err": e_fwd, "ulysses_fwd_err_over_limit":
+            r_fwd, "ulysses_bwd_max_abs_err": e_bwd,
+            "ulysses_bwd_err_over_limit": r_bwd,
+            "ring_max_abs_err": e_ring, "ring_err_over_limit": r_ring}
+    log(f"  sp_local (one card: the seq axis has size 1 and the JAX "
+        f"package takes neither path, so this proves the per-shard compute "
+        f"only) at (b, s, h, d) = {(b, s, h, d)} bf16: {out}; ulysses "
+        f"launches {launches}")
+    return {"shape": [b, s, h, d], "checks": out, "launches": launches}
+
+
 def dtensor_checks(torch, device="cuda"):
     """Every DTensor call of the FSDP, overlapped-sync and repaired paths
     run on this card's torch at world 1, on a (1, 1) DeviceMesh of the
@@ -2048,8 +2287,11 @@ def dtensor_checks(torch, device="cuda"):
     (Shard -> Replicate), SGD with momentum and Adam on Shard weights and
     slots, the guard's norm over Shard and Replicate gradients, the
     statistics from partial sums, and chunked attention with its query
-    rows sharded and K/V gradients Partial. Returns {check: max abs
-    error, bit-equal}."""
+    rows sharded and K/V gradients Partial; then, on a (1, 1) mesh of the
+    "seq" and "expert" axes, Ulysses' Shard(1) -> Shard(2) and the expert
+    dispatch's Shard(0) -> Shard(1), and on the card a Partial all-reduce
+    and an async reduce-scatter inside a captured CUDA graph, replayed on
+    new data. Returns {check: max abs error, bit-equal}."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                           distribute_tensor)
@@ -2168,6 +2410,45 @@ def dtensor_checks(torch, device="cuda"):
     held("chunked_rows_out", o, op_.detach(), kv)
     for n, a, b_ in zip("qkv", grads, pgrads):
         held(f"chunked_rows_d{n}", a, b_)
+    # sequence and expert parallelism, on a (1, 1) mesh of the
+    # "seq" and "expert" axes: Ulysses' re-sharding from the sequence to
+    # the heads as DTensor's Shard -> Shard, and the expert dispatch's
+    # all-to-all (the OP_ALL_TO_ALL parallel op: tokens -> hidden)
+    sm = init_device_mesh(device, (1, 1), mesh_dim_names=("seq", "expert"))
+    xs = rand(2, 64, 8, 16)
+    held("seq_to_heads_shard_to_shard", distribute_tensor(
+        xs, sm, [Shard(1), Replicate()], src_data_rank=None).redistribute(
+            sm, [Shard(2), Replicate()]), xs, [Shard(2), Replicate()])
+    xe = rand(64, 32)
+    held("expert_all_to_all", distribute_tensor(
+        xe, sm, [Replicate(), Shard(0)], src_data_rank=None).redistribute(
+            sm, [Replicate(), Shard(1)]), xe, [Replicate(), Shard(1)])
+    # the ring's point-to-point rotation needs a second rank: a P2P send
+    # to itself is left out here, and mesh_multi's sp runs hold it
+    if device == "cuda":
+        # redistributes inside a captured graph (the scan over a mesh):
+        # a Partial all-reduce, and an async reduce-scatter waited on
+        from flexflow_tpu_torch.parallel.graphs import CapturedGraph, warm_up
+
+        src = rand(64, 32)
+
+        def body():
+            part = DTensor.from_local(src, dm, [Partial(), Replicate()],
+                                      run_check=False)
+            whole = part.redistribute(dm, [Replicate(), Replicate()])
+            owned = _waited(part.redistribute(dm, [Shard(0), Replicate()],
+                                              async_op=True))
+            return whole.to_local() * 1.0, owned.to_local() * 1.0
+
+        warm_up(body)
+        graph = CapturedGraph()
+        graph.capture(body)
+        new_src = rand(64, 32)
+        src.copy_(new_src)
+        whole, owned = graph.replay()
+        torch.cuda.synchronize()
+        held("captured_all_reduce", whole, new_src)
+        held("captured_async_reduce_scatter", owned, new_src)
     if pmesh.GATHERED:
         raise AssertionError(f"dtensor checks gathered {pmesh.GATHERED}")
     bad = [k for k, r in out.items() if "bit_equal" in r and not
@@ -2177,23 +2458,94 @@ def dtensor_checks(torch, device="cuda"):
     return out
 
 
-# the flagship over NCCL on more than one card (mesh_multi): f32, so the
-# run holds one card's weights closely; its batch and depth
-MULTI_BATCH, MULTI_LAYERS, MULTI_STEPS = 8, 2, 3
+# the multi-card sub-cases (mesh_multi), each over NCCL on every card of
+# a machine with two or more and held against one card's run from the
+# same seed: f32, so the run holds one card's weights closely; the
+# flagship at MULTI_LAYERS blocks and batch MULTI_BATCH, the MoE
+# Transformer at MULTI_MOE_BATCH (its capacity, ceil(1.2 * 2 / 4 * 4 *
+# 512) = 1229, is odd: the data degree cannot shard it, so the expert
+# rewrite applies), MULTI_STEPS steps on one batch each
+MULTI_BATCH, MULTI_LAYERS, MULTI_STEPS, MULTI_MOE_BATCH = 8, 2, 3, 4
 MULTI_RTOL, MULTI_ATOL = 1e-3, 1e-5
+# name -> (model, FFConfig fields, FF_ATTENTION_IMPL, searched rewrites,
+# fit's iterations_per_dispatch); "fsdp" and "data" are filled in from
+# the world size
+MULTI_CASES = {
+    "dp_fsdp": ("flagship", {"fsdp_degree": "fsdp"}, None, None, 1),
+    "sp_ring": ("flagship", {"sequence_parallel_degree": 2}, "ring", None,
+                1),
+    "sp_ulysses": ("flagship", {"sequence_parallel_degree": 2}, "ulysses",
+                   None, 1),
+    "moe_expert": ("moe", {"search_budget": 1}, None,
+                   [["partition_batch", 2],
+                    ["partition_experts_alltoall", 2]], 1),
+    "dp_scan": ("flagship", {}, None, None, MULTI_STEPS),
+}
 
 
-def _multi_model(fsdp, seq, hidden, heads, layers, batch, device):
+@contextlib.contextmanager
+def _fixed_winner(rewrites):
+    """While open, the port's strategy search returns the graph the
+    substitutions `rewrites` ([[generator, degree], ...], the first
+    rewrite of each) make of the lowering, priced by its own cost: the
+    winner those rewrites make, whatever the costs."""
+    if not rewrites:
+        yield
+        return
+    from flexflow_tpu_torch.search import substitution as sub
+
+    def optimize(self, graph, res):
+        for name, degree in rewrites:
+            graph = next(getattr(sub, name)(degree).apply(graph))
+        return graph, self.search.graph_cost(graph, res)
+
+    old = sub.GraphSearchHelper.graph_optimize
+    sub.GraphSearchHelper.graph_optimize = optimize
+    try:
+        yield
+    finally:
+        sub.GraphSearchHelper.graph_optimize = old
+
+
+def _multi_model(name, device, world, on_mesh):
+    """Case `name` of MULTI_CASES compiled (on the mesh executor when a
+    group is up and `on_mesh`; one card's reference without its
+    degrees), and its batch."""
     from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
     from flexflow_tpu_torch.ff_types import LossType
-    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.models import (build_moe_transformer,
+                                           build_transformer)
 
-    m = FFModel(FFConfig(batch_size=batch, seed=0, fsdp_degree=fsdp,
-                         device=device))
-    build_transformer(m, batch, seq, hidden, heads, layers)
-    m.compile(SGDOptimizer(lr=0.01, momentum=0.9),
-              LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE)
-    return m
+    kind, cfg, _, rewrites, spd = MULTI_CASES[name]
+    cfg = {k: (2 if world >= 4 else 1) if v == "fsdp" else v
+           for k, v in cfg.items()} if on_mesh else {}
+    batch = MULTI_MOE_BATCH if kind == "moe" else MULTI_BATCH
+    m = FFModel(FFConfig(batch_size=batch, seed=0, device=device,
+                         iterations_per_dispatch=spd if on_mesh else 1,
+                         **cfg))
+    if kind == "moe":
+        build_moe_transformer(m, batch, TRAIN_SEQ, HIDDEN, HEADS,
+                              MULTI_LAYERS, MOE_EXPERTS, MOE_TOPK,
+                              MOE_CAPACITY, MOE_LAMBDA, MOE_CLASSES)
+        loss = LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY
+    else:
+        build_transformer(m, batch, TRAIN_SEQ, HIDDEN, HEADS, MULTI_LAYERS)
+        loss = LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE
+    with _fixed_winner(rewrites if on_mesh else None):
+        m.compile(SGDOptimizer(lr=0.01, momentum=0.9), loss)
+    return m, batch
+
+
+def _multi_data(name, batch):
+    x = np.random.RandomState(0).randn(batch, TRAIN_SEQ, HIDDEN).astype(
+        np.float32)
+    if MULTI_CASES[name][0] == "moe":
+        y = np.random.RandomState(1).randint(
+            0, MOE_CLASSES, (batch, TRAIN_SEQ, 1)).astype(np.int32)
+    else:
+        y = np.random.RandomState(1).randn(batch, TRAIN_SEQ,
+                                           HIDDEN).astype(np.float32)
+    return x, y
 
 
 def _multi_steps(torch, m, x, y, steps, device):
@@ -2209,98 +2561,152 @@ def _multi_steps(torch, m, x, y, steps, device):
     return losses, times
 
 
+def _multi_fit(torch, m, x, y, steps, device):
+    """`fit` over `steps` copies of the batch: the scan's chunks when the
+    model's iterations_per_dispatch is above 1. Returns its seconds."""
+    xs, ys = (np.concatenate([a] * steps) for a in (x, y))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        m.fit(xs, ys, batch_size=x.shape[0], epochs=1)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def run(rank, world, device, args):
-    """The rank program of mesh_multi (runtime/mesh_run.py calls it):
-    the flagship at dp x fsdp over the group, its steps, samples/s, peak
-    memory, counters, and rank 0's weights whole in `<out>/multi.npz`."""
+    """The rank program of mesh_multi (runtime/mesh_run.py calls it): each
+    case of MULTI_CASES named in `args[1:]` over the group, in turn: its
+    steps (or its fit, for a scan case, beside the stepwise fit on the
+    same mesh), samples/s, peak memory, counters, and rank 0's weights
+    whole in `<out>/<case>.npz` and its readings in `<out>/<case>.json`."""
     import torch
 
+    from flexflow_tpu_torch.ops import attention as att
     from flexflow_tpu_torch.parallel.mesh import local
     from flexflow_tpu_torch.runtime.weights import params_to_numpy
 
-    out_dir, fsdp, seq, hidden, heads, layers, batch, steps = args
-    fsdp, seq, hidden, heads, layers, batch, steps = (
-        int(v) for v in (fsdp, seq, hidden, heads, layers, batch, steps))
-    x, y = (np.random.RandomState(s).randn(batch, seq, hidden).astype(
-        np.float32) for s in (0, 1))
-    if device != "cpu":
-        torch.cuda.reset_peak_memory_stats()
-    m = _multi_model(fsdp, seq, hidden, heads, layers, batch, device)
-    losses, times = _multi_steps(torch, m, x, y, steps, device)
-    ex = m.executor
-    weights = params_to_numpy(m)
-    if rank == 0:
-        np.savez(os.path.join(out_dir, "multi.npz"),
-                 **{f"{op}/{n}": a for op, ws in weights.items()
-                    for n, a in ws.items()})
-        shards = sum(local(w).numel() for ws in m.params.values()
-                     for w in ws.values())
-        with open(os.path.join(out_dir, "multi.json"), "w") as f:
-            json.dump({
-                "mesh": ex.mesh.shape, "losses": losses,
-                "samples_per_s": batch / float(np.median(times[1:])),
-                "peak_mem_gb_per_card": (
-                    torch.cuda.max_memory_allocated() / 2 ** 30
-                    if device != "cpu" else None),
-                "weight_elements_on_rank0": shards,
-                "collectives": dict(ex.collectives),
-                "overlap_weights": len(ex._overlap_specs())}, f)
+    out_dir, names = args[0], args[1:]
+    for name in names:
+        _, _, impl, _, spd = MULTI_CASES[name]
+        env = dict(os.environ)
+        if impl:
+            os.environ["FF_ATTENTION_IMPL"] = impl
+        att.MESH_PATHS.clear()
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        m, batch = _multi_model(name, device, world, True)
+        x, y = _multi_data(name, batch)
+        ex = m.executor
+        got = {"mesh": ex.mesh.shape, "replicas": ex.mesh.replicas}
+        if spd > 1:
+            # the scan over the mesh, bit for bit the stepwise fit's
+            step = _multi_model(name, device, world, True)[0]
+            step.config.iterations_per_dispatch = 1
+            t_scan = _multi_fit(torch, m, x, y, MULTI_STEPS, device)
+            _multi_fit(torch, step, x, y, MULTI_STEPS, device)
+            differ = sum(not torch.equal(local(w), local(
+                step.params[op][n])) for op, ws in m.params.items()
+                for n, w in ws.items())
+            got.update(samples_per_s=MULTI_STEPS * batch / t_scan,
+                       weights_not_bit_equal_to_stepwise=differ,
+                       graphs_captured=len(ex._scan_graphs))
+            del step
+        else:
+            losses, times = _multi_steps(torch, m, x, y, MULTI_STEPS, device)
+            got.update(losses=losses, samples_per_s=batch / float(
+                np.median(times[1:])))
+        got.update(
+            peak_mem_gb_per_card=(torch.cuda.max_memory_allocated() / 2 ** 30
+                                  if device != "cpu" else None),
+            weight_elements_on_rank0=sum(local(w).numel()
+                                         for ws in m.params.values()
+                                         for w in ws.values()),
+            collectives=dict(ex.collectives),
+            overlap_weights=len(ex._overlap_specs()),
+            attention_routes=dict(att.MESH_PATHS))
+        weights = params_to_numpy(m)
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"{name}.npz"),
+                     **{f"{op}/{n}": a for op, ws in weights.items()
+                        for n, a in ws.items()})
+            with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+                json.dump(got, f)
+        os.environ.clear()
+        os.environ.update(env)
+        del m, ex
+        if device != "cpu":
+            torch.cuda.empty_cache()
     return 0
 
 
 def mesh_multi(torch):
-    """dp x fsdp of the flagship (f32, MULTI_LAYERS blocks, batch
-    MULTI_BATCH, seq and widths of bench.py's leg) over NCCL on every
-    card of the machine when it has two or more, held against one card's
-    run from the same seed (rtol MULTI_RTOL): samples/s and peak memory
-    per card. With one card it does not run, and says why."""
+    """The multi-card sub-cases (MULTI_CASES) over NCCL on every card of
+    the machine when it has two or more (4 cards: dp 2 x fsdp 2, dp 2 x
+    sp 2 with ring and with Ulysses attention, the MoE Transformer's
+    merged expert 2 winner with 2 replicas, and dp 4 through the captured
+    scan; 2 cards: dp 2, sp 2, expert 2 and dp 2), each held against one
+    card's run from the same seed (rtol MULTI_RTOL): samples/s and peak
+    memory per card, the collectives; the scan also bit for bit against
+    the stepwise fit on the same mesh. With one card it does not run, and
+    says why."""
     n = torch.cuda.device_count()
     if n < 2:
         msg = (f"mesh multi-card: not run: this machine has {n} card "
-               "(dp x fsdp needs two or more)")
+               "(dp x fsdp, sp, expert and the scan over a mesh need two "
+               "or more)")
         log("  " + msg)
         return {"ran": False, "why": msg}
     from flexflow_tpu_torch.runtime.mesh_run import launch
 
     world = 4 if n >= 4 else 2
-    fsdp = 2 if world == 4 else 1
     out_dir = os.path.join(REPO, "chiprun_out", "mesh_multi")
     os.makedirs(out_dir, exist_ok=True)
-    sizes = (TRAIN_SEQ, HIDDEN, HEADS, MULTI_LAYERS, MULTI_BATCH, MULTI_STEPS)
-    x, y = (np.random.RandomState(s).randn(
-        MULTI_BATCH, TRAIN_SEQ, HIDDEN).astype(np.float32) for s in (0, 1))
-    torch.cuda.reset_peak_memory_stats()
-    one = _multi_model(1, *sizes[:-1], "cuda")
-    losses, times = _multi_steps(torch, one, x, y, MULTI_STEPS, "cuda")
-    want = {f"{op}/{n_}": w.detach().cpu().numpy()
-            for op, ws in one.params.items() for n_, w in ws.items()}
-    one_card = {"losses": losses,
-                "samples_per_s": MULTI_BATCH / float(np.median(times[1:])),
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
-    del one
-    torch.cuda.empty_cache()
+    one_card = {}
+    for name in MULTI_CASES:
+        torch.cuda.reset_peak_memory_stats()
+        one, batch = _multi_model(name, "cuda", world, False)
+        x, y = _multi_data(name, batch)
+        losses, times = _multi_steps(torch, one, x, y, MULTI_STEPS, "cuda")
+        one_card[name] = {
+            "losses": losses,
+            "samples_per_s": batch / float(np.median(times[1:])),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "weights": {f"{op}/{n_}": w.detach().cpu().numpy()
+                        for op, ws in one.params.items()
+                        for n_, w in ws.items()}}
+        del one
+        torch.cuda.empty_cache()
     rcs = launch(world, ["--device", "cuda", os.path.abspath(__file__),
-                         out_dir, str(fsdp), *(str(v) for v in sizes)],
-                 out_dir, timeout=600)
+                         out_dir, *MULTI_CASES], out_dir, timeout=600)
     if rcs != [0] * world:
         raise AssertionError(f"mesh multi-card: ranks exited {rcs} (logs "
                              f"in {out_dir})")
-    with open(os.path.join(out_dir, "multi.json")) as f:
-        got = json.load(f)
-    with np.load(os.path.join(out_dir, "multi.npz")) as z:
-        worst = max(float(np.max(np.abs(z[k] - a) / (MULTI_ATOL + MULTI_RTOL
-                                                      * np.abs(a))))
-                    for k, a in want.items())
-    if worst > 1.0:
-        raise AssertionError(f"mesh multi-card: weights off one card's by "
-                             f"{worst} of the tolerance")
-    summary = {"ran": True, "world": world, "fsdp": fsdp, "one_card": one_card,
-               "mesh": got, "worst_of_tolerance": worst}
-    log(f"  mesh multi-card ({world} cards, fsdp {fsdp}): "
-        f"{got['samples_per_s']:.1f} samples/s against one card's "
-        f"{one_card['samples_per_s']:.1f}, peak "
-        f"{got['peak_mem_gb_per_card']:.2f} GiB a card")
-    return summary
+    cases = {}
+    for name, ref in one_card.items():
+        with open(os.path.join(out_dir, f"{name}.json")) as f:
+            got = json.load(f)
+        with np.load(os.path.join(out_dir, f"{name}.npz")) as z:
+            worst = max(float(np.max(np.abs(z[k] - a) / (
+                MULTI_ATOL + MULTI_RTOL * np.abs(a))))
+                for k, a in ref.pop("weights").items())
+        if worst > 1.0:
+            raise AssertionError(f"mesh multi-card {name}: weights off one "
+                                 f"card's by {worst} of the tolerance")
+        if got.get("weights_not_bit_equal_to_stepwise"):
+            raise AssertionError(f"mesh multi-card {name}: the scan is not "
+                                 f"bit-equal to stepwise fit: {got}")
+        cases[name] = {"one_card": ref, "mesh": got,
+                       "worst_of_tolerance": worst}
+        log(f"  mesh multi-card {name} ({world} cards, mesh "
+            f"{ {k: v for k, v in got['mesh'].items() if v > 1} }): "
+            f"{got['samples_per_s']:.1f} samples/s against one card's "
+            f"{ref['samples_per_s']:.1f}, peak "
+            f"{got['peak_mem_gb_per_card']:.2f} GiB a card, worst "
+            f"{worst:.3g} of the tolerance; routes "
+            f"{got['attention_routes']}; collectives {got['collectives']}")
+    return {"ran": True, "world": world, "cases": cases}
 
 
 def mesh_phase(torch):
@@ -2309,10 +2715,12 @@ def mesh_phase(torch):
     flash launches per shard through local_map on wgmma, ABBA samples/s,
     host ms a step (and with the overlapped sync off and on), NCCL
     kernels a step and the collective counters; then BERT-base with
-    dropout (mesh_bert), the port's models bit-equal to the plain
-    executor (mesh_models), the DTensor calls of the FSDP and overlapped
+    dropout (mesh_bert), the captured train scan over the mesh
+    (mesh_scan), sequence parallelism's per-shard compute (sp_local), the
+    port's models bit-equal to the plain executor (mesh_models), the
+    DTensor calls of the FSDP, overlapped, sequence, expert and captured
     paths (dtensor_checks) and, on a machine of two or more cards, the
-    flagship over them (mesh_multi). Returns the `mesh` summary."""
+    multi-card sub-cases (mesh_multi). Returns the `mesh` summary."""
     from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
     from flexflow_tpu_torch.ff_types import LossType, MetricsType
     from flexflow_tpu_torch.kernels import build
@@ -2337,6 +2745,7 @@ def mesh_phase(torch):
     # built before the group is up: under a group compile builds the
     # mesh executor
     plain_bert = build_bert_model(torch)
+    plain_scan = build_transformer_model(torch, spd=SCAN_SPD)
     plain_models = mesh_models_plain(torch)
     rank, world, dev = rdist.init_distributed(
         f"127.0.0.1:{_free_port()}", 1, 0, device="cuda", timeout_s=120)
@@ -2450,8 +2859,15 @@ def mesh_phase(torch):
         del plain, mesh, models, steps, ex
         torch.cuda.empty_cache()
         summary["bert"], bert_counts = mesh_bert(torch, plain_bert)
-        summary["launches"] = {k: counts.get(k, 0) + bert_counts.get(k, 0)
-                               for k in set(counts) | set(bert_counts)}
+        summary["scan"] = mesh_scan(torch, plain_scan)
+        scan_counts = summary["scan"]["launches"]
+        del plain_scan
+        torch.cuda.empty_cache()
+        summary["launches"] = {
+            k: counts.get(k, 0) + bert_counts.get(k, 0)
+            + scan_counts.get(k, 0)
+            for k in set(counts) | set(bert_counts) | set(scan_counts)}
+        summary["sp_local"] = sp_local(torch)
         summary["models"] = mesh_models(torch, plain_models)
         del plain_models
         torch.cuda.empty_cache()
@@ -2681,21 +3097,24 @@ def weight_gap(torch, a, b):
 
 
 def abba(torch, runs, rounds, samples):
-    """Samples/s of the two `runs` (name -> fn returning seconds), taken
-    in turns A B B A for `rounds` rounds; per run the median and the
-    spread (max - min over the median) of its readings."""
-    (na, fa), (nb, fb) = runs.items()
-    got = {na: [], nb: []}
+    """Samples/s of the `runs` (name -> fn returning seconds), taken in
+    turns A B B A (A B C C B A for three) for `rounds` rounds; per run
+    the median and the spread (max - min over the median) of its
+    readings; for two runs the second's median over the first's."""
+    order = list(runs.items())
+    got = {name: [] for name, _ in order}
     for _ in range(rounds):
-        for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+        for name, fn in order + order[::-1]:
             got[name].append(samples / fn())
     out = {}
     for name, v in got.items():
         med = float(np.median(v))
         out[name] = {"samples_per_s_median": med, "readings": v,
                      "spread": (max(v) - min(v)) / med}
-    out["speedup_median"] = (out[nb]["samples_per_s_median"]
-                             / out[na]["samples_per_s_median"])
+    if len(order) == 2:
+        (na, _), (nb, _) = order
+        out["speedup_median"] = (out[nb]["samples_per_s_median"]
+                                 / out[na]["samples_per_s_median"])
     return out
 
 
@@ -2711,9 +3130,12 @@ def restorer(torch, model):
     trains a finite model: BERT-base diverges under SGD lr 0.01 within
     tens of steps."""
     from flexflow_tpu_torch.parallel.executor import _tensors
+    from flexflow_tpu_torch.parallel.mesh import local
 
-    live = _tensors((model.state.params, model.state.opt_state,
-                     model.state.net_state))
+    # each rank's shard of a mesh model's DTensors
+    live = [local(t) for t in _tensors((model.state.params,
+                                        model.state.opt_state,
+                                        model.state.net_state))]
     saved = [t.clone() for t in live]
 
     def restore():
@@ -7023,6 +7445,10 @@ def main() -> int:
         "models_launches": mesh["models"]["launches"],
         "dtensor_checks": mesh["dtensor_checks"],
         "multi": mesh["multi"]}}))
+    log(smi + " " + json.dumps({"mesh_scan": {
+        k: v for k, v in mesh["scan"].items()
+        if k not in ("launches", "launches_by_path")}}))
+    log(smi + " " + json.dumps({"sp_local": mesh["sp_local"]}))
     log(smi + " " + json.dumps({"mesh_counters": mesh["counters"]}))
     log(json.dumps(line))
     log(smi)

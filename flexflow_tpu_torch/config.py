@@ -20,9 +20,9 @@ construction: the port never continues on the CPU by itself.
 Like the JAX package's, a config reads the reference's command-line
 flags (`parse_args`, model.cc:3556 spellings) from sys.argv[1:] when it
 is made. A flag whose field this package reads sets it; a flag of a
-feature not ported here (strategy import, the multi-node mesh, sequence
-parallelism) raises NotImplementedError naming the flag; anything else
-is skipped, as the reference passes unknown flags on to Legion.
+feature not ported here (strategy import, the multi-node mesh) raises
+NotImplementedError naming the flag; anything else is skipped, as the
+reference passes unknown flags on to Legion.
 """
 from __future__ import annotations
 
@@ -67,12 +67,14 @@ class FFConfig:
     # workersPerNode when a group is up, else 1
     numNodes: int = 1
     # the manual strategy's degrees (no search), the JAX package's
-    # fields: the data degree fills the devices the others leave.
-    # tensor_parallel_degree executes (Megatron-style weight sharding over
-    # the "model" mesh axis) and fsdp_degree too (FSDP/ZeRO: weights
-    # sharded over an "fsdp" axis carved out of the data workers,
-    # gathered on use); the sequence, expert and pipeline degrees are
-    # refused above 1 at compile until their slices land
+    # fields: the data degree fills the devices the others leave. Each
+    # executes on the mesh executor: tensor parallelism (Megatron-style
+    # weight sharding over the "model" axis), sequence parallelism (3-D
+    # activations sharded on the sequence over "seq", attention through
+    # ring or Ulysses attention), expert parallelism (group_by's outputs
+    # sharded over "expert") and fsdp (FSDP/ZeRO: weights sharded over an
+    # "fsdp" axis carved out of the data workers, gathered on use); the
+    # pipeline degree is refused above 1 at compile until its slice lands
     tensor_parallel_degree: int = 1
     sequence_parallel_degree: int = 1
     expert_parallel_degree: int = 1
@@ -121,6 +123,10 @@ class FFConfig:
     # a substitution-rule collection to search with instead of the
     # shipped ones (search/substitutions/*.json)
     substitution_json_path: Optional[str] = None
+    # the search may also shard the sequence (the partition_seq_ring and
+    # partition_seq_allgather substitutions; the JAX package's
+    # --enable-sequence-parallel)
+    enable_sequence_parallel: bool = False
     # bf16 compute (and KV cache) over f32 master weights
     allow_mixed_precision: bool = False
     seed: int = 0
@@ -246,6 +252,7 @@ _SWITCHES = {
     "--measured-search": "measure_operator_costs",
     "--profiling": "profiling",
     "--memory-search": "perform_memory_search",
+    "--enable-sequence-parallel": "enable_sequence_parallel",
 }
 # flags without a value that set several fields (the executed step's and
 # the search's overlap switch together, as the JAX package's do)
@@ -262,7 +269,6 @@ _UNPORTED_FLAGS = {
     "-wd": "the config's weight decay (read by no optimizer)",
     "-ll:cpu": "CPU workers per node",
     "--nodes": "multi-node execution",
-    "--enable-sequence-parallel": "sequence parallelism",
     "--import": "strategy import", "--import-strategy": "strategy import",
     "--iterations": "the config's iteration count",
 }

@@ -701,28 +701,38 @@ class FFModel:
             self._phase("strategy_search", t_phase, devices=ndev)
             axes = self.searched_axes
         else:
-            # the manual lowering (the JAX package's): the tensor degree
-            # over the "model" axis, the data degree filling the rest
-            tp = max(1, self.config.tensor_parallel_degree)
-            if ndev % tp:
-                raise ValueError(f"tensor_parallel_degree {tp} does not "
-                                 f"divide the {ndev} devices")
-            dp = ndev // tp
+            # the manual lowering (the JAX package's): the tensor,
+            # sequence, expert and pipeline degrees over their axes, the
+            # data degree filling the devices they leave
+            cfg = self.config
+            tp = max(1, cfg.tensor_parallel_degree)
+            sp = max(1, cfg.sequence_parallel_degree)
+            ep = max(1, cfg.expert_parallel_degree)
+            pp = max(1, cfg.pipeline_parallel_degree)
+            if ndev % (tp * sp * ep * pp):
+                raise ValueError(
+                    f"tensor_parallel_degree {tp} x sequence_parallel_"
+                    f"degree {sp} x expert_parallel_degree {ep} x "
+                    f"pipeline_parallel_degree {pp} does not divide the "
+                    f"{ndev} devices")
+            dp = ndev // (tp * sp * ep * pp)
             # FSDP/ZeRO: the fsdp axis is carved out of the data workers
             # (weights shard over it, the batch over ("data", "fsdp")
             # jointly), so it must divide the data degree: clamped down
             # otherwise, with the JAX package's warning
-            fsdp = max(1, self.config.fsdp_degree)
+            fsdp = max(1, cfg.fsdp_degree)
             while fsdp > 1 and (fsdp > dp or dp % fsdp != 0):
                 fsdp //= 2
-            if fsdp != max(1, self.config.fsdp_degree):
+            if fsdp != max(1, cfg.fsdp_degree):
                 warnings.warn(
-                    f"fsdp_degree {self.config.fsdp_degree} does not divide "
+                    f"fsdp_degree {cfg.fsdp_degree} does not divide "
                     f"the data-parallel degree {dp}; clamped to {fsdp}")
             strategies.apply_data_parallel(self.graph, dp, axis_idx=0)
             strategies.apply_tensor_parallel(self.graph, tp, axis_idx=1)
-            axes = {"data": dp // fsdp, "model": tp, "seq": 1, "expert": 1,
-                    "pipe": 1}
+            strategies.apply_sequence_parallel(self.graph, sp, axis_idx=2)
+            strategies.apply_expert_parallel(self.graph, ep, axis_idx=3)
+            axes = {"data": dp // fsdp, "model": tp, "seq": sp,
+                    "expert": ep, "pipe": pp}
             if fsdp > 1:
                 axes["fsdp"] = fsdp
                 strategies.apply_weight_sharding(self.graph, fsdp,
@@ -777,18 +787,16 @@ class FFModel:
     def _live_device_count(self) -> int:
         """The devices this compile runs on: numNodes x workersPerNode,
         which must equal the process group's world size (one process per
-        device; 1 without a group). The parallel degrees whose execution
-        is not ported raise here, naming their slice."""
+        device; 1 without a group). A pipeline degree raises here, naming
+        its slice."""
         cfg = self.config
-        for field in ("sequence_parallel_degree", "expert_parallel_degree",
-                      "pipeline_parallel_degree"):
-            if getattr(cfg, field) > 1:
-                raise NotImplementedError(
-                    f"{field}={getattr(cfg, field)}: "
-                    f"{_LATER_SLICES[field]} is not ported to "
-                    "flexflow_tpu_torch yet: it comes with a later slice "
-                    "of multi-device execution (ROADMAP queue 1 item 2); "
-                    "data, tensor and fsdp parallelism are ported")
+        if cfg.pipeline_parallel_degree > 1:
+            raise NotImplementedError(
+                f"pipeline_parallel_degree={cfg.pipeline_parallel_degree}: "
+                f"{_LATER_SLICE} is not ported to flexflow_tpu_torch yet: it "
+                "comes with a later slice of multi-device execution "
+                "(ROADMAP queue 1 item 2.6); data, tensor, sequence, "
+                "expert and fsdp parallelism are ported")
         n = max(1, cfg.numNodes) * max(1, cfg.workersPerNode)
         if not rdist.is_initialized():
             if n != 1:
@@ -817,16 +825,16 @@ class FFModel:
     def _mesh_axes(self, axes: Dict[str, int]) -> Dict[str, int]:
         """The mesh of a strategy's axes in the strategy's own order, as
         the JAX package builds it (a ParallelDim's `parallel_idx` indexes
-        that order), size-1 axes kept. A winner that needs an axis whose
-        execution is not ported (seq, expert, pipe) raises, naming it."""
+        that order), size-1 axes kept. A winner that needs a "pipe" axis
+        (its execution is not ported) raises, naming its slice."""
         out = {}
         for k, v in axes.items():
-            if int(v) > 1 and k not in ("data", "model", "fsdp"):
+            if int(v) > 1 and k == "pipe":
                 raise NotImplementedError(
-                    f"the strategy needs a {k!r} mesh axis of {v}: "
-                    f"{_LATER_SLICES[k]} is not ported to "
-                    "flexflow_tpu_torch yet: it comes with a later slice "
-                    "of multi-device execution (ROADMAP queue 1 item 2)")
+                    f"the strategy needs a 'pipe' mesh axis of {v}: "
+                    f"{_LATER_SLICE} is not ported to flexflow_tpu_torch "
+                    "yet: it comes with a later slice of multi-device "
+                    "execution (ROADMAP queue 1 item 2.6)")
             out[k] = int(v)
         return out
 
@@ -2316,15 +2324,8 @@ _SHAPE_ONLY_OPS = (OperatorType.OP_RESHAPE, OperatorType.OP_FLAT,
                    OperatorType.OP_NOOP, OperatorType.OP_IDENTITY)
 
 
-# the slice of multi-device execution each unported axis waits for
-_LATER_SLICES = {
-    "sequence_parallel_degree": "sequence parallelism",
-    "seq": "sequence parallelism",
-    "expert_parallel_degree": "expert parallelism",
-    "expert": "expert parallelism",
-    "pipeline_parallel_degree": "pipeline parallelism",
-    "pipe": "pipeline parallelism",
-}
+# the slice of multi-device execution the pipe axis waits for
+_LATER_SLICE = "pipeline parallelism"
 
 
 def _resolve_value_tail(op):

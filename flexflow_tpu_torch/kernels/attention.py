@@ -26,7 +26,11 @@ memory-efficient exact attention in plain PyTorch: an online softmax over
 K/V chunks, differentiable through autograd, on any device.
 `local_attention` is the single-device streaming dispatch: the flash
 kernels on a CUDA tensor (they stream K/V through shared memory, so any
-length fits), `chunked_attention` elsewhere.
+length fits), `chunked_attention` elsewhere. `ring_attention` and
+`ulysses_attention` are the JAX package's sequence parallelism over a
+"seq" process group: the ring merges `_chunk_scan` blocks as K and V
+rotate round the group (point-to-point sends), Ulysses re-shards the
+sequence to the heads with an all-to-all around `local_attention`.
 """
 from __future__ import annotations
 
@@ -648,3 +652,167 @@ def flash_attention(q, k, v, causal: bool = False, *, dropout: float = 0.0,
         *(_bhsd_to_fold(x).contiguous() for x in (q, k, v)), causal,
         dropout=dropout, seeds=seeds)
     return _fold_to_bhsd(out, b, h)
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism: ring and Ulysses attention over a "seq" group
+# ---------------------------------------------------------------------------
+# Both run on LOCAL shards (the JAX package calls them inside shard_map;
+# the MHA op calls them inside local_map): q, k and v arrive as this
+# rank's (b, s/n, h, d) block of the sequence, block `idx` of the `n`
+# ranks of `axis`, the ProcessGroup of the mesh's "seq" dim (None: a group
+# of this process alone, n = 1). Their collectives are autograd
+# Functions whose backward is the transpose of the forward's exchange,
+# as JAX's autodiff transposes lax.ppermute and lax.all_to_all.
+
+def _group_size_rank(axis):
+    import torch.distributed as dist
+
+    if axis is None:
+        return 1, 0
+    return dist.get_world_size(axis), dist.get_rank(axis)
+
+
+def _peer(axis, group_rank: int) -> int:
+    """The global rank of `group_rank` in group `axis`."""
+    import torch.distributed as dist
+
+    return dist.get_global_rank(axis, group_rank)
+
+
+def _shift(xs, axis, step: int):
+    """Every rank sends the tensors `xs` to the rank `step` places after
+    it round `axis` and returns what the rank `step` places before it
+    sent (point-to-point sends in one `batch_isend_irecv`)."""
+    import torch.distributed as dist
+
+    n, idx = _group_size_rank(axis)
+    to, frm = _peer(axis, (idx + step) % n), _peer(axis, (idx - step) % n)
+    xs = [x.contiguous() for x in xs]
+    outs = [torch.empty_like(x) for x in xs]
+    ops = [dist.P2POp(dist.isend, x, to, axis) for x in xs]
+    ops += [dist.P2POp(dist.irecv, o, frm, axis) for o in outs]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return outs
+
+
+class _RingShift(torch.autograd.Function):
+    """One hop of K and V round the ring (JAX's `lax.ppermute` with perm
+    j -> j + 1): the backward sends their cotangents one hop the other
+    way round."""
+
+    @staticmethod
+    def forward(ctx, k, v, axis):
+        ctx.axis = axis
+        return tuple(_shift((k, v), axis, 1))
+
+    @staticmethod
+    def backward(ctx, gk, gv):
+        gk, gv = _shift((gk, gv), ctx.axis, -1)
+        return gk, gv, None
+
+
+def ring_attention(q, k, v, axis, *, causal: bool = False,
+                   chunk_size: int = 256):
+    """Exact attention with q, k and v sharded along the sequence over the
+    `n` ranks of `axis` (the JAX package's `ring_attention`): in each of
+    `n` steps this rank attends its queries against the K/V block it
+    holds with `_chunk_scan` (at query offset idx * s_local and key offset
+    src * s_local, src = (idx - step) % n, so a causal mask takes the
+    global positions), merges the block's (out, max, sum) into its running
+    online softmax in f32 (l clamped at 1e-30), and passes K and V one hop
+    round the ring (`_RingShift`; no hop after the last step). Returns
+    (b, s_local, h, dv) in q's dtype."""
+    n, idx = _group_size_rank(axis)
+    b, sq, h, _ = q.shape
+    dv = v.shape[-1]
+    dev = q.device
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=dev)
+    k_cur, v_cur = k, v
+    for step in range(n):
+        src = (idx - step) % n
+        out_blk, m_blk, l_blk = _chunk_scan(
+            q, k_cur, v_cur, causal=causal,
+            chunk_size=min(chunk_size, sq), q_offset=idx * sq,
+            kv_offset=src * sq)
+        acc_blk = (out_blk.permute(0, 2, 1, 3).float()
+                   * l_blk.clamp_min(1e-30)[..., None])
+        m_new = torch.maximum(m, m_blk)
+        alpha_old = torch.exp(m - m_new)
+        alpha_blk = torch.exp(m_blk - m_new)
+        l = l * alpha_old + l_blk * alpha_blk
+        acc = acc * alpha_old[..., None] + acc_blk * alpha_blk[..., None]
+        m = m_new
+        if step + 1 < n:
+            k_cur, v_cur = _RingShift.apply(k_cur, v_cur, axis)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _all_to_all(x: torch.Tensor, axis) -> torch.Tensor:
+    """`all_to_all_single` over `axis` of x laid out (n, ...): block j
+    goes to rank j, and block j of the result came from rank j."""
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=axis)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange of `_all_to_all`, which is its own transpose: the
+    backward exchanges the cotangent the same way."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _all_to_all(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.axis), None
+
+
+def _seq_to_heads(x: torch.Tensor, axis, n: int) -> torch.Tensor:
+    """(b, s/n, h, d) sharded on the sequence -> (b, s, h/n, d) sharded on
+    the heads: JAX's `lax.all_to_all(x, split_axis=2, concat_axis=1,
+    tiled=True)`."""
+    b, sl, h, d = x.shape
+    if n == 1:
+        return x
+    blocks = x.reshape(b, sl, n, h // n, d).permute(2, 0, 1, 3, 4)
+    got = _AllToAll.apply(blocks, axis)          # (n, b, s/n, h/n, d)
+    return got.permute(1, 0, 2, 3, 4).reshape(b, n * sl, h // n, d)
+
+
+def _heads_to_seq(x: torch.Tensor, axis, n: int) -> torch.Tensor:
+    """The inverse of `_seq_to_heads`: (b, s, h/n, d) -> (b, s/n, h, d)
+    (JAX's all_to_all with split_axis=1, concat_axis=2)."""
+    b, s, hl, d = x.shape
+    if n == 1:
+        return x
+    blocks = x.reshape(b, n, s // n, hl, d).permute(1, 0, 2, 3, 4)
+    got = _AllToAll.apply(blocks, axis)          # (n, b, s/n, h/n, d)
+    return got.permute(1, 2, 0, 3, 4).reshape(b, s // n, n * hl, d)
+
+
+def ulysses_attention(q, k, v, axis, *, causal: bool = False):
+    """DeepSpeed-Ulysses sequence parallelism (the JAX package's
+    `ulysses_attention`): q, k and v sharded along the sequence over the
+    `n` ranks of `axis`; one all-to-all re-shards each from the sequence
+    to the heads, (b, s/n, h, d) -> (b, s, h/n, d), so this rank holds
+    the whole sequence of h/n heads; `local_attention` runs on them (the
+    flash kernels on a card, `chunked_attention` off it: JAX's
+    `local_attention` rule); a second all-to-all restores the sequence
+    sharding. The heads must divide by n."""
+    n, _ = _group_size_rank(axis)
+    h = q.shape[2]
+    if h % n:
+        raise ValueError(f"ulysses_attention: heads {h} must divide the "
+                         f"seq group of {n}")
+    qh, kh, vh = (_seq_to_heads(x, axis, n) for x in (q, k, v))
+    return _heads_to_seq(local_attention(qh, kh, vh, causal=causal), axis, n)

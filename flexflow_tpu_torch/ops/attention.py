@@ -15,9 +15,11 @@ call would pass STREAMING_SCORE_BYTES, streams through
 `local_attention`, runs off its kernels' device). FF_ATTENTION_IMPL
 picks the path as in the JAX package: "auto" (unset: the above), "flash" (the folded path on any device; on the
 CPU its wrappers run the kernels' plain versions), "chunked"
-(`chunked_attention` on any device) or "dense" (the masked reference
-path, on any device); "ring" and "ulysses" (sequence parallelism) are
-not ported yet and raise.
+(`chunked_attention` on any device), "dense" (the masked reference
+path, on any device), "ring" or "ulysses" (sequence parallelism over a
+mesh's "seq" axis, below; without one they warn with JAX's "sp_mesh"
+reason and stream as JAX's `local_attention` does: the flash kernels on
+the card, `chunked_attention` off it).
 
 On a device mesh (the mesh executor, parallel/mesh.py; the JAX
 package's `_forward` on a mesh) q, k and v are DTensors of the global
@@ -44,6 +46,23 @@ where the positions do not divide either is an axis held whole
 takes the dense path with its mask built over the global shape, as
 JAX's `_dropout_fallback(..., "mesh")` does; on a mesh of one device
 the flash kernels keep their dropout, as on one device.
+Sequence parallelism (a "seq" axis, the JAX package's SP dispatch): where
+attention streams on a seq-sharded mesh (always on the card, past the
+score budget off it, or on request) and the op is self-attention whose
+sequence, batch and heads divide the seq, data and model axes, it runs
+per shard through `local_map` on (b, s, h, d) blocks placed (data, seq,
+model): `ring_attention` by default or with FF_ATTENTION_IMPL=ring (K
+and V rotate round the seq group), `ulysses_attention` with
+FF_ATTENTION_IMPL=ulysses where the local heads divide the seq axis (two
+all-to-alls; the flash kernels on the whole sequence of h/n heads on the
+card). The projections run inside the same per-shard call, so the
+sequence stays sharded from the op's input to its output
+(`MESH_PATHS["ring"]`, `["ulysses"]`). A requested ring or Ulysses that
+cannot run warns once per (impl, op, reason) with JAX's reasons:
+"sp_mesh" (no seq axis), "sp_shape" (not self-attention, or a dim does
+not divide), "sp_heads" (Ulysses' local heads do not divide the seq
+axis); under attention dropout both fall back to the dense path with the
+"kernel" reason, as in JAX.
 Attention dropout applies where the JAX package applies it (dropout > 0,
 training, an rng given): the folded path hands the rate and
 `dropout_seeds(rng)` to the flash kernels, which rebuild the
@@ -190,9 +209,19 @@ _FALLBACK_DETAIL = {
                "the streaming path (chunked) threads no dropout rng",
     "mesh": "on a device mesh the per-shard flash kernels and chunked "
             "attention thread no dropout rng",
+    # the sequence-parallel (ring/ulysses) fallbacks: the requested SP
+    # path cannot run, so the op attends without it
+    "sp_mesh": "FF_ATTENTION_IMPL={impl} needs a seq-sharded mesh "
+               "(sequence_parallel_degree > 1)",
+    "sp_shape": "ring/ulysses need self-attention with batch, heads and "
+                "seq divisible by their mesh degrees",
+    "sp_heads": "ulysses needs the per-device head count divisible by the "
+                "seq axis (heads scatter over it)",
 }
+_SP_REASONS = ("sp_mesh", "sp_shape", "sp_heads")
 # the mesh dispatch's routes, counted per call (tests and chip_smoke.py
-# read them): "local_map" (the flash kernels per shard), "chunked" (and
+# read them): "local_map" (the flash kernels per shard), "ring" and
+# "ulysses" (sequence parallelism per shard), "chunked" (and
 # "rows_over_data"/"rows_over_model" where the batch or the heads do not
 # divide that axis and the query positions shard over it instead,
 # "replicated_over_<axis>" where the positions do not divide it either),
@@ -205,14 +234,23 @@ MESH_LOCAL_Q: dict = {}
 
 
 def _dropout_fallback(impl: str, op_name: str, reason: str) -> None:
-    """Warn once per (impl, op, reason) that attention dropout keeps the
-    dense path where `impl` would have streamed."""
+    """Count every fallback (`ff_attention_fallback_total{reason}`, a
+    no-op without a telemetry session) and warn once per (impl, op,
+    reason): attention dropout keeping the dense path where `impl` would
+    have streamed, or a requested ring/ulysses that cannot run (the JAX
+    package's `_dropout_fallback`)."""
+    from .. import obs
+
+    obs.count("ff_attention_fallback_total",
+              help="attention ops that fell back to the dense path",
+              reason=reason)
     key = (impl, op_name, reason)
     if key in _FALLBACK_WARNED:
         return
     _FALLBACK_WARNED.add(key)
+    kind = "sequence parallelism" if reason in _SP_REASONS else "dropout"
     warnings.warn(
-        f"attention dropout on {op_name or 'a MHA op'} "
+        f"attention {kind} on {op_name or 'a MHA op'} "
         f"(FF_ATTENTION_IMPL={impl}) falls back to the dense path: "
         + _FALLBACK_DETAIL[reason].format(impl=impl))
 
@@ -223,13 +261,6 @@ def _attention_impl() -> str:
         raise ValueError(
             f"FF_ATTENTION_IMPL={impl!r}: "
             "expected auto|dense|flash|chunked|ring|ulysses")
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"FF_ATTENTION_IMPL={impl}: sequence parallelism (ring and "
-            "ulysses attention over a seq mesh axis) is not ported to "
-            "flexflow_tpu_torch yet: it comes with the sequence-parallel "
-            "slice of multi-device execution (auto, flash, chunked and "
-            "dense are ported)")
     return impl
 
 
@@ -255,7 +286,16 @@ def _forward(params: MultiHeadAttentionParams, weights, inputs, ctx):
     if ctx.mesh is not None:
         return _forward_mesh(params, weights, ctx, impl, use_dropout, rate,
                              seeds, q_in, k_in, v_in, wq, wk, wv, wo)
-    if impl == "flash" or (impl == "auto" and q_in.device.type == "cuda"):
+    sp = impl in ("ring", "ulysses")
+    if sp and use_dropout:
+        _dropout_fallback(impl, ctx.op_name, "kernel")
+    elif sp:
+        # no seq axis: JAX's local_attention streams instead (the flash
+        # kernels on the card, chunked off it)
+        _dropout_fallback(impl, ctx.op_name, "sp_mesh")
+    on_card = q_in.device.type == "cuda"
+    if impl == "flash" or (impl == "auto" and on_card) or (
+            sp and not use_dropout and on_card):
         # folded fast path: project straight into (b*h, s, d); the kernels
         # raise on a dtype or shape they do not take
         qf = torch.einsum("bse,ehd->bhsd", q_in, wq).reshape(b * h, seq_len, dqk)
@@ -268,7 +308,7 @@ def _forward(params: MultiHeadAttentionParams, weights, inputs, ctx):
         return [_project_out(params, weights, "bhsd,hde->bse",
                              attn.view(b, h, seq_len, dv), wo, q_in.dtype, ctx)]
     score_bytes = 4 * b * h * seq_len * kv_len
-    streaming = impl == "chunked" or (
+    streaming = impl == "chunked" or (sp and not use_dropout) or (
         impl == "auto" and score_bytes > STREAMING_SCORE_BYTES)
     if streaming and use_dropout:
         _dropout_fallback(impl, ctx.op_name,
@@ -314,14 +354,14 @@ def _mesh_placements(mesh, by_axis) -> list:
 def _forward_mesh(params, weights, ctx, impl, use_dropout, rate, seeds,
                   q_in, k_in, v_in, wq, wk, wv, wo):
     """The MHA forward on a device mesh (the JAX package's `_forward` on a
-    mesh): the flash kernels per shard through `local_map` where batch
-    and heads divide the data and model axes, chunked attention where
-    they do not (`_chunked_mesh`: the query positions sharded over an
-    axis that divides neither), dense with a global dropout mask under
-    dropout on a
-    mesh of more than one device. On a mesh of one device every shard is
-    the whole array, so the flash kernels keep their dropout, as they do
-    on one device."""
+    mesh): ring or Ulysses attention per shard on a seq-sharded mesh
+    (`_sp_mesh`), the flash kernels per shard through `local_map` where
+    batch and heads divide the data and model axes, chunked attention
+    where they do not (`_chunked_mesh`: the query positions sharded over
+    an axis that divides neither), dense with a global dropout mask
+    under dropout on a mesh of more than one device. On a mesh of one
+    device every shard is the whole array, so the flash kernels keep
+    their dropout, as they do on one device."""
     from torch.distributed.tensor.experimental import local_map
 
     from ..kernels import attention as katt
@@ -346,22 +386,44 @@ def _forward_mesh(params, weights, ctx, impl, use_dropout, rate, seeds,
     flash_shardable = (seq == 1 and expert == 1 and b % data == 0
                        and h % model == 0)
     on_card = q_in.device.type == "cuda"
+    sp_impl = impl in ("ring", "ulysses")
     # only the axes that shard the scores divide the per-device footprint
     score_bytes = 4 * b * h * seq_len * kv_len // max(
         1, batch_ways * model * seq)
-    want_flash = impl == "flash" or (impl == "auto" and on_card
+    # a ring/ulysses request that cannot run streams as JAX's
+    # local_attention does: the flash kernels per shard on the card
+    want_flash = impl == "flash" or ((impl == "auto" or sp_impl) and on_card
                                      and flash_shardable)
-    streaming = want_flash or impl == "chunked" or (
-        impl == "auto" and score_bytes > STREAMING_SCORE_BYTES)
+    # on the card "auto" streams on a seq-sharded mesh too: through the
+    # ring below (JAX's prefer_flash with seq_degree > 1)
+    streaming = want_flash or impl == "chunked" or sp_impl or (
+        impl == "auto" and (score_bytes > STREAMING_SCORE_BYTES
+                            or (on_card and seq > 1)))
     # the flash kernels hash the dropout mask over each call's folded
     # (b*h, s, t) index, which is the global one only where a shard is
     # the whole array
     flash_dropout = want_flash and flash_shardable and not mesh_nontrivial
     if use_dropout and streaming and not flash_dropout:
         _dropout_fallback(impl, ctx.op_name,
-                          "kernel" if impl == "chunked" else
-                          "mesh" if mesh_nontrivial else "backend")
+                          "kernel" if impl in ("chunked", "ring", "ulysses")
+                          else "mesh" if mesh_nontrivial else "backend")
         streaming = want_flash = False
+    # sequence parallelism (JAX's sp_shardable rule): ring by default,
+    # ulysses on request where the local heads divide the seq axis
+    sp_shardable = (seq > 1 and streaming and kv_len == seq_len
+                    and seq_len % seq == 0 and b % data == 0
+                    and h % model == 0)
+    use_ulysses = (sp_shardable and impl == "ulysses"
+                   and (h // model) % seq == 0)
+    use_ring = sp_shardable and impl in ("auto", "ring")
+    if sp_impl and not (use_ring or use_ulysses) and not use_dropout:
+        _dropout_fallback(impl, ctx.op_name,
+                          "sp_mesh" if seq <= 1 else
+                          "sp_heads" if impl == "ulysses" and sp_shardable
+                          else "sp_shape")
+    if use_ring or use_ulysses:
+        return [_sp_mesh(params, weights, ctx, use_ulysses, batch_axes,
+                         q_in, k_in, v_in, wq, wk, wv, wo)]
     dm = mesh.device_mesh
     if want_flash and flash_shardable:
         # the one-device folded path's projections, per shard: (b, h, s,
@@ -409,6 +471,57 @@ def _forward_mesh(params, weights, ctx, impl, use_dropout, rate, seeds,
         attn = _dense_attention(q, k, v, keep, rate, seeds)
     return [_project_out(params, weights, "bshd,hde->bse", attn, wo,
                          q_in.dtype, ctx)]
+
+
+def _sp_mesh(params, weights, ctx, use_ulysses, batch_axes, q_in, k_in,
+             v_in, wq, wk, wv, wo):
+    """Sequence-parallel attention per shard (JAX's shard_map of
+    `ring_attention` / `ulysses_attention` over P("data", "seq", "model",
+    None)): one `local_map` over the op's inputs (b, s, e) with the batch
+    over its axes and the sequence over "seq", and its weights with the
+    heads over "model", projects this rank's q, k and v blocks (b/data,
+    s/seq, h/model, d), attends them over the seq group and projects
+    the rows out, a partial sum over "model" (the output projection
+    contracts the heads). The weights' gradients are partial sums over
+    the axes that shard the rows, the inputs' over "model"."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..kernels import attention as katt
+
+    mesh = ctx.mesh
+    dm = mesh.device_mesh
+    x_pl = _mesh_placements(mesh, dict({a: 0 for a in batch_axes}, seq=1))
+    on_model = [a == "model" and mesh.shape[a] > 1 for a in mesh.live_axes]
+    rows = [isinstance(p, Shard) for p in x_pl]
+
+    def weight(head_dim):
+        pl = _mesh_placements(mesh, {"model": head_dim})
+        return pl, [Partial() if r else p for r, p in zip(rows, pl)]
+
+    (w_pl, w_grad), (wo_pl, wo_grad) = weight(1), weight(0)
+    x_grad = [Partial() if m else p for m, p in zip(on_model, x_pl)]
+    group = dm.get_group("seq")
+    fn = katt.ulysses_attention if use_ulysses else katt.ring_attention
+    name, dtype = ctx.op_name, q_in.dtype
+
+    def per_shard(qi, ki, vi, wq_, wk_, wv_, wo_):
+        q, k, v = (torch.einsum("bse,ehd->bshd", x, w) for x, w in
+                   ((qi, wq_), (ki, wk_), (vi, wv_)))
+        MESH_LOCAL_Q[name] = tuple(q.shape)
+        attn = fn(q, k, v, group, causal=params.causal)
+        return torch.einsum("bshd,hde->bse", attn, wo_).to(dtype)
+
+    MESH_PATHS["ulysses" if use_ulysses else "ring"] += 1
+    out = local_map(
+        per_shard, out_placements=x_grad,
+        in_placements=(x_pl,) * 3 + (w_pl,) * 3 + (wo_pl,),
+        in_grad_placements=(x_grad,) * 3 + (w_grad,) * 3 + (wo_grad,),
+        device_mesh=dm, redistribute_inputs=True)(
+            q_in, k_in, v_in, wq, wk, wv, wo)
+    if params.bias:
+        out = out + cast_weight(ctx, weights["bias_o"], out.dtype)
+    return out
 
 
 def _chunked_mesh(params, ctx, q, k, v, b, h, seq_len):

@@ -541,8 +541,7 @@ class PCGExecutor:
         for op in self.topo:
             ins = [vals[t.guid] for t in op.inputs]
             if op.is_parallel_op:
-                for t, o in zip(op.outputs,
-                                parallel_ops.execute(op, ins, self.mesh)):
+                for t, o in zip(op.outputs, self._parallel_op(op, ins)):
                     vals[t.guid] = self._constrain(o, t)
                 continue
             compute_idx = self.compute_index[op.guid]
@@ -562,6 +561,10 @@ class PCGExecutor:
         """The value of tensor `pt` as the strategy places it: on one
         device, as it is (MeshExecutor redistributes)."""
         return val
+
+    def _parallel_op(self, op, ins) -> list:
+        """A parallel op's outputs (parallel/parallel_ops.py)."""
+        return parallel_ops.execute(op, ins, self.mesh)
 
     def _op_weights(self, op, w):
         """The weights op `op` reads: on one device, as they are
@@ -920,7 +923,9 @@ class PCGExecutor:
         n = len(stacked_labels)
         shapes = tuple((n,) + tuple(np.shape(a[0])) for a in stacked_inputs)
         label_shape = (n,) + tuple(np.shape(stacked_labels[0]))
-        tensors = _tensors((state.params, state.opt_state, state.net_state))
+        # each rank's shard of a DTensor: what the graph reads and writes
+        tensors = [local(t) for t in _tensors(
+            (state.params, state.opt_state, state.net_state))]
         key = (tuple(t.data_ptr() for t in tensors), shapes, label_shape,
                table is None)
         g = self._scan_graphs.get(key) or _ScanGraph(
@@ -930,8 +935,20 @@ class PCGExecutor:
             g.capture(state, tensors)
         _keep_recent(self._scan_graphs, key, g)
         out = {k: v.clone() for k, v in g.graph.replay().items()}
+        self._add_counters(g.counters)
         _mark_moved(state.params)
         return out
+
+    def _counters(self) -> collections.Counter:
+        """The executor's running counts that a replayed graph's launches
+        would advance if they ran eagerly (MeshExecutor: its collectives
+        and gradient syncs); none on one device."""
+        return collections.Counter()
+
+    def _add_counters(self, delta: collections.Counter,
+                      times: int = 1) -> None:
+        """Advance the counts of `_counters` by `times` a replay's
+        `delta`."""
 
     def build_grad_step(self, seq_length: int = -1) -> Callable:
         """grad_of(params, batch_inputs, labels, net_state=None,
@@ -1368,6 +1385,7 @@ class _ScanGraph:
         # not rewritten before those copies have read them
         self.staged: Optional[torch.cuda.Event] = None
         self.graph = None
+        self.counters: collections.Counter = collections.Counter()
 
     def stage(self, stacked_inputs, stacked_labels, table) -> None:
         if self.staged is not None:
@@ -1384,13 +1402,18 @@ class _ScanGraph:
         self.staged.record()
 
     def _steps(self, state, count: int):
+        # the executor places each step's rows as its eager step does
+        # (MeshExecutor: sharded from the static buffers, in the graph)
         parts = [self.ex._train(
-            state, [x[j] for x in self.xs], self.y[j],
+            state, [x[j] for x in self.xs], self.ex._as_labels(self.y[j]),
             None if self.seeds is None else self.seeds[j])
             for j in range(count)]
         return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
 
     def capture(self, state, tensors) -> None:
+        """Warm up, then capture the N steps. `tensors` are the state's
+        local tensors. The executor's counts that the capture advanced
+        are what each replay adds (`counters`)."""
         from .graphs import CapturedGraph, warm_up
 
         # the warm-up is a real step: run it from a snapshot and put the
@@ -1402,7 +1425,11 @@ class _ScanGraph:
                 t.copy_(s)
         del snapshot
         graph = CapturedGraph()
+        before = self.ex._counters()
         graph.capture(lambda: self._steps(state, self.y.shape[0]))
+        # a capture runs no step: take its counts back out
+        self.counters = self.ex._counters() - before
+        self.ex._add_counters(self.counters, -1)
         self.graph = graph
 
 
@@ -1460,6 +1487,19 @@ class MeshExecutor(PCGExecutor):
     The optimizers, the step guard (on the global gradient norm) and
     snapshot/restore act on DTensors or each rank's shards.
 
+    The train scan (`build_train_scan`, fit's `iterations_per_dispatch`)
+    runs PCGExecutor's contract over the mesh: each step's rows of the
+    stacked global batch are sharded as `_input_vals` and `_as_labels`
+    shard a single step's, and the partials come back whole, (N,) a key.
+    Off the card it is the loop over the eager step. On the card the N
+    steps are one CUDA graph: DTensor's dispatch runs once, at capture,
+    and the graph holds the per-shard kernels, the NCCL collectives of
+    the data, tensor, sequence, expert and fsdp axes, and the overlapped
+    sync's reduce-scatters, waits, owned-slice updates and all-gathers;
+    the static input buffers are sharded inside the graph on every
+    replay. A replay adds the collectives and syncs its capture counted.
+    A capture that fails raises.
+
     FSDP/ZeRO (an "fsdp" mesh axis: `FFConfig.fsdp_degree`, or a searched
     winner's WeightShard nodes): a target weight lives `Shard(d)` over
     "fsdp" and is gathered where its op reads it (`_op_weights`: an
@@ -1482,10 +1522,11 @@ class MeshExecutor(PCGExecutor):
 
     `collectives` counts the collectives that run, by "<what>/<kind>/
     <axis>": "grad" (a gradient's sync), "weight" (an fsdp weight gathered
-    on use) and "param" (an updated weight gathered after the sharded
-    update), each an "all_reduce", "reduce_scatter", "all_gather" or
-    "all_to_all" over a mesh axis; `grad_syncs` counts the gradient
-    syncs (at most one a weight a step).
+    on use), "param" (an updated weight gathered after the sharded
+    update) and "act" (the expert dispatch's all-to-all), each an
+    "all_reduce", "reduce_scatter", "all_gather" or "all_to_all" over a
+    mesh axis; `grad_syncs` counts the gradient syncs (at most one a
+    weight a step).
 
     No op is gathered behind its back: an op that builds a plain tensor
     over the global shape (a dropout mask, the MoE dispatch mask) wraps
@@ -1495,8 +1536,7 @@ class MeshExecutor(PCGExecutor):
     top_k's sort) run on local shards through `per_shard`, as
     attention's kernels and chunked path run through `local_map`; an op
     DTensor refuses otherwise raises. Not ported on a mesh of more than
-    one device, and refused by name: the captured train scan and the
-    decode step."""
+    one device, and refused by name: the decode step."""
 
     # DTensor's views cannot set the version counter of an inference
     # tensor (a conv2d bias broadcast raises), so the mesh's forward runs
@@ -1743,6 +1783,15 @@ class MeshExecutor(PCGExecutor):
         if self._count("grad", g.placements, src):
             self.grad_syncs += 1
 
+    def _parallel_op(self, op, ins) -> list:
+        """The parallel op's redistribute; the expert dispatch's
+        all-to-all (OP_ALL_TO_ALL, Shard -> Shard) is counted as
+        "act/all_to_all/<axis>"."""
+        outs = super()._parallel_op(op, ins)
+        if op.op_type == OperatorType.OP_ALL_TO_ALL and is_dtensor(ins[0]):
+            self._count("act", ins[0].placements, outs[0].placements)
+        return outs
+
     def _constrain(self, val, pt):
         from torch.distributed.tensor import Shard
 
@@ -1801,10 +1850,20 @@ class MeshExecutor(PCGExecutor):
 
         return whole
 
-    def build_train_scan(self) -> Callable:
-        self._unsupported("the captured multi-step train scan "
-                          "(iterations_per_dispatch > 1)")
-        return super().build_train_scan()
+    def _counters(self) -> collections.Counter:
+        c = collections.Counter({("collectives", k): v
+                                 for k, v in self.collectives.items()})
+        c["grad_syncs"] = self.grad_syncs
+        c["overlap_issued_in_backward"] = self.overlap_issued_in_backward
+        return c
+
+    def _add_counters(self, delta: collections.Counter,
+                      times: int = 1) -> None:
+        for k, v in delta.items():
+            if isinstance(k, tuple):
+                self.collectives[k[1]] += times * v
+            else:
+                setattr(self, k, getattr(self, k) + times * v)
 
     def build_decode(self, *args, **kw):
         """On a mesh of one device: PCGExecutor's decode on each weight's

@@ -76,6 +76,7 @@ _ARGVS = [
     ["--fsdp-degree", "4", "-b", "8"],
     ["--no-overlap-backward-update"],
     ["--no-overlap-backward-update", "--overlap-backward-update"],
+    ["--enable-sequence-parallel", "-b", "4"],
 ]
 
 

@@ -417,9 +417,17 @@ def test_bogus_attention_impl_raises_on_the_card(gen, monkeypatch):
     monkeypatch.setenv("FF_ATTENTION_IMPL", "bogus")
     with pytest.raises(ValueError, match="FF_ATTENTION_IMPL"):
         gm.executor.build_forward()(gm.params, [x])
+    # ring without a seq axis warns ("sp_mesh") and runs the flash
+    # kernels, as JAX's local_attention runs its kernels on its device
+    from flexflow_tpu_torch.ops import attention as tatt
+
     monkeypatch.setenv("FF_ATTENTION_IMPL", "ring")
-    with pytest.raises(NotImplementedError):
+    tatt._FALLBACK_WARNED.clear()
+    before = build.launch_counts.get("flash_bwd", 0)
+    with pytest.warns(UserWarning, match="sequence parallelism"):
         gm.executor.build_grad_step()(gm.params, [x], x)
+    torch.cuda.synchronize()
+    assert build.launch_counts.get("flash_bwd", 0) > before
 
 
 SEEDS = (0x9E3779B9, 0x01234567)

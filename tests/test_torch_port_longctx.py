@@ -16,6 +16,8 @@ outputs within one bf16 step of their value (2^-7, the f32 values they
 round from agree to 1e-5); the model's losses and partials within rtol
 1e-5 and its weights after three steps within rtol 1e-4, atol 1e-5.
 """
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -247,10 +249,29 @@ def test_chunked_with_dropout_falls_back_to_dense(monkeypatch):
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
 def test_sequence_parallel_impls_raise(impl, monkeypatch):
-    _, _, tp, tw = _mha_weights(False)
+    """FF_ATTENTION_IMPL=ring|ulysses with no seq axis: both packages warn
+    that sequence parallelism falls back ("sp_mesh"), once per op, and
+    attend through chunked attention (JAX's local_attention off its
+    kernels' device); the outputs agree."""
+    jp, jw, tp, tw = _mha_weights(False)
+    x = np.random.RandomState(11).randn(2, 32, E).astype(np.float32)
     monkeypatch.setenv("FF_ATTENTION_IMPL", impl)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tattn._forward(tp, tw, [torch.zeros(1, 4, E)] * 3, TCtx())
+    tattn._FALLBACK_WARNED.clear()
+    jattn.reset_attention_fallback_warnings()
+    chunked = _Spy(monkeypatch, "chunked_attention")
+    with pytest.warns(UserWarning, match="sequence parallelism on sp_op"):
+        (to,) = tattn._forward(tp, tw, [torch.from_numpy(x)] * 3,
+                               TCtx(op_name="sp_op"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tattn._forward(tp, tw, [torch.from_numpy(x)] * 3,
+                       TCtx(op_name="sp_op"))
+    assert chunked.calls == 2
+    with pytest.warns(UserWarning, match="sequence parallelism on sp_op"):
+        (jo,) = jattn._forward(jp, jw, [jnp.asarray(x)] * 3,
+                               JCtx(training=False, op_name="sp_op"))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=RTOL,
+                               atol=ATOL)
 
 
 # -- the long-context model -------------------------------------------------

@@ -1,6 +1,6 @@
 """flexflow_tpu_torch's device mesh: the placements lowering against the
 JAX package's PartitionSpecs, data parallelism against one device, the
-flash dispatch on a sharded mesh, and what this slice refuses by name.
+flash dispatch on a sharded mesh, and what is still refused by name.
 
 The placements are a pure function of (ParallelTensor, axis names, axis
 sizes): the table runs in this process with no process group, against
@@ -34,7 +34,8 @@ port on one device in this process from the same seed's weights:
     BERT keeps the flash kernels' dropout per shard through local_map;
     each matches one device's steps, rtol 1e-5, atol 1e-6;
   - on 2 ranks, every refusal of this slice raises NotImplementedError
-    naming the slice that brings it.
+    naming the slice that brings it, and the train scan (no longer
+    refused) is bit-equal to stepwise fit.
 """
 import concurrent.futures
 import json
@@ -135,9 +136,19 @@ def test_machine_view_to_axes_matches_jax(axes, dims):
     ("expert_parallel_degree", "expert parallelism"),
     ("pipeline_parallel_degree", "pipeline parallelism")])
 def test_unported_degrees_raise_naming_their_slice(field, slice_name):
+    """The pipeline degree is not ported: compile raises, naming its
+    slice. The sequence and expert degrees are: on one process (one
+    device) a degree of 2 needs two devices, and compile raises
+    ValueError naming the degrees and the device count, as a tensor
+    degree does."""
     m = tff.FFModel(tff.FFConfig(device="cpu", **{field: 2}))
     m.softmax(m.create_tensor((2, 4)))
-    with pytest.raises(NotImplementedError, match=slice_name):
+    if field == "pipeline_parallel_degree":
+        with pytest.raises(NotImplementedError, match=slice_name):
+            m.compile()
+        return
+    with pytest.raises(ValueError,
+                       match=f"{field} 2 .*does not divide the 1 devices"):
         m.compile()
 
 
@@ -156,13 +167,23 @@ def test_more_devices_than_processes_raise():
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
 def test_ring_and_ulysses_raise_naming_their_slice(monkeypatch, impl):
-    monkeypatch.setenv("FF_ATTENTION_IMPL", impl)
+    """FF_ATTENTION_IMPL=ring|ulysses without a seq axis: the op warns
+    with JAX's "sp_mesh" reason and streams as JAX's local_attention
+    does off the card (chunked attention), bit for bit."""
+    from flexflow_tpu_torch.ops import attention as att
+
     m = tff.FFModel(tff.FFConfig(device="cpu", batch_size=2))
     _build(m, "attention", {"batch": 2, "seq": 4, "embed": 8, "heads": 2})
     m.compile(loss_type="mse")
-    with pytest.raises(NotImplementedError, match="sequence-parallel slice"):
-        m.executor.build_forward()(m.params,
-                                   [np.zeros((2, 4, 8), np.float32)])
+    x = [np.random.RandomState(0).randn(2, 4, 8).astype(np.float32)]
+    monkeypatch.setenv("FF_ATTENTION_IMPL", "chunked")
+    want = m.executor.build_forward()(m.params, x)
+    monkeypatch.setenv("FF_ATTENTION_IMPL", impl)
+    att._FALLBACK_WARNED.clear()
+    with pytest.warns(UserWarning,
+                      match="sequence parallelism .* needs a seq-sharded"):
+        got = m.executor.build_forward()(m.params, x)
+    assert torch.equal(got, want)
 
 
 # the optimizers on tensor-sharded weights: SGD with momentum, nesterov
@@ -181,7 +202,6 @@ BERT = {"layers": 2, "hidden": 64, "heads": 4, "ffn": 256, "dropout": 0.1,
 CASES = str(pathlib.Path(__file__).with_name("torch_mesh_cases.py"))
 # the refusals on a 2-device mesh: (case, fragment of the message)
 _REFUSED = {
-    "scan": ({"mode": "scan"}, "captured multi-step train scan"),
     "decode": ({"mode": "decode"}, "serving decode step"),
     "compile_decode": ({"mode": "compile_decode"}, "decode and serving"),
     "checkpoint_dir": ({"mode": "fit", "fit": {"checkpoint_dir": "ck"}},
@@ -305,6 +325,11 @@ def runs(tmp_path_factory):
         if name == "checkpoint_dir":
             c["fit"] = {"checkpoint_dir": str(d / "ck")}
         two.append(c)
+    # the train scan over the mesh, and the stepwise fit it must equal
+    for spd in (1, 2):
+        two.append(dict(base, name=f"fit_spd{spd}", mode="fit",
+                        config=dict(base["config"],
+                                    iterations_per_dispatch=spd)))
     pool = concurrent.futures.ThreadPoolExecutor(2)
     out = {}
     for name, n, cases in (("four", 4, four), ("two", 2, two),
@@ -532,6 +557,21 @@ def test_refused_on_a_mesh_naming_the_later_slice(runs, name):
         assert err.startswith("NotImplementedError"), err
         assert _REFUSED[name][1] in err, err
         assert "later slice" in err or "slice of" in err, err
+
+
+def test_train_scan_on_a_mesh_of_two_devices(runs):
+    """fit(iterations_per_dispatch=2) on a 2-device data mesh runs the
+    train scan (the eager steps' loop off the card), where it used to
+    raise: the weights after it are bit-equal to stepwise fit's on the
+    same mesh, and every gradient is synced each step either way."""
+    run = runs["runs"]["two"]
+    scan, step = run.ok("fit_spd2"), run.ok("fit_spd1")
+    assert scan["mesh"]["data"] == 2
+    assert scan["collectives"] == step["collectives"] != {}
+    a, b = run.arrays("fit_spd2"), run.arrays("fit_spd1")
+    assert set(a) == set(b)
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
 
 
 def test_no_process_group_keeps_the_one_device_executor():

@@ -171,10 +171,16 @@ def test_compile_refuses_what_is_not_ported():
     m.softmax(m.create_tensor((2, 4)))
     with pytest.raises(TypeError):
         m.compile(calibration={})
-    # the parallel degrees whose execution is not ported raise at compile
+    # the pipeline degree, whose execution is not ported, raises at
+    # compile naming its slice; a sequence degree of 2 is ported and
+    # needs two devices, which one process does not have
+    m = FFModel(FFConfig(device="cpu", pipeline_parallel_degree=2))
+    m.softmax(m.create_tensor((2, 4)))
+    with pytest.raises(NotImplementedError, match="pipeline parallelism"):
+        m.compile()
     m = FFModel(FFConfig(device="cpu", sequence_parallel_degree=2))
     m.softmax(m.create_tensor((2, 4)))
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+    with pytest.raises(ValueError, match="does not divide the 1 devices"):
         m.compile()
 
 

@@ -17,6 +17,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import warnings
 
 import jax
 import numpy as np
@@ -264,27 +265,32 @@ def test_training_with_dropout_raises_where_jax_would_apply_it():
 
 
 def test_attention_impl_env(monkeypatch):
-    """FF_ATTENTION_IMPL as in JAX: unknown values raise ValueError, the
-    sequence-parallel kernels (multi-device) NotImplementedError; "flash"
-    runs the folded path through the flash autograd Function (on the CPU
-    its plain versions) and "chunked" the online-softmax scan, and both
-    give the dense path's gradients."""
+    """FF_ATTENTION_IMPL as in JAX: unknown values raise ValueError;
+    "flash" runs the folded path through the flash autograd Function (on
+    the CPU its plain versions), "chunked" the online-softmax scan, and
+    the sequence-parallel "ring" and "ulysses" on one device (no seq
+    axis) warn with JAX's "sp_mesh" reason and stream as chunked does;
+    all give the dense path's gradients."""
+    from flexflow_tpu_torch.ops import attention as tatt
+
     m = _mha_model(0.0)
     (x, y), = _batches(7, 1)
     grad = m.executor.build_grad_step()
     monkeypatch.setenv("FF_ATTENTION_IMPL", "bogus")
     with pytest.raises(ValueError, match="FF_ATTENTION_IMPL"):
         m.executor.build_forward()(m.params, [x])
-    for impl in ("ring", "ulysses"):
-        monkeypatch.setenv("FF_ATTENTION_IMPL", impl)
-        with pytest.raises(NotImplementedError):
-            grad(m.params, [x], y)
     monkeypatch.setenv("FF_ATTENTION_IMPL", "dense")
     dense = grad(m.params, [x], y)
-    for impl in ("flash", "chunked"):
+    for impl in ("flash", "chunked", "ring", "ulysses"):
         monkeypatch.setenv("FF_ATTENTION_IMPL", impl)
-        _assert_params_close(grad(m.params, [x], y), dense, rtol=RTOL,
-                             atol=GRAD_ATOL)
+        tatt._FALLBACK_WARNED.clear()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            got = grad(m.params, [x], y)
+        sp = [str(w.message) for w in rec
+              if "sequence parallelism" in str(w.message)]
+        assert len(sp) == (impl in ("ring", "ulysses")), sp
+        _assert_params_close(got, dense, rtol=RTOL, atol=GRAD_ATOL)
 
 
 def test_apply_is_differentiable_and_serving_records_no_graph():

@@ -6,16 +6,18 @@ case of a JSON spec in order:
 
     {"name": ..., "builder": "transformer" | "dense_softmax" | "bn_cnn"
      | "dropout_mlp" | "mlp" | "search_mlp" | "attention" | "bert"
-     | "moe" | "overlap_mlp",
+     | "moe" | "moe_small" | "overlap_mlp",
      "builder_kwargs": {...},
      "config": {FFConfig fields}, "config_by_rank": {"1": {...}},
-     "env": {variables set for the case}, "loss": "mse" | ...,
+     "rewrites": [[substitution generator, degree], ...] (the searched
+     winner those rewrites make, `fixed_winner`; with a search budget),
+     "env": {variables set for the case alone}, "loss": "mse" | ...,
      "metrics": [...], "lr": 0.01 (SGD's rate), "optimizer": {SGD's
      fields, or "adam": true and Adam's}, "weights": "<npz of op/weight>",
      "data": "<npz of x0, x1, ..., y>", "rank_data": "<npz rank 1+ use>",
      "random_data": {"x_shapes": [...], "y_shape": [...], "seed": 0},
-     "mode": "steps" | "guard" | "fit" | "scan" | "decode"
-     | "compile_decode" | "compile" | "var_mean",
+     "mode": "steps" | "guard" | "fit" | "decode"
+     | "compile_decode" | "compile" | "var_mean" | "sp_kernels",
      "steps": 3, "epochs": 1, "fit": {fit keywords},
      "same_batch": true (every step on the first batch),
      "guard": {"init_loss_scale": 4.0, "poison_step": 1} (StepGuardConfig's
@@ -30,7 +32,9 @@ and its seconds (the loss read synchronises); "guard" does so with the
 step guard armed and the second step's gradients poisoned with NaN, and
 records the global gradient norms and the skips; "fit" runs FFModel.fit;
 "var_mean" runs parallel/mesh.py `var_mean` on DTensors of a seeded
-array (no model) under CommDebugMode and records the collectives.
+array (no model) under CommDebugMode and records the collectives;
+"sp_kernels" runs ring and Ulysses attention alone over the group
+(`_sp_kernels_case`).
 With "forward", the serving forward of the first batch runs after them
 (on the state's buffers) and rank 0 keeps its output whole.
 Each rank writes `<out_dir>/<name>.rank<r>.json` (the error, if the case
@@ -41,13 +45,16 @@ placements, and the overlapped sync's eligible weights, hooks, slot
 shapes and schedule audit) and
 rank 0 writes the final weights and buffers whole to
 `<out_dir>/<name>.npz` (`params_to_numpy`: gathered, never one shard).
-A case that raises is recorded and the next case runs. The tests build
-their one-device references with the same `build`.
+A case that raises is recorded and the next case runs; the warnings a
+case raised are recorded with it. The tests build their one-device
+references with the same `build`.
 """
+import contextlib
 import json
 import os
 import time
 import traceback
+import warnings
 
 
 def build(model, name: str, kw: dict):
@@ -115,6 +122,13 @@ def build(model, name: str, kw: dict):
 
         build_moe(model, kw["batch"], input_dim=32, num_classes=4,
                   num_exp=4, num_select=2, hidden=16, lambda_bal=0.04)
+    elif name == "moe_small":
+        # tests/test_workload_zoo.py _moe_graph's MoE: 4 experts, top-2,
+        # capacity factor 1.2
+        from flexflow_tpu_torch.models import build_moe
+
+        build_moe(model, kw["batch"], input_dim=16, num_classes=4,
+                  num_exp=4, num_select=2, hidden=16, alpha=1.2)
     elif name == "bert":
         # BERT through the PyTorch frontend: attention and hidden dropout
         import torch
@@ -134,6 +148,33 @@ def build(model, name: str, kw: dict):
         raise ValueError(f"unknown builder {name!r}")
 
 
+@contextlib.contextmanager
+def fixed_winner(rewrites, package="flexflow_tpu_torch"):
+    """While open, the strategy search of `package` returns the graph
+    that the substitutions `rewrites` ([[generator name, degree], ...],
+    each applied once, its first rewrite taken) make of the model's
+    lowering, priced by the search's own cost: a searched winner that
+    does not depend on the costs. Nothing is patched for None."""
+    if not rewrites:
+        yield
+        return
+    import importlib
+
+    sub = importlib.import_module(f"{package}.search.substitution")
+
+    def optimize(self, graph, res):
+        for name, degree in rewrites:
+            graph = next(getattr(sub, name)(degree).apply(graph))
+        return graph, self.search.graph_cost(graph, res)
+
+    old = sub.GraphSearchHelper.graph_optimize
+    sub.GraphSearchHelper.graph_optimize = optimize
+    try:
+        yield
+    finally:
+        sub.GraphSearchHelper.graph_optimize = old
+
+
 def run_case(case: dict, rank: int, device: str) -> dict:
     import numpy as np
 
@@ -151,15 +192,19 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         os.environ[k] = str(v)
     att.MESH_PATHS.clear()
     att.MESH_LOCAL_Q.clear()
+    att._FALLBACK_WARNED.clear()
     pmesh.GATHERED.clear()
     if case.get("mode") == "var_mean":
         return _var_mean_case(case, rank, device)
+    if case.get("mode") == "sp_kernels":
+        return _sp_kernels_case(case, rank, device)
     model = FFModel(FFConfig(device=device, **cfg_kw))
     source = build(model, case["builder"], case.get("builder_kwargs", {}))
     opt = dict(case.get("optimizer", {"lr": case.get("lr", 0.01)}))
     opt = (AdamOptimizer(**{k: v for k, v in opt.items() if k != "adam"})
            if opt.get("adam") else SGDOptimizer(**opt))
-    model.compile(opt, case.get("loss", "mse"), case.get("metrics", []))
+    with fixed_winner(case.get("rewrites")):
+        model.compile(opt, case.get("loss", "mse"), case.get("metrics", []))
     if source is not None:
         source.load_weights(model)
     if case.get("weights"):
@@ -227,8 +272,6 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         pm = model.fit(xs, y, batch_size=bs, epochs=case.get("epochs", 1),
                        verbose=rank == 0, **case.get("fit", {}))
         out["train_all"] = pm.train_all
-    elif mode == "scan":
-        ex.build_train_scan()
     elif mode == "decode":
         ex.build_decode(bs, 4)
     elif mode == "compile_decode":
@@ -339,6 +382,43 @@ def _var_mean_case(case, rank, device):
     return out
 
 
+def _sp_kernels_case(case, rank, device):
+    """kernels/attention.py `ring_attention` and `ulysses_attention` over
+    the whole group as one "seq" axis, on this rank's sequence block of
+    seeded (b, s, h, d) arrays q, k, v and a cotangent g (the arrays of
+    `case["data"]`): for each of `case["impls"]` and causal off and on,
+    the output and the gradients of sum(out * g) for q, k and v, each
+    gathered whole over the group (rank 0 writes them as
+    "<impl>_<causal>/<out|dq|dk|dv>")."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.kernels import attention as katt
+
+    world = dist.get_world_size()
+    with np.load(case["data"]) as z:
+        whole = {k: torch.as_tensor(z[k]) for k in ("q", "k", "v", "g")}
+    sl = whole["q"].shape[1] // world
+    blk = {k: t[:, rank * sl:(rank + 1) * sl].contiguous()
+           for k, t in whole.items()}
+    arrays = {}
+    for impl in case["impls"]:
+        fn = getattr(katt, f"{impl}_attention")
+        kw = {"chunk_size": case["chunk_size"]} if impl == "ring" else {}
+        for causal in (False, True):
+            leaves = [blk[k].clone().requires_grad_() for k in "qkv"]
+            out = fn(*leaves, dist.group.WORLD, causal=causal, **kw)
+            grads = torch.autograd.grad((out * blk["g"]).sum(), leaves)
+            for name, t in zip(("out", "dq", "dk", "dv"),
+                               (out.detach(),) + grads):
+                parts = [torch.empty_like(t) for _ in range(world)]
+                dist.all_gather(parts, t.contiguous())
+                arrays[f"{impl}_{int(causal)}/{name}"] = \
+                    torch.cat(parts, dim=1).numpy()
+    return {"arrays": arrays} if rank == 0 else {}
+
+
 def _views_by_position(model):
     pos = {op.guid: i for i, op in enumerate(model.graph.topo_order())}
     return [(pos.get(g, -1), v) for g, v in model.searched_views.items()]
@@ -352,11 +432,18 @@ def run(rank: int, world: int, device: str, args) -> int:
         cases = json.load(f)
     for case in cases:
         t0 = time.perf_counter()
-        try:
-            out = run_case(case, rank, device)
-        except Exception as e:  # recorded; the next case runs
-            out = {"error": f"{type(e).__name__}: {e}",
-                   "traceback": traceback.format_exc()}
+        env = dict(os.environ)
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            try:
+                out = run_case(case, rank, device)
+            except Exception as e:  # recorded; the next case runs
+                out = {"error": f"{type(e).__name__}: {e}",
+                       "traceback": traceback.format_exc()}
+        # a case's env does not reach the next case
+        os.environ.clear()
+        os.environ.update(env)
+        out["warnings"] = [str(w.message) for w in rec]
         out["seconds"] = time.perf_counter() - t0
         arrays = out.pop("arrays", None)
         if arrays is not None:
