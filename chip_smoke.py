@@ -231,8 +231,11 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      momentum and Adam on Shard weights and slots, the guard's norm, the
      statistics from partial sums, chunked attention with sharded query
      rows; then the sequence axis's Shard -> Shard, the expert
-     dispatch's all-to-all and redistributes inside a captured graph)
-     held against the same function on plain tensors. The captured train
+     dispatch's all-to-all, the GPipe schedule's local_map at one stage
+     with the stacked layers Shard(0) over "pipe", the generalized
+     plan's weight gradient Partial over "data" and "pipe", and
+     redistributes inside a captured graph) held against the same
+     function on plain tensors. The captured train
      scan over the mesh (mesh_scan): the flagship through
      fit(iterations_per_dispatch=4) over 8 batches, bit for bit against
      the mesh's stepwise fit and the plain executor's scan, one graph,
@@ -247,10 +250,25 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      over NCCL through runtime/mesh_run.py `launch`, this script's `run`
      as the rank program (MULTI_CASES: the flagship, f32, 2 blocks, at
      dp 2 x fsdp 2 or dp 2, at sp 2 with ring and with Ulysses
-     attention, through the captured scan at dp; the MoE Transformer's
-     merged expert 2 winner), each held against one card's run, with
-     samples/s and peak memory a card; with one card that sub-case says
-     why it did not run.
+     attention, through the captured scan at dp, at pp 2 cut into
+     stages through gpipe_pcg; the block stack at pp 2 through the
+     GPipe schedule; the MoE Transformer's merged expert 2 winner), each
+     held against one card's run, with samples/s and peak memory a card;
+     with one card that sub-case says why it did not run.
+ 19. pipeline (after the training scans): the flagship at full width as
+     one block-stack op (FFModel.transformer_blocks: the layers in turn on
+     one card, attention dense with f32 scores, as in the JAX package)
+     against the per-layer flagship with the stack's weights sliced in:
+     the gradient oracle on unit-scaled weights, op by op; 3 stepwise
+     steps and fit with iterations_per_dispatch 4 over 8 batches from the
+     glorot weights, their losses; the stack's scan bit for bit against
+     its stepwise fit; samples/s (ABBA) and peak memory of both, stepwise
+     and scan. Then pp_local: the per-layer flagship planned at 2 and 4
+     stages (the executor's `_plan_pcg_pipeline`), each stage's runner
+     run in turn over the micro-batches with the cut carried in the
+     schedule's f32 buffer and the hop bypassed, its forward and one
+     step's gradients against the unpipelined run, every flash launch
+     (one an MHA op a micro-batch) on wgmma.
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -292,12 +310,13 @@ line, a `zoo_models` line (after the card's name and power limit), a
 `longctx_nmt_fusion` line (after the card's name and power limit; the
 `kernels` line's flash rows carry their long-context shape's readings),
 a `longctx`, an `nmt` and a `fusion` line, a `search`, a `seq2seq`
-a `resilience`, an `observatory`, a `verify`, a `mesh`, a `mesh_scan`
-and an `sp_local` line (the
+a `resilience`, an `observatory`, a `verify`, a `mesh`, a `mesh_scan`,
+an `sp_local`, a `pipeline` and a `pp_local` line (the
 `kernels` line's flash and paged rows carry their seq2seq shapes'
 readings; those lines after the card's name and power limit) and, last, {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import contextlib
+import functools
 import io
 import json
 import os
@@ -391,6 +410,31 @@ BERT_ORACLE_RTOL = 0.0085
 # data and seeds (cuBLAS picks the same kernels under capture on this
 # card), so its weights must equal the stepwise ones bit for bit.
 SCAN_SPD, SCAN_BATCHES, BERT_SCAN_SPD, SCAN_ROUNDS = 4, 9, 4, 5
+# The pipeline phase: the flagship at full width as one block-stack op
+# (FFModel.transformer_blocks, ops/pipeline.py: the training path's
+# batch, sequence, widths, bf16 over f32, MSE, SGD lr 0.01) against the
+# per-layer flagship with the stack's weights sliced in (runtime/weights.py
+# block_stack_layers): PIPE_STEPS stepwise steps, then fit with
+# iterations_per_dispatch SCAN_SPD over PIPE_BATCHES batches (one captured
+# graph each), samples/s over PIPE_ROUNDS ABBA rounds. The stack computes
+# attention densely with f32 scores where the per-layer graph runs the
+# flash kernels, and keeps its projections' outputs in f32 where the
+# per-layer ops round them to bf16: the gradient oracle's differences, so
+# on unit-scaled weights (as the training phase's oracle) each op's
+# gradient is held to ORACLE_RTOL of the norm of the per-layer op's, and
+# the losses to LOGIT_RTOL. (On the glorot weights the deep blocks'
+# gradients nearly vanish and a weight's update is below its f32 step:
+# an update-to-update comparison there reads rounding.)
+PIPE_STEPS, PIPE_BATCHES, PIPE_ROUNDS = 3, 8, 3
+# pp_local: the per-layer flagship cut into 2 and 4 stages and each
+# stage's runner run in turn over the micro-batches on one card, against
+# the unpipelined step: the micro-batches' products are the batch's rows
+# (cuBLAS may pick other kernels at the smaller M), and each micro-batch's
+# weight gradient is rounded to bf16 before the f32 sum over micro-batches
+# where the whole batch's is rounded once, so the forward is held
+# normwise to PP_LOCAL_RTOL and each op's gradient to ORACLE_RTOL of its
+# norm
+PP_LOCAL_STAGES, PP_LOCAL_RTOL = (2, 4), 0.02
 # The CNN path. AlexNet: BASELINE.md's AlexNet/CIFAR-10 configuration,
 # bootcamp_demo/ff_alexnet_cifar10.py -b 64 (3x229x229, 10 classes, f32,
 # SGD lr 0.01, sparse CE with accuracy) over ALEX_BATCHES batches of
@@ -2289,9 +2333,11 @@ def dtensor_checks(torch, device="cuda"):
     statistics from partial sums, and chunked attention with its query
     rows sharded and K/V gradients Partial; then, on a (1, 1) mesh of the
     "seq" and "expert" axes, Ulysses' Shard(1) -> Shard(2) and the expert
-    dispatch's Shard(0) -> Shard(1), and on the card a Partial all-reduce
-    and an async reduce-scatter inside a captured CUDA graph, replayed on
-    new data. Returns {check: max abs error, bit-equal}."""
+    dispatch's Shard(0) -> Shard(1), on a (1, 1) mesh of "data" and
+    "pipe" the GPipe schedule's placements and the generalized plan's
+    weight gradient, and on the card a Partial all-reduce and an async
+    reduce-scatter inside a captured CUDA graph, replayed on new data.
+    Returns {check: max abs error, bit-equal}."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                           distribute_tensor)
@@ -2423,8 +2469,60 @@ def dtensor_checks(torch, device="cuda"):
     held("expert_all_to_all", distribute_tensor(
         xe, sm, [Replicate(), Shard(0)], src_data_rank=None).redistribute(
             sm, [Replicate(), Shard(1)]), xe, [Replicate(), Shard(1)])
-    # the ring's point-to-point rotation needs a second rank: a P2P send
-    # to itself is left out here, and mesh_multi's sp runs hold it
+    # pipeline parallelism, on a (1, 1) mesh of the "data" and "pipe"
+    # axes: the GPipe schedule's local_map (the stacked layers Shard(0)
+    # over "pipe", x Shard(0) over "data"; the layers' gradients Partial
+    # over "data", x's over "pipe"; the pipe sum an all-reduce) at one
+    # stage, where no hop runs, against scan_blocks on plain tensors; and
+    # the generalized plan's weight placement (whole, its gradient Partial
+    # over "data" and "pipe") reduced to the weight's
+    from flexflow_tpu_torch.ops.pipeline import _encoder_block
+    from flexflow_tpu_torch.parallel.pipeline import gpipe_mesh, scan_blocks
+
+    pm = init_device_mesh(device, (1, 1), mesh_dim_names=("data", "pipe"))
+    pmesh_ = types.SimpleNamespace(device_mesh=pm, shape={"data": 1,
+                                                          "pipe": 1},
+                                   live_axes=("data", "pipe"))
+    L, e, h = 2, 64, 4
+    ws = {"wq": rand(L, e, h, e // h), "wk": rand(L, e, h, e // h),
+          "wv": rand(L, e, h, e // h), "wo": rand(L, h, e // h, e),
+          "bias_o": rand(L, e), "w1": rand(L, e, e), "w2": rand(L, e, e)}
+    ws = {k: v * 0.1 for k, v in ws.items()}
+    xp = rand(4, 32, e)
+    block = functools.partial(_encoder_block, head_dim=e // h,
+                              compute_dtype=None)
+    leaves = {k: distribute_tensor(v, pm, [Replicate(), Shard(0)],
+                                   src_data_rank=None).requires_grad_()
+              for k, v in ws.items()}
+    xl = distribute_tensor(xp, pm, [Shard(0), Replicate()],
+                           src_data_rank=None).requires_grad_()
+    o = gpipe_mesh(block, leaves, xl, mesh=pmesh_, n_stages=1, n_micro=2)
+    grads = torch.autograd.grad((o * o).sum(), [xl] + list(leaves.values()))
+    plain = {k: v.clone().requires_grad_() for k, v in ws.items()}
+    xq = xp.clone().requires_grad_()
+    op_ = scan_blocks(block, plain, xq)
+    pgrads = torch.autograd.grad((op_ * op_).sum(),
+                                 [xq] + list(plain.values()))
+    held("pipe_gpipe_out", o, op_.detach(), [Shard(0), Replicate()])
+    for k, a, b_ in zip(["x"] + list(ws), grads, pgrads):
+        held(f"pipe_gpipe_d{k}", a, b_)
+    wr = distribute_tensor(w, pm, [Replicate(), Replicate()],
+                           src_data_rank=None).requires_grad_()
+    xr = distribute_tensor(x, pm, [Shard(0), Replicate()],
+                           src_data_rank=None)
+    y = local_map(lambda a, b_: a @ b_, out_placements=[Shard(0), Replicate()],
+                  in_placements=([Shard(0), Replicate()],
+                                 [Replicate(), Replicate()]),
+                  in_grad_placements=([Shard(0), Partial()],
+                                      [Partial(), Partial()]),
+                  device_mesh=pm, redistribute_inputs=True)(xr, wr)
+    (g,) = torch.autograd.grad((y * y).sum(), [wr])
+    held("pipe_pcg_weight_grad", g.redistribute(pm, [Replicate(),
+                                                     Replicate()]), gp,
+         [Replicate(), Replicate()])
+    # the ring's and the schedule's hops need a second rank: a send to
+    # itself is left out here, and mesh_multi's sp
+    # and pp runs hold them
     if device == "cuda":
         # redistributes inside a captured graph (the scan over a mesh):
         # a Partial all-reduce, and an async reduce-scatter waited on
@@ -2480,6 +2578,15 @@ MULTI_CASES = {
                    [["partition_batch", 2],
                     ["partition_experts_alltoall", 2]], 1),
     "dp_scan": ("flagship", {}, None, None, MULTI_STEPS),
+    # pipeline parallelism: the block stack through the GPipe schedule
+    # (dp 2 x pp 2 on 4 cards), and the per-layer flagship cut into 2
+    # stages through gpipe_pcg; one card's reference runs each unpipelined
+    "pp_stack": ("stack", {"pipeline_parallel_degree": 2}, None, None, 1),
+    "pp_pcg": ("layers", {"pipeline_parallel_degree": 2}, None, None, 1),
+    # the block stack's train scan over the pipe axis: the schedule's
+    # hops inside the captured graph
+    "pp_scan": ("stack", {"pipeline_parallel_degree": 2}, None, None,
+                MULTI_STEPS),
 }
 
 
@@ -2528,6 +2635,22 @@ def _multi_model(name, device, world, on_mesh):
                               MULTI_LAYERS, MOE_EXPERTS, MOE_TOPK,
                               MOE_CAPACITY, MOE_LAMBDA, MOE_CLASSES)
         loss = LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY
+    elif kind == "stack":
+        t = m.create_tensor((batch, TRAIN_SEQ, HIDDEN), name="tokens")
+        m.transformer_blocks(t, HIDDEN, HEADS, MULTI_LAYERS,
+                             name="encoder_stack")
+        loss = LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE
+    elif kind == "layers":
+        # the per-layer graph whatever the pipe degree (build_transformer
+        # stacks the blocks under one)
+        from flexflow_tpu_torch.models.transformer import \
+            create_attention_encoder
+
+        t = m.create_tensor((batch, TRAIN_SEQ, HIDDEN), name="tokens")
+        for _ in range(MULTI_LAYERS):
+            t = create_attention_encoder(m, t, HIDDEN, HEADS, HIDDEN // HEADS,
+                                         HIDDEN // HEADS)
+        loss = LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE
     else:
         build_transformer(m, batch, TRAIN_SEQ, HIDDEN, HEADS, MULTI_LAYERS)
         loss = LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE
@@ -2645,8 +2768,11 @@ def mesh_multi(torch):
     """The multi-card sub-cases (MULTI_CASES) over NCCL on every card of
     the machine when it has two or more (4 cards: dp 2 x fsdp 2, dp 2 x
     sp 2 with ring and with Ulysses attention, the MoE Transformer's
-    merged expert 2 winner with 2 replicas, and dp 4 through the captured
-    scan; 2 cards: dp 2, sp 2, expert 2 and dp 2), each held against one
+    merged expert 2 winner with 2 replicas, dp 4 through the captured
+    scan, the block stack at dp 2 x pp 2 through the GPipe schedule,
+    stepwise and through the captured scan, and the per-layer flagship
+    at dp 2 x pp 2 through gpipe_pcg; 2 cards: dp 2, sp 2, expert 2, dp
+    2 and the three at pp 2), each held against one
     card's run from the same seed (rtol MULTI_RTOL): samples/s and peak
     memory per card, the collectives; the scan also bit for bit against
     the stepwise fit on the same mesh. With one card it does not run, and
@@ -2654,8 +2780,8 @@ def mesh_multi(torch):
     n = torch.cuda.device_count()
     if n < 2:
         msg = (f"mesh multi-card: not run: this machine has {n} card "
-               "(dp x fsdp, sp, expert and the scan over a mesh need two "
-               "or more)")
+               "(dp x fsdp, sp, expert, the scan over a mesh and the "
+               "pipeline's hops need two or more)")
         log("  " + msg)
         return {"ran": False, "why": msg}
     from flexflow_tpu_torch.runtime.mesh_run import launch
@@ -3288,6 +3414,327 @@ def train_scan(torch):
             "abba": timing,
             "scan_profile": prof, "launches": counts,
             "launches_by_path": paths}
+
+
+_STACK_NAMES = ("wq", "wk", "wv", "wo", "bias_o", "w1", "w2")
+
+
+def _op_gaps(got, want):
+    """Per op of `want` ({op: {weight: array}}): ||got - want|| over
+    ||want|| across the op's weights."""
+    gaps = {}
+    for op, ws in want.items():
+        norm = np.sqrt(sum(float(np.sum(ws[n].astype(np.float64) ** 2))
+                           for n in ws))
+        diff = np.sqrt(sum(float(np.sum((got[op][n] - ws[n]).astype(
+            np.float64) ** 2)) for n in ws))
+        gaps[op] = diff / norm if norm > 0 else float("inf")
+    return gaps
+
+
+def _stack_from_layers(layers_model, layers_np):
+    """The block stack's weights ({name: (L, ...) array}) holding the
+    per-layer flagship's `layers_np` (block_stack_layers' inverse)."""
+    from flexflow_tpu_torch.runtime.weights import block_stack_layers
+
+    where = block_stack_layers(layers_model, {
+        k: [(k, i) for i in range(LAYERS)] for k in _STACK_NAMES})
+    stack = {k: [None] * LAYERS for k in _STACK_NAMES}
+    for op, ws in where.items():
+        for n, (k, i) in ws.items():
+            stack[k][i] = layers_np[op][n]
+    return {k: np.stack(v) for k, v in stack.items()}
+
+
+def _np_tree(torch, tree):
+    """Whole f32 numpy copies of a {op: {weight: tensor}} tree."""
+    return {op: {n: w.detach().float().cpu().numpy().copy()
+                 for n, w in ws.items()} for op, ws in tree.items()}
+
+
+def _fit_loss(line):
+    return float(re.search(r"loss=([-+0-9.eE]+)", line).group(1))
+
+
+def build_stack_model(torch, spd=1):
+    """The flagship as one block-stack op (FFModel.transformer_blocks) at
+    the training path's shape, bf16 over f32, `spd` steps a dispatch."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType, MetricsType
+
+    m = FFModel(FFConfig(batch_size=TRAIN_BATCH, allow_mixed_precision=True,
+                         seed=0, iterations_per_dispatch=spd))
+    x = m.create_tensor((TRAIN_BATCH, TRAIN_SEQ, HIDDEN), name="tokens")
+    m.transformer_blocks(x, HIDDEN, HEADS, LAYERS, name="encoder_stack")
+    m.compile(SGDOptimizer(lr=0.01),
+              LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
+              [MetricsType.METRICS_MEAN_SQUARED_ERROR])
+    return m
+
+
+def pipeline_phase(torch):
+    """The block-stack op at the flagship's full width on one card (one
+    stage: the layers in turn) against the per-layer flagship from the
+    same weights (PIPE_* above): the gradient oracle on unit-scaled
+    weights (each op's gradient, the stack's sliced, within ORACLE_RTOL of
+    its norm), then from the seed's glorot weights PIPE_STEPS stepwise
+    steps and the captured scan, their losses within LOGIT_RTOL (the
+    stack's scan bit-equal to its stepwise fit); samples/s and peak
+    memory of both, stepwise and scan. The stack runs no flash kernel
+    (its attention is dense, as in the JAX package); the per-layer
+    flagship's launches are this phase's."""
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.runtime.weights import (block_stack_layers,
+                                                    params_from_numpy)
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(11)
+    n = PIPE_BATCHES * TRAIN_BATCH
+    x, y = (rng.randn(n, TRAIN_SEQ, HIDDEN).astype(np.float32)
+            for _ in range(2))
+    x0, y0 = x[:TRAIN_BATCH], y[:TRAIN_BATCH]
+    models = {"stack": build_stack_model(torch),
+              "layers": build_transformer_model(torch),
+              "stack_scan": build_stack_model(torch, spd=SCAN_SPD),
+              "layers_scan": build_transformer_model(torch, spd=SCAN_SPD)}
+    start = _np_tree(torch, models["stack"].params)
+    start_l = block_stack_layers(models["layers"], start["encoder_stack"])
+    out = {"shape": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                     "hidden": HIDDEN, "heads": HEADS, "blocks": LAYERS},
+           "precision": "bf16 compute over f32 weights"}
+    # 1. the gradient oracle on unit-scaled weights
+    st, la = models["stack"], models["layers"]
+    params_from_numpy(la, start_l)
+    unit_scale_weights(torch, la, x0)
+    unit = _np_tree(torch, la.params)
+    params_from_numpy(st, {"encoder_stack": _stack_from_layers(la, unit)})
+    build.reset_launch_counts()
+    g_st = st.executor.build_grad_step()(st.params, [x0], y0)
+    g_la = la.executor.build_grad_step()(la.params, [x0], y0)
+    torch.cuda.synchronize()
+    check_training_counts("pipeline oracle", build.launch_counts, {
+        "flash_fwd": LAYERS, "flash_bwd": LAYERS})
+    check_wgmma_paths("pipeline oracle", build.launch_counts,
+                      build.path_counts)
+    launches = dict(build.launch_counts)
+    g_st = block_stack_layers(la, _np_tree(torch, g_st)["encoder_stack"])
+    gaps = _op_gaps(g_st, _np_tree(torch, g_la))
+    worst = max(gaps, key=gaps.get)
+    log(f"  pipeline gradient oracle (unit-scaled weights): worst op "
+        f"||g_stack - g_layers|| / ||g_layers|| {gaps[worst]:.4g} at "
+        f"{worst}")
+    if not gaps[worst] <= ORACLE_RTOL:
+        raise AssertionError(f"pipeline oracle: the block stack's "
+                             f"gradients off the per-layer flagship's: "
+                             f"{gaps}")
+    out["oracle"] = {"op_grad_gaps": gaps, "worst_op": worst,
+                     "worst_gap": gaps[worst]}
+    del g_st, g_la
+    # 2. stepwise from the glorot weights
+    for name, m in models.items():
+        params_from_numpy(m, start if name.startswith("stack") else start_l)
+    losses, peaks = {}, {}
+    for name in ("stack", "layers"):
+        m = models[name]
+        step = m.executor.build_train_step()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        ls = []
+        for i in range(PIPE_STEPS):
+            sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+            m.state, partials = step(m.state, [x[sl]], y[sl], i)
+            ls.append(float(partials["loss"]))
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+        counts, paths = dict(build.launch_counts), dict(build.path_counts)
+        want = 0 if name == "stack" else PIPE_STEPS * LAYERS
+        check_training_counts(f"pipeline {name}", counts, {
+            "flash_fwd": want, "flash_bwd": want})
+        if want:
+            check_wgmma_paths(f"pipeline {name}", counts, paths)
+            launches = {k: launches.get(k, 0) + counts.get(k, 0)
+                        for k in set(launches) | set(counts)}
+        losses[name] = ls
+    worst_loss = max(abs(a - b) / abs(b) for a, b in zip(losses["stack"],
+                                                         losses["layers"]))
+    log(f"  pipeline stepwise ({PIPE_STEPS} steps): losses stack "
+        f"{losses['stack']} per-layer {losses['layers']} (worst rel "
+        f"{worst_loss:.3g})")
+    if not worst_loss <= LOGIT_RTOL:
+        raise AssertionError(f"pipeline: the block stack's losses off the "
+                             f"per-layer flagship's: {losses}")
+    out["stepwise"] = {"losses": losses, "worst_loss_rel": worst_loss,
+                       "peak_mem_gb_over_resident": peaks}
+    # 3. the captured scan: the stack's scan bit-equal to its stepwise
+    # fit, its epoch loss held against the per-layer flagship's scan
+    a, b = build_stack_model(torch), models["stack_scan"]
+    params_from_numpy(a, start)
+    fit_timed(torch, a, x, y)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, lines_b = fit_timed(torch, b, x, y)
+    peak_scan = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    eq = weight_gap(torch, a, b)
+    if eq["weights_not_bit_equal"]:
+        raise AssertionError(f"pipeline: the stack's scan is not bit-equal "
+                             f"to its stepwise fit: {eq}")
+    del a
+    torch.cuda.empty_cache()
+    build.reset_launch_counts()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, lines_l = fit_timed(torch, models["layers_scan"], x, y)
+    peak_scan_l = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    counts, paths = dict(build.launch_counts), dict(build.path_counts)
+    want = (PIPE_BATCHES + 1) * LAYERS   # the replays and one warm-up
+    check_training_counts("pipeline per-layer scan", counts, {
+        "flash_fwd": want, "flash_bwd": want})
+    check_wgmma_paths("pipeline per-layer scan", counts, paths)
+    launches = {k: launches.get(k, 0) + counts.get(k, 0)
+                for k in set(launches) | set(counts)}
+    scan_loss = abs(_fit_loss(lines_b[-1]) - _fit_loss(lines_l[-1])) / abs(
+        _fit_loss(lines_l[-1]))
+    log(f"  pipeline scan ({PIPE_BATCHES} batches, {SCAN_SPD} a dispatch): "
+        f"stack {lines_b} per-layer {lines_l} (rel {scan_loss:.3g}); the "
+        f"stack's scan vs its stepwise fit {eq}")
+    if not scan_loss <= LOGIT_RTOL:
+        raise AssertionError(f"pipeline scan: the block stack's epoch loss "
+                             f"off the per-layer flagship's: {lines_b} vs "
+                             f"{lines_l}")
+    out["scan"] = {"epoch_lines_stack": lines_b, "epoch_lines_layers": lines_l,
+                   "epoch_loss_rel": scan_loss, "stack_vs_stepwise": eq,
+                   "peak_mem_gb_over_resident": {"stack": peak_scan,
+                                                 "layers": peak_scan_l}}
+    # samples/s, stepwise and scan, in ABBA turns from snapshots
+    restores = {k: restorer(torch, m) for k, m in models.items()}
+    out["abba_stepwise"] = abba(torch, {
+        k: (lambda k=k: timed_turn(torch, models[k], restores[k], x, y))
+        for k in ("layers", "stack")}, PIPE_ROUNDS, n)
+    out["abba_scan"] = abba(torch, {
+        k: (lambda k=k: timed_turn(torch, models[k], restores[k], x, y))
+        for k in ("layers_scan", "stack_scan")}, PIPE_ROUNDS, n)
+    out["samples_per_s"] = {
+        k: out[f"abba_{w}"][k]["samples_per_s_median"]
+        for w, ks in (("stepwise", ("layers", "stack")),
+                      ("scan", ("layers_scan", "stack_scan"))) for k in ks}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  pipeline: samples/s {out['samples_per_s']}; peak GiB over the "
+        f"resident, stepwise {peaks}, scan "
+        f"{out['scan']['peak_mem_gb_over_resident']}; phase "
+        f"{out['phase_s']:.1f} s")
+    del models, st, la, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_local(torch):
+    """The generalized pipeline's stages on one card (PP_LOCAL_* above):
+    the per-layer flagship (bf16, full width) planned at each stage count
+    by the executor's `_plan_pcg_pipeline` over its cost model, each
+    stage's runner (`_pipeline_stage_runners`) run in turn over the
+    micro-batches at their schedule ticks, the cut tensors carried in the
+    schedule's f32 buffer (pack_cut / unpack_cut) with the hop bypassed,
+    against the unpipelined forward and one step's gradients. Each MHA
+    op runs the flash kernels once a micro-batch, on wgmma. The hops and
+    the pipe sum run on two or more cards (mesh_multi)."""
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.parallel.pipeline import (clamp_microbatches,
+                                                      cut_buffer_elems,
+                                                      pack_cut, unpack_cut)
+
+    m = build_transformer_model(torch)
+    ex = m.executor
+    ex._plan_cost_model = m._build_cost_model()
+    rng = np.random.RandomState(12)
+    x, y = (torch.as_tensor(rng.randn(TRAIN_BATCH, TRAIN_SEQ, HIDDEN).astype(
+        np.float32), device="cuda") for _ in range(2))
+    names = [(op, n) for op, ws in m.params.items() for n in ws]
+
+    def leaves():
+        return {op: {n: w.detach().requires_grad_() for n, w in ws.items()}
+                for op, ws in m.params.items()}
+
+    def grads_of(out, lv):
+        loss = ex.loss_fn(out, y)
+        gs = torch.autograd.grad(loss, [lv[op][n] for op, n in names])
+        return {(op, n): g for (op, n), g in zip(names, gs)}
+
+    lv = leaves()
+    ref = ex.apply(lv, {ex.input_pts[0].guid: x},
+                   training=True)[ex.logits_pt.guid]
+    ref_g = grads_of(ref, lv)
+    ref = ref.detach()
+    out = {}
+    launches = {}
+    for stages in PP_LOCAL_STAGES:
+        plan = ex._plan_pcg_pipeline(stages)
+        if plan is None or plan.n_stages != stages:
+            raise AssertionError(f"pp_local: no plan of {stages} stages")
+        ex.pipeline_plan = plan
+        try:
+            runners = ex._pipeline_stage_runners(True, None)
+        finally:
+            ex.pipeline_plan = None
+        n_micro = clamp_microbatches(stages, TRAIN_BATCH)
+        mb = TRAIN_BATCH // n_micro
+        buf_elems = cut_buffer_elems(plan)
+        out_cut = [(plan.out_guid, plan.out_shape[1:], plan.out_dtype)]
+        lv = leaves()
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        rows = []
+        for j in range(n_micro):
+            vals = {ex.input_pts[0].guid: x[j * mb:(j + 1) * mb]}
+            for s in range(stages):
+                if s:
+                    vals = unpack_cut(buf, plan.cuts[s - 1], mb)
+                # micro-batch j reaches stage s at tick j + s
+                vals = runners[s](lv, vals, j + s)
+                buf = pack_cut(vals, out_cut if s == stages - 1
+                               else plan.cuts[s], mb, buf_elems)
+            rows.append(unpack_cut(buf, out_cut, mb)[plan.out_guid])
+        got = torch.cat(rows)
+        got_g = grads_of(got, lv)
+        torch.cuda.synchronize()
+        counts, paths = dict(build.launch_counts), dict(build.path_counts)
+        want = LAYERS * n_micro
+        check_training_counts(f"pp_local {stages} stages", counts, {
+            "flash_fwd": want, "flash_bwd": want})
+        check_wgmma_paths(f"pp_local {stages} stages", counts, paths)
+        for k in ("flash_fwd", "flash_bwd"):
+            launches[k] = launches.get(k, 0) + counts[k]
+        fwd = ((got.detach() - ref).norm() / ref.norm()).item()
+        by_op = {}
+        for (op, n), g in got_g.items():
+            by_op.setdefault(op, []).append((g, ref_g[(op, n)]))
+        gaps = {op: (torch.sqrt(sum(((a.float() - b.float()) ** 2).sum()
+                                    for a, b in pairs))
+                     / torch.sqrt(sum((b.float() ** 2).sum()
+                                      for _, b in pairs))).item()
+                for op, pairs in by_op.items()}
+        worst = max(gaps, key=gaps.get)
+        out[f"stages={stages}"] = {
+            "stage_ops": [len(st) for st in plan.stages],
+            "cut_shapes": [[list(shape) for _, shape, _ in cut]
+                           for cut in plan.cuts],
+            "buf_elems": plan.buf_elems, "micro_batches": n_micro,
+            "fwd_rel_err": fwd, "worst_grad_gap": gaps[worst],
+            "worst_grad_at": worst, "launches": counts}
+        sizes = [len(st) for st in plan.stages]
+        log(f"  pp_local {stages} stages (ops {sizes}, {n_micro} "
+            f"micro-batches of {mb}): forward rel err {fwd:.3g}, "
+            f"worst op gradient gap {gaps[worst]:.3g} at {worst}; flash "
+            f"{counts['flash_fwd']} + {counts['flash_bwd']} on wgmma")
+        if not fwd <= PP_LOCAL_RTOL or not gaps[worst] <= ORACLE_RTOL:
+            raise AssertionError(f"pp_local {stages}: forward {fwd}, "
+                                 f"gradients {gaps}")
+    del m, ex
+    torch.cuda.empty_cache()
+    return {"checks": out, "launches": launches}
 
 
 def remat_check(torch, model, x, y):
@@ -7227,6 +7674,15 @@ def main() -> int:
     scan = train_scan(torch)
     torch.cuda.empty_cache()
 
+    log("# pipeline phase: the flagship as one block-stack op")
+    build.reset_launch_counts()
+    pipe = pipeline_phase(torch)
+    torch.cuda.empty_cache()
+
+    log("# pp_local phase: the generalized pipeline's stages on one card")
+    ppl = pp_local(torch)
+    torch.cuda.empty_cache()
+
     log("# bert phase")
     bert_summary = bert(torch)
     torch.cuda.empty_cache()
@@ -7299,6 +7755,7 @@ def main() -> int:
     # attention runs both flash kernels.
     by_phase = {"serving": serving_counts, "training": training["launches"],
                 "training_scan": scan["launches"],
+                "pipeline": pipe["launches"], "pp_local": ppl["launches"],
                 "bert": bert_summary["launches"],
                 "bert_scan": bscan["launches"],
                 "alexnet": alex["launches"], "resnext": rx["launches"],
@@ -7333,7 +7790,8 @@ def main() -> int:
         if "wmma_ms" in row:   # every main-path launch took the wgmma path
             row["path"] = "wgmma"
     report.update(kernels=kernels, serving=summary, training=training,
-                  training_scan=scan, bert=bert_summary, bert_scan=bscan,
+                  training_scan=scan, pipeline=pipe, pp_local=ppl,
+                  bert=bert_summary, bert_scan=bscan,
                   alexnet=alex, resnext=rx, moe=moe_summary, dlrm=dl,
                   inception=inc, zoo=zo, longctx=lc, nmt=nm, fusion=fu,
                   search=se, seq2seq=s2, resilience=rs, observatory=ob,
@@ -7344,6 +7802,12 @@ def main() -> int:
     log(json.dumps({"serving": summary}))
     log(json.dumps({"training": training}))
     log(json.dumps({"training_scan": scan}))
+    log(smi + " " + json.dumps({"pipeline": {
+        k: pipe[k] for k in ("shape", "samples_per_s", "phase_s")} | {
+        "oracle": {k: v for k, v in pipe["oracle"].items()
+                   if k != "op_grad_gaps"},
+        "stepwise": pipe["stepwise"], "scan": pipe["scan"]}}))
+    log(smi + " " + json.dumps({"pp_local": ppl}))
     log(json.dumps({"bert": bert_summary}))
     log(json.dumps({"bert_scan": bscan}))
     log(smi + " " + json.dumps({"cnn": {

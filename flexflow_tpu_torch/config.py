@@ -20,7 +20,7 @@ construction: the port never continues on the CPU by itself.
 Like the JAX package's, a config reads the reference's command-line
 flags (`parse_args`, model.cc:3556 spellings) from sys.argv[1:] when it
 is made. A flag whose field this package reads sets it; a flag of a
-feature not ported here (strategy import, the multi-node mesh) raises
+feature not ported here (strategy import, CPU workers) raises
 NotImplementedError naming the flag; anything else is skipped, as the
 reference passes unknown flags on to Legion.
 """
@@ -72,13 +72,18 @@ class FFConfig:
     # weight sharding over the "model" axis), sequence parallelism (3-D
     # activations sharded on the sequence over "seq", attention through
     # ring or Ulysses attention), expert parallelism (group_by's outputs
-    # sharded over "expert") and fsdp (FSDP/ZeRO: weights sharded over an
-    # "fsdp" axis carved out of the data workers, gathered on use); the
-    # pipeline degree is refused above 1 at compile until its slice lands
+    # sharded over "expert"), pipeline parallelism (GPipe stages over a
+    # "pipe" axis: transformer_blocks' stacked layers sharded over it, or
+    # any other graph cut into stages, parallel/pipeline.py) and fsdp
+    # (FSDP/ZeRO: weights sharded over an "fsdp" axis carved out of the
+    # data workers, gathered on use)
     tensor_parallel_degree: int = 1
     sequence_parallel_degree: int = 1
     expert_parallel_degree: int = 1
     pipeline_parallel_degree: int = 1
+    # micro-batches per pipeline flush (0 = one per stage), clamped to a
+    # divisor of each data shard's batch
+    num_microbatches: int = 0
     fsdp_degree: int = 1
     # the Unity strategy search (search/): >= 0 runs it at compile()
     # (0 = the JAX package's default budget of 10 expansions); -1 = the
@@ -242,6 +247,7 @@ _FLAGS = {
     "--simulator-workspace-size": ("simulator_work_space_size", int),
     "--iterations-per-dispatch": ("iterations_per_dispatch", int),
     "--fsdp-degree": ("fsdp_degree", int),
+    "--nodes": ("numNodes", int),
 }
 # flags without a value that set a field to True
 _SWITCHES = {
@@ -268,7 +274,6 @@ _UNPORTED_FLAGS = {
     "--wd": "the config's weight decay (read by no optimizer)",
     "-wd": "the config's weight decay (read by no optimizer)",
     "-ll:cpu": "CPU workers per node",
-    "--nodes": "multi-node execution",
     "--import": "strategy import", "--import-strategy": "strategy import",
     "--iterations": "the config's iteration count",
 }

@@ -302,6 +302,23 @@ class FFModel:
         return self._add_layer(OperatorType.OP_MULTIHEAD_ATTENTION, p,
                                [query, key, value], name, inits)
 
+    def transformer_blocks(self, input: Tensor, hidden_size: int,
+                           num_heads: int, num_layers: int,
+                           name: str = "") -> Tensor:
+        """`num_layers` flagship encoder blocks (MHA + 2 dense, the
+        reference's transformer.cc:33-45 block) as ONE stacked op whose
+        layer dim shards over the pipe mesh axis (ops/pipeline.py): the
+        JAX package's pipeline parallelism as a sharding. The stage count
+        is config.pipeline_parallel_degree, the micro-batches
+        config.num_microbatches."""
+        from ..ops.pipeline import BlockStackParams
+
+        p = BlockStackParams(
+            hidden=hidden_size, num_heads=num_heads, num_layers=num_layers,
+            num_stages=max(1, self.config.pipeline_parallel_degree),
+            num_microbatches=self.config.num_microbatches)
+        return self._add_layer(OperatorType.OP_BLOCK_STACK, p, [input], name)
+
     def softmax(self, input: Tensor, axis: int = -1, name="") -> Tensor:
         return self._add_layer(OperatorType.OP_SOFTMAX,
                                SoftmaxParams(dim=axis), [input], name)
@@ -676,6 +693,8 @@ class FFModel:
         self.measurer = None
         # --memory-search's result: {"lambda", "bytes", "cost"} of the winner
         self.memory_search = None
+        # the pipe degree the search (or a replayed winner) adopted
+        self.searched_pipeline_degree = 1
         t_phase = time.perf_counter()
         from ..parallel import strategies
 
@@ -683,11 +702,16 @@ class FFModel:
             # artifact-cache hit: the stored winner replayed onto the fresh
             # lowering (degrees and views set, validators passed), lowered
             # onto the live devices as a searched winner is
-            views, _mesh_axes, cost = cache_entry
+            views, stored_axes, cost = cache_entry
             self.searched_views = views
             self.searched_cost = cost
             self.searched_axes = strategies.assign_mesh_axes(self.graph,
                                                              ndev)
+            if int(stored_axes.get("pipe", 1)) > 1:
+                # a pipelined winner's axes replace the lowering's, as
+                # when it was searched
+                self.searched_axes = dict(stored_axes)
+                self.searched_pipeline_degree = int(stored_axes["pipe"])
             self.strategy_provenance = {"source": "artifact_cache",
                                         "key": dict(self._artifact_key),
                                         "cost": cost}
@@ -731,6 +755,7 @@ class FFModel:
             strategies.apply_tensor_parallel(self.graph, tp, axis_idx=1)
             strategies.apply_sequence_parallel(self.graph, sp, axis_idx=2)
             strategies.apply_expert_parallel(self.graph, ep, axis_idx=3)
+            strategies.apply_pipeline_parallel(self.graph, pp, axis_idx=4)
             axes = {"data": dp // fsdp, "model": tp, "seq": sp,
                     "expert": ep, "pipe": pp}
             if fsdp > 1:
@@ -776,7 +801,10 @@ class FFModel:
             grad_dtype=torch.bfloat16 if mixed else None,
             seed=self.config.seed, input_order=inputs,
             remat=self.config.remat, constants=constants,
-            overlap_grad_sync=self.config.overlap_backward_update)
+            overlap_grad_sync=self.config.overlap_backward_update,
+            # the stage plan's cost oracle, where a pipe axis asks for one
+            plan_cost_model=(self._build_cost_model()
+                             if self.mesh_axes.get("pipe", 1) > 1 else None))
         self._phase("executor_build", t_phase)
         t_phase = time.perf_counter()
         self.state = self.executor.init_state()
@@ -787,16 +815,8 @@ class FFModel:
     def _live_device_count(self) -> int:
         """The devices this compile runs on: numNodes x workersPerNode,
         which must equal the process group's world size (one process per
-        device; 1 without a group). A pipeline degree raises here, naming
-        its slice."""
+        device; 1 without a group)."""
         cfg = self.config
-        if cfg.pipeline_parallel_degree > 1:
-            raise NotImplementedError(
-                f"pipeline_parallel_degree={cfg.pipeline_parallel_degree}: "
-                f"{_LATER_SLICE} is not ported to flexflow_tpu_torch yet: it "
-                "comes with a later slice of multi-device execution "
-                "(ROADMAP queue 1 item 2.6); data, tensor, sequence, "
-                "expert and fsdp parallelism are ported")
         n = max(1, cfg.numNodes) * max(1, cfg.workersPerNode)
         if not rdist.is_initialized():
             if n != 1:
@@ -825,18 +845,8 @@ class FFModel:
     def _mesh_axes(self, axes: Dict[str, int]) -> Dict[str, int]:
         """The mesh of a strategy's axes in the strategy's own order, as
         the JAX package builds it (a ParallelDim's `parallel_idx` indexes
-        that order), size-1 axes kept. A winner that needs a "pipe" axis
-        (its execution is not ported) raises, naming its slice."""
-        out = {}
-        for k, v in axes.items():
-            if int(v) > 1 and k == "pipe":
-                raise NotImplementedError(
-                    f"the strategy needs a 'pipe' mesh axis of {v}: "
-                    f"{_LATER_SLICE} is not ported to flexflow_tpu_torch "
-                    "yet: it comes with a later slice of multi-device "
-                    "execution (ROADMAP queue 1 item 2.6)")
-            out[k] = int(v)
-        return out
+        that order), size-1 axes kept."""
+        return {k: int(v) for k, v in axes.items()}
 
     def _assert_same_strategy(self) -> None:
         """Every rank searched; they must execute one strategy. With
@@ -1322,7 +1332,20 @@ class FFModel:
         self.graph = best_graph
         self.searched_views = result.views
         self.searched_cost = result.cost
-        self._check_searched_memory(cost_model, result)
+        # pipeline as a searched dimension: when the winner's per-device
+        # training memory overflows the budget, GPipe candidates are
+        # weighed against a memory-pressured re-search, and the cheaper
+        # one replaces the winner
+        pipe, alt = self._search_pipeline_degree(
+            cost_model, result, ndev, self._memory_budget(machine),
+            res=res, xfers=xfers)
+        if alt is not None:
+            self.graph, result = alt
+            self.searched_views = result.views
+            self.searched_cost = result.cost
+        self.search_trajectory.event(
+            "pipeline_search", degree=pipe,
+            replaced_by_researched=alt is not None, cost=result.cost)
         problems = run_strategy_validators(self.graph, self.searched_views,
                                            ndev)
         if problems:
@@ -1343,6 +1366,12 @@ class FFModel:
         self.searched_op_costs = self._searched_op_costs(cost_model, result)
         payload = self._strategy_payload_for_store()
         self.searched_axes = strategies.assign_mesh_axes(self.graph, ndev)
+        if pipe > 1:
+            # the pipeline candidate is a stage split with data
+            # parallelism within each stage: it REPLACES the overflowing
+            # winner's axes (as in the JAX package)
+            self.searched_axes = {"data": max(1, ndev // pipe), "pipe": pipe}
+            self.searched_pipeline_degree = pipe
         if payload is not None:
             payload["mesh_axes"] = dict(self.searched_axes)
             self._artifact_store_put(self.artifact_store, payload)
@@ -1408,34 +1437,108 @@ class FFModel:
         the machine's chip capacity (the JAX package's mem_budget)."""
         return self.config.device_mem or machine.chip.hbm_capacity
 
-    def _check_searched_memory(self, cost_model, result) -> None:
-        """The head of the JAX package's _search_pipeline_degree: the
-        winner's per-device training memory (weights, gradients,
-        optimizer slots and activations) against the budget
-        (`_memory_budget`). When it does not fit, the JAX package weighs
-        pipeline stages and a memory-pressured re-search against each
-        other; the pipeline search is not ported, so this raises rather
-        than pick a strategy the port cannot run (--memory-search looks
-        for a winner that fits before this check)."""
-        from ..search.memory_optimization import measure_memory
+    def _search_pipeline_degree(self, cost_model, result, ndev: int,
+                                mem_budget: int, res=None, xfers=None):
+        """The JAX package's `_search_pipeline_degree`: when the searched
+        strategy does not fit a device under TRAINING memory accounting
+        (weights, gradients, optimizer slots and activations), price
+        GPipe candidates of S stages over the `ndev` live devices (dp =
+        ndev / S within each stage, M micro-batches):
 
+            T(S) ~ max_stage_time / dp * (M + S - 1) / M
+                   + cut_bytes * 2 / ici_bandwidth / dp
+
+        the bubble plus the forward and backward cut transfers, with per
+        device memory the stage's weights (times the gradient and slot
+        multiplier) plus its activations for all M micro-batches, and
+        weigh them against the fitting unpipelined strategy a
+        memory-pressured re-search finds, decided on cost.
+
+        Returns (degree, alt): degree 1 when the winner fits (or fewer
+        than 2 devices run); alt, when not None, is a fitting unpipelined
+        (graph, result) that beats every pipeline candidate. The
+        winner's memory is recorded as a "memory_check" event first."""
+        from ..search.memory_optimization import (measure_memory,
+                                                  weight_bytes_multiplier)
+        from ..parallel.pipeline import balanced_linear_partition
+        from ..pcg.machine_view import MachineView
+
+        cfg = self.config
         train = self._is_training_compile()
+        gratio = self._grad_bytes_ratio()
         mem = measure_memory(
             self.graph, result.views, cost_model, train=train,
-            optimizer=self.optimizer,
-            grad_bytes_ratio=self._grad_bytes_ratio()).max_bytes
-        budget = self._memory_budget(cost_model.machine)
+            optimizer=self.optimizer, grad_bytes_ratio=gratio).max_bytes
         self.search_trajectory.event("memory_check", bytes=mem,
-                                     budget=budget)
-        if mem > budget:
-            raise NotImplementedError(
-                f"the searched strategy needs {mem / 2 ** 20:.0f} MiB a "
-                f"device, over the {budget / 2 ** 20:.0f} MiB budget; the "
-                "pipeline search that "
-                "weighs pipeline stages against a memory-pressured "
-                "re-search (the JAX package's _search_pipeline_degree) is "
-                "not ported to flexflow_tpu_torch yet; --memory-search "
-                "looks for a strategy that fits")
+                                     budget=mem_budget)
+        if ndev < 2 or mem <= mem_budget:
+            return 1, None
+        wmul = (weight_bytes_multiplier(
+            self.optimizer, gratio,
+            warn=any(op.weights for op in self.graph.ops))
+            if train else 1.0)
+        ops = [o for o in self.graph.ops if not o.is_parallel_op]
+        order = {o.guid: i for i, o in enumerate(self.graph.topo_order())}
+        ops.sort(key=lambda o: order[o.guid])
+        v1 = MachineView(start_device_id=0, dim=(1,), stride=(1,))
+        costs = [cost_model.measure_operator_cost(o, v1).total_time
+                 for o in ops]
+        w_bytes = [sum(t.get_volume() * t.data_type.size for t in o.weights)
+                   for o in ops]
+        a_bytes = [sum(t.get_volume() * t.data_type.size for t in o.outputs)
+                   for o in ops]
+        best_s, best_t = 1, float("inf")
+        S = 2
+        while S <= ndev and len(ops) >= S:
+            if ndev % S == 0:
+                dp = ndev // S
+                M = max(cfg.num_microbatches, S)
+                bounds = balanced_linear_partition(costs, S)
+                stage_t = [sum(costs[bounds[i]:bounds[i + 1]])
+                           for i in range(S)]
+                stage_w = [sum(w_bytes[bounds[i]:bounds[i + 1]])
+                           for i in range(S)]
+                stage_a = [sum(a_bytes[bounds[i]:bounds[i + 1]])
+                           for i in range(S)]
+                cut_bytes = sum(a_bytes[bounds[i + 1] - 1]
+                                for i in range(S - 1))
+                t = (max(stage_t) / dp * (M + S - 1) / M
+                     + cut_bytes * 2 / cost_model.machine.ici_bandwidth / dp)
+                # stage weights replicate within the stage's dp group and
+                # carry gradients and slots (wmul); the schedule keeps
+                # every micro-batch's residuals for the backward: the
+                # stage's whole batch shard of activations
+                m_per_chip = max(w * wmul + a / dp
+                                 for w, a in zip(stage_w, stage_a))
+                if m_per_chip <= mem_budget and t < best_t:
+                    best_s, best_t = S, t
+            S *= 2
+        if res is not None and xfers is not None \
+                and not cfg.perform_memory_search:
+            # the overflowing strategy was the cost winner: let the lambda
+            # loop look for a fitting unpipelined one (parameter-parallel
+            # sharding dividing the weight, gradient and slot bytes), and
+            # adopt it when it fits and beats the pipeline estimate (or no
+            # pipeline fits). Under --memory-search that loop already ran
+            # and found nothing that fits.
+            from ..search.memory_optimization import \
+                graph_optimize_with_memory
+
+            budget = cfg.search_budget if cfg.search_budget > 0 else 10
+            g2, r2, mem2, _lam = graph_optimize_with_memory(
+                self.graph, cost_model, res, xfers,
+                device_mem_budget=mem_budget, alpha=cfg.search_alpha,
+                budget=budget, train=train, optimizer=self.optimizer,
+                grad_bytes_ratio=gratio, trajectory=self.search_trajectory)
+            if mem2.max_bytes <= mem_budget and r2.cost < best_t:
+                return 1, (g2, r2)
+        if best_s == 1:
+            warnings.warn(
+                f"per-chip training memory {mem / 2 ** 20:.0f} MB exceeds "
+                f"the {mem_budget / 2 ** 20:.0f} MB budget and no pipeline "
+                "stage count or re-searched strategy fits; keeping the "
+                "fastest (overflowing) strategy")
+        return best_s, None
 
     def _check_probability_tail(self) -> None:
         """Warn, as the JAX package does, when a cross-entropy loss is
@@ -2322,10 +2425,6 @@ class FFModel:
 
 _SHAPE_ONLY_OPS = (OperatorType.OP_RESHAPE, OperatorType.OP_FLAT,
                    OperatorType.OP_NOOP, OperatorType.OP_IDENTITY)
-
-
-# the slice of multi-device execution the pipe axis waits for
-_LATER_SLICE = "pipeline parallelism"
 
 
 def _resolve_value_tail(op):

@@ -57,21 +57,29 @@ def as_int32(u: int) -> int:
 
 
 def seed_table(step_seeds: Sequence[Optional[int]], drawing: Sequence[int],
-               n_ops: int) -> torch.Tensor:
-    """The (N, n_ops, 2) int32 CPU table of N steps' op seeds: entry
-    [j, i] holds the bits of `dropout_seeds(fold_in(step_seeds[j], i))`
-    for each compute index i in `drawing`, zeros elsewhere. The kernels
-    read the two words as uint32. `dropout_seeds` is looked up at call
-    time, so a test that patches it in kernels.attention reaches here."""
+               n_ops: int, ticks: int = 1) -> torch.Tensor:
+    """The (N, n_ops * ticks, 2) int32 CPU table of N steps' op seeds:
+    entry [j, i] holds the bits of `dropout_seeds(fold_in(step_seeds[j],
+    i))` for each compute index i in `drawing`, zeros elsewhere. The
+    kernels read the two words as uint32. Under a GPipe schedule of
+    `ticks` ticks (parallel/pipeline.py) each op draws anew at every
+    tick, so each micro-batch gets its own masks, as the JAX package
+    folds the tick into the op's key: entry [j, i * ticks + t] holds
+    `dropout_seeds(fold_in(fold_in(step_seeds[j], i), t))`.
+    `dropout_seeds` is looked up at call time, so a test that patches it
+    in kernels.attention reaches here."""
     from ..kernels import attention as katt
 
-    table = [[[0, 0] for _ in range(n_ops)] for _ in step_seeds]
+    table = [[[0, 0] for _ in range(n_ops * ticks)] for _ in step_seeds]
     for row, s in zip(table, step_seeds):
         if s is None:
             continue
         for i in drawing:
-            s0, s1 = katt.dropout_seeds(fold_in(s, i))
-            row[i] = [as_int32(int(s0)), as_int32(int(s1))]
+            op_seed = fold_in(s, i)
+            for t in range(ticks):
+                s0, s1 = katt.dropout_seeds(
+                    fold_in(op_seed, t) if ticks > 1 else op_seed)
+                row[i * ticks + t] = [as_int32(int(s0)), as_int32(int(s1))]
     return torch.tensor(table, dtype=torch.int32).reshape(
-        len(step_seeds), n_ops, 2)
+        len(step_seeds), n_ops * ticks, 2)
 

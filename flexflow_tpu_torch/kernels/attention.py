@@ -29,8 +29,9 @@ kernels on a CUDA tensor (they stream K/V through shared memory, so any
 length fits), `chunked_attention` elsewhere. `ring_attention` and
 `ulysses_attention` are the JAX package's sequence parallelism over a
 "seq" process group: the ring merges `_chunk_scan` blocks as K and V
-rotate round the group (point-to-point sends), Ulysses re-shards the
-sequence to the heads with an all-to-all around `local_attention`.
+rotate round the group (parallel/mesh.py `ring_shift`), Ulysses
+re-shards the sequence to the heads with an all-to-all around
+`local_attention`.
 """
 from __future__ import annotations
 
@@ -663,55 +664,9 @@ def flash_attention(q, k, v, causal: bool = False, *, dropout: float = 0.0,
 # ranks of `axis`, the ProcessGroup of the mesh's "seq" dim (None: a group
 # of this process alone, n = 1). Their collectives are autograd
 # Functions whose backward is the transpose of the forward's exchange,
-# as JAX's autodiff transposes lax.ppermute and lax.all_to_all.
-
-def _group_size_rank(axis):
-    import torch.distributed as dist
-
-    if axis is None:
-        return 1, 0
-    return dist.get_world_size(axis), dist.get_rank(axis)
-
-
-def _peer(axis, group_rank: int) -> int:
-    """The global rank of `group_rank` in group `axis`."""
-    import torch.distributed as dist
-
-    return dist.get_global_rank(axis, group_rank)
-
-
-def _shift(xs, axis, step: int):
-    """Every rank sends the tensors `xs` to the rank `step` places after
-    it round `axis` and returns what the rank `step` places before it
-    sent (point-to-point sends in one `batch_isend_irecv`)."""
-    import torch.distributed as dist
-
-    n, idx = _group_size_rank(axis)
-    to, frm = _peer(axis, (idx + step) % n), _peer(axis, (idx - step) % n)
-    xs = [x.contiguous() for x in xs]
-    outs = [torch.empty_like(x) for x in xs]
-    ops = [dist.P2POp(dist.isend, x, to, axis) for x in xs]
-    ops += [dist.P2POp(dist.irecv, o, frm, axis) for o in outs]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return outs
-
-
-class _RingShift(torch.autograd.Function):
-    """One hop of K and V round the ring (JAX's `lax.ppermute` with perm
-    j -> j + 1): the backward sends their cotangents one hop the other
-    way round."""
-
-    @staticmethod
-    def forward(ctx, k, v, axis):
-        ctx.axis = axis
-        return tuple(_shift((k, v), axis, 1))
-
-    @staticmethod
-    def backward(ctx, gk, gv):
-        gk, gv = _shift((gk, gv), ctx.axis, -1)
-        return gk, gv, None
-
+# as JAX's autodiff transposes lax.ppermute and lax.all_to_all; the
+# ring's hop is parallel/mesh.py `ring_shift`, which the GPipe schedule
+# shares.
 
 def ring_attention(q, k, v, axis, *, causal: bool = False,
                    chunk_size: int = 256):
@@ -722,9 +677,11 @@ def ring_attention(q, k, v, axis, *, causal: bool = False,
     src * s_local, src = (idx - step) % n, so a causal mask takes the
     global positions), merges the block's (out, max, sum) into its running
     online softmax in f32 (l clamped at 1e-30), and passes K and V one hop
-    round the ring (`_RingShift`; no hop after the last step). Returns
-    (b, s_local, h, dv) in q's dtype."""
-    n, idx = _group_size_rank(axis)
+    round the ring (parallel/mesh.py `ring_shift`; no hop after the last
+    step). Returns (b, s_local, h, dv) in q's dtype."""
+    from ..parallel.mesh import group_size_rank, ring_shift
+
+    n, idx = group_size_rank(axis)
     b, sq, h, _ = q.shape
     dv = v.shape[-1]
     dev = q.device
@@ -747,7 +704,7 @@ def ring_attention(q, k, v, axis, *, causal: bool = False,
         acc = acc * alpha_old[..., None] + acc_blk * alpha_blk[..., None]
         m = m_new
         if step + 1 < n:
-            k_cur, v_cur = _RingShift.apply(k_cur, v_cur, axis)
+            k_cur, v_cur = ring_shift((k_cur, v_cur), axis)
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
@@ -809,7 +766,9 @@ def ulysses_attention(q, k, v, axis, *, causal: bool = False):
     flash kernels on a card, `chunked_attention` off it: JAX's
     `local_attention` rule); a second all-to-all restores the sequence
     sharding. The heads must divide by n."""
-    n, _ = _group_size_rank(axis)
+    from ..parallel.mesh import group_size_rank
+
+    n, _ = group_size_rank(axis)
     h = q.shape[2]
     if h % n:
         raise ValueError(f"ulysses_attention: heads {h} must divide the "

@@ -3,11 +3,11 @@
 The PyTorch counterpart of flexflow_tpu/models/transformer.py (reference:
 examples/cpp/Transformer/transformer.cc:33-45 create_attention_encoder,
 defaults transformer.cc:80-84: hidden 1024, 16 heads, 12 layers, seq 512).
-The JAX builder also has a pipeline-parallel branch, taken when
-`config.pipeline_parallel_degree > 1`; this package's FFConfig has no
-parallel degrees (multi-device execution is not ported), so the copy here
-builds the per-layer graph only, which that branch is numerically
-identical to.
+With `config.pipeline_parallel_degree > 1` it builds the blocks as one
+stacked op whose layer dim shards over the pipe mesh axis
+(`FFModel.transformer_blocks`, ops/pipeline.py), as the JAX builder does;
+otherwise the per-layer graph (MHA and two dense ops a block), which the
+stacked op computes the same values as.
 """
 from __future__ import annotations
 
@@ -35,6 +35,11 @@ def build_transformer(model: FFModel, batch_size: int, seq_length: int = 512,
     Returns (input tensor, output tensor)."""
     input_t = model.create_tensor((batch_size, seq_length, hidden_size),
                                   DataType.DT_FLOAT, name="tokens")
+    if model.config.pipeline_parallel_degree > 1:
+        # every block in one stacked op (ops/pipeline.py)
+        t = model.transformer_blocks(input_t, hidden_size, num_heads,
+                                     num_layers, name="encoder_stack")
+        return input_t, t
     t = input_t
     kdim = hidden_size // num_heads
     for _ in range(num_layers):

@@ -147,5 +147,6 @@ def ensure_ops_loaded():
     """Import all op modules so their register_op calls run."""
     from . import (attention, batch_matmul, conv2d, dropout,  # noqa: F401
                    elementwise, embedding, fused, linear, lstm, moe,
-                   normalization, pool2d, reduce, softmax, tensor_ops)
+                   normalization, pipeline, pool2d, reduce, softmax,
+                   tensor_ops)
     from ..parallel import parallel_ops  # noqa: F401

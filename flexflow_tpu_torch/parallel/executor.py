@@ -76,6 +76,7 @@ import contextlib
 import dataclasses
 import functools
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -234,6 +235,11 @@ class PCGExecutor:
 
     # the device mesh (MeshExecutor); None: one device
     mesh = None
+    # the generalized pipeline's stage plan (MeshExecutor on a "pipe"
+    # axis without a block-stack op); None: the graph runs unpipelined
+    pipeline_plan = None
+    # the plan's GPipe ticks: the seed table holds one seed an op a tick
+    _pipe_ticks = 1
     # the grad mode of the serving forward: no autograd record at all
     _serving_mode = torch.inference_mode
 
@@ -243,7 +249,7 @@ class PCGExecutor:
                  grad_dtype: Optional[torch.dtype] = None, seed: int = 0,
                  input_order: Optional[List] = None, remat: bool = False,
                  constants: Optional[Dict] = None,
-                 overlap_grad_sync: bool = True):
+                 overlap_grad_sync: bool = True, plan_cost_model=None):
         self.graph = graph
         self.device = torch.device(device)
         self.optimizer = optimizer
@@ -300,6 +306,9 @@ class PCGExecutor:
         # one device) and its eligible weights, once computed
         self.overlap_grad_sync = bool(overlap_grad_sync)
         self._overlap_cache: Optional[Dict] = None
+        # the cost oracle a pipeline plan cuts stages by (None: the
+        # analytic roofline of the default machine)
+        self._plan_cost_model = plan_cost_model
         # compute indices of the ops that draw random numbers in training
         self.drawing_ops = [
             self.compute_index[op.guid] for op in self.topo
@@ -476,10 +485,10 @@ class PCGExecutor:
                       n_devices=1 if self.mesh is None else self.mesh.size)
 
     def seed_table(self, step_seeds) -> torch.Tensor:
-        """The (N, n_ops, 2) int32 CPU seed table of N steps' seeds
-        (core/seeds.py)."""
+        """The (N, n_ops * ticks, 2) int32 CPU seed table of N steps'
+        seeds (core/seeds.py; ticks: the pipeline plan's, else 1)."""
         return seed_table(step_seeds, self.drawing_ops,
-                          len(self.compute_index))
+                          len(self.compute_index), self._pipe_ticks)
 
     def _seed_row(self, rng) -> Optional[torch.Tensor]:
         """One step's (n_ops, 2) row of seeds on the device: `rng` is None
@@ -535,6 +544,17 @@ class PCGExecutor:
         `net_out` is a dict, put their new buffers there, detached. Ops'
         differentiable aux losses are appended to `aux_out` (a list)."""
         row = self._seed_row(rng)
+        if self.pipeline_plan is not None:
+            if seq_length >= 0:
+                raise NotImplementedError(
+                    "per-iteration seq_length truncation changes the cut "
+                    "tensor shapes and is not supported with the "
+                    "generalized pipeline (pipeline_parallel_degree > 1 on "
+                    "a non-block-stack graph)")
+            # the GPipe schedule over the stage-partitioned graph; only
+            # the output comes back (stage internals live per rank)
+            return self._apply_pipelined(params, inputs, training=training,
+                                         row=row)
         drawing = set(self.drawing_ops) if row is not None else ()
         vals = dict(inputs)
         vals.update(self._const_vals)
@@ -561,6 +581,164 @@ class PCGExecutor:
         """The value of tensor `pt` as the strategy places it: on one
         device, as it is (MeshExecutor redistributes)."""
         return val
+
+    # -- the generalized pipeline --------------------------------------------
+    def _plan_pcg_pipeline(self, n_stages: int):
+        """Partition the compute graph into `n_stages` contiguous stages
+        balanced by op cost (the JAX package's `_plan_pcg_pipeline`: "the
+        search proposes the cut"), and describe each cut's boundary
+        tensors. None, with JAX's warning, where the graph cannot be
+        pipelined exactly (it then runs unpipelined)."""
+        from ..search.cost_model import op_bytes, op_flops
+        from ..search.machine_model import MachineModel
+        from .pipeline import PcgPipelinePlan, balanced_linear_partition
+
+        ops = [o for o in self.topo if not o.is_parallel_op]
+        if len(ops) < n_stages:
+            warnings.warn("pipeline: fewer compute ops than stages — "
+                          "running unpipelined")
+            return None
+        for op in ops:
+            d = get_op_def(op.op_type)
+            if d.state_spec is not None or op.op_type in (
+                    OperatorType.OP_GROUP_BY, OperatorType.OP_AGGREGATE,
+                    OperatorType.OP_AGG_SPEC, OperatorType.OP_CACHE):
+                warnings.warn(
+                    f"pipeline: {op.op_type.name} (stateful/aux-loss op) "
+                    "can't cross the GPipe schedule — running unpipelined")
+                return None
+        if self._plan_cost_model is not None:
+            from ..pcg.machine_view import MachineView
+
+            v1 = MachineView(start_device_id=0, dim=(1,), stride=(1,))
+            costs = [self._plan_cost_model.measure_operator_cost(
+                o, v1).total_time for o in ops]
+        else:
+            machine = MachineModel()
+            costs = [machine.compute_cost(op_flops(o), op_bytes(o))
+                     for o in ops]
+        bounds = balanced_linear_partition(costs, n_stages)
+        stages = [ops[bounds[i]:bounds[i + 1]]
+                  for i in range(len(bounds) - 1)]
+        stages = [st for st in stages if st]
+        if len(stages) < n_stages:
+            warnings.warn("pipeline: degenerate stage partition — "
+                          "running unpipelined")
+            return None
+        stage_of = {o.guid: si for si, sops in enumerate(stages)
+                    for o in sops}
+        # parallel ops (degree bookkeeping) are the identity on local
+        # values: their outputs resolve to the producing compute tensor
+        alias: Dict[int, int] = {}
+        for op in self.topo:
+            if op.is_parallel_op:
+                src = alias.get(op.inputs[0].guid, op.inputs[0].guid)
+                for t in op.outputs:
+                    alias[t.guid] = src
+
+        def resolve(g):
+            return alias.get(g, g)
+
+        # graph inputs all enter at stage 0 (they are injected there)
+        input_guids = {p.guid for p in self.input_pts}
+        for op in ops:
+            for t in op.inputs:
+                if resolve(t.guid) in input_guids \
+                        and stage_of[op.guid] != 0:
+                    warnings.warn(
+                        "pipeline: a graph input is consumed past stage 0 "
+                        "— running unpipelined")
+                    return None
+        batch = self.input_pts[0].material_shape()[0]
+        consumers_stage: Dict[int, int] = {}
+        for op in ops:
+            for t in op.inputs:
+                g = resolve(t.guid)
+                consumers_stage[g] = max(consumers_stage.get(g, -1),
+                                         stage_of[op.guid])
+        cuts = []
+        buf_elems = 0
+        for si in range(len(stages) - 1):
+            cut, total = [], 0
+            for op in ops:
+                if stage_of[op.guid] > si:
+                    continue
+                for t in op.outputs:
+                    if consumers_stage.get(t.guid, -1) <= si:
+                        continue
+                    shape = tuple(t.material_shape())
+                    if not shape or shape[0] != batch:
+                        warnings.warn(
+                            "pipeline: a cut tensor is not batch-leading "
+                            "— running unpipelined")
+                        return None
+                    if not t.data_type.torch_dtype.is_floating_point:
+                        warnings.warn(
+                            "pipeline: non-float cut tensor — running "
+                            "unpipelined")
+                        return None
+                    cut.append((t.guid, shape[1:],
+                                t.data_type.torch_dtype))
+                    total += int(np.prod(shape[1:], dtype=np.int64))
+            cuts.append(cut)
+            buf_elems = max(buf_elems, total)
+        out_pt = self.logits_pt
+        return PcgPipelinePlan(
+            stages=stages, cuts=cuts, buf_elems=buf_elems,
+            out_guid=resolve(out_pt.guid),
+            out_shape=tuple(out_pt.material_shape()),
+            out_dtype=out_pt.data_type.torch_dtype,
+            n_stages=len(stages), alias=alias)
+
+    def _pipeline_stage_runners(self, training: bool, row) -> list:
+        """One runner a stage, `run(params, vals, tick) -> vals`: that
+        stage's ops as `apply` walks them, on local values with no mesh
+        (the JAX package's runners run inside shard_map with mesh=None).
+        In training an op that draws reads its seed for this tick from
+        `row` (`seed_table`: every (op, tick) draws its own masks, so no
+        two micro-batches share one)."""
+        alias = self.pipeline_plan.alias
+        ticks = self._pipe_ticks
+        drawing = set(self.drawing_ops) if row is not None else ()
+        consts = {g: local(v) for g, v in self._const_vals.items()}
+
+        def make_runner(sops):
+            def run(params, vals, tick):
+                vals = dict(vals)
+                for op in sops:
+                    d = get_op_def(op.op_type)
+                    ins = []
+                    for t in op.inputs:
+                        g = alias.get(t.guid, t.guid)
+                        ins.append(vals[g] if g in vals else consts[g])
+                    i = self.compute_index[op.guid]
+                    ctx = FwdCtx(
+                        training=training, compute_dtype=self.compute_dtype,
+                        op_name=op.name,
+                        rng=row[i * ticks + tick] if i in drawing else None,
+                        profile_ranges=self._profile_ranges)
+                    outs = d.forward(op.params, params.get(op.name, {}),
+                                     ins, ctx)
+                    for t, v in zip(op.outputs, outs):
+                        vals[t.guid] = v
+                return vals
+            return run
+
+        return [make_runner(st) for st in self.pipeline_plan.stages]
+
+    def _apply_pipelined(self, params, inputs: Dict[int, torch.Tensor], *,
+                         training: bool, row) -> Dict[int, torch.Tensor]:
+        """The forward through the generalized GPipe schedule
+        (parallel/pipeline.py `gpipe_pcg`; the weights replicated over
+        the pipe axis): {output guid: value}."""
+        from .pipeline import gpipe_pcg
+
+        plan = self.pipeline_plan
+        guids = [pt.guid for pt in self.input_pts]
+        out = gpipe_pcg(plan, self._pipeline_stage_runners(training, row),
+                        params, [inputs[g] for g in guids], guids,
+                        self.mesh)
+        return {plan.out_guid: out, self.logits_pt.guid: out}
 
     def _parallel_op(self, op, ins) -> list:
         """A parallel op's outputs (parallel/parallel_ops.py)."""
@@ -1373,7 +1551,8 @@ class _ScanGraph:
                    for s, dt in zip(shapes, dtypes)]
         self.y = torch.empty(label_shape, dtype=ex.label_dtype, device=dev)
         n = label_shape[0]
-        self.seeds = (torch.zeros((n, len(ex.compute_index), 2),
+        self.seeds = (torch.zeros((n, len(ex.compute_index)
+                                   * ex._pipe_ticks, 2),
                                   dtype=torch.int32, device=dev)
                       if with_seeds else None)
         self.pinned = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
@@ -1426,7 +1605,18 @@ class _ScanGraph:
         del snapshot
         graph = CapturedGraph()
         before = self.ex._counters()
-        graph.capture(lambda: self._steps(state, self.y.shape[0]))
+        try:
+            graph.capture(lambda: self._steps(state, self.y.shape[0]))
+        except RuntimeError as e:
+            mesh = self.ex.mesh
+            if mesh is not None and mesh.shape.get("pipe", 1) > 1:
+                raise RuntimeError(
+                    "the train scan over a pipe axis of "
+                    f"{mesh.shape['pipe']} captures the GPipe schedule's "
+                    "NCCL hops (all-to-alls) in its CUDA graph, and this "
+                    f"capture failed ({e}); fit stepwise "
+                    "(iterations_per_dispatch=1)") from e
+            raise
         # a capture runs no step: take its counts back out
         self.counters = self.ex._counters() - before
         self.ex._add_counters(self.counters, -1)
@@ -1520,6 +1710,18 @@ class MeshExecutor(PCGExecutor):
     (ZeRO-1), and the updated slices are all-gathered back into the
     weight. The values are the all-reduce step's.
 
+    Pipeline parallelism (a "pipe" mesh axis): a block-stack op
+    (ops/pipeline.py) runs the GPipe schedule over its layers, Shard(0)
+    over "pipe"; any other graph is cut into stages (`pipeline_plan`,
+    the JAX package's `_plan_pcg_pipeline`) and `apply` runs them as
+    the schedule (`_apply_pipelined`, parallel/pipeline.py gpipe_pcg),
+    each rank its stage's ops on local values, the weights whole on
+    every rank and their gradients summed over data and pipe by the
+    step's sync. A seed-table row holds a seed an (op, tick), so each
+    micro-batch draws its own dropout masks. The train scan over a pipe
+    axis captures the schedule's NCCL hops in its graph;
+    a capture that fails raises, naming them.
+
     `collectives` counts the collectives that run, by "<what>/<kind>/
     <axis>": "grad" (a gradient's sync), "weight" (an fsdp weight gathered
     on use), "param" (an updated weight gathered after the sharded
@@ -1561,6 +1763,19 @@ class MeshExecutor(PCGExecutor):
         self._pending: Dict = {}
         # (op, weight) -> the placements an fsdp weight is gathered to
         self._gather_pl: Dict = {}
+        # the generalized pipeline: a pipe axis and no block-stack op
+        # means the graph itself is cut into stages (the JAX package's
+        # executor plans it the same way)
+        pipe = mesh.shape.get("pipe", 1)
+        if pipe > 1 and not any(op.op_type == OperatorType.OP_BLOCK_STACK
+                                for op in self.topo):
+            self.pipeline_plan = self._plan_pcg_pipeline(pipe)
+            if self.pipeline_plan is not None:
+                from .pipeline import pipeline_ticks
+
+                batch = self.input_pts[0].material_shape()[0]
+                self._pipe_ticks = pipeline_ticks(
+                    pipe, 0, batch // mesh.shape.get("data", 1))
 
     def placements(self, pt) -> tuple:
         pl = self._pl.get(pt.guid)

@@ -326,6 +326,22 @@ def build_mesh(axis_sizes: Dict[str, int],
     return Mesh(axes, device_type, replicas=world // n)
 
 
+def build_hybrid_mesh(ici_axes: Dict[str, int], dcn_axes: Dict[str, int],
+                      device_type: Optional[str] = None) -> Mesh:
+    """A Mesh of `dcn_axes` (the axes that span nodes: put data
+    parallelism there) and `ici_axes` (the axes within a node), the JAX
+    package's `build_hybrid_mesh`. The process group carries no slice
+    topology, so this is that function's fallback: one mesh with the DCN
+    axes leading, so that with ranks numbered node by node (torchrun's
+    layout) a collective over an ICI axis stays within a node and only
+    the DCN axes cross nodes."""
+    merged = dict(dcn_axes)
+    merged.update(ici_axes)
+    return build_mesh({n: merged[n]
+                       for n in tuple(dcn_axes) + tuple(ici_axes)},
+                      device_type)
+
+
 def default_data_parallel_mesh(num_devices: Optional[int] = None,
                                device_type: Optional[str] = None) -> Mesh:
     import torch.distributed as dist
@@ -353,3 +369,71 @@ def distribute(t: torch.Tensor, mesh: Mesh, placements):
 
     return distribute_tensor(t, mesh.device_mesh, placements,
                              src_data_rank=None)
+
+
+# -- ring shifts ------------------------------------------------------------
+# A hop round a ring of ranks, the JAX package's `lax.ppermute` with perm
+# j -> j + step: ring attention passes K and V round the "seq" group
+# (kernels/attention.py) and the GPipe schedule passes activations round
+# the "pipe" group (parallel/pipeline.py). `axis` is a ProcessGroup (None:
+# a group of this process alone, where a hop sends nothing).
+
+def group_size_rank(axis) -> Tuple[int, int]:
+    """(size, this process's rank) of ProcessGroup `axis` ((1, 0) for
+    None)."""
+    import torch.distributed as dist
+
+    if axis is None:
+        return 1, 0
+    return dist.get_world_size(axis), dist.get_rank(axis)
+
+
+def shift(xs, axis, step: int):
+    """Every rank sends the tensors `xs` to the rank `step` places after
+    it round `axis` and returns what the rank `step` places before it
+    sent. With one rank the tensors come back as they are.
+
+    Each tensor moves by one `all_to_all_single` whose splits send it
+    whole to one peer and nothing to the others: the exchange rides the
+    group's collective communicator, as its other collectives do (inside
+    a captured train scan too), where point-to-point sends open a
+    communicator for each pair of ranks."""
+    import torch.distributed as dist
+
+    n, idx = group_size_rank(axis)
+    if n == 1:
+        return list(xs)
+    to, frm = (idx + step) % n, (idx - step) % n
+    outs = []
+    for x in xs:
+        flat = x.contiguous().reshape(-1)
+        out = torch.empty_like(flat)
+        sizes = [0] * n
+        send, recv = list(sizes), list(sizes)
+        send[to], recv[frm] = flat.numel(), flat.numel()
+        dist.all_to_all_single(out, flat, output_split_sizes=recv,
+                               input_split_sizes=send, group=axis)
+        outs.append(out.view(x.shape))
+    return outs
+
+
+class _RingShift(torch.autograd.Function):
+    """One hop of tensors round the ring (`shift` by 1): the backward
+    sends their cotangents one hop the other way round, the transpose of
+    the exchange, as JAX's autodiff transposes `lax.ppermute`. Every rank
+    of the ring must run the backward, or the ranks that do wait for it:
+    the caller keeps every output in its graph."""
+
+    @staticmethod
+    def forward(ctx, axis, *xs):
+        ctx.axis = axis
+        return tuple(shift(xs, axis, 1))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *shift(gs, ctx.axis, -1))
+
+
+def ring_shift(xs, axis):
+    """`shift(xs, axis, 1)`, differentiable (`_RingShift`): a tuple."""
+    return _RingShift.apply(axis, *xs)

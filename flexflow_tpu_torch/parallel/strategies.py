@@ -10,12 +10,11 @@ process), keeping every degree that fits and demoting the rest to
 replicated, as the JAX package does on a smaller mesh; a winner's
 WeightShard nodes keep their degree where the mesh has room for it.
 `compile` runs `apply_data_parallel`, `apply_tensor_parallel`,
-`apply_sequence_parallel`, `apply_expert_parallel` and
-`apply_weight_sharding` at the config's degrees, and the mesh executor
-(parallel/executor.py MeshExecutor) executes them at those degrees, as
-it executes a searched winner's data, model, seq, expert and fsdp axes;
-the pipeline pass is kept for the search's lowering, and a strategy that
-needs its axis is refused at compile until its slice lands.
+`apply_sequence_parallel`, `apply_expert_parallel`,
+`apply_pipeline_parallel` and `apply_weight_sharding` at the config's
+degrees, and the mesh executor (parallel/executor.py MeshExecutor)
+executes them at those degrees, as it executes a searched winner's data,
+model, seq, expert, pipe and fsdp axes.
 """
 from __future__ import annotations
 

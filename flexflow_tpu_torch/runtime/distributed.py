@@ -23,6 +23,7 @@ machine without one raises (config.resolve_device).
 from __future__ import annotations
 
 import datetime
+import gc
 import logging
 import os
 from typing import Optional, Tuple
@@ -139,10 +140,17 @@ def current_device() -> Optional[torch.device]:
 
 def shutdown() -> None:
     """Destroy the default process group. Safe to call repeatedly and
-    when no group is up."""
+    when no group is up. Unreachable objects are collected first: a
+    captured CUDA graph (an executor and its graphs form a reference
+    cycle) that holds NCCL work keeps its communicator from being
+    destroyed, and the destroy then waits forever."""
     global _device
     _device = None
     if is_initialized():
+        gc.collect()
+        if dist.get_backend() == "nccl":
+            torch.cuda.synchronize()
+        dist.barrier()
         dist.destroy_process_group()
 
 

@@ -409,7 +409,10 @@ class CanaryConfig:
 
 def _as_f64(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", torch.float64).numpy()
+        from ..parallel.mesh import full
+
+        # a mesh value whole (every rank joins the gather)
+        return full(leaf).detach().to("cpu", torch.float64).numpy()
     return np.asarray(leaf).astype(np.float64)
 
 
@@ -568,6 +571,8 @@ def _copy_named_state(ex, params_src, net_src):
     and are excluded from the comparison."""
     from ..parallel.executor import TrainState
 
+    from ..parallel.mesh import full
+
     params = ex.init_params()
     unmatched: List[str] = []
     for opn, wd in params.items():
@@ -576,13 +581,15 @@ def _copy_named_state(ex, params_src, net_src):
             if src is None or tuple(src.shape) != tuple(like.shape):
                 unmatched.append(f"{opn}/{wn}")
                 continue
-            wd[wn] = src.detach().to(like.device, like.dtype).clone()
+            # a mesh weight whole: the reference runs on one device
+            wd[wn] = full(src).detach().to(like.device, like.dtype).clone()
     net = ex.init_net_state()
     for opn, bufs in net.items():
         for bn, like in bufs.items():
             src = (net_src or {}).get(opn, {}).get(bn)
             if src is not None and tuple(src.shape) == tuple(like.shape):
-                bufs[bn] = src.detach().to(like.device, like.dtype).clone()
+                bufs[bn] = full(src).detach().to(like.device,
+                                                 like.dtype).clone()
     return TrainState(params=params,
                       opt_state=ex.optimizer.init_state(params),
                       net_state=net), unmatched
@@ -615,8 +622,12 @@ def find_first_divergence(model, ref_ex, strat_state, ref_state, batch,
     matched op prefix (both full forwards execute once; the bisection
     probes their kept outputs, so localization costs O(log n)
     comparisons, not n). None when every matched forward output agrees —
-    the divergence is then in the backward/optimizer step."""
+    the divergence is then in the backward/optimizer step, or the graph
+    runs a generalized pipeline plan, whose stage internals live on their
+    own ranks (no op-level probe)."""
     ex = model.executor
+    if ex.pipeline_plan is not None:
+        return None
     # training=False: localization must not depend on dropout seeds,
     # whose per-op indices differ when a substitution changed the
     # compute-op count

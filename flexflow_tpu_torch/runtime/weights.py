@@ -14,6 +14,11 @@ buffers, the step guard's counters and the step, so both packages can
 start mid-run. `params_to_numpy` and `net_state_to_numpy` read them back
 whole, gathered first on a device mesh.
 
+A block-stack op (`FFModel.transformer_blocks`, ops/pipeline.py) keeps
+its layers' weights stacked on a leading layer dim under the JAX
+package's names, so they carry over as they are; `block_stack_layers`
+slices a stack into the per-layer flagship's MHA and dense weights.
+
 A fused op (pcg/fusion.py, --fusion) keeps its chain's weights as
 `step<i>/<name>`, as the JAX package's fused graph does, so JAX's fused
 params carry over as they are.
@@ -151,3 +156,40 @@ def train_state_from_numpy(model, params: Mapping[str, Mapping[str,
             live.copy_(src)
     model.state.step = int(step)
     return model.state
+
+
+def block_stack_layers(model, stacked: Mapping[str, Any]
+                       ) -> Dict[str, Dict[str, Any]]:
+    """The weights of compiled `model`, the per-layer flagship
+    (models/transformer.py: MHA then two dense ops a block), sliced from
+    a block stack's `stacked` weights ({"wq", "wk", "wv", "wo", "bias_o",
+    "w1", "w2"}: arrays or tensors with a leading layer dim): layer i's
+    attention weights go to the i-th MHA op, its w1 and w2 to the two
+    dense ops after it (tests/test_pipeline.py's mapping). Returns {op:
+    {weight: slice}} for `params_from_numpy`. Raises ValueError where
+    the layer counts differ."""
+    from ..ff_types import OperatorType
+
+    blocks = sum(op.op_type == OperatorType.OP_MULTIHEAD_ATTENTION
+                 for op in model.executor.topo)
+    if blocks != len(stacked["wq"]):
+        raise ValueError(f"the model has {blocks} blocks, the stack "
+                         f"{len(stacked['wq'])}")
+    out: Dict[str, Dict[str, Any]] = {}
+    layer, dense = 0, 0
+    for op in model.executor.topo:
+        if not op.weights:
+            continue
+        if op.op_type == OperatorType.OP_MULTIHEAD_ATTENTION:
+            out[op.name] = {k: stacked[k][layer]
+                            for k in ("wq", "wk", "wv", "wo", "bias_o")}
+            dense = 0
+        elif op.op_type == OperatorType.OP_LINEAR:
+            out[op.name] = {"kernel": stacked["w1" if dense == 0
+                                              else "w2"][layer]}
+            layer += dense
+            dense += 1
+        else:
+            raise ValueError(f"{op.name} ({op.op_type.name}) is not a "
+                             "flagship block's op")
+    return out

@@ -77,6 +77,7 @@ _ARGVS = [
     ["--no-overlap-backward-update"],
     ["--no-overlap-backward-update", "--overlap-backward-update"],
     ["--enable-sequence-parallel", "-b", "4"],
+    ["--nodes", "2", "-ll:gpu", "4"],
 ]
 
 

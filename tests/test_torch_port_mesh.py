@@ -136,17 +136,13 @@ def test_machine_view_to_axes_matches_jax(axes, dims):
     ("expert_parallel_degree", "expert parallelism"),
     ("pipeline_parallel_degree", "pipeline parallelism")])
 def test_unported_degrees_raise_naming_their_slice(field, slice_name):
-    """The pipeline degree is not ported: compile raises, naming its
-    slice. The sequence and expert degrees are: on one process (one
-    device) a degree of 2 needs two devices, and compile raises
-    ValueError naming the degrees and the device count, as a tensor
-    degree does."""
+    """The sequence, expert and pipeline degrees are ported (the slices
+    named): on one process (one device) a degree of 2 needs two devices,
+    and compile raises ValueError naming the degrees and the device
+    count, as a tensor degree does. No pipeline runs its stages one after
+    another in one process."""
     m = tff.FFModel(tff.FFConfig(device="cpu", **{field: 2}))
     m.softmax(m.create_tensor((2, 4)))
-    if field == "pipeline_parallel_degree":
-        with pytest.raises(NotImplementedError, match=slice_name):
-            m.compile()
-        return
     with pytest.raises(ValueError,
                        match=f"{field} 2 .*does not divide the 1 devices"):
         m.compile()

@@ -658,11 +658,24 @@ def test_search_flags_parse_to_jax_fields(argv):
 
 
 @pytest.mark.parametrize("flag,what", [
-    ("--import-strategy", "strategy import"),
-    ("--nodes", "multi-node execution")])
+    ("--import-strategy", "strategy import")])
 def test_unported_search_flags_raise_naming_what_is_missing(flag, what):
     with pytest.raises(NotImplementedError, match=what):
         tff.FFConfig(device="cpu").parse_args([flag, "1"])
+
+
+@pytest.mark.parametrize("argv", [["--nodes", "2"], ["--nodes", "x"],
+                                  ["--nodes", "3", "-ll:gpu", "2"]],
+                         ids=" ".join)
+def test_nodes_flag_sets_num_nodes_as_jax(argv):
+    """--nodes sets numNodes (the hybrid mesh's node count), as the JAX
+    package's parse_args does; a bad value leaves it."""
+    t, j = tff.FFConfig(device="cpu"), jff.FFConfig()
+    t.parse_args(argv)
+    j.parse_args(argv)
+    assert t.numNodes == j.numNodes == (1 if "x" in argv else int(argv[1]))
+    if "-ll:gpu" in argv:
+        assert t.workersPerNode == j.workersPerNode == 2
 
 
 def test_unported_search_arguments_raise(tmp_path):
@@ -672,16 +685,20 @@ def test_unported_search_arguments_raise(tmp_path):
     with pytest.raises(TypeError, match="calibration"):
         m.compile(tff.SGDOptimizer(), getattr(tff.LossType, MSE),
                   calibration={"mxu_efficiency": 0.5})
-    # a device too small for the winner: the pipeline search that would
-    # look further is not ported (the artifact store, topology_dims and
-    # the memory-aware search are: tests/test_torch_port_mcmc.py and
-    # tests/test_torch_port_artifact_store.py)
+    # a device too small for the winner: the pipeline search weighs
+    # stages only where two or more devices run, as in the JAX package;
+    # on one process the overflowing winner stays (a pipe degree over
+    # the devices: tests/test_torch_port_pipeline.py)
     small = tmp_path / "small.cfg"
     small.write_text("num_nodes = 1\nnum_gpus_per_node = 4\n"
                      "device_mem = 100000\n")
     m = transformer_model(tff, search_budget=1, machine_model_file=str(small))
-    with pytest.raises(NotImplementedError, match="pipeline search"):
-        m.compile(tff.SGDOptimizer(), getattr(tff.LossType, MSE))
+    m.compile(tff.SGDOptimizer(), getattr(tff.LossType, MSE))
+    assert m.searched_pipeline_degree == 1
+    (check,) = m.search_trajectory.of_kind("memory_check")
+    assert check["bytes"] > check["budget"] == 100000
+    (ev,) = m.search_trajectory.of_kind("pipeline_search")
+    assert ev["degree"] == 1 and not ev["replaced_by_researched"]
 
 
 # -- the measurer --------------------------------------------------------------------

@@ -171,12 +171,13 @@ def test_compile_refuses_what_is_not_ported():
     m.softmax(m.create_tensor((2, 4)))
     with pytest.raises(TypeError):
         m.compile(calibration={})
-    # the pipeline degree, whose execution is not ported, raises at
-    # compile naming its slice; a sequence degree of 2 is ported and
-    # needs two devices, which one process does not have
+    # a pipeline degree of 2 is ported and needs two devices, which one
+    # process does not have (its stages never run one after another in
+    # one process); so does a sequence degree of 2
     m = FFModel(FFConfig(device="cpu", pipeline_parallel_degree=2))
     m.softmax(m.create_tensor((2, 4)))
-    with pytest.raises(NotImplementedError, match="pipeline parallelism"):
+    with pytest.raises(ValueError, match="pipeline_parallel_degree 2 does "
+                       "not divide the 1 devices"):
         m.compile()
     m = FFModel(FFConfig(device="cpu", sequence_parallel_degree=2))
     m.softmax(m.create_tensor((2, 4)))

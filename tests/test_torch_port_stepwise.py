@@ -180,8 +180,7 @@ def test_config_rejects_unported_fields_and_carries_the_new_ones():
                  "search_overlap_backward_update"):
         assert getattr(cfg, name) == getattr(jcfg, name)
     assert FFConfig(device="cpu").overlap_backward_update is True
-    # the parallel degrees are fields (JAX's names and defaults); those
-    # whose execution is not ported raise at compile
+    # the parallel degrees are fields (JAX's names and defaults)
     for name in ("tensor_parallel_degree", "fsdp_degree",
                  "pipeline_parallel_degree"):
         assert getattr(cfg, name) == getattr(jcfg, name) == 1

@@ -6,7 +6,8 @@ case of a JSON spec in order:
 
     {"name": ..., "builder": "transformer" | "dense_softmax" | "bn_cnn"
      | "dropout_mlp" | "mlp" | "search_mlp" | "attention" | "bert"
-     | "moe" | "moe_small" | "overlap_mlp",
+     | "moe" | "moe_small" | "overlap_mlp" | "block_stack"
+     | "nonuniform" | "budgeted",
      "builder_kwargs": {...},
      "config": {FFConfig fields}, "config_by_rank": {"1": {...}},
      "rewrites": [[substitution generator, degree], ...] (the searched
@@ -15,9 +16,13 @@ case of a JSON spec in order:
      "metrics": [...], "lr": 0.01 (SGD's rate), "optimizer": {SGD's
      fields, or "adam": true and Adam's}, "weights": "<npz of op/weight>",
      "data": "<npz of x0, x1, ..., y>", "rank_data": "<npz rank 1+ use>",
+     "weights_by_position": true (the npz keys are "<i>/<weight>", i the
+     op's place among the weighted ops in topo order: a searched winner
+     whose op names differ between the packages),
      "random_data": {"x_shapes": [...], "y_shape": [...], "seed": 0},
-     "mode": "steps" | "guard" | "fit" | "decode"
-     | "compile_decode" | "compile" | "var_mean" | "sp_kernels",
+     "mode": "steps" | "guard" | "fit" | "decode" | "verify"
+     | "compile_decode" | "compile" | "var_mean" | "sp_kernels" | "gpipe"
+     | "hybrid",
      "steps": 3, "epochs": 1, "fit": {fit keywords},
      "same_batch": true (every step on the first batch),
      "guard": {"init_loss_scale": 4.0, "poison_step": 1} (StepGuardConfig's
@@ -34,7 +39,9 @@ records the global gradient norms and the skips; "fit" runs FFModel.fit;
 "var_mean" runs parallel/mesh.py `var_mean` on DTensors of a seeded
 array (no model) under CommDebugMode and records the collectives;
 "sp_kernels" runs ring and Ulysses attention alone over the group
-(`_sp_kernels_case`).
+(`_sp_kernels_case`); "gpipe" runs the GPipe schedule alone
+(`_gpipe_case`), "hybrid" builds a hybrid mesh (`_hybrid_case`), and
+"verify" runs `verify_strategy` on the compiled model (its verdict).
 With "forward", the serving forward of the first batch runs after them
 (on the state's buffers) and rank 0 keeps its output whole.
 Each rank writes `<out_dir>/<name>.rank<r>.json` (the error, if the case
@@ -129,6 +136,33 @@ def build(model, name: str, kw: dict):
 
         build_moe(model, kw["batch"], input_dim=16, num_classes=4,
                   num_exp=4, num_select=2, hidden=16, alpha=1.2)
+    elif name == "block_stack":
+        # FFModel.transformer_blocks at the config's pipe degree
+        x = model.create_tensor((kw["batch"], kw["seq"], kw["hidden"]),
+                                DataType.DT_FLOAT)
+        model.transformer_blocks(x, kw["hidden"], kw["heads"],
+                                 kw["layers"], name="encoder_stack")
+    elif name == "nonuniform":
+        # tests/test_pipeline.py _build_nonuniform: a conv tower into an
+        # MLP with a residual add (nothing a block stack expresses)
+        x = model.create_tensor((kw["batch"], 3, 16, 16), DataType.DT_FLOAT)
+        t = model.conv2d(x, 8, 3, 3, 1, 1, 1, 1, ActiMode.AC_MODE_RELU)
+        t = model.pool2d(t, 2, 2, 2, 2, 0, 0)
+        t = model.flat(t)
+        t = model.dense(t, 64, ActiMode.AC_MODE_RELU)
+        skip = t
+        t = model.dense(t, 64)
+        t = model.add(t, skip)
+        model.dense(t, 10)
+    elif name == "budgeted":
+        # tests/test_pipeline.py _build_budgeted: a deep dense stack
+        x = model.create_tensor((kw["batch"], kw["width"]),
+                                DataType.DT_FLOAT)
+        t = x
+        for _ in range(kw["layers"]):
+            t = model.dense(t, kw["width"], ActiMode.AC_MODE_RELU)
+        t = model.dense(t, 10)
+        model.softmax(t)
     elif name == "bert":
         # BERT through the PyTorch frontend: attention and hidden dropout
         import torch
@@ -198,6 +232,10 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         return _var_mean_case(case, rank, device)
     if case.get("mode") == "sp_kernels":
         return _sp_kernels_case(case, rank, device)
+    if case.get("mode") == "gpipe":
+        return _gpipe_case(case, rank, device)
+    if case.get("mode") == "hybrid":
+        return _hybrid_case(case, rank, device)
     model = FFModel(FFConfig(device=device, **cfg_kw))
     source = build(model, case["builder"], case.get("builder_kwargs", {}))
     opt = dict(case.get("optimizer", {"lr": case.get("lr", 0.01)}))
@@ -207,11 +245,14 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         model.compile(opt, case.get("loss", "mse"), case.get("metrics", []))
     if source is not None:
         source.load_weights(model)
+    weighted = [op.name for op in model.executor.topo if op.weights]
     if case.get("weights"):
         with np.load(case["weights"]) as z:
             tree = {}
             for key in z.files:
                 op, n = key.split("/", 1)
+                if case.get("weights_by_position"):
+                    op = weighted[int(op)]
                 tree.setdefault(op, {})[n] = z[key]
         params_from_numpy(model, tree)
     out: dict = {"losses": [], "opt_init": _slots(model)}
@@ -272,6 +313,14 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         pm = model.fit(xs, y, batch_size=bs, epochs=case.get("epochs", 1),
                        verbose=rank == 0, **case.get("fit", {}))
         out["train_all"] = pm.train_all
+    elif mode == "verify":
+        from flexflow_tpu_torch.runtime.verify import verify_strategy
+
+        v = verify_strategy(model, (xs, y), steps=case.get("steps", 2))
+        out["verdict"] = {"ok": v.ok, "steps": v.steps,
+                          "loss_diffs": v.loss_diffs,
+                          "max_param_diff": v.max_param_diff,
+                          "diverging_op": v.diverging_op}
     elif mode == "decode":
         ex.build_decode(bs, 4)
     elif mode == "compile_decode":
@@ -291,6 +340,12 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         mesh_paths=dict(att.MESH_PATHS),
         local_q=dict(att.MESH_LOCAL_Q),
         gathered=dict(pmesh.GATHERED),
+        searched_pipeline_degree=model.searched_pipeline_degree,
+        pipe_ticks=ex._pipe_ticks,
+        pipeline_stages=(None if ex.pipeline_plan is None else
+                         [[op.name for op in st]
+                          for st in ex.pipeline_plan.stages]),
+        weight_digest=_digest(model),
         searched_views=None if model.searched_views is None else sorted(
             (pos, v.start_device_id, list(v.dim), list(v.stride))
             for pos, v in _views_by_position(model)),
@@ -322,6 +377,8 @@ def run_case(case: dict, rank: int, device: str) -> dict:
     if rank == 0:
         arrays = {f"w/{op}/{n}": a for op, ws in weights.items()
                   for n, a in ws.items()}
+        arrays.update({f"p/{weighted.index(op)}/{n}": a
+                       for op, ws in weights.items() for n, a in ws.items()})
         arrays.update({f"s/{op}/{n}": a for op, bufs in buffers.items()
                        for n, a in bufs.items()})
         if fwd is not None:
@@ -336,6 +393,20 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         if rank == 0:
             out["arrays"].update(slots)
     return out
+
+
+def _digest(model) -> str:
+    """A hash of this rank's local weight shards: ranks holding the same
+    shards (replicas over an axis) must hash alike."""
+    import hashlib
+
+    from flexflow_tpu_torch.parallel import mesh as pmesh
+
+    h = hashlib.sha256()
+    for ws in model.params.values():
+        for w in ws.values():
+            h.update(pmesh.local(w).detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _slots(model):
@@ -417,6 +488,65 @@ def _sp_kernels_case(case, rank, device):
                 arrays[f"{impl}_{int(causal)}/{name}"] = \
                     torch.cat(parts, dim=1).numpy()
     return {"arrays": arrays} if rank == 0 else {}
+
+
+def _gpipe_case(case, rank, device):
+    """parallel/pipeline.py `gpipe_mesh` alone over a mesh of
+    `case["mesh"]`: the stacked blocks of `case["data"]` (wq ... w2 with a
+    leading layer dim, and x) in f32, Shard(0) over "pipe" and over
+    "data", `case["n_micro"]` micro-batches; the output and the
+    gradients of sum(out ** 2) for every weight and x, gathered whole
+    (rank 0 writes "out", "d<weight>", "dx")."""
+    import functools
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+
+    from flexflow_tpu_torch.ops.pipeline import _encoder_block
+    from flexflow_tpu_torch.parallel import mesh as pmesh
+    from flexflow_tpu_torch.parallel.pipeline import gpipe_mesh
+
+    m = pmesh.build_mesh(case["mesh"], device)
+    with np.load(case["data"]) as z:
+        arrs = {k: torch.as_tensor(z[k]) for k in z.files}
+    names = [k for k in arrs if k != "x"]
+
+    def place(t, axis):
+        return pmesh.distribute(t, m, [Shard(0) if a == axis else Replicate()
+                                       for a in m.live_axes])
+
+    ws = {k: place(arrs[k], "pipe").requires_grad_() for k in names}
+    x = place(arrs["x"], "data").requires_grad_()
+    head_dim = arrs["wq"].shape[-1]
+    block = functools.partial(_encoder_block, head_dim=head_dim,
+                              compute_dtype=None)
+    out = gpipe_mesh(block, ws, x, mesh=m, n_stages=m.shape["pipe"],
+                     n_micro=case["n_micro"])
+    grads = torch.autograd.grad((out * out).sum(), [x] + [ws[k]
+                                                          for k in names])
+    whole = {"out": pmesh.full(out).detach().numpy(),
+             "dx": pmesh.full(grads[0]).numpy()}
+    whole.update({f"d{k}": pmesh.full(g).numpy()
+                  for k, g in zip(names, grads[1:])})
+    res = {"placements": {k: [str(p) for p in w.placements]
+                          for k, w in ws.items()},
+           "local_rows": int(pmesh.local(ws["wq"]).shape[0])}
+    if rank == 0:
+        res["arrays"] = whole
+    return res
+
+
+def _hybrid_case(case, rank, device):
+    """parallel/mesh.py `build_hybrid_mesh(case["ici"], case["dcn"])`:
+    its axis order, sizes and DeviceMesh dims, and this rank's
+    coordinate."""
+    from flexflow_tpu_torch.parallel import mesh as pmesh
+
+    m = pmesh.build_hybrid_mesh(case["ici"], case["dcn"], device)
+    return {"axis_names": list(m.axis_names), "shape": m.shape,
+            "live_axes": list(m.live_axes),
+            "coordinate": list(m.device_mesh.get_coordinate())}
 
 
 def _views_by_position(model):
