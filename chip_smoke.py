@@ -114,7 +114,7 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      (one OP_FUSED node a block), fit stepwise and as a scan against the
      unfused model's fit from the same weights, bit for bit, and ABBA
      samples/s of the two;
- 13. the Unity search: the flagship (cut to 6 blocks) compiled with
+ 13. the Unity search: the flagship (cut to 4 blocks) compiled with
      search_budget 10 in the measured mode (search/measure.py: each operator's forward and
      forward-with-backward timed at its shard shapes in CUDA graphs of R
      and 4R calls, the attention op through both flash kernels) on the
@@ -1366,17 +1366,11 @@ def check_paged(torch, rng_seed=1):
 def build_model(torch, layers=LAYERS, **cfg):
     """The serving LM (`layers` blocks; `cfg`: further FFConfig fields)."""
     from flexflow_tpu_torch import FFConfig, FFModel
-    from flexflow_tpu_torch.ff_types import ActiMode, AggrMode, DataType
 
     m = FFModel(FFConfig(batch_size=SLOTS, allow_mixed_precision=True, seed=0,
                          **cfg))
-    ids = m.create_tensor((SLOTS, MAX_LEN), DataType.DT_INT32)
-    t = m.embedding(ids, VOCAB, HIDDEN, AggrMode.AGGR_MODE_NONE)
-    for _ in range(layers):
-        t = m.multihead_attention(t, t, t, HIDDEN, HEADS, causal=True)
-        t = m.dense(t, HIDDEN, ActiMode.AC_MODE_RELU, use_bias=False)
-        t = m.dense(t, HIDDEN, use_bias=False)
-    m.softmax(m.dense(t, VOCAB))
+    lm_layers(m, {"slots": SLOTS, "seq": MAX_LEN, "vocab": VOCAB,
+                  "hidden": HIDDEN, "heads": HEADS, "layers": layers})
     m.compile()
     return m
 
@@ -2520,6 +2514,68 @@ def dtensor_checks(torch, device="cuda"):
     held("pipe_pcg_weight_grad", g.redistribute(pm, [Replicate(),
                                                      Replicate()]), gp,
          [Replicate(), Replicate()])
+    # the dense op's product on local shards (ops/linear.py) on a (1, 1)
+    # mesh of "data" and "seq": the activation sharded on its batch and
+    # sequence dims (the route torch 2.11's matmul refused at sp 2), the
+    # kernel whole, and its gradients
+    from flexflow_tpu_torch.ops import attention as att
+    from flexflow_tpu_torch.ops import linear
+    from flexflow_tpu_torch.ops.registry import FwdCtx
+
+    sm = init_device_mesh(device, (1, 1), mesh_dim_names=("data", "seq"))
+    xw, kw = rand(4, 16, 32), rand(32, 24)
+    xd = distribute_tensor(xw, sm, [Shard(0), Shard(1)],
+                           src_data_rank=None).requires_grad_()
+    kd = distribute_tensor(kw, sm, [Replicate(), Replicate()],
+                           src_data_rank=None).requires_grad_()
+    before = linear.ROUTES["local"]
+    (yd,) = linear._forward(linear.LinearParams(24, use_bias=False),
+                            {"kernel": kd}, [xd], FwdCtx())
+    if linear.ROUTES["local"] != before + 1:
+        raise AssertionError("dtensor dense_local_product: not the local "
+                             "route")
+    gx, gk = torch.autograd.grad((yd * yd).sum(), [xd, kd])
+    xp, kp = xw.clone().requires_grad_(), kw.clone().requires_grad_()
+    yp = xp @ kp
+    gxp, gkp = torch.autograd.grad((yp * yp).sum(), [xp, kp])
+    held("dense_local_product", yd, yp.detach(), [Shard(0), Shard(1)])
+    held("dense_local_grad_x", gx, gxp, [Shard(0), Shard(1)])
+    held("dense_local_grad_kernel", gk.redistribute(
+        sm, [Replicate(), Replicate()]), gkp, [Replicate(), Replicate()])
+    # the decode step per shard (ops/attention.py _forward_decode_mesh:
+    # local_map over the cache's DTensor strips) on a mesh of this one
+    # rank, bf16, a prefill of 5 positions and a one-token step at per-row
+    # positions (the paged-decode kernel on the card), against the plain
+    # step
+    mesh1 = pmesh.build_mesh({"data": 1, "model": 1}, device)
+    mp = att.MultiHeadAttentionParams(embed_dim=64, num_heads=4, causal=True)
+    wts = {"wq": rand(64, 4, 16), "wk": rand(64, 4, 16),
+           "wv": rand(64, 4, 16), "wo": rand(4, 16, 64), "bias_o": rand(64)}
+    bf = torch.bfloat16
+
+    def whole(t):
+        return pmesh.distribute(t, mesh1, mesh1.replicate())
+
+    caches = {"plain": att.init_decode_cache(mp, 2, 32, bf, device),
+              "mesh": att.init_decode_cache(mp, 2, 32, bf, device,
+                                            mesh=mesh1)}
+    ctxs = {"plain": FwdCtx(compute_dtype=bf),
+            "mesh": FwdCtx(compute_dtype=bf, mesh=mesh1)}
+    outs = {}
+    for step_i, (x, t) in enumerate((
+            (rand(2, 5, 64), 0),
+            (rand(2, 1, 64), torch.tensor([5, 5], dtype=torch.int32,
+                                          device=device)))):
+        for kind in ("plain", "mesh"):
+            put = whole if kind == "mesh" else (lambda v: v)
+            (o,), caches[kind] = att._forward_decode(
+                mp, {k: put(v) for k, v in wts.items()}, [put(x)] * 3,
+                ctxs[kind], caches[kind], t)
+            outs[kind] = o
+        held(f"decode_local_map_{'prefill' if step_i == 0 else 'step'}",
+             outs["mesh"], outs["plain"], mesh1.replicate())
+    held("decode_cache_strips", caches["mesh"][0], caches["plain"][0],
+         mesh1.replicate())
     # the ring's and the schedule's hops need a second rank: a send to
     # itself is left out here, and mesh_multi's sp
     # and pp runs hold them
@@ -2700,68 +2756,86 @@ def _multi_fit(torch, m, x, y, steps, device):
 
 def run(rank, world, device, args):
     """The rank program of mesh_multi (runtime/mesh_run.py calls it): each
-    case of MULTI_CASES named in `args[1:]` over the group, in turn: its
-    steps (or its fit, for a scan case, beside the stepwise fit on the
-    same mesh), samples/s, peak memory, counters, and rank 0's weights
-    whole in `<out>/<case>.npz` and its readings in `<out>/<case>.json`."""
+    case of MULTI_CASES or RANK_CASES named in `args[1:]` over the group,
+    in turn, its environment restored after it (`multi_case`,
+    `run_rank_case`)."""
     import torch
 
+    out_dir, names = args[0], args[1:]
+    for name in names:
+        with restored_env():
+            if name in RANK_CASES:
+                run_rank_case(torch, name, rank, world, device, out_dir)
+            else:
+                multi_case(torch, name, rank, world, device, out_dir)
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return 0
+
+
+@contextlib.contextmanager
+def restored_env():
+    """os.environ as it was on entry, again on exit."""
+    env = dict(os.environ)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(env)
+
+
+def multi_case(torch, name, rank, world, device, out_dir):
+    """Case `name` of MULTI_CASES over the group: its steps (or its fit,
+    for a scan case, beside the stepwise fit on the same mesh),
+    samples/s, peak memory, counters, and rank 0's weights whole in
+    `<out>/<case>.npz` and its readings in `<out>/<case>.json`."""
     from flexflow_tpu_torch.ops import attention as att
     from flexflow_tpu_torch.parallel.mesh import local
     from flexflow_tpu_torch.runtime.weights import params_to_numpy
 
-    out_dir, names = args[0], args[1:]
-    for name in names:
-        _, _, impl, _, spd = MULTI_CASES[name]
-        env = dict(os.environ)
-        if impl:
-            os.environ["FF_ATTENTION_IMPL"] = impl
-        att.MESH_PATHS.clear()
-        if device != "cpu":
-            torch.cuda.reset_peak_memory_stats()
-        m, batch = _multi_model(name, device, world, True)
-        x, y = _multi_data(name, batch)
-        ex = m.executor
-        got = {"mesh": ex.mesh.shape, "replicas": ex.mesh.replicas}
-        if spd > 1:
-            # the scan over the mesh, bit for bit the stepwise fit's
-            step = _multi_model(name, device, world, True)[0]
-            step.config.iterations_per_dispatch = 1
-            t_scan = _multi_fit(torch, m, x, y, MULTI_STEPS, device)
-            _multi_fit(torch, step, x, y, MULTI_STEPS, device)
-            differ = sum(not torch.equal(local(w), local(
-                step.params[op][n])) for op, ws in m.params.items()
-                for n, w in ws.items())
-            got.update(samples_per_s=MULTI_STEPS * batch / t_scan,
-                       weights_not_bit_equal_to_stepwise=differ,
-                       graphs_captured=len(ex._scan_graphs))
-            del step
-        else:
-            losses, times = _multi_steps(torch, m, x, y, MULTI_STEPS, device)
-            got.update(losses=losses, samples_per_s=batch / float(
-                np.median(times[1:])))
-        got.update(
-            peak_mem_gb_per_card=(torch.cuda.max_memory_allocated() / 2 ** 30
-                                  if device != "cpu" else None),
-            weight_elements_on_rank0=sum(local(w).numel()
-                                         for ws in m.params.values()
-                                         for w in ws.values()),
-            collectives=dict(ex.collectives),
-            overlap_weights=len(ex._overlap_specs()),
-            attention_routes=dict(att.MESH_PATHS))
-        weights = params_to_numpy(m)
-        if rank == 0:
-            np.savez(os.path.join(out_dir, f"{name}.npz"),
-                     **{f"{op}/{n}": a for op, ws in weights.items()
-                        for n, a in ws.items()})
-            with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
-                json.dump(got, f)
-        os.environ.clear()
-        os.environ.update(env)
-        del m, ex
-        if device != "cpu":
-            torch.cuda.empty_cache()
-    return 0
+    _, _, impl, _, spd = MULTI_CASES[name]
+    if impl:
+        os.environ["FF_ATTENTION_IMPL"] = impl
+    att.MESH_PATHS.clear()
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    m, batch = _multi_model(name, device, world, True)
+    x, y = _multi_data(name, batch)
+    ex = m.executor
+    got = {"mesh": ex.mesh.shape, "replicas": ex.mesh.replicas}
+    if spd > 1:
+        # the scan over the mesh, bit for bit the stepwise fit's
+        step = _multi_model(name, device, world, True)[0]
+        step.config.iterations_per_dispatch = 1
+        t_scan = _multi_fit(torch, m, x, y, MULTI_STEPS, device)
+        _multi_fit(torch, step, x, y, MULTI_STEPS, device)
+        differ = sum(not torch.equal(local(w), local(
+            step.params[op][n])) for op, ws in m.params.items()
+            for n, w in ws.items())
+        got.update(samples_per_s=MULTI_STEPS * batch / t_scan,
+                   weights_not_bit_equal_to_stepwise=differ,
+                   graphs_captured=len(ex._scan_graphs))
+        del step
+    else:
+        losses, times = _multi_steps(torch, m, x, y, MULTI_STEPS, device)
+        got.update(losses=losses, samples_per_s=batch / float(
+            np.median(times[1:])))
+    got.update(
+        peak_mem_gb_per_card=(torch.cuda.max_memory_allocated() / 2 ** 30
+                              if device != "cpu" else None),
+        weight_elements_on_rank0=sum(local(w).numel()
+                                     for ws in m.params.values()
+                                     for w in ws.values()),
+        collectives=dict(ex.collectives),
+        overlap_weights=len(ex._overlap_specs()),
+        attention_routes=dict(att.MESH_PATHS))
+    weights = params_to_numpy(m)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, f"{name}.npz"),
+                 **{f"{op}/{n}": a for op, ws in weights.items()
+                    for n, a in ws.items()})
+        with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+            json.dump(got, f)
 
 
 def mesh_multi(torch):
@@ -2804,8 +2878,10 @@ def mesh_multi(torch):
                         for n_, w in ws.items()}}
         del one
         torch.cuda.empty_cache()
+    tp_strategy(os.path.join(out_dir, "lm_tp2.json"), lm_sizes("cuda"))
     rcs = launch(world, ["--device", "cuda", os.path.abspath(__file__),
-                         out_dir, *MULTI_CASES], out_dir, timeout=600)
+                         out_dir, *MULTI_CASES, *MULTI_SERVING], out_dir,
+                 timeout=900)
     if rcs != [0] * world:
         raise AssertionError(f"mesh multi-card: ranks exited {rcs} (logs "
                              f"in {out_dir})")
@@ -2832,7 +2908,55 @@ def mesh_multi(torch):
             f"{got['peak_mem_gb_per_card']:.2f} GiB a card, worst "
             f"{worst:.3g} of the tolerance; routes "
             f"{got['attention_routes']}; collectives {got['collectives']}")
+    cases.update(multi_serving(torch, out_dir, world))
     return {"ran": True, "world": world, "cases": cases}
+
+
+def multi_serving(torch, out_dir, world):
+    """MULTI_SERVING's readings against one card: serve_tp2's prefill
+    logits (MULTI_RTOL), ckpt_reshard's restore at tp 2 bit-equal on the
+    ranks and on one card, canary_dp2 clean and raising on every rank."""
+    import shutil
+
+    from flexflow_tpu_torch.runtime.checkpoint import restore_checkpoint
+
+    out = {"serve_tp2": check_serve_tp2(torch, out_dir, world, "cuda",
+                                        MULTI_RTOL, MULTI_ATOL)}
+    ck = rank_results("ckpt_reshard", world, out_dir)
+    one = ckpt_model(torch, "cuda", MULTI_LAYERS, mixed=False)
+    restore_checkpoint(one, os.path.join(out_dir, "ck_reshard"),
+                       strict_topology=False)
+    got = state_arrays(torch, one)
+    with np.load(os.path.join(out_dir, "ckpt_reshard.npz")) as z:
+        off_card = [k for k in z.files
+                    if not np.array_equal(z[k], got[k].float().numpy())]
+    # the checkpoint and the saved state are hundreds of MB: read, gone
+    shutil.rmtree(os.path.join(out_dir, "ck_reshard"), ignore_errors=True)
+    for f in ("ck_reshard.meta.json", "ckpt_reshard.npz"):
+        os.remove(os.path.join(out_dir, f))
+    if any(o["not_bit_equal"] for o in ck) or off_card:
+        raise AssertionError(f"ckpt_reshard: not bit-equal on the ranks "
+                             f"{[o['not_bit_equal'][:3] for o in ck]}, on "
+                             f"one card {off_card[:3]}")
+    out["ckpt_reshard"] = {"mesh_save": ck[0]["mesh_save"],
+                           "mesh_restore": ck[0]["mesh_restore"],
+                           "report": ck[0]["report"], "leaves": len(got),
+                           "not_bit_equal": 0}
+    can = rank_results("canary_dp2", world, out_dir)
+    if any(o["clean_not_bit_equal"] or o["errors"] != {
+            "flip": "CanaryMismatchError"} for o in can):
+        raise AssertionError(f"canary_dp2: {can}")
+    out["canary_dp2"] = {"mesh": can[0]["mesh"], "clean_bit_equal": True,
+                         "flip_raised_on_every_rank": True}
+    tp2 = out["serve_tp2"]
+    log(f"  mesh multi-card serving and state ({world} cards): serve_tp2 "
+        f"prefill within {tp2['prefill_worst_of_tolerance']:.3g} of the "
+        f"tolerance, token agreement {tp2['token_agreement']:.3f}, a "
+        f"token {min(tp2['step_ms_tp2']):.3f} ms at tp 2 against "
+        f"{tp2['step_ms_one_card']:.3f} ms on one card; ckpt_reshard "
+        f"{len(got)} leaves bit-equal at tp 2 and on one card; canary_dp2 "
+        "clean, and a flip on rank 1 raised on every rank")
+    return out
 
 
 def mesh_phase(torch):
@@ -3000,6 +3124,7 @@ def mesh_phase(torch):
         summary["dtensor_checks"] = dtensor_checks(torch)
     finally:
         rdist.shutdown()
+    summary["gloo_checks"] = gloo_checks(torch)
     summary["multi"] = mesh_multi(torch)
     torch.cuda.empty_cache()
     summary["phase_s"] = time.perf_counter() - t_phase
@@ -3010,6 +3135,675 @@ def mesh_phase(torch):
         f"{profiles['mesh']['nccl_kernels_a_step']}; phase "
         f"{summary['phase_s']:.1f} s")
     return summary
+
+
+# -- serving and state over a mesh ------------------------------------------
+# The mesh_serving phase (a group of one rank over NCCL): the serving LM
+# at its full width through compile_decode on the group, `generate`
+# (MESH_SERVE_NEW tokens on SLOTS prompts of MESH_SERVE_PLEN, every
+# one-token step a replay of the captured mesh decode step),
+# incremental_generate and the continuous batcher (requests of
+# MESH_SERVE_REQUESTS tokens), each against the plain executor's on the
+# same weights: tokens equal, logits bit-equal (the same kernels run on
+# the same operands). The mesh model serves once on its seed's weights
+# before the reference's are restored into it, so every check also
+# holds the decode to weights that moved under it. Then the flagship cut to MESH_CKPT_LAYERS blocks
+# (SGD with momentum) saved and restored on the mesh, bit-equal, and a
+# canaried mesh fit of MESH_CANARY_STEPS steps against a plain mesh fit.
+MESH_SERVE_PLEN, MESH_SERVE_NEW = 64, 16
+MESH_SERVE_REQUESTS = (16, 64, 128, 200, 256)
+MESH_CKPT_LAYERS, MESH_CANARY_STEPS = 4, 2
+# The CPU-gloo checks of DTensor's rules on this machine's torch (two
+# gloo ranks, no card): the flagship and the serving LM cut to these
+# widths (the rules do not depend on the sizes).
+GLOO_TF = {"batch": 4, "seq": 16, "hidden": 32, "heads": 4, "layers": 2}
+GLOO_LM = {"slots": 2, "seq": 16, "vocab": 64, "hidden": 32, "heads": 4,
+           "layers": 1, "plen": 4, "new": 2}
+GLOO_RTOL, GLOO_ATOL = 1e-5, 1e-6
+
+
+def lm_sizes(device):
+    """The serving LM's sizes for a multi-rank serving case: its full
+    width at MULTI_LAYERS blocks on cards, GLOO_LM on the CPU."""
+    if device == "cpu":
+        return dict(GLOO_LM)
+    return {"slots": SLOTS, "seq": MAX_LEN, "vocab": VOCAB, "hidden": HIDDEN,
+            "heads": HEADS, "layers": MULTI_LAYERS, "plen": 64, "new": 4}
+
+
+def lm_layers(m, sz):
+    """The serving LM's layers at sizes `sz` (slots, seq, vocab, hidden,
+    heads, layers)."""
+    from flexflow_tpu_torch.ff_types import ActiMode, AggrMode, DataType
+
+    ids = m.create_tensor((sz["slots"], sz["seq"]), DataType.DT_INT32)
+    t = m.embedding(ids, sz["vocab"], sz["hidden"], AggrMode.AGGR_MODE_NONE)
+    for _ in range(sz["layers"]):
+        t = m.multihead_attention(t, t, t, sz["hidden"], sz["heads"],
+                                  causal=True)
+        t = m.dense(t, sz["hidden"], ActiMode.AC_MODE_RELU, use_bias=False)
+        t = m.dense(t, sz["hidden"], use_bias=False)
+    m.softmax(m.dense(t, sz["vocab"]))
+
+
+def lm_model(device, sz):
+    """The serving LM of sizes `sz` in f32 (a mesh's sums and one device's
+    then agree closely), compiled for serving, weights from seed 0."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    m = FFModel(FFConfig(batch_size=sz["slots"], seed=0, device=device))
+    lm_layers(m, sz)
+    m.compile()
+    return m
+
+
+def tp_strategy(path, sz):
+    """A strategy_io file of the serving LM at tensor parallel degree 2
+    (heads, columns and the embedding's width over "model")."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.parallel import strategies
+    from flexflow_tpu_torch.pcg.lowering import layers_to_pcg
+    from flexflow_tpu_torch.runtime.strategy_io import export_strategy
+
+    m = FFModel(FFConfig(batch_size=sz["slots"], device="cpu"))
+    lm_layers(m, sz)
+    graph, _ = layers_to_pcg(m.layers)
+    strategies.apply_tensor_parallel(graph, 2, axis_idx=1)
+    export_strategy(graph, types.SimpleNamespace(views={}, cost=None), path)
+    return path
+
+
+def lm_prompts(sz):
+    return np.random.RandomState(7).randint(
+        0, sz["vocab"], (sz["slots"], sz["plen"])).astype(np.int32)
+
+
+def decode_run(torch, ex, params, prompts, new, max_len):
+    """`incremental_generate`'s loop over executor `ex`: the prompts'
+    prefill, then one token a step at per-row positions (on a card each a
+    replay of the captured step). Returns (tokens, the logits each step
+    predicted from, stacked, on the device)."""
+    from flexflow_tpu_torch.parallel.mesh import local
+
+    bs, plen = prompts.shape
+    init, step = ex.build_decode(bs, max_len)
+    caches = init(params)
+    out = np.zeros((bs, plen + new), np.int32)
+    out[:, :plen] = prompts
+    logits, caches = step(params, caches, 0, [prompts])
+    rows = [local(logits)[:, -1].clone()]
+    out[:, plen] = rows[-1].argmax(-1).cpu().numpy()
+    for t in range(plen, plen + new - 1):
+        logits, caches = step(params, caches, np.full(bs, t, np.int32),
+                              [out[:, t:t + 1]])
+        rows.append(local(logits)[:, 0].clone())
+        out[:, t + 1] = rows[-1].argmax(-1).cpu().numpy()
+    return out, torch.stack(rows)
+
+
+def captured_step_ms(torch, ex, params):
+    """The serving LM's one-token step with every slot at mid-length on
+    the host clock, warm (best of 5 after 2), as decode_step_profile
+    reads it: on the card a replay of the captured step."""
+    init, step = ex.build_decode(SLOTS, MAX_LEN)
+    caches = init(params)
+    t = np.full(SLOTS, MAX_LEN // 2, np.int32)
+    tok = np.random.RandomState(2).randint(0, VOCAB, (SLOTS, 1)) \
+        .astype(np.int32)
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, caches, t, [tok])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return min(times[2:])
+
+
+def batcher_answers(torch, model, prompts, new):
+    """A ContinuousBatcher over `model` answering `prompts` (`new` tokens
+    each): (answers, decode_strategy_active, stats, seconds)."""
+    from flexflow_tpu_torch.runtime.serving import (AdmissionQueue,
+                                                    ContinuousBatcher,
+                                                    GenerationRequest,
+                                                    ServingConfig)
+
+    q = AdmissionQueue(max_depth=len(prompts))
+    b = ContinuousBatcher(model, ServingConfig(max_len=MAX_LEN, slots=SLOTS,
+                                               page_size=16), q)
+    reqs = [GenerationRequest(p, new, deadline_s=600.0) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b.start()
+    try:
+        for r in reqs:
+            q.offer(r)
+        for r in reqs:
+            while not r.done() and not b.dead:
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError(f"batcher: {r.id} unanswered "
+                                         "after 600 s")
+                time.sleep(0.01)
+        if b.dead:
+            raise AssertionError(f"batcher died: {b.death_cause!r}")
+        outs = [r.result() for r in reqs]
+    finally:
+        b.stop()
+    torch.cuda.synchronize()
+    return outs, b.decode_strategy_active, dict(b.stats), \
+        time.perf_counter() - t0
+
+
+def ckpt_model(torch, device="cuda", layers=MESH_CKPT_LAYERS, mixed=True,
+               **cfg):
+    """The flagship at `layers` blocks (GLOO_TF's widths on the CPU) with
+    SGD momentum (its slots are state a checkpoint carries), bf16 over
+    f32 where `mixed`, weights from seed 0; `cfg`: FFConfig fields."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType
+    from flexflow_tpu_torch.models import build_transformer
+
+    if device == "cuda":
+        batch, seq, hidden, heads = TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS
+    else:
+        batch, seq, hidden, heads = (GLOO_TF[k] for k in (
+            "batch", "seq", "hidden", "heads"))
+    m = FFModel(FFConfig(batch_size=batch, seed=0, device=device,
+                         allow_mixed_precision=mixed, **cfg))
+    build_transformer(m, batch, seq, hidden, heads, layers)
+    m.compile(SGDOptimizer(lr=0.01, momentum=0.9),
+              LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE)
+    return m
+
+
+def state_arrays(torch, m):
+    """Every tensor of the model's state whole, on the host: weights
+    ("w/op/name") and optimizer slots ("o/slot/op/name")."""
+    from flexflow_tpu_torch.parallel.mesh import full
+
+    out = {f"w/{op}/{n}": full(w).detach().cpu()
+           for op, ws in m.params.items() for n, w in ws.items()}
+    for k, tree in (m.state.opt_state or {}).items():
+        if isinstance(tree, dict):
+            out.update({f"o/{k}/{op}/{n}": full(t).detach().cpu()
+                        for op, ws in tree.items() for n, t in ws.items()})
+    return out
+
+
+def ckpt_data(m):
+    shape = tuple(m.executor.input_pts[0].material_shape())
+    rng = np.random.RandomState(0)
+    return (rng.randn(*shape).astype(np.float32),
+            rng.randn(*shape).astype(np.float32))
+
+
+def mesh_checkpoint(torch):
+    """The flagship (MESH_CKPT_LAYERS blocks, SGD momentum) on the mesh,
+    one step taken, saved; a fresh model on the mesh restored from it:
+    every weight and slot bit-equal; save and restore ms."""
+    import shutil
+    import tempfile
+
+    from flexflow_tpu_torch.runtime.checkpoint import (restore_checkpoint,
+                                                       save_checkpoint)
+
+    m = ckpt_model(torch)
+    x, y = ckpt_data(m)
+    m.state, _ = m.executor.build_train_step()(m.state, [x], y, 0)
+    want, saved_step = state_arrays(torch, m), m.state.step
+    d = tempfile.mkdtemp(prefix="ff_mesh_ckpt_")
+    try:
+        path = os.path.join(d, "step_1")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(m, path)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        del m
+        fresh = ckpt_model(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = restore_checkpoint(fresh, path)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        got = state_arrays(torch, fresh)
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    if differ or set(want) != set(got) or step != saved_step:
+        raise AssertionError(f"mesh checkpoint: {len(differ)} leaves differ "
+                             f"after restore ({differ[:3]}), step {step}")
+    out = {"layers": MESH_CKPT_LAYERS, "leaves": len(want),
+           "leaves_not_bit_equal": 0, "bytes": nbytes, "save_ms": save_ms,
+           "restore_ms": restore_ms, "executor": type(
+               fresh.executor).__name__}
+    log(f"  mesh checkpoint: {len(want)} leaves bit-equal after restore; "
+        f"{nbytes / 2 ** 20:.1f} MiB saved in {save_ms:.1f} ms, restored "
+        f"in {restore_ms:.1f} ms")
+    return out
+
+
+def mesh_canary(torch):
+    """A canaried fit on the mesh (every step re-executed and compared
+    bitwise) against a plain fit on the mesh from the same weights: no
+    violation, the weights bit-equal."""
+    from flexflow_tpu_torch.runtime.verify import CanaryConfig
+
+    runs = {}
+    for name in ("canary", "plain"):
+        m = ckpt_model(torch)
+        x, y = ckpt_data(m)
+        xs, ys = (np.concatenate([a] * MESH_CANARY_STEPS) for a in (x, y))
+        kw = {"canary": CanaryConfig(every_n_steps=1)} \
+            if name == "canary" else {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            m.fit(xs, ys, batch_size=x.shape[0], epochs=1, **kw)
+        torch.cuda.synchronize()
+        runs[name] = (state_arrays(torch, m), time.perf_counter() - t0)
+        del m
+        torch.cuda.empty_cache()
+    a, b = runs["canary"][0], runs["plain"][0]
+    differ = [k for k in b if not torch.equal(a[k], b[k])]
+    if differ:
+        raise AssertionError(f"mesh canary: {len(differ)} leaves differ "
+                             f"from the plain fit ({differ[:3]})")
+    out = {"steps": MESH_CANARY_STEPS, "layers": MESH_CKPT_LAYERS,
+           "violations": 0, "leaves_not_bit_equal_to_plain": 0,
+           "canary_s": runs["canary"][1], "plain_s": runs["plain"][1]}
+    log(f"  mesh canary: {MESH_CANARY_STEPS} checked steps clean, weights "
+        f"bit-equal to a plain fit ({runs['canary'][1]:.2f} s against "
+        f"{runs['plain'][1]:.2f} s)")
+    return out
+
+
+def mesh_serving(torch):
+    """The mesh_serving phase (see the constants above MESH_SERVE_PLEN).
+    The plain references run before the group is up; the kernels' counts
+    are reset just before the mesh's main path and read just after.
+    Returns the summary."""
+    import shutil
+    import tempfile
+
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.ops import attention as att
+    from flexflow_tpu_torch.runtime import distributed as rdist
+    from flexflow_tpu_torch.runtime.checkpoint import (restore_checkpoint,
+                                                       save_checkpoint)
+    from flexflow_tpu_torch.runtime.serving import incremental_generate
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(5)
+    prompts = rng.randint(0, VOCAB, (SLOTS, MESH_SERVE_PLEN)).astype(
+        np.int32)
+    reqs = [rng.randint(0, VOCAB, n).astype(np.int32)
+            for n in MESH_SERVE_REQUESTS]
+    plain = build_model(torch)
+    ids = np.random.RandomState(1).randint(0, VOCAB, (SLOTS, MAX_LEN))
+    unit_scale_weights(torch, plain, ids.astype(np.int32))
+    ckpt_dir = tempfile.mkdtemp(prefix="ff_mesh_serving_")
+    save_checkpoint(plain, os.path.join(ckpt_dir, "weights"))
+    ref_toks, ref_logits = decode_run(torch, plain.executor, plain.params,
+                                      prompts, MESH_SERVE_NEW, MAX_LEN)
+    ref_inc = incremental_generate(plain, prompts,
+                                   max_new_tokens=MESH_SERVE_NEW,
+                                   max_len=MAX_LEN)
+    ref_batch = batcher_answers(torch, plain, reqs, MESH_SERVE_NEW)[0]
+    plain_ms = captured_step_ms(torch, plain.executor, plain.params)
+    del plain
+    torch.cuda.empty_cache()
+    summary = {}
+    rdist.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda",
+                           timeout_s=120)
+    try:
+        m = build_model(torch)
+        t0 = time.perf_counter()
+        dex = m.compile_decode()
+        compile_decode_s = time.perf_counter() - t0
+        # served first on its seed's weights (their bf16 copies cached, a
+        # step captured), then the reference's weights restored into the
+        # same tensors: every later decode must read the restored ones
+        decode_run(torch, dex, m.params, prompts, 2, MAX_LEN)
+        restore_checkpoint(m, os.path.join(ckpt_dir, "weights"))
+        if (type(m.executor).__name__, type(dex).__name__) != (
+                "MeshExecutor", "MeshExecutor"):
+            raise AssertionError(
+                f"mesh_serving: {type(m.executor).__name__} and "
+                f"{type(dex).__name__}")
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        att.MESH_PATHS.clear()
+        toks, logits = decode_run(torch, dex, m.params, prompts,
+                                  MESH_SERVE_NEW, MAX_LEN)
+        torch.cuda.synchronize()
+        run_counts = dict(build.launch_counts)
+        inc = incremental_generate(m, prompts, max_new_tokens=MESH_SERVE_NEW,
+                                   max_len=MAX_LEN)
+        batch, active, stats, batch_s = batcher_answers(
+            torch, m, reqs, MESH_SERVE_NEW)
+        torch.cuda.synchronize()
+        counts = dict(build.launch_counts)
+        paths = dict(build.path_counts)
+        routes = dict(att.MESH_PATHS)
+        # the one-token steps of decode_run, and its first replay's
+        # warm-up run (a real step, counted)
+        steps = MESH_SERVE_NEW - 1
+        if run_counts.get("paged_decode") != LAYERS * (steps + 1):
+            raise AssertionError(
+                f"mesh_serving: {run_counts.get('paged_decode')} paged "
+                f"launches for {steps} one-token steps of {LAYERS} layers")
+        if not np.array_equal(toks, ref_toks):
+            raise AssertionError("mesh_serving: the mesh decode's tokens "
+                                 "differ from the plain executor's")
+        if not torch.equal(logits, ref_logits):
+            gap = (logits.float() - ref_logits.float()).abs().max().item()
+            raise AssertionError(f"mesh_serving: logits not bit-equal to the "
+                                 f"plain executor's (largest gap {gap})")
+        if not np.array_equal(inc, ref_inc):
+            raise AssertionError("mesh_serving: incremental_generate on the "
+                                 "mesh differs from the plain executor's")
+        bad = [i for i, (a, b) in enumerate(zip(batch, ref_batch))
+               if not np.array_equal(a, b)]
+        if bad or not active:
+            raise AssertionError(f"mesh_serving: batcher answers {bad} differ "
+                                 f"(decode executor active: {active})")
+        paged = {k: paths.get(k, 0) for k in ("paged_decode_cluster",
+                                              "paged_decode_block")}
+        if paged["paged_decode_block"] or not counts.get("paged_decode"):
+            raise AssertionError(f"mesh_serving: paged launches by path "
+                                 f"{paged}")
+        mesh_ms = captured_step_ms(torch, dex, m.params)
+        summary.update({
+            "world_size": 1, "backend": "nccl",
+            "decode_mesh": dex.mesh.shape,
+            "compile_decode_s": compile_decode_s,
+            "tokens": SLOTS * MESH_SERVE_NEW,
+            "tokens_equal_plain": True, "logits_bit_equal_plain": True,
+            "incremental_generate_equal_plain": True,
+            "batcher": {"requests": len(reqs), "equal_plain": len(reqs),
+                        "decode_strategy_active": active,
+                        "iterations": stats["iterations"], "s": batch_s},
+            "paged_launches_decode_run": run_counts.get("paged_decode"),
+            "one_token_steps_decode_run": steps,
+            "decode_routes": routes,
+            "captured_step_ms_mesh": mesh_ms,
+            "captured_step_ms_plain": plain_ms,
+            "launches": counts, "launches_by_path": paths})
+        log(f"  mesh_serving: {SLOTS}x{MESH_SERVE_NEW} tokens equal, logits "
+            f"bit-equal to the plain executor's; batcher {len(reqs)}/"
+            f"{len(reqs)} equal (decode executor active); captured step "
+            f"{mesh_ms:.3f} ms on the mesh against {plain_ms:.3f} ms plain; "
+            f"paged launches {counts.get('paged_decode')}")
+        del m, dex
+        torch.cuda.empty_cache()
+        summary["checkpoint"] = mesh_checkpoint(torch)
+        torch.cuda.empty_cache()
+        summary["canary"] = mesh_canary(torch)
+    finally:
+        rdist.shutdown()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return summary
+
+
+# -- the serving and state rank cases of `run`: the CPU-gloo checks of
+# DTensor's rules ("gloo_*", two gloo ranks at small widths) and the
+# multi-card ones (MULTI_SERVING). Each returns (readings, rank 0's
+# arrays or None).
+def gloo_flagship(device, **cfg):
+    """The flagship at GLOO_TF's widths, f32, SGD lr 0.01, seed 0."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType
+    from flexflow_tpu_torch.models import build_transformer
+
+    tf = GLOO_TF
+    m = FFModel(FFConfig(batch_size=tf["batch"], seed=0, device=device,
+                         **cfg))
+    build_transformer(m, tf["batch"], tf["seq"], tf["hidden"], tf["heads"],
+                      tf["layers"])
+    m.compile(SGDOptimizer(lr=0.01),
+              LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE)
+    return m
+
+
+def gloo_flagship_data():
+    tf = GLOO_TF
+    rng = np.random.RandomState(3)
+    return tuple(rng.randn(tf["batch"], tf["seq"], tf["hidden"]).astype(
+        np.float32) for _ in range(2))
+
+
+def _flat(tree):
+    return {f"{op}/{n}": a for op, ws in tree.items() for n, a in ws.items()}
+
+
+def case_sp_ring(torch, rank, world, device, out_dir):
+    """The flagship at sp 2 with ring attention: its first train step (the
+    loss, the dense op's local products, the gathers; the weights)."""
+    from flexflow_tpu_torch.ops import linear
+    from flexflow_tpu_torch.parallel import mesh as pmesh
+    from flexflow_tpu_torch.runtime.weights import params_to_numpy
+
+    os.environ["FF_ATTENTION_IMPL"] = "ring"
+    linear.ROUTES.clear()
+    pmesh.GATHERED.clear()
+    m = gloo_flagship(device, sequence_parallel_degree=2)
+    x, y = gloo_flagship_data()
+    m.state, partials = m.executor.build_train_step()(m.state, [x], y, 0)
+    got = {"loss": float(partials["loss"]), "mesh": m.executor.mesh.shape,
+           "dense_local": linear.ROUTES["local"],
+           "gathered": dict(pmesh.GATHERED)}
+    return got, _flat(params_to_numpy(m))
+
+
+def case_serve_tp2(torch, rank, world, device, out_dir):
+    """The serving LM (lm_sizes) decoded through compile_decode from the
+    tp 2 strategy file the parent wrote (`lm_tp2.json`): the tokens, the
+    decode mesh, each rank's cache strips, the collectives; the
+    logits."""
+    from flexflow_tpu_torch.parallel.mesh import local
+
+    sz = lm_sizes(device)
+    m = lm_model(device, sz)
+    dex = m.compile_decode(strategy_path=os.path.join(out_dir,
+                                                      "lm_tp2.json"))
+    toks, logits = decode_run(torch, dex, m.params, lm_prompts(sz),
+                              sz["new"], sz["seq"])
+    init = dex.build_decode(sz["slots"], sz["seq"])[0]
+    caches = init(m.params)
+    got = {"tokens": toks.tolist(), "decode_mesh": dex.mesh.shape,
+           "cache_local": [list(local(c).shape)
+                           for kv in caches["mha"].values() for c in kv],
+           "collectives": dict(dex.collectives)}
+    if device == "cuda":
+        # a token's latency at tp 2: the captured step's replay
+        got["step_ms"] = captured_step_ms(torch, dex, m.params)
+    return got, {"logits": logits.float().cpu().numpy()}
+
+
+def case_ckpt_reshard(torch, rank, world, device, out_dir):
+    """The flagship (MULTI_LAYERS, f32, SGD momentum) at dp x fsdp 2 (4
+    ranks; dp on 2) one step in, saved; the same model at tp 2 restored
+    from it: the leaves not bit-equal (none expected); the saved state."""
+    from flexflow_tpu_torch.runtime.checkpoint import (restore_checkpoint,
+                                                       save_checkpoint)
+
+    a = ckpt_model(torch, device, MULTI_LAYERS, mixed=False,
+                   fsdp_degree=2 if world >= 4 else 1)
+    x, y = ckpt_data(a)
+    a.state, _ = a.executor.build_train_step()(a.state, [x], y, 0)
+    save_checkpoint(a, os.path.join(out_dir, "ck_reshard"))
+    want = state_arrays(torch, a)
+    b = ckpt_model(torch, device, MULTI_LAYERS, mixed=False,
+                   tensor_parallel_degree=2)
+    restore_checkpoint(b, os.path.join(out_dir, "ck_reshard"),
+                       strict_topology=False)
+    got = state_arrays(torch, b)
+    return {"mesh_save": a.executor.mesh.shape,
+            "mesh_restore": b.executor.mesh.shape,
+            "report": b._restore_report,
+            "not_bit_equal": [k for k in want
+                              if not torch.equal(want[k], got[k])]}, \
+        {k: v.float().numpy() for k, v in want.items()}
+
+
+def case_canary_dp2(torch, rank, world, device, out_dir):
+    """A canaried fit (every step checked) on the data axis against a
+    plain fit (the leaves not bit-equal: none expected), then a bit
+    flipped on rank 1 alone at step 1: the error each rank raised."""
+    from flexflow_tpu_torch.runtime.resilience import FaultInjector
+    from flexflow_tpu_torch.runtime.verify import CanaryConfig
+
+    states, errors = {}, {}
+    for run in ("canary", "plain", "flip"):
+        m = ckpt_model(torch, device, MULTI_LAYERS, mixed=False)
+        x, y = ckpt_data(m)
+        xs, ys = (np.concatenate([a] * MESH_CANARY_STEPS) for a in (x, y))
+        kw = {} if run == "plain" else {"canary": CanaryConfig(
+            every_n_steps=1)}
+        if run == "flip" and rank == 1:
+            kw["fault_injector"] = FaultInjector()
+            kw["fault_injector"].inject("bitflip", at_step=1)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                m.fit(xs, ys, batch_size=x.shape[0], epochs=1, **kw)
+        except Exception as e:  # the flipped run must raise on every rank
+            errors[run] = type(e).__name__
+        states[run] = state_arrays(torch, m)
+    return {"errors": errors, "mesh": m.executor.mesh.shape,
+            "clean_not_bit_equal": [
+                k for k in states["plain"] if not torch.equal(
+                    states["canary"][k], states["plain"][k])]}, None
+
+
+RANK_CASES = {"gloo_sp_ring": case_sp_ring, "gloo_serve_tp2": case_serve_tp2,
+              "serve_tp2": case_serve_tp2, "ckpt_reshard": case_ckpt_reshard,
+              "canary_dp2": case_canary_dp2}
+# the serving and state cases mesh_multi adds on a machine of 2+ cards
+MULTI_SERVING = ("serve_tp2", "ckpt_reshard", "canary_dp2")
+
+
+def run_rank_case(torch, name, rank, world, device, out_dir):
+    """RANK_CASES[name] on this rank; rank 0 writes its readings to
+    `<out>/<name>.json` (every rank's error, if one raised) and its arrays
+    to `<out>/<name>.npz`."""
+    try:
+        got, arrays = RANK_CASES[name](torch, rank, world, device, out_dir)
+    except Exception as e:  # recorded for the parent, which fails on it
+        import traceback
+
+        got, arrays = {"error": f"{type(e).__name__}: {e}",
+                       "traceback": traceback.format_exc()}, None
+    with open(os.path.join(out_dir, f"{name}.rank{rank}.json"), "w") as f:
+        json.dump(got, f)
+    if rank == 0 and arrays:
+        np.savez(os.path.join(out_dir, f"{name}.npz"), **arrays)
+
+
+def rank_results(name, world, out_dir):
+    """Every rank's readings of rank case `name`; raises on a rank's
+    error."""
+    outs = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{name}.rank{r}.json")) as f:
+            outs.append(json.load(f))
+        if "error" in outs[-1]:
+            raise AssertionError(f"{name} on rank {r}: "
+                                 f"{outs[-1]['traceback']}")
+    return outs
+
+
+def check_serve_tp2(torch, out_dir, world, device, rtol, atol):
+    """serve_tp2's ranks against the serving LM decoded on one device
+    (`device`) by the plain executor from the same seed's weights: the
+    prefill's logits within (rtol, atol), each rank's cache half the
+    heads, the token agreement (tokens equal on the CPU, f32 at small
+    widths); on cards a token's latency at tp 2 beside one card's."""
+    outs = rank_results("serve_tp2" if device == "cuda" else
+                        "gloo_serve_tp2", world, out_dir)
+    sz = lm_sizes(device)
+    ref = lm_model(device, sz)
+    toks, logits = decode_run(torch, ref.executor, ref.params,
+                              lm_prompts(sz), sz["new"], sz["seq"])
+    with np.load(os.path.join(out_dir, ("serve_tp2" if device == "cuda"
+                                        else "gloo_serve_tp2") + ".npz")) as z:
+        got = z["logits"]
+    want = logits.float().cpu().numpy()
+    worst = float(np.max(np.abs(got[0] - want[0]) / (atol + rtol * np.abs(
+        want[0]))))
+    agree = float(np.mean(np.asarray(outs[0]["tokens"]) == toks))
+    heads = [c[2] for c in outs[0]["cache_local"]]
+    if worst > 1.0 or any(h != sz["heads"] // 2 for h in heads) or (
+            device == "cpu" and agree != 1.0):
+        raise AssertionError(f"serve_tp2: prefill logits at {worst} of the "
+                             f"tolerance, cache heads {heads}, token "
+                             f"agreement {agree}")
+    got = {"decode_mesh": outs[0]["decode_mesh"],
+           "prefill_worst_of_tolerance": worst, "token_agreement": agree,
+           "cache_local": outs[0]["cache_local"],
+           "collectives": outs[0]["collectives"]}
+    if device == "cuda":
+        got.update(step_ms_tp2=[o["step_ms"] for o in outs],
+                   step_ms_one_card=captured_step_ms(torch, ref.executor,
+                                                     ref.params))
+    return got
+
+
+def gloo_checks(torch):
+    """The CPU-gloo check of DTensor's rules on this machine's torch: two
+    gloo ranks (no card) run sp_ring's first step (the flagship at
+    GLOO_TF's widths, sp 2, ring) and serve_tp2's first tokens (the
+    serving LM at GLOO_LM's, tp 2 from a strategy file), each against the
+    same model on one CPU device without a group: the weights after the
+    step and the logits within (GLOO_RTOL, GLOO_ATOL), the tokens equal,
+    the dense op's products on local shards (no dense operand gathered).
+    Runs with no group up."""
+    from flexflow_tpu_torch.runtime.mesh_run import launch
+    from flexflow_tpu_torch.runtime.weights import params_to_numpy
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(REPO, "chiprun_out", "gloo_checks")
+    os.makedirs(out_dir, exist_ok=True)
+    tp_strategy(os.path.join(out_dir, "lm_tp2.json"), GLOO_LM)
+    names = ["gloo_sp_ring", "gloo_serve_tp2"]
+    rcs = launch(2, ["--device", "cpu", os.path.abspath(__file__), out_dir,
+                     *names], out_dir, timeout=300)
+    if rcs != [0, 0]:
+        raise AssertionError(f"gloo checks: ranks exited {rcs} (logs in "
+                             f"{out_dir})")
+    sp = rank_results("gloo_sp_ring", 2, out_dir)
+    ref = gloo_flagship("cpu")
+    x, y = gloo_flagship_data()
+    ref.state, partials = ref.executor.build_train_step()(ref.state, [x], y,
+                                                          0)
+    want = _flat(params_to_numpy(ref))
+    with np.load(os.path.join(out_dir, "gloo_sp_ring.npz")) as z:
+        worst = max(float(np.max(np.abs(z[k] - a) / (
+            GLOO_ATOL + GLOO_RTOL * np.abs(a)))) for k, a in want.items())
+    if worst > 1.0 or not sp[0]["dense_local"] or any(
+            "linear" in k for k in sp[0]["gathered"]):
+        raise AssertionError(f"gloo sp_ring: weights at {worst} of the "
+                             f"tolerance, dense local products "
+                             f"{sp[0]['dense_local']}, gathered "
+                             f"{sp[0]['gathered']}")
+    out = {"label": f"CPU-gloo check of DTensor's rules on torch "
+                    f"{torch.__version__} (2 gloo ranks, no card)",
+           "sp_ring": {"mesh": sp[0]["mesh"], "loss": sp[0]["loss"],
+                       "loss_one_device": float(partials["loss"]),
+                       "weights_worst_of_tolerance": worst,
+                       "dense_local_products": sp[0]["dense_local"]},
+           "serve_tp2": check_serve_tp2(torch, out_dir, 2, "cpu", GLOO_RTOL,
+                                        GLOO_ATOL)}
+    out["s"] = time.perf_counter() - t0
+    log(f"  {out['label']}: sp_ring's first step within "
+        f"{worst:.3g} of the tolerance ({sp[0]['dense_local']} dense "
+        f"products on local shards), serve_tp2's tokens equal, prefill "
+        f"logits within {out['serve_tp2']['prefill_worst_of_tolerance']:.3g}"
+        f" of it ({out['s']:.1f} s)")
+    return out
 
 
 def _nccl_events(torch, step, model, x, y):
@@ -7670,6 +8464,11 @@ def main() -> int:
     mesh = mesh_phase(torch)
     torch.cuda.empty_cache()
 
+    log("# mesh_serving phase: decode, the batcher, checkpoints and the "
+        "canary on a mesh of one card through NCCL")
+    msv = mesh_serving(torch)
+    torch.cuda.empty_cache()
+
     log("# training scan phase")
     scan = train_scan(torch)
     torch.cuda.empty_cache()
@@ -7765,7 +8564,7 @@ def main() -> int:
                 "fusion": fu["launches"], "search": se["launches"],
                 "seq2seq": s2["launches"], "resilience": rs["launches"],
                 "observatory": ob["launches"], "verify": vf["launches"],
-                "mesh": mesh["launches"]}
+                "mesh": mesh["launches"], "mesh_serving": msv["launches"]}
     # rows 1 and 2 at the long-context model's shape (bound by operations)
     for k in kernels[:2]:
         k["long_context_shape"] = lc["flash_long_shape"][k["name"]]
@@ -7795,7 +8594,7 @@ def main() -> int:
                   alexnet=alex, resnext=rx, moe=moe_summary, dlrm=dl,
                   inception=inc, zoo=zo, longctx=lc, nmt=nm, fusion=fu,
                   search=se, seq2seq=s2, resilience=rs, observatory=ob,
-                  verify=vf, mesh=mesh)
+                  verify=vf, mesh=mesh, mesh_serving=msv)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -7908,7 +8707,11 @@ def main() -> int:
         "models_s": mesh["models"]["seconds"],
         "models_launches": mesh["models"]["launches"],
         "dtensor_checks": mesh["dtensor_checks"],
+        "gloo_checks": mesh["gloo_checks"],
         "multi": mesh["multi"]}}))
+    log(smi + " " + json.dumps({"mesh_serving": {
+        k: v for k, v in msv.items() if k not in ("launches",
+                                                 "launches_by_path")}}))
     log(smi + " " + json.dumps({"mesh_scan": {
         k: v for k, v in mesh["scan"].items()
         if k not in ("launches", "launches_by_path")}}))

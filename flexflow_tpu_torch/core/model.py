@@ -104,6 +104,7 @@ from ..ops.tensor_ops import (CastParams, ConcatParams, FlatParams,
                               TransposeParams, UnsqueezeParams, WhereParams)
 from ..obs.trajectory import SearchTrajectory
 from ..parallel.executor import MeshExecutor, PCGExecutor, TrainState
+from ..parallel.mesh import local
 from ..runtime import distributed as rdist
 from ..pcg.fusion import apply_fusion
 from ..pcg.lowering import layers_to_pcg
@@ -784,14 +785,7 @@ class FFModel:
                              grad_bf16=mixed, what="compiled strategy")
         t_phase = time.perf_counter()
         inputs, constants = self._graph_inputs(self.graph)
-        executor_cls, where = PCGExecutor, (self.device,)
-        if rdist.is_initialized():
-            # one SPMD program over the mesh, even at world size 1
-            from ..parallel.mesh import build_mesh
-
-            executor_cls = MeshExecutor
-            where = (build_mesh(self.mesh_axes, self.device.type),
-                     self.device)
+        executor_cls, where = self._executor_where(self.mesh_axes)
         self.executor = executor_cls(
             self.graph, *where, optimizer=self.optimizer,
             loss_type=self.loss_type,
@@ -811,6 +805,17 @@ class FFModel:
         self._phase("init_state", t_phase)
         self.perf_metrics = PerfMetrics()
         self._rng = torch.Generator().manual_seed(self.config.seed)
+
+    def _executor_where(self, axes: Dict[str, int]):
+        """(the executor class, its placement arguments) for a strategy of
+        mesh `axes`: with a process group up, one SPMD program over a mesh
+        of those axes (even at world size 1); else the one device."""
+        if not rdist.is_initialized():
+            return PCGExecutor, (self.device,)
+        from ..parallel.mesh import build_mesh
+
+        return MeshExecutor, (build_mesh(axes, self.device.type),
+                              self.device)
 
     def _live_device_count(self) -> int:
         """The devices this compile runs on: numNodes x workersPerNode,
@@ -848,25 +853,28 @@ class FFModel:
         that order), size-1 axes kept."""
         return {k: int(v) for k, v in axes.items()}
 
-    def _assert_same_strategy(self) -> None:
+    def _assert_same_strategy(self, graph=None, views=None) -> None:
         """Every rank searched; they must execute one strategy. With
         measured costs each rank times its own card and two may pick
         different winners: compare a hash of the winner's op sequence,
         views and degrees across ranks with one all-gather, and raise on
-        every rank on a mismatch (never train on differing strategies)."""
+        every rank on a mismatch (never train on differing strategies).
+        `graph` and `views` default to the training winner's."""
         if not rdist.is_initialized() or rdist.process_count() == 1:
             return
         import hashlib
 
-        pos = {op.guid: i for i, op in enumerate(self.graph.topo_order())}
+        if graph is None:
+            graph, views = self.graph, self.searched_views
+        pos = {op.guid: i for i, op in enumerate(graph.topo_order())}
         views = sorted(
             (pos.get(g, -1), v.start_device_id, tuple(v.dim),
              tuple(v.stride))
-            for g, v in (self.searched_views or {}).items())
+            for g, v in (views or {}).items())
         dims = [(op.op_type.name, tuple(
             (d.size, d.degree, d.parallel_idx, d.is_replica_dim)
             for t in op.outputs + op.weights for d in t.dims))
-            for op in self.graph.topo_order()]
+            for op in graph.topo_order()]
         digest = hashlib.sha256(repr((views, dims)).encode()).hexdigest()
         rdist.assert_same(
             digest, "multi-process contract violated: the ranks' searches "
@@ -1110,13 +1118,15 @@ class FFModel:
         import. The winner is linted as the JAX package lints it: the
         perf pass under objective="decode" and the precision pass, each
         recorded in `decode_trajectory` ("perf_lint", "precision_lint").
-        Returns the decode executor."""
-        if rdist.process_count() > 1:
-            raise NotImplementedError(
-                f"compile_decode on {rdist.process_count()} processes: "
-                "decode and serving over a mesh are not ported to "
-                "flexflow_tpu_torch yet: they come with a later slice of "
-                "multi-device execution (ROADMAP queue 1 item 2)")
+        Returns the decode executor.
+
+        On a process group (one process per device) the search runs for
+        the group's devices, as the JAX package's runs for its mesh, and
+        every rank must come to the same winner (checked, as `compile`
+        checks the training one); the decode executor is a MeshExecutor
+        over a mesh of the winner's axes (`assign_mesh_axes`), running the
+        decode step at its degrees. Without a group (or at world 1) the
+        winner is demoted to the one device."""
         if self.executor is None:
             raise RuntimeError(
                 "compile() the model before compile_decode(): the decode "
@@ -1130,7 +1140,7 @@ class FFModel:
         from ..search import run_strategy_validators
 
         cfg = self.config
-        ndev = 1
+        ndev = self._live_device_count()
         self.decode_trajectory = SearchTrajectory()
         t_phase = time.perf_counter()
         # a fresh lowering: the training search rewrote self.graph with
@@ -1184,6 +1194,8 @@ class FFModel:
         self.decode_graph = graph
         self.decode_searched_views = views
         self.decode_searched_cost = cost
+        if not strategy_path:
+            self._assert_same_strategy(graph, views)
         problems = run_strategy_validators(graph, views, ndev)
         if problems:
             warnings.warn(
@@ -1200,15 +1212,17 @@ class FFModel:
         if export_path:
             export_strategy(graph, SimpleNamespace(views=views, cost=cost),
                             export_path)
-        # demotes every degree the one device cannot hold
-        strategies.assign_mesh_axes(graph, ndev)
+        # the winner's mesh axes (demoting every degree the devices cannot
+        # hold)
+        axes = self._mesh_axes(strategies.assign_mesh_axes(graph, ndev))
         # params stay keyed by op name, so the decode executor serves the
         # training state's weights; the batcher checks that before
         # swapping it in (runtime/serving.py)
         inputs, constants = self._graph_inputs(graph)
         t_phase = time.perf_counter()
-        self.decode_executor = PCGExecutor(
-            graph, self.device, optimizer=self.optimizer,
+        executor_cls, where = self._executor_where(axes)
+        self.decode_executor = executor_cls(
+            graph, *where, optimizer=self.optimizer,
             loss_type=self.loss_type,
             metrics=Metrics(self.loss_type, self.metrics),
             compute_dtype=(torch.bfloat16 if cfg.allow_mixed_precision
@@ -1734,18 +1748,6 @@ class FFModel:
         bs = batch_size or self.config.batch_size
         ep = epochs or self.config.epochs
         n = xs[0].shape[0]
-        mesh = self.executor.mesh
-        if mesh is not None and mesh.size > 1:
-            for what, given in (("checkpoint_dir", checkpoint_dir),
-                                ("verify_strategy", verify_strategy),
-                                ("canary", canary)):
-                if given:
-                    raise NotImplementedError(
-                        f"fit({what}=...) on a mesh of {mesh.size} devices "
-                        "is not ported to flexflow_tpu_torch yet: "
-                        "checkpoints, the verifier and the canary over a "
-                        "mesh come with a later slice of multi-device "
-                        "execution (ROADMAP queue 1 item 2)")
         self._assert_same_global_batch(xs, y, bs)
         if n < bs:
             raise ValueError(
@@ -1964,25 +1966,32 @@ class FFModel:
                 plan = fault_injector.fire("bitflip", global_step,
                                            target=None)
                 if plan is not None:
+                    # on a mesh, in this rank's shard alone
                     flipped, name = vfy.bitflip_params(
-                        self.state.params, op=plan.get("op"),
+                        _local_tree(self.state.params), op=plan.get("op"),
                         weight=plan.get("weight"),
                         bit=plan.get("bit", 6),
                         index=plan.get("index", 3))
                     opn, wn = name.rsplit("/", 1)
                     with torch.no_grad():
-                        self.state.params[opn][wn].copy_(flipped[opn][wn])
+                        local(self.state.params[opn][wn]).copy_(
+                            flipped[opn][wn])
             obs.count("ff_canary_checks_total",
                       help="canary step re-executions")
             first = ex.snapshot_state(self.state)
             first_params = _params_of_snapshot(self.state.params, first)
             ex.restore_state(self.state, kept)
             state2, partials2 = step_fn(*args)
+            # each rank compares its own shards; a mismatch on any rank is
+            # every rank's
             bad = vfy.compare_step_results(
                 {"params": first_params, "loss": partials["loss"]},
-                {"params": state2.params, "loss": partials2["loss"]},
+                {"params": _local_tree(state2.params),
+                 "loss": partials2["loss"]},
                 mode=canary.mode, rtol=canary.rtol, atol=canary.atol)
-            if bad:
+            if rdist.any_rank(bool(bad)):
+                bad = bad or [f"rank {rdist.process_index()} agreed; another "
+                              "rank's re-execution disagreed"]
                 escalate(vfy.CanaryMismatchError(
                     f"step {global_step}: canary re-execution disagrees "
                     f"({canary.mode} mode) — non-deterministic step or "
@@ -2020,8 +2029,10 @@ class FFModel:
                        skip_nonfinite_steps, step_guard,
                        max_consecutive_skips, fault_injector,
                        preemption_signal, canary=None, tel=None):
-        """The JAX package's resilient stepwise loop on one device:
-        periodic atomic checkpoints and mid-epoch resume, the NaN/Inf step
+        """The JAX package's resilient stepwise loop, on one device or a
+        mesh (every stop, skip count and canary verdict agreed across the
+        ranks): periodic atomic checkpoints and mid-epoch resume, the
+        NaN/Inf step
         guard, preemption between steps (hard, graceful, and the drain
         protocol of a deadline-bearing notice), deterministic fault
         injection and the SDC/determinism canary (`_canary_check`). Each
@@ -2128,12 +2139,18 @@ class FFModel:
                                 drain_max_steps = int(
                                     plan["max_drain_steps"]
                                 )
-                    if preempt.triggered() and not preempt.draining:
+                    # on a process group every rank stops where any does
+                    # (a graceful stop only where every signal was)
+                    stop = preempt.triggered() and not preempt.draining
+                    stop, hard, draining = rdist.any_ranks(
+                        [stop, stop and not preempt.graceful,
+                         preempt.draining])
+                    if stop:
                         raise rz.TrainingPreempted(
                             f"preempted before step {global_step}",
-                            step=global_step, graceful=preempt.graceful,
+                            step=global_step, graceful=not hard,
                         )
-                    if preempt.draining:
+                    if draining:
                         # -- drain protocol: keep training while the
                         # remaining grace comfortably exceeds one more
                         # step + a checkpoint flush, then flush a final
@@ -2142,7 +2159,7 @@ class FFModel:
                         window = self.executor.drain_window_s(
                             checkpoint_s=last_ckpt_dur_s
                         )
-                        if drain_steps == 0:
+                        if drain_steps == 0 and preempt.draining:
                             obs.event(
                                 "preemption_notice", cat="runtime",
                                 step=global_step,
@@ -2161,13 +2178,13 @@ class FFModel:
                                 verbose=verbose, name="preemption_notice",
                                 cat="runtime", step=global_step,
                             )
-                        if remaining <= window or (
-                            drain_max_steps is not None
-                            and drain_steps >= drain_max_steps
-                        ):
+                        if rdist.any_rank(preempt.draining and (
+                            remaining <= window or (
+                                drain_max_steps is not None
+                                and drain_steps >= drain_max_steps))):
                             exc = rz.SliceDrained(
                                 f"drained {drain_steps} step(s) under a "
-                                f"{preempt.deadline_s:.1f}s preemption "
+                                f"{preempt.deadline_s or 0.0:.1f}s preemption "
                                 f"deadline before step {global_step}",
                                 step=global_step,
                                 deadline_s=preempt.deadline_s,
@@ -2226,7 +2243,7 @@ class FFModel:
                             step_fn, partials, fault_injector, manager,
                             global_step, epoch, bi, pnorm_fn, prev_pnorm,
                             prev_loss)
-                    if preempt.draining:
+                    if draining:
                         # feed the executor's step-time EMA (drain-window
                         # estimate) only from synced steps, where the wall
                         # time measures the step and not a launch
@@ -2250,7 +2267,9 @@ class FFModel:
                     if guard_cfg is not None:
                         # skip monitor: a run stuck on non-finite grads
                         # must fail loudly, not silently stop learning
-                        skips = int(self.state.guard.consecutive_skips)
+                        # the most any rank counts: no rank stops alone
+                        skips = rdist.max_over_ranks(
+                            int(self.state.guard.consecutive_skips))
                         if tel is not None:
                             tel.metrics.gauge(
                                 "ff_loss_scale",
@@ -2469,6 +2488,12 @@ def _refuse_unported_fit_keywords(**given) -> None:
                 f"fit({kw}=...): needs the JAX package's {module}, not "
                 f"ported to flexflow_tpu_torch yet (ROADMAP queue 1 "
                 f"{item})")
+
+
+def _local_tree(params) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A params tree with each DTensor replaced by this rank's shard."""
+    return {op: {n: local(w) for n, w in ws.items()}
+            for op, ws in params.items()}
 
 
 def _params_of_snapshot(params, kept) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -605,15 +605,33 @@ def _forward_decode(params, weights, inputs, ctx, cache, t):
     of shape (b, max_len, h, d) with positions < t valid. `t` is an int
     (every row at the same position) or a (b,) int tensor of per-row
     positions (continuous batching). Returns ([out], cache), the cache
-    updated in place."""
-    from ..kernels.decode import (decode_page_size, paged_flash_decode,
-                                  paged_view_of_cache)
+    updated in place. On a device mesh (DTensor inputs) the step runs per
+    shard (`_forward_decode_mesh`)."""
+    from ..parallel.mesh import is_dtensor
 
     (q_in, k_in, v_in), (wq, wk, wv, wo) = _cast_inputs(
         inputs, weights, ctx)
+    if ctx.mesh is not None and is_dtensor(q_in):
+        return [_forward_decode_mesh(params, weights, ctx, cache, t, q_in,
+                                     k_in, v_in, wq, wk, wv, wo)], cache
     q = torch.einsum("bse,ehd->bshd", q_in, wq)
     k_new = torch.einsum("bse,ehd->bshd", k_in, wk)
     v_new = torch.einsum("bse,ehd->bshd", v_in, wv)
+    attn = _decode_attend(q, k_new, v_new, cache, t, ctx.op_name)
+    return [_project_out(params, weights, "bshd,hde->bse", attn, wo,
+                         q_in.dtype, ctx)], cache
+
+
+def _decode_attend(q, k_new, v_new, cache, t, op_name):
+    """Write this block's K/V (b, s0, h, d) into the cache (k, v) (b,
+    max_len, h, d) in place at position t (an int, or a (b,) tensor of
+    per-row positions), then attend the block's queries q against the
+    prefix: the paged-decode kernel for one-token blocks
+    (FF_DECODE_IMPL), the dense masked path otherwise. Plain tensors,
+    whole or one rank's shard. Returns (b, s0, h, dv)."""
+    from ..kernels.decode import (decode_page_size, paged_flash_decode,
+                                  paged_view_of_cache)
+
     k_cache, v_cache = cache
     b, s0 = q.shape[:2]
     per_row_t = isinstance(t, torch.Tensor) and t.dim() == 1
@@ -632,10 +650,10 @@ def _forward_decode(params, weights, inputs, ctx, cache, t):
     impl = _decode_impl()
     use_paged = s0 == 1 and (impl == "paged"
                              or (impl == "auto" and q.device.type == "cuda"))
-    if impl == "paged" and s0 != 1 and ctx.op_name not in _PAGED_BLOCK_WARNED:
-        _PAGED_BLOCK_WARNED.add(ctx.op_name)
+    if impl == "paged" and s0 != 1 and op_name not in _PAGED_BLOCK_WARNED:
+        _PAGED_BLOCK_WARNED.add(op_name)
         warnings.warn(
-            f"attention paged decode on {ctx.op_name or 'a MHA op'} "
+            f"attention paged decode on {op_name or 'a MHA op'} "
             "(FF_DECODE_IMPL=paged) falls back to the dense path: the paged "
             "flash-decode kernel attends ONE query token per slot; "
             "multi-token blocks (prefill) keep the dense masked path")
@@ -648,20 +666,99 @@ def _forward_decode(params, weights, inputs, ctx, cache, t):
         else:
             lengths = torch.full((b,), t + 1, dtype=torch.int32,
                                  device=q.device)
-        attn = paged_flash_decode(q[:, 0].contiguous(), kp, vp, table,
+        return paged_flash_decode(q[:, 0].contiguous(), kp, vp, table,
                                   lengths)[:, None]        # (b, 1, h, dv)
+    cache_pos = torch.arange(k_cache.shape[1], device=q.device)
+    if per_row_t:
+        q_pos = pos                                        # (b, s0)
     else:
-        cache_pos = torch.arange(k_cache.shape[1], device=q.device)
-        if per_row_t:
-            q_pos = pos                                    # (b, s0)
-        else:
-            q_pos = (t + torch.arange(s0, device=q.device))[None, :]
-        keep = cache_pos[None, None, None, :] <= q_pos[:, None, :, None]
-        attn = _dense_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
-                                keep)
-    return [_project_out(params, weights, "bshd,hde->bse", attn, wo,
-                         q_in.dtype, ctx)], \
-        (k_cache, v_cache)
+        q_pos = (t + torch.arange(s0, device=q.device))[None, :]
+    keep = cache_pos[None, None, None, :] <= q_pos[:, None, :, None]
+    return _dense_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                            keep)
+
+
+def decode_cache_placements(mesh, params: MultiHeadAttentionParams,
+                            batch: int) -> list:
+    """The placements of an MHA op's (b, max_len, h, d) KV cache on
+    `mesh` (and of the step's (b, s0, h, d) rows): the slots over the
+    batch's axes where the batch divides them (`_batch_axes`), the heads
+    over "model" where they divide it; whole over every other axis."""
+    by_axis = {a: 0 for a in _batch_axes(mesh, batch)}
+    if params.num_heads % mesh.shape.get("model", 1) == 0:
+        by_axis["model"] = 2
+    return _mesh_placements(mesh, by_axis)
+
+
+def _forward_decode_mesh(params, weights, ctx, cache, t, q_in, k_in, v_in,
+                         wq, wk, wv, wo):
+    """The decode step on a device mesh, per shard (the JAX package's
+    device-local decode under GSPMD): one `local_map` over the block's
+    inputs (b, s0, e), with the slots over the batch's axes, and the
+    weights with the heads over "model" projects this rank's q, k and v
+    (b/data, s0, h/model, d), writes k and v into the rank's strips of
+    the cache (DTensors placed by `decode_cache_placements`, so their
+    local tensors are written in place and never gathered), attends
+    (`_decode_attend`: the paged-decode kernel on the local strips for a
+    one-token block on the card), and projects the rows out. The output
+    is a partial sum over "model" where the heads shard it (the output
+    bias is added on the model axis's first rank alone, so the sum holds
+    it once); the executor reduces it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..parallel.mesh import distribute, local
+
+    mesh = ctx.mesh
+    dm = mesh.device_mesh
+    c_pl = decode_cache_placements(mesh, params, q_in.shape[0])
+    if any(tuple(c.placements) != tuple(c_pl) for c in cache):
+        raise ValueError(
+            f"decode cache of {ctx.op_name} is placed "
+            f"{[tuple(c.placements) for c in cache]}, the step wants "
+            f"{tuple(c_pl)} (init_decode_cache with the executor's mesh)")
+    # the cache's placements say it all, axis by axis: its slots' axes
+    # shard the rows, its heads' axis the projections' heads
+    rows = [p == Shard(0) for p in c_pl]
+    heads = [p == Shard(2) for p in c_pl]
+
+    def placed(dim, where):
+        return [Shard(dim) if w else Replicate() for w in where]
+
+    x_pl, w_pl, wo_pl = placed(0, rows), placed(1, heads), placed(0, heads)
+    out_pl = [Partial() if h else p for h, p in zip(heads, x_pl)]
+    bias_here = not any(heads) or dm.get_coordinate()[heads.index(True)] == 0
+    per_row = isinstance(t, torch.Tensor) and t.dim() == 1
+    if per_row:
+        # this rank's slots' positions: a local slice of the whole vector
+        t = distribute(t, mesh, [Shard(0) if isinstance(p, Shard) else p
+                                 for p in x_pl])
+    bias = (local(cast_weight(ctx, weights["bias_o"], q_in.dtype))
+            if params.bias and bias_here else None)
+    name, dtype = ctx.op_name, q_in.dtype
+    whole_t = None if per_row else t
+
+    def per_shard(qi, ki, vi, wq_, wk_, wv_, wo_, kc, vc, tl):
+        q = torch.einsum("bse,ehd->bshd", qi, wq_)
+        k_new = torch.einsum("bse,ehd->bshd", ki, wk_)
+        v_new = torch.einsum("bse,ehd->bshd", vi, wv_)
+        MESH_LOCAL_Q[name] = tuple(q.shape)
+        attn = _decode_attend(q, k_new, v_new, (kc, vc),
+                              whole_t if tl is None else tl, name)
+        out = torch.einsum("bshd,hde->bse", attn, wo_).to(dtype)
+        if bias is not None:
+            out = out + bias.to(out.dtype)
+        return out
+
+    MESH_PATHS["decode_local_map"] += 1
+    return local_map(
+        per_shard, out_placements=out_pl,
+        in_placements=(x_pl,) * 3 + (w_pl,) * 3 + (wo_pl, c_pl, c_pl,
+                                                    x_pl if per_row
+                                                    else None),
+        device_mesh=dm, redistribute_inputs=True)(
+            q_in, k_in, v_in, wq, wk, wv, wo, cache[0], cache[1],
+            t if per_row else None)
 
 
 def cross_decode_kv(params: MultiHeadAttentionParams, weights, k_in, v_in,
@@ -699,13 +796,29 @@ def _forward_decode_cross(params, weights, q_in, ctx, kv):
 
 
 def init_decode_cache(params: MultiHeadAttentionParams, batch: int,
-                      max_len: int, dtype, device):
-    """Fresh (k, v) cache for one MHA op."""
+                      max_len: int, dtype, device, mesh=None):
+    """Fresh (k, v) cache for one MHA op. On a device mesh each is a
+    DTensor placed by `decode_cache_placements`: every rank allocates its
+    own strips alone (b/data slots, h/model heads), none whole."""
     h, dqk, dv = params.num_heads, params.qk_head_dim, params.v_head_dim
-    return (
-        torch.zeros((batch, max_len, h, dqk), dtype=dtype, device=device),
-        torch.zeros((batch, max_len, h, dv), dtype=dtype, device=device),
-    )
+    shapes = ((batch, max_len, h, dqk), (batch, max_len, h, dv))
+    if mesh is None:
+        return tuple(torch.zeros(s, dtype=dtype, device=device)
+                     for s in shapes)
+    from torch.distributed.tensor import DTensor, Shard
+
+    pl = decode_cache_placements(mesh, params, batch)
+    out = []
+    for shape in shapes:
+        loc = list(shape)
+        for axis, p in zip(mesh.live_axes, pl):
+            if isinstance(p, Shard):
+                loc[p.dim] //= mesh.shape[axis]
+        out.append(DTensor.from_local(
+            torch.zeros(loc, dtype=dtype, device=device), mesh.device_mesh,
+            pl, run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride()))
+    return tuple(out)
 
 
 register_op(

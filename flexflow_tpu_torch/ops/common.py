@@ -6,6 +6,7 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
 from ..ff_types import ActiMode
+from ..parallel.mesh import version as _version
 
 
 def apply_activation(mode: ActiMode, x: torch.Tensor) -> torch.Tensor:
@@ -30,13 +31,15 @@ class WeightCache:
     Under mixed precision every op casts its f32 weights to bf16 on every
     call; serving (the executor's `build_forward` and decode step) hands
     its ops this cache instead, so each weight is cast once. A copy lives
-    as long as its weight and remembers the weight's `_version` when it
-    was taken: training updates the same tensors in place, and when the
-    version has moved the copy is refreshed IN PLACE (`copy_`), so its
-    address stays valid inside a captured CUDA graph. A graph replay runs
-    no ATen dispatch, so it moves no version: the train scan bumps its
-    weights' versions after each replay (parallel/executor.py), and
-    whoever replays a graph that reads copies calls `refresh()` first.
+    as long as its weight and remembers the weight's version when it was
+    taken (parallel/mesh.py `version`: a DTensor's counts its wrapper and
+    its local tensor): training and restores update the same tensors in
+    place, and when the version has moved the copy is refreshed IN PLACE
+    (`copy_`), so its address stays valid inside a captured CUDA graph.
+    A graph replay runs no ATen dispatch, so it moves no version: the
+    train scan bumps its weights' versions after each replay
+    (parallel/executor.py), and whoever replays a graph that reads
+    copies calls `refresh()` first.
     The training path never uses the cache: its weights are fresh
     autograd leaves."""
 
@@ -48,7 +51,7 @@ class WeightCache:
         if dtype is None or w.dtype == dtype:
             return w
         try:
-            version = w._version
+            version = _version(w)
         except RuntimeError:  # an inference tensor tracks no version
             return w.to(dtype)
         entry = self._entries.get(w)
@@ -65,12 +68,12 @@ class WeightCache:
     def _copy(entry, w) -> None:
         with torch.inference_mode(False), torch.no_grad():
             entry[0].copy_(w)
-        entry[1] = w._version
+        entry[1] = _version(w)
 
     def refresh(self) -> None:
         """Bring every copy whose weight moved up to date, in place."""
         for w, entry in list(self._entries.items()):
-            if w._version != entry[1]:
+            if _version(w) != entry[1]:
                 self._copy(entry, w)
 
 

@@ -82,6 +82,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..core.initializers import get_initializer
 from ..core.losses import get_loss_fn
@@ -92,7 +93,7 @@ from ..ops.common import WeightCache
 from ..ops.registry import FwdCtx, get_op_def
 from ..pcg.graph import Graph
 from . import parallel_ops
-from .mesh import distribute, full, is_dtensor, local
+from .mesh import distribute, full, is_dtensor, like, local, version
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -1165,6 +1166,28 @@ class PCGExecutor:
         return step
 
     # -- incremental decode (serving KV cache) -----------------------------
+    # -- the decode step's hooks (MeshExecutor places them on its mesh) --
+    def _decode_params(self, params):
+        """The weights the decode step reads."""
+        return params
+
+    def _decode_input(self, pt, array) -> torch.Tensor:
+        """A decode step's input value (a token block, a static input)."""
+        return self._as_input(pt, array)
+
+    def _decode_whole(self, t):
+        """A value every rank holds whole (a constant, a static, a prefix
+        cache)."""
+        return t
+
+    def _decode_reduce(self, pt, v):
+        """Value `v` of op output `pt` as the walk passes it on."""
+        return v
+
+    def _decode_result(self, logits):
+        """The step's logits as the caller reads them."""
+        return logits
+
     def build_decode(self, batch: int, max_len: int, cache_dtype=None,
                      decode_input: Optional[int] = None,
                      assume_causal: bool = False):
@@ -1266,12 +1289,13 @@ class PCGExecutor:
                     value = value[:1]
             elif len(shape) >= 1 and shape[0] not in (1, batch):
                 shape = (1,) + shape[1:]
-            consts[guid] = _constant_tensor(pt, value, shape, self.device)
+            consts[guid] = self._decode_whole(
+                _constant_tensor(pt, value, shape, self.device))
 
         def compute_statics(params, static_arrays):
             vals = dict(consts)
             for pt, arr in zip(static_pts, static_arrays):
-                vals[pt.guid] = self._as_input(pt, arr)
+                vals[pt.guid] = self._decode_input(pt, arr)
             for op in plan.static_ops:
                 ins = [vals[x.guid] for x in op.inputs]
                 if op.is_parallel_op:
@@ -1328,16 +1352,19 @@ class PCGExecutor:
                 shape[plan.info[g].live] = max_len
                 if plan.info[g].live != 0:
                     shape[0] = batch  # decode batch, not compile batch
-                caches["prefix"][g] = torch.zeros(
+                caches["prefix"][g] = self._decode_whole(torch.zeros(
                     shape, dtype=pt.data_type.torch_dtype,
-                    device=self.device)
+                    device=self.device))
             for op in plan.live_ops:
                 if op.name in mha_self:
                     caches["mha"][op.name] = init_decode_cache(
-                        op.params, batch, max_len, cdt, self.device)
+                        op.params, batch, max_len, cdt, self.device,
+                        mesh=self.mesh)
+            params = self._decode_params(params)
             with torch.inference_mode():
                 svals = compute_statics(params, static_inputs)
-                caches["static"] = {g: svals[g] for g in static_kept}
+                caches["static"] = {g: self._decode_whole(svals[g])
+                                    for g in static_kept}
                 for op in cross_ops:
                     caches["mha_static"][op.name] = cross_decode_kv(
                         op.params, params.get(op.name, {}),
@@ -1368,8 +1395,11 @@ class PCGExecutor:
                 # batch-collapsed constant differs on axis 0
                 amap = dec._static_alignment(
                     tuple(full.shape), out_rank, out_info, plan.live_len)
-                return dec._slice_aligned(full, amap, t, s0, max_len,
-                                          out_rank=out_rank, site=site)
+                # a mesh holds statics whole (`_decode_whole`): sliced
+                # on each rank's whole copy
+                return like(dec._slice_aligned(
+                    local(full), amap, t, s0, max_len, out_rank=out_rank,
+                    site=site), full)
 
             for op in plan.live_ops:
                 if op.is_parallel_op:
@@ -1417,8 +1447,8 @@ class PCGExecutor:
                         if a_info.live is None:
                             raise NotImplementedError(
                                 "prefix softmax without a live query axis")
-                        kv = _iota(x, dim)
-                        q = _iota(x, a_info.live)
+                        kv = like(_iota(x, dim), x)
+                        q = like(_iota(x, a_info.live), x)
                         if per_row_t:
                             if x.shape[0] != t.shape[0]:
                                 raise NotImplementedError(
@@ -1426,8 +1456,8 @@ class PCGExecutor:
                                     f"fold batch with another axis "
                                     f"(axis 0 is {x.shape[0]}, batch "
                                     f"{t.shape[0]})")
-                            qp = t.to(torch.long).view(
-                                (t.shape[0],) + (1,) * (x.dim() - 1)) + q
+                            qp = like(t.to(torch.long).view(
+                                (t.shape[0],) + (1,) * (x.dim() - 1)), x) + q
                         else:
                             qp = int(t) + q
                         x = torch.where(kv <= qp, x, dec.NEG_INF)
@@ -1446,33 +1476,35 @@ class PCGExecutor:
                         aligned_input(x, out_rank, out_info, op.name)
                         for x in op.inputs], ctx)
                 for x, v in zip(op.outputs, outs):
-                    vals[x.guid] = v
+                    v = vals[x.guid] = self._decode_reduce(x, v)
                     if x.guid in cached_set:
-                        _write_prefix(caches["prefix"][x.guid], v,
+                        _write_prefix(local(caches["prefix"][x.guid]),
+                                      local(self._decode_whole(v)),
                                       info[x.guid].live, t, per_row_t, x.guid)
-            return vals[self.logits_pt.guid]
+            return self._decode_result(vals[self.logits_pt.guid])
 
         graphs = collections.OrderedDict()
 
         def replay(params, caches, t, tok):
             weights = [w for op in plan.live_ops
                        for w in params.get(op.name, {}).values()]
-            gkey = (tuple(w.data_ptr() for w in weights),
-                    tuple((x.data_ptr(), tuple(x.shape))
+            gkey = (tuple(_data_ptr(w) for w in weights),
+                    tuple((_data_ptr(x), tuple(x.shape))
                           for x in _tensors(caches)),
                     tuple(np.shape(tok)))
             g = graphs.get(gkey) or _DecodeGraph(
-                np.shape(tok), plan.decode_pt.data_type.torch_dtype,
-                self.device, weights)
+                self, np.shape(tok), plan.decode_pt.data_type.torch_dtype,
+                weights)
             g.tok.copy_(torch.as_tensor(tok))
             g.t.copy_(torch.as_tensor(t, dtype=torch.int32))
             # a replay runs no Python: weights that training moved since
             # are copied into the cached compute-dtype copies first
             self.weight_cache.refresh()
             if g.graph is None:
-                g.capture(lambda: walk(params, caches, g.t, g.tok))
+                g.capture(lambda: walk(params, caches, g.t, self._decode_input(
+                    plan.decode_pt, g.tok)))
             _keep_recent(graphs, gkey, g)
-            return g.graph.replay()
+            return g.replay()
 
         @torch.inference_mode()
         def step(params, caches, t, batch_inputs, *, _eager=False):
@@ -1481,10 +1513,11 @@ class PCGExecutor:
             if per_row and len(t) != np.shape(tok)[0]:
                 raise ValueError(f"per-row positions: {len(t)} positions "
                                  f"for {np.shape(tok)[0]} rows")
+            params = self._decode_params(params)
             if (per_row and not _eager and self.device.type == "cuda"
                     and np.shape(tok)[1] == 1):
                 return replay(params, caches, t, tok), caches
-            tok = self._as_input(plan.decode_pt, tok)
+            tok = self._decode_input(plan.decode_pt, tok)
             if not isinstance(t, int):
                 t = torch.as_tensor(t, dtype=torch.int32)
                 # once, not once per layer
@@ -1494,6 +1527,13 @@ class PCGExecutor:
         built = (init_caches, step)
         self._decode_builds[key] = built
         return built
+
+
+def _data_ptr(t) -> int:
+    """The address of a tensor's data, a DTensor's local shard's (read
+    without `to_local`'s autograd call: the decode step's graph key reads
+    every weight's and cache's at every step)."""
+    return (t._local_tensor if is_dtensor(t) else t).data_ptr()
 
 
 def _waited(g):
@@ -1633,22 +1673,35 @@ class _DecodeGraph:
     with it. A cache set needs no such hold: caches at the key's addresses
     are the caches the graph reads."""
 
-    def __init__(self, shape, dtype, device, weights):
-        self.tok = torch.empty(shape, dtype=dtype, device=device)
-        self.t = torch.empty((shape[0],), dtype=torch.int32, device=device)
+    def __init__(self, ex, shape, dtype, weights):
+        self.ex = ex
+        self.tok = torch.empty(shape, dtype=dtype, device=ex.device)
+        self.t = torch.empty((shape[0],), dtype=torch.int32,
+                             device=ex.device)
         self.weights = weights
         self.graph = None
+        # the executor's counters (a mesh's collectives) one replay adds
+        self.counters: collections.Counter = collections.Counter()
 
     def capture(self, fn) -> None:
         """Warm up (a real step: it writes the caches exactly as the
         replay after it rewrites them) and capture in the caller's thread
-        (the continuous batcher's serving thread)."""
+        (the continuous batcher's serving thread). A capture runs no
+        step: what it counted on the executor is taken back out, and
+        each replay adds it (`replay`)."""
         from .graphs import CapturedGraph, warm_up
 
         warm_up(fn)
         graph = CapturedGraph()
+        before = self.ex._counters()
         graph.capture(fn, capture_error_mode="thread_local")
+        self.counters = self.ex._counters() - before
+        self.ex._add_counters(self.counters, -1)
         self.graph = graph
+
+    def replay(self):
+        self.ex._add_counters(self.counters)
+        return self.graph.replay()
 
 
 class MeshExecutor(PCGExecutor):
@@ -1737,8 +1790,27 @@ class MeshExecutor(PCGExecutor):
     LayerNorm and BatchNorm, pooling, a strided padded convolution,
     top_k's sort) run on local shards through `per_shard`, as
     attention's kernels and chunked path run through `local_map`; an op
-    DTensor refuses otherwise raises. Not ported on a mesh of more than
-    one device, and refused by name: the decode step."""
+    DTensor refuses otherwise raises.
+
+    The decode step (`build_decode`, PCGExecutor's) runs over the mesh at
+    the strategy's degrees, as the JAX package runs its device-local
+    decode under GSPMD: the weights at this executor's placements
+    (`_decode_params`), every value of the walk a DTensor, each
+    self-attention op's KV cache a DTensor of per-rank strips (slots over
+    "data" where the batch divides it, heads over "model";
+    ops/attention.py `decode_cache_placements`) that its per-shard step
+    (`_forward_decode_mesh`: the paged-decode kernel on the local strips
+    on the card) writes in place and that no collective moves. Each op's
+    output is made whole but for its batch rows (`_decode_reduce`; a
+    column-sharded output that only row-sharded dense kernels read stays
+    sharded, `_row_fed`), so the sharded weights compute locally and
+    every collective of a step
+    is counted in `collectives`: "act/..." (a partial sum reduced, a
+    column-sharded output gathered), "out/..." (the logits gathered whole
+    on every rank) and "kv/..." (a constant, static or prefix cache,
+    attention from primitive ops, that had to be gathered to be held
+    whole). On the card the one-token step replays a CUDA graph captured
+    over the DTensor walk (DTensor's dispatch at capture only)."""
 
     # DTensor's views cannot set the version counter of an inference
     # tensor (a conv2d bias broadcast raises), so the mesh's forward runs
@@ -1749,6 +1821,9 @@ class MeshExecutor(PCGExecutor):
         super().__init__(graph, device, **kw)
         self.mesh = mesh
         self._pl: Dict[int, tuple] = {}
+        # weight -> [its copy at this executor's placements, its version]
+        self._placed_copies = WeakIdKeyDictionary()
+        self._row_fed_dims: Dict[int, frozenset] = {}
         self._weight_pts = {(op.name, n): wpt for op in self.topo
                             for n, wpt in zip(op.weight_names, op.weights)}
         self._const_vals = {g: self._replicated(v)
@@ -1789,13 +1864,6 @@ class MeshExecutor(PCGExecutor):
 
         return DTensor.from_local(t, self.mesh.device_mesh,
                                   self.mesh.replicate(), run_check=False)
-
-    def _unsupported(self, what: str) -> None:
-        if self.mesh.size > 1:
-            raise NotImplementedError(
-                f"{what} on a mesh of {self.mesh.size} devices is not "
-                "ported to flexflow_tpu_torch yet: it comes with a later "
-                "slice of multi-device execution (ROADMAP queue 1 item 2)")
 
     # -- collectives -----------------------------------------------------
     def _count(self, what: str, src, dst) -> bool:
@@ -2080,21 +2148,99 @@ class MeshExecutor(PCGExecutor):
             else:
                 setattr(self, k, getattr(self, k) + times * v)
 
-    def build_decode(self, *args, **kw):
-        """On a mesh of one device: PCGExecutor's decode on each weight's
-        local tensor (the whole weight). Refused on a bigger mesh."""
-        self._unsupported("the serving decode step (build_decode)")
-        init_caches, step = super().build_decode(*args, **kw)
-
-        def whole(params):
-            return None if params is None else {
-                op: {n: local(w) for n, w in ws.items()}
+    # -- the decode step -------------------------------------------------
+    def _decode_params(self, params):
+        """The weights at this executor's placements on its mesh (the JAX
+        package traces its decode step device-local over weights placed at
+        the winner's shardings). A weight already placed so is used as it
+        is; any other (the training executor's weights served by the
+        decode executor: another strategy, another mesh) through a copy
+        placed here once and refreshed in place whenever the weight moves,
+        by its version as the serving weight cache tracks it (each rank
+        reads the source whole: "weight/placed" in `collectives`)."""
+        if params is None:
+            return None
+        return {op: {n: self._placed(op, n, w) for n, w in ws.items()}
                 for op, ws in params.items()}
 
-        def init(params=None, static_inputs=()):
-            return init_caches(whole(params), static_inputs)
+    def _placed(self, op, n, w):
+        wpt = self._weight_pts.get((op, n))
+        if wpt is None:
+            return w  # an op of another graph: the step never reads it
+        pl = self.placements(wpt)
+        if is_dtensor(w) and tuple(w.placements) == pl and (
+                w.device_mesh is self.mesh.device_mesh
+                or w.device_mesh == self.mesh.device_mesh):
+            return w
+        entry = self._placed_copies.get(w)
+        if entry is not None and entry[1] == version(w):
+            return entry[0]
+        with torch.inference_mode(False), torch.no_grad():
+            self.collectives["weight/placed"] += 1
+            placed = distribute(full(w).detach().to(self.device), self.mesh,
+                                pl)
+            if entry is None:
+                entry = self._placed_copies[w] = [placed, None]
+            else:
+                local(entry[0]).copy_(local(placed))
+        entry[1] = version(w)
+        return entry[0]
 
-        def decode_step(params, caches, t, batch_inputs, **k):
-            return step(whole(params), caches, t, batch_inputs, **k)
+    def _decode_input(self, pt, array):
+        return distribute(super()._decode_input(pt, local(array)), self.mesh,
+                          self.placements(pt))
 
-        return init, decode_step
+    def _decode_whole(self, t):
+        if not is_dtensor(t):
+            return self._replicated(t)
+        want = self.mesh.replicate()
+        if tuple(t.placements) != want:
+            self._count("kv", t.placements, want)
+            t = t.redistribute(self.mesh.device_mesh, want)
+        return t
+
+    def _decode_reduce(self, pt, v):
+        from torch.distributed.tensor import Replicate, Shard
+
+        if not is_dtensor(v):
+            return v
+        rows = self._row_fed(pt.guid)
+        last = v.dim() - 1
+        want = tuple(p if isinstance(p, Shard) and (
+            p.dim == 0 or (p.dim == last and i in rows))
+            else Replicate() for i, p in enumerate(v.placements))
+        if want == tuple(v.placements):
+            return v
+        self._count("act", v.placements, want)
+        return v.redistribute(self.mesh.device_mesh, want)
+
+    def _row_fed(self, guid) -> frozenset:
+        """The mesh dims over which every consumer of value `guid` is a
+        dense op whose kernel that dim shards by rows (Megatron's second
+        product): a value sharded there on its last dim stays so, and
+        the consumers' local products give partial sums
+        (ops/linear.py `_local_product`), as GSPMD keeps it sharded."""
+        from torch.distributed.tensor import Shard
+
+        dims = self._row_fed_dims.get(guid)
+        if dims is None:
+            users = [op for op in self.topo
+                     if any(t.guid == guid for t in op.inputs)]
+            keep = set(range(len(self.mesh.replicate()))) if users else set()
+            for op in users:
+                if (op.op_type != OperatorType.OP_LINEAR
+                        or op.inputs[0].guid != guid):
+                    keep = set()
+                    break
+                kernel = self.placements(self._weight_pts[(op.name,
+                                                           "kernel")])
+                keep &= {i for i, p in enumerate(kernel)
+                         if isinstance(p, Shard) and p.dim == 0}
+            dims = self._row_fed_dims[guid] = frozenset(keep)
+        return dims
+
+    def _decode_result(self, logits):
+        """The logits whole on every rank (every rank picks the same
+        tokens), counted as "out/all_gather/<axis>" where sharded."""
+        self._count("out", logits.placements, self.mesh.replicate())
+        return full(logits)

@@ -63,6 +63,18 @@ def local(t):
     return t.to_local() if is_dtensor(t) else t
 
 
+def version(t) -> object:
+    """The version counter that an in-place write to `t` moves. A
+    DTensor's wrapper and its local tensor count apart (a write through
+    one moves only its own counter, and the port writes weights both
+    ways: the optimizer through the wrapper, a restore or a gathered
+    update through the local tensor), so a DTensor's version is the pair.
+    Raises RuntimeError for an inference tensor, which tracks none."""
+    if is_dtensor(t):
+        return t._version, t._local_tensor._version
+    return t._version
+
+
 def full(t):
     """The whole global value of a DTensor on every rank (an all-gather
     or all-reduce where it is sharded or partial); any other value as it

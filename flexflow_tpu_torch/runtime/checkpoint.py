@@ -15,6 +15,16 @@ replaces none of them: the addresses that captured CUDA graphs read (the
 train scan's graph is keyed by them, and the decode step's) stay valid,
 and the weights' version counters move, so the serving weight cache
 (ops/common.py) refreshes its compute-dtype copies.
+
+On a device mesh (a process group, the model's state DTensors) a save
+gathers every leaf whole on every rank (the JAX package's host gather:
+weights, fsdp-sharded weights, ZeRO-1 slots, the stateful buffers), rank
+0 alone writes, and its outcome (an error included) reaches every rank.
+A restore reads the file on every rank and places each leaf at the LIVE
+model's placements, so a checkpoint taken on one mesh or strategy (or on
+one device) restores onto another (`_put_resharded`, the JAX package's:
+a weight whose shape the live axes do not divide is restored replicated,
+with a warning, and named in the report's "replicated").
 """
 from __future__ import annotations
 
@@ -26,6 +36,9 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import full, is_dtensor, local
+from . import distributed as rdist
+
 logger = logging.getLogger("flexflow_tpu_torch.runtime.checkpoint")
 
 _STATE_FILE = "state.pt"
@@ -35,9 +48,9 @@ def _to_host(tree):
     """A copy of a nest of dicts, lists and tuples with every tensor
     copied to the host (a copy even for a host tensor: training updates
     the weights in place, and the checkpoint must hold this step's
-    bytes)."""
+    bytes); a DTensor gathered whole first (on every rank)."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
+        return full(tree.detach()).to("cpu", copy=True)
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -74,7 +87,6 @@ def save_checkpoint(model, path: str, *, step: Optional[int] = None,
     tmp write and before the rename) never leaves a partial checkpoint at
     `path`; the half-written tmp is cleaned up on the way out.
     `extra_meta` (e.g. fit's data-loader cursor) rides in the sidecar."""
-    from .. import obs
     from .elastic import topology_fingerprint
     from .strategy_io import op_strategy_record
     from .verify import CHECKSUM_ALGO, NotCompiledError, tensor_checksums
@@ -121,6 +133,23 @@ def save_checkpoint(model, path: str, *, step: Optional[int] = None,
         "algo": CHECKSUM_ALGO,
         "tensors": tensor_checksums(host_state),
     }
+    # rank 0 writes (the one process without a group); its outcome, an
+    # error included, is every rank's
+    err = None
+    if rdist.process_index() == 0:
+        try:
+            _write_atomic(host_state, meta, path, _pre_rename_hook)
+        except Exception as e:  # re-raised on every rank below
+            err = e
+    err = rdist.broadcast_object(err)
+    if err is not None:
+        raise err
+    return path
+
+
+def _write_atomic(host_state, meta, path, _pre_rename_hook) -> None:
+    from .. import obs
+
     tmp = f"{path}.tmp-{os.getpid()}"
     tmp_meta = tmp + ".meta.json"
     try:
@@ -153,7 +182,6 @@ def save_checkpoint(model, path: str, *, step: Optional[int] = None,
             except OSError:
                 pass
         raise
-    return path
 
 
 def load_checkpoint_meta(path: str) -> Optional[dict]:
@@ -245,6 +273,8 @@ def restore_checkpoint(model, path: str, *,
         )
     copies += _merge_restore(model.state.opt_state,
                              restored.get("opt_state"))
+    # (op, weight) -> a weight re-placed replicated (`_put_resharded`)
+    replaced = {}
     saved_net = restored.get("net_state") or {}
     for op_name, bufs in model.state.net_state.items():
         for name, live in bufs.items():
@@ -258,13 +288,55 @@ def restore_checkpoint(model, path: str, *,
             guard = GuardState.create(1.0, model.executor.device)
         copies += [(getattr(guard, k), saved_guard[k])
                    for k in GuardState.FIELDS]
+    names = {id(w): (op, n) for op, ws in model.state.params.items()
+             for n, w in ws.items()}
     with torch.no_grad():
         for live, src in copies:
-            live.copy_(src)
+            if not is_dtensor(live):
+                live.copy_(src)
+                continue
+            put = _put_resharded(src, live)
+            if tuple(put.placements) == tuple(live.placements):
+                local(live).copy_(local(put))
+            elif id(live) in names:
+                replaced[names[id(live)]] = put
+            else:
+                local(live).copy_(local(_put_resharded(src, live,
+                                                       strict=False)))
+    for (op, n), put in replaced.items():
+        model.state.params[op][n] = put
+        report["replicated"].append(f"{op}/{n}")
     model.state.step = int(restored.get("step", 0))
     model.state.guard = guard
     model._restore_report = report
     return model.state.step
+
+
+def _put_resharded(src: torch.Tensor, like, strict: bool = True):
+    """`src`, a whole host tensor, as a DTensor placed as the live DTensor
+    `like` is (each rank keeps its own part; no communication), the JAX
+    package's device_put onto the live sharding. Where the shape does not
+    divide the mesh axes that shard it (an elastic restore can land a
+    degree on a mesh it does not divide), it is replicated instead, with
+    the JAX package's warning: the data is still correct, just not
+    distributed (`strict=False` keeps the uneven placement)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    mesh = like.device_mesh
+    pl = list(like.placements)
+    ways = {}
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            ways[p.dim] = ways.get(p.dim, 1) * mesh.size(i)
+    uneven = [d for d, w in ways.items() if src.shape[d] % w]
+    if strict and uneven:
+        logger.warning(
+            "restore: array of shape %s does not divide the live mesh "
+            "(dims %s over %s ways); replicating instead",
+            tuple(src.shape), uneven, [ways[d] for d in uneven])
+        pl = [Replicate()] * mesh.ndim
+    return distribute_tensor(src.to(local(like).device, like.dtype), mesh,
+                             pl, src_data_rank=None)
 
 
 def _leaf_pairs(live, saved, where: str):

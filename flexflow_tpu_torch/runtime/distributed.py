@@ -184,3 +184,63 @@ def local_world_size() -> int:
     if n is not None:
         return n
     return process_count()
+
+
+def broadcast_object(value, src: int = 0):
+    """Rank `src`'s `value` (a picklable object) on every rank, with one
+    broadcast; `value` itself without a group. What every rank must agree
+    on that one rank decides (the serving batcher's admissions, the
+    checkpoint a restore reads) goes through this."""
+    if not is_initialized() or dist.get_world_size() == 1:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def broadcast_optional(value, src: int = 0):
+    """`broadcast_object` of rank `src`'s `value`, or None on every rank
+    where `src`'s is None: one broadcast of an integer first, and the
+    pickled object's only where there is one, so a loop that mostly has
+    nothing to say (the serving batcher's iterations) pays one small
+    broadcast a turn."""
+    if not is_initialized() or dist.get_world_size() == 1:
+        return value
+    has = torch.tensor([int(value is not None)], dtype=torch.int64,
+                       device=current_device())
+    dist.broadcast(has, src=src)
+    return broadcast_object(value, src) if has.item() else None
+
+
+def any_rank(flag: bool) -> bool:
+    """Whether `flag` is true on any rank (one all-reduce of a flag;
+    `flag` itself without a group): a decision no rank may take alone (a
+    preemption, a failed canary) is taken by all."""
+    return any_ranks([flag])[0]
+
+
+def any_ranks(flags) -> list:
+    """`any_rank` of each of `flags`, with one all-reduce."""
+    if not is_initialized() or dist.get_world_size() == 1:
+        return [bool(f) for f in flags]
+    t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int64,
+                     device=current_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return [bool(v) for v in t.tolist()]
+
+
+def max_over_ranks(value: int) -> int:
+    """The largest of the ranks' integers (one all-reduce); `value`
+    itself without a group."""
+    if not is_initialized() or dist.get_world_size() == 1:
+        return int(value)
+    t = torch.tensor([int(value)], dtype=torch.int64,
+                     device=current_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return int(t.item())
+
+
+def barrier() -> None:
+    """Wait for every rank (a no-op without a group)."""
+    if is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()

@@ -29,6 +29,8 @@ import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from . import distributed as rdist
+
 
 # ----------------------------------------------------------------------
 # typed failures
@@ -419,7 +421,15 @@ class CheckpointManager:
     all) + ``step_<N>.meta.json`` sidecar (topology + train cursor) +
     ``LATEST`` pointer. Retention keeps the newest `keep_last_n`.
     Writes are retried under `retry_policy`; `fault_injector` (site
-    ``checkpoint_write``) can make any write fail mid-flight for tests."""
+    ``checkpoint_write``) can make any write fail mid-flight for tests.
+
+    On a process group every rank holds a manager over the same
+    directory: every rank joins a save (runtime/checkpoint.py gathers the
+    state on all of them) and rank 0 alone touches the disk (the write,
+    LATEST, the pruning, the stale-tmp sweep); a restore's choice of
+    checkpoint, the corrupt-newest fallback included, is rank 0's,
+    broadcast, and a checkpoint counts as restored only where it restored
+    on every rank."""
 
     def __init__(self, directory: str, *, keep_last_n: int = 3,
                  retry_policy: Optional[RetryPolicy] = None,
@@ -430,8 +440,10 @@ class CheckpointManager:
         self.retry_policy = retry_policy or RetryPolicy()
         self.fault_injector = fault_injector
         self._sleep = sleep
+        self._leader = rdist.process_index() == 0
         os.makedirs(self.directory, exist_ok=True)
-        self.clean_stale_tmp()
+        if self._leader:
+            self.clean_stale_tmp()
 
     # -- paths ----------------------------------------------------------
     def step_path(self, step: int) -> str:
@@ -519,6 +531,13 @@ class CheckpointManager:
             retry(_write, self.retry_policy, sleep=self._sleep)
         obs.count("ff_checkpoint_saves_total",
                   help="checkpoints written (CheckpointManager.save)")
+        if self._leader:
+            self._after_save(path, step)
+        # the pointer is written before any rank reads it
+        rdist.barrier()
+        return path
+
+    def _after_save(self, path: str, step: int) -> None:
         if self.fault_injector is not None:
             # SDC-on-disk simulation (runtime/verify.py): corrupt the
             # checkpoint AFTER its checksums were recorded, so the
@@ -533,7 +552,6 @@ class CheckpointManager:
                 )
         self._write_latest(step)
         self._gc()
-        return path
 
     def restore_latest(self, model,
                        elastic: bool = False) -> Optional[RestoreResult]:
@@ -549,18 +567,27 @@ class CheckpointManager:
         from .. import obs
         from .checkpoint import load_checkpoint_meta, restore_checkpoint
 
-        latest = self.latest_step()
-        if latest is None:
-            return None
-        candidates = [latest] + [s for s in reversed(self.list_steps())
-                                 if s != latest]
-        for s in candidates:
+        candidates = None
+        if self._leader:
+            latest = self.latest_step()
+            candidates = [] if latest is None else [latest] + [
+                s for s in reversed(self.list_steps()) if s != latest]
+        # rank 0's choice on every rank
+        for s in rdist.broadcast_object(candidates):
             path = self.step_path(s)
             try:
+                err = None
                 with obs.span("checkpoint_restore", cat="checkpoint",
                               step=s, path=path, elastic=elastic):
-                    step = restore_checkpoint(model, path,
-                                              strict_topology=not elastic)
+                    try:
+                        step = restore_checkpoint(
+                            model, path, strict_topology=not elastic)
+                    except Exception as e:  # agreed on below
+                        err = e
+                    if rdist.any_rank(err is not None):
+                        raise err or RuntimeError(
+                            f"checkpoint {path} failed to restore on "
+                            "another rank")
                 meta = load_checkpoint_meta(path) or {}
                 obs.count("ff_checkpoint_restores_total",
                           help="successful checkpoint restores")

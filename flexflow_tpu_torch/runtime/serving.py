@@ -23,6 +23,16 @@ The PyTorch counterpart of flexflow_tpu/runtime/serving.py, serving slice:
 Every one-token step passes per-row positions, so on a card it replays
 the decode step's captured graph; `_eager=True` runs the steps eagerly.
 
+On a process group (one process per device, the model compiled over a
+mesh) the APIs run SPMD: every rank calls them with the same prompts
+(checked: a mismatch raises on every rank), the steps run at the
+executor's degrees, and the logits come back whole on every rank, so
+every rank picks the same tokens and beams. The batcher runs in lockstep:
+rank 0's queue alone takes requests, and every iteration rank 0
+broadcasts its decisions (the admissions, the expired slots, the stop;
+one integer when there are none) before every rank runs the same prefill, slot insertion and decode step
+(`ContinuousBatcher`).
+
 Not ported yet: fault injection, the health monitor, SLO tracking, decode
 re-search, the prefix-sharing page pool and prefill-skip memo, fleet
 spools, ReplicaSet and BatchScheduler.
@@ -30,6 +40,7 @@ spools, ReplicaSet and BatchScheduler.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 import time
 import uuid
@@ -40,6 +51,8 @@ import numpy as np
 import torch
 
 from ..parallel.executor import _tensors
+from ..parallel.mesh import full, is_dtensor, local
+from . import distributed as rdist
 from .kvcache import KVCacheConfig, KVCacheExhaustedError, PagePool
 
 _IDLE_WAIT_S = 0.005  # serving-loop poll interval with no active slot
@@ -83,6 +96,28 @@ def _host_rows(logits: torch.Tensor) -> np.ndarray:
     return logits.float().cpu().numpy()
 
 
+def _assert_same_call(api: str, *arrays, **kw) -> None:
+    """The SPMD contract of the generation APIs on a process group: every
+    rank calls `api` with the same prompts and arguments (a digest of
+    each compared with one all-gather; a mismatch raises on every rank,
+    where it would otherwise hang or desynchronize a collective, as fit's
+    `_assert_same_global_batch` guards its batches). A no-op without a
+    group."""
+    if rdist.process_count() <= 1:
+        return
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.shape}{a.dtype}".encode())
+        h.update(a.tobytes())
+    rdist.assert_same(
+        (api, h.hexdigest(), repr(sorted(kw.items()))),
+        f"multi-process contract violated: every rank must call {api} "
+        "with the same prompts and arguments (runtime/serving.py)")
+
+
 def _check_encoder_ids(encoder_ids, enc_t) -> None:
     if tuple(np.shape(encoder_ids)) != tuple(enc_t.dims):
         raise ServingConfigError(
@@ -109,6 +144,9 @@ def greedy_generate(model, encoder_ids: np.ndarray, *,
     want = dec_len - 1 if max_new_tokens is None else max_new_tokens
     steps = min(want, dec_len - 1)
     enc = np.asarray(encoder_ids, enc_t.data_type.np_dtype)
+    _assert_same_call("greedy_generate", enc, steps=steps,
+                      start=start_token_id, eos=eos_token_id,
+                      pad=pad_token_id)
 
     def next_logits(t, dec):
         return fwd(model.params, [enc, dec], model.state.net_state)[:, t]
@@ -168,6 +206,9 @@ def incremental_seq2seq_generate(model, encoder_ids: np.ndarray, *,
     _check_encoder_ids(encoder_ids, enc_t)
     want = dec_len - 1 if max_new_tokens is None else max_new_tokens
     steps = min(want, dec_len - 1)
+    _assert_same_call("incremental_seq2seq_generate", encoder_ids,
+                      steps=steps, start=start_token_id, eos=eos_token_id,
+                      pad=pad_token_id, causal=assume_causal)
     if steps <= 0:
         return np.full((bs, 1), start_token_id, dec_t.data_type.np_dtype)
     init_caches, step = model.executor.build_decode(
@@ -209,6 +250,10 @@ def incremental_generate(model, prompt_ids: np.ndarray, *,
         raise NotCompiledError("compile() the model first")
     prompt_ids = np.asarray(prompt_ids)
     bs, plen = prompt_ids.shape
+    _assert_same_call("incremental_generate", prompt_ids, *static_inputs,
+                      new=max_new_tokens, max_len=max_len, eos=eos_token_id,
+                      pad=pad_token_id, decode_input=decode_input,
+                      causal=assume_causal)
     if max_new_tokens <= 0:
         return prompt_ids.copy()
     total = plen + max_new_tokens
@@ -256,10 +301,51 @@ def _reorder_beams(caches, src_beams: np.ndarray) -> None:
     if not tensors or np.array_equal(src_beams, np.arange(len(src_beams))):
         return
     idx = torch.as_tensor(src_beams, dtype=torch.long,
-                          device=tensors[0].device)
+                          device=local(tensors[0]).device)
     with torch.no_grad():
         for c in tensors:
-            c.copy_(c.index_select(0, idx))
+            if _batch_sharded(c):
+                # beams spread over ranks: gathered whole, each rank keeps
+                # its reordered rows
+                from torch.distributed.tensor import distribute_tensor
+
+                moved = distribute_tensor(full(c).index_select(0, idx),
+                                          c.device_mesh, c.placements,
+                                          src_data_rank=None)
+                local(c).copy_(local(moved))
+            else:
+                loc = local(c)
+                loc.copy_(loc.index_select(0, idx))
+
+
+def _copy_row(dst, slot_idx: int, row) -> None:
+    """dst[slot_idx] = row[0], in place: `dst` a batch cache and `row` a
+    batch-1 one, each a tensor or a DTensor (on a mesh the prefill's and
+    the batch step's caches may be placed by two strategies). A rank
+    writes the part of the row that its local tensor of `dst` holds, cut
+    from the row whole (gathered, on every rank alike, only where the
+    row is sharded)."""
+    whole = full(row)[0]
+    if not is_dtensor(dst):
+        dst[slot_idx].copy_(whole)
+        return
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(
+        dst.shape, dst.device_mesh, dst.placements)
+    if not offset[0] <= slot_idx < offset[0] + shape[0]:
+        return  # another rank's slot
+    for d in range(1, len(shape)):
+        whole = whole.narrow(d - 1, offset[d], shape[d])
+    local(dst)[slot_idx - offset[0]].copy_(whole)
+
+
+def _batch_sharded(c) -> bool:
+    from torch.distributed.tensor import Shard
+
+    return is_dtensor(c) and any(isinstance(p, Shard) and p.dim == 0
+                                 for p in c.placements)
 
 
 def incremental_beam_generate(model, prompt_ids: np.ndarray, *,
@@ -286,6 +372,11 @@ def incremental_beam_generate(model, prompt_ids: np.ndarray, *,
         raise NotCompiledError("compile() the model first")
     prompt_ids = np.asarray(prompt_ids)
     plen = prompt_ids.shape[1]
+    _assert_same_call("incremental_beam_generate", prompt_ids,
+                      *([] if encoder_ids is None else [encoder_ids]),
+                      *static_inputs, beams=num_beams, new=max_new_tokens,
+                      max_len=max_len, eos=eos_token_id, pad=pad_token_id,
+                      causal=assume_causal)
     if max_new_tokens <= 0:
         return prompt_ids.copy()
     in_t = model._fit_input_tensors[-1]
@@ -405,6 +496,9 @@ def beam_generate(model, encoder_ids: np.ndarray, *, num_beams: int = 4,
             f"compiled {tuple(enc_t.dims[1:])}")
     want = dec_len - 1 if max_new_tokens is None else max_new_tokens
     steps = min(want, dec_len - 1)
+    _assert_same_call("beam_generate", encoder_ids, beams=num_beams,
+                      steps=steps, start=start_token_id, eos=eos_token_id,
+                      pad=pad_token_id)
     n_rows = encoder_ids.shape[0]
     if steps <= 0:
         return np.full((n_rows, 1), start_token_id, dec_t.data_type.np_dtype)
@@ -523,6 +617,9 @@ class AdmissionQueue:
 
     def __init__(self, max_depth: int):
         self.max_depth = max_depth
+        # set by a batcher that follows rank 0 in lockstep: this rank's
+        # queue takes no requests
+        self.follower_of: Optional[int] = None
         self._q: deque = deque()
         self._lock = threading.Lock()
         self._nonempty = threading.Condition(self._lock)
@@ -532,6 +629,12 @@ class AdmissionQueue:
             return len(self._q)
 
     def offer(self, req: GenerationRequest) -> None:
+        if self.follower_of is not None:
+            raise ServingConfigError(
+                f"this queue's batcher runs in lockstep with rank "
+                f"{self.follower_of} of the process group, whose queue "
+                f"alone takes requests: offer them on rank "
+                f"{self.follower_of}")
         now = time.monotonic()
         if now >= req.deadline:
             err = DeadlineExceededError(
@@ -602,7 +705,20 @@ class ContinuousBatcher:
       3. retire finished slots (EOS, max_new_tokens, blown deadline) and
          release their KV pages.
 
-    Decoder-only models only (one graph input)."""
+    Decoder-only models only (one graph input).
+
+    On a process group of more than one rank (the model compiled over a
+    mesh) the batcher runs in lockstep: every rank builds one over the
+    same model and config and starts it; rank 0's queue alone takes
+    requests (`offer` on another rank's queue raises). Every iteration
+    rank 0 decides (the slots whose request expired or was abandoned, the
+    requests it admits, each with its slot and its page reservation,
+    whether to stop) and broadcasts that over the group (one integer in
+    an iteration that decided nothing); then every rank
+    runs the same retirements, prefills, slot insertions and decode step,
+    and retires by the same logits. A follower's requests are mirrors of
+    rank 0's (`mirrors`, by request id), answered as rank 0's are.
+    `stop()` on rank 0 stops every rank's loop."""
 
     def __init__(self, model, config: ServingConfig,
                  queue_: AdmissionQueue):
@@ -660,6 +776,12 @@ class ContinuousBatcher:
         self.death_cause: Optional[BaseException] = None
         self._thread: Optional[threading.Thread] = None
         self._admit_seq = 0  # per-admission nonce: pool keys stay unique
+        # lockstep over a process group (class docstring)
+        self._lockstep = rdist.process_count() > 1
+        self._leader = rdist.process_index() == 0
+        self.mirrors = {}
+        if self._lockstep and not self._leader:
+            queue_.follower_of = 0
         self.stats = {"admitted": 0, "finished": 0, "iterations": 0,
                       "prefills": 0, "retired_eos": 0, "shed_decode": 0,
                       "tokens": 0}
@@ -736,17 +858,22 @@ class ContinuousBatcher:
         return min(self.config.max_len,
                    max(self._bucket(plen), plen + max_new))
 
-    def _try_admit_one(self) -> bool:
+    def _pick_admission(self):
+        """The next request to admit and its pool key, its pages reserved
+        (rank 0, or the one process): None when the queue is empty or the
+        pool presses back (the request requeued), False when the request
+        was shed (too long, or never fitting the pool) and the next may
+        be tried."""
         req = self.queue.poll(timeout=0.0)
         if req is None:
-            return False
+            return None
         plen = len(req.prompt)
         if plen < 1 or plen + req.max_new_tokens > self.config.max_len:
             req._finish(error=RequestShedError(
                 f"request {req.id}: prompt {plen} + max_new "
                 f"{req.max_new_tokens} exceeds max_len {self.config.max_len}",
                 reason="too_long"))
-            return True
+            return False
         self._admit_seq += 1
         seq_key = f"{req.id}:{self._admit_seq}"
         try:
@@ -757,10 +884,16 @@ class ContinuousBatcher:
                 req._finish(error=RequestShedError(
                     f"request {req.id} can never fit the KV page pool: {e}",
                     reason="kv_exhausted"))
-                return True
+                return False
             self.queue.requeue(req)  # backpressure: wait for retirements
-            return False
-        slot_idx = self.slots.index(None)
+            return None
+        return req, seq_key
+
+    def _admit(self, req: GenerationRequest, seq_key: str,
+               slot_idx: int) -> None:
+        """Prefill an admitted request (its pages reserved) into slot
+        `slot_idx`."""
+        plen = len(req.prompt)
         try:
             first, caches1 = self._prefill(req, plen)
             self._insert_slot(slot_idx, caches1)
@@ -775,7 +908,59 @@ class ContinuousBatcher:
         self.stats["admitted"] += 1
         self.stats["prefills"] += 1
         self._maybe_retire(slot_idx)
-        return True
+
+    def _plan(self) -> Optional[dict]:
+        """This iteration's decisions, rank 0's on every rank in lockstep
+        (the one process's otherwise), already applied to this rank's
+        slots and page pool: {"admit": [(request, pool key, slot)]}, or
+        None to stop. Rank 0 retires the slots whose request expired or
+        was abandoned, then takes requests into the free slots while the
+        pool covers them; a follower retires the same slots and reserves
+        the same pages. Only an iteration in which rank 0 decided
+        something sends its decisions (`broadcast_optional`)."""
+        plan = None
+        if self._leader:
+            if self._stop.is_set():
+                plan = {"stop": True, "expire": [], "admit": []}
+            else:
+                expire = [i for i, slot in enumerate(self.slots)
+                          if slot is not None and self._lockstep
+                          and self._timed_out(i)]
+                admit = []
+                free = [i for i, slot in enumerate(self.slots)
+                        if slot is None]
+                while free:
+                    got = self._pick_admission()
+                    if got is None:
+                        break
+                    if got:
+                        admit.append(got + (free.pop(0),))
+                plan = {"stop": False, "expire": expire, "admit": admit}
+        if not self._lockstep:
+            return None if plan["stop"] else plan
+        wire = None
+        if self._leader and (plan["stop"] or plan["expire"]
+                             or plan["admit"]):
+            wire = dict(plan, admit=[
+                (req.id, req.prompt, req.max_new_tokens, key, slot)
+                for req, key, slot in plan["admit"]])
+        # an iteration with nothing decided broadcasts one integer
+        wire = rdist.broadcast_optional(wire)
+        if wire is None:
+            return plan if self._leader else {"admit": []}
+        if wire["stop"]:
+            return None
+        if not self._leader:
+            for i in wire["expire"]:
+                self._timed_out(i)
+            plan = {"admit": []}
+            for rid, prompt, new, key, slot in wire["admit"]:
+                req = GenerationRequest(prompt, new, deadline_s=math.inf)
+                req.id = rid
+                self.mirrors[rid] = req
+                self.pool.reserve(key, self._reserve_tokens(len(prompt), new))
+                plan["admit"].append((req, key, slot))
+        return plan
 
     def _prefill(self, req: GenerationRequest, plen: int):
         """The prompt through the batch-1 decode step, padded to a
@@ -793,7 +978,9 @@ class ContinuousBatcher:
 
     def _insert_slot(self, slot_idx: int, caches1) -> None:
         """Write a prefilled batch-1 cache strip wholesale into the running
-        batch at `slot_idx`, replacing whatever a previous occupant left."""
+        batch at `slot_idx`, replacing whatever a previous occupant left.
+        On a mesh each rank writes the part of the row its own strips
+        hold (`_copy_row`)."""
         with self._device_lock:
             if self._caches is None:
                 self._caches = self._initB(self.model.params)
@@ -806,11 +993,11 @@ class ContinuousBatcher:
                         f"axis (batch shape {tuple(c.shape)} vs row "
                         f"{tuple(row.shape)}): this graph folds batch with "
                         "another axis and cannot be continuously batched")
-                c[slot_idx].copy_(row[0])
+                _copy_row(c, slot_idx, row)
             for opname, (kB, vB) in self._caches["mha"].items():
                 k1, v1 = caches1["mha"][opname]
-                kB[slot_idx].copy_(k1[0])
-                vB[slot_idx].copy_(v1[0])
+                _copy_row(kB, slot_idx, k1)
+                _copy_row(vB, slot_idx, v1)
 
     # -- retirement --------------------------------------------------------
     def _release(self, slot_idx: int) -> None:
@@ -819,21 +1006,40 @@ class ContinuousBatcher:
         if slot is not None:
             self.pool.release(slot.seq_key)
 
-    def _maybe_retire(self, slot_idx: int) -> None:
+    def _timed_out(self, slot_idx: int) -> bool:
+        """Retire slot `slot_idx` if its request was answered elsewhere
+        (aborted) or blew its deadline; whether it did. In lockstep only
+        rank 0 asks (its clock and its requests decide) and the followers
+        retire what it names (`_plan`)."""
         slot = self.slots[slot_idx]
-        if slot is None:
-            return
+        if self._lockstep and not self._leader:
+            slot.req._finish(error=RequestShedError(
+                f"request {slot.req.id} retired by rank 0",
+                reason="leader"))
+            self._release(slot_idx)
+            return True
         if slot.req.done():  # aborted elsewhere
             self._release(slot_idx)
-            return
-        generated = len(slot.tokens) - slot.prompt_len
+            return True
         if time.monotonic() > slot.req.deadline:
             self.stats["shed_decode"] += 1
             slot.req._finish(error=DeadlineExceededError(
                 f"request {slot.req.id} blew its deadline mid-decode after "
-                f"{generated} token(s)", stage="decode"))
+                f"{len(slot.tokens) - slot.prompt_len} token(s)",
+                stage="decode"))
             self._release(slot_idx)
+            return True
+        return False
+
+    def _maybe_retire(self, slot_idx: int) -> None:
+        slot = self.slots[slot_idx]
+        if slot is None:
             return
+        # in lockstep the clock and the abandoned requests are rank 0's
+        # call, made at the next iteration's plan
+        if not self._lockstep and self._timed_out(slot_idx):
+            return
+        generated = len(slot.tokens) - slot.prompt_len
         eos = self.config.eos_token_id
         hit_eos = eos is not None and slot.tokens[-1] == eos
         if generated >= slot.req.max_new_tokens or hit_eos:
@@ -868,11 +1074,19 @@ class ContinuousBatcher:
 
     def _serve_loop(self) -> None:
         try:
-            while not self._stop.is_set():
-                while None in self.slots and self._try_admit_one():
-                    pass
+            device = self.model.executor.device
+            if device.type == "cuda" and device.index is not None:
+                # a thread starts on card 0: serve on the model's card
+                torch.cuda.set_device(device)
+            while True:
+                plan = self._plan()
+                if plan is None:
+                    break
+                for req, seq_key, slot_idx in plan["admit"]:
+                    self._admit(req, seq_key, slot_idx)
                 if self.active_slots == 0:
-                    time.sleep(_IDLE_WAIT_S)
+                    if not plan["admit"]:
+                        time.sleep(_IDLE_WAIT_S)
                     continue
                 self._decode_iteration()
                 self.stats["iterations"] += 1

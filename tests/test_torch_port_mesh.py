@@ -1,6 +1,6 @@
 """flexflow_tpu_torch's device mesh: the placements lowering against the
-JAX package's PartitionSpecs, data parallelism against one device, the
-flash dispatch on a sharded mesh, and what is still refused by name.
+JAX package's PartitionSpecs, data parallelism against one device, and
+the flash dispatch on a sharded mesh.
 
 The placements are a pure function of (ParallelTensor, axis names, axis
 sizes): the table runs in this process with no process group, against
@@ -33,9 +33,7 @@ port on one device in this process from the same seed's weights:
     torch module) at dp 2 x tp 2 the same; on a mesh of one device the
     BERT keeps the flash kernels' dropout per shard through local_map;
     each matches one device's steps, rtol 1e-5, atol 1e-6;
-  - on 2 ranks, every refusal of this slice raises NotImplementedError
-    naming the slice that brings it, and the train scan (no longer
-    refused) is bit-equal to stepwise fit.
+  - on 2 ranks, the train scan is bit-equal to stepwise fit.
 """
 import concurrent.futures
 import json
@@ -196,18 +194,6 @@ ATT_DROP = dict(ATT, dropout=0.1)
 BERT = {"layers": 2, "hidden": 64, "heads": 4, "ffn": 256, "dropout": 0.1,
         "batch": 2, "seq": 16}
 CASES = str(pathlib.Path(__file__).with_name("torch_mesh_cases.py"))
-# the refusals on a 2-device mesh: (case, fragment of the message)
-_REFUSED = {
-    "decode": ({"mode": "decode"}, "serving decode step"),
-    "compile_decode": ({"mode": "compile_decode"}, "decode and serving"),
-    "checkpoint_dir": ({"mode": "fit", "fit": {"checkpoint_dir": "ck"}},
-                       "checkpoints, the verifier and the canary"),
-    "verify_strategy": ({"mode": "fit",
-                         "fit": {"verify_strategy": "preflight"}},
-                        "checkpoints, the verifier and the canary"),
-    "canary": ({"mode": "fit", "fit": {"canary": True}},
-               "checkpoints, the verifier and the canary"),
-}
 
 
 class _Run:
@@ -316,11 +302,6 @@ def runs(tmp_path_factory):
     np.savez(base["data"], x0=rng.rand(64, 784).astype(np.float32),
              y=rng.randint(0, 10, (64, 1)).astype(np.int32))
     two = []
-    for name, (case, _) in _REFUSED.items():
-        c = dict(base, name=name, **case)
-        if name == "checkpoint_dir":
-            c["fit"] = {"checkpoint_dir": str(d / "ck")}
-        two.append(c)
     # the train scan over the mesh, and the stepwise fit it must equal
     for spd in (1, 2):
         two.append(dict(base, name=f"fit_spd{spd}", mode="fit",
@@ -541,18 +522,6 @@ def test_moe_dispatch_over_the_global_batch(runs):
     assert out["gathered"]["dispatch_mask"] > 0
     np.testing.assert_allclose(out["losses"], want, rtol=RTOL, atol=ATOL)
     _compare(run, "moe_dp4", weights)
-
-
-@pytest.mark.parametrize("name", sorted(_REFUSED))
-def test_refused_on_a_mesh_naming_the_later_slice(runs, name):
-    """What this slice leaves for later raises NotImplementedError on a
-    mesh of 2 devices, on every rank, naming the slice."""
-    run = runs["runs"]["two"]
-    for r in range(2):
-        err = run.result(name, r).get("error", "")
-        assert err.startswith("NotImplementedError"), err
-        assert _REFUSED[name][1] in err, err
-        assert "later slice" in err or "slice of" in err, err
 
 
 def test_train_scan_on_a_mesh_of_two_devices(runs):

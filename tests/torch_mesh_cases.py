@@ -7,7 +7,7 @@ case of a JSON spec in order:
     {"name": ..., "builder": "transformer" | "dense_softmax" | "bn_cnn"
      | "dropout_mlp" | "mlp" | "search_mlp" | "attention" | "bert"
      | "moe" | "moe_small" | "overlap_mlp" | "block_stack"
-     | "nonuniform" | "budgeted",
+     | "nonuniform" | "budgeted" | "lm" | "prim_lm" | "seq2seq",
      "builder_kwargs": {...},
      "config": {FFConfig fields}, "config_by_rank": {"1": {...}},
      "rewrites": [[substitution generator, degree], ...] (the searched
@@ -22,13 +22,18 @@ case of a JSON spec in order:
      "random_data": {"x_shapes": [...], "y_shape": [...], "seed": 0},
      "mode": "steps" | "guard" | "fit" | "decode" | "verify"
      | "compile_decode" | "compile" | "var_mean" | "sp_kernels" | "gpipe"
-     | "hybrid",
+     | "hybrid" | "serve" | "ckpt_save" | "ckpt_restore" | "fit_resume"
+     | "canary" | "serve_moved" | "seq2seq",
      "steps": 3, "epochs": 1, "fit": {fit keywords},
      "same_batch": true (every step on the first batch),
      "guard": {"init_loss_scale": 4.0, "poison_step": 1} (StepGuardConfig's
      scale; the step whose gradients are poisoned, -1 for none),
      "forward": true (then the forward of the first batch),
-     "opt_state": true (rank 0 also writes the optimizer slots whole)}
+     "opt_state": true (rank 0 also writes the optimizer slots whole),
+     "faults": {"<rank>": [[site, {FaultInjector.inject keywords}]]} (a
+     FaultInjector for that rank's fit; "fit" and "canary"),
+     "dense_route": "matmul" (the dense op's product through DTensor's
+     matmul, the route before `_local_product`)}
 
 "steps" runs the executor's train step on the first `steps` batches
 (every rank passes the SAME global batch; the step seed is the step
@@ -36,6 +41,10 @@ index; past the data, the batches repeat) and records each step's loss
 and its seconds (the loss read synchronises); "guard" does so with the
 step guard armed and the second step's gradients poisoned with NaN, and
 records the global gradient norms and the skips; "fit" runs FFModel.fit;
+"serve", "ckpt_save", "ckpt_restore", "fit_resume", "canary" and
+"serve_moved" are the serving and state cases (`_serve_case`,
+`_ckpt_restore_case`, `_fit_resume_case`, `_canary_case`,
+`_serve_moved_case`);
 "var_mean" runs parallel/mesh.py `var_mean` on DTensors of a seeded
 array (no model) under CommDebugMode and records the collectives;
 "sp_kernels" runs ring and Ulysses attention alone over the group
@@ -142,6 +151,74 @@ def build(model, name: str, kw: dict):
                                 DataType.DT_FLOAT)
         model.transformer_blocks(x, kw["hidden"], kw["heads"],
                                  kw["layers"], name="encoder_stack")
+    elif name == "lm":
+        # tests/test_decode_search.py build_lm: a causal LM
+        from flexflow_tpu_torch.ff_types import AggrMode
+
+        ids = model.create_tensor((kw["batch"], kw["seq"]),
+                                  DataType.DT_INT32)
+        t = model.embedding(ids, kw["vocab"], kw["hidden"],
+                            AggrMode.AGGR_MODE_NONE)
+        for _ in range(kw.get("layers", 1)):
+            t = model.multihead_attention(t, t, t, kw["hidden"], kw["heads"],
+                                          causal=True)
+            t = model.dense(t, kw["hidden"], ActiMode.AC_MODE_RELU)
+        model.softmax(model.dense(t, kw["vocab"]))
+    elif name == "prim_lm":
+        # chip_smoke.py build_primitive_decoder's block, small: attention
+        # from dense, reshape, transpose, batch_matmul, a baked tril mask
+        # and softmax (decoded through prefix caches)
+        import numpy as np
+
+        from flexflow_tpu_torch.ff_types import AggrMode
+
+        b, n, d, h = kw["batch"], kw["seq"], kw["hidden"], kw["heads"]
+        ids = model.create_tensor((b, n), DataType.DT_INT32)
+        x = model.embedding(ids, kw["vocab"], d, AggrMode.AGGR_MODE_NONE)
+        mask = np.where(np.tril(np.ones((n, n), bool)), 0.0, -1e9) \
+            .astype(np.float32)[None, None]
+
+        def heads(t):
+            return model.transpose(model.reshape(model.dense(t, d),
+                                                 (b, n, h, d // h)),
+                                   (0, 2, 1, 3))
+
+        q, k, v = heads(x), heads(x), heads(x)
+        sc = model.batch_matmul(q, model.transpose(k, (0, 1, 3, 2)))
+        sc = model.add(model.scalar_multiply(sc, 1.0 / np.sqrt(d // h)),
+                       model.create_constant_tensor(mask, DataType.DT_FLOAT))
+        a = model.batch_matmul(model.softmax(sc, axis=-1), v)
+        a = model.reshape(model.transpose(a, (0, 2, 1, 3)), (b, n, d))
+        x = model.layer_norm(model.add(x, model.dense(a, d)))
+        model.softmax(model.dense(x, kw["vocab"]))
+    elif name == "seq2seq":
+        # tests/test_torch_port_generate.py build_seq2seq, one block a
+        # side: an encoder, a causal decoder with cross-attention,
+        # position constants
+        import numpy as np
+
+        from flexflow_tpu_torch.ff_types import AggrMode
+
+        b, n, d, h, vocab = (kw[k] for k in ("batch", "seq", "hidden",
+                                              "heads", "vocab"))
+        src = model.create_tensor((b, n), DataType.DT_INT32)
+        tgt = model.create_tensor((b, n), DataType.DT_INT32)
+        pos = np.random.RandomState(9).randn(1, n, d).astype(np.float32)
+
+        def embed(ids):
+            e = model.embedding(ids, vocab, d, AggrMode.AGGR_MODE_NONE)
+            return model.add(e, model.create_constant_tensor(
+                pos, DataType.DT_FLOAT))
+
+        e = embed(src)
+        e = model.layer_norm(model.add(e, model.multihead_attention(
+            e, e, e, d, h)))
+        x = embed(tgt)
+        x = model.layer_norm(model.add(x, model.multihead_attention(
+            x, x, x, d, h, causal=True)))
+        x = model.layer_norm(model.add(x, model.multihead_attention(
+            x, e, e, d, h)))
+        model.dense(x, vocab)
     elif name == "nonuniform":
         # tests/test_pipeline.py _build_nonuniform: a conv tower into an
         # MLP with a residual add (nothing a block stack expresses)
@@ -209,6 +286,10 @@ def fixed_winner(rewrites, package="flexflow_tpu_torch"):
         sub.GraphSearchHelper.graph_optimize = old
 
 
+# ops/linear.py's `_local_product`, which a "dense_route" case replaces
+_LOCAL_PRODUCT: dict = {}
+
+
 def run_case(case: dict, rank: int, device: str) -> dict:
     import numpy as np
 
@@ -224,6 +305,14 @@ def run_case(case: dict, rank: int, device: str) -> dict:
     cfg_kw.update(case.get("config_by_rank", {}).get(str(rank), {}))
     for k, v in case.get("env", {}).items():
         os.environ[k] = str(v)
+    from flexflow_tpu_torch.ops import linear
+
+    linear.ROUTES.clear()
+    # the dense route of this case alone
+    _LOCAL_PRODUCT.setdefault("fn", linear._local_product)
+    linear._local_product = (
+        (lambda x, w: None) if case.get("dense_route") == "matmul"
+        else _LOCAL_PRODUCT["fn"])
     att.MESH_PATHS.clear()
     att.MESH_LOCAL_Q.clear()
     att._FALLBACK_WARNED.clear()
@@ -236,6 +325,8 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         return _gpipe_case(case, rank, device)
     if case.get("mode") == "hybrid":
         return _hybrid_case(case, rank, device)
+    if case.get("mode") in _MODES:
+        return _MODES[case["mode"]](case, rank, device)
     model = FFModel(FFConfig(device=device, **cfg_kw))
     source = build(model, case["builder"], case.get("builder_kwargs", {}))
     opt = dict(case.get("optimizer", {"lr": case.get("lr", 0.01)}))
@@ -311,7 +402,8 @@ def run_case(case: dict, rank: int, device: str) -> dict:
             out["skipped"].append(float(partials["skipped"]))
     elif mode == "fit":
         pm = model.fit(xs, y, batch_size=bs, epochs=case.get("epochs", 1),
-                       verbose=rank == 0, **case.get("fit", {}))
+                       verbose=rank == 0, fault_injector=_faults(case, rank),
+                       **case.get("fit", {}))
         out["train_all"] = pm.train_all
     elif mode == "verify":
         from flexflow_tpu_torch.runtime.verify import verify_strategy
@@ -325,6 +417,20 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         ex.build_decode(bs, 4)
     elif mode == "compile_decode":
         model.compile_decode()
+    elif mode == "serve":
+        out.update(_serve_case(case, model, rank))
+    elif mode == "ckpt_save":
+        for i in range(case.get("steps", 1)):
+            batch = [a[i * bs:(i + 1) * bs] for a in xs + [y]]
+            model.state, _ = ex.build_train_step()(model.state, batch[:-1],
+                                                   batch[-1], i)
+        from flexflow_tpu_torch.runtime.checkpoint import save_checkpoint
+
+        save_checkpoint(model, case["path"])
+    elif mode == "seq2seq":
+        out.update(_seq2seq_case(case, model, rank))
+    elif mode == "ckpt_restore":
+        out.update(_ckpt_restore_case(case, model, rank))
     mesh = ex.mesh
     out.update(
         mesh=None if mesh is None else mesh.shape,
@@ -338,6 +444,7 @@ def run_case(case: dict, rank: int, device: str) -> dict:
                                for op, n in ex._overlap_specs()),
         opt_slots=_slots(model),
         mesh_paths=dict(att.MESH_PATHS),
+        dense_routes=dict(linear.ROUTES),
         local_q=dict(att.MESH_LOCAL_Q),
         gathered=dict(pmesh.GATHERED),
         searched_pipeline_degree=model.searched_pipeline_degree,
@@ -374,6 +481,7 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         fwd = fwd.detach().float().cpu().numpy()
     weights = params_to_numpy(model)
     buffers = net_state_to_numpy(model)
+    extra = out.pop("serve_arrays", {})
     if rank == 0:
         arrays = {f"w/{op}/{n}": a for op, ws in weights.items()
                   for n, a in ws.items()}
@@ -383,6 +491,7 @@ def run_case(case: dict, rank: int, device: str) -> dict:
                        for n, a in bufs.items()})
         if fwd is not None:
             arrays["f/out"] = fwd
+        arrays.update(extra)
         out["arrays"] = arrays
     if case.get("opt_state"):
         # every rank joins the gathers; rank 0 keeps them
@@ -393,6 +502,336 @@ def run_case(case: dict, rank: int, device: str) -> dict:
         if rank == 0:
             out["arrays"].update(slots)
     return out
+
+
+def _faults(case, rank):
+    """This rank's FaultInjector of `case["faults"]`, or None."""
+    plans = case.get("faults", {}).get(str(rank))
+    if not plans:
+        return None
+    from flexflow_tpu_torch.runtime.resilience import FaultInjector
+
+    fi = FaultInjector()
+    for site, kw in plans:
+        fi.inject(site, **kw)
+    return fi
+
+
+def generate(ex, params, prompts, new, max_len):
+    """`incremental_generate`'s loop over executor `ex` (its prefill, then
+    one token a step at per-row positions): (tokens, each step's logits
+    of the position it predicts from, (b, vocab) f32, stacked), the
+    caches and the step."""
+    import numpy as np
+
+    from flexflow_tpu_torch.parallel.mesh import local
+
+    bs, plen = prompts.shape
+    total = plen + new
+    init, step = ex.build_decode(bs, max_len)
+    caches = init(params)
+    out = np.zeros((bs, total), np.int32)
+    out[:, :plen] = prompts
+    logits, caches = step(params, caches, 0, [prompts])
+    rows = [local(logits)[:, -1].float().numpy()]
+    out[:, plen] = rows[-1].argmax(-1)
+    for t in range(plen, total - 1):
+        logits, caches = step(params, caches, np.full(bs, t, np.int32),
+                              [out[:, t:t + 1]])
+        rows.append(local(logits)[:, 0].float().numpy())
+        out[:, t + 1] = rows[-1].argmax(-1)
+    return out, np.stack(rows), caches, step
+
+
+def _serve_case(case, model, rank):
+    """compile_decode (from `case["strategy"]`, a strategy_io file, else
+    searched), then on the decode executor `generate` over the prompts
+    of `case["prompts"]` (its tokens and logits, each attention cache's
+    local shape and placements, the collectives one more one-token step
+    ran, counted by the executor and seen by CommDebugMode),
+    `incremental_generate` on the training executor, and with
+    `case["batcher"]` ({"requests": [[prompt, new], ...], "slots"}) the
+    continuous batcher in lockstep: rank 0 offers the requests, another
+    rank's `offer` is refused; every rank's answers (a follower's
+    mirrors), the iterations that broadcast decisions as an object, and
+    `incremental_generate` of each request on the mesh."""
+    import collections
+
+    import numpy as np
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from flexflow_tpu_torch.ops import attention as att
+    from flexflow_tpu_torch.parallel.mesh import local
+    from flexflow_tpu_torch.runtime import serving
+
+    out = {}
+    dex = (model.compile_decode(strategy_path=case.get("strategy"))
+           if case.get("compile_decode", True) else model.executor)
+    out["decode_mesh"] = dex.mesh.shape
+    out["decode_executor"] = type(dex).__name__
+    out["decode_cost"] = model.decode_searched_cost
+    graph = model.decode_graph or model.graph
+    pos = {op.guid: i for i, op in enumerate(graph.topo_order())}
+    out["decode_views"] = sorted(
+        (pos.get(g, -1), v.start_device_id, list(v.dim), list(v.stride))
+        for g, v in (model.decode_searched_views or {}).items())
+    with np.load(case["prompts"]) as z:
+        prompts, new = z["p"], int(z["new"])
+    max_len = case["max_len"]
+    att.MESH_PATHS.clear()
+    toks, logits, caches, step = generate(dex, model.params, prompts, new,
+                                          max_len)
+    out["tokens"] = toks.tolist()
+    out["decode_paths"] = dict(att.MESH_PATHS)
+    out["cache_local"] = {op: [list(local(c).shape) for c in kv]
+                          for op, kv in caches["mha"].items()}
+    out["cache_global"] = {op: [list(c.shape) for c in kv]
+                           for op, kv in caches["mha"].items()}
+    out["cache_placements"] = {
+        op: [str(p) for p in kv[0].placements]
+        for op, kv in caches["mha"].items()}
+    # one more one-token step, its collectives counted both ways
+    t = prompts.shape[1] + new - 1
+    before = collections.Counter(dex.collectives)
+    with CommDebugMode() as comm:
+        step(model.params, caches, np.full(len(toks), t, np.int32),
+             [toks[:, -1:]])
+    out["step_collectives"] = dict(collections.Counter(dex.collectives)
+                                   - before)
+    out["step_comms"] = {str(k): v for k, v in
+                         comm.get_comm_counts().items()}
+    out["inc_tokens"] = serving.incremental_generate(
+        model, prompts, max_new_tokens=new, max_len=max_len).tolist()
+    out["serve_arrays"] = {"logits": logits}
+    bat = case.get("batcher")
+    if bat:
+        q = serving.AdmissionQueue(16)
+        b = serving.ContinuousBatcher(model, serving.ServingConfig(
+            max_len=max_len, slots=bat["slots"], page_size=4), q)
+        out["decode_strategy_active"] = b.decode_strategy_active
+        # the iterations that broadcast rank 0's decisions as an object
+        sent = []
+        plain_broadcast = serving.rdist.broadcast_object
+        serving.rdist.broadcast_object = lambda *a: sent.append(1) or \
+            plain_broadcast(*a)
+        b.start()
+        reqs = [serving.GenerationRequest(np.asarray(p, np.int32), n,
+                                          deadline_s=120.0)
+                for p, n in bat["requests"]]
+        if rank == 0:
+            for r in reqs:
+                q.offer(r)
+            answers = [r.result(timeout=120).tolist() for r in reqs]
+        else:
+            try:
+                q.offer(reqs[0])
+                out["follower_offer"] = "accepted"
+            except serving.ServingConfigError as e:
+                out["follower_offer"] = str(e)
+        b.stop(timeout=120)
+        serving.rdist.broadcast_object = plain_broadcast
+        out["batcher_object_broadcasts"] = len(sent)
+        if rank != 0:
+            answers = [m.result(timeout=1).tolist()
+                       for m in b.mirrors.values()]
+        out["batcher"] = answers
+        out["batcher_stats"] = dict(b.stats)
+        out["batcher_inc"] = [serving.incremental_generate(
+            model, np.asarray(p, np.int32)[None], max_new_tokens=n,
+            max_len=max_len)[0].tolist() for p, n in bat["requests"]]
+    return out
+
+
+def _ckpt_restore_case(case, model, rank):
+    """restore_checkpoint(case["path"]) into the compiled model, matching
+    weights by name (the strategies differ); with `case["uneven"]` the
+    named weight first re-placed `Shard(dim)` over the mesh's first axis,
+    a placement its shape does not divide. The report, the checkpoint
+    module's log, and `_put_resharded` of an uneven array on its own."""
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from flexflow_tpu_torch.parallel import mesh as pmesh
+    from flexflow_tpu_torch.runtime import checkpoint as ck
+
+    import logging
+
+    out = {"log": []}
+    handler = logging.Handler()
+    handler.emit = lambda rec: out["log"].append(rec.getMessage())
+    logging.getLogger("flexflow_tpu_torch.runtime.checkpoint").addHandler(
+        handler)
+    mesh = model.executor.mesh
+    uneven = case.get("uneven")
+    if uneven:
+        op, n, dim = uneven
+        w = model.state.params[op][n]
+        pl = [Shard(dim)] + list(w.placements[1:])
+        model.state.params[op][n] = pmesh.distribute(
+            pmesh.full(w).detach(), mesh, pl)
+        like = pmesh.distribute(torch.zeros(4, 3), mesh,
+                                [Shard(0)] + list(mesh.replicate()[1:]))
+        put = ck._put_resharded(
+            torch.arange(9, dtype=torch.float32).reshape(3, 3), like)
+        out["put_placements"] = [str(p) for p in put.placements]
+        out["put_value"] = pmesh.full(put).tolist()
+    try:
+        out["step"] = ck.restore_checkpoint(model, case["path"],
+                                            strict_topology=False)
+    finally:
+        logging.getLogger("flexflow_tpu_torch.runtime.checkpoint") \
+            .removeHandler(handler)
+    out["report"] = model._restore_report
+    out["restored_placements"] = {
+        f"{op}/{n}": [str(p) for p in w.placements]
+        for op, ws in model.state.params.items() for n, w in ws.items()}
+    return out
+
+
+def _seq2seq_case(case, model, rank):
+    """`incremental_seq2seq_generate` and `incremental_beam_generate` (2
+    beams) on the compiled encoder-decoder over the case's source ids:
+    the tokens, and the decode mesh."""
+    import numpy as np
+
+    from flexflow_tpu_torch.runtime import serving
+
+    with np.load(case["prompts"]) as z:
+        src = z["src"]
+    return {"greedy": serving.incremental_seq2seq_generate(
+                model, src, max_new_tokens=case["new"]).tolist(),
+            "beams": serving.incremental_beam_generate(
+                model, np.zeros((len(src), 1), np.int32), num_beams=2,
+                max_new_tokens=case["new"], encoder_ids=src).tolist()}
+
+
+def _fit_resume_case(case, rank, device):
+    """`fit(checkpoint_dir=...)` stopped by `case["faults"]` (a preemption
+    on one rank stops every rank), then a fresh model resumed from the
+    directory to the end, against one fit without a stop: each rank's
+    error, and rank 0 writes both runs' weights ("resumed/...",
+    "plain/...")."""
+    from flexflow_tpu_torch.runtime.weights import params_to_numpy
+
+    out = {"errors": []}
+    xs, y = _case_data(case)
+    arrays = {}
+    for run, kw in (("stopped", {"fault_injector": _faults(case, rank)}),
+                    ("resumed", {}), ("plain", None)):
+        model = _compiled(case, device)
+        fit_kw = {} if kw is None else dict(
+            kw, checkpoint_dir=case["path"], checkpoint_every_n_steps=1)
+        try:
+            model.fit(xs, y, batch_size=model.config.batch_size,
+                      epochs=case.get("epochs", 2), verbose=False, **fit_kw)
+        except Exception as e:  # recorded: the stopped run raises
+            out["errors"].append(f"{run}: {type(e).__name__}")
+        if run != "stopped":
+            arrays.update({f"{run}/{op}/{n}": a for op, ws in
+                           params_to_numpy(model).items()
+                           for n, a in ws.items()})
+    return dict(out, arrays=arrays) if rank == 0 else out
+
+
+def _canary_case(case, rank, device):
+    """A canaried `fit` (every step re-executed and compared bitwise)
+    with this rank's `case["faults"]`, against a plain fit: each rank's
+    error type, and rank 0 writes both runs' weights ("canary/...",
+    "plain/...")."""
+    from flexflow_tpu_torch.runtime.verify import CanaryConfig
+    from flexflow_tpu_torch.runtime.weights import params_to_numpy
+
+    out = {"errors": []}
+    xs, y = _case_data(case)
+    arrays = {}
+    for run in ("canary", "plain"):
+        model = _compiled(case, device)
+        kw = {} if run == "plain" else {
+            "canary": CanaryConfig(every_n_steps=1),
+            "fault_injector": _faults(case, rank)}
+        try:
+            model.fit(xs, y, batch_size=model.config.batch_size,
+                      epochs=case.get("epochs", 1), verbose=False, **kw)
+        except Exception as e:  # recorded: a flipped bit raises
+            out["errors"].append(f"{run}: {type(e).__name__}")
+        arrays.update({f"{run}/{op}/{n}": a for op, ws in
+                       params_to_numpy(model).items() for n, a in ws.items()})
+    return dict(out, arrays=arrays) if rank == 0 else out
+
+
+def _serve_moved_case(case, rank, device):
+    """Serving while the weights move under it: the case's model (its
+    config: mixed precision, the mesh's overlapped sync) decodes the
+    prompts through `case["strategy"]`'s decode executor (its own
+    executor without one), is saved, takes one `fit` step and decodes
+    again, is restored and decodes again. Each later decode is held
+    bit for bit against a fresh model's at the same weights on the same
+    mesh (the saved weights: the first decode). Rank 0 writes the
+    decodes' logits ("before", "fit", "fresh_fit", "restored")."""
+    import numpy as np
+
+    from flexflow_tpu_torch.runtime.checkpoint import (restore_checkpoint,
+                                                       save_checkpoint)
+    from flexflow_tpu_torch.runtime.weights import (params_from_numpy,
+                                                    params_to_numpy)
+
+    with np.load(case["prompts"]) as z:
+        prompts, new = z["p"], int(z["new"])
+    xs, y = _case_data(case)
+
+    def served(seed_weights=None):
+        model = _compiled(case, device)
+        if seed_weights is not None:
+            params_from_numpy(model, seed_weights)
+        dex = (model.compile_decode(strategy_path=case["strategy"])
+               if case.get("strategy") else model.executor)
+        return model, lambda: generate(dex, model.params, prompts, new,
+                                       case["max_len"])[1]
+
+    with np.load(case["weights"]) as z:
+        seed = {}
+        for key in z.files:
+            op, n = key.split("/", 1)
+            seed.setdefault(op, {})[n] = z[key]
+    model, decode = served(seed)
+    logits = {"before": decode()}
+    save_checkpoint(model, case["path"])
+    model.fit(xs, y, batch_size=model.config.batch_size, epochs=1,
+              verbose=False)
+    logits["fit"] = decode()
+    logits["fresh_fit"] = served(params_to_numpy(model))[1]()
+    restore_checkpoint(model, case["path"])
+    logits["restored"] = decode()
+    ex = model.executor
+    out = {"mesh": ex.mesh.shape, "executor": type(ex).__name__,
+           "overlap_weights": len(ex._overlap_specs()),
+           "mixed": model.config.allow_mixed_precision}
+    return dict(out, arrays=logits) if rank == 0 else out
+
+
+def _compiled(case, device):
+    """A fresh model of `case` ("builder", "config", "optimizer"/"lr",
+    "loss"), compiled: every one starts from the same seeded weights."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+
+    model = FFModel(FFConfig(device=device, **case.get("config", {})))
+    build(model, case["builder"], case.get("builder_kwargs", {}))
+    opt = dict(case.get("optimizer", {"lr": case.get("lr", 0.01)}))
+    model.compile(SGDOptimizer(**opt), case.get("loss", "mse"))
+    return model
+
+
+def _case_data(case):
+    import numpy as np
+
+    with np.load(case["data"]) as z:
+        xs = [z[f"x{i}"] for i in range(sum(
+            1 for f in z.files if f.startswith("x")))]
+        return xs, z["y"]
+
+
+_MODES = {"fit_resume": _fit_resume_case, "canary": _canary_case,
+          "serve_moved": _serve_moved_case}
 
 
 def _digest(model) -> str:
