@@ -269,6 +269,24 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      schedule's f32 buffer and the hop bypassed, its forward and one
      step's gradients against the unpipelined run, every flash launch
      (one an MHA op a micro-batch) on wgmma.
+ 20. frontends (last): (a) the flagship at full width written as a Keras
+     functional model (12 x MultiHeadAttention(16, 64) with biases,
+     Dense(1024, "relu", use_bias=False), Dense(1024, use_bias=False);
+     bf16 over f32, MSE, SGD lr 0.01) through the port's Keras frontend,
+     given a build_transformer model's weights through the native API
+     (get_weight_tensor().get_weights/set_weights), both fit 4 steps:
+     losses and weights bit for bit, every flash launch of the Keras fit
+     on wgmma (its launches are this phase's in the kernels line), one
+     Keras step traced; (b) the native API on the card: set_tensor keeps
+     the weight's address, and a captured train scan replayed after
+     set_tensor, then recaptured after set_learning_rate, matches a
+     stepwise model given the same value and rate, bit for bit (the
+     flagship at full width, 2 blocks); (c) AlexNet-CIFAR10 (229x229,
+     batch 64) written as an ONNX file by the port's own codec, imported
+     (ONNXModel), trained 4 steps against the same net built with FFModel
+     calls (models/alexnet.py build_alexnet) on the same weights. Prints
+     a `frontends` line (after the card's name and power limit) with the
+     phase's seconds.
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -8945,6 +8963,385 @@ def tuner_phase(torch):
     return summary
 
 
+# -- the frontends phase: Keras, the native API, ONNX ------------------------
+# the Keras flagship's fit: one epoch of FRONT_STEPS batches; the twin is
+# bit-equal (the same ops in the same order) unless its weights' worst
+# |a - b| / max|a| passes FRONT_WEIGHT_RTOL (two bf16 steps) or a loss
+# parts by more than FRONT_LOSS_RTOL
+FRONT_STEPS = 4
+FRONT_WEIGHT_RTOL = 2 * BF16_STEP
+FRONT_LOSS_RTOL = 1e-3
+# the native-API check: the flagship at full width, this many blocks, a
+# scan of FRONT_SPD steps a dispatch, three chunks
+FRONT_NATIVE_LAYERS, FRONT_SPD = 2, 2
+# the ONNX AlexNet against its FFModel twin, f32: the same ops but the
+# activations as their own ops, so bit-equal is expected; held to
+# ONNX_RTOL (weights' worst |a - b| / max|a|, losses relative) otherwise
+ONNX_STEPS, ONNX_RTOL = 4, 1e-4
+
+
+def keras_flagship(torch, layers=LAYERS, spd=1):
+    """The flagship Transformer written as a Keras functional model
+    through the port's Keras frontend, compiled on the card as
+    build_transformer_model compiles its twin (bf16 over f32, MSE, SGD
+    lr 0.01, batch TRAIN_BATCH)."""
+    from flexflow_tpu_torch.frontends import keras as k
+
+    inp = k.Input(shape=(TRAIN_SEQ, HIDDEN))
+    t = inp
+    for _ in range(layers):
+        t = k.MultiHeadAttention(HEADS, HIDDEN // HEADS)([t, t, t])
+        t = k.Dense(HIDDEN, activation="relu", use_bias=False)(t)
+        t = k.Dense(HIDDEN, use_bias=False)(t)
+    model = k.Model(inp, t)
+    model.ffconfig.allow_mixed_precision = True
+    model.ffconfig.seed = 1     # its own draws: the twin's replace them
+    model.ffconfig.iterations_per_dispatch = spd
+    model.compile(optimizer=k.SGD(learning_rate=0.01), loss="mse",
+                  metrics=["mse"], batch_size=TRAIN_BATCH)
+    return model
+
+
+def native_copy(src, dst):
+    """Every weight of FFModel `src` into FFModel `dst`, layer by layer in
+    order, through the native API (a host copy, then an in-place write).
+    Returns the weights copied."""
+    n = 0
+    for a, b in zip([l for l in src.layers if l.weights],
+                    [l for l in dst.layers if l.weights]):
+        for i in range(len(a.weights)):
+            b.get_weight_tensor(i).set_weights(
+                dst, a.get_weight_tensor(i).get_weights(src))
+            n += 1
+    return n
+
+
+def paired_weights(a, b):
+    """(name, a's tensor, b's tensor) of every weight of FFModels `a` and
+    `b`, layer by layer in order (their op names differ)."""
+    out = []
+    for la, lb in zip([l for l in a.layers if l.weights],
+                      [l for l in b.layers if l.weights]):
+        for wa, wb in zip(la.weights, lb.weights):
+            sa, sb = a._find_weight_slot(wa), b._find_weight_slot(wb)
+            out.append((f"{sa[0]}.{sa[1]}", a.params[sa[0]][sa[1]],
+                        b.params[sb[0]][sb[1]]))
+    return out
+
+
+def pair_gap(torch, a, b):
+    """Weights of FFModels `a` and `b` not bit-equal, and the worst
+    |a - b| / max|a| with where."""
+    differ, worst, at = 0, 0.0, None
+    pairs = paired_weights(a, b)
+    for name, wa, wb in pairs:
+        if not _bit_equal(torch, wa, wb):
+            differ += 1
+            rel = ((wa.float() - wb.float()).abs().max()
+                   / wa.float().abs().max()).item()
+            if not rel <= worst:
+                worst, at = rel, name
+    return {"weights": len(pairs), "weights_not_bit_equal": differ,
+            "worst_rel_diff": worst, "worst_at": at}
+
+
+def fit_loss_lines(torch, fit):
+    """Run `fit()` quietly, timed; (seconds, its per-epoch losses)."""
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        fit()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    text = out.getvalue()
+    losses = [float(v) for v in re.findall(r"epoch \d+: loss=(\S+)", text)]
+    if not losses:
+        raise AssertionError(f"fit printed {text!r}")
+    return dt, losses
+
+
+def frontends_keras(torch):
+    """(a): the Keras flagship against build_transformer's from the same
+    weights. Returns the summary, the Keras fit's launches under
+    "launches"."""
+    from flexflow_tpu_torch.kernels import build
+
+    rng = np.random.RandomState(12)
+    n = TRAIN_BATCH * FRONT_STEPS
+    x, y = (rng.randn(n, TRAIN_SEQ, HIDDEN).astype(np.float32)
+            for _ in range(2))
+    t0 = time.perf_counter()
+    twin = build_transformer_model(torch)
+    km = keras_flagship(torch)
+    compile_s = time.perf_counter() - t0
+    ff = km.ffmodel
+    kinds = [l.op_type.name for l in ff.layers]
+    if kinds != [l.op_type.name for l in twin.layers]:
+        raise AssertionError(f"keras flagship: ops {kinds}")
+    t0 = time.perf_counter()
+    copied = native_copy(twin, ff)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    if pair_gap(torch, twin, ff)["weights_not_bit_equal"]:
+        raise AssertionError("keras flagship: the native copy is not exact")
+    os.environ.pop("FF_ATTENTION_IMPL", None)
+    build.reset_launch_counts()
+    keras_s, keras_losses = fit_loss_lines(
+        torch, lambda: km.fit(x, y, batch_size=TRAIN_BATCH, epochs=1))
+    counts, paths = dict(build.launch_counts), dict(build.path_counts)
+    per = FRONT_STEPS * LAYERS
+    check_training_counts("keras fit", counts,
+                          {"flash_fwd": per, "flash_bwd": per,
+                           "paged_decode": 0})
+    check_wgmma_paths("keras fit", counts, paths)
+    twin_s, twin_losses = fit_loss_lines(
+        torch, lambda: twin.fit(x, y, epochs=1))
+    gap = pair_gap(torch, twin, ff)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in
+                   zip(keras_losses, twin_losses))
+    log(f"  keras flagship: {copied} weights copied in {copy_s:.2f} s; "
+        f"losses {keras_losses} (build_transformer {twin_losses}); "
+        f"weights not bit-equal {gap['weights_not_bit_equal']} of "
+        f"{gap['weights']}, worst {gap['worst_rel_diff']:.3g} at "
+        f"{gap['worst_at']}; fits {keras_s:.2f} s and {twin_s:.2f} s")
+    if not all(np.isfinite(keras_losses)):
+        raise AssertionError(f"keras flagship: losses {keras_losses}")
+    if gap["worst_rel_diff"] > FRONT_WEIGHT_RTOL or \
+            loss_gap > FRONT_LOSS_RTOL:
+        raise AssertionError(f"keras flagship against build_transformer: "
+                             f"{gap}, losses {keras_losses} {twin_losses}")
+    step = ff.executor.build_train_step()
+    build.reset_launch_counts()
+    prof = profile_step(torch, lambda: step(ff.state, [x[:TRAIN_BATCH]],
+                                            y[:TRAIN_BATCH]))
+    check_wgmma_paths("keras step profile", build.launch_counts,
+                      build.path_counts)
+    if not (prof["by_family_ms"]["flash_fwd"] > 0
+            and prof["by_family_ms"]["flash_bwd"] > 0):
+        raise AssertionError(f"keras step: no flash kernel in the trace "
+                             f"{prof['by_family_ms']}")
+    out = {"model": "the flagship as a Keras functional model",
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "hidden": HIDDEN,
+           "heads": HEADS, "blocks": LAYERS, "steps": FRONT_STEPS,
+           "precision": "bf16 compute and grads, f32 weights",
+           "weights_copied": copied, "copy_s": copy_s,
+           "compile_both_s": compile_s, "losses_keras": keras_losses,
+           "losses_build_transformer": twin_losses,
+           "loss_rel_gap": loss_gap, "weight_gap": gap,
+           "weight_rtol": FRONT_WEIGHT_RTOL, "loss_rtol": FRONT_LOSS_RTOL,
+           "fit_s_keras": keras_s, "fit_s_build_transformer": twin_s,
+           "step_profile": prof, "launches": counts,
+           "launches_by_path": paths}
+    del km, twin, ff, step
+    return out
+
+
+def frontends_native(torch):
+    """(b): set_tensor in place, and the captured scan's replay after it
+    and its recapture after set_learning_rate, against a stepwise model
+    given the same value and rate."""
+    rng = np.random.RandomState(13)
+    c = FRONT_SPD * TRAIN_BATCH
+    x, y = (rng.randn(3 * c, TRAIN_SEQ, HIDDEN).astype(np.float32)
+            for _ in range(2))
+    chunks = [(x[i * c:(i + 1) * c], y[i * c:(i + 1) * c]) for i in range(3)]
+    a = build_transformer_model(torch, spd=FRONT_SPD,
+                                layers=FRONT_NATIVE_LAYERS)
+    b = build_transformer_model(torch, spd=1, layers=FRONT_NATIVE_LAYERS)
+    fit_loss_lines(torch, lambda: a.fit(*chunks[0], epochs=1))
+    graphs = list(a.executor._scan_graphs.values())
+    if len(graphs) != 1 or graphs[0].graph is None:
+        raise AssertionError(f"native: {len(graphs)} captured scans")
+    native_copy(a, b)
+    w_a = a.layers[1].get_weight_tensor()
+    slot = a._find_weight_slot(w_a)
+    dst = a.params[slot[0]][slot[1]]
+    ptr, ver = dst.data_ptr(), dst._version
+    value = (rng.randn(*w_a.dims) * 0.02).astype(np.float32)
+    w_a.set_tensor(a, value)
+    b.layers[1].get_weight_tensor().set_tensor(b, value)
+    moved = a.params[slot[0]][slot[1]]
+    if moved is not dst or dst.data_ptr() != ptr or not dst._version > ver:
+        raise AssertionError("native: set_tensor did not write in place")
+    if not np.array_equal(w_a.get_tensor(a), value):
+        raise AssertionError("native: get_tensor after set_tensor")
+    out = {"blocks": FRONT_NATIVE_LAYERS,
+           "iterations_per_dispatch": FRONT_SPD, "set_tensor_in_place": True}
+    _, la = fit_loss_lines(torch, lambda: a.fit(*chunks[1], epochs=1))
+    _, lb = fit_loss_lines(torch, lambda: b.fit(*chunks[1], epochs=1))
+    if list(a.executor._scan_graphs.values()) != graphs:
+        raise AssertionError("native: the fit after set_tensor recaptured")
+    gap = pair_gap(torch, a, b)
+    out["after_set_tensor"] = dict(gap, replayed_capture=True,
+                                   losses_scan=la, losses_stepwise=lb)
+    if gap["weights_not_bit_equal"] or la != lb:
+        raise AssertionError(f"native: the replay after set_tensor {gap}, "
+                             f"losses {la} {lb}")
+    for m in (a, b):
+        m.set_learning_rate(0.02)
+    if a.executor._scan_graphs:
+        raise AssertionError("native: set_learning_rate kept the capture")
+    _, la = fit_loss_lines(torch, lambda: a.fit(*chunks[2], epochs=1))
+    _, lb = fit_loss_lines(torch, lambda: b.fit(*chunks[2], epochs=1))
+    recaptured = list(a.executor._scan_graphs.values())
+    gap = pair_gap(torch, a, b)
+    out["after_set_learning_rate"] = dict(
+        gap, rate=a.get_learning_rate(),
+        recaptured=len(recaptured) == 1 and recaptured[0] is not graphs[0],
+        losses_scan=la, losses_stepwise=lb)
+    if gap["weights_not_bit_equal"] or la != lb or \
+            not out["after_set_learning_rate"]["recaptured"]:
+        raise AssertionError(f"native: after set_learning_rate {gap}, "
+                             f"losses {la} {lb}")
+    log(f"  native api: set_tensor in place; the scan's replay after it and "
+        f"its recapture at rate {a.get_learning_rate()} bit-equal to the "
+        "stepwise model's")
+    return out
+
+
+def alexnet_onnx_graph(proto, rng):
+    """AlexNet-CIFAR10 (models/alexnet.py build_alexnet's net: 5 convs,
+    3 max pools, 3 dense, softmax) as an ONNX graph of the port's codec
+    with glorot-scaled random weights: (model proto, {initializer:
+    array})."""
+    convs = [(64, 3, 11, 4, 2), (192, 64, 5, 1, 2), (384, 192, 3, 1, 1),
+             (256, 384, 3, 1, 1), (256, 256, 3, 1, 1)]
+    pools_after = {0, 1, 4}
+    nodes, inits, t = [], {}, "x"
+
+    def glorot(shape, fan_in, fan_out):
+        lim = np.sqrt(6.0 / (fan_in + fan_out))
+        return rng.uniform(-lim, lim, shape).astype(np.float32)
+
+    for i, (o, c, kk, s, pd) in enumerate(convs):
+        inits[f"c{i}w"] = glorot((o, c, kk, kk), c * kk * kk, o * kk * kk)
+        inits[f"c{i}b"] = rng.uniform(-0.05, 0.05, o).astype(np.float32)
+        nodes.append(proto.make_node(
+            "Conv", [t, f"c{i}w", f"c{i}b"], [f"c{i}"],
+            kernel_shape=[kk, kk], strides=[s, s], pads=[pd] * 4))
+        nodes.append(proto.make_node("Relu", [f"c{i}"], [f"r{i}"]))
+        t = f"r{i}"
+        if i in pools_after:
+            nodes.append(proto.make_node("MaxPool", [t], [f"p{i}"],
+                                         kernel_shape=[3, 3],
+                                         strides=[2, 2]))
+            t = f"p{i}"
+    nodes.append(proto.make_node("Flatten", [t], ["flat"]))
+    t = "flat"
+    hw = ALEX_HW
+    for i, (_, _, kk, s, pd) in enumerate(convs):
+        hw = (hw + 2 * pd - kk) // s + 1
+        if i in pools_after:
+            hw = (hw - 3) // 2 + 1
+    dims = [256 * hw * hw, 4096, 4096, ALEX_CLASSES]
+    for i in range(3):
+        # the torch.onnx.export layout: (out, in) weights and transB
+        inits[f"d{i}w"] = glorot((dims[i + 1], dims[i]), dims[i],
+                                 dims[i + 1])
+        inits[f"d{i}b"] = rng.uniform(-0.05, 0.05,
+                                      dims[i + 1]).astype(np.float32)
+        nodes.append(proto.make_node("Gemm", [t, f"d{i}w", f"d{i}b"],
+                                     [f"d{i}"], transB=1))
+        t = f"d{i}"
+        if i < 2:
+            nodes.append(proto.make_node("Relu", [t], [f"dr{i}"]))
+            t = f"dr{i}"
+    nodes.append(proto.make_node("Softmax", [t], ["probs"], axis=-1))
+    graph = proto.make_graph(
+        nodes, "alexnet_cifar10",
+        [proto.make_tensor_value_info("x", proto.TensorProto.FLOAT,
+                                      [ALEX_BATCH, 3, ALEX_HW, ALEX_HW])],
+        [proto.make_tensor_value_info("probs", proto.TensorProto.FLOAT,
+                                      [ALEX_BATCH, ALEX_CLASSES])],
+        [proto.from_array(a, k) for k, a in inits.items()])
+    return proto.make_model(graph), inits
+
+
+def frontends_onnx(torch):
+    """(c): AlexNet-CIFAR10 written by the codec, imported and trained
+    against build_alexnet's net on the same weights."""
+    import tempfile
+
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.ff_types import LossType, MetricsType
+    from flexflow_tpu_torch.frontends.onnx import ONNXModel, proto
+    from flexflow_tpu_torch.models.alexnet import build_alexnet
+
+    def compiled(m):
+        m.compile(SGDOptimizer(lr=0.01),
+                  LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                  [MetricsType.METRICS_ACCURACY,
+                   MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY])
+        return m
+
+    rng = np.random.RandomState(14)
+    t0 = time.perf_counter()
+    model, inits = alexnet_onnx_graph(proto, rng)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "alexnet_cifar10.onnx")
+        proto.save_model(model, path)
+        size = os.path.getsize(path)
+        om = ONNXModel(path)
+    write_s = time.perf_counter() - t0
+    del model
+    m = FFModel(FFConfig(batch_size=ALEX_BATCH, seed=0))
+    om.apply(m, {"x": m.create_tensor((ALEX_BATCH, 3, ALEX_HW, ALEX_HW))})
+    compiled(m)
+    om.load_weights()
+    weighted = [l for l in m.layers if l.weights]
+    want = [inits[f"c{i}{k}"] for i in range(5) for k in "wb"] + \
+        [a for i in range(3) for a in (inits[f"d{i}w"].T, inits[f"d{i}b"])]
+    got = [w.get_weights(m) for l in weighted for w in l.weights]
+    if len(got) != len(want) or not all(
+            np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("onnx alexnet: the imported weights are not "
+                             "the file's")
+    twin = FFModel(FFConfig(batch_size=ALEX_BATCH, seed=0))
+    build_alexnet(twin, ALEX_BATCH, ALEX_CLASSES, ALEX_HW, ALEX_HW)
+    compiled(twin)
+    native_copy(m, twin)
+    x, y = cifar_like(15, ONNX_STEPS * ALEX_BATCH, ALEX_CLASSES, ALEX_HW)
+    onnx_s, lo = fit_loss_lines(torch, lambda: m.fit(x, y, epochs=1))
+    twin_s, lt = fit_loss_lines(torch, lambda: twin.fit(x, y, epochs=1))
+    gap = pair_gap(torch, m, twin)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lo, lt))
+    log(f"  onnx alexnet: {size / 2 ** 20:.1f} MiB written and parsed in "
+        f"{write_s:.2f} s; losses {lo} (build_alexnet {lt}); weights not "
+        f"bit-equal {gap['weights_not_bit_equal']} of {gap['weights']}, "
+        f"worst {gap['worst_rel_diff']:.3g}")
+    if not all(np.isfinite(lo)) or gap["worst_rel_diff"] > ONNX_RTOL or \
+            loss_gap > ONNX_RTOL:
+        raise AssertionError(f"onnx alexnet against build_alexnet: {gap}, "
+                             f"losses {lo} {lt}")
+    return {"model": "AlexNet-CIFAR10 (ONNX, the port's codec)",
+            "batch": ALEX_BATCH, "image": [3, ALEX_HW, ALEX_HW],
+            "steps": ONNX_STEPS, "precision": "f32",
+            "file_mib": size / 2 ** 20, "write_parse_s": write_s,
+            "ops": [l.op_type.name for l in m.layers],
+            "losses_onnx": lo, "losses_build_alexnet": lt,
+            "loss_rel_gap": loss_gap, "weight_gap": gap, "rtol": ONNX_RTOL,
+            "fit_s_onnx": onnx_s, "fit_s_build_alexnet": twin_s}
+
+
+def frontends(torch):
+    """The frontends phase (20 in the docstring). Every check raises.
+    Returns the summary; the Keras fit's launches under "launches"."""
+    t_phase = time.perf_counter()
+    out = {}
+    for part, fn in (("keras", frontends_keras),
+                     ("native", frontends_native),
+                     ("onnx", frontends_onnx)):
+        t0 = time.perf_counter()
+        out[part] = fn(torch)
+        out[part]["part_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["launches"] = out["keras"].pop("launches")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  frontends phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -9101,6 +9498,11 @@ def main() -> int:
     tu = tuner_phase(torch)
     torch.cuda.empty_cache()
 
+    log("# frontends phase: the Keras flagship, the native API and ONNX "
+        "AlexNet")
+    fr = frontends(torch)
+    torch.cuda.empty_cache()
+
     # the CNN and zoo paths run none of the three kernels (cuDNN
     # convolutions and cuBLAS products, as the JAX package's are XLA's);
     # their counts stand in the table as 0. The MoE Transformer's
@@ -9118,7 +9520,8 @@ def main() -> int:
                 "seq2seq": s2["launches"], "resilience": rs["launches"],
                 "observatory": ob["launches"], "verify": vf["launches"],
                 "mesh": mesh["launches"], "mesh_serving": msv["launches"],
-                "elastic": el["launches"], "tuner": tu["launches"]}
+                "elastic": el["launches"], "tuner": tu["launches"],
+                "frontends": fr["launches"]}
     # rows 1 and 2 at the long-context model's shape (bound by operations)
     for k in kernels[:2]:
         k["long_context_shape"] = lc["flash_long_shape"][k["name"]]
@@ -9149,7 +9552,7 @@ def main() -> int:
                   inception=inc, zoo=zo, longctx=lc, nmt=nm, fusion=fu,
                   search=se, seq2seq=s2, resilience=rs, observatory=ob,
                   verify=vf, mesh=mesh, mesh_serving=msv, elastic=el,
-                  tuner=tu)
+                  tuner=tu, frontends=fr)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -9274,6 +9677,14 @@ def main() -> int:
     log(smi + " " + json.dumps({"mesh_counters": mesh["counters"]}))
     log(smi + " " + json.dumps({"elastic": el}))
     log(smi + " " + json.dumps({"tuner": tu}))
+    log(smi + " " + json.dumps({"frontends": {
+        "phase_s": fr["phase_s"],
+        "keras": {k: v for k, v in fr["keras"].items()
+                  if k not in ("step_profile", "launches_by_path")} | {
+            "step_idle_share": fr["keras"]["step_profile"]["idle_share"],
+            "step_ms_by_family":
+            fr["keras"]["step_profile"]["by_family_ms"]},
+        "native": fr["native"], "onnx": fr["onnx"]}}))
     log(smi + " " + json.dumps({"elastic_tuner_s": {
         "elastic": el["phase_s"], "tuner": tu["phase_s"],
         "both": el["phase_s"] + tu["phase_s"]}}))

@@ -19,10 +19,12 @@ construction: the port never continues on the CPU by itself.
 
 Like the JAX package's, a config reads the reference's command-line
 flags (`parse_args`, model.cc:3556 spellings) from sys.argv[1:] when it
-is made. A flag whose field this package reads sets it; a flag of a
-feature not ported here (strategy import, CPU workers) raises
-NotImplementedError naming the flag; anything else is skipped, as the
-reference passes unknown flags on to Legion.
+is made. Every flag of the JAX package's sets its field as there;
+anything else is skipped, as the reference passes unknown flags on to
+Legion. Four fields are read by neither package's runtime and are kept
+so the reference's flags parse to the same config: `weight_decay`
+(`--wd`; the optimizers take their own), `cpusPerNode` (`-ll:cpu`),
+`import_strategy_file` (`--import`) and `iterations` (`--iterations`).
 """
 from __future__ import annotations
 
@@ -66,6 +68,16 @@ class FFConfig:
     # of the process group (1 without one). Default: the world size over
     # workersPerNode when a group is up, else 1
     numNodes: int = 1
+    # CPU workers a node (reference -ll:cpu); read by neither package
+    cpusPerNode: int = 1
+    # the reference config's weight decay (--wd); the optimizers take
+    # their own, as in the JAX package
+    weight_decay: float = 0.0001
+    # a strategy file named by --import; read by neither package's
+    # compile (runtime/strategy_io.py loads one by its path)
+    import_strategy_file: str = ""
+    # the reference's iteration count (--iterations); fit() runs epochs
+    iterations: int = 1
     # the manual strategy's degrees (no search), the JAX package's
     # fields: the data degree fills the devices the others leave. Each
     # executes on the mesh executor: tensor parallelism (Megatron-style
@@ -192,16 +204,11 @@ class FFConfig:
         `argv`: each flag in _FLAGS sets its field from the value after it
         (a bad or missing value leaves the field as it was and is read as
         the next argument, as in the JAX package), each of _SWITCHES sets
-        its field, each of _SETTINGS sets its fields to its values, each in
-        _UNPORTED_FLAGS raises NotImplementedError, and any other argument
-        is skipped."""
+        its field, each of _SETTINGS sets its fields to its values, and any
+        other argument is skipped."""
         i = 0
         while i < len(argv):
             a = argv[i]
-            if a in _UNPORTED_FLAGS:
-                raise NotImplementedError(
-                    f"{a}: {_UNPORTED_FLAGS[a]} is not ported to "
-                    "flexflow_tpu_torch yet")
             if a in _SWITCHES:
                 setattr(self, _SWITCHES[a], True)
             elif a in _SETTINGS:
@@ -231,6 +238,11 @@ _FLAGS = {
     "-e": ("epochs", int), "--epochs": ("epochs", int),
     "-b": ("batch_size", int), "--batch-size": ("batch_size", int),
     "--lr": ("learning_rate", float), "-lr": ("learning_rate", float),
+    "--wd": ("weight_decay", float), "-wd": ("weight_decay", float),
+    "-ll:cpu": ("cpusPerNode", int),
+    "--import": ("import_strategy_file", str),
+    "--import-strategy": ("import_strategy_file", str),
+    "--iterations": ("iterations", int),
     "-p": (None, None), "--print-freq": (None, None),
     "-ll:gpu": ("workersPerNode", int), "-ll:tpu": ("workersPerNode", int),
     "--budget": ("search_budget", int),
@@ -268,12 +280,4 @@ _SETTINGS = {
     "--no-overlap-backward-update": {
         "overlap_backward_update": False,
         "search_overlap_backward_update": False},
-}
-# the JAX package's flags whose features are not ported: what each sets
-_UNPORTED_FLAGS = {
-    "--wd": "the config's weight decay (read by no optimizer)",
-    "-wd": "the config's weight decay (read by no optimizer)",
-    "-ll:cpu": "CPU workers per node",
-    "--import": "strategy import", "--import-strategy": "strategy import",
-    "--iterations": "the config's iteration count",
 }

@@ -11,7 +11,13 @@ pcg/fusion.py), `init_layers`,
 `create_data_loader`, `fit` and `eval` (training; both take arrays or
 data loaders), `predict` (serving) and the stepwise API
 (`set_iteration_batch`, `forward`, `zero_gradients`, `backward`,
-`update`), constant inputs (`create_constant`, `create_constant_tensor`),
+`update`) and the native Python API that feeds it (a Tensor's
+`get_tensor`/`set_tensor`/`attach_numpy_array`/`inline_map`, the layer
+lookups, `compute_metrics`, `get_learning_rate`/`set_learning_rate`;
+`set_tensor` writes a weight in place), constant inputs
+(`create_constant`, `create_constant_tensor`), dense kernel regularizers
+(`dense(kernel_regularizer=)`: L1 or L2, the penalty joining the training
+loss),
 `compile_decode` (a second search under the decode objective, whose
 executor the ContinuousBatcher serves from) and
 `output_probability_like`. Stateful ops' buffers (BatchNorm's running
@@ -84,7 +90,7 @@ import torch
 from .. import obs
 from ..config import FFConfig
 from ..ff_types import (ActiMode, AggrMode, DataType, LossType, OperatorType,
-                        PoolType, to_data_type)
+                        PoolType, RegularizerMode, to_data_type)
 from ..ops.attention import MultiHeadAttentionParams
 from ..ops.batch_matmul import BatchMatmulParams
 from ..ops.conv2d import Conv2DParams
@@ -106,8 +112,9 @@ from ..ops.tensor_ops import (CastParams, ConcatParams, FlatParams,
                               ReverseParams, SplitParams, SqueezeParams,
                               TransposeParams, UnsqueezeParams, WhereParams)
 from ..obs.trajectory import SearchTrajectory
-from ..parallel.executor import MeshExecutor, PCGExecutor, TrainState
-from ..parallel.mesh import local
+from ..parallel.executor import (MeshExecutor, PCGExecutor, TrainState,
+                                 truncate_labels)
+from ..parallel.mesh import full, local, shard_like
 from ..runtime import distributed as rdist
 from ..pcg.fusion import apply_fusion
 from ..pcg.lowering import layers_to_pcg
@@ -273,10 +280,13 @@ class FFModel:
               activation: ActiMode = ActiMode.AC_MODE_NONE,
               use_bias: bool = True, datatype: DataType = DataType.DT_FLOAT,
               kernel_initializer=None, bias_initializer=None,
-              name: str = "") -> Tensor:
+              kernel_regularizer=None, name: str = "") -> Tensor:
+        reg_type, reg_lambda = _to_regularizer(kernel_regularizer)
         p = LinearParams(out_channels=out_dim, use_bias=use_bias,
                          activation=ActiMode(activation),
-                         data_type=to_data_type(datatype))
+                         data_type=to_data_type(datatype),
+                         kernel_reg_lambda=reg_lambda,
+                         kernel_reg_type=reg_type)
         return self._add_layer(OperatorType.OP_LINEAR, p, [input], name,
                                {"kernel": kernel_initializer,
                                 "bias": bias_initializer})
@@ -596,6 +606,25 @@ class FFModel:
             raise RuntimeError("the label tensor exists after compile(); "
                                "call compile() first")
         return self.label_tensor
+
+    def get_learning_rate(self) -> float:
+        """The optimizer's rate, whatever it calls it (SGDOptimizer.lr,
+        AdamOptimizer.alpha; reference optimizer.h:36-117)."""
+        opt = self.optimizer
+        return opt.alpha if hasattr(opt, "alpha") else opt.lr
+
+    def set_learning_rate(self, lr: float) -> None:
+        """Set the compiled optimizer's rate. The eager step reads it at
+        each update; a captured train scan holds the rate it was captured
+        with, so a change drops the captures (the JAX package drops its
+        jitted step), and the next scan captures with the new rate."""
+        opt = self.optimizer
+        field = "alpha" if hasattr(opt, "alpha") else "lr"
+        if getattr(opt, field) == lr:
+            return
+        setattr(opt, field, lr)
+        if self.executor is not None:
+            self.executor.invalidate_step_cache()
 
     def compile(self, optimizer=None, loss_type=None, metrics: Sequence = (),
                 calibration=None, artifact_store=None):
@@ -2768,6 +2797,139 @@ class FFModel:
         self._pending_grads = None
         self._pending_net_state = None
 
+    # -- the native Python API (reference: flexflow_cffi.py) ---------------
+    def get_perf_metrics(self) -> Optional[PerfMetrics]:
+        return self.perf_metrics
+
+    def reset_metrics(self) -> None:
+        """reference: flexflow_cffi.py:1968 reset_metrics."""
+        self.perf_metrics = PerfMetrics()
+
+    def compute_metrics(self) -> PerfMetrics:
+        """Fold the metrics of the bound batch's last `forward` into
+        perf_metrics (reference: flexflow_cffi.py:2004 compute_metrics)."""
+        if self._last_logits is None or self._current_batch is None:
+            raise RuntimeError("compute_metrics: set_iteration_batch and "
+                               "forward first")
+        _, label = self._current_batch
+        ex = self.executor
+        with torch.no_grad():
+            labels = truncate_labels(ex._as_labels(label), self._last_logits)
+            partials = ex.metrics.compute(self._last_logits, labels)
+        self.perf_metrics.update({k: float(full(v)) for k, v
+                                  in partials.items() if k != "loss"})
+        return self.perf_metrics
+
+    def prefetch(self) -> None:
+        """No-op: a weight lives on the device from compile on; kept for
+        the reference's scripts (flexflow_cffi.py:1982)."""
+
+    def map_tensor(self, tensor, parallel_op=None) -> None:
+        """No-op: a tensor is placed at its first use (reference:
+        flexflow_cffi.py:937 maps Legion regions)."""
+
+    def get_layers(self) -> Dict[int, Layer]:
+        return dict(enumerate(self.layers))
+
+    def get_layer_by_id(self, idx: int) -> Layer:
+        return self.layers[idx]
+
+    def get_layer_by_name(self, name: str) -> Layer:
+        for layer in self.layers:
+            if layer.name == name:
+                return layer
+        raise KeyError(f"no layer named {name!r}")
+
+    def get_last_layer(self) -> Layer:
+        return self.layers[-1]
+
+    def print_layers(self, id: int = -1) -> None:
+        """reference: flexflow_cffi.py print_layers; the JAX package's
+        lines."""
+        for i, layer in enumerate(self.layers):
+            if id in (-1, i):
+                shapes = [tuple(t.dims) for t in layer.outputs]
+                # a user-facing inspection call: printing is its contract
+                print(f"layer {i}: {layer.name} ({layer.op_type.name}) "
+                      f"-> {shapes}")
+
+    # -- weight and batch access (reference: parallel_tensor.cc
+    #    set_tensor/get_tensor) ---------------------------------------------
+    def _find_weight_slot(self, t: Tensor) -> Optional[Tuple[str, str]]:
+        """(op name, weight name) of weight tensor `t` in the compiled
+        graph, else None."""
+        layer = t.owner_layer
+        if layer is None or self.state is None:
+            return None
+        for i, wt in enumerate(layer.weights):
+            if wt.guid == t.guid:
+                for op in self.graph.ops:
+                    if op.layer_guid == layer.guid:
+                        return op.name, op.weight_names[i]
+        return None
+
+    def _get_tensor_value(self, t: Tensor) -> np.ndarray:
+        """A host copy of a weight (the whole of it on a device mesh), or
+        of the bound batch's input or label array."""
+        slot = self._find_weight_slot(t)
+        if slot is not None:
+            w = full(self.params[slot[0]][slot[1]]).detach()
+            if w.dtype == torch.bfloat16:
+                w = w.float()
+            return w.cpu().numpy().copy()
+        if self._current_batch is not None:
+            ins, lab = self._current_batch
+            if (self.label_tensor is not None
+                    and t.guid == self.label_tensor.guid and lab is not None):
+                return np.asarray(lab)
+            for i, ft in enumerate(self._fit_input_tensors):
+                if ft.guid == t.guid and ins[i] is not None:
+                    return np.asarray(ins[i])
+        raise KeyError(f"tensor {t} is not a weight; activations are not "
+                       "retained")
+
+    def _set_tensor_value(self, t: Tensor, value: np.ndarray) -> None:
+        """Write a weight in place: its storage stays where it is, so the
+        captured graphs that read it by address (the train scan, the
+        decode step) read the new value, and its version moves, so the
+        serving caches refresh. On a device mesh each rank writes its
+        shard of the whole value. An input or the label binds the
+        stepwise loop's batch instead."""
+        slot = self._find_weight_slot(t)
+        if slot is None:
+            # reference: mnist_mlp_attach.py input.set_tensor per batch
+            return self._attach_array(t, value)
+        dst = self.params[slot[0]][slot[1]]
+        if tuple(value.shape) != tuple(dst.shape):
+            raise ValueError(f"shape mismatch {tuple(value.shape)} vs "
+                             f"{tuple(dst.shape)}")
+        with torch.no_grad():
+            # a copy only where the array is strided or read-only
+            src = torch.from_numpy(np.require(value, requirements="CW"))
+            src = src.to(dst.dtype)
+            dst.copy_(shard_like(src, dst))
+
+    def _attach_array(self, t: Tensor, arr) -> None:
+        """Bind a numpy array to an input or the label for the stepwise
+        forward/backward/update loop (reference: attach_numpy_array, a
+        zero-copy Legion attach; here the array feeds the next step)."""
+        if self.executor is None:
+            raise RuntimeError("attach needs compile() first")
+        arr = np.asarray(arr)
+        n = len(self.executor.input_pts)
+        ins, lab = self._current_batch or ([None] * n, None)
+        ins = list(ins)
+        if self.label_tensor is not None and t.guid == self.label_tensor.guid:
+            self._current_batch = (ins, arr)
+            return
+        for i, ft in enumerate(self._fit_input_tensors):
+            if ft.guid == t.guid:
+                ins[i] = arr
+                self._current_batch = (ins, lab)
+                return
+        raise KeyError(
+            f"tensor {t} is neither a weight, a graph input, nor the label")
+
 
 _SHAPE_ONLY_OPS = (OperatorType.OP_RESHAPE, OperatorType.OP_FLAT,
                    OperatorType.OP_NOOP, OperatorType.OP_IDENTITY)
@@ -2830,6 +2992,23 @@ def _fold_partials(device_partials) -> Tuple[Dict[str, float], float]:
     last_loss = float(device_partials[-1]["loss"].reshape(-1)[-1])
     folded.pop("loss")
     return folded, last_loss
+
+
+def _to_regularizer(reg) -> Tuple[RegularizerMode, float]:
+    """A kernel_regularizer as (RegularizerMode, lambda), as the JAX
+    package reads it: a Keras-style object with `.type`/`._lambda`
+    (frontends/keras/regularizers.py), an ("l1"|"l2", lambda) tuple, or a
+    bare number (L2, as the reference's kernel_reg_lambda, linear.cc:41)."""
+    if reg is None:
+        return RegularizerMode.REG_MODE_NONE, 0.0
+    if isinstance(reg, (int, float)):
+        return RegularizerMode.REG_MODE_L2, float(reg)
+    if isinstance(reg, tuple):
+        kind, lam = reg
+        mode = {"l1": RegularizerMode.REG_MODE_L1,
+                "l2": RegularizerMode.REG_MODE_L2}[str(kind).lower()]
+        return mode, float(lam)
+    return RegularizerMode(reg.type), float(reg._lambda)
 
 
 def _unwrap_loaders(x, y):

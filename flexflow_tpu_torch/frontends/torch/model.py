@@ -26,13 +26,19 @@ Flatten, Softmax, Dropout, MultiheadAttention and Identity, and
 `mean`, `transpose`, `permute`, `view`/`reshape`, the metadata the
 shape rows read (`size`, `dim`, `getattr` of shape, dtype, ndim and
 device), `getitem` on a list of outputs or MultiheadAttention's tuple,
-and the no-ops. Every other module or target raises NotImplementedError
-with its name, as the JAX package does for what it lacks. Not ported
-yet: concrete tensors meeting the graph (they need
-`create_constant_tensor`, and with it the `where`, `masked_fill` and
-`expand` rows and the `*_like` fills) and Hugging Face tracing. As in
-the JAX package, MultiheadAttention's weights and BatchNorm2d's running
-statistics are not carried over from torch.
+`where`, `masked_fill`, `expand`/`expand_as`/`broadcast_to` (left to the
+ops' broadcasting), the `*_like` fills, and the no-ops. Every other
+module or target raises NotImplementedError with its name, as the JAX
+package does for what it lacks. As in the JAX package, the walk keeps
+two kinds of value: graph tensors build ops, and everything else (torch
+tensors, numpy arrays, numbers: attention masks, position buckets)
+evaluates eagerly with torch and is baked into the graph as a constant
+tensor (`create_constant_tensor`) where it meets an op (`_lift`).
+`PyTorchModel(module, is_hf_model=True, input_names=[...])` traces a
+Hugging Face model with transformers' own fx tracer (imported only
+there); its ModelOutput fields that are None are dropped from the
+outputs. As in the JAX package, MultiheadAttention's weights and
+BatchNorm2d's running statistics are not carried over from torch.
 """
 from __future__ import annotations
 
@@ -234,14 +240,31 @@ class PyTorchModel:
         # a path names a `torch_to_flexflow` export to replay
         # (bootcamp_demo/ff_alexnet_cifar10.py: PyTorchModel("alexnet.ff"))
         self._file = module if isinstance(module, str) else None
-        if is_hf_model:
-            raise NotImplementedError(
-                "Hugging Face tracing (is_hf_model) is not ported to "
-                "flexflow_tpu_torch yet")
         self.module = module
+        self.is_hf_model = is_hf_model
+        self.input_names = input_names
         self.batch_size = batch_size
+        self.seq_length = seq_length
         self._weight_loads = []  # (ff layer, [np arrays]) applied post-compile
         self._ffmodel = None
+
+    def _trace(self):
+        """reference: model.py:2427 _trace_model: a Hugging Face model
+        through transformers' fx tracer (with its input names and, when
+        given, the sequence length), any other module through
+        torch.fx."""
+        if self.is_hf_model:
+            from transformers.utils import fx as hf_fx
+
+            kw = {"input_names": self.input_names}
+            if self.seq_length is not None:
+                kw["sequence_length"] = self.seq_length
+            try:
+                return hf_fx.symbolic_trace(self.module, **kw)
+            except TypeError:  # releases whose tracer takes no length
+                return hf_fx.symbolic_trace(self.module,
+                                            input_names=self.input_names)
+        return torch.fx.symbolic_trace(self.module)
 
     def apply(self, ffmodel, input_tensors: List) -> List:
         """The uniform entry point of the frontends (ONNXModel.apply):
@@ -257,7 +280,7 @@ class PyTorchModel:
         if self._file is not None:
             raise TypeError("constructed from a file: use apply() or "
                             "file_to_ff()")
-        traced = torch.fx.symbolic_trace(self.module)
+        traced = self._trace()
         modules = dict(traced.named_modules())
         env: Dict[str, object] = {}
         inputs = list(input_tensors)
@@ -284,11 +307,17 @@ class PyTorchModel:
             elif node.op == "output":
                 def collect(a):
                     if isinstance(a, torch.fx.Node):
-                        outputs.append(_lift(ffmodel, env[a.name]))
+                        v = env[a.name]
+                        if _is_ff_tensor(v) or _concrete_np(v) is not None:
+                            # a concrete output (a mask that never met the
+                            # graph) is baked, so arity and order match
+                            # torch's
+                            outputs.append(_lift(ffmodel, v))
+                        # None (an unused ModelOutput field) is dropped
                     elif isinstance(a, (tuple, list)):
                         for x in a:
                             collect(x)
-                    elif isinstance(a, dict):
+                    elif isinstance(a, dict):  # HF ModelOutput dataclasses
                         for x in a.values():
                             collect(x)
                 collect(node.args[0])
@@ -496,13 +525,20 @@ def _concrete_np(v):
 
 
 def _lift(ff, v):
-    """A graph tensor as it is; a concrete value would become a baked
-    constant tensor, which is not ported yet."""
+    """A graph tensor as it is; a concrete array or number baked into
+    the graph as a constant tensor."""
     if _is_ff_tensor(v):
         return v
-    raise NotImplementedError(
-        f"a concrete {type(v).__name__} meets the graph: constant tensors "
-        "(create_constant_tensor) are not ported to flexflow_tpu_torch yet")
+    arr = _concrete_np(v)
+    if arr is None and isinstance(v, (bool, int, float, np.number)):
+        # a python float would be f64: constants stay f32 (or the
+        # integer's own type), as the JAX package's
+        arr = np.asarray(v, np.float32 if isinstance(v, float) else None)
+    if arr is None:
+        raise TypeError(f"cannot lift {type(v).__name__} into the graph")
+    if arr.ndim == 0:
+        arr = arr.reshape((1,))  # rank 1 broadcasts everywhere; no 0-d PCG
+    return ff.create_constant_tensor(arr)
 
 
 def _is_scalar(v) -> bool:
@@ -639,6 +675,28 @@ def _replay_fn(ff, target: str, args, kwargs):
     if target in ("min", "max") and len(args) > 1:
         op = ff.min if target == "min" else ff.max
         return op(_lift(ff, x), _lift(ff, args[1]))
+    if target == "where":
+        return ff.where(_lift(ff, args[0]), _lift(ff, args[1]),
+                        _lift(ff, args[2]))
+    if target == "masked_fill":
+        # x[mask] = value: where(mask, value, x), the mask concrete (causal
+        # and padding masks in HF traces); the mask stays at its traced,
+        # broadcastable shape and the fill at rank 1 (the where op
+        # broadcasts), as the JAX package bakes them
+        mask = _concrete_np(args[1])
+        if mask is None:
+            raise NotImplementedError("masked_fill with a traced mask tensor")
+        fill = np.full((1,), float(args[2]), x.data_type.np_dtype)
+        return ff.where(ff.create_constant_tensor(mask.astype(np.bool_)),
+                        ff.create_constant_tensor(fill), x)
+    if target in ("zeros_like", "full_like", "ones_like") and _is_ff_tensor(x):
+        fill = {"zeros_like": 0.0, "ones_like": 1.0}.get(
+            target, float(args[1]) if len(args) > 1 else 0.0)
+        # stays concrete: a later use lifts it
+        return np.full(tuple(x.dims), fill, x.data_type.np_dtype)
+    if target in ("expand", "expand_as", "broadcast_to"):
+        # the consuming ops broadcast; torch has checked the sizes
+        return x
     if target == "neg":
         return ff.scalar_multiply(x, -1.0)
     if target == "abs":

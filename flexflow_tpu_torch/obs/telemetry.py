@@ -96,9 +96,9 @@ class TelemetryConfig:
 
 # config field -> (the unported module it needs, its ROADMAP item)
 _UNPORTED = {
-    "flight_recorder": ("obs/flight_recorder.py", 8),
-    "anomaly_detection": ("obs/anomaly.py", 8),
-    "fleet_spool_dir": ("obs/fleet.py", 8),
+    "flight_recorder": ("obs/flight_recorder.py", 6),
+    "anomaly_detection": ("obs/anomaly.py", 6),
+    "fleet_spool_dir": ("obs/fleet.py", 6),
 }
 
 _TRAJECTORY_CAT = {

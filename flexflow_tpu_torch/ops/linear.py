@@ -38,10 +38,8 @@ class LinearParams:
     use_bias: bool = True
     activation: ActiMode = ActiMode.AC_MODE_NONE
     data_type: DataType = DataType.DT_FLOAT
-    # the JAX package's kernel regularizer fields: the port's dense takes
-    # no regularizer yet, so they keep these defaults; they are here so
-    # an op's signature (cost-model keys, calibration-store keys) reads
-    # as the JAX package's
+    # the kernel regularizer (FFModel.dense(kernel_regularizer=)): its
+    # penalty joins the training loss (parallel/executor.py _reg_penalty)
     kernel_reg_lambda: float = 0.0
     kernel_reg_type: RegularizerMode = RegularizerMode.REG_MODE_NONE
 

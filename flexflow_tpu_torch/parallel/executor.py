@@ -87,7 +87,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from ..core.initializers import get_initializer
 from ..core.losses import get_loss_fn
 from ..core.seeds import seed_table, step_seed
-from ..ff_types import LossType, OperatorType
+from ..ff_types import LossType, OperatorType, RegularizerMode
 from ..ops.attention import init_decode_cache
 from ..ops.common import WeightCache
 from ..ops.registry import FwdCtx, get_op_def
@@ -848,6 +848,8 @@ class PCGExecutor:
                 loss = self.loss_fn(logits, truncate_labels(labels, logits))
                 for a in aux:
                     loss = loss + a
+                for r in self._reg_penalty(leaves):
+                    loss = loss + r
                 if loss_scale is not None:
                     scaled = loss * loss_scale
             gs = torch.autograd.grad(
@@ -860,6 +862,34 @@ class PCGExecutor:
                                                if g is None else g)
             grads = self._cast_grads(grads)
         return loss.detach(), logits.detach(), grads
+
+    def _reg_penalty(self, params: Params) -> List[torch.Tensor]:
+        """The dense kernels' regularizer terms that join the training
+        loss, as the JAX package computes them: lambda * sum|w| for L1,
+        lambda / 2 * sum w^2 for L2 (whose gradient lambda * w is the
+        reference's linear_kernels.cu:333-350 grad += lambda * w), in f32."""
+        terms = []
+        for op in self.topo:
+            lam = getattr(op.params, "kernel_reg_lambda", 0.0)
+            if not lam:
+                continue
+            w = params.get(op.name, {}).get("kernel")
+            if w is None:
+                continue
+            wf = w.float()
+            if op.params.kernel_reg_type == RegularizerMode.REG_MODE_L1:
+                terms.append(lam * wf.abs().sum())
+            else:
+                terms.append(0.5 * lam * (wf * wf).sum())
+        return terms
+
+    def invalidate_step_cache(self) -> None:
+        """Drop the captured train scans, so the next scan captures afresh
+        (the JAX package drops its jitted steps): a captured update holds
+        the optimizer's hyperparameters, the learning rate among them, as
+        the constants it was captured with. The eager step reads them at
+        each call; the forward and decode captures read none."""
+        self._scan_graphs.clear()
 
     def _train(self, state: TrainState, batch_inputs, labels: torch.Tensor,
                row, poison=None) -> Dict[str, torch.Tensor]:

@@ -1,9 +1,10 @@
 """flexflow_tpu_torch's FFConfig.parse_args and the uniform and normal
 initializers against the JAX package's.
 
-parse_args: every flag of the JAX package's parse_args is either read
-(it sets the same field to the same value as JAX's on the same argv) or
-refused with NotImplementedError naming it; unknown arguments are
+parse_args: every flag of the JAX package's parse_args is read (it
+sets the same field to the same value as JAX's on the same argv), the
+four once refused (--wd/-wd, -ll:cpu, --import/--import-strategy,
+--iterations) included, from a list and from sys.argv; unknown arguments are
 skipped; a config made under the test runner's own argv (pytest's, and
 xdist's in its workers) has its defaults; --fusion from sys.argv reaches
 compile(). The initializers are compared statistically, since the two
@@ -41,11 +42,11 @@ def _jax_flags():
 
 
 def test_every_jax_flag_is_read_or_refused():
+    """Every flag is read now: none is refused."""
     read = (set(tconfig._FLAGS) | set(tconfig._SWITCHES)
             | set(tconfig._SETTINGS))
-    refused = set(tconfig._UNPORTED_FLAGS)
-    assert not read & refused
-    assert read | refused == _jax_flags()
+    assert not hasattr(tconfig, "_UNPORTED_FLAGS")
+    assert read == _jax_flags()
     fields = {f.name for f in dataclasses.fields(FFConfig)}
     for field, _ in tconfig._FLAGS.values():
         assert field is None or field in fields
@@ -90,13 +91,36 @@ def test_parse_args_sets_what_jax_sets(argv):
     assert got == want
 
 
-@pytest.mark.parametrize("flag", sorted(tconfig._UNPORTED_FLAGS))
+# the flags the port refused until its config took their fields, each
+# with a value of its kind
+_ONCE_REFUSED = {"--wd": "0.25", "-wd": "0.5", "-ll:cpu": "3",
+                 "--import": "s.json", "--import-strategy": "t.json",
+                 "--iterations": "7"}
+
+
+@pytest.mark.parametrize("flag", sorted(_ONCE_REFUSED))
 def test_unported_flags_raise_naming_the_flag(flag, monkeypatch):
-    with pytest.raises(NotImplementedError, match=re.escape(flag)):
-        FFConfig(device="cpu").parse_args(["-b", "4", flag, "1"])
-    monkeypatch.setattr(sys, "argv", ["prog", flag])
-    with pytest.raises(NotImplementedError, match=re.escape(flag)):
-        FFConfig(device="cpu")
+    """The flags once refused: each now sets JAX's field to JAX's value,
+    from an argv list (with a bad value after it too: the field stays)
+    and from sys.argv at construction."""
+    shared = ({f.name for f in dataclasses.fields(FFConfig)}
+              & {f.name for f in dataclasses.fields(jff.FFConfig)})
+    field = tconfig._FLAGS[flag][0]
+    for argv in (["-b", "4", flag, _ONCE_REFUSED[flag]], [flag, "x"]):
+        want = _changes(jff.FFConfig(), argv, shared)
+        assert _changes(FFConfig(device="cpu"), argv, shared) == want
+    assert field in _changes(jff.FFConfig(), [flag, _ONCE_REFUSED[flag]],
+                             shared)
+    monkeypatch.setattr(sys, "argv", ["prog", flag, _ONCE_REFUSED[flag]])
+    assert getattr(FFConfig(device="cpu"), field) == \
+        getattr(jff.FFConfig(), field)
+
+
+def test_the_four_fields_have_jax_defaults():
+    cfg, jcfg = FFConfig(device="cpu"), jff.FFConfig()
+    for name in ("weight_decay", "cpusPerNode", "import_strategy_file",
+                 "iterations"):
+        assert getattr(cfg, name) == getattr(jcfg, name), name
 
 
 def test_the_runners_own_argv_changes_no_field(monkeypatch):

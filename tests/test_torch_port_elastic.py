@@ -143,11 +143,15 @@ def _save_weights(path, params):
 # the gloo ranks
 # ----------------------------------------------------------------------
 class _Run:
-    def __init__(self, d, nprocs, future):
+    """One launch; `wait_s` bounds the wait for it, the launches chained
+    ahead of it included."""
+
+    def __init__(self, d, nprocs, future, wait_s):
         self.dir, self.nprocs, self.future = pathlib.Path(d), nprocs, future
+        self.wait_s = wait_s
 
     def result(self, name, rank=0):
-        self.future.result(timeout=2 * TIMEOUT + 60)
+        self.future.result(timeout=self.wait_s)
         f = self.dir / f"{name}.rank{rank}.json"
         assert f.exists(), "rank logs:\n" + "\n".join(
             (self.dir / f"rank{r}.log").read_text()
@@ -202,7 +206,8 @@ def runs(tmp_path_factory):
                               str(gd / "spec.json"), str(gd)], str(gd),
                           timeout=TIMEOUT)
 
-        out[name] = _Run(gd, n, pool.submit(go))
+        ahead = 0 if after is None else after.wait_s - 60
+        out[name] = _Run(gd, n, pool.submit(go), ahead + TIMEOUT + 60)
 
     eight = [dict(base, name="shrunk", mode="shrunk_mesh", shrink=4,
                   steps=2, init_weights=None,

@@ -219,19 +219,161 @@ class _Const(nn.Module):
         return x + self.c
 
 
+def _jax_import(module, shape, **kw):
+    """`module` imported into the JAX package and compiled (MSE, SGD at
+    rate 0), its torch weights loaded."""
+    cfg = jff.FFConfig()
+    cfg.batch_size = shape[0]
+    cfg.workersPerNode = 1
+    jm = jff.FFModel(cfg)
+    jpt = JPyTorchModel(module, **kw)
+    jpt.torch_to_ff(jm, [jm.create_tensor(shape, jff.DataType.DT_FLOAT)])
+    jm.compile(jff.SGDOptimizer(lr=0.0), getattr(jff.LossType, MSE), [])
+    jpt.load_weights(jm)
+    return jm
+
+
+def _port_import(module, shape, **kw):
+    tm = FFModel(FFConfig(batch_size=shape[0], device="cpu"))
+    tpt = PyTorchModel(module, **kw)
+    tpt.torch_to_ff(tm, [tm.create_tensor(shape)])
+    tm.compile(SGDOptimizer(lr=0.0), getattr(LossType, MSE))
+    tpt.load_weights()
+    return tm
+
+
+def _forwards(jm, tm, x):
+    return (tm.executor.build_forward()(tm.params, [x]).numpy(),
+            np.asarray(jm.executor.build_forward()(jm.state.params, [x])))
+
+
 @pytest.mark.parametrize("module,shape,name", [
-    (_Conv(), (2, 3, 8), "Conv1d"),
-    (nn.Sequential(nn.Linear(4, 4), nn.BatchNorm1d(4)), (2, 4), "BatchNorm1d"),
-    (_Matmul(), (2, 4, 4), "matmul"),
-    (_Const(), (2, 4), "constant tensors"),
+    pytest.param(_Conv(), (2, 3, 8), "Conv1d",
+                 id="module0-shape0-Conv1d"),
+    pytest.param(nn.Sequential(nn.Linear(4, 4), nn.BatchNorm1d(4)), (2, 4),
+                 "BatchNorm1d", id="module1-shape1-BatchNorm1d"),
+    pytest.param(_Matmul(), (2, 4, 4), "matmul", id="module2-shape2-matmul"),
+    # a buffer meeting the graph: refused until constant tensors were
+    # ported, now imported as JAX imports it
+    pytest.param(_Const(), (2, 4), None,
+                 id="module3-shape3-constant tensors"),
 ])
 def test_unsupported_module_raises_with_its_name(module, shape, name):
+    """A module the frontend has no row for raises with its name; a
+    module with a constant imports as JAX's does. Traced as a Hugging
+    Face model, a plain module fails in transformers' tracer in both
+    packages alike."""
     m = FFModel(FFConfig(batch_size=2, device="cpu"))
     x = m.create_tensor(shape)
-    with pytest.raises(NotImplementedError, match=name):
-        PyTorchModel(module).torch_to_ff(m, [x])
-    with pytest.raises(NotImplementedError, match="Hugging Face"):
-        PyTorchModel(module, is_hf_model=True)
+    if name is None:
+        jm, tm = _jax_import(module, shape), _port_import(module, shape)
+        got, want = _forwards(jm, tm, _x(3, *shape))
+        np.testing.assert_allclose(got, want, atol=ATOL)
+        np.testing.assert_allclose(
+            got, module(torch.from_numpy(_x(3, *shape))).detach().numpy(),
+            atol=ATOL)
+    else:
+        with pytest.raises(NotImplementedError, match=name):
+            PyTorchModel(module).torch_to_ff(m, [x])
+    jm = jff.FFModel(jff.FFConfig())
+    with pytest.raises(Exception) as want:
+        JPyTorchModel(module, is_hf_model=True).torch_to_ff(
+            jm, [jm.create_tensor(shape, jff.DataType.DT_FLOAT)])
+    with pytest.raises(type(want.value), match=str(want.value)):
+        PyTorchModel(module, is_hf_model=True).torch_to_ff(m, [x])
+
+
+class _Masked(nn.Module):
+    """Constants meeting the graph: torch.where over a concrete mask,
+    masked_fill with a buffer mask, expand/expand_as/broadcast_to of a
+    bias row, a *_like fill and a python number added to a tensor."""
+
+    def __init__(self):
+        super().__init__()
+        self.fc = nn.Linear(8, 8)
+        self.register_buffer("mask", torch.arange(8) % 3 == 0)
+        self.register_buffer("row", torch.linspace(-1.0, 1.0, 8))
+
+    def forward(self, x):
+        h = self.fc(x)
+        keep = torch.arange(8) < 5
+        a = torch.where(keep, h, torch.zeros(8))
+        b = a.masked_fill(self.mask, -2.5)
+        c = b + self.row.expand(4, 8) - self.row.expand_as(b)
+        d = c * torch.broadcast_to(self.row, (4, 8))
+        e = d + torch.ones_like(d) * 0.5
+        return torch.where(self.mask, e, h) + 1
+
+
+def test_constants_in_where_masked_fill_and_expand_match_jax():
+    """`_lift`'s constants (the where, masked_fill, expand and *_like
+    rows) through both frontends and torch itself, forward and one
+    training step's weights (f32, atol 1e-5)."""
+    torch.manual_seed(0)
+    module = _Masked()
+    jm, tm = _jax_import(module, (4, 8)), _port_import(module, (4, 8))
+    kinds = [layer.op_type.name for layer in tm.layers]
+    assert kinds == [layer.op_type.name for layer in jm.layers]
+    assert "OP_WHERE" in kinds
+    x = _x(4, 4, 8)
+    got, want = _forwards(jm, tm, x)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    np.testing.assert_allclose(
+        got, module(torch.from_numpy(x)).detach().numpy(), atol=ATOL)
+    for m in (jm, tm):
+        m.set_learning_rate(0.1)
+    y = _x(5, 4, 8)
+    jm.fit(x, y, epochs=1, verbose=False)
+    tm.fit(x, y, epochs=1, verbose=False)
+    jw = _np_params(jm.state.params)
+    for op, ws in jw.items():
+        for n, a in ws.items():
+            np.testing.assert_allclose(tm.params[op][n].numpy(), a,
+                                       atol=ATOL, err_msg=f"{op}.{n}")
+
+
+def test_t5_through_is_hf_model_matches_jax():
+    """tests/test_torch_frontend.py's T5 (1 layer, d_model 32, 2 heads,
+    built from a config) traced with `is_hf_model=True`: the same op
+    kinds as JAX's import, the last hidden state against torch's and
+    JAX's (atol 2e-3, the JAX test's bound for T5's relative-position
+    and RMS-norm arithmetic)."""
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(0)
+    cfg = transformers.T5Config(
+        d_model=32, d_ff=64, num_layers=1, num_heads=2, d_kv=16,
+        vocab_size=64, decoder_start_token_id=0, dropout_rate=0.0)
+    mod = transformers.T5Model(cfg).eval()
+    names = ["input_ids", "decoder_input_ids"]
+    jcfg = jff.FFConfig()
+    jcfg.batch_size = 4
+    jcfg.workersPerNode = 1
+    jm = jff.FFModel(jcfg)
+    jpt = JPyTorchModel(mod, is_hf_model=True, input_names=names)
+    jpt.torch_to_ff(jm, [jm.create_tensor([4, 8], jff.DataType.DT_INT64)
+                         for _ in names])
+    jm.compile(jff.SGDOptimizer(lr=0.01), getattr(jff.LossType, MSE), [])
+    jpt.load_weights(jm)
+    tm = FFModel(FFConfig(batch_size=4, device="cpu"))
+    tpt = PyTorchModel(mod, is_hf_model=True, input_names=names)
+    outs = tpt.torch_to_ff(tm, [tm.create_tensor([4, 8], DataType.DT_INT64)
+                                for _ in names])
+    assert [tuple(o.dims) for o in outs] == [(4, 8, 32)] * 2
+    tm.compile(SGDOptimizer(lr=0.01), getattr(LossType, MSE))
+    tpt.load_weights()
+    assert [layer.op_type.name for layer in tm.layers] == \
+        [layer.op_type.name for layer in jm.layers]
+    rng = np.random.RandomState(0)
+    x1, x2 = (rng.randint(0, 64, (4, 8)).astype(np.int64) for _ in names)
+    with torch.no_grad():
+        ref = mod(input_ids=torch.tensor(x1),
+                  decoder_input_ids=torch.tensor(x2)
+                  ).last_hidden_state.numpy()
+    got = tm.executor.build_forward()(tm.params, [x1, x2]).numpy()
+    want = np.asarray(jm.executor.build_forward()(
+        jm.state.params, [jnp.asarray(x1), jnp.asarray(x2)]))
+    np.testing.assert_allclose(got, ref, atol=2e-3)
+    np.testing.assert_allclose(got, want, atol=2e-3)
 
 
 def test_functional_arithmetic_matches_jax_import():

@@ -660,8 +660,13 @@ def test_search_flags_parse_to_jax_fields(argv):
 @pytest.mark.parametrize("flag,what", [
     ("--import-strategy", "strategy import")])
 def test_unported_search_flags_raise_naming_what_is_missing(flag, what):
-    with pytest.raises(NotImplementedError, match=what):
-        tff.FFConfig(device="cpu").parse_args([flag, "1"])
+    """The strategy-import flag, refused until the config took its field:
+    it now sets `import_strategy_file` as JAX's parse_args does (neither
+    package's compile reads it)."""
+    t, j = tff.FFConfig(device="cpu"), jff.FFConfig()
+    t.parse_args([flag, "s.json"])
+    j.parse_args([flag, "s.json"])
+    assert t.import_strategy_file == j.import_strategy_file == "s.json"
 
 
 @pytest.mark.parametrize("argv", [["--nodes", "2"], ["--nodes", "x"],

@@ -5,9 +5,13 @@ JAX package on the conftest's CPU devices.
 The ranks run as in tests/test_torch_port_mesh.py: gloo ranks started as
 subprocesses (flexflow_tpu_torch/runtime/mesh_run.py running
 tests/torch_mesh_cases.py, OMP_NUM_THREADS=1, a free localhost port,
-every rank killed when its launch passes the 150 s timeout; a failed
-rank's output is its `rank<r>.log` under the module's tmp dir), a group
-of 2 and a group of 4 started together, many cases a launch. The JAX
+every rank killed when its launch passes its timeout; a failed rank's
+output is its `rank<r>.log` under the module's tmp dir). The 2-rank
+cases run in one launch; the 4-rank cases in three launches one after
+another (the kernels and MHA cases, the MoE cases, the scans), beside
+the 2-rank launch, each with a timeout of `TIMEOUT` plus
+`TIMEOUT_PER_CASE` a case, so a busy host stretches no launch past a
+limit sized for fewer cases. The JAX
 side runs in this process on 2 or 4 of the conftest's CPU devices
 (`workersPerNode`) while the ranks run; the models' initial weights are
 JAX's, carried to the ranks with `params_from_numpy`. Tolerance: rtol
@@ -62,7 +66,9 @@ from torch_mesh_cases import build as _build
 from torch_mesh_cases import fixed_winner
 
 RTOL, ATOL = 1e-5, 1e-6
-TIMEOUT = 150
+# a launch's timeout: TIMEOUT + TIMEOUT_PER_CASE x its cases
+TIMEOUT = 90
+TIMEOUT_PER_CASE = 40
 CASES = str(pathlib.Path(__file__).with_name("torch_mesh_cases.py"))
 # the kernels alone: (b, s, h, d) and the ring's chunk
 SPK = (2, 32, 4, 16)
@@ -171,11 +177,15 @@ def _jax_params(m):
 
 
 class _Run:
-    def __init__(self, d, nprocs, future):
+    """One launch of `nprocs` ranks; `wait_s` bounds the wait for it, the
+    launches queued ahead of it included."""
+
+    def __init__(self, d, nprocs, future, names, wait_s):
         self.dir, self.nprocs, self.future = pathlib.Path(d), nprocs, future
+        self.names, self.wait_s = set(names), wait_s
 
     def result(self, name, rank=0):
-        self.future.result(timeout=TIMEOUT + 30)
+        self.future.result(timeout=self.wait_s)
         f = self.dir / f"{name}.rank{rank}.json"
         assert f.exists(), "rank logs:\n" + "\n".join(
             (self.dir / f"rank{r}.log").read_text()
@@ -191,6 +201,25 @@ class _Run:
     def arrays(self, name):
         with np.load(self.dir / f"{name}.npz") as z:
             return {k: z[k] for k in z.files}
+
+
+class _Group:
+    """The launches of one rank count, read by case name."""
+
+    def __init__(self, runs):
+        self.runs = runs
+
+    def _run(self, name):
+        return next(r for r in self.runs if name in r.names)
+
+    def result(self, name, rank=0):
+        return self._run(name).result(name, rank)
+
+    def ok(self, name):
+        return self._run(name).ok(name)
+
+    def arrays(self, name):
+        return self._run(name).arrays(name)
 
 
 def _att_data(kw, rng):
@@ -234,20 +263,24 @@ def runs(tmp_path_factory, request):
         jax_models[f"scan_{name}"] = _jax_tf(4, iterations_per_dispatch=SCAN_SPD,
                                              **cfg)
     w = {k: _save_params(m, d / f"w_{k}.npz") for k, m in jax_models.items()}
-    groups = {2: [], 4: []}
+    # (ranks, cases) of each launch: the 2-rank cases together, the
+    # 4-rank ones in three launches
+    groups = {"2": (2, []), "4_sp": (4, []), "4_moe": (4, []),
+              "4_scan": (4, [])}
     for n in (2, 4):
-        groups[n].append({"name": f"kernels{n}", "mode": "sp_kernels",
-                          "data": paths["spk"], "impls": ["ring", "ulysses"],
-                          "chunk_size": SPK_CHUNK})
+        groups[f"{n}" if n == 2 else "4_sp"][1].append({
+            "name": f"kernels{n}", "mode": "sp_kernels",
+            "data": paths["spk"], "impls": ["ring", "ulysses"],
+            "chunk_size": SPK_CHUNK})
     for name, (n, impl, cfg) in SP_CASES.items():
-        groups[n].append({
+        groups["2" if n == 2 else "4_sp"][1].append({
             "name": name, "builder": "attention", "builder_kwargs": ATT,
             "config": dict(cfg, batch_size=ATT["batch"]),
             "env": {"FF_ATTENTION_IMPL": impl}, "weights": w[name],
             "data": paths["att"], "steps": 2, "lr": 0.1, "forward": True})
     for name, kw, impl in (("sp2_heads", ATT3, "ulysses"),
                            ("sp2_shape", ATT15, "ring")):
-        groups[2].append({
+        groups["2"][1].append({
             "name": name, "builder": "attention", "builder_kwargs": kw,
             "config": {"batch_size": kw["batch"],
                        "sequence_parallel_degree": 2},
@@ -255,13 +288,13 @@ def runs(tmp_path_factory, request):
             "data": paths["att3" if kw is ATT3 else "att15"], "steps": 2,
             "lr": 0.1})
     for name, (n, batch, cfg, rewrites) in MOE_CASES.items():
-        groups[n].append({
+        groups["2" if n == 2 else "4_moe"][1].append({
             "name": name, "builder": "moe_small",
             "builder_kwargs": {"batch": batch},
             "config": dict(cfg, batch_size=batch), "rewrites": rewrites,
             "weights": w[name], "data": paths[f"moe{batch}"], "steps": 2,
             "lr": 0.1, "loss": SPARSE})
-    groups[2].append({
+    groups["2"][1].append({
         "name": "seq_winner", "builder": "transformer", "builder_kwargs": TF,
         "config": {"batch_size": TF["batch"], "search_budget": 1,
                    "enable_sequence_parallel": True},
@@ -270,22 +303,28 @@ def runs(tmp_path_factory, request):
         "steps": 2, "lr": 0.01})
     for name, cfg in SCAN_MESHES.items():
         for spd in (1, SCAN_SPD):
-            groups[4].append({
+            groups["4_scan"][1].append({
                 "name": f"scan_{name}_{spd}", "builder": "transformer",
                 "builder_kwargs": TF,
                 "config": dict(cfg, batch_size=TF["batch"],
                                iterations_per_dispatch=spd),
                 "weights": w[f"scan_{name}"], "data": paths["tf"],
                 "mode": "fit", "lr": 0.01})
-    pool = concurrent.futures.ThreadPoolExecutor(2)
-    out = {}
-    for n, cases in groups.items():
-        gd = d / f"group{n}"
+    # one queue a rank count: the 4-rank launches run one after another
+    # beside the 2-rank one, so at most 6 ranks run at once
+    pools = {n: concurrent.futures.ThreadPoolExecutor(1) for n in (2, 4)}
+    queued = {2: 0, 4: 0}
+    out = {2: _Group([]), 4: _Group([])}
+    for label, (n, cases) in groups.items():
+        gd = d / f"group{label}"
         gd.mkdir()
         (gd / "spec.json").write_text(json.dumps(cases))
-        out[n] = _Run(gd, n, pool.submit(
+        timeout = TIMEOUT + TIMEOUT_PER_CASE * len(cases)
+        queued[n] += timeout
+        out[n].runs.append(_Run(gd, n, pools[n].submit(
             launch, n, ["--device", "cpu", CASES, str(gd / "spec.json"),
-                        str(gd)], str(gd), timeout=TIMEOUT))
+                        str(gd)], str(gd), timeout=timeout),
+            [c["name"] for c in cases], queued[n] + 30))
     refs = {"kernels": {n: _jax_kernels(data["spk"], n) for n in (2, 4)}}
     for name, (n, impl, cfg) in SP_CASES.items():
         with _env(FF_ATTENTION_IMPL=impl):
@@ -300,7 +339,8 @@ def runs(tmp_path_factory, request):
         refs[f"scan_{name}"] = _jax_params(m)
     yield {"runs": out, "data": data, "jax": jax_models, "refs": refs,
            "weights": w}
-    pool.shutdown(wait=True)
+    for pool in pools.values():
+        pool.shutdown(wait=True)
 
 
 def _jax_kernels(arrs, n):

@@ -61,13 +61,11 @@ def _models():
 
 
 def _layers(m):
-    """Every layer's name, op type, params (the regularizer fields of
-    JAX's Linear, which the port lacks, left out), output shapes and
-    dtypes."""
+    """Every layer's name, op type, params (a Linear's regularizer
+    fields among them), output shapes and dtypes."""
     return [(layer.name, layer.op_type.name,
              {k: getattr(v, "name", v)
-              for k, v in vars(layer.params).items()
-              if not k.startswith("kernel_reg")},
+              for k, v in vars(layer.params).items()},
              [tuple(o.dims) for o in layer.outputs],
              [o.data_type.name for o in layer.outputs])
             for layer in m.layers]
@@ -134,12 +132,30 @@ def test_ff_file_replays_in_both_packages(writer, tmp_path):
 
 @pytest.mark.parametrize("target", ["where", "masked_fill", "expand"])
 def test_rows_that_need_constant_tensors_still_raise(target):
+    """The rows that waited for constant tensors, on graph-tensor
+    operands, against JAX's: where builds JAX's op, expand passes its
+    input through, masked_fill over a traced mask fails with JAX's
+    message (its mask must be concrete)."""
+    from flexflow_tpu.frontends.torch.model import _replay_fn as jreplay
     from flexflow_tpu_torch.frontends.torch.model import _replay_fn
 
+    cfg = jff.FFConfig()
+    cfg.batch_size = B
+    jm = jff.FFModel(cfg)
+    jx = jm.create_tensor((B, D), jff.DataType.DT_FLOAT)
     m = FFModel(FFConfig(batch_size=B, device="cpu"))
     x = m.create_tensor((B, D))
-    with pytest.raises(NotImplementedError, match=target):
-        _replay_fn(m, target, [x, x, x], {})
+    try:
+        want = jreplay(jm, target, [jx, jx, 2.0], {})
+    except AssertionError as e:
+        with pytest.raises(NotImplementedError, match=str(e)):
+            _replay_fn(m, target, [x, x, 2.0], {})
+        assert target == "masked_fill"
+        return
+    got = _replay_fn(m, target, [x, x, 2.0], {})
+    assert (got is x) == (want is jx)
+    assert tuple(got.dims) == tuple(want.dims)
+    assert _layers(m) == _layers(jm)
 
 
 def test_metadata_rows():
