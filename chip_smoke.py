@@ -269,7 +269,7 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      schedule's f32 buffer and the hop bypassed, its forward and one
      step's gradients against the unpipelined run, every flash launch
      (one an MHA op a micro-batch) on wgmma.
- 20. frontends (last): (a) the flagship at full width written as a Keras
+ 20. frontends: (a) the flagship at full width written as a Keras
      functional model (12 x MultiHeadAttention(16, 64) with biases,
      Dense(1024, "relu", use_bias=False), Dense(1024, use_bias=False);
      bf16 over f32, MSE, SGD lr 0.01) through the port's Keras frontend,
@@ -287,6 +287,26 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      calls (models/alexnet.py build_alexnet) on the same weights. Prints
      a `frontends` line (after the card's name and power limit) with the
      phase's seconds.
+ 21. fleet (last): the serving LM at full width and depth (as in 3) under
+     a ReplicaSet of 2 replicas and 1 warm spare on one queue, one device
+     lock: 24 requests over a shared 192-token system prompt (12 full
+     pages) with suffixes of 16-64 tokens, 4 of them verbatim repeats, 32
+     new tokens each; replica0 is killed (the replica_death site) at its
+     8th decode iteration, its slots go back to the queue, the spare takes
+     over from the set's checkpoint. Every answer equals
+     incremental_generate's on the same weights; prefix hits >= 20, memo
+     skips >= 4, one spare activation, every pool audit-clean with no
+     resident page after the drain. One batcher answers the same requests
+     with sharing on and off (ABBA: tokens/s, the prefill stage of a memo
+     hit against a computed prefill). BatchScheduler over the flagship at
+     full width: batched and single infer calls bit-equal to direct
+     forwards. keras_exp: examples/python/keras_exp/
+     func_cifar10_cnn_concat.py's CNN built in the port's keras layers and
+     converted live by keras2onnx_min, fit 4 steps (batch 64) against the
+     same ONNX model through ONNXModelKeras, bit for bit. Every paged
+     launch on the cluster kernel, every flash launch (the scheduler's
+     forwards) on wgmma. Prints a `fleet` line (after the card's name and
+     power limit).
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -1502,9 +1522,12 @@ def serve(torch, model):
     reqs_p = [rng.randint(0, VOCAB, n).astype(np.int32) for n in lens]
     q = AdmissionQueue(max_depth=len(lens))
     b = ContinuousBatcher(model, ServingConfig(max_len=MAX_LEN, slots=SLOTS,
-                                               page_size=16), q)
+                                               page_size=16,
+                                               precompile=False), q)
     reqs = [GenerationRequest(p, new, deadline_s=600.0) for p in reqs_p]
-    torch.cuda.synchronize()
+    # the warm-up (every prefill bucket, the step's capture) timed apart
+    # from the traffic
+    warmup_s = timed_warmup(torch, b)
     t0 = time.perf_counter()
     b.start()
     try:
@@ -1529,15 +1552,16 @@ def serve(torch, model):
                 f"incremental_generate disagree from position {at}")
     summary["continuous_batcher"] = {
         "requests": len(reqs), "prompt_lens": lens, "new_tokens": new,
-        "s": dt, "tokens_per_s": len(reqs) * new / dt,
+        "s": dt, "tokens_per_s": len(reqs) * new / dt, "warmup_s": warmup_s,
         "iterations": b.stats["iterations"],
         "exact_vs_incremental_generate": len(reqs),
-        "pool_audit_ok": b.pool.audit() == [],
+        "pool_audit_ok": b.pool.audit().ok,
         "pages_in_use_after": b.pool.pages_in_use}
     log(f"  batcher: {len(reqs)} requests x {new} tokens in {dt:.3f}s, "
         f"{len(reqs)}/{len(reqs)} exact vs incremental_generate")
-    if b.pool.audit() or b.pool.pages_in_use:
-        raise AssertionError(f"page pool not clean: {b.pool.audit()}")
+    if not b.pool.audit().ok or b.pool.pages_in_use:
+        raise AssertionError(
+            f"page pool not clean: {b.pool.audit().to_dict()}")
     return summary
 
 
@@ -3285,6 +3309,17 @@ def captured_step_ms(torch, ex, params):
     return min(times[2:])
 
 
+def timed_warmup(torch, b):
+    """Run batcher `b`'s warm-up (every prefill bucket and, on a card, the
+    decode step's capture) before its traffic, so the traffic's seconds
+    and tokens/s hold none of it; its seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b._warmup_compiles()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def batcher_answers(torch, model, prompts, new):
     """A ContinuousBatcher over `model` answering `prompts` (`new` tokens
     each): (answers, decode_strategy_active, stats, seconds)."""
@@ -3295,9 +3330,10 @@ def batcher_answers(torch, model, prompts, new):
 
     q = AdmissionQueue(max_depth=len(prompts))
     b = ContinuousBatcher(model, ServingConfig(max_len=MAX_LEN, slots=SLOTS,
-                                               page_size=16), q)
+                                               page_size=16,
+                                               precompile=False), q)
     reqs = [GenerationRequest(p, new, deadline_s=600.0) for p in prompts]
-    torch.cuda.synchronize()
+    timed_warmup(torch, b)
     t0 = time.perf_counter()
     b.start()
     try:
@@ -3500,8 +3536,13 @@ def mesh_serving(torch):
         torch.cuda.synchronize()
         build.reset_launch_counts()
         att.MESH_PATHS.clear()
+        # a capture's warm-up is a real step, counted: whether this run
+        # captures depends on whether its caches took the addresses of
+        # the first run's (the step's graph key), so read its captures
+        captured_before = dex.decode_captures
         toks, logits = decode_run(torch, dex, m.params, prompts,
                                   MESH_SERVE_NEW, MAX_LEN)
+        captures = dex.decode_captures - captured_before
         torch.cuda.synchronize()
         run_counts = dict(build.launch_counts)
         inc = incremental_generate(m, prompts, max_new_tokens=MESH_SERVE_NEW,
@@ -3512,13 +3553,15 @@ def mesh_serving(torch):
         counts = dict(build.launch_counts)
         paths = dict(build.path_counts)
         routes = dict(att.MESH_PATHS)
-        # the one-token steps of decode_run, and its first replay's
-        # warm-up run (a real step, counted)
+        # the one-token steps of decode_run, and the warm-up run of its
+        # capture if it made one (at most one: one cache set)
         steps = MESH_SERVE_NEW - 1
-        if run_counts.get("paged_decode") != LAYERS * (steps + 1):
+        if captures > 1 or run_counts.get("paged_decode") != \
+                LAYERS * (steps + captures):
             raise AssertionError(
                 f"mesh_serving: {run_counts.get('paged_decode')} paged "
-                f"launches for {steps} one-token steps of {LAYERS} layers")
+                f"launches for {steps} one-token steps of {LAYERS} layers "
+                f"and {captures} capture(s)")
         if not np.array_equal(toks, ref_toks):
             raise AssertionError("mesh_serving: the mesh decode's tokens "
                                  "differ from the plain executor's")
@@ -3552,6 +3595,7 @@ def mesh_serving(torch):
                         "iterations": stats["iterations"], "s": batch_s},
             "paged_launches_decode_run": run_counts.get("paged_decode"),
             "one_token_steps_decode_run": steps,
+            "captures_decode_run": captures,
             "decode_routes": routes,
             "captured_step_ms_mesh": mesh_ms,
             "captured_step_ms_plain": plain_ms,
@@ -7069,10 +7113,12 @@ def compile_decode_serving(torch):
     prompts = [rng.randint(0, VOCAB, n).astype(np.int32) for n in lens]
     q = AdmissionQueue(max_depth=len(lens))
     b = ContinuousBatcher(model, ServingConfig(max_len=MAX_LEN, slots=SLOTS,
-                                               page_size=16), q)
+                                               page_size=16,
+                                               precompile=False), q)
     if not b.decode_strategy_active:
         raise AssertionError("the batcher did not take the decode executor")
     reqs = [GenerationRequest(p, new, deadline_s=600.0) for p in prompts]
+    warmup_s = timed_warmup(torch, b)
     t0 = time.perf_counter()
     b.start()
     try:
@@ -7090,8 +7136,9 @@ def compile_decode_serving(torch):
         if not np.array_equal(o, ref):
             raise AssertionError(f"decode-executor batcher: request {i} "
                                  "differs from incremental_generate")
-    if b.pool.audit() or b.pool.pages_in_use:
-        raise AssertionError(f"page pool not clean: {b.pool.audit()}")
+    if not b.pool.audit().ok or b.pool.pages_in_use:
+        raise AssertionError(
+            f"page pool not clean: {b.pool.audit().to_dict()}")
     log(f"  compile_decode (serving LM, {COMPILE_DECODE_LAYERS} blocks, "
         f"{SEARCH_WORKERS} simulated H100s): {search_s:.2f}s, cost "
         f"{model.decode_searched_cost:.6g}, views {views}; batcher on the "
@@ -7103,6 +7150,7 @@ def compile_decode_serving(torch):
                          model.decode_trajectory.of_kind("phase")},
             "decode_strategy_active": True, "requests": len(reqs),
             "new_tokens": new, "batcher_s": dt,
+            "batcher_warmup_s": warmup_s,
             "exact_vs_incremental_generate": len(reqs),
             "pool_audit_ok": True}
 
@@ -9342,6 +9390,414 @@ def frontends(torch):
     return out
 
 
+# The serving fleet: the serving LM at full width and depth, as the
+# serving phase builds it, under a ReplicaSet of FLEET_REPLICAS replicas
+# and one warm spare, with FLEET_REQUESTS requests over a shared
+# FLEET_SYSTEM-token system prompt (12 full pages of 16) plus suffixes of
+# FLEET_SUFFIX tokens, FLEET_REPEATS of them verbatim repeats, each
+# generating FLEET_NEW tokens. replica0 dies (the replica_death fault
+# site) at its FLEET_DEATH_AT-th decode iteration.
+FLEET_REPLICAS, FLEET_REQUESTS, FLEET_REPEATS = 2, 24, 4
+FLEET_SYSTEM, FLEET_SUFFIX, FLEET_NEW, FLEET_DEATH_AT = 192, (16, 64), 32, 8
+FLEET_MIN_PREFIX_HITS, FLEET_MIN_SKIPS = 20, 4
+FLEET_SHARING_ROUNDS = 2        # sharing on/off, ABBA
+FLEET_INFER_SINGLE = 3          # BatchScheduler.infer calls of one sample
+# keras_exp: examples/python/keras_exp/func_cifar10_cnn_concat.py's CNN
+# (3x32x32, two towers of two 32-filter convs, concat, pool, two 64-filter
+# convs, pool, dense 512, dense 10, softmax), f32, SGD at keras's default
+# 0.01, sparse CE, batch 64, FLEET_KERAS_STEPS steps
+FLEET_KERAS_BATCH, FLEET_KERAS_STEPS = 64, 4
+
+
+def fleet_prompts():
+    """FLEET_REQUESTS prompts: the shared system prompt plus a suffix
+    each; FLEET_REPEATS of them repeat the prompt just before them, two
+    pairs in each of the first two waves of SLOTS (a replica's first plan
+    takes a wave, so each pair lands in one replica's prefill memo)."""
+    rng = np.random.RandomState(21)
+    system = rng.randint(0, VOCAB, FLEET_SYSTEM).tolist()
+    unique = [np.asarray(system + rng.randint(0, VOCAB, rng.randint(
+        FLEET_SUFFIX[0], FLEET_SUFFIX[1] + 1)).tolist(), np.int32)
+        for _ in range(FLEET_REQUESTS - FLEET_REPEATS)]
+    pairs = {0, 1, SLOTS // 2 + 2, SLOTS // 2 + 3}  # unique ids repeated
+    out = []
+    for i, p in enumerate(unique):
+        out.append(p)
+        if i in pairs:
+            out.append(p.copy())
+    return out
+
+
+def fleet_lm(torch, ref):
+    """The serving LM at full width and depth with `ref`'s weights copied
+    in, so every replica serves the same weights."""
+    m = build_model(torch)
+    with torch.no_grad():
+        for _, dst, src in paired_weights(m, ref):
+            dst.copy_(src)
+    return m
+
+
+def fleet_sharing(torch, ref, prompts, refs):
+    """One ContinuousBatcher on `ref` answering the fleet's requests with
+    prefix sharing (and the prefill memo) on and off, ABBA: tokens/s, and
+    the prefill stage (admission to first token) of memo hits against
+    computed prefills. Every answer must equal incremental_generate's."""
+    from flexflow_tpu_torch.runtime.serving import (AdmissionQueue,
+                                                    ContinuousBatcher,
+                                                    GenerationRequest,
+                                                    ServingConfig)
+
+    runs = {"on": [], "off": []}
+    prefill = {"hit_ms": [], "computed_ms": []}
+    order = ["on", "off"] * FLEET_SHARING_ROUNDS
+    order = order[:2] + order[2:][::-1]     # on, off, off, on
+    for which in order:
+        q = AdmissionQueue(len(prompts))
+        b = ContinuousBatcher(ref, ServingConfig(
+            max_len=MAX_LEN, slots=SLOTS, page_size=16, precompile=False,
+            share_prefixes=which == "on"), q)
+        timed_warmup(torch, b)
+        reqs = [GenerationRequest(p, FLEET_NEW, deadline_s=600.0)
+                for p in prompts]
+        t0 = time.perf_counter()
+        b.start()
+        try:
+            for r in reqs:
+                q.offer(r)
+            outs = [r.result(timeout=600) for r in reqs]
+        finally:
+            b.stop()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for i, (o, want) in enumerate(zip(outs, refs)):
+            if not np.array_equal(o, want):
+                raise AssertionError(f"fleet, sharing {which}: request {i} "
+                                     "differs from incremental_generate")
+        if not b.pool.audit().ok or b.pool.pages_resident:
+            raise AssertionError(f"fleet, sharing {which}: pool "
+                                 f"{b.pool.audit().to_dict()}")
+        want_skips = FLEET_REPEATS if which == "on" else 0
+        if b.stats["prefill_skips"] != want_skips:
+            raise AssertionError(f"fleet, sharing {which}: "
+                                 f"{b.stats['prefill_skips']} memo hits, "
+                                 f"expected {want_skips}")
+        runs[which].append({"s": dt,
+                            "tokens_per_s": len(reqs) * FLEET_NEW / dt,
+                            "prefix_hits": b.stats["prefix_hits"],
+                            "prefill_skips": b.stats["prefill_skips"],
+                            "shared_pages_attached":
+                            b.pool.stats["shared_attached"]})
+        if which == "on":
+            seen = set()
+            for r in reqs:
+                key = r.prompt.tobytes()
+                ms = (r.first_token_t - r.admitted_t) * 1e3
+                prefill["hit_ms" if key in seen else "computed_ms"].append(ms)
+                seen.add(key)
+        del b
+    med = lambda v: float(np.median(v))  # noqa: E731
+    return {"rounds": runs,
+            "tokens_per_s_on": med([r["tokens_per_s"] for r in runs["on"]]),
+            "tokens_per_s_off": med([r["tokens_per_s"]
+                                     for r in runs["off"]]),
+            "prefill_stage_ms_memo_hit": med(prefill["hit_ms"]),
+            "prefill_stage_ms_computed": med(prefill["computed_ms"]),
+            "prefill_stage_ms": prefill}
+
+
+def fleet_replicas(torch, ref, prompts, refs):
+    """The ReplicaSet run (FLEET_* above). The requests are submitted as
+    soon as the set has started: its replicas warm up (every prefill
+    bucket, the step's capture; seconds) before their first plans, so the
+    queue holds them all by then and each replica's first plan admits a
+    wave of SLOTS. Returns its summary."""
+    import shutil
+    import tempfile
+
+    from flexflow_tpu_torch.runtime.resilience import FaultInjector
+    from flexflow_tpu_torch.runtime.serving import (ReplicaDeathError,
+                                                    ReplicaSet,
+                                                    ServingConfig)
+
+    fi = FaultInjector()
+    fi.inject("replica_death", at_step=FLEET_DEATH_AT, replica="replica0",
+              exc=ReplicaDeathError("fleet: replica0 killed mid-decode"))
+    ckpt = tempfile.mkdtemp(prefix="ff_fleet_")
+    built = []
+
+    def model_fn():
+        t0 = time.perf_counter()
+        m = fleet_lm(torch, ref)
+        built.append(time.perf_counter() - t0)
+        return m
+
+    cfg = ServingConfig(max_len=MAX_LEN, slots=SLOTS, page_size=16,
+                        default_deadline_s=600.0)
+    rs = ReplicaSet(model_fn, cfg, replicas=FLEET_REPLICAS, ckpt_dir=ckpt,
+                    fault_injector=fi, health_timeout_s=120.0,
+                    restart_backoff_s=0.05, warm_spares=1)
+    try:
+        t_start = time.perf_counter()
+        rs.start()
+        start_s = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        reqs = [rs.submit(p, max_new_tokens=FLEET_NEW, deadline_s=600.0)
+                for p in prompts]
+        outs = [r.result(timeout=600) for r in reqs]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        deadline = time.monotonic() + 120
+        while ((rs.stats["restarts"] < 1 or rs.replica_count()
+                < FLEET_REPLICAS) and time.monotonic() < deadline):
+            time.sleep(0.02)
+        live = rs.replica_count()
+    finally:
+        rs.stop(timeout=60)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    agg = rs.aggregate_stats()
+    for i, (o, want) in enumerate(zip(outs, refs)):
+        if not np.array_equal(o, want):
+            raise AssertionError(f"fleet: request {i} (generation "
+                                 f"{reqs[i].generation}) differs from "
+                                 "incremental_generate")
+    # every batcher that served: the live replicas and the one that died
+    by = dict(agg["replicas"])
+    by.update({n: v["stats"] for n, v in agg["retired"].items()})
+    audits = dict(agg["kv_pool_audits"])
+    audits.update({n: v["kv_pool_audit"] for n, v in agg["retired"].items()})
+    hits = sum(st["prefix_hits"] for st in by.values())
+    skips = sum(st["prefill_skips"] for st in by.values())
+    requeued = [r for r in reqs if r.generation >= 1]
+    gone = agg["retired"].get("replica0")
+    if fi.fired.get("replica_death") != 1 or gone is None or \
+            len(agg["retired"]) != 1:
+        raise AssertionError(f"fleet: replica0 did not die once: "
+                             f"{fi.fired}, retired {sorted(agg['retired'])}")
+    if agg["spares_used"] != 1 or agg["restarts"] != 1 or \
+            live != FLEET_REPLICAS:
+        raise AssertionError(f"fleet: spare activations {agg}, {live} "
+                             "live replicas")
+    if not requeued or gone["requeued"] < 1:
+        raise AssertionError("fleet: the death requeued no request")
+    if hits < FLEET_MIN_PREFIX_HITS or skips < FLEET_MIN_SKIPS:
+        raise AssertionError(f"fleet: prefix_hits {hits} (want >= "
+                             f"{FLEET_MIN_PREFIX_HITS}), prefill_skips "
+                             f"{skips} (want >= {FLEET_MIN_SKIPS})")
+    bad = {n: a for n, a in audits.items()
+           if not a.get("ok") or a.get("pages_resident")}
+    if bad or len(audits) != FLEET_REPLICAS + 1:
+        raise AssertionError(f"fleet: pools not clean after drain: {bad} "
+                             f"of {sorted(audits)}")
+    answer_s = [r.finished_t - gone["died_t"] for r in requeued]
+    return {"replicas": FLEET_REPLICAS, "warm_spares": 1,
+            "requests": len(reqs), "new_tokens": FLEET_NEW,
+            "s": dt, "tokens_per_s": len(reqs) * FLEET_NEW / dt,
+            "start_s": start_s, "model_builds_s": built,
+            "checkpoint_restores": agg["spares_used"],
+            "restarts": agg["restarts"], "requeued": len(requeued),
+            "requeue_to_answer_s_max": max(answer_s),
+            "requeue_to_answer_s_median": float(np.median(answer_s)),
+            "prefix_hits": hits, "prefill_skips": skips,
+            "per_batcher": {n: {k: st[k] for k in (
+                "admitted", "finished", "prefix_hits", "prefill_skips",
+                "stranded_requeued", "iterations")}
+                for n, st in by.items()},
+            "exact_vs_incremental_generate": len(reqs),
+            "pools_clean": sorted(audits)}
+
+
+def fleet_scheduler(torch):
+    """BatchScheduler over the flagship at full width: SLOTS single-sample
+    requests queued then taken as one batch, each row bit-equal to a
+    direct forward of that batch; then FLEET_INFER_SINGLE blocking
+    infer() calls, each bit-equal to a direct forward of its sample
+    broadcast to the batch (how the scheduler pads)."""
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.runtime.serving import BatchScheduler
+
+    model = build_transformer_model(torch)
+    fwd = model.executor.build_forward()
+    rng = np.random.RandomState(22)
+    xs = rng.randn(TRAIN_BATCH, TRAIN_SEQ, HIDDEN).astype(np.float32)
+
+    def direct(batch):
+        return fwd(model.params, [batch], model.state.net_state) \
+            .float().cpu().numpy()
+
+    # the direct forwards every answer is held to, run before the
+    # scheduler starts and taken back out of the phase's launch counts:
+    # they are the check's, not the scheduler's
+    with build.captured_launches({}):
+        want = direct(xs)
+        want_single = [direct(np.broadcast_to(x, xs.shape).copy())[0]
+                       for x in xs[:FLEET_INFER_SINGLE]]
+        torch.cuda.synchronize()
+    sched = BatchScheduler(model, max_delay_s=0.05)
+    reqs = [sched.submit([x]) for x in xs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.start()
+    try:
+        for r in reqs:
+            if not r.event.wait(600) or r.error is not None:
+                raise AssertionError(f"fleet scheduler: {r.error!r}")
+        batched_s = time.perf_counter() - t0
+        for i, r in enumerate(reqs):
+            if not np.array_equal(r.result, want[i]):
+                raise AssertionError(f"fleet scheduler: row {i} differs "
+                                     "from the direct forward")
+        single = []
+        for x, w in zip(xs, want_single):
+            t1 = time.perf_counter()
+            got = sched.infer([x], timeout=600)
+            single.append(time.perf_counter() - t1)
+            if not np.array_equal(got, w):
+                raise AssertionError("fleet scheduler: an infer() call "
+                                     "differs from the direct forward")
+    finally:
+        sched.stop()
+    st = dict(sched.stats)
+    if st["batches"] != 1 + FLEET_INFER_SINGLE or st["degraded"]:
+        raise AssertionError(f"fleet scheduler: {st}")
+    del model
+    return {"model": "flagship Transformer (batch 8, seq 512, hidden "
+            "1024, 12 blocks, bf16 over f32)",
+            "batched_requests": len(reqs), "batched_s": batched_s,
+            "infer_s": single, "stats": st, "bit_equal": True}
+
+
+def fleet_keras_exp(torch):
+    """keras_exp through the live converter: the CIFAR-10 CNN with concat
+    written in the port's keras layers, converted by keras2onnx_min, fit
+    FLEET_KERAS_STEPS steps against the same ONNX model imported by hand
+    (FFModel + ONNXModelKeras): losses and weights bit for bit."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.frontends.keras import layers as L
+    from flexflow_tpu_torch.frontends.keras import optimizers as kopt
+    from flexflow_tpu_torch.frontends.keras_exp.models import Model
+    from flexflow_tpu_torch.frontends.onnx.model import ONNXModelKeras
+    from flexflow_tpu_torch.ff_types import DataType, LossType, MetricsType
+
+    src = L.Input((3, 32, 32))
+    towers = []
+    for _ in range(2):
+        t = L.Conv2D(32, 3, activation="relu")(src)
+        towers.append(L.Conv2D(32, 3, activation="relu")(t))
+    t = L.Concatenate(axis=1)(towers)
+    t = L.MaxPooling2D(2)(t)
+    t = L.Conv2D(64, 3, activation="relu")(t)
+    t = L.Conv2D(64, 3, activation="relu")(t)
+    t = L.MaxPooling2D(2)(t)
+    t = L.Flatten()(t)
+    t = L.Dense(512, activation="relu")(t)
+    out = L.Activation("softmax")(L.Dense(10)(t))
+    t0 = time.perf_counter()
+    km = Model(inputs={1: src}, outputs=out,
+               ffconfig=FFConfig(batch_size=FLEET_KERAS_BATCH, seed=0))
+    convert_s = time.perf_counter() - t0
+    sparse = "sparse_categorical_crossentropy"
+    km.compile(optimizer="SGD", loss=sparse, metrics=["accuracy", sparse])
+    proto = km._base_model._onnx_model
+    twin = FFModel(FFConfig(batch_size=FLEET_KERAS_BATCH, seed=0))
+    x_in = twin.create_tensor([FLEET_KERAS_BATCH, 3, 32, 32],
+                              DataType.DT_FLOAT)
+    om = ONNXModelKeras(proto, twin.config, twin)
+    om.apply(twin, {"input_1": x_in})
+    twin.compile(optimizer=kopt.SGD().to_core(),
+                 loss_type=LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                 metrics=[MetricsType.METRICS_ACCURACY,
+                          MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY])
+    om.load_weights(twin)
+    x, y = cifar_like(23, FLEET_KERAS_STEPS * FLEET_KERAS_BATCH, 10, 32)
+    before = pair_gap(torch, km.ffmodel, twin)
+    if before["weights_not_bit_equal"]:
+        raise AssertionError(f"keras_exp: weights differ before fit: "
+                             f"{before}")
+    pm = {}
+    ks, lk = fit_loss_lines(torch, lambda: pm.setdefault(
+        "keras_exp", km.fit(x, y, epochs=1)))
+    ts, lt = fit_loss_lines(torch, lambda: pm.setdefault(
+        "twin", twin.fit(x, y, epochs=1)))
+    gap = pair_gap(torch, km.ffmodel, twin)
+    lk = [pm["keras_exp"].sparse_cce_loss]
+    lt = [pm["twin"].sparse_cce_loss]
+    if lk != lt or gap["weights_not_bit_equal"] or \
+            not all(np.isfinite(lk)):
+        raise AssertionError(f"keras_exp CNN against ONNXModelKeras: losses "
+                             f"{lk} {lt}, {gap}")
+    return {"model": "CIFAR-10 CNN with concat (keras_exp, live "
+            "keras2onnx_min)", "batch": FLEET_KERAS_BATCH,
+            "steps": FLEET_KERAS_STEPS, "precision": "f32",
+            "onnx_nodes": [n.op_type for n in proto.graph.node],
+            "convert_s": convert_s, "losses": lk, "fit_s_keras_exp": ks,
+            "fit_s_onnx_model_keras": ts, "weight_gap": gap,
+            "bit_equal": True}
+
+
+def fleet(torch):
+    """The fleet phase (21 in the docstring). Every check raises. Returns
+    the summary, with the phase's launches under "launches"."""
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.runtime.serving import incremental_generate
+
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    ref = build_model(torch)
+    ids = np.random.RandomState(1).randint(0, VOCAB, (SLOTS, MAX_LEN))
+    unit_scale_weights(torch, ref, ids.astype(np.int32))
+    prompts = fleet_prompts()
+    refs = [incremental_generate(ref, p[None], max_new_tokens=FLEET_NEW,
+                                 max_len=MAX_LEN)[0] for p in prompts]
+    out["oracle_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out["sharing"] = fleet_sharing(torch, ref, prompts, refs)
+    out["sharing"]["part_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["replica_set"] = fleet_replicas(torch, ref, prompts, refs)
+    out["replica_set"]["part_s"] = time.perf_counter() - t0
+    del ref
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["batch_scheduler"] = fleet_scheduler(torch)
+    out["batch_scheduler"]["part_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    paths = dict(build.path_counts)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["keras_exp"] = fleet_keras_exp(torch)
+    out["keras_exp"]["part_s"] = time.perf_counter() - t0
+    check_wgmma_paths("fleet", launches, paths)
+    paged = {k: paths[k] for k in ("paged_decode_cluster",
+                                   "paged_decode_block")}
+    # flash: BatchScheduler's batches through the flagship's blocks, and
+    # nothing else (a prefill takes the dense masked path)
+    want_flash = out["batch_scheduler"]["stats"]["batches"] * LAYERS
+    if launches["flash_fwd"] != want_flash or not launches["paged_decode"] \
+            or paged != {"paged_decode_cluster": launches["paged_decode"],
+                         "paged_decode_block": 0}:
+        raise AssertionError(f"fleet: launches {launches} (flash expected "
+                             f"{want_flash}), paged by path {paged}")
+    out["launches"] = launches
+    out["launches_by_path"] = {k: v for k, v in paths.items() if v}
+    out["phase_s"] = time.perf_counter() - t_phase
+    rs, sh = out["replica_set"], out["sharing"]
+    log(f"  fleet: {rs['requests']} requests x {FLEET_NEW} tokens on "
+        f"{FLEET_REPLICAS} replicas + 1 spare in {rs['s']:.2f} s, exact; "
+        f"prefix hits {rs['prefix_hits']}, memo skips {rs['prefill_skips']}, "
+        f"requeue to answer <= {rs['requeue_to_answer_s_max']:.3f} s; one "
+        f"batcher {sh['tokens_per_s_on']:.1f} tokens/s sharing on, "
+        f"{sh['tokens_per_s_off']:.1f} off; prefill "
+        f"{sh['prefill_stage_ms_computed']:.2f} ms, memo hit "
+        f"{sh['prefill_stage_ms_memo_hit']:.3f} ms; phase "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -9503,6 +9959,12 @@ def main() -> int:
     fr = frontends(torch)
     torch.cuda.empty_cache()
 
+    log("# fleet phase: a ReplicaSet of the serving LM with a warm spare, "
+        "prefix sharing and a replica killed mid-decode; BatchScheduler; "
+        "keras_exp")
+    fl = fleet(torch)
+    torch.cuda.empty_cache()
+
     # the CNN and zoo paths run none of the three kernels (cuDNN
     # convolutions and cuBLAS products, as the JAX package's are XLA's);
     # their counts stand in the table as 0. The MoE Transformer's
@@ -9521,7 +9983,7 @@ def main() -> int:
                 "observatory": ob["launches"], "verify": vf["launches"],
                 "mesh": mesh["launches"], "mesh_serving": msv["launches"],
                 "elastic": el["launches"], "tuner": tu["launches"],
-                "frontends": fr["launches"]}
+                "frontends": fr["launches"], "fleet": fl["launches"]}
     # rows 1 and 2 at the long-context model's shape (bound by operations)
     for k in kernels[:2]:
         k["long_context_shape"] = lc["flash_long_shape"][k["name"]]
@@ -9552,7 +10014,7 @@ def main() -> int:
                   inception=inc, zoo=zo, longctx=lc, nmt=nm, fusion=fu,
                   search=se, seq2seq=s2, resilience=rs, observatory=ob,
                   verify=vf, mesh=mesh, mesh_serving=msv, elastic=el,
-                  tuner=tu, frontends=fr)
+                  tuner=tu, frontends=fr, fleet=fl)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -9685,6 +10147,13 @@ def main() -> int:
             "step_ms_by_family":
             fr["keras"]["step_profile"]["by_family_ms"]},
         "native": fr["native"], "onnx": fr["onnx"]}}))
+    log(smi + " " + json.dumps({"fleet": {
+        "phase_s": fl["phase_s"], "launches": fl["launches"],
+        "sharing": {k: v for k, v in fl["sharing"].items()
+                    if k != "prefill_stage_ms"},
+        "replica_set": fl["replica_set"],
+        "batch_scheduler": fl["batch_scheduler"],
+        "keras_exp": fl["keras_exp"]}}))
     log(smi + " " + json.dumps({"elastic_tuner_s": {
         "elastic": el["phase_s"], "tuner": tu["phase_s"],
         "both": el["phase_s"] + tu["phase_s"]}}))

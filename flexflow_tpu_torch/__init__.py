@@ -25,7 +25,10 @@ mid-epoch resume, the NaN/Inf step guard with a dynamic loss scale,
 preemption and fault injection); the strategy search (the Unity search,
 the memory-aware search, MCMC over the native simulator, the
 topology-aware machine model) and its toolchain (the strategy artifact
-store, the differential strategy verifier and the SDC canary).
+store, the differential strategy verifier and the SDC canary); the
+serving fleet (prefix sharing in the page pool, the prefill memo,
+ReplicaSet with failover and warm spares, BatchScheduler, request tracing
+and the SLO monitor); the ONNX, Keras and keras_exp frontends.
 """
 from .config import FFConfig  # noqa: F401
 from .core.initializers import (  # noqa: F401
@@ -54,6 +57,7 @@ from .runtime.resilience import (  # noqa: F401
     restore_latest,
     retry,
 )
+from .runtime.serving import BatchScheduler  # noqa: F401
 from .runtime.tuner import StrategyTuner, TunerConfig  # noqa: F401
 from .runtime.verify import (  # noqa: F401
     CanaryConfig,

@@ -143,10 +143,11 @@ def reset_launch_counts() -> None:
 # (`add_launches`): the counts stay the launches the card ran.
 @contextlib.contextmanager
 def captured_launches(record: dict):
-    """Around a capture: on exit the counts are what they were on entry,
-    and `record` holds what the capture added ({"launches": {...},
-    "paths": {...}}). Counts are process-wide: no other thread should
-    launch kernels while one captures."""
+    """Around a capture (or launches a caller leaves out of the counts,
+    such as a check's reference run): on exit the counts are what they
+    were on entry, and `record` holds what the block added ({"launches":
+    {...}, "paths": {...}}). Counts are process-wide: no other thread
+    should launch kernels meanwhile."""
     before = dict(launch_counts), dict(path_counts)
     try:
         yield record

@@ -303,6 +303,10 @@ class PCGExecutor:
         self._profile_ranges = False
         # serving's compute-dtype weight copies (ops/common.py)
         self.weight_cache = WeightCache()
+        # one-token decode steps captured (`_DecodeGraph.capture`): a
+        # capture's warm-up is a real step, so a caller that counts a
+        # decode run's kernel launches reads this beside them
+        self.decode_captures = 0
         # the overlapped gradient sync (set_overlap_grad_sync; inert on
         # one device) and its eligible weights, once computed
         self.overlap_grad_sync = bool(overlap_grad_sync)
@@ -1702,6 +1706,7 @@ class _ScanGraph:
         self.counters = self.ex._counters() - before
         self.ex._add_counters(self.counters, -1)
         self.graph = graph
+        self.ex.decode_captures += 1
 
 
 class _DecodeGraph:

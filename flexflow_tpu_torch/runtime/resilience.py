@@ -366,9 +366,33 @@ class FaultInjector:
         ``swap_regression`` — the strategy tuner's failure legs
                                (runtime/tuner.py).
 
-    The JAX package's ``serving_worker`` site keeps its name here, but
-    nothing consumes it yet: the serving fleet that fires it is not
-    ported (ROADMAP queue 1 item 5).
+      * ``serving_worker``   — raised inside BatchScheduler's worker loop
+                               (runtime/serving.py): the in-flight batch
+                               re-runs on the degraded unbatched path
+                               and the worker restarts with backoff.
+      * ``replica_death``    — raised inside a ContinuousBatcher serve
+                               loop: the replica dies, its in-flight
+                               requests go back to the queue and a
+                               ReplicaSet replaces it (a warm spare, or a
+                               rebuild through restore_elastic). Extras:
+                               ``replica="replicaN"`` targets one.
+      * ``slow_worker``      — stalls one decode iteration for
+                               ``delay_s`` seconds inside the health-
+                               monitored step window, so the watchdog
+                               sees a hung step and failover fires.
+      * ``kv_exhaustion``    — a KV-page reservation fails as if the pool
+                               were full (runtime/kvcache.py):
+                               backpressure; ``never_fits=True`` sheds.
+      * ``shared_page_corruption`` — a shared-prefix chain fails its
+                               integrity check: the chain is quarantined;
+                               ``match_prefix`` raises the typed
+                               SharedPageCorruptionError, ``reserve``
+                               admits unshared.
+      * ``release_race``     — a racing second ``PagePool.release`` right
+                               after a successful one: a typed double
+                               release, never corrupt refcounts.
+      * ``cow_fault``        — a KV copy-on-write fails before any pool
+                               state changes.
 
     Each injection fires `times` times, optionally only at `at_step`.
     `fire(site, step)` consumes one shot and raises `exc` when armed with

@@ -418,7 +418,7 @@ def test_batcher_on_the_decode_executor(tmp_path, no_jax_calibration):
         np.testing.assert_array_equal(t, j)
         np.testing.assert_array_equal(t, tserving.incremental_generate(
             tm, p[None], max_new_tokens=n, max_len=LM_SEQ)[0])
-    assert tb.pool.audit() == [] and tb.pool.pages_in_use == 0
+    assert tb.pool.audit().ok and tb.pool.pages_in_use == 0
 
 
 def test_batcher_falls_back_on_an_incompatible_decode_executor(

@@ -29,7 +29,9 @@ weights carried into the port by name (`params_from_numpy`).
   - (c) the batcher on 2 ranks with the decode executor swapped in: five
     ragged requests, each answer equal to `incremental_generate` on the
     same mesh and to JAX's tokens, on both ranks; `offer` on rank 1 is
-    refused, naming rank 0;
+    refused, naming rank 0; and six requests over a shared system prompt
+    (two verbatim repeats): both ranks attach the same shared pages and
+    take the same prefill-memo hits, with equal stats and page pools;
   - (d) a checkpoint saved at dp 2 x fsdp 2 with ZeRO-1 on 4 ranks
     restores bit-equal at tp 2 on 2 ranks and on one device without a
     group; a weight placed unevenly is restored replicated and named in
@@ -191,6 +193,13 @@ def runs(tmp_path_factory):
                  np.int32))
     requests = [[rng.randint(0, LM["vocab"], n).tolist(), k]
                 for n, k in ((3, 5), (7, 3), (1, 6), (5, 4), (2, 2))]
+    # a shared 8-token system prompt (two pages of 4) with suffixes, and
+    # two verbatim repeats (their own generator: `rng`'s draws stay put)
+    srng = np.random.RandomState(1)
+    system = srng.randint(0, LM["vocab"], 8).tolist()
+    shared = [[system + srng.randint(0, LM["vocab"], n).tolist(), k]
+              for n, k in ((2, 4), (0, 5), (3, 3))]
+    shared += [list(shared[0]), list(shared[1]), [system + [1], 4]]
     np.savez(d / "dense3.npz", x0=rng.randn(24, 12).astype(np.float32),
              y=rng.randint(0, 4, (24, 1)).astype(np.int32))
     np.savez(d / "mlp5.npz", x0=rng.randn(16, 12).astype(np.float32),
@@ -199,7 +208,7 @@ def runs(tmp_path_factory):
         0, LM["vocab"], (LM["batch"], LM["seq"])).astype(np.int32),
         y=rng.randint(0, LM["vocab"], (LM["batch"], LM["seq"], 1)).astype(
             np.int32))
-    data = {"prompts": prompts, "requests": requests}
+    data = {"prompts": prompts, "requests": requests, "shared": shared}
     serve = {"builder": "lm", "builder_kwargs": LM, "mode": "serve",
              "config": {"batch_size": LM["batch"]}, "loss": SPARSE,
              "weights": str(d / "lm_weights.npz"),
@@ -235,6 +244,8 @@ def runs(tmp_path_factory):
         dict(serve, name="serve_tp", strategy=_strategy(
             str(d / "tp.json"), "tp"),
             batcher={"slots": 2, "requests": requests}),
+        dict(serve, name="serve_tp_shared", strategy=str(d / "tp.json"),
+             batcher={"slots": 2, "requests": shared}, batcher_only=True),
         dict(serve, name="serve_dp", strategy=_strategy(
             str(d / "dp.json"), "dp")),
         dict(serve, name="serve_tp_rows", strategy=_strategy(
@@ -312,6 +323,9 @@ def jax_decode(runs):
     out["requests"] = [jserving.incremental_generate(
         jm, np.asarray(p, np.int32)[None], max_new_tokens=n,
         max_len=MAX_LEN)[0].tolist() for p, n in runs["data"]["requests"]]
+    out["shared"] = [jserving.incremental_generate(
+        jm, np.asarray(p, np.int32)[None], max_new_tokens=n,
+        max_len=MAX_LEN)[0].tolist() for p, n in runs["data"]["shared"]]
     return out
 
 
@@ -466,6 +480,25 @@ def test_batcher_in_lockstep_answers_as_incremental_generate(runs,
         assert 2 <= o["batcher_object_broadcasts"] <= n + 1
         assert o["batcher_object_broadcasts"] < o["batcher_stats"][
             "iterations"]
+
+
+def test_lockstep_batcher_shares_prefixes_on_every_rank(runs, jax_decode):
+    """Shared prompt pages and prefill-memo hits in lockstep at tp 2: rank
+    0's plan carries each admission's shared pages, the follower attaches
+    the same pages, and its memo, seeing the same admissions in the same
+    order, takes the same hits; every answer equals `incremental_generate`
+    and JAX's, on both ranks."""
+    outs = runs["runs"]["two"].ok("serve_tp_shared")
+    for o in outs:
+        assert o["decode_strategy_active"]
+        assert o["batcher"] == o["batcher_inc"] == jax_decode["shared"]
+        assert o["batcher_audit"]["ok"]
+        assert o["batcher_audit"]["pages_resident"] == 0
+    assert outs[0]["batcher_stats"] == outs[1]["batcher_stats"]
+    assert outs[0]["batcher_pool"] == outs[1]["batcher_pool"]
+    stats = outs[0]["batcher_stats"]
+    assert stats["finished"] == len(runs["data"]["shared"])
+    assert stats["prefix_hits"] >= 4 and stats["prefill_skips"] >= 2
 
 
 def test_offer_on_a_follower_is_refused(runs):

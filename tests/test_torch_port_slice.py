@@ -140,7 +140,7 @@ def test_continuous_batcher_matches_jax_and_incremental_generate(models):
                                             max_len=SEQ)[0]
         np.testing.assert_array_equal(t, ref)
     assert tb.stats["finished"] == len(prompts)
-    assert tb.pool.pages_in_use == 0 and tb.pool.audit() == []
+    assert tb.pool.pages_in_use == 0 and tb.pool.audit().ok
 
 
 def test_params_from_numpy_rejects_mismatches(models):

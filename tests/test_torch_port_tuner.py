@@ -344,6 +344,21 @@ def test_fault_sites_roll_back_and_training_goes_on_as_jax(site, kw, reason,
     assert_close(params_of(m), jax_params(jm))
 
 
+def test_calibration_probe_launches_research_as_jax():
+    """tests/test_tuner.py::test_calibration_probe_launches_research:
+    `probe_after_steps` runs explain_strategy at a step boundary; the
+    costs measured on the CPU are far from the cost model's, so the
+    miscalibration alone launches a re-search, in both packages, and
+    training goes on as JAX's."""
+    m, _ = _port_fit(drift_threshold=0.5, probe_after_steps=1)
+    t = m._tuner
+    assert t._probed
+    assert t.swap_history, "probe-driven drift never launched a cycle"
+    jm = _jax_fit(drift_threshold=0.5, probe_after_steps=1)
+    assert jm._tuner._probed and jm._tuner.swap_history
+    assert_close(params_of(m), jax_params(jm))
+
+
 def test_reshard_corruption_leaves_the_live_weights_untouched():
     _, m = pair()
     x, y = dataset()

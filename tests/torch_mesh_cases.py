@@ -560,8 +560,10 @@ def _serve_case(case, model, rank):
     `case["batcher"]` ({"requests": [[prompt, new], ...], "slots"}) the
     continuous batcher in lockstep: rank 0 offers the requests, another
     rank's `offer` is refused; every rank's answers (a follower's
-    mirrors), the iterations that broadcast decisions as an object, and
-    `incremental_generate` of each request on the mesh."""
+    mirrors), the iterations that broadcast decisions as an object, its
+    stats, page-pool counters and audit, and `incremental_generate` of
+    each request on the mesh. `case["batcher_only"]` runs compile_decode
+    and the batcher alone."""
     import collections
 
     import numpy as np
@@ -574,6 +576,10 @@ def _serve_case(case, model, rank):
     out = {}
     dex = (model.compile_decode(strategy_path=case.get("strategy"))
            if case.get("compile_decode", True) else model.executor)
+    bat = case.get("batcher")
+    if case.get("batcher_only"):
+        out.update(_batcher_case(model, rank, bat, case["max_len"]))
+        return out
     out["decode_mesh"] = dex.mesh.shape
     out["decode_executor"] = type(dex).__name__
     out["decode_cost"] = model.decode_searched_cost
@@ -610,42 +616,54 @@ def _serve_case(case, model, rank):
     out["inc_tokens"] = serving.incremental_generate(
         model, prompts, max_new_tokens=new, max_len=max_len).tolist()
     out["serve_arrays"] = {"logits": logits}
-    bat = case.get("batcher")
     if bat:
-        q = serving.AdmissionQueue(16)
-        b = serving.ContinuousBatcher(model, serving.ServingConfig(
-            max_len=max_len, slots=bat["slots"], page_size=4), q)
-        out["decode_strategy_active"] = b.decode_strategy_active
-        # the iterations that broadcast rank 0's decisions as an object
-        sent = []
-        plain_broadcast = serving.rdist.broadcast_object
-        serving.rdist.broadcast_object = lambda *a: sent.append(1) or \
-            plain_broadcast(*a)
-        b.start()
-        reqs = [serving.GenerationRequest(np.asarray(p, np.int32), n,
-                                          deadline_s=120.0)
-                for p, n in bat["requests"]]
-        if rank == 0:
-            for r in reqs:
-                q.offer(r)
-            answers = [r.result(timeout=120).tolist() for r in reqs]
-        else:
-            try:
-                q.offer(reqs[0])
-                out["follower_offer"] = "accepted"
-            except serving.ServingConfigError as e:
-                out["follower_offer"] = str(e)
-        b.stop(timeout=120)
-        serving.rdist.broadcast_object = plain_broadcast
-        out["batcher_object_broadcasts"] = len(sent)
-        if rank != 0:
-            answers = [m.result(timeout=1).tolist()
-                       for m in b.mirrors.values()]
-        out["batcher"] = answers
-        out["batcher_stats"] = dict(b.stats)
-        out["batcher_inc"] = [serving.incremental_generate(
-            model, np.asarray(p, np.int32)[None], max_new_tokens=n,
-            max_len=max_len)[0].tolist() for p, n in bat["requests"]]
+        out.update(_batcher_case(model, rank, bat, max_len))
+    return out
+
+
+def _batcher_case(model, rank, bat, max_len):
+    """The continuous batcher in lockstep (`_serve_case`)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.runtime import serving
+
+    out = {}
+    q = serving.AdmissionQueue(16)
+    b = serving.ContinuousBatcher(model, serving.ServingConfig(
+        max_len=max_len, slots=bat["slots"], page_size=4), q)
+    out["decode_strategy_active"] = b.decode_strategy_active
+    # the iterations that broadcast rank 0's decisions as an object
+    sent = []
+    plain_broadcast = serving.rdist.broadcast_object
+    serving.rdist.broadcast_object = lambda *a: sent.append(1) or \
+        plain_broadcast(*a)
+    b.start()
+    reqs = [serving.GenerationRequest(np.asarray(p, np.int32), n,
+                                      deadline_s=120.0)
+            for p, n in bat["requests"]]
+    if rank == 0:
+        for r in reqs:
+            q.offer(r)
+        answers = [r.result(timeout=120).tolist() for r in reqs]
+    else:
+        try:
+            q.offer(reqs[0])
+            out["follower_offer"] = "accepted"
+        except serving.ServingConfigError as e:
+            out["follower_offer"] = str(e)
+    b.stop(timeout=120)
+    serving.rdist.broadcast_object = plain_broadcast
+    out["batcher_object_broadcasts"] = len(sent)
+    if rank != 0:
+        answers = [m.result(timeout=1).tolist()
+                   for m in b.mirrors.values()]
+    out["batcher"] = answers
+    out["batcher_stats"] = dict(b.stats)
+    out["batcher_pool"] = dict(b.pool.stats)
+    out["batcher_audit"] = b.pool.audit().to_dict()
+    out["batcher_inc"] = [serving.incremental_generate(
+        model, np.asarray(p, np.int32)[None], max_new_tokens=n,
+        max_len=max_len)[0].tolist() for p, n in bat["requests"]]
     return out
 
 
