@@ -114,13 +114,28 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      (one OP_FUSED node a block), fit stepwise and as a scan against the
      unfused model's fit from the same weights, bit for bit, and ABBA
      samples/s of the two;
- 13. the Unity search: the flagship (cut to 4 blocks) compiled with
-     search_budget 10 in the measured mode (search/measure.py: each operator's forward and
+ 12b. calibration: the cost model's shipped fit of the H100
+     (search/calibration_h100.json, which `CostModel(h100_machine())`
+     applies by default) printed with the card's name and power limit;
+     the flagship's MHA op (flash forward and backward on wgmma), its
+     dense layer and a layer norm of its activations (memory-bound)
+     measured with OperatorMeasurer in bf16, each read as measured over
+     predicted fwd+bwd with the fit and without: with it each within
+     [0.5, 2.0], and for MHA and dense closer to 1 than without; the
+     MHA and dense ops again data-parallel over 8 (the shard shapes and
+     shards a device runs of the x8 search's winner), each time held to
+     its roofline bound. The analytic search of the searched flagship
+     for 8 H100s without the fit, and without it at tile quanta 1 (the
+     cost model before the fit and the tile sweep), prints each winner
+     beside the search phase's x8 winner, which has the fit;
+ 13. the Unity search: the flagship (cut to 2 blocks) compiled with
+     search_budget 10 on the default machine of H100s: for 1 worker in
+     the measured mode (search/measure.py: each operator's forward and
      forward-with-backward timed at its shard shapes in CUDA graphs of R
-     and 4R calls, the attention op through both flash kernels) on the
-     default machine of H100s, for 1 worker and for 8 simulated workers
-     (that winner exported to chiprun_out/ and read back by
-     import_strategy). Every compute op of each winner must be priced
+     and 4R calls, the attention op through both flash kernels), for 8
+     simulated workers on the default cost model, the shipped fit (that
+     winner exported to chiprun_out/ and read back by import_strategy).
+     Every compute op of the measured winner must be priced
      from a finite measurement, no measurement may be below 0.9 x the
      bound of what its calls moved and computed, the measurement must
      launch both flash kernels on wgmma; each op type's measured times
@@ -6461,11 +6476,212 @@ def fusion(torch):
             "abba": timing}
 
 
+# The calibration phase: measured over predicted fwd+bwd of three ops at
+# the flagship's shapes. With the shipped fit each reading must lie in
+# CALIB_RANGE (the fit's classes reach a few tens of percent of their
+# rows, `fit_err`; the range leaves 2x either way); for the ops in
+# CALIB_CLOSER the fitted reading must lie closer to 1 than the unfitted
+# one (the explain report read 2.27 for MHA and 1.98 for dense unfitted).
+CALIB_RANGE = (0.5, 2.0)
+CALIB_CLOSER = ("OP_MULTIHEAD_ATTENTION", "OP_LINEAR")
+
+
+def calibration_ops():
+    """The flagship's (one block) MHA op and first dense op, and a layer
+    norm over its activations, lowered to PCG ops."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.pcg.lowering import layers_to_pcg
+
+    m = FFModel(FFConfig(batch_size=TRAIN_BATCH))
+    build_transformer(m, TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS, 1)
+    ops = layers_to_pcg(m.layers)[0].topo_order()
+    ln = FFModel(FFConfig(batch_size=TRAIN_BATCH))
+    ln.layer_norm(ln.create_tensor((TRAIN_BATCH, TRAIN_SEQ, HIDDEN)),
+                  axes=(-1,))
+    ops_ln = layers_to_pcg(ln.layers)[0].topo_order()
+    first = {}
+    for op in ops + ops_ln:
+        first.setdefault(op.op_type.name, op)
+    return [first[k] for k in ("OP_MULTIHEAD_ATTENTION", "OP_LINEAR",
+                               "OP_LAYERNORM")]
+
+
+def calibration_sharded_ops():
+    """The flagship's (one block) MHA op and first dense op, data-parallel
+    over SEARCH_WORKERS (the search's winner's views), and that view."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.parallel import strategies
+    from flexflow_tpu_torch.pcg.lowering import layers_to_pcg
+    from flexflow_tpu_torch.pcg.machine_view import MachineView
+
+    m = FFModel(FFConfig(batch_size=TRAIN_BATCH))
+    build_transformer(m, TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS, 1)
+    g = layers_to_pcg(m.layers)[0]
+    strategies.apply_data_parallel(g, SEARCH_WORKERS, axis_idx=0)
+    first = {}
+    for op in g.topo_order():
+        first.setdefault(op.op_type.name, op)
+    view = MachineView(start_device_id=0, dim=(SEARCH_WORKERS,), stride=(1,))
+    return [first[k] for k in CALIB_CLOSER], view
+
+
+def calibration_winners():
+    """The analytic Unity search (budget SEARCH_BUDGET) of the searched
+    flagship for SEARCH_WORKERS H100s without the fit, at the card's
+    tile quanta and at quanta 1 (the cost model before this fit and the
+    sweep); the search phase's x8 search is the one with the fit. Each
+    winner's view dims, compute op count and cost."""
+    import dataclasses
+
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import build_transformer
+    from flexflow_tpu_torch.pcg.lowering import layers_to_pcg
+    from flexflow_tpu_torch.pcg.machine_view import MachineResource
+    from flexflow_tpu_torch.search import (CostModel, GraphSearchHelper,
+                                           SearchHelper, h100_machine)
+
+    m = FFModel(FFConfig(batch_size=TRAIN_BATCH, allow_mixed_precision=True,
+                         search_budget=SEARCH_BUDGET,
+                         search_num_workers=SEARCH_WORKERS))
+    build_transformer(m, TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS, SEARCH_LAYERS)
+    machine = h100_machine(1, SEARCH_WORKERS)
+    untiled = h100_machine(1, SEARCH_WORKERS)
+    untiled.chip = dataclasses.replace(untiled.chip, mxu_lanes=1,
+                                       mxu_sublanes=1)
+    res = MachineResource(num_nodes=1, all_procs_per_node=SEARCH_WORKERS,
+                          available_procs_per_node=SEARCH_WORKERS)
+    out = {}
+    for what, mach in (("no_fit", machine), ("no_fit_quanta_1", untiled)):
+        t0 = time.perf_counter()
+        cm = CostModel(mach, bf16=True, calibration=False)
+        gsh = GraphSearchHelper(SearchHelper(cm), m._search_xfers(mach),
+                                alpha=m.config.search_alpha,
+                                budget=SEARCH_BUDGET)
+        g, r = gsh.graph_optimize(layers_to_pcg(m.layers)[0], res)
+        dims = sorted({str(list(v.dim)) for v in r.views.values()})
+        out[what] = {"views": dims, "cost": r.cost,
+                     "compute_ops": sum(not o.is_parallel_op
+                                        for o in g.ops),
+                     "search_s": time.perf_counter() - t0}
+        log(f"  analytic search x{SEARCH_WORKERS} ({what}): winner views "
+            f"{dims}, {out[what]['compute_ops']} compute ops, cost "
+            f"{r.cost:.6g} ({out[what]['search_s']:.1f}s)")
+    return out
+
+
+def calibration(torch):
+    """The calibration phase (see CALIB_RANGE)."""
+    from flexflow_tpu_torch.kernels import build
+    from flexflow_tpu_torch.pcg.machine_view import MachineView
+    from flexflow_tpu_torch.search import CostModel, h100_machine
+    from flexflow_tpu_torch.search.cost_model import load_default_calibration
+    from flexflow_tpu_torch.search.measure import OperatorMeasurer
+
+    t_phase = time.perf_counter()
+    fit = load_default_calibration()
+    fitted = CostModel(h100_machine(), bf16=True)
+    plain = CostModel(h100_machine(), bf16=True, calibration=False)
+    if fit is None or fitted.calibration is not fit:
+        raise AssertionError("calibration: CostModel(h100_machine()) "
+                             "carries no shipped fit")
+    classes = {k: {f: v.get(f) for f in ("n", "bound", "mxu_efficiency",
+                                         "hbm_efficiency", "bwd_over_fwd",
+                                         "fit_err")}
+               for k, v in fit["op_class"].items()}
+    log(f"  fit of {fit['device']} ({fit.get('power_limit')}); this card "
+        f"{gpu_name_and_power()}; classes {json.dumps(classes)}")
+    meas = OperatorMeasurer(repeats=8, compute_dtype=torch.bfloat16)
+    view = MachineView()
+    readings = {}
+    build.reset_launch_counts()
+    for op in calibration_ops():
+        fwd, bwd = meas(op, view)
+        if not (np.isfinite(fwd) and np.isfinite(bwd)):
+            raise AssertionError(f"calibration: {op.op_type.name} not "
+                                 f"measured: {meas.fallbacks}")
+        got = {}
+        for what, cm in (("fit", fitted), ("no_fit", plain)):
+            c = cm.measure_operator_cost(op, view)
+            got[what] = {"fwd_ms": 1e3 * c.forward_time,
+                         "bwd_ms": 1e3 * c.backward_time,
+                         "ratio": (fwd + bwd) / (c.forward_time
+                                                 + c.backward_time),
+                         "fwd_ratio": fwd / c.forward_time}
+        name = op.op_type.name
+        readings[name] = {"shapes": [list(t.material_shape())
+                                     for t in op.inputs],
+                          "measured_fwd_ms": 1e3 * fwd,
+                          "measured_bwd_ms": 1e3 * bwd, **got}
+        log(f"  {name}: measured fwd {1e3 * fwd:.4f} + bwd {1e3 * bwd:.4f} "
+            f"ms; measured/predicted {got['fit']['ratio']:.3f} with the fit "
+            f"(fwd {got['fit']['fwd_ratio']:.3f}), "
+            f"{got['no_fit']['ratio']:.3f} without (fwd "
+            f"{got['no_fit']['fwd_ratio']:.3f})")
+    # the same at the search's sharded view: the measurer's shard shapes
+    # and shards a device runs, each time held to its bound
+    sharded_ops, sview = calibration_sharded_ops()
+    sharded, below = {}, []
+    for op in sharded_ops:
+        fwd, bwd = meas(op, sview)
+        rec = meas.measurements.get(meas.key_of(op, sview))
+        if rec is None or not (np.isfinite(fwd) and np.isfinite(bwd)):
+            raise AssertionError(f"calibration: {op.op_type.name} at view "
+                                 f"{list(sview.dim)} not measured: "
+                                 f"{meas.fallbacks}")
+        fb, tb = measured_bounds(rec)
+        if rec.fwd_s < SEARCH_BOUND_FLOOR * fb \
+                or rec.total_s < SEARCH_BOUND_FLOOR * tb:
+            below.append((rec.op_type, rec.shard_shapes, rec.fwd_s, fb,
+                          rec.total_s, tb))
+        c = fitted.measure_operator_cost(op, sview)
+        name = op.op_type.name
+        sharded[name] = {
+            "view": list(sview.dim), "shard_shapes": rec.shard_shapes,
+            "shards_per_device": rec.shards_per_device,
+            "measured_fwd_ms": 1e3 * fwd, "measured_bwd_ms": 1e3 * bwd,
+            "bound_fwd_ms": 1e3 * fb, "bound_fwd_bwd_ms": 1e3 * tb,
+            "fit_ratio": (fwd + bwd) / (c.forward_time + c.backward_time)}
+        log(f"  {name} at view {list(sview.dim)} (shard "
+            f"{rec.shard_shapes[0]}, {rec.shards_per_device} a device): "
+            f"measured fwd {1e3 * fwd:.4f} + bwd {1e3 * bwd:.4f} ms, bound "
+            f"{1e3 * fb:.4f} / {1e3 * tb:.4f} ms; measured/predicted "
+            f"{sharded[name]['fit_ratio']:.3f} with the fit")
+    if below:
+        raise AssertionError(f"calibration: measured below "
+                             f"{SEARCH_BOUND_FLOOR} x bound: {below}")
+    torch.cuda.synchronize()
+    counts, paths = dict(build.launch_counts), dict(build.path_counts)
+    if not (counts["flash_fwd"] and counts["flash_bwd"]):
+        raise AssertionError(f"calibration: no flash launch: {counts}")
+    check_wgmma_paths("calibration", counts, paths)
+    lo, hi = CALIB_RANGE
+    bad = [(k, r["fit"]["ratio"]) for k, r in readings.items()
+           if not lo <= r["fit"]["ratio"] <= hi]
+    bad += [(k, r["fit"]["ratio"], r["no_fit"]["ratio"])
+            for k, r in readings.items() if k in CALIB_CLOSER
+            and not abs(r["fit"]["ratio"] - 1) < abs(r["no_fit"]["ratio"] - 1)]
+    if bad:
+        raise AssertionError(f"calibration: readings off the fit: {bad}")
+    winners = calibration_winners()
+    return {"fit_device": fit["device"],
+            "fit_power_limit": fit.get("power_limit"),
+            "classes": classes, "readings": readings,
+            "sharded_readings": sharded,
+            "analytic_search_winners": winners, "launches": counts,
+            "launches_by_path": {k: v for k, v in paths.items() if v},
+            "phase_s": time.perf_counter() - t_phase}
+
+
 # The search phase: the flagship searched with search_budget 10 in the
-# measured mode, for 1 worker and for 8 simulated H100 workers; each
-# winner trains SEARCH_STEPS steps beside an unsearched compile on the
-# same batches. A measured time may sit at its roofline bound but not
-# below: SEARCH_BOUND_FLOOR leaves room for the events' microsecond
+# measured mode for 1 worker, and priced by the default (fitted) cost
+# model for 8 simulated H100 workers; each winner trains SEARCH_STEPS
+# steps beside an unsearched compile on the same batches. The 8-worker
+# search was measured too until the calibration phase came in: it took
+# 187.8-221.6 s (73 keys) of a script that then ran 1222.6 s on a slow
+# host, past its 1200. A measured time may sit at its roofline bound but
+# not below: SEARCH_BOUND_FLOOR leaves room for the events' microsecond
 # resolution and for a clock above base.
 SEARCH_BUDGET, SEARCH_WORKERS, SEARCH_STEPS = 10, 8, 4
 # the searched flagship's blocks, cut from 12 to keep the script well
@@ -6513,18 +6729,18 @@ def measured_bounds(rec):
     return fwd * rec.shards_per_device, total * rec.shards_per_device
 
 
-def build_searched_model(torch, workers, export=""):
+def build_searched_model(torch, workers, export="", measured=True):
     """The flagship as the training phase builds it (SEARCH_LAYERS
-    blocks), compiled with the Unity search in the measured mode for
-    `workers` H100s (the default machine, search/machine_model.py
-    h100_machine)."""
+    blocks), compiled with the Unity search for `workers` H100s (the
+    default machine, search/machine_model.py h100_machine), in the
+    measured mode or on the default cost model."""
     from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
     from flexflow_tpu_torch.ff_types import LossType, MetricsType
     from flexflow_tpu_torch.models import build_transformer
 
     m = FFModel(FFConfig(batch_size=TRAIN_BATCH, allow_mixed_precision=True,
                          seed=0, search_budget=SEARCH_BUDGET,
-                         measure_operator_costs=True,
+                         measure_operator_costs=measured,
                          search_num_workers=workers,
                          export_strategy_file=export))
     build_transformer(m, TRAIN_BATCH, TRAIN_SEQ, HIDDEN, HEADS,
@@ -6537,19 +6753,47 @@ def build_searched_model(torch, workers, export=""):
     return m, time.perf_counter() - t0
 
 
-def search_run(torch, workers, export=""):
-    """One measured search: its host seconds, what it measured (each
-    measurement held to its bound), each op type's measured times beside
-    the analytic model's and the bound, the winner, and the flash
-    launches the measurement made by path."""
+def search_run(torch, workers, export="", measured=True):
+    """One search: its host seconds and winner. Measured: what it
+    measured (each measurement held to its bound), each op type's
+    measured times beside the analytic (fitted) model's and the bound,
+    and the flash launches the measurement made by path. Else each op
+    type's price from the default cost model, none measured."""
     from flexflow_tpu_torch.kernels import build
 
     build.reset_launch_counts()
-    model, secs = build_searched_model(torch, workers, export)
+    model, secs = build_searched_model(torch, workers, export, measured)
     counts, paths = dict(build.launch_counts), dict(build.path_counts)
     phases = dict(model.compile_phase_s)
     meas = model.measurer
     table = model.searched_op_costs
+    views = sorted({str(list(e["view"][1])) for e in table})
+    if not measured:
+        if not table or meas is not None or any(e["measured"]
+                                                for e in table):
+            raise AssertionError(f"search x{workers}: the default compile "
+                                 "measured or priced no op")
+        by_type = {}
+        for e in table:
+            by_type.setdefault(e["op_type"], {
+                "view": e["view"], "analytic_fwd_ms": 1e3 * e["fwd_s"],
+                "analytic_bwd_ms": 1e3 * e["bwd_s"]})
+        log(f"  search x{workers} (default cost model): compile "
+            f"{secs:.1f}s (search {phases.get('strategy_search'):.1f}s), "
+            f"cost {model.searched_cost:.6g}, views {views}; "
+            + "; ".join(f"{t} fwd {r['analytic_fwd_ms']:.4f} bwd "
+                        f"{r['analytic_bwd_ms']:.4f} ms"
+                        for t, r in by_type.items()))
+        return model, {
+            "workers": workers, "measured": False, "compile_s": secs,
+            "search_s": phases.get("strategy_search"), "phases_s": phases,
+            "measured_keys": 0, "fallbacks": [],
+            "searched_cost": model.searched_cost,
+            "winner_ops": [e["op_type"] for e in table],
+            "winner_view_dims": views, "by_op_type": by_type,
+            "measurement_launches": counts,
+            "measurement_launches_by_path": {k: v for k, v in paths.items()
+                                             if v}}
     # every compute op of the winner priced from a finite measurement
     bad = [e["name"] for e in table
            if not (e["measured"] and e["measurement"] is not None
@@ -6589,8 +6833,7 @@ def search_run(torch, workers, export=""):
             "bound_fwd_ms": 1e3 * fb, "bound_fwd_bwd_ms": 1e3 * tb,
             "measured_fwd_bwd_ms": 1e3 * rec.total_s,
             "repeats": rec.repeats}
-    views = sorted({str(list(e["view"][1])) for e in table})
-    out = {"workers": workers, "compile_s": secs,
+    out = {"workers": workers, "measured": True, "compile_s": secs,
            "search_s": phases.get("strategy_search"), "phases_s": phases,
            "measured_keys": len(meas.measurements),
            "fallbacks": meas.fallbacks, "searched_cost": model.searched_cost,
@@ -6604,10 +6847,10 @@ def search_run(torch, workers, export=""):
         f"cost {model.searched_cost:.6g}, views {views}, flash "
         f"{out['measurement_launches_by_path']}")
     for t, r in by_type.items():
-        log(f"    {t}: fwd {r['measured_fwd_ms']:.4f} ms (analytic "
-            f"{r['analytic_fwd_ms']:.4f}, bound {r['bound_fwd_ms']:.4f}); "
-            f"bwd {r['measured_bwd_ms']:.4f} ms (analytic "
-            f"{r['analytic_bwd_ms']:.4f}); fwd+bwd bound "
+        log(f"    {t}: fwd {r['measured_fwd_ms']:.4f} ms (analytic, "
+            f"fitted, {r['analytic_fwd_ms']:.4f}, bound "
+            f"{r['bound_fwd_ms']:.4f}); bwd {r['measured_bwd_ms']:.4f} ms "
+            f"(analytic {r['analytic_bwd_ms']:.4f}); fwd+bwd bound "
             f"{r['bound_fwd_bwd_ms']:.4f}")
     return model, out
 
@@ -6627,9 +6870,10 @@ def compute_signature(model):
 
 def search(torch):
     """The Unity search on the card: the flagship (bench.py's default
-    leg at full width) searched with the measured mode for 1 H100 and for
-    8 simulated H100s (the winner exported to chiprun_out/ and read back
-    by import_strategy), each winner demoted to the one card and trained
+    leg at full width) searched with the measured mode for 1 H100 and on
+    the default (fitted) cost model for 8 simulated H100s (the winner
+    exported to chiprun_out/ and read back by import_strategy), each
+    winner demoted to the one card and trained
     SEARCH_STEPS steps beside an unsearched compile on the same batches."""
     from flexflow_tpu_torch.kernels import build
     from flexflow_tpu_torch.runtime.strategy_io import import_strategy
@@ -6644,7 +6888,8 @@ def search(torch):
     runs, models = {}, {}
     for workers in (1, SEARCH_WORKERS):
         models[workers], runs[workers] = search_run(
-            torch, workers, export if workers > 1 else "")
+            torch, workers, export if workers > 1 else "",
+            measured=workers == 1)
         for k, v in runs[workers]["measurement_launches"].items():
             total[k] += v
         # the static analyzers over the winner (the observatory phase
@@ -6711,7 +6956,8 @@ def search(torch):
         "flash_bwd": 3 * SEARCH_STEPS * SEARCH_LAYERS, "paged_decode": 0})
     return {"model": "flagship Transformer (bench.py's default leg, "
                      f"{SEARCH_LAYERS} blocks), search_budget "
-                     f"{SEARCH_BUDGET}, measured",
+                     f"{SEARCH_BUDGET}, measured for 1 worker, the "
+                     f"default cost model for {SEARCH_WORKERS}",
             "x1": runs[1], f"x{SEARCH_WORKERS}": runs[SEARCH_WORKERS],
             "training_launches": train_counts, "launches": total,
             "phase_s": time.perf_counter() - t_phase}
@@ -10222,9 +10468,22 @@ def main() -> int:
     fu = fusion(torch)
     torch.cuda.empty_cache()
 
+    log("# calibration phase: the cost model's shipped fit of the H100 "
+        "against ops measured on the card")
+    ca = calibration(torch)
+    torch.cuda.empty_cache()
+
     log("# search phase: the Unity search, operators measured on the card")
     se = search(torch)
     torch.cuda.empty_cache()
+    # the default (fitted) x8 search is the search phase's
+    sx = se[f"x{SEARCH_WORKERS}"]
+    ca["analytic_search_winners"]["fit"] = {
+        "views": sx["winner_view_dims"], "cost": sx["searched_cost"],
+        "search_s": sx["search_s"], "from": "the search phase"}
+    log(f"  analytic x{SEARCH_WORKERS} winners: "
+        + "; ".join(f"{k} {w['views']} cost {w['cost']:.6g}" for k, w in
+                    ca["analytic_search_winners"].items()))
 
     log("# seq2seq phase: encoder-decoder serving, Transformer (big)")
     s2 = seq2seq(torch)
@@ -10278,7 +10537,8 @@ def main() -> int:
                 "moe": moe_summary["launches"], "dlrm": dl["launches"],
                 "inception": inc["launches"], "zoo": zo["launches"],
                 "longctx": lc["launches"], "nmt": nm["launches"],
-                "fusion": fu["launches"], "search": se["launches"],
+                "fusion": fu["launches"], "calibration": ca["launches"],
+                "search": se["launches"],
                 "seq2seq": s2["launches"], "resilience": rs["launches"],
                 "observatory": ob["launches"], "verify": vf["launches"],
                 "mesh": mesh["launches"], "mesh_serving": msv["launches"],
@@ -10312,7 +10572,7 @@ def main() -> int:
                   bert=bert_summary, bert_scan=bscan,
                   alexnet=alex, resnext=rx, moe=moe_summary, dlrm=dl,
                   inception=inc, zoo=zo, longctx=lc, nmt=nm, fusion=fu,
-                  search=se, seq2seq=s2, resilience=rs, observatory=ob,
+                  calibration=ca, search=se, seq2seq=s2, resilience=rs, observatory=ob,
                   verify=vf, mesh=mesh, mesh_serving=msv, elastic=el,
                   tuner=tu, frontends=fr, fleet=fl)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
@@ -10395,6 +10655,8 @@ def main() -> int:
             "keeps_lowering_ops": r["training"]["keeps_lowering_ops"],
             "lint_events": r["analysis"]["lint_events"]}
 
+    log(smi + " " + json.dumps({"calibration": {
+        k: v for k, v in ca.items() if k != "launches_by_path"}}))
     log(smi + " " + json.dumps({"search": {
         "x1": searched(se["x1"]),
         f"x{SEARCH_WORKERS}": dict(searched(se[f"x{SEARCH_WORKERS}"]),

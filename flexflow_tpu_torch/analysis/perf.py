@@ -27,9 +27,9 @@ These passes audit the CHOSEN strategy before it executes:
   * FFA503 — roofline/padding diagnostics: ops whose SHARD shape pays
     tile padding the unsharded shape would not (the cost model's
     sublane/lane quantization rule, read from the audited machine's chip
-    spec: the H100's quanta are 1, so on it this lint stays silent until
-    a tile rule is measured for sm_90), with a fix_hint naming the degree
-    change that removes the padding.
+    spec: the H100's measured quanta pad k and n to 128 and leave rows
+    alone), with a fix_hint naming the degree change that removes the
+    padding.
   * FFA504 — slice-boundary collective lint: collectives whose ring
     crosses a node (slice) boundary while the machine model prices a
     flat mesh (the static precondition for hierarchical multi-slice
@@ -450,8 +450,9 @@ def _padding_roofline_diagnostics(graph, views, machine,
 
     # the tile quanta of the chip the cost model prices (the quanta
     # op_padded_flops pads shards to), else the H100's: the lint and the
-    # cost model agree on what a shard pays. H100_SPEC's quanta are 1 (no
-    # tile rule has been measured for sm_90), so on it nothing pads
+    # cost model agree on what a shard pays. H100_SPEC's are 128 lanes
+    # and 1 sublane (search/machine_model.py, from a sweep on the card):
+    # on it only a shard's minor-most extent pads
     chip = machine.chip if machine is not None else H100_SPEC
     lanes = max(1, int(getattr(chip, "mxu_lanes", 1)))
     sublanes = max(1, int(getattr(chip, "mxu_sublanes", 1)))

@@ -1139,8 +1139,9 @@ class FFModel:
         file, else H100s with their published numbers
         (search/machine_model.py h100_machine), search_num_nodes x
         search_num_workers of them when set (numNodes x workersPerNode
-        otherwise), or recompile_for_topology's re-targeted machine. No
-        efficiency fit is applied (the port ships none); measurements
+        otherwise), or recompile_for_topology's re-targeted machine. On the
+        H100's chip spec the cost model applies the shipped fit of the
+        card (search/cost_model.py load_default_calibration); measurements
         ride on it through the refresh seam (search/cost_model.py
         apply_calibration): per-op timings from
         explain_strategy(...).apply(model) or a CalibrationStore price

@@ -2183,58 +2183,76 @@ class ReplicaSet:
 
         with self._lock:
             rep = self._replicas.pop(batcher.name, None)
+            # the restart is reserved as the replica leaves rotation: the
+            # autoscaler counts pending restarts as capacity, and a gap
+            # here (the forensics below take tens of ms) let a tick with
+            # the requeued requests in the queue scale up on top of it
+            restarts = None
+            if rep is not None and not self._closed and \
+                    self._restarts < self.max_replica_restarts:
+                self._restarts += 1
+                self._pending_restarts += 1
+                restarts = self._restarts
         if rep is None:
             return  # already handled
-        died_t = time.monotonic()
-        batcher.dead = True
-        rep.monitor.stop()
-        if batcher._thread is not None and (
-                batcher._thread is not threading.current_thread()):
-            batcher._thread.join(timeout=5.0)
-            if batcher._thread.is_alive():
-                logger.warning("replica %s thread is wedged; stealing its "
-                               "in-flight slots", batcher.name)
-                batcher._strand_slots()
-        requeued = batcher.stats["stranded_requeued"]
-        self.stats["requeued"] += requeued
-        logger.warning("replica %s failed (%s: %s); requeued %d in-flight "
-                       "request(s)", batcher.name, type(exc).__name__, exc,
-                       requeued)
-        obs.event("replica_failover", cat="serving", replica=batcher.name,
-                  requeued=requeued, error=type(exc).__name__,
-                  detail=str(exc)[:300], died_t=died_t)
-        obs.gauge_set("ff_serving_replicas", self.replica_count(),
-                      help="live serving replicas")
+        started = False
         try:
-            kv_pool: dict = {"snapshot": batcher.pool.snapshot(),
-                             "audit": batcher.pool.audit().to_dict()}
-        except Exception as e:  # forensics only
-            kv_pool = {"error": f"{type(e).__name__}: {e}"}
-        self.retired[batcher.name] = {
-            "died_t": died_t, "error": type(exc).__name__,
-            "requeued": requeued, "stats": dict(batcher.stats),
-            "kv_pool_audit": kv_pool.get("audit", kv_pool)}
-        obs.forensics_dump("replica_death", error=exc,
-                           replica=batcher.name, requeued=requeued,
-                           stats=dict(batcher.stats), kv_pool=kv_pool)
-        # terminal spool: the fleet rollup keeps this replica's final
-        # tallies (counter conservation through the kill) and reads the
-        # explicit "dead" status without waiting out the age window
-        self._write_replica_spool(batcher, status="dead")
-        self._spools.pop(batcher.name, None)
-        if self._closed:
-            return
-        with self._lock:
-            if self._restarts >= self.max_replica_restarts:
-                obs.event("replica_restart_budget_exhausted", cat="serving",
-                          replica=batcher.name, restarts=self._restarts)
+            died_t = time.monotonic()
+            batcher.dead = True
+            rep.monitor.stop()
+            if batcher._thread is not None and (
+                    batcher._thread is not threading.current_thread()):
+                batcher._thread.join(timeout=5.0)
+                if batcher._thread.is_alive():
+                    logger.warning("replica %s thread is wedged; stealing its "
+                                   "in-flight slots", batcher.name)
+                    batcher._strand_slots()
+            requeued = batcher.stats["stranded_requeued"]
+            self.stats["requeued"] += requeued
+            logger.warning("replica %s failed (%s: %s); requeued %d in-flight "
+                           "request(s)", batcher.name, type(exc).__name__, exc,
+                           requeued)
+            obs.event("replica_failover", cat="serving", replica=batcher.name,
+                      requeued=requeued, error=type(exc).__name__,
+                      detail=str(exc)[:300], died_t=died_t)
+            obs.gauge_set("ff_serving_replicas", self.replica_count(),
+                          help="live serving replicas")
+            try:
+                kv_pool: dict = {"snapshot": batcher.pool.snapshot(),
+                                 "audit": batcher.pool.audit().to_dict()}
+            except Exception as e:  # forensics only
+                kv_pool = {"error": f"{type(e).__name__}: {e}"}
+            self.retired[batcher.name] = {
+                "died_t": died_t, "error": type(exc).__name__,
+                "requeued": requeued, "stats": dict(batcher.stats),
+                "kv_pool_audit": kv_pool.get("audit", kv_pool)}
+            obs.forensics_dump("replica_death", error=exc,
+                               replica=batcher.name, requeued=requeued,
+                               stats=dict(batcher.stats), kv_pool=kv_pool)
+            # terminal spool: the fleet rollup keeps this replica's final
+            # tallies (counter conservation through the kill) and reads the
+            # explicit "dead" status without waiting out the age window
+            self._write_replica_spool(batcher, status="dead")
+            self._spools.pop(batcher.name, None)
+            if restarts is None:
+                if not self._closed:
+                    obs.event("replica_restart_budget_exhausted",
+                              cat="serving", replica=batcher.name,
+                              restarts=self._restarts)
                 return
-            self._restarts += 1
-            self._pending_restarts += 1
-            restarts = self._restarts
-        threading.Thread(
-            target=self._restart_replica, args=(batcher.name, restarts),
-            daemon=True, name=f"ff-serve-restart-{batcher.name}").start()
+            if not self._closed:
+                threading.Thread(
+                    target=self._restart_replica,
+                    args=(batcher.name, restarts), daemon=True,
+                    name=f"ff-serve-restart-{batcher.name}").start()
+                started = True
+        finally:
+            if restarts is not None and not started:
+                # closed meanwhile, or the teardown above raised: the
+                # reserved restart never runs, so it holds no capacity
+                with self._lock:
+                    self._restarts -= 1
+                    self._pending_restarts -= 1
 
     @staticmethod
     def pool_release_quiet(batcher: ContinuousBatcher, slot: _Slot) -> None:

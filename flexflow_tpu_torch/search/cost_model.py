@@ -11,9 +11,17 @@ times measured on the device, as the reference's Simulator does.
 The arithmetic is the JAX package's. The matmul tile quanta it pads a
 shard's extents to come from the machine's chip spec (`mxu_lanes`,
 `mxu_sublanes`): the JAX package's chip keeps its tile, the H100 spec
-sets both to 1. No calibration ships with the port: `calibration=None`
-leaves the roofline's constants alone; a dict or a JSON file still
-applies through `validate_calibration`.
+has the card's own (search/machine_model.py H100_SPEC).
+
+A fit of the H100 ships with the port: calibration_h100.json, per-op-
+class efficiencies fitted to times measured on the card by
+`python -m flexflow_tpu_torch.search.calibrate` (the counterpart of
+tools/calibrate_cost_model.py). `CostModel(calibration=None)` applies it
+when the machine's chip is the H100's (its peak and bandwidth equal
+H100_SPEC's, as `h100_machine()`'s do, which compile() searches by
+default), and no fit on any other chip: a fit of one chip is wrong for
+another. `calibration=False` applies none; a dict or a JSON file applies
+through `validate_calibration`.
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ from typing import Dict, List, Optional, Tuple
 from ..ff_types import OperatorType, PARALLEL_OP_TYPES
 from ..pcg.machine_view import MachineView
 from ..pcg.op import PCGOp
-from .machine_model import MachineModel, TPUChipSpec
+from .machine_model import H100_SPEC, MachineModel, TPUChipSpec
 
 
 class CostObjective:
@@ -294,6 +302,39 @@ def validate_calibration(cal: dict) -> dict:
     return cal
 
 
+_DEFAULT_CALIBRATION: Optional[dict] = None
+_DEFAULT_CALIBRATION_LOADED = False
+
+
+def load_default_calibration() -> Optional[dict]:
+    """The shipped fit of the H100 (calibration_h100.json, written by
+    `python -m flexflow_tpu_torch.search.calibrate` on the card): per-op-
+    class efficiencies fitted from measured fwd/bwd times. Read and
+    validated once; None when the file is missing or invalid."""
+    global _DEFAULT_CALIBRATION, _DEFAULT_CALIBRATION_LOADED
+    if not _DEFAULT_CALIBRATION_LOADED:
+        _DEFAULT_CALIBRATION_LOADED = True
+        import json
+        import os
+
+        path = os.path.join(os.path.dirname(__file__),
+                            "calibration_h100.json")
+        if os.path.exists(path):
+            try:
+                with open(path) as f:
+                    _DEFAULT_CALIBRATION = validate_calibration(json.load(f))
+            except (OSError, ValueError):
+                _DEFAULT_CALIBRATION = None
+    return _DEFAULT_CALIBRATION
+
+
+def _is_h100_chip(chip) -> bool:
+    """True when `chip` prices like the H100 spec the shipped fit was
+    measured against: the same peak and bandwidth."""
+    return (chip.peak_flops_bf16 == H100_SPEC.peak_flops_bf16
+            and chip.hbm_bandwidth == H100_SPEC.hbm_bandwidth)
+
+
 def apply_calibration(cm, *, profiled=None, overlap_efficiency=None,
                       collective_bandwidths=None):
     """The measured-calibration refresh seam: write measurements onto a
@@ -325,8 +366,9 @@ class CostModel:
     (reference: Simulator::measure_operator_cost's hash_map cache,
     simulator.cc:489-537 + strict_hash_to_operator_cost).
 
-    calibration: None or False applies none (the port ships no fit: the
-    JAX package's is a measurement of its own chip); a dict or a JSON
+    calibration: None applies the shipped fit of the H100
+    (load_default_calibration) when the machine's chip is the H100's,
+    and none on any other chip; False applies none; a dict or a JSON
     path supplies one, checked by validate_calibration. A fit refines
     the roofline's mxu/hbm efficiency constants per op class."""
 
@@ -362,7 +404,10 @@ class CostModel:
         # ops (Repartition/Combine/...) sit on the activation path and
         # keep their full price.
         self.overlap_backward_update = overlap_backward_update
-        if calibration is None or calibration is False:
+        if calibration is None:
+            calibration = (load_default_calibration()
+                           if _is_h100_chip(machine.chip) else None)
+        elif calibration is False:
             calibration = None
         elif isinstance(calibration, str):
             import json

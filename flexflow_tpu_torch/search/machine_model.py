@@ -45,17 +45,33 @@ class TPUChipSpec:
 # 989e12 FLOP/s bf16 on the tensor cores, 3.35e12 B/s HBM3, 80 GB, and
 # 50 MiB of L2 in the slot the JAX package gives its on-chip vector
 # memory. f32 is priced at the CUDA cores' 67e12 FLOP/s: the port leaves
-# TF32 off, so an f32 product does not run on the tensor cores. No tile
-# rule has been measured for the card, so both quanta are 1: the
-# roofline is priced unpadded, and the measured mode gives the real
-# times.
+# TF32 off, so an f32 product does not run on the tensor cores.
+#
+# Tile quanta: bf16 products timed on an H100 80GB HBM3 at 700 W by
+# `python -m flexflow_tpu_torch.search.tile_sweep` (one of m, k, n at
+# base + 0..257 for bases 16, 64, 128, 256, 512 and 1024, the others
+# 4096). An extent of k or n off a multiple of 8 runs 2-7x slower at
+# every base, a step no padding prices. Scored by the roofline (padded
+# FLOPs at one rate against bytes at another, median relative error),
+# lanes 128 and sublanes 1 beat quanta 1 and 1 overall (0.351 against
+# 0.380 on all 360 points, 0.0703 against 0.0823 on the 204 with k and
+# n multiples of 8) and at four of the six bases in each scoring (e.g.
+# 0.0528 against 0.0744 at 1024), tying them (within 2e-4) at the two
+# others.
+# Other pairs score lower overall (256 x 128 on all points, 256 x 32 on
+# the aligned ones) but no pair wins at most bases: the best sublane
+# quantum ranges from 1 to 128 base by base, and 128 and 256 lanes each
+# win at three of six. A second run read 0.350 against 0.375 and 0.0685
+# against 0.0753 (128 x 1 the best pair on the aligned points), and no
+# base where 128 x 1 scores worse than 1 x 1. So the cost model pads a
+# shard's k and n to 128 and leaves its rows alone.
 H100_SPEC = TPUChipSpec(
     peak_flops_bf16=989e12,
     peak_flops_f32=67e12,
     hbm_bandwidth=3.35e12,
     hbm_capacity=80 * 10**9,
     vmem_capacity=50 * 1024**2,
-    mxu_lanes=1,
+    mxu_lanes=128,
     mxu_sublanes=1,
 )
 # NVLink 4 on an H100 SXM node: 450e9 B/s each direction; between
@@ -80,7 +96,8 @@ class MachineModel:
     dcn_bandwidth: float = 25e9
     dcn_latency: float = 10e-6
     # effective utilization factors for analytic costs (the JAX
-    # package's untuned constants; no fit for the card ships)
+    # package's untuned constants; on the H100's chip the shipped fit,
+    # search/cost_model.py load_default_calibration, refines them)
     mxu_efficiency: float = 0.55
     hbm_efficiency: float = 0.8
 

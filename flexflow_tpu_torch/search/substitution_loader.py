@@ -547,7 +547,15 @@ def apply_rule(graph: Graph, rule: Rule) -> Iterator[Graph]:
                     # output shape inference below re-derives the capacity
                     params = dataclasses.replace(params,
                                                  alpha=capx / 100.0)
-                nop = PCGOp(dpat.op_type, params, ins)
+                # a compute op rebuilt from one source op (its params and
+                # weights inherited) is that op resharded: it keeps the
+                # source's name, which the executor keys its weights by
+                # and a stored strategy's replay and the verifier match
+                # ops by (a merge builds a new op and a new name)
+                keep_name = (src_params_op is not None and not fresh_weights
+                             and dpat.op_type not in _PARALLEL_TYPES)
+                nop = PCGOp(dpat.op_type, params, ins,
+                            name=src_params_op.name if keep_name else "")
                 # infer output shape
                 outs = _infer_outputs(nop, src_params_op)
                 for t in outs:

@@ -516,17 +516,35 @@ def test_planted_faults_give_jax_codes(name):
                                                 for d in jrep]
 
 
+def _row_padded_shard(ns):
+    """A Linear whose 12 rows are split 4 ways: 3-row shards, which JAX's
+    sublane quantum (8) pads and the H100's (1) does not."""
+    g = ns.Graph()
+    op = _add(ns, g, "OP_LINEAR", ns.lin.LinearParams(256),
+              [_pt(ns, [12, 512], [4, 1])], _pt(ns, [12, 256], [4, 1]))
+    _weight(ns, op, [512, 256])
+    return g
+
+
 def test_padding_lint_reads_the_cost_models_quanta():
     """The port's FFA503 reads the audited chip's tile quanta: JAX's fire
-    (above), the H100 spec's (1 and 1, no tile rule measured for sm_90)
-    cannot, and a lint without a machine takes the H100's."""
+    on a column-split shard (above) and on a row-split one; the H100
+    spec's (128 lanes, 1 sublane, from the tile sweep on the card) fire
+    on the column split only, and a lint without a machine takes the
+    H100's."""
     ns = NS["port"]
     g, _ = fault_padded_shard(ns)
+    rows = _row_padded_shard(ns)
     h100 = tsearch.CostModel(tsearch.h100_machine(1, 1))
-    assert not tanalysis.perf_diagnostics(g, cost_model=h100).by_code("FFA503")
-    assert not tanalysis.perf_diagnostics(g).by_code("FFA503")
+    assert tanalysis.perf_diagnostics(g, cost_model=h100).by_code("FFA503")
+    assert tanalysis.perf_diagnostics(g).by_code("FFA503")
     assert tanalysis.perf_diagnostics(
         g, cost_model=_cost_model(ns)).by_code("FFA503")
+    assert not tanalysis.perf_diagnostics(
+        rows, cost_model=h100).by_code("FFA503")
+    assert not tanalysis.perf_diagnostics(rows).by_code("FFA503")
+    assert tanalysis.perf_diagnostics(
+        rows, cost_model=_cost_model(ns)).by_code("FFA503")
 
 
 # ----------------------------------------------------------------------

@@ -403,6 +403,32 @@ def test_compile_miss_then_hit_skips_search(tmp_path, monkeypatch):
                                                  _state_tensors(m2)))
 
 
+def test_a_resharded_compute_op_keeps_its_name_and_replays(tmp_path,
+                                                           monkeypatch):
+    """On the default machine (h100_machine(), the card's tile quanta)
+    small_model's winner reshards its first Linear through a rewrite
+    that rebuilds the op; the rebuilt op keeps the lowering's name, so
+    the executor's weights, the stored winner's replay and a second
+    compile's hit all find it."""
+    st = ArtifactStore(str(tmp_path))
+    m1 = small_model(st)
+    resharded = [op for op in m1.graph.topo_order()
+                 if op.op_type.name == "OP_LINEAR"
+                 and op.inputs[0].owner_op is not None
+                 and op.inputs[0].owner_op.op_type.name == "OP_REPARTITION"]
+    assert [op.name for op in resharded] == ["op_linear_0"]
+    compute = sorted(op.name for op in m1.graph.ops if not op.is_parallel_op)
+    assert compute == ["op_linear_0", "op_linear_1", "op_softmax_2"]
+    assert sorted(m1.params) == ["op_linear_0", "op_linear_1"]
+    calls = count_searches(monkeypatch)
+    m2 = small_model(st)
+    assert calls == []
+    assert m2.strategy_provenance["source"] == "artifact_cache"
+    assert st.counts.get("stale", 0) == 0
+    assert _views_by_position(m2.graph, m2.searched_views) == \
+        _views_by_position(m1.graph, m1.searched_views)
+
+
 def test_ambient_store_is_picked_up(tmp_path):
     st = ArtifactStore(str(tmp_path))
     assert tas.get_ambient() is None

@@ -419,6 +419,72 @@ def test_replica_set_failover_exactly_once_with_a_spare(lms, tmp_path,
                if r.generation >= 1)
 
 
+def test_a_failover_keeps_the_dead_replicas_capacity_reserved(lms,
+                                                              tmp_path):
+    """From the moment a dead replica leaves rotation, its restart counts
+    as capacity (the autoscaler reads replica_count() plus the pending
+    restarts): read while its terminal spool is written, after the
+    forensics dump, the set still holds 2. A gap there let an autoscaler
+    tick with the requeued requests queued scale up on top of the
+    restart, one replica past max_replicas (a card run: 3 live of 2)."""
+    _, w, _ = lms
+    fi = FaultInjector()
+    fi.inject("replica_death", at_step=1, replica="replica0",
+              exc=tsv.ReplicaDeathError("injected"))
+    rs = tsv.ReplicaSet(lambda: _port_lm(w), _cfg(tsv), replicas=2,
+                        ckpt_dir=str(tmp_path / "ck"), fault_injector=fi,
+                        health_timeout_s=120.0, restart_backoff_s=0.01,
+                        warm_spares=1)
+    seen = []
+    spool = rs._write_replica_spool
+
+    def watched(batcher, status="live"):
+        if status == "dead":
+            seen.append(rs.replica_count() + rs._pending_restarts)
+        return spool(batcher, status)
+
+    rs._write_replica_spool = watched
+    rs.start()
+    rng = np.random.RandomState(5)
+    try:
+        ps = [rng.randint(0, VOCAB, 3).astype(np.int32) for _ in range(4)]
+        for r in [rs.submit(p, max_new_tokens=4, deadline_s=WAIT)
+                  for p in ps]:
+            r.result(timeout=WAIT)
+        assert _wait_for(lambda: rs.stats["restarts"] >= 1
+                         and rs.replica_count() == 2)
+    finally:
+        rs.stop()
+    assert fi.fired["replica_death"] == 1
+    assert seen == [2]
+    assert rs.stats["scale_ups"] == 0 and rs.stats["spares_used"] == 1
+
+
+def test_a_failed_teardown_releases_the_reserved_restart(lms, tmp_path):
+    """The restart reserved as a dead replica leaves rotation is released
+    when the teardown after it raises and no restart thread starts: the
+    set counts no phantom replica and keeps its restart budget."""
+    _, w, _ = lms
+    rs = tsv.ReplicaSet(lambda: _port_lm(w), _cfg(tsv), replicas=2,
+                        ckpt_dir=str(tmp_path / "ck"),
+                        health_timeout_s=120.0, restart_backoff_s=0.01)
+
+    def broken(batcher, status="live"):
+        if status == "dead":
+            raise OSError("spool disk gone")
+
+    rs._write_replica_spool = broken
+    rs.start()
+    try:
+        rep = rs._replicas["replica0"]
+        with pytest.raises(OSError, match="spool disk gone"):
+            rs._fail_replica(rep.batcher, tsv.ReplicaDeathError("injected"))
+        assert rs._pending_restarts == 0 and rs._restarts == 0
+        assert rs.replica_count() == 1
+    finally:
+        rs.stop()
+
+
 def test_slow_worker_hang_fails_over_to_the_spare(lms, tmp_path, recorded):
     """`slow_worker` stalls replica0's second decode iteration far past
     the watchdog's timeout: the HealthMonitor declares it hung, its

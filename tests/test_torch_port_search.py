@@ -201,7 +201,8 @@ def test_machine_model_defaults_and_file_match_jax(tmp_path):
     assert (h.chip.peak_flops_bf16, h.chip.hbm_bandwidth,
             h.chip.hbm_capacity, h.ici_bandwidth, h.dcn_bandwidth) == \
         (989e12, 3.35e12, 80 * 10 ** 9, 450e9, 50e9)
-    assert (h.chip.mxu_lanes, h.chip.mxu_sublanes) == (1, 1)
+    # the quanta the tile sweep on the card chose (machine_model.py)
+    assert (h.chip.mxu_lanes, h.chip.mxu_sublanes) == (128, 1)
     assert h.num_workers == 8
 
 
@@ -299,8 +300,9 @@ def test_measure_operator_cost_matches_jax(name, partition, bf16):
 
 
 def test_calibration_dict_applies_like_jax():
-    """No calibration by default in the port; a dict applies through the
-    JAX package's validator and changes the cost as JAX's does."""
+    """No calibration by default on the JAX package's chip (the port's
+    shipped fit is of the H100's); a dict applies through the JAX
+    package's validator and changes the cost as JAX's does."""
     cal = {"mxu_efficiency": 0.4, "hbm_efficiency": 0.7,
            "op_class": {"OP_LINEAR": {"mxu_efficiency": 0.3,
                                       "bwd_over_fwd": 2.5}}}

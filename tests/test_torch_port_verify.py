@@ -123,8 +123,10 @@ def bit_equal(a, b):
 
 
 def _break_activation(m):
-    """tests/test_verify.py's: the first dense op's RELU dropped."""
-    for op in m.graph.ops:
+    """tests/test_verify.py's: the first dense op's RELU dropped (first
+    in topological order: a searched rewrite appends its ops to the
+    graph's list)."""
+    for op in m.graph.topo_order():
         if (op.op_type.name == "OP_LINEAR"
                 and getattr(op.params, "activation", None) is not None
                 and op.params.activation.name == "AC_MODE_RELU"):
