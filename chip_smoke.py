@@ -302,7 +302,7 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      calls (models/alexnet.py build_alexnet) on the same weights. Prints
      a `frontends` line (after the card's name and power limit) with the
      phase's seconds.
- 21. fleet (last): the serving LM at full width and depth (as in 3) under
+ 21. fleet: the serving LM at full width and depth (as in 3) under
      a ReplicaSet of 2 replicas and 1 warm spare on one queue, one device
      lock: 24 requests over a shared 192-token system prompt (12 full
      pages) with suffixes of 16-64 tokens, 4 of them verbatim repeats, 32
@@ -341,6 +341,22 @@ of JAX. Phases, each of which must pass or the script exits non-zero:
      exits 0 with its worklist. Prints a `fleet` line (after the card's
      name and power limit) with the observatory's readings: seconds,
      spool writes and bytes, bundle bytes and dump ms, anomalies fired.
+ 22. scripts (last): the repo's own example scripts, unedited, through
+     the port's runner (flexflow_tpu_torch/run.py, what `python -m
+     flexflow_tpu_torch.run` runs) in this process, each in a temporary
+     working directory: examples/python/transformer.py -b 8 -e 1 (the
+     flagship at full width, f32 as the script leaves it: 12 forward and
+     12 backward flash launches a step, on the CUDA-core path),
+     decoder_lm.py -e 1 -b 8 (trains, then serves through
+     incremental_generate: paged decode on the block kernel, f32),
+     compat/mnist_mlp.py --epochs 1, native/mnist_cnn.py (conv2d with
+     groups=True), and bootcamp_demo's torch_alexnet_cifar10.py then
+     ff_alexnet_cifar10.py -e 1 -b 32 in one directory with
+     BOOTCAMP_NUM_SAMPLES=96. Each must exit 0 and print its THROUGHPUT
+     line; no jax and nothing of the JAX package or of the repo's
+     flexflow/ may load. Prints a `scripts` line (after the card's name
+     and power limit) with each script's seconds, THROUGHPUT and
+     launches by path.
 The kernel phase also holds both flash kernels' dropout variants against
 their plain versions (the BERT shape and edges), checks the mask bit for
 bit (V = I) and on a launch whose flat index passes 2^32. Bf16/fp16 flash
@@ -10344,6 +10360,131 @@ def fleet(torch):
     return out
 
 
+# The scripts phase: the repo's own example scripts, unedited, through the
+# port's runner (flexflow_tpu_torch/run.py) in this process. Each case is
+# (name, path in the repo, argv, environment, working directory key); the
+# two bootcamp scripts share a directory (the export, then its replay).
+SCRIPT_CASES = (
+    ("transformer", "examples/python/transformer.py", ["-b", "8", "-e", "1"],
+     {}, "transformer"),
+    ("decoder_lm", "examples/python/decoder_lm.py", ["-e", "1", "-b", "8"],
+     {}, "decoder_lm"),
+    ("compat_mnist_mlp", "examples/python/compat/mnist_mlp.py",
+     ["--epochs", "1"], {}, "compat_mnist_mlp"),
+    ("native_mnist_cnn", "examples/python/native/mnist_cnn.py", [], {},
+     "native_mnist_cnn"),
+    ("bootcamp_torch_alexnet", "bootcamp_demo/torch_alexnet_cifar10.py", [],
+     {"BOOTCAMP_NUM_SAMPLES": "96"}, "bootcamp"),
+    ("bootcamp_ff_alexnet", "bootcamp_demo/ff_alexnet_cifar10.py",
+     ["-e", "1", "-b", "32"], {"BOOTCAMP_NUM_SAMPLES": "96"}, "bootcamp"),
+)
+# transformer.py trains batch x max(1, --iterations) samples for -e
+# epochs: one step at -b 8 -e 1
+SCRIPT_FLAGSHIP_STEPS = 1
+
+
+def run_script(torch, run, path, argv, env, cwd):
+    """One script through run.run_path in `cwd` with `env` added: (seconds,
+    its standard output). A SystemExit other than 0 raises."""
+    old_cwd, old_env = os.getcwd(), {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    os.chdir(cwd)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            try:
+                run.run_path(os.path.join(REPO, path), argv)
+            except SystemExit as e:
+                if e.code not in (None, 0):
+                    raise AssertionError(f"{path} exited {e.code}") from e
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(old_cwd)
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return time.perf_counter() - t0, buf.getvalue()
+
+
+def scripts(torch):
+    """The scripts phase (22 in the docstring). Every check raises.
+    Returns the summary, with the phase's launches under "launches"."""
+    import tempfile
+
+    from flexflow_tpu_torch import run
+    from flexflow_tpu_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    os.environ.pop("FF_ATTENTION_IMPL", None)
+    run.install(device="cuda")
+    total = {k: 0 for k in build.launch_counts}
+    total_paths = {k: 0 for k in build.path_counts}
+    out = {"cases": {}}
+    with tempfile.TemporaryDirectory(prefix="ff_scripts_") as tmp:
+        for name, path, argv, env, where in SCRIPT_CASES:
+            cwd = os.path.join(tmp, where)
+            os.makedirs(cwd, exist_ok=True)
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            secs, text = run_script(torch, run, path, argv, env, cwd)
+            counts, paths = dict(build.launch_counts), dict(build.path_counts)
+            for k, c in counts.items():
+                total[k] += c
+            for k, c in paths.items():
+                total_paths[k] += c
+            tp = re.findall(r"THROUGHPUT = ([0-9.]+) samples/s", text)
+            out["cases"][name] = {
+                "script": " ".join([path] + argv), "env": env, "s": secs,
+                "throughput_samples_per_s": float(tp[-1]) if tp else None,
+                "launches": {k: c for k, c in counts.items() if c},
+                "launches_by_path": {k: c for k, c in paths.items() if c},
+                "tail": text.strip().splitlines()[-3:]}
+            log(f"  {name}: {secs:.2f} s, THROUGHPUT "
+                f"{tp[-1] if tp else None}, launches "
+                f"{out['cases'][name]['launches']} by path "
+                f"{out['cases'][name]['launches_by_path']}")
+            if name != "bootcamp_torch_alexnet" and not tp:
+                raise AssertionError(f"{name}: no THROUGHPUT line:\n{text}")
+    # the flagship: f32 (the script leaves mixed precision off), so its
+    # flash launches take the CUDA-core ("rows") kernels, 12 blocks a step
+    per = SCRIPT_FLAGSHIP_STEPS * LAYERS
+    fl = out["cases"]["transformer"]
+    want = {"flash_fwd": per, "flash_bwd": per}
+    if fl["launches"] != want or fl["launches_by_path"] != {
+            "flash_fwd_rows": per, "flash_bwd_rows": per}:
+        raise AssertionError(f"transformer.py: launches {fl['launches']} by "
+                             f"path {fl['launches_by_path']}, expected "
+                             f"{want} on rows")
+    lm = out["cases"]["decoder_lm"]
+    paged = lm["launches"].get("paged_decode", 0)
+    if not paged or sum(v for k, v in lm["launches_by_path"].items()
+                        if k.startswith("paged_decode")) != paged:
+        raise AssertionError(f"decoder_lm.py: launches {lm['launches']} by "
+                             f"path {lm['launches_by_path']}")
+    if "generated:" not in " ".join(lm["tail"]):
+        raise AssertionError(f"decoder_lm.py: no continuation {lm['tail']}")
+    jax_pkg = tuple(os.path.join(REPO, d) + os.sep
+                    for d in ("flexflow_tpu", "flexflow"))
+    loaded = sorted(
+        n for n, m in list(sys.modules.items())
+        if n == "jax" or n.startswith("jax.")
+        or (getattr(m, "__file__", None) or "").startswith(jax_pkg)
+        or (n.split(".")[0] in ("flexflow", "flexflow_tpu")
+            and not m.__name__.startswith("flexflow_tpu_torch")))
+    if loaded:
+        raise AssertionError(f"scripts: loaded outside the port: {loaded}")
+    out["aliases"] = sorted(n for n in sys.modules
+                            if n.split(".")[0] in ("flexflow", "flexflow_tpu"))
+    out["launches"] = total
+    out["launches_by_path"] = total_paths
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -10524,6 +10665,11 @@ def main() -> int:
     fl = fleet(torch)
     torch.cuda.empty_cache()
 
+    log("# scripts phase: the repo's example scripts, unedited, through "
+        "the port's runner (python -m flexflow_tpu_torch.run)")
+    sc = scripts(torch)
+    torch.cuda.empty_cache()
+
     # the CNN and zoo paths run none of the three kernels (cuDNN
     # convolutions and cuBLAS products, as the JAX package's are XLA's);
     # their counts stand in the table as 0. The MoE Transformer's
@@ -10543,7 +10689,8 @@ def main() -> int:
                 "observatory": ob["launches"], "verify": vf["launches"],
                 "mesh": mesh["launches"], "mesh_serving": msv["launches"],
                 "elastic": el["launches"], "tuner": tu["launches"],
-                "frontends": fr["launches"], "fleet": fl["launches"]}
+                "frontends": fr["launches"], "fleet": fl["launches"],
+                "scripts": sc["launches"]}
     # rows 1 and 2 at the long-context model's shape (bound by operations)
     for k in kernels[:2]:
         k["long_context_shape"] = lc["flash_long_shape"][k["name"]]
@@ -10564,9 +10711,19 @@ def main() -> int:
             "long_context_shape", "seq2seq_shape")
     line = {"kernels": [{k: kr[k] for k in keys if k in kr}
                         for kr in kernels]}
+    # every 16-bit main-path launch took the wgmma (flash) or cluster
+    # (paged) path, checked phase by phase; the scripts phase's f32 models
+    # take the CUDA-core flash kernels and the block paged kernel
+    f32_path = {"flash_fwd": "rows", "flash_bwd": "rows",
+                "paged_decode": "block"}
     for row in line["kernels"]:
-        if "wmma_ms" in row:   # every main-path launch took the wgmma path
+        if "wmma_ms" in row:
             row["path"] = "wgmma"
+        if row["name"] in f32_path:
+            p = f32_path[row["name"]]
+            n = sc["launches_by_path"].get(f"{row['name']}_{p}", 0)
+            if n:
+                row["path"] += f"; {p} {n} (scripts, f32)"
     report.update(kernels=kernels, serving=summary, training=training,
                   training_scan=scan, pipeline=pipe, pp_local=ppl,
                   bert=bert_summary, bert_scan=bscan,
@@ -10574,7 +10731,7 @@ def main() -> int:
                   inception=inc, zoo=zo, longctx=lc, nmt=nm, fusion=fu,
                   calibration=ca, search=se, seq2seq=s2, resilience=rs, observatory=ob,
                   verify=vf, mesh=mesh, mesh_serving=msv, elastic=el,
-                  tuner=tu, frontends=fr, fleet=fl)
+                  tuner=tu, frontends=fr, fleet=fl, scripts=sc)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -10717,6 +10874,12 @@ def main() -> int:
         "batch_scheduler": fl["batch_scheduler"],
         "keras_exp": fl["keras_exp"], "guard_fit": fl["guard_fit"],
         "explain": fl["explain"]}}))
+    log(smi + " " + json.dumps({"scripts": {
+        "phase_s": sc["phase_s"],
+        "cases": {k: {f: v[f] for f in ("script", "s",
+                                        "throughput_samples_per_s",
+                                        "launches", "launches_by_path")}
+                  for k, v in sc["cases"].items()}}}))
     log(smi + " " + json.dumps({"elastic_tuner_s": {
         "elastic": el["phase_s"], "tuner": tu["phase_s"],
         "both": el["phase_s"] + tu["phase_s"]}}))

@@ -30,7 +30,7 @@ serving fleet (prefix sharing in the page pool, the prefill memo,
 ReplicaSet with failover and warm spares, BatchScheduler, request tracing
 and the SLO monitor); the ONNX, Keras and keras_exp frontends.
 """
-from .config import FFConfig  # noqa: F401
+from .config import FFConfig, FFIterationConfig  # noqa: F401
 from .core.initializers import (  # noqa: F401
     ConstantInitializer,
     GlorotUniformInitializer,
@@ -41,6 +41,7 @@ from .core.initializers import (  # noqa: F401
     ZeroInitializer,
 )
 from .core.dataloader import SingleDataLoader  # noqa: F401
+from .core.metrics import Metrics, PerfMetrics  # noqa: F401
 from .core.model import FFModel  # noqa: F401
 from .core.optimizers import AdamOptimizer, Optimizer, SGDOptimizer  # noqa: F401
 from .runtime.checkpoint import restore_checkpoint, save_checkpoint  # noqa: F401
@@ -65,11 +66,23 @@ from .runtime.verify import (  # noqa: F401
     CheckpointCorruptionError,
     InvariantViolationError,
     NotCompiledError,
+    ServingConfigError,
     StrategyDivergenceError,
     VerificationError,
     verify_checkpoint,
     verify_strategy,
 )
+from .analysis import (  # noqa: F401
+    AnalysisReport,
+    Diagnostic,
+    Severity,
+    StaticAnalysisError,
+    analyze_graph,
+    analyze_model,
+)
+from .search.substitution_loader import SubstitutionRuleError  # noqa: F401
+from .obs import TelemetryConfig, explain_strategy  # noqa: F401
+from .core.tensor import Layer, Tensor  # noqa: F401
 from .ff_types import (  # noqa: F401
     ActiMode,
     AggrMode,
@@ -78,5 +91,8 @@ from .ff_types import (  # noqa: F401
     LossType,
     MetricsType,
     OperatorType,
+    ParameterSyncType,
     PoolType,
 )
+
+__version__ = "0.1.0"

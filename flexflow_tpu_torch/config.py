@@ -1,21 +1,30 @@
 """Runtime configuration.
 
-The PyTorch counterpart of flexflow_tpu/config.py, with the fields this
-package reads, under the JAX package's names. The port runs one process
+The PyTorch counterpart of flexflow_tpu/config.py, with every field of
+the JAX package's under its name and default. The port runs one process
 per device: with a torch.distributed process group up
 (runtime/distributed.py) `workersPerNode` defaults to the processes on
 this host (LOCAL_WORLD_SIZE, else the world size) and `numNodes` to the
 world size over that, as the JAX package's read jax.local_device_count
 and jax.process_count; without a group both default to 1.
 
-The dataclass has slots, so a field the port does not read (a JAX
-field not ported yet) cannot be set: `cfg.unported = 1` raises
-AttributeError instead of being ignored.
+The dataclass has slots, so a field the port does not read cannot be
+set: `cfg.unported = 1` raises AttributeError instead of being ignored.
+Nine fields of the JAX package's config are left out so for this reason:
+neither package reads them and no script of the repo sets them
+(`computationMode`, `enable_sample_parallel`,
+`enable_inplace_optimizations`, `base_optimize_threshold`,
+`enable_control_replication`, `python_data_loader_type`,
+`simulator_segment_size`, `simulator_max_num_segments`,
+`enable_propagation`).
 
 `device` names where a compiled model lives: "cuda" (the default, the
 first card) or "cuda:N", and "cpu" only when the caller asks for it. A
 config that asks for a card on a machine without one raises at
-construction: the port never continues on the CPU by itself.
+construction: the port never continues on the CPU by itself. The
+default is the process's default device (`default_device`), "cuda"
+unless a script runner set another (`set_default_device`; run.py's
+--device): a config or script that names a device keeps it.
 
 Like the JAX package's, a config reads the reference's command-line
 flags (`parse_args`, model.cc:3556 spellings) from sys.argv[1:] when it
@@ -25,14 +34,43 @@ Legion. Four fields are read by neither package's runtime and are kept
 so the reference's flags parse to the same config: `weight_decay`
 (`--wd`; the optimizers take their own), `cpusPerNode` (`-ll:cpu`),
 `import_strategy_file` (`--import`) and `iterations` (`--iterations`).
+The reference's accessors (`workers_per_node`, `get_batch_size`, ...)
+read the fields as the JAX package's do.
 """
 from __future__ import annotations
 
 import dataclasses
 import sys
+import time
 from typing import List, Optional
 
 import torch
+
+from .ff_types import FFIterationConfig  # noqa: F401
+
+# the device an FFConfig names when its caller names none
+_DEFAULT_DEVICE = "cuda"
+
+
+def default_device() -> str:
+    """The device a new FFConfig (and the Keras frontend's config)
+    names by default: "cuda" unless `set_default_device` changed it."""
+    return _DEFAULT_DEVICE
+
+
+def set_default_device(name: str) -> None:
+    """Make `name` ("cuda", "cuda:N" or "cpu") the process's default
+    device. It is not resolved here: a config that takes it resolves it,
+    and raises there when it names a card this machine lacks."""
+    global _DEFAULT_DEVICE
+    try:
+        kind = torch.device(name).type
+    except RuntimeError:
+        kind = None
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(
+            f"device {name!r}: expected 'cuda', 'cuda:N' or 'cpu'")
+    _DEFAULT_DEVICE = name
 
 
 def resolve_device(name: str) -> torch.device:
@@ -106,6 +144,14 @@ class FFConfig:
     search_alpha: float = 1.2
     # no search, whatever the budget (reference --only-data-parallel)
     only_data_parallel: bool = False
+    # the search's bias toward node-loss-survivable strategies: a
+    # candidate's cost is multiplied by 1 + penalty x its weight bytes
+    # sharded across nodes. -1.0 = auto: 0.25 on a machine of several
+    # nodes, 0 on one (as in the JAX package)
+    search_survivability_penalty: float = -1.0
+    # the searched graph in DOT form is written here after a search
+    # ("" = not written; pcg/graph.py export_dot)
+    export_strategy_computation_graph_file: str = ""
     # read by no substitution generator in either package; kept so the
     # reference's flags parse to the same fields
     enable_parameter_parallel: bool = False
@@ -146,8 +192,13 @@ class FFConfig:
     enable_sequence_parallel: bool = False
     # bf16 compute (and KV cache) over f32 master weights
     allow_mixed_precision: bool = False
+    # store gradients in bf16: None follows allow_mixed_precision, False
+    # keeps f32 gradients under bf16 compute (the JAX package's rule)
+    bf16_grads: Optional[bool] = None
     seed: int = 0
-    device: str = "cuda"
+    # where a compiled model lives; the process's default_device() when
+    # the caller names none
+    device: str = dataclasses.field(default_factory=default_device)
     # recompute each attention op's internals in the backward instead of
     # saving them (torch.utils.checkpoint; JAX: jax.checkpoint)
     remat: bool = False
@@ -229,6 +280,54 @@ class FFConfig:
     @property
     def torch_device(self) -> torch.device:
         return resolve_device(self.device)
+
+    # the reference cffi's property and getter spellings
+    # (flexflow_cffi.py:526-549), which reference scripts read
+    @property
+    def workers_per_node(self) -> int:
+        if self.workersPerNode > 0:
+            return self.workersPerNode
+        return (torch.cuda.device_count()
+                if resolve_device(self.device).type == "cuda" else 1)
+
+    @property
+    def num_nodes(self) -> int:
+        return self.numNodes
+
+    @property
+    def cpus_per_node(self) -> int:
+        return self.cpusPerNode
+
+    @property
+    def numWorkers(self) -> int:
+        """Devices in the (possibly simulated) machine."""
+        if self.search_num_nodes > 0 and self.search_num_workers > 0:
+            return self.search_num_nodes * self.search_num_workers
+        return self.numNodes * self.workersPerNode
+
+    def get_batch_size(self) -> int:
+        return self.batch_size
+
+    def get_epochs(self) -> int:
+        return self.epochs
+
+    def get_workers_per_node(self) -> int:
+        return self.workers_per_node
+
+    def get_num_nodes(self) -> int:
+        return self.num_nodes
+
+    def get_current_time(self) -> float:
+        """Microseconds, like Realm::Clock."""
+        return time.time() * 1e6
+
+    def begin_trace(self, trace_id: int) -> None:
+        """reference: flexflow_cffi.py:2093 (Legion trace capture around
+        an iteration). A no-op, as in the JAX package: fit's captured
+        CUDA graphs (iterations_per_dispatch) play that role."""
+
+    def end_trace(self, trace_id: int) -> None:
+        """See begin_trace."""
 
 
 # flag -> (field, type) of the reference's flags that take a value and

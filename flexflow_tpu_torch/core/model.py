@@ -80,6 +80,7 @@ steps, and hot-swap the strategy (runtime/tuner.py);
 from __future__ import annotations
 
 import contextlib
+import operator
 import time
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -246,10 +247,12 @@ class FFModel:
                groups: int = 1, use_bias: bool = True, shared_op=None,
                kernel_initializer=None, bias_initializer=None,
                name: str = "") -> Tensor:
+        # any integral groups, as JAX's feature_group_count takes it (the
+        # reference's MNIST CNN passes True there, which is 1)
         p = Conv2DParams(out_channels=out_channels, kernel_h=kernel_h,
                          kernel_w=kernel_w, stride_h=stride_h,
                          stride_w=stride_w, padding_h=padding_h,
-                         padding_w=padding_w, groups=groups,
+                         padding_w=padding_w, groups=operator.index(groups),
                          use_bias=use_bias, activation=ActiMode(activation))
         return self._add_layer(OperatorType.OP_CONV2D, p, [input], name,
                                {"kernel": kernel_initializer,
@@ -598,6 +601,7 @@ class FFModel:
     # bootcamp scripts call
     set_sgd_optimizer = set_optimizer
     set_adam_optimizer = set_optimizer
+    optimizer_setter = set_optimizer  # the cffi property-style spelling
 
     def get_label_tensor(self) -> Tensor:
         """The label tensor, which compile() creates (the reference's cffi
@@ -825,9 +829,10 @@ class FFModel:
                 name="label")
             self.label_tensor._model = self
         mixed = self.config.allow_mixed_precision
+        bf16_grads = self._use_bf16_grads()
         self._precision_lint(self.graph, self.search_trajectory,
                              getattr(self, "searched_views", None),
-                             grad_bf16=mixed, what="compiled strategy")
+                             grad_bf16=bf16_grads, what="compiled strategy")
         t_phase = time.perf_counter()
         inputs, constants = self._graph_inputs(self.graph)
         executor_cls, where = self._executor_where(self.mesh_axes)
@@ -836,8 +841,7 @@ class FFModel:
             loss_type=self.loss_type,
             metrics=Metrics(self.loss_type, self.metrics),
             compute_dtype=torch.bfloat16 if mixed else None,
-            # bf16 gradient storage rides mixed precision, as in JAX
-            grad_dtype=torch.bfloat16 if mixed else None,
+            grad_dtype=torch.bfloat16 if bf16_grads else None,
             seed=self.config.seed, input_order=inputs,
             remat=self.config.remat, constants=constants,
             overlap_grad_sync=self.config.overlap_backward_update,
@@ -1183,10 +1187,11 @@ class FFModel:
                 dcn_bandwidth=machine.dcn_bandwidth,
                 chip=machine.chip,
             )
-        # the JAX package's default search_survivability_penalty (auto):
-        # a bias toward node-loss-survivable strategies only where nodes
-        # exist as failure domains
-        pen = 0.25 if machine.num_nodes > 1 else 0.0
+        pen = cfg.search_survivability_penalty
+        if pen < 0:
+            # auto: a bias toward node-loss-survivable strategies only
+            # where nodes exist as failure domains
+            pen = 0.25 if machine.num_nodes > 1 else 0.0
         cm = CostModel(machine, bf16=cfg.allow_mixed_precision,
                        overlap_backward_update=(
                            cfg.search_overlap_backward_update),
@@ -1357,10 +1362,17 @@ class FFModel:
         optimizer slots, so the memory check charges none."""
         return self.loss_type is not None
 
+    def _use_bf16_grads(self) -> bool:
+        """Gradients are stored in bf16: config.bf16_grads, or mixed
+        precision where that is None (the JAX package's rule)."""
+        cfg = self.config
+        return (cfg.allow_mixed_precision if cfg.bf16_grads is None
+                else bool(cfg.bf16_grads))
+
     def _grad_bytes_ratio(self) -> float:
         """Gradient-buffer width relative to the master weight: 0.5 under
-        the bf16-grad recipe mixed precision uses, else 1.0."""
-        return 0.5 if self.config.allow_mixed_precision else 1.0
+        bf16 gradients, else 1.0."""
+        return 0.5 if self._use_bf16_grads() else 1.0
 
     def _search_xfers(self, machine) -> list:
         """The substitutions the search rewrites with: the generated ones
@@ -1479,6 +1491,9 @@ class FFModel:
             from ..runtime.strategy_io import export_strategy
 
             export_strategy(self.graph, result, cfg.export_strategy_file)
+        if cfg.export_strategy_computation_graph_file:
+            with open(cfg.export_strategy_computation_graph_file, "w") as f:
+                f.write(self.graph.export_dot())
         self.searched_op_costs = self._searched_op_costs(cost_model, result)
         payload = self._strategy_payload_for_store()
         self.searched_axes = strategies.assign_mesh_axes(self.graph, ndev)

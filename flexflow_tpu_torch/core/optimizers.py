@@ -47,6 +47,11 @@ class Optimizer:
     def init_state(self, params: Params) -> Any:
         raise NotImplementedError
 
+    def next(self, state) -> Any:
+        """Advance the per-step schedule (reference: Optimizer::next()):
+        neither optimizer has one, as in the JAX package."""
+        return state
+
     def state_slots_per_weight(self) -> int:
         """How many weight-sized buffers init_state allocates per
         parameter: the search's memory accounting charges `weights *

@@ -7,6 +7,7 @@ maps to jnp dtypes.
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 import numpy as np
@@ -249,3 +250,27 @@ PARALLEL_OP_TYPES = frozenset(
         OperatorType.OP_WEIGHT_SHARD,
     }
 )
+
+
+class InitializerType(enum.IntEnum):
+    """The reference's initializer tags (ffconst.h), as the JAX package
+    spells them."""
+
+    INITIALIZER_GLOROT_UNIFORM = 2000
+    INITIALIZER_ZERO = 2001
+    INITIALIZER_CONSTANT = 2002
+    INITIALIZER_UNIFORM = 2003
+    INITIALIZER_NORM = 2004
+
+
+MAX_TENSOR_DIM = 5  # reference: config MAX_TENSOR_DIM (include/flexflow/config.h)
+
+
+@dataclasses.dataclass
+class FFIterationConfig:
+    """Per-iteration config (reference: config.h:162-167)."""
+
+    seq_length: int = -1
+
+    def reset(self):
+        self.seq_length = -1

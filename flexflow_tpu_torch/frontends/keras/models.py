@@ -18,7 +18,7 @@ from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
-from ...config import FFConfig
+from ...config import FFConfig, default_device
 from ...core.model import FFModel
 from ...ff_types import DataType, LossType, MetricsType
 from .layers import Input, KerasTensor, Layer
@@ -52,11 +52,13 @@ _METRIC_MAP = {
 
 
 def _unresolved_config() -> FFConfig:
-    """An FFConfig read from argv like FFConfig()'s, its device the first
-    card, not yet resolved (FFConfig(device="cuda") raises at once on a
-    machine without a card): FFModel resolves it at compile."""
+    """An FFConfig read from argv like FFConfig()'s, its device the
+    process's default (config.default_device: the first card unless a
+    script runner set another), not yet resolved (FFConfig(device="cuda")
+    raises at once on a machine without a card): FFModel resolves it at
+    compile."""
     cfg = FFConfig(device="cpu")
-    cfg.device = "cuda"
+    cfg.device = default_device()
     return cfg
 
 

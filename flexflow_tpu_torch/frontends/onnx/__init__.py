@@ -1,2 +1,2 @@
 """ONNX frontend (reference: python/flexflow/onnx/)."""
-from .model import ONNXModel, ONNXModelKeras  # noqa: F401
+from .model import HAS_ONNX, ONNXModel, ONNXModelKeras  # noqa: F401

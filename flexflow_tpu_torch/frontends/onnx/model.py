@@ -20,12 +20,18 @@ fold too, and a constant operand of an elementwise op is baked
 """
 from __future__ import annotations
 
+import importlib.util
 from typing import Dict
 
 import numpy as np
 
 from ...ff_types import DataType, PoolType
 from . import proto
+
+# the onnx package is importable (the JAX package's flag). The port
+# reads a path or bytes with its own codec either way, and takes an
+# onnx ModelProto as any object of that shape
+HAS_ONNX = importlib.util.find_spec("onnx") is not None
 
 
 # AttributeProto.AttributeType values (onnx.proto): FLOAT=1 INT=2 STRING=3

@@ -52,6 +52,9 @@ import torch.fx
 from ...ff_types import (AggrMode, DataType, OperatorType, PoolType,
                          to_data_type)
 
+# torch is importable (the JAX package's flag): always so in the port
+HAS_TORCH = True
+
 
 def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)

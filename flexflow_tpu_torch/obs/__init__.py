@@ -39,6 +39,13 @@ from .metrics import (  # noqa: F401
     parse_prometheus,
     parse_prometheus_labeled,
 )
+from .request_trace import (  # noqa: F401
+    NULL_REQUEST_TRACE,
+    RequestTrace,
+    SLOMonitor,
+    mint_request_trace,
+    record_request_stages,
+)
 from .telemetry import Telemetry, TelemetryConfig  # noqa: F401
 from .tracer import (  # noqa: F401
     NULL_TRACER,

@@ -250,6 +250,12 @@ _FALLBACK_DETAIL = {
                 "seq axis (heads scatter over it)",
 }
 _SP_REASONS = ("sp_mesh", "sp_shape", "sp_heads")
+
+
+def reset_attention_fallback_warnings() -> None:
+    """Forget which (impl, layer, reason) fallbacks already warned
+    (tests; a fresh process starts empty)."""
+    _FALLBACK_WARNED.clear()
 # the mesh dispatch's routes, counted per call (tests and chip_smoke.py
 # read them): "local_map" (the flash kernels per shard), "ring" and
 # "ulysses" (sequence parallelism per shard), "chunked" (and

@@ -104,6 +104,10 @@ def has_op_def(op_type: OperatorType) -> bool:
     return op_type in _REGISTRY
 
 
+def all_op_types() -> List[OperatorType]:
+    return list(_REGISTRY)
+
+
 @dataclasses.dataclass
 class FwdCtx:
     """Per-call context threaded through op forwards."""

@@ -13,9 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Tuple
 
-from ..ff_types import DataType, ParameterSyncType
-
-MAX_TENSOR_DIM = 5
+from ..ff_types import MAX_TENSOR_DIM, DataType, ParameterSyncType  # noqa: F401
 
 
 @dataclasses.dataclass

@@ -3,8 +3,9 @@ fault-tolerance layer (resilience: preemption-safe checkpointing, step
 guards, retry/backoff, fault injection), the elastic runtime (elastic
 restore, the health watchdog, fault domains), the strategy tuner, the
 numerical-trust layer (checkpoint integrity, the differential strategy
-verifier, the SDC/determinism canary) and the strategy artifact store,
-as the JAX package's runtime/__init__.py exports them."""
+verifier, the SDC/determinism canary), the strategy artifact store,
+strategy IO and the KV page pool, as the JAX package's
+runtime/__init__.py exports them."""
 from .artifact_store import (  # noqa: F401
     ArtifactCorruptionError,
     ArtifactStore,
@@ -23,6 +24,11 @@ from .elastic import (  # noqa: F401
     shrunk_devices,
 )
 from .fault_domains import FailureClassification, FaultDomainMap  # noqa: F401
+from .kvcache import (  # noqa: F401
+    KVCacheConfig,
+    KVCacheExhaustedError,
+    PagePool,
+)
 from .recompile import RecompileState, recompile_on_condition  # noqa: F401
 from .resilience import (  # noqa: F401
     CheckpointManager,
@@ -37,6 +43,11 @@ from .resilience import (  # noqa: F401
     restore_latest,
     retry,
 )
+from .strategy_io import (  # noqa: F401
+    apply_imported_strategy,
+    export_strategy,
+    import_strategy,
+)
 from .tuner import (  # noqa: F401
     StrategyTuner,
     SwapError,
@@ -49,6 +60,7 @@ from .verify import (  # noqa: F401
     CheckpointCorruptionError,
     InvariantViolationError,
     NotCompiledError,
+    ServingConfigError,
     StrategyDivergenceError,
     VerificationError,
     verify_checkpoint,

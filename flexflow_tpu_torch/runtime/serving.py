@@ -89,13 +89,9 @@ from ..parallel.mesh import full, is_dtensor, local
 from . import distributed as rdist
 from .kvcache import KVCacheConfig, KVCacheExhaustedError, PagePool
 from .resilience import ResilienceError
-from .verify import NotCompiledError
+from .verify import NotCompiledError, ServingConfigError
 
 logger = logging.getLogger("flexflow_tpu_torch.runtime.serving")
-
-
-class ServingConfigError(ValueError):
-    """A serving request or configuration the runtime cannot honour."""
 
 
 def _argmax_last(logits: torch.Tensor) -> np.ndarray:

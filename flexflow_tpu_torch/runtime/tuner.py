@@ -659,7 +659,8 @@ class StrategyTuner:
             loss_type=model.loss_type,
             metrics=Metrics(model.loss_type, model.metrics),
             compute_dtype=torch.bfloat16 if mixed else None,
-            grad_dtype=torch.bfloat16 if mixed else None,
+            grad_dtype=(torch.bfloat16 if model._use_bf16_grads()
+                        else None),
             seed=cfg.seed, input_order=inputs, remat=cfg.remat,
             constants=constants,
             overlap_grad_sync=cfg.overlap_backward_update,

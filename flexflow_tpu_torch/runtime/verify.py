@@ -71,6 +71,12 @@ class NotCompiledError(RuntimeError):
     before `FFModel.compile()`."""
 
 
+class ServingConfigError(ValueError):
+    """A serving request or configuration the runtime cannot honour:
+    a wrong input shape, a batch or beam count over the compiled
+    capacity, or a generation length over the decode cap."""
+
+
 class VerificationError(RuntimeError):
     """Base class for numerical-trust failures."""
 
